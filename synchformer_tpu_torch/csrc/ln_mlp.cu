@@ -1,0 +1,40 @@
+// K2: x + fc2(GELU(fc1(LN(x)))) over flattened rows, with optional per-row
+// f32 [mean, meansq, 0 x 6] statistics of the bf16 output.
+//
+// Replaces synchformer_tpu/ops/pallas/fused_rows.py::_ln_mlp_pallas_slab /
+// _ln_mlp_pallas (bodies _ln_mlp_slab_kernel, _ln_mlp_kernel). The TPU kernel
+// keeps the LN output and the (rows, 4D) fc1 activation in VMEM; this first
+// port writes both to device memory and runs four launches: LN, fc1 + GELU,
+// fc2 + residual, row statistics. At the tower's shape (175616 rows, 768 ->
+// 3072 -> 768) the two GEMMs are 1.66 TFLOP (830 GFLOP each) and bound by the
+// tensor cores; the spilled fc1 activation adds 2 x 1.08 GB of traffic,
+// which keeping it on chip (a later change) removes.
+#include "tile_gemm.cuh"
+
+using sft::bf16;
+
+extern "C" int sft_ln_mlp(const void* x, const void* g, const void* b, const void* w1,
+                          const void* b1, const void* w2, const void* b2, void* ln_buf,
+                          void* h_buf, void* out, void* stats, long long rows, int d,
+                          int hidden, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  sft::ln_rows(xb, nullptr, static_cast<const float*>(g), static_cast<const float*>(b),
+               static_cast<bf16*>(ln_buf), rows, d, eps, s);
+  SFT_CHECK_LAUNCH();
+  sft::gemm_bf16<sft::EPI_BIAS_GELU>(static_cast<const bf16*>(ln_buf),
+                                     static_cast<const bf16*>(w1),
+                                     static_cast<const float*>(b1), nullptr, 0,
+                                     static_cast<bf16*>(h_buf), (int)rows, hidden, d, s);
+  SFT_CHECK_LAUNCH();
+  sft::gemm_bf16<sft::EPI_BIAS_RESIDUAL>(static_cast<const bf16*>(h_buf),
+                                         static_cast<const bf16*>(w2),
+                                         static_cast<const float*>(b2), xb, d,
+                                         static_cast<bf16*>(out), (int)rows, d, hidden, s);
+  SFT_CHECK_LAUNCH();
+  if (stats != nullptr) {
+    sft::row_stats(static_cast<const bf16*>(out), static_cast<float*>(stats), rows, d, s);
+    SFT_CHECK_LAUNCH();
+  }
+  return 0;
+}

@@ -1,0 +1,217 @@
+"""Transformer building blocks (synchformer_tpu/models/layers.py in PyTorch).
+
+Parameters keep the reference torch state-dict names; matrices are torch
+Linear layout (out, in). Only matrices are cast to the compute dtype; LN
+parameters and biases stay f32 and are cast where they are used, as the JAX
+numerics helpers do. Inference only.
+
+``impl`` chooses the route: 'kernel' sends the packed QKV through K3, the
+LN+MLP half through K2 and the CLS-pool layer through K4 (each wrapper runs
+its plain version on CPU tensors); 'plain' is the reference composition.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from synchformer_tpu_torch.ops.kernels.cls_pool import fused_cls_pool_tokens
+from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_mlp_residual
+from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
+from synchformer_tpu_torch.ops.numerics import dense, exact_gelu, layer_norm
+
+
+class Linear(nn.Module):
+    """torch.nn.Linear's parameters with flax Dense numerics."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, self.weight.dtype)
+
+
+class LayerNorm(nn.Module):
+    """torch.nn.LayerNorm's parameters with the f32 fast-variance numerics."""
+
+    def __init__(self, features: int, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps, x.dtype)
+
+
+class Container(nn.Module):
+    """A named group of submodules, to reproduce nested state-dict names."""
+
+    def __init__(self, **children: nn.Module):
+        super().__init__()
+        for name, mod in children.items():
+            self.add_module(name, mod)
+
+
+def scaled_dot_attention(q, k, v):
+    """q, k, v (..., H, N, dh); f32 logits scaled by dh^-0.5 in f32, f32
+    softmax, probabilities in the compute dtype."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+@dataclasses.dataclass
+class BlockParams:
+    """The tensors of one pre-LN block, whatever its state-dict layout."""
+    ln1_w: torch.Tensor
+    ln1_b: torch.Tensor
+    wqkv: torch.Tensor  # (3D, D), rows [q; k; v]
+    bqkv: torch.Tensor
+    wproj: torch.Tensor
+    bproj: torch.Tensor
+    ln2_w: torch.Tensor
+    ln2_b: torch.Tensor
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+
+
+def multi_head_self_attention(x, p: BlockParams, num_heads: int, impl: str,
+                              query_rows: Optional[int] = None):
+    """Fused-QKV MHSA with the output projection (JAX MultiHeadSelfAttention)."""
+    d = x.shape[-1]
+    dtype = x.dtype
+    dh = d // num_heads
+    lead = x.shape[:-2]
+    if query_rows is not None:
+        q = dense(x[..., :query_rows, :], p.wqkv[:d], p.bqkv[:d], dtype)
+        kv = dense(x, p.wqkv[d:], p.bqkv[d:], dtype)
+        q = q.reshape(*lead, query_rows, num_heads, dh).transpose(-3, -2)
+        kv = kv.reshape(*lead, x.shape[-2], 2, num_heads, dh)
+        k, v = (t.transpose(-3, -2) for t in kv.unbind(-3))
+        out = scaled_dot_attention(q, k, v).transpose(-3, -2).reshape(*lead, query_rows, d)
+        return dense(out, p.wproj, p.bproj, dtype)
+    qkv = dense(x, p.wqkv, p.bqkv, dtype)
+    if impl == "kernel":
+        n = x.shape[-2]
+        out = standard_attention(qkv.reshape(-1, n, 3 * d), num_heads, impl=impl)
+        return dense(out.reshape(x.shape), p.wproj, p.bproj, dtype)
+    qkv = qkv.reshape(*x.shape[:-1], 3, num_heads, dh)
+    q, k, v = (t.transpose(-3, -2) for t in qkv.unbind(-3))
+    out = scaled_dot_attention(q, k, v).transpose(-3, -2).reshape(x.shape)
+    return dense(out, p.wproj, p.bproj, dtype)
+
+
+def mlp(x, w1, b1, w2, b2):
+    """fc1 -> exact GELU -> fc2 (JAX Mlp, deterministic)."""
+    dtype = x.dtype
+    return dense(exact_gelu(dense(x, w1, b1, dtype)), w2, b2, dtype)
+
+
+def preln_block(x, p: BlockParams, num_heads: int, eps: float, impl: str,
+                query_rows: Optional[int] = None, cls_row=None):
+    """x + attn(ln1(x)); x + mlp(ln2(x)) (JAX PreLNBlock.__call__).
+
+    Routes for impl='kernel', as in the JAX package: query_rows=1 with a
+    shared ``cls_row`` -> K4 (whole layer for the CLS row); otherwise the
+    attention goes through K3 and the LN+MLP half through K2."""
+    d = x.shape[-1]
+    dtype = x.dtype
+    if query_rows == 1 and cls_row is not None and impl == "kernel" and x.ndim == 3:
+        out = fused_cls_pool_tokens(
+            x, cls_row.reshape(d), p.ln1_w, p.ln1_b, p.wqkv, p.bqkv, p.wproj,
+            p.bproj, p.ln2_w, p.ln2_b, p.w1, p.b1, p.w2, p.b2,
+            num_heads=num_heads, eps=eps, impl=impl)
+        return out[:, None, :]
+    if cls_row is not None:
+        cls = cls_row.reshape(1, 1, d).to(dtype).expand(x.shape[0], 1, d)
+        x = torch.cat([cls, x], dim=1)
+    attn = multi_head_self_attention(layer_norm(x, p.ln1_w, p.ln1_b, eps, dtype),
+                                     p, num_heads, impl, query_rows)
+    if query_rows is not None:
+        x = x[..., :query_rows, :]
+    x = x + attn
+    if impl == "kernel" and query_rows is None:
+        return fused_ln_mlp_residual(x.contiguous(), p.ln2_w, p.ln2_b, p.w1, p.b1,
+                                     p.w2, p.b2, eps, impl=impl)
+    return x + mlp(layer_norm(x, p.ln2_w, p.ln2_b, eps, dtype), p.w1, p.b1, p.w2, p.b2)
+
+
+class PreLNBlock(nn.Module):
+    """A pre-LN transformer block. Subclasses hold the parameters under their
+    reference names and expose them through ``block_params``."""
+
+    def __init__(self, num_heads: int, eps: float):
+        super().__init__()
+        self.num_heads = num_heads
+        self.eps = eps
+
+    def block_params(self) -> BlockParams:
+        raise NotImplementedError
+
+    def forward(self, x, impl: str = "plain", query_rows: Optional[int] = None,
+                cls_row=None):
+        return preln_block(x, self.block_params(), self.num_heads, self.eps, impl,
+                           query_rows, cls_row)
+
+
+class MinGPTBlock(PreLNBlock):
+    """The sync transformer's block (ref: model/modules/transformer.py:79-97):
+    ln1, ln2, attn.{query,key,value,proj}, mlp.0 / mlp.2; LN eps 1e-5."""
+
+    def __init__(self, d: int, num_heads: int, eps: float = 1e-5, mlp_ratio: float = 4.0,
+                 device=None):
+        super().__init__(num_heads, eps)
+        hidden = int(d * mlp_ratio)
+        self.ln1 = LayerNorm(d, eps, device)
+        self.ln2 = LayerNorm(d, eps, device)
+        self.attn = Container(query=Linear(d, d, device=device), key=Linear(d, d, device=device),
+                              value=Linear(d, d, device=device), proj=Linear(d, d, device=device))
+        self.mlp = nn.ModuleList([Linear(d, hidden, device=device), nn.Identity(),
+                                  Linear(hidden, d, device=device)])
+
+    def block_params(self) -> BlockParams:
+        a = self.attn
+        return BlockParams(
+            self.ln1.weight, self.ln1.bias,
+            torch.cat([a.query.weight, a.key.weight, a.value.weight]),
+            torch.cat([a.query.bias, a.key.bias, a.value.bias]),
+            a.proj.weight, a.proj.bias, self.ln2.weight, self.ln2.bias,
+            self.mlp[0].weight, self.mlp[0].bias, self.mlp[2].weight, self.mlp[2].bias)
+
+
+class ASTLayer(PreLNBlock):
+    """HF ASTLayer names (ref: hf_src/modeling_ast.py:281-323); LN eps 1e-12."""
+
+    def __init__(self, d: int, num_heads: int, eps: float = 1e-12, mlp_ratio: float = 4.0,
+                 device=None):
+        super().__init__(num_heads, eps)
+        hidden = int(d * mlp_ratio)
+        self.layernorm_before = LayerNorm(d, eps, device)
+        self.layernorm_after = LayerNorm(d, eps, device)
+        self.attention = Container(
+            attention=Container(query=Linear(d, d, device=device),
+                                key=Linear(d, d, device=device),
+                                value=Linear(d, d, device=device)),
+            output=Container(dense=Linear(d, d, device=device)))
+        self.intermediate = Container(dense=Linear(d, hidden, device=device))
+        self.output = Container(dense=Linear(hidden, d, device=device))
+
+    def block_params(self) -> BlockParams:
+        a = self.attention.attention
+        return BlockParams(
+            self.layernorm_before.weight, self.layernorm_before.bias,
+            torch.cat([a.query.weight, a.key.weight, a.value.weight]),
+            torch.cat([a.query.bias, a.key.bias, a.value.bias]),
+            self.attention.output.dense.weight, self.attention.output.dense.bias,
+            self.layernorm_after.weight, self.layernorm_after.bias,
+            self.intermediate.dense.weight, self.intermediate.dense.bias,
+            self.output.dense.weight, self.output.dense.bias)

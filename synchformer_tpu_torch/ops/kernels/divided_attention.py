@@ -1,0 +1,107 @@
+"""K1: split-layout divided space-time attention with the output projection
+and residual in the epilogue.
+
+Replaces synchformer_tpu/ops/pallas/divided_attention.py::
+divided_attention_proj_4d (body _kernel_4d_proj with _cls_row_4d,
+_space_pair_v3, _time_pair_v3) with csrc/divided_attention.cu.
+
+Main-path shapes: qkv_patches (112, 8, 196, 2304), qkv_cls (112, 1, 2304),
+res (112, 8, 196, 768), 12 heads of 64, bf16; space groups are frames (197
+keys with the CLS), time groups are spatial positions (9 keys). The space call
+is ~104 GFLOP of attention on CUDA cores in this first port, which bounds it;
+the projection runs on the tensor cores. The attention output passes through
+a device-memory scratch before the projection, where the TPU kernel kept it in
+VMEM. The CLS row's attention leaves un-projected: the caller projects it and
+adds its residual (as synchformer_tpu/ops/pallas/divided_attention_bwd.py::
+_divided_attention_proj_split_vjp does).
+"""
+from __future__ import annotations
+
+import torch
+
+from synchformer_tpu_torch.ops.kernels import _build
+from synchformer_tpu_torch.ops.numerics import dense
+
+__all__ = ["divided_attention_proj", "divided_attention_plain",
+           "divided_attention_proj_plain"]
+
+_MODES = {"space": 0, "time": 1}
+
+
+def _attend(q, k, v):
+    """q (..., Lq, H, dh), k/v (..., Lk, H, dh) -> (..., Lq, H, dh); f32
+    logits and softmax, probabilities in the compute dtype."""
+    logits = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float())
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("...hqk,...khd->...qhd", p, v)
+
+
+def divided_attention_plain(qkv_patches, qkv_cls, num_heads: int, mode: str):
+    """The XLA DividedAttention math (synchformer_tpu/models/motionformer.py
+    :200-251) on the split layout. Returns (patches (B, f, n, D), cls
+    (B, 1, D)) before the projection."""
+    if mode not in _MODES:
+        raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
+    b, f, n, threed = qkv_patches.shape
+    d = threed // 3
+    dh = d // num_heads
+    qp, kp, vp = (t.reshape(b, f, n, num_heads, dh)
+                  for t in qkv_patches.split(d, dim=-1))
+    qc, kc, vc = (t.reshape(b, 1, num_heads, dh) for t in qkv_cls.split(d, dim=-1))
+    qp, qc = qp * (dh ** -0.5), qc * (dh ** -0.5)
+
+    keys = torch.cat([kc, kp.reshape(b, f * n, num_heads, dh)], dim=1)
+    vals = torch.cat([vc, vp.reshape(b, f * n, num_heads, dh)], dim=1)
+    out_c = _attend(qc, keys, vals).reshape(b, 1, d)
+
+    if mode == "time":  # groups are spatial positions
+        qp, kp, vp = (t.transpose(1, 2) for t in (qp, kp, vp))
+    g = qp.shape[1]
+    kg = torch.cat([kc[:, None].expand(b, g, 1, num_heads, dh), kp], dim=2)
+    vg = torch.cat([vc[:, None].expand(b, g, 1, num_heads, dh), vp], dim=2)
+    out_p = _attend(qp, kg, vg)
+    if mode == "time":
+        out_p = out_p.transpose(1, 2)
+    return out_p.reshape(b, f, n, d), out_c
+
+
+def divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo, bo,
+                                 num_heads: int, mode: str):
+    attn_p, attn_c = divided_attention_plain(qkv_patches, qkv_cls, num_heads, mode)
+    return res_patches + dense(attn_p, wo, bo, res_patches.dtype), attn_c
+
+
+def divided_attention_proj(qkv_patches, qkv_cls, res_patches, wo, bo,
+                           num_heads: int, mode: str, impl: str = "kernel"):
+    """Returns (res + attn_patches @ wo^T + bo, raw CLS attention (B, 1, D)).
+    wo (D, D) bf16 (out, in); bo f32. The kernel takes head_dim 64."""
+    if not _build.use_kernel(qkv_patches, impl):
+        return divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo,
+                                            bo, num_heads, mode)
+    if mode not in _MODES:
+        raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
+    _build.require_same_device("K1", qkv_patches, qkv_cls, res_patches, wo, bo)
+    b, f, n, threed = qkv_patches.shape
+    d = threed // 3
+    dh = d // num_heads
+    bf = torch.bfloat16
+    _build.require(all(t.dtype == bf and t.is_contiguous()
+                       for t in (qkv_patches, qkv_cls, res_patches, wo)),
+                   "K1 takes contiguous bf16 qkv, residual and wo")
+    _build.require(qkv_cls.shape == (b, 1, threed) and res_patches.shape == (b, f, n, d)
+                   and wo.shape == (d, d), "K1 shape mismatch")
+    _build.require(bo.dtype == torch.float32 and bo.is_contiguous(), "K1 takes an f32 bo")
+    _build.require(dh == 64 and d == num_heads * dh and d % 64 == 0,
+                   "K1 takes head_dim 64")
+    _build.require(b <= 65535 and f <= 65535 and n <= 65535
+                   and b * f * n <= _build.MAX_GEMM_ROWS, "K1 shape out of range")
+    scratch = torch.empty_like(res_patches)
+    out_p = torch.empty_like(res_patches)
+    out_c = torch.empty((b, 1, d), dtype=bf, device=qkv_patches.device)
+    fn = _build.library("divided_attention")
+    _build.launches["K1"] += 1
+    _build.check(fn(qkv_patches.data_ptr(), qkv_cls.data_ptr(), res_patches.data_ptr(),
+                    wo.data_ptr(), bo.data_ptr(), scratch.data_ptr(), out_p.data_ptr(),
+                    out_c.data_ptr(), b, f, n, num_heads, dh, _MODES[mode],
+                    _build.stream_ptr()), "K1 divided_attention_proj")
+    return out_p, out_c

@@ -1,0 +1,81 @@
+"""K2: LN + MLP + residual over rows (+ per-row LN statistics of the output).
+
+Replaces synchformer_tpu/ops/pallas/fused_rows.py::fused_ln_mlp_residual and
+fused_ln_mlp_residual_stats (bodies _ln_mlp_slab_kernel, _ln_mlp_kernel) with
+csrc/ln_mlp.cu. Both the 4-D patch slabs of the video tower and the 3-D token
+rows of the AST reach one kernel over flattened rows.
+
+On the H100 the two GEMMs (fc1 768->3072 with GELU, fc2 3072->768 with the
+residual) bound it on the tensor cores; this first port passes the LN output
+and the (rows, 3072) fc1 activation through device memory, where the TPU
+kernel kept them in VMEM. The stats keep the JAX (..., 8) f32 layout
+[mean, meansq, 0 x 6] so that consumers and tests compare like with like.
+"""
+from __future__ import annotations
+
+import torch
+
+from synchformer_tpu_torch.ops.kernels import _build
+from synchformer_tpu_torch.ops.numerics import (
+    dense,
+    exact_gelu_f32,
+    layer_norm,
+    layer_norm_from_stats,
+)
+
+__all__ = ["fused_ln_mlp_residual", "ln_mlp_residual_plain", "layer_norm_from_stats"]
+
+
+def row_stats(out: torch.Tensor) -> torch.Tensor:
+    o32 = out.float()
+    mean = o32.mean(-1, keepdim=True)
+    msq = (o32 * o32).mean(-1, keepdim=True)
+    pad = torch.zeros((*out.shape[:-1], 6), dtype=torch.float32, device=out.device)
+    return torch.cat([mean, msq, pad], dim=-1)
+
+
+def ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2, eps: float,
+                          emit_stats: bool = False):
+    """The JAX reference composition (_ln_mlp_ref / _ln_mlp_stats_ref) with
+    exact-erf GELU."""
+    dtype = x.dtype
+    ln = layer_norm(x, g, b, eps, dtype)
+    h = exact_gelu_f32(dense(ln, w1, b1, dtype).float()).to(dtype)
+    out = x + dense(h, w2, b2, dtype)
+    return (out, row_stats(out)) if emit_stats else out
+
+
+def fused_ln_mlp_residual(x, g, b, w1, b1, w2, b2, eps: float,
+                          emit_stats: bool = False, impl: str = "kernel"):
+    """x + fc2(GELU(fc1(LN(x)))); with ``emit_stats`` also the (..., 8) f32
+    row statistics of the output. Weights (out, in); LN params and biases f32.
+    Tolerance of the kernel against the plain version on the card: bf16
+    rounding of the fc1 activation and the output (chip_smoke.py)."""
+    if not _build.use_kernel(x, impl):
+        return ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2, eps, emit_stats)
+    _build.require_same_device("K2", x, g, b, w1, b1, w2, b2)
+    d = x.shape[-1]
+    hidden = w1.shape[0]
+    _build.require(x.dtype == torch.bfloat16 and x.is_contiguous(),
+                   "K2 takes a contiguous bf16 x")
+    _build.require(w1.shape == (hidden, d) and w2.shape == (d, hidden)
+                   and w1.dtype == w2.dtype == torch.bfloat16
+                   and w1.is_contiguous() and w2.is_contiguous(),
+                   "K2 takes contiguous bf16 weights (hidden, d) and (d, hidden)")
+    _build.require(all(t.dtype == torch.float32 and t.is_contiguous()
+                       for t in (g, b, b1, b2)), "K2 takes f32 LN params and biases")
+    _build.require(d % 64 == 0 and hidden % 64 == 0, "K2 needs d, hidden % 64 == 0")
+    rows = x.numel() // d
+    _build.require(0 < rows <= _build.MAX_GEMM_ROWS, "K2 row count out of range")
+    ln_buf = torch.empty_like(x)
+    h_buf = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    stats = (torch.empty((*x.shape[:-1], 8), dtype=torch.float32, device=x.device)
+             if emit_stats else None)
+    fn = _build.library("ln_mlp")
+    _build.launches["K2"] += 1
+    _build.check(fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
+                    b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln_buf.data_ptr(),
+                    h_buf.data_ptr(), out.data_ptr(), _build.ptr(stats), rows, d,
+                    hidden, float(eps), _build.stream_ptr()), "K2 ln_mlp")
+    return (out, stats) if emit_stats else out

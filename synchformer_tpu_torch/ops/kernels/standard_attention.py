@@ -1,0 +1,55 @@
+"""K3: unmasked full-softmax MHSA straight from packed (B, N, [q|k|v]).
+
+Replaces synchformer_tpu/ops/pallas/standard_attention.py::standard_attention
+(body _standard_attention_pallas / _kernel) with csrc/standard_attention.cu.
+On the main path it serves the AST encoder's 12 layers at (112, 74, 2304).
+At 1.2 GFLOP per call it is bound by latency, not by the tensor cores: one
+block per (batch, head) holds that head's K/V in shared memory and each warp
+walks query rows; the ragged N=74 is handled by loop bounds, not padding.
+"""
+from __future__ import annotations
+
+import torch
+
+from synchformer_tpu_torch.ops.kernels import _build
+
+__all__ = ["standard_attention", "standard_attention_plain"]
+
+
+def standard_attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The JAX reference (standard_attention_ref): q scaled in the compute
+    dtype, f32 logits and softmax, probabilities rounded to the dtype."""
+    b, n, threed = qkv.shape
+    d = threed // 3
+    dh = d // num_heads
+    q, k, v = qkv.split(d, dim=-1)
+
+    def heads(t):
+        return t.reshape(b, n, num_heads, dh).transpose(1, 2)
+
+    q, k, v = heads(q) * (dh ** -0.5), heads(k), heads(v)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    probs = torch.softmax(logits, dim=-1).to(qkv.dtype)
+    out = torch.matmul(probs, v)
+    return out.transpose(1, 2).reshape(b, n, d)
+
+
+def standard_attention(qkv: torch.Tensor, num_heads: int,
+                       impl: str = "kernel") -> torch.Tensor:
+    """(B, N, 3D) packed qkv -> (B, N, D), head-major. The kernel takes bf16,
+    head_dim 64."""
+    if not _build.use_kernel(qkv, impl):
+        return standard_attention_plain(qkv, num_heads)
+    b, n, threed = qkv.shape
+    d = threed // 3
+    dh = d // num_heads
+    _build.require(qkv.dtype == torch.bfloat16 and qkv.is_contiguous(),
+                   "K3 takes a contiguous bf16 qkv")
+    _build.require(dh == 64 and d == num_heads * dh, "K3 takes head_dim 64")
+    _build.require(n <= 1024 and b <= 65535, "K3 shape out of range")
+    out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
+    fn = _build.library("standard_attention")
+    _build.launches["K3"] += 1
+    _build.check(fn(qkv.data_ptr(), out.data_ptr(), b, n, num_heads, dh,
+                    _build.stream_ptr()), "K3 standard_attention")
+    return out

@@ -1,0 +1,187 @@
+"""Weights: the JAX package's parameter tree -> the port's state dict, and a
+seeded initialiser in the port's own layout.
+
+``state_dict_from_jax`` is the inverse of synchformer_tpu/utils/checkpoint.py::
+convert_sync_checkpoint: Dense (in, out) -> Linear (out, in); fused [q|k|v]
+columns -> the reference's separate q/k/v rows (AST, sync transformer) or its
+packed in_proj / qkv rows (aggregators, Motionformer); Conv (*K, I, O) ->
+(O, I, *K); LayerNorm scale -> weight. Everything stays numpy; load with
+``load_numpy_state_dict``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from synchformer_tpu_torch.models.layers import LayerNorm
+
+SD = Dict[str, np.ndarray]
+
+
+def _a(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _linear(p: Mapping, prefix: str) -> SD:
+    out = {f"{prefix}.weight": _a(p["kernel"]).T}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _a(p["bias"])
+    return out
+
+
+def _layernorm(p: Mapping, prefix: str) -> SD:
+    return {f"{prefix}.weight": _a(p["scale"]), f"{prefix}.bias": _a(p["bias"])}
+
+
+def _conv(p: Mapping, prefix: str) -> SD:
+    k = _a(p["kernel"])
+    nd = k.ndim - 2
+    return {f"{prefix}.weight": k.transpose((nd + 1, nd) + tuple(range(nd))),
+            f"{prefix}.bias": _a(p["bias"])}
+
+
+def _separate_qkv(p: Mapping, names) -> SD:
+    k, b = _a(p["kernel"]), _a(p["bias"])
+    d = k.shape[0]
+    out = {}
+    for i, name in enumerate(names):
+        out[f"{name}.weight"] = k[:, i * d:(i + 1) * d].T
+        out[f"{name}.bias"] = b[i * d:(i + 1) * d]
+    return out
+
+
+def mingpt_block_sd(p: Mapping, prefix: str) -> SD:
+    """PreLNBlock params -> the sync transformer's minGPT block names."""
+    sd = {**_layernorm(p["ln1"], f"{prefix}.ln1"), **_layernorm(p["ln2"], f"{prefix}.ln2")}
+    sd.update(_separate_qkv(p["attn"]["qkv"], [f"{prefix}.attn.{n}"
+                                              for n in ("query", "key", "value")]))
+    sd.update(_linear(p["attn"]["proj"], f"{prefix}.attn.proj"))
+    sd.update(_linear(p["mlp"]["fc1"], f"{prefix}.mlp.0"))
+    sd.update(_linear(p["mlp"]["fc2"], f"{prefix}.mlp.2"))
+    return sd
+
+
+def ast_layer_sd(p: Mapping, prefix: str) -> SD:
+    """PreLNBlock params -> HF ASTLayer names."""
+    sd = {**_layernorm(p["ln1"], f"{prefix}.layernorm_before"),
+          **_layernorm(p["ln2"], f"{prefix}.layernorm_after")}
+    att = f"{prefix}.attention"
+    sd.update(_separate_qkv(p["attn"]["qkv"], [f"{att}.attention.{n}"
+                                              for n in ("query", "key", "value")]))
+    sd.update(_linear(p["attn"]["proj"], f"{att}.output.dense"))
+    sd.update(_linear(p["mlp"]["fc1"], f"{prefix}.intermediate.dense"))
+    sd.update(_linear(p["mlp"]["fc2"], f"{prefix}.output.dense"))
+    return sd
+
+
+def cls_pool_layer_sd(p: Mapping, prefix: str) -> SD:
+    """CLSPoolEncoderLayer params -> BaseEncoderLayer names."""
+    blk = p["block"]
+    sd = {f"{prefix}.cls_token": _a(p["cls_token"]),
+          **_layernorm(blk["ln1"], f"{prefix}.norm1"),
+          **_layernorm(blk["ln2"], f"{prefix}.norm2"),
+          f"{prefix}.self_attn.in_proj_weight": _a(blk["attn"]["qkv"]["kernel"]).T,
+          f"{prefix}.self_attn.in_proj_bias": _a(blk["attn"]["qkv"]["bias"])}
+    sd.update(_linear(blk["attn"]["proj"], f"{prefix}.self_attn.out_proj"))
+    sd.update(_linear(blk["mlp"]["fc1"], f"{prefix}.linear1"))
+    sd.update(_linear(blk["mlp"]["fc2"], f"{prefix}.linear2"))
+    return sd
+
+
+def _depth(p: Mapping, stem: str) -> int:
+    n = 0
+    while f"{stem}{n}" in p:
+        n += 1
+    return n
+
+
+def motionformer_sd(p: Mapping, prefix: str = "") -> SD:
+    sd = {f"{prefix}cls_token": _a(p["cls_token"]),
+          f"{prefix}pos_embed": _a(p["pos_embed"]),
+          f"{prefix}temp_embed": _a(p["temp_embed"]),
+          **_conv(p["patch_embed_3d"], f"{prefix}patch_embed_3d.proj"),
+          **_layernorm(p["norm"], f"{prefix}norm")}
+    for i in range(_depth(p, "blocks_")):
+        b, q = p[f"blocks_{i}"], f"{prefix}blocks.{i}"
+        for n in ("norm1", "norm2", "norm3"):
+            sd.update(_layernorm(b[n], f"{q}.{n}"))
+        for n in ("attn", "timeattn"):
+            sd.update(_linear(b[n]["qkv"], f"{q}.{n}.qkv"))
+            sd.update(_linear(b[n]["proj"], f"{q}.{n}.proj"))
+        sd.update(_linear(b["mlp"]["fc1"], f"{q}.mlp.fc1"))
+        sd.update(_linear(b["mlp"]["fc2"], f"{q}.mlp.fc2"))
+    sd.update(cls_pool_layer_sd(p["spatial_attn_agg"]["cls_layer"],
+                                f"{prefix}spatial_attn_agg"))
+    return sd
+
+
+def ast_sd(p: Mapping, prefix: str = "") -> SD:
+    e = f"{prefix}ast.embeddings"
+    sd = {f"{e}.cls_token": _a(p["cls_token"]),
+          f"{e}.distillation_token": _a(p["distillation_token"]),
+          f"{e}.position_embeddings": _a(p["position_embeddings"]),
+          **_conv(p["patch_embed"], f"{e}.patch_embeddings.projection"),
+          **_layernorm(p["layernorm"], f"{prefix}ast.layernorm")}
+    for i in range(_depth(p, "layer_")):
+        sd.update(ast_layer_sd(p[f"layer_{i}"], f"{prefix}ast.encoder.layer.{i}"))
+    sd.update(cls_pool_layer_sd(p["freq_attn_agg"]["cls_layer"], f"{prefix}freq_attn_agg"))
+    return sd
+
+
+def global_transformer_sd(p: Mapping, prefix: str = "transformer.") -> SD:
+    sd = {**_layernorm(p["vis_in_lnorm"], f"{prefix}vis_in_lnorm"),
+          **_layernorm(p["aud_in_lnorm"], f"{prefix}aud_in_lnorm"),
+          f"{prefix}OFF_tok": _a(p["OFF_tok"]), f"{prefix}MOD_tok": _a(p["MOD_tok"]),
+          f"{prefix}pos_emb_cfg.pos_emb": _a(p["pos_emb"]["pos_emb"]),
+          **_layernorm(p["ln_f"], f"{prefix}ln_f"),
+          **_linear(p["off_head"]["linear"], f"{prefix}off_head")}
+    for i in range(_depth(p, "blocks_")):
+        sd.update(mingpt_block_sd(p[f"blocks_{i}"], f"{prefix}blocks.{i}"))
+    return sd
+
+
+def state_dict_from_jax(params: Mapping) -> SD:
+    """Synchformer params tree (numpy or JAX arrays) -> the port's state dict,
+    named as the reference's Stage II checkpoint."""
+    p = params.get("params", params)
+    return {**motionformer_sd(p["v_encoder"], "vfeat_extractor."),
+            **ast_sd(p["a_encoder"], "afeat_extractor."),
+            **_linear(p["v_proj"]["linear"], "vproj"),
+            **_linear(p["a_proj"]["linear"], "aproj"),
+            **global_transformer_sd(p["sync_transformer"], "transformer.")}
+
+
+@torch.no_grad()
+def load_numpy_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
+    """Copy numpy arrays into the model's parameters (strict: every name on
+    both sides), converting to each parameter's dtype and device."""
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(sd))
+    extra = sorted(set(sd) - set(params))
+    if missing or extra:
+        raise KeyError(f"state dict mismatch: missing {missing[:5]}, unexpected {extra[:5]}")
+    for name, arr in sd.items():
+        p = params[name]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+
+
+def seeded_state_dict(model: torch.nn.Module, seed: int) -> SD:
+    """Random weights in the port's layout from a numpy seed: LayerNorm
+    weight 1 and bias 0; every other parameter normal with std 0.02."""
+    rng = np.random.default_rng(seed)
+    ln_params = set()
+    for mname, mod in model.named_modules():
+        if isinstance(mod, LayerNorm):
+            ln_params.update({f"{mname}.weight", f"{mname}.bias"})
+    sd = {}
+    for name, p in model.named_parameters():
+        if name in ln_params:
+            fill = 1.0 if name.endswith("weight") else 0.0
+            sd[name] = np.full(tuple(p.shape), fill, np.float32)
+        else:
+            sd[name] = rng.standard_normal(tuple(p.shape), dtype=np.float32) * np.float32(0.02)
+    return sd
