@@ -1,9 +1,13 @@
 // K1: divided space-time attention on the split (CLS, patches) layout with
-// the output projection and residual in the epilogue.
+// the output projection and residual in the epilogue, and K5: the same
+// attention without them.
 //
-// Replaces synchformer_tpu/ops/pallas/divided_attention.py::
+// K1 replaces synchformer_tpu/ops/pallas/divided_attention.py::
 // divided_attention_proj_4d (body _kernel_4d_proj with _cls_row_4d,
-// _space_pair_v3, _time_pair_v3).
+// _space_pair_v3, _time_pair_v3); K5 replaces divided_attention_pallas_4d
+// (body _kernel_4d), the forward of the Stage I training step. K5 runs
+// launches (1) and (2) below and writes the attention straight to its
+// output; its bound at Stage I's (28, 8, 196, 2304) is the ~270 MB it moves.
 //
 // Semantics, per head (12 of 64 on the main path), q scaled by dh^-0.5:
 // - each patch token attends {CLS} U its group: the n tokens of its frame
@@ -176,17 +180,11 @@ cls_row_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
   }
 }
 
-}  // namespace
-
-// mode 0 = space (groups are frames), 1 = time (groups are spatial positions).
-extern "C" int sft_divided_attention_proj(const void* qkv_p, const void* qkv_c,
-                                          const void* res, const void* wo, const void* bo,
-                                          void* attn_scratch, void* out_p, void* out_c,
-                                          int B, int f, int n, int H, int dh, int mode,
-                                          void* stream) {
-  if (dh != DH) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int D = H * DH, fn = f * n;
+// The attention of every patch (group kernel) and of the CLS row, written to
+// attn_p (B, f, n, D) and out_c (B, 1, D) in head-major feature order.
+int launch_attention(const bf16* qkv_p, const bf16* qkv_c, bf16* attn_p, bf16* out_c,
+                     int B, int f, int n, int H, int mode, cudaStream_t s) {
+  const int fn = f * n;
   const float scale = 0.125f;  // 64^-0.5
   const int L = mode == 0 ? n : f, G = mode == 0 ? f : n;
   const int gs = mode == 0 ? n : 1, ms = mode == 0 ? 1 : n;
@@ -195,21 +193,48 @@ extern "C" int sft_divided_attention_proj(const void* qkv_p, const void* qkv_c,
   cudaFuncSetAttribute(group_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem_g);
   SFT_CHECK_LAUNCH();
-  group_attention_kernel<<<dim3(H, G, B), WARPS * 32, smem_g, s>>>(
-      static_cast<const bf16*>(qkv_p), static_cast<const bf16*>(qkv_c),
-      static_cast<bf16*>(attn_scratch), fn, L, gs, ms, H, scale);
+  group_attention_kernel<<<dim3(H, G, B), WARPS * 32, smem_g, s>>>(qkv_p, qkv_c, attn_p, fn,
+                                                                   L, gs, ms, H, scale);
   SFT_CHECK_LAUNCH();
   const size_t smem_c = (DH + 32 + (CLS_THREADS / 32) * DH + (size_t)(fn + 1)) * sizeof(float);
   cudaFuncSetAttribute(cls_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
   SFT_CHECK_LAUNCH();
-  cls_row_kernel<<<dim3(H, B), CLS_THREADS, smem_c, s>>>(
-      static_cast<const bf16*>(qkv_p), static_cast<const bf16*>(qkv_c),
-      static_cast<bf16*>(out_c), fn, H, scale);
+  cls_row_kernel<<<dim3(H, B), CLS_THREADS, smem_c, s>>>(qkv_p, qkv_c, out_c, fn, H, scale);
   SFT_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace
+
+// K1. mode 0 = space (groups are frames), 1 = time (groups are spatial positions).
+extern "C" int sft_divided_attention_proj(const void* qkv_p, const void* qkv_c,
+                                          const void* res, const void* wo, const void* bo,
+                                          void* attn_scratch, void* out_p, void* out_c,
+                                          int B, int f, int n, int H, int dh, int mode,
+                                          void* stream) {
+  if (dh != DH) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int D = H * DH, fn = f * n;
+  const int err = launch_attention(static_cast<const bf16*>(qkv_p),
+                                   static_cast<const bf16*>(qkv_c),
+                                   static_cast<bf16*>(attn_scratch), static_cast<bf16*>(out_c),
+                                   B, f, n, H, mode, s);
+  if (err != 0) return err;
   sft::gemm_bf16<sft::EPI_BIAS_RESIDUAL>(
       static_cast<const bf16*>(attn_scratch), static_cast<const bf16*>(wo),
       static_cast<const float*>(bo), static_cast<const bf16*>(res), D,
       static_cast<bf16*>(out_p), B * fn, D, D, s);
   SFT_CHECK_LAUNCH();
   return 0;
+}
+
+// K5: the same attention without the projection: out_p (B, f, n, D) and
+// out_c (B, 1, D), the outputs of divided_attention_pallas_4d.
+extern "C" int sft_divided_attention(const void* qkv_p, const void* qkv_c, void* out_p,
+                                     void* out_c, int B, int f, int n, int H, int dh,
+                                     int mode, void* stream) {
+  if (dh != DH) return (int)cudaErrorInvalidValue;
+  return launch_attention(static_cast<const bf16*>(qkv_p), static_cast<const bf16*>(qkv_c),
+                          static_cast<bf16*>(out_p), static_cast<bf16*>(out_c), B, f, n, H,
+                          mode, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,6 @@
 """Sync inference entry point (the port of bench.py::infer).
 
-    predictor = SyncPredictor(model, device="cuda", dtype=torch.bfloat16)
+    predictor = SyncPredictor(model)   # device="cuda", dtype=torch.bfloat16
     probs = predictor(video_u8_patches, pcm)   # (B, 21) offset probabilities
 
 Input: patch-major uint8 video (B, S, 8, 196, 1536) from ``patchify_frames``
@@ -20,9 +20,10 @@ from synchformer_tpu_torch.ops.video import fold_video_normalize
 class SyncPredictor:
     """Wraps a Synchformer whose weights take normalised frames: folds the
     video normalisation into its patch embed (in place), moves it to
-    ``device`` and casts its matrices to ``dtype`` once."""
+    ``device`` (the card unless the caller asks for the CPU) and casts its
+    matrices to ``dtype`` once."""
 
-    def __init__(self, model: Synchformer, device, dtype: torch.dtype = torch.bfloat16,
+    def __init__(self, model: Synchformer, device="cuda", dtype: torch.dtype = torch.bfloat16,
                  impl: str = "kernel"):
         if impl not in ("kernel", "plain"):
             raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")

@@ -5,7 +5,8 @@ audio/ast.py:253-279): a learned CLS row plus one norm-first
 nn.TransformerEncoderLayer, of which only the CLS row is kept. State names:
 cls_token, norm1, norm2, self_attn.{in_proj_weight, in_proj_bias, out_proj},
 linear1, linear2. The CLS row goes in as the block's shared ``cls_row``, so on
-the kernel route the whole layer is K4.
+the kernel route the whole layer is K4. ``AveragePooling`` is the towers' time
+tail in the Stage I configuration (configs/segment_avclip.yaml).
 """
 from __future__ import annotations
 
@@ -64,3 +65,16 @@ class FrequencyAggregator(CLSPoolEncoderLayer):
         bs, f, t, d = x.shape
         flat = x.transpose(1, 2).reshape(bs * t, f, d)
         return self.pool(flat, impl).reshape(bs, t, d)
+
+
+class AveragePooling(nn.Module):
+    """Mean over one axis (synchformer_tpu/models/aggregators.py::
+    AveragePooling with ``bs t d -> bs d``): (BS, t, D) -> (BS, D). No
+    parameters."""
+
+    def __init__(self, dim: int = 1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=self.dim)

@@ -1,11 +1,14 @@
-"""AST audio tower (synchformer_tpu/models/ast_encoder.py), sync config only:
-features of 6 time steps per segment through the frequency aggregator.
+"""AST audio tower (synchformer_tpu/models/ast_encoder.py): features of 6 time
+steps per segment through the frequency aggregator, then, with
+``agg_time_module='AveragePooling'`` (the Stage I configuration), their mean.
 
 Patch conv 16x16, stride (10, 10) over the (F=128, T=66) log-mel, scanned
 frequency-major (12 x 6 = 72 tokens) and run as one matmul on unfolded
 patches; CLS and distillation tokens; 12 HF AST layers (LN eps 1e-12) on K3 +
-K2; final LayerNorm; FrequencyAggregator on K4. State names follow the
-reference (``ast.embeddings.*``, ``ast.encoder.layer.{i}.*``,
+K2; final LayerNorm; FrequencyAggregator on K4. Its dropouts are 0, so
+training runs the same route (the kernels' autograd Functions carry the
+backward); ``remat=True`` wraps each layer in torch.utils.checkpoint. State
+names follow the reference (``ast.embeddings.*``, ``ast.encoder.layer.{i}.*``,
 ``ast.layernorm``, ``freq_attn_agg.*``).
 """
 from __future__ import annotations
@@ -13,8 +16,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from synchformer_tpu_torch.models.aggregators import FrequencyAggregator
+from synchformer_tpu_torch.models.aggregators import AveragePooling, FrequencyAggregator
 from synchformer_tpu_torch.models.layers import ASTLayer, Container, LayerNorm
 from synchformer_tpu_torch.ops.numerics import dense
 
@@ -23,11 +27,15 @@ class ASTEncoder(nn.Module):
     def __init__(self, hidden_size: int = 768, depth: int = 12, num_heads: int = 12,
                  patch_size: int = 16, frequency_stride: int = 10, time_stride: int = 10,
                  num_mel_bins: int = 128, max_spec_t: int = 66, ln_eps: float = 1e-12,
-                 device=None):
+                 agg_time_module: str = "Identity", remat: bool = False, device=None):
         super().__init__()
+        if agg_time_module not in ("Identity", "AveragePooling"):
+            raise ValueError(f"agg_time_module must be 'Identity' or 'AveragePooling', "
+                             f"got {agg_time_module!r}")
         d = hidden_size
         self.patch_size = patch_size
         self.strides = (frequency_stride, time_stride)
+        self.remat = remat
         self.grid_ft = ((num_mel_bins - patch_size) // frequency_stride + 1,
                         (max_spec_t - patch_size) // time_stride + 1)
         n_tok = 2 + self.grid_ft[0] * self.grid_ft[1]
@@ -42,16 +50,19 @@ class ASTEncoder(nn.Module):
                 [ASTLayer(d, num_heads, ln_eps, device=device) for _ in range(depth)])),
             layernorm=LayerNorm(d, ln_eps, device))
         self.freq_attn_agg = FrequencyAggregator(d, num_heads, device=device)
+        self.temp_attn_agg = (AveragePooling(1) if agg_time_module == "AveragePooling"
+                              else None)
 
     def forward(self, x: torch.Tensor, impl: str = "plain") -> torch.Tensor:
-        """x (B, S, T, F) log-mel in the compute dtype -> (B, S, t, D)."""
+        """x (B, S, T, F) log-mel in the compute dtype -> (B, S, t, D), or
+        (B, S, D) with the AveragePooling time tail."""
         b, s, t_spec, f_spec = x.shape
         emb = self.ast.embeddings
         w = emb.patch_embeddings.projection.weight
-        dtype = w.dtype
+        dtype = x.dtype
         d = w.shape[0]
         fdim, tdim = self.grid_ft
-        img = x.reshape(b * s, t_spec, f_spec).transpose(1, 2).unsqueeze(1).to(dtype)
+        img = x.reshape(b * s, t_spec, f_spec).transpose(1, 2).unsqueeze(1)
         # (BS, 1, F, T) -> (BS, p*p, F'*T') with positions frequency-major
         cols = F.unfold(img, self.patch_size, stride=self.strides)
         tokens = dense(cols.transpose(1, 2), w.reshape(d, -1),
@@ -60,7 +71,13 @@ class ASTEncoder(nn.Module):
         tokens = torch.cat([aux.expand(b * s, 2, d), tokens], dim=1)
         tokens = tokens + emb.position_embeddings.to(dtype)
         for layer in self.ast.encoder.layer:
-            tokens = layer(tokens, impl)
+            if self.remat:
+                tokens = checkpoint(layer, tokens, impl, use_reentrant=False)
+            else:
+                tokens = layer(tokens, impl)
         tokens = self.ast.layernorm(tokens)
         feats = tokens[:, 2:, :].reshape(b * s, fdim, tdim, d)
-        return self.freq_attn_agg(feats, impl).reshape(b, s, tdim, d)
+        feats = self.freq_attn_agg(feats, impl)
+        if self.temp_attn_agg is not None:
+            return self.temp_attn_agg(feats).reshape(b, s, d)
+        return feats.reshape(b, s, tdim, d)

@@ -1,0 +1,75 @@
+"""AVCLIP, the Stage I segment-level audio-visual contrastive model
+(synchformer_tpu/models/avclip.py).
+
+Two towers with the AveragePooling time tail give one feature per segment,
+(B, S, D); DoNothingBridge projections; the (B*S, D) features are
+L2-normalised; the loss is the symmetric cross-entropy of
+``sim = v @ a.T / clamp(logit_scale)`` in f32 (the temperature divides, as in
+the reference). ``logit_scale`` is a 0-d f32 parameter, clamped to
+[clamp_scale_min, clamp_scale_max] where it is used and after every update.
+Cross-replica negatives (``gather_for_loss``) are not ported.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from synchformer_tpu_torch.models.ast_encoder import ASTEncoder
+from synchformer_tpu_torch.models.bridges import DoNothingBridge
+from synchformer_tpu_torch.models.motionformer import MotionFormerEncoder
+
+
+class AVCLIP(nn.Module):
+    def __init__(self, vfeat_extractor: dict, afeat_extractor: dict, d: int = 768,
+                 init_scale: float = 0.07, clamp_scale_min: float = 0.001,
+                 clamp_scale_max: float = 0.5, device=None):
+        super().__init__()
+        self.init_scale = init_scale
+        self.clamp_scale_min = clamp_scale_min
+        self.clamp_scale_max = clamp_scale_max
+        self.vfeat_extractor = MotionFormerEncoder(embed_dim=d, agg_time_module="AveragePooling",
+                                                   device=device, **vfeat_extractor)
+        self.afeat_extractor = ASTEncoder(hidden_size=d, agg_time_module="AveragePooling",
+                                          device=device, **afeat_extractor)
+        self.vproj = DoNothingBridge()
+        self.aproj = DoNothingBridge()
+        self.logit_scale = nn.Parameter(torch.tensor(init_scale, dtype=torch.float32,
+                                                     device=device))
+
+    def scale(self) -> torch.Tensor:
+        return self.logit_scale.clamp(self.clamp_scale_min, self.clamp_scale_max)
+
+    @staticmethod
+    def _normalise(feats: torch.Tensor, proj: nn.Module) -> torch.Tensor:
+        b, s, d = feats.shape
+        feats = proj(feats.reshape(b * s, d))
+        norm = torch.linalg.vector_norm(feats.float(), dim=-1, keepdim=True)
+        return feats / norm.clamp(min=1e-12).to(feats.dtype)
+
+    def encode_video(self, vis, impl: str, deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, S, f, n, z*p*p*c) patch-major frames -> L2-normalised (B*S, D)."""
+        return self._normalise(self.vfeat_extractor(vis, impl, deterministic, generator),
+                               self.vproj)
+
+    def encode_audio(self, aud, impl: str) -> torch.Tensor:
+        """(B, S, T, F) log-mel -> L2-normalised (B*S, D)."""
+        return self._normalise(self.afeat_extractor(aud, impl), self.aproj)
+
+    def contrastive_loss(self, vfeat: torch.Tensor, afeat: torch.Tensor) -> torch.Tensor:
+        """Symmetric InfoNCE with the temperature dividing the similarity."""
+        scale = self.scale()
+        labels = torch.arange(vfeat.shape[0], device=vfeat.device)
+        sim_v2a = (vfeat @ afeat.t()).float() / scale
+        sim_a2v = (afeat @ vfeat.t()).float() / scale
+        return (F.cross_entropy(sim_v2a, labels) + F.cross_entropy(sim_a2v, labels)) / 2.0
+
+    def forward(self, vis, aud, impl: str = "plain", deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """Returns (loss, vfeat (B*S, D), afeat (B*S, D))."""
+        vfeat = self.encode_video(vis, impl, deterministic, generator)
+        afeat = self.encode_audio(aud, impl)
+        return self.contrastive_loss(vfeat, afeat), vfeat, afeat

@@ -1,9 +1,12 @@
 """Transformer building blocks (synchformer_tpu/models/layers.py in PyTorch).
 
 Parameters keep the reference torch state-dict names; matrices are torch
-Linear layout (out, in). Only matrices are cast to the compute dtype; LN
-parameters and biases stay f32 and are cast where they are used, as the JAX
-numerics helpers do. Inference only.
+Linear layout (out, in). The compute dtype follows the activations: a layer
+casts its matrices to its input's dtype where it uses them, so f32 master
+parameters train under bf16 compute (the JAX ``precision: amp``), and a model
+whose matrices were cast once (SyncPredictor) casts nothing. LN parameters and
+biases stay f32 and are cast where they are used, as the JAX numerics helpers
+do.
 
 ``impl`` chooses the route: 'kernel' sends the packed QKV through K3, the
 LN+MLP half through K2 and the CLS-pool layer through K4 (each wrapper runs
@@ -34,7 +37,7 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.weight, self.bias, self.weight.dtype)
+        return dense(x, self.weight, self.bias, x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -57,6 +60,32 @@ class Container(nn.Module):
         super().__init__()
         for name, mod in children.items():
             self.add_module(name, mod)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (timm DropPath, synchformer_tpu/models/layers.py::
+    DropPath): one draw per sample from an explicit generator, kept samples
+    scaled by 1 / (1 - rate). ``draw`` draws; ``drop`` multiplies, so that a
+    caller can draw before a recomputed (checkpointed) region."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def draw(self, n: int, generator: torch.Generator, device,
+              dtype: torch.dtype) -> Optional[torch.Tensor]:
+        """(n,) per-sample factors 0 or 1 / (1 - rate) in ``dtype``; None at
+        rate 0, where nothing is drawn."""
+        if self.rate == 0.0:
+            return None
+        keep = torch.rand(n, generator=generator, device=device) < 1.0 - self.rate
+        return (keep.float() / (1.0 - self.rate)).to(dtype)
+
+    @staticmethod
+    def drop(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+        if scale is None:
+            return x
+        return x * scale.reshape(-1, *(1,) * (x.ndim - 1))
 
 
 def scaled_dot_attention(q, k, v):
@@ -127,9 +156,9 @@ def preln_block(x, p: BlockParams, num_heads: int, eps: float, impl: str,
     dtype = x.dtype
     if query_rows == 1 and cls_row is not None and impl == "kernel" and x.ndim == 3:
         out = fused_cls_pool_tokens(
-            x, cls_row.reshape(d), p.ln1_w, p.ln1_b, p.wqkv, p.bqkv, p.wproj,
-            p.bproj, p.ln2_w, p.ln2_b, p.w1, p.b1, p.w2, p.b2,
-            num_heads=num_heads, eps=eps, impl=impl)
+            x, cls_row.reshape(d), p.ln1_w, p.ln1_b, p.wqkv.to(dtype), p.bqkv,
+            p.wproj.to(dtype), p.bproj, p.ln2_w, p.ln2_b, p.w1.to(dtype), p.b1,
+            p.w2.to(dtype), p.b2, num_heads=num_heads, eps=eps, impl=impl)
         return out[:, None, :]
     if cls_row is not None:
         cls = cls_row.reshape(1, 1, d).to(dtype).expand(x.shape[0], 1, d)
@@ -140,8 +169,8 @@ def preln_block(x, p: BlockParams, num_heads: int, eps: float, impl: str,
         x = x[..., :query_rows, :]
     x = x + attn
     if impl == "kernel" and query_rows is None:
-        return fused_ln_mlp_residual(x.contiguous(), p.ln2_w, p.ln2_b, p.w1, p.b1,
-                                     p.w2, p.b2, eps, impl=impl)
+        return fused_ln_mlp_residual(x.contiguous(), p.ln2_w, p.ln2_b, p.w1.to(dtype),
+                                     p.b1, p.w2.to(dtype), p.b2, eps, impl=impl)
     return x + mlp(layer_norm(x, p.ln2_w, p.ln2_b, eps, dtype), p.w1, p.b1, p.w2, p.b2)
 
 

@@ -1,9 +1,12 @@
 """Model presets: the full-width sync model (configs/sync.yaml model section,
-as synchformer_tpu/models/presets.py::build_synchformer) and a tiny one for
-the CPU tests. Both come in f32; SyncPredictor casts the matrices to the
-compute dtype."""
+as synchformer_tpu/models/presets.py::build_synchformer), the full-width
+Stage I AVCLIP (configs/segment_avclip.yaml, as build_avclip), and tiny ones
+for the CPU tests. All come in f32: SyncPredictor casts the sync model's
+matrices to the compute dtype once; AVCLIP trains f32 master parameters under
+the activations' compute dtype."""
 from __future__ import annotations
 
+from synchformer_tpu_torch.models.avclip import AVCLIP
 from synchformer_tpu_torch.models.sync_model import Synchformer
 
 D = 768
@@ -35,3 +38,25 @@ def build_tiny_synchformer(n_segments: int = 2, device=None) -> Synchformer:
         afeat_extractor=dict(depth=t["depth"], num_heads=t["heads"]),
         d=t["d"], n_segments=n_segments, n_layer=t["n_layer"], n_head=t["heads"],
         num_cls=N_OFFSET_CLS, device=device).eval()
+
+
+def build_avclip(remat: bool = False, device=None) -> AVCLIP:
+    """ViT-B Motionformer and AST towers (D=768, 12 layers of 12 heads of 64)
+    with the AveragePooling time tail, DoNothingBridge projections,
+    init_scale 0.07 clamped to [0.001, 0.5]; Motionformer drop-path 0.2 (its
+    default, which configs/segment_avclip.yaml keeps), every dropout 0."""
+    return AVCLIP(vfeat_extractor=dict(depth=12, num_heads=12, remat=remat,
+                                       drop_path_rate=0.2),
+                  afeat_extractor=dict(depth=12, num_heads=12, remat=remat),
+                  d=D, device=device)
+
+
+def build_tiny_avclip(remat: bool = False, drop_path_rate: float = 0.0,
+                      device=None) -> AVCLIP:
+    t = TINY
+    return AVCLIP(vfeat_extractor=dict(depth=t["depth"], num_heads=t["heads"],
+                                       patch_size=t["patch_size"], img_size=t["img_size"],
+                                       temporal_resolution=t["temporal_resolution"],
+                                       remat=remat, drop_path_rate=drop_path_rate),
+                  afeat_extractor=dict(depth=t["depth"], num_heads=t["heads"], remat=remat),
+                  d=t["d"], device=device)

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the tile GEMM's grid puts 64-row tiles on gridDim.y (at most 65535)
 MAX_GEMM_ROWS = 65535 * 64
 
-# launches of each kernel wrapper on a CUDA tensor, keyed K1..K4
+# launches of each kernel wrapper on a CUDA tensor, keyed K1..K6
 launches: collections.Counter = collections.Counter()
 
 _libs: dict = {}
@@ -44,12 +44,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# csrc/<name>.cu -> (its C entry, argtypes)
+# csrc/<name>.cu -> {its C entry: argtypes}; the first entry is the default
 _SIGNATURES = {
-    "ln_mlp": ("sft_ln_mlp", [_P] * 11 + [_L, _I, _I, _F, _P]),
-    "standard_attention": ("sft_standard_attention", [_P, _P, _I, _I, _I, _I, _P]),
-    "cls_pool": ("sft_cls_pool_tokens", [_P] * 20 + [_I] * 5 + [_F, _P]),
-    "divided_attention": ("sft_divided_attention_proj", [_P] * 8 + [_I] * 6 + [_P]),
+    "ln_mlp": {"sft_ln_mlp": [_P] * 11 + [_L, _I, _I, _F, _P]},
+    "standard_attention": {"sft_standard_attention": [_P, _P, _I, _I, _I, _I, _P]},
+    "cls_pool": {"sft_cls_pool_tokens": [_P] * 20 + [_I] * 5 + [_F, _P]},
+    "divided_attention": {"sft_divided_attention_proj": [_P] * 8 + [_I] * 6 + [_P],
+                          "sft_divided_attention": [_P] * 4 + [_I] * 6 + [_P]},
+    "divided_attention_bwd": {"sft_divided_attention_bwd": [_P] * 10 + [_I] * 6 + [_P]},
 }
 
 
@@ -96,18 +98,19 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name`` with its entry's signature set."""
+def library(name: str, entry: str | None = None):
+    """The C entry ``entry`` (default: the first) of the kernel library
+    ``name``, loaded with its signature set."""
+    entry = entry or next(iter(_SIGNATURES[name]))
     with _lock:
-        if name not in _libs:
+        if (name, entry) not in _libs:
             build_all()
             lib = ctypes.CDLL(str(BUILD_DIR / f"{name}-{_source_hash()}.so"))
-            sym, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
+            fn = getattr(lib, entry)
+            fn.argtypes = _SIGNATURES[name][entry]
             fn.restype = ctypes.c_int
-            _libs[name] = fn
-        return _libs[name]
+            _libs[(name, entry)] = fn
+        return _libs[(name, entry)]
 
 
 def stream_ptr() -> int:

@@ -11,16 +11,19 @@ That reads x once per group and keeps the pool pass bound by that read. The
 bf16 rounding of K and V in the reference is skipped, which the bf16
 tolerance on the card covers. Proj, LN2 and the MLP then run as GEMMs with
 the groups as rows; their (B, D) and (B, 4D) inputs pass through device
-memory, where the TPU kernel kept them in VMEM.
+memory, where the TPU kernel kept them in VMEM. For training,
+``impl='kernel'`` goes through ``ClsPoolTokensFn``: kernel forward, backward
+through the plain version (the JAX custom_vjp, cls_pool.py:227-262).
 """
 from __future__ import annotations
 
 import torch
 
+from synchformer_tpu_torch.ops.autograd import plain_vjp
 from synchformer_tpu_torch.ops.kernels import _build
-from synchformer_tpu_torch.ops.numerics import dense, exact_gelu_f32, layer_norm
+from synchformer_tpu_torch.ops.numerics import dense, exact_gelu, layer_norm
 
-__all__ = ["fused_cls_pool_tokens", "cls_pool_tokens_plain"]
+__all__ = ["fused_cls_pool_tokens", "cls_pool_tokens_plain", "ClsPoolTokensFn"]
 
 
 def cls_pool_tokens_plain(x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1,
@@ -43,7 +46,7 @@ def cls_pool_tokens_plain(x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1,
     att = dense(out, wp, bp, dtype)[:, 0]
     y = full[:, 0, :] + att
     ln2 = layer_norm(y, g2, b2, eps, dtype)
-    h = exact_gelu_f32(dense(ln2, w1, fb1, dtype).float()).to(dtype)
+    h = exact_gelu(dense(ln2, w1, fb1, dtype))
     return y + dense(h, w2, fb2, dtype)
 
 
@@ -51,8 +54,35 @@ def fused_cls_pool_tokens(x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1,
                           w2, fb2, num_heads: int, eps: float,
                           impl: str = "kernel") -> torch.Tensor:
     """One pre-LN encoder layer for the CLS row over [cls; x] -> (B, D).
-    Matrices (out, in) bf16; cls, LN params and biases f32."""
-    if not _build.use_kernel(x, impl):
+    Matrices (out, in) bf16; cls, LN params and biases f32. Differentiable on
+    both routes."""
+    _build.use_kernel(x, impl)  # validates impl and device
+    args = (x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1, w2, fb2)
+    if impl == "plain":
+        return cls_pool_tokens_plain(*args, num_heads, eps)
+    return ClsPoolTokensFn.apply(*args, num_heads, eps)
+
+
+class ClsPoolTokensFn(torch.autograd.Function):
+    """K4 forward; backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        tensors, (num_heads, eps) = args[:14], args[14:]
+        ctx.save_for_backward(*tensors)
+        ctx.num_heads, ctx.eps = num_heads, eps
+        return _cls_pool_tokens(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_vjp(lambda *a: cls_pool_tokens_plain(*a, ctx.num_heads, ctx.eps),
+                         ctx.saved_tensors, ctx.needs_input_grad[:14], (g,)) + (None, None)
+
+
+def _cls_pool_tokens(x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1, w2, fb2,
+                     num_heads: int, eps: float) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if not _build.use_kernel(x, "kernel"):
         return cls_pool_tokens_plain(x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2,
                                      w1, fb1, w2, fb2, num_heads, eps)
     _build.require_same_device("K4", x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1,

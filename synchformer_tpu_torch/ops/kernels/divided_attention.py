@@ -1,11 +1,16 @@
 """K1: split-layout divided space-time attention with the output projection
-and residual in the epilogue.
+and residual in the epilogue; K5: the same attention without them.
 
-Replaces synchformer_tpu/ops/pallas/divided_attention.py::
+K1 replaces synchformer_tpu/ops/pallas/divided_attention.py::
 divided_attention_proj_4d (body _kernel_4d_proj with _cls_row_4d,
-_space_pair_v3, _time_pair_v3) with csrc/divided_attention.cu.
+_space_pair_v3, _time_pair_v3) with csrc/divided_attention.cu; K5 replaces
+divided_attention_pallas_4d (body _kernel_4d) with the same file's
+``sft_divided_attention`` entry. K5 is the forward of the Stage I training
+step (its backward, K6, is in divided_attention_bwd.py); at Stage I's qkv
+(28, 8, 196, 2304) it moves ~270 MB, which bounds it at ~81 us on the H100,
+while this first port's CUDA-core attention math bounds it in practice.
 
-Main-path shapes: qkv_patches (112, 8, 196, 2304), qkv_cls (112, 1, 2304),
+K1's main-path shapes (sync inference): qkv_patches (112, 8, 196, 2304), qkv_cls (112, 1, 2304),
 res (112, 8, 196, 768), 12 heads of 64, bf16; space groups are frames (197
 keys with the CLS), time groups are spatial positions (9 keys). The space call
 is ~104 GFLOP of attention on CUDA cores in this first port, which bounds it;
@@ -22,7 +27,7 @@ import torch
 from synchformer_tpu_torch.ops.kernels import _build
 from synchformer_tpu_torch.ops.numerics import dense
 
-__all__ = ["divided_attention_proj", "divided_attention_plain",
+__all__ = ["divided_attention", "divided_attention_proj", "divided_attention_plain",
            "divided_attention_proj_plain"]
 
 _MODES = {"space": 0, "time": 1}
@@ -71,30 +76,60 @@ def divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo, bo,
     return res_patches + dense(attn_p, wo, bo, res_patches.dtype), attn_c
 
 
+def check_split_qkv(what: str, qkv_patches, qkv_cls, num_heads: int, mode: str,
+                    *others: torch.Tensor):
+    """The checks every split-layout kernel (K1, K5, K6) makes before it
+    launches: contiguous bf16 qkv on one device, head_dim 64, grid ranges.
+    Returns (b, f, n, d)."""
+    if mode not in _MODES:
+        raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
+    _build.require_same_device(what, qkv_patches, qkv_cls, *others)
+    b, f, n, threed = qkv_patches.shape
+    d = threed // 3
+    _build.require(all(t.dtype == torch.bfloat16 and t.is_contiguous()
+                       for t in (qkv_patches, qkv_cls)),
+                   f"{what} takes contiguous bf16 qkv")
+    _build.require(qkv_cls.shape == (b, 1, threed), f"{what}: qkv_cls shape mismatch")
+    _build.require(d == num_heads * 64, f"{what} takes head_dim 64")
+    _build.require(b <= 65535 and f <= 65535 and n <= 65535
+                   and b * f * n <= _build.MAX_GEMM_ROWS, f"{what} shape out of range")
+    return b, f, n, d
+
+
+def divided_attention(qkv_patches, qkv_cls, num_heads: int, mode: str,
+                      impl: str = "kernel"):
+    """K5: (patches (B, f, n, D), cls (B, 1, D)) attention outputs in
+    head-major feature order, before the projection. Forward only; the
+    differentiable form is divided_attention_bwd.divided_attention_split."""
+    if not _build.use_kernel(qkv_patches, impl):
+        return divided_attention_plain(qkv_patches, qkv_cls, num_heads, mode)
+    b, f, n, d = check_split_qkv("K5", qkv_patches, qkv_cls, num_heads, mode)
+    out_p = torch.empty((b, f, n, d), dtype=torch.bfloat16, device=qkv_patches.device)
+    out_c = torch.empty((b, 1, d), dtype=torch.bfloat16, device=qkv_patches.device)
+    fn = _build.library("divided_attention", "sft_divided_attention")
+    _build.launches["K5"] += 1
+    _build.check(fn(qkv_patches.data_ptr(), qkv_cls.data_ptr(), out_p.data_ptr(),
+                    out_c.data_ptr(), b, f, n, num_heads, 64, _MODES[mode],
+                    _build.stream_ptr()), "K5 divided_attention")
+    return out_p, out_c
+
+
 def divided_attention_proj(qkv_patches, qkv_cls, res_patches, wo, bo,
                            num_heads: int, mode: str, impl: str = "kernel"):
-    """Returns (res + attn_patches @ wo^T + bo, raw CLS attention (B, 1, D)).
-    wo (D, D) bf16 (out, in); bo f32. The kernel takes head_dim 64."""
+    """K1: returns (res + attn_patches @ wo^T + bo, raw CLS attention
+    (B, 1, D)). wo (D, D) bf16 (out, in); bo f32. The kernel takes head_dim
+    64."""
     if not _build.use_kernel(qkv_patches, impl):
         return divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo,
                                             bo, num_heads, mode)
-    if mode not in _MODES:
-        raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
-    _build.require_same_device("K1", qkv_patches, qkv_cls, res_patches, wo, bo)
-    b, f, n, threed = qkv_patches.shape
-    d = threed // 3
-    dh = d // num_heads
+    b, f, n, d = check_split_qkv("K1", qkv_patches, qkv_cls, num_heads, mode,
+                                 res_patches, wo, bo)
     bf = torch.bfloat16
-    _build.require(all(t.dtype == bf and t.is_contiguous()
-                       for t in (qkv_patches, qkv_cls, res_patches, wo)),
-                   "K1 takes contiguous bf16 qkv, residual and wo")
-    _build.require(qkv_cls.shape == (b, 1, threed) and res_patches.shape == (b, f, n, d)
-                   and wo.shape == (d, d), "K1 shape mismatch")
+    _build.require(all(t.dtype == bf and t.is_contiguous() for t in (res_patches, wo)),
+                   "K1 takes a contiguous bf16 residual and wo")
+    _build.require(res_patches.shape == (b, f, n, d) and wo.shape == (d, d),
+                   "K1 shape mismatch")
     _build.require(bo.dtype == torch.float32 and bo.is_contiguous(), "K1 takes an f32 bo")
-    _build.require(dh == 64 and d == num_heads * dh and d % 64 == 0,
-                   "K1 takes head_dim 64")
-    _build.require(b <= 65535 and f <= 65535 and n <= 65535
-                   and b * f * n <= _build.MAX_GEMM_ROWS, "K1 shape out of range")
     scratch = torch.empty_like(res_patches)
     out_p = torch.empty_like(res_patches)
     out_c = torch.empty((b, 1, d), dtype=bf, device=qkv_patches.device)
@@ -102,6 +137,6 @@ def divided_attention_proj(qkv_patches, qkv_cls, res_patches, wo, bo,
     _build.launches["K1"] += 1
     _build.check(fn(qkv_patches.data_ptr(), qkv_cls.data_ptr(), res_patches.data_ptr(),
                     wo.data_ptr(), bo.data_ptr(), scratch.data_ptr(), out_p.data_ptr(),
-                    out_c.data_ptr(), b, f, n, num_heads, dh, _MODES[mode],
+                    out_c.data_ptr(), b, f, n, num_heads, 64, _MODES[mode],
                     _build.stream_ptr()), "K1 divided_attention_proj")
     return out_p, out_c

@@ -10,20 +10,26 @@ residual) bound it on the tensor cores; this first port passes the LN output
 and the (rows, 3072) fc1 activation through device memory, where the TPU
 kernel kept them in VMEM. The stats keep the JAX (..., 8) f32 layout
 [mean, meansq, 0 x 6] so that consumers and tests compare like with like.
+
+For training, ``impl='kernel'`` goes through ``LnMlpFn``: the forward is the
+kernel, the backward recomputes the plain version and differentiates it (the
+JAX custom_vjp, fused_rows.py:300-372).
 """
 from __future__ import annotations
 
 import torch
 
+from synchformer_tpu_torch.ops.autograd import plain_vjp
 from synchformer_tpu_torch.ops.kernels import _build
 from synchformer_tpu_torch.ops.numerics import (
     dense,
-    exact_gelu_f32,
+    exact_gelu,
     layer_norm,
     layer_norm_from_stats,
 )
 
-__all__ = ["fused_ln_mlp_residual", "ln_mlp_residual_plain", "layer_norm_from_stats"]
+__all__ = ["fused_ln_mlp_residual", "ln_mlp_residual_plain", "layer_norm_from_stats",
+           "LnMlpFn"]
 
 
 def row_stats(out: torch.Tensor) -> torch.Tensor:
@@ -40,7 +46,7 @@ def ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2, eps: float,
     exact-erf GELU."""
     dtype = x.dtype
     ln = layer_norm(x, g, b, eps, dtype)
-    h = exact_gelu_f32(dense(ln, w1, b1, dtype).float()).to(dtype)
+    h = exact_gelu(dense(ln, w1, b1, dtype))
     out = x + dense(h, w2, b2, dtype)
     return (out, row_stats(out)) if emit_stats else out
 
@@ -50,8 +56,33 @@ def fused_ln_mlp_residual(x, g, b, w1, b1, w2, b2, eps: float,
     """x + fc2(GELU(fc1(LN(x)))); with ``emit_stats`` also the (..., 8) f32
     row statistics of the output. Weights (out, in); LN params and biases f32.
     Tolerance of the kernel against the plain version on the card: bf16
-    rounding of the fc1 activation and the output (chip_smoke.py)."""
-    if not _build.use_kernel(x, impl):
+    rounding of the fc1 activation and the output (chip_smoke.py).
+    Differentiable on both routes."""
+    _build.use_kernel(x, impl)  # validates impl and device
+    if impl == "plain":
+        return ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2, eps, emit_stats)
+    return LnMlpFn.apply(x, g, b, w1, b1, w2, b2, eps, emit_stats)
+
+
+class LnMlpFn(torch.autograd.Function):
+    """K2 forward; backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, w1, b1, w2, b2, eps: float, emit_stats: bool):
+        ctx.save_for_backward(x, g, b, w1, b1, w2, b2)
+        ctx.eps, ctx.emit_stats = eps, emit_stats
+        return _ln_mlp(x, g, b, w1, b1, w2, b2, eps, emit_stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return plain_vjp(
+            lambda *a: ln_mlp_residual_plain(*a, ctx.eps, ctx.emit_stats),
+            ctx.saved_tensors, ctx.needs_input_grad[:7], grads) + (None, None)
+
+
+def _ln_mlp(x, g, b, w1, b1, w2, b2, eps: float, emit_stats: bool):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if not _build.use_kernel(x, "kernel"):
         return ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2, eps, emit_stats)
     _build.require_same_device("K2", x, g, b, w1, b1, w2, b2)
     d = x.shape[-1]

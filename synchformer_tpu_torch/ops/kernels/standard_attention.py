@@ -6,14 +6,18 @@ On the main path it serves the AST encoder's 12 layers at (112, 74, 2304).
 At 1.2 GFLOP per call it is bound by latency, not by the tensor cores: one
 block per (batch, head) holds that head's K/V in shared memory and each warp
 walks query rows; the ragged N=74 is handled by loop bounds, not padding.
+For training, ``impl='kernel'`` goes through ``StandardAttentionFn``: kernel
+forward, backward through the plain version (the JAX custom_vjp,
+standard_attention.py:102-119).
 """
 from __future__ import annotations
 
 import torch
 
+from synchformer_tpu_torch.ops.autograd import plain_vjp
 from synchformer_tpu_torch.ops.kernels import _build
 
-__all__ = ["standard_attention", "standard_attention_plain"]
+__all__ = ["standard_attention", "standard_attention_plain", "StandardAttentionFn"]
 
 
 def standard_attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -37,8 +41,31 @@ def standard_attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 def standard_attention(qkv: torch.Tensor, num_heads: int,
                        impl: str = "kernel") -> torch.Tensor:
     """(B, N, 3D) packed qkv -> (B, N, D), head-major. The kernel takes bf16,
-    head_dim 64."""
-    if not _build.use_kernel(qkv, impl):
+    head_dim 64. Differentiable on both routes."""
+    _build.use_kernel(qkv, impl)  # validates impl and device
+    if impl == "plain":
+        return standard_attention_plain(qkv, num_heads)
+    return StandardAttentionFn.apply(qkv, num_heads)
+
+
+class StandardAttentionFn(torch.autograd.Function):
+    """K3 forward; backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return _standard_attention(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_vjp(lambda q: standard_attention_plain(q, ctx.num_heads),
+                         ctx.saved_tensors, ctx.needs_input_grad[:1], (g,)) + (None,)
+
+
+def _standard_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if not _build.use_kernel(qkv, "kernel"):
         return standard_attention_plain(qkv, num_heads)
     b, n, threed = qkv.shape
     d = threed // 3

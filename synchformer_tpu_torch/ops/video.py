@@ -1,11 +1,18 @@
-"""Eval video front end: host-side patchify and the normalisation fold.
+"""Video front end.
 
-As synchformer_tpu/ops/video.py::patchify_frames and fold_video_normalize:
+Eval (synchformer_tpu/ops/video.py::patchify_frames, fold_video_normalize):
 frames arrive as uint8 patch-major tokens, and the affine x / 255 / 0.5 - 1 is
 folded into the patch-embed weights, so the 3-D patch conv becomes one dense
 matmul on raw bytes.
+
+Training (prepare_video_batch): the fold cannot apply to an embed that
+trains, so uint8 frames are normalised on the device in the compute dtype,
+with the per-clip horizontal flip, and then patchified there (patchify_frames
+takes torch tensors on any device).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,3 +49,20 @@ def patch_embed_matrix(weight: torch.Tensor) -> torch.Tensor:
     """Conv3d weight (D, C, z, p, p) -> Linear weight (D, z * p * p * C) in
     patchify_frames' (z, ph, pw, c) order."""
     return weight.permute(0, 2, 3, 4, 1).reshape(weight.shape[0], -1)
+
+
+def prepare_video_batch(video_u8: torch.Tensor, generator: Optional[torch.Generator] = None,
+                        train: bool = False, p_horizontal_flip: float = 0.5,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 (B, S, T, H, W, C) -> (x / 255 - 0.5) / 0.5 in ``dtype``
+    (synchformer_tpu/ops/video.py::prepare_video_batch without colour
+    jitter, whose probabilities are 0 in the Stage I configuration). With
+    ``train``, each clip (all of its segments) is flipped along W with
+    probability ``p_horizontal_flip``, one draw per clip from ``generator``."""
+    x = video_u8.to(dtype) / 255.0
+    if train:
+        if generator is None:
+            raise ValueError("the training flip needs a generator")
+        flip = torch.rand(x.shape[0], generator=generator, device=x.device) < p_horizontal_flip
+        x = torch.where(flip.reshape(-1, *(1,) * (x.ndim - 1)), x.flip(-2), x)
+    return (x - 0.5) / 0.5

@@ -1,0 +1,101 @@
+"""LR schedules and the optimizer of Stage I (synchformer_tpu/train/state.py).
+
+- ``make_lr_schedule``: 'const' and 'cosine' with the reference's warm-up
+  lr(s) = base * (s + 1) / warmup, a plain port of make_lr_schedule's optax
+  schedules (state.py:40-93), step by step.
+- ``make_adamw``: AdamW whose weight decay skips parameters with ndim < 2
+  (gains, biases, the 0-d logit scale), as adamw_no_decay_mask. torch's
+  AdamW decays p by lr * wd * p and steps by lr * m^ / (sqrt(v^) + eps), the
+  update optax.adamw makes.
+- ``clip_grads_by_global_norm_``: optax.clip_by_global_norm, g * max / max(norm,
+  max), not clip_grad_norm_'s max / (norm + 1e-6).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Iterable, Optional, Sequence
+
+import torch
+
+Schedule = Callable[[int], float]
+
+
+def _ref_warmup(base_lr: float, warmup_steps: int) -> Schedule:
+    """optax.linear_schedule(base / warmup, base, max(warmup - 1, 1))."""
+    init, span = base_lr / warmup_steps, max(warmup_steps - 1, 1)
+
+    def lr(step: int) -> float:
+        frac = min(max(step, 0), span) / span
+        return init + (base_lr - init) * frac
+
+    return lr
+
+
+def _cosine(base_lr: float, decay_steps: int) -> Schedule:
+    """optax.cosine_decay_schedule(base, decay_steps) with alpha 0."""
+
+    def lr(step: int) -> float:
+        frac = min(max(step, 0), decay_steps) / decay_steps
+        return base_lr * 0.5 * (1.0 + math.cos(math.pi * frac))
+
+    return lr
+
+
+def _join(first: Schedule, second: Schedule, boundary: int) -> Schedule:
+    """optax.join_schedules: the second schedule restarts its count at the
+    boundary."""
+    return lambda step: first(step) if step < boundary else second(step - boundary)
+
+
+def make_lr_schedule(name: str, base_lr: float, warmup_steps: int = 0,
+                     total_steps: Optional[int] = None) -> Schedule:
+    """Stage I's schedules, step -> lr: 'const' (warm-up, then flat) and
+    'cosine' (warm-up, then cosine decay to 0 over the remaining steps)."""
+    if name == "const":
+        if warmup_steps <= 0:
+            return lambda step: base_lr
+        return _join(_ref_warmup(base_lr, warmup_steps), lambda step: base_lr, warmup_steps)
+    if name == "cosine":
+        if total_steps is None:
+            raise ValueError("the cosine schedule needs total_steps")
+        cos = _cosine(base_lr, max(total_steps - warmup_steps, 1))
+        if warmup_steps <= 0:
+            return cos
+        return _join(_ref_warmup(base_lr, warmup_steps), cos, warmup_steps)
+    raise ValueError(f"unknown lr schedule {name!r}")
+
+
+def make_adamw(named_params: Iterable, weight_decay: float,
+               betas=(0.9, 0.999), eps: float = 1e-8) -> torch.optim.AdamW:
+    """AdamW over two groups: ndim >= 2 decayed, the rest not. The learning
+    rate is set per step by the caller (``set_lr``)."""
+    decay, no_decay = [], []
+    for _, p in named_params:
+        if p.requires_grad:
+            (decay if p.ndim >= 2 else no_decay).append(p)
+    return torch.optim.AdamW([{"params": decay, "weight_decay": weight_decay},
+                              {"params": no_decay, "weight_decay": 0.0}],
+                             lr=0.0, betas=betas, eps=eps)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+@torch.no_grad()
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt(sum of squares) over every gradient, in f32 (optax.global_norm)."""
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+
+
+@torch.no_grad()
+def clip_grads_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Scale the gradients in place by max_norm / max(norm, max_norm);
+    returns the norm before clipping."""
+    norm = global_norm(grads)
+    factor = max_norm / torch.clamp(norm, min=max_norm)
+    for g in grads:
+        g.mul_(factor.to(g.dtype))
+    return norm

@@ -1,0 +1,81 @@
+"""The Stage I train and eval steps of AVCLIP (synchformer_tpu/train/step.py::
+make_avclip_train_step, make_avclip_eval_step) and the zero-shot probe
+(synchformer_tpu/train/stage_clip.py::shifted_window_predictions,
+zero_shot_precision).
+
+One train step: forward with the towers in training mode (drop-path live,
+K5 for every divided attention), the contrastive loss, backward (K6 for every
+K5 call, the plain compositions for K2, K3 and K4, autograd for the rest),
+global-norm clipping, AdamW at the schedule's rate for this step, then the
+logit scale clamped in place. The eval step runs the towers deterministically,
+so they take the sync-inference kernels K1-K4.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from synchformer_tpu_torch.models.avclip import AVCLIP
+from synchformer_tpu_torch.train.state import Schedule, clip_grads_by_global_norm_, set_lr
+
+
+def avclip_train_step(model: AVCLIP, optimizer: torch.optim.Optimizer, schedule: Schedule,
+                      step: int, vis: torch.Tensor, aud: torch.Tensor,
+                      generator: torch.Generator, impl: str = "kernel",
+                      max_clip_norm: float = 1.0) -> Dict[str, torch.Tensor]:
+    """One update of every parameter of ``model`` from normalised patch-major
+    frames ``vis`` (B, S, f, n, z*p*p*c) and log-mel ``aud`` (B, S, T, F), both
+    in the compute dtype. ``step`` is the update's index (0 first), the
+    schedule's argument. Returns loss, grad_norm (before clipping),
+    logit_scale (after the clamp) and loss_finite, as device tensors."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    optimizer.zero_grad(set_to_none=True)
+    loss, _, _ = model(vis, aud, impl, deterministic=False, generator=generator)
+    loss.backward()
+    for p in params:  # as optax, an unused parameter gets a zero gradient (and decays)
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    grad_norm = clip_grads_by_global_norm_(grads, max_clip_norm)
+    set_lr(optimizer, schedule(step))
+    optimizer.step()
+    with torch.no_grad():
+        model.logit_scale.clamp_(model.clamp_scale_min, model.clamp_scale_max)
+    return {"loss": loss.detach(), "grad_norm": grad_norm,
+            "logit_scale": model.logit_scale.detach().clone(),
+            "loss_finite": torch.isfinite(loss.detach())}
+
+
+def shifted_window_predictions(afeat: torch.Tensor, vfeat: torch.Tensor, window: int):
+    """Windows of ``window`` segments slid over S; for each audio window the
+    most similar video window and vice versa. (B, S, D) each -> two
+    (B, S - window + 1) index tensors."""
+    b, s, d = afeat.shape
+    n_shifts = s - window + 1
+    idx = (torch.arange(n_shifts)[:, None] + torch.arange(window)[None, :]).to(afeat.device)
+    a_folds = afeat[:, idx].reshape(b, n_shifts, window * d)
+    v_folds = vfeat[:, idx].reshape(b, n_shifts, window * d)
+    sim = torch.einsum("bnd,bmd->bnm", a_folds, v_folds)
+    return sim.argmax(dim=-2), sim.argmax(dim=-1)
+
+
+def zero_shot_precision(afeat: torch.Tensor, vfeat: torch.Tensor, window: int) -> torch.Tensor:
+    """Fraction of windows matched to the in-sync (diagonal) shift, averaged
+    over both directions."""
+    preds_a, preds_v = shifted_window_predictions(afeat, vfeat, window)
+    gt = torch.arange(preds_a.shape[1], device=preds_a.device)[None]
+    return ((preds_a == gt).float().mean() + (preds_v == gt).float().mean()) / 2.0
+
+
+@torch.no_grad()
+def avclip_eval_step(model: AVCLIP, vis: torch.Tensor, aud: torch.Tensor, window: int,
+                     impl: str = "kernel") -> Dict[str, torch.Tensor]:
+    """Deterministic forward: the contrastive loss, the zero-shot precision
+    over windows of ``window`` segments, and the f32 (B, S, D) features."""
+    b = vis.shape[0]
+    loss, vfeat, afeat = model(vis, aud, impl, deterministic=True)
+    vfeat = vfeat.reshape(b, -1, vfeat.shape[-1]).float()
+    afeat = afeat.reshape(b, -1, afeat.shape[-1]).float()
+    return {"loss": loss, "precision": zero_shot_precision(afeat, vfeat, window),
+            "afeat": afeat, "vfeat": vfeat}

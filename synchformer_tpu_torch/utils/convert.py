@@ -1,7 +1,8 @@
 """Weights: the JAX package's parameter tree -> the port's state dict, and a
 seeded initialiser in the port's own layout.
 
-``state_dict_from_jax`` is the inverse of synchformer_tpu/utils/checkpoint.py::
+``state_dict_from_jax`` (Synchformer) and ``avclip_state_dict_from_jax``
+(Stage I AVCLIP) are the inverse of synchformer_tpu/utils/checkpoint.py::
 convert_sync_checkpoint: Dense (in, out) -> Linear (out, in); fused [q|k|v]
 columns -> the reference's separate q/k/v rows (AST, sync transformer) or its
 packed in_proj / qkv rows (aggregators, Motionformer); Conv (*K, I, O) ->
@@ -153,6 +154,16 @@ def state_dict_from_jax(params: Mapping) -> SD:
             **global_transformer_sd(p["sync_transformer"], "transformer.")}
 
 
+def avclip_state_dict_from_jax(params: Mapping) -> SD:
+    """AVCLIP params tree -> the port's AVCLIP state dict: both towers (their
+    AveragePooling time tails and the DoNothing bridges hold no parameters)
+    and the 0-d ``logit_scale``."""
+    p = params.get("params", params)
+    return {**motionformer_sd(p["v_encoder"], "vfeat_extractor."),
+            **ast_sd(p["a_encoder"], "afeat_extractor."),
+            "logit_scale": _a(p["logit_scale"])}
+
+
 @torch.no_grad()
 def load_numpy_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
     """Copy numpy arrays into the model's parameters (strict: every name on
@@ -166,12 +177,13 @@ def load_numpy_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray]) 
         p = params[name]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+        p.copy_(torch.from_numpy(np.array(arr, np.float32)).reshape(p.shape))
 
 
 def seeded_state_dict(model: torch.nn.Module, seed: int) -> SD:
     """Random weights in the port's layout from a numpy seed: LayerNorm
-    weight 1 and bias 0; every other parameter normal with std 0.02."""
+    weight 1 and bias 0; an AVCLIP's ``logit_scale`` its ``init_scale``;
+    every other parameter normal with std 0.02."""
     rng = np.random.default_rng(seed)
     ln_params = set()
     for mname, mod in model.named_modules():
@@ -182,6 +194,8 @@ def seeded_state_dict(model: torch.nn.Module, seed: int) -> SD:
         if name in ln_params:
             fill = 1.0 if name.endswith("weight") else 0.0
             sd[name] = np.full(tuple(p.shape), fill, np.float32)
+        elif name == "logit_scale":
+            sd[name] = np.full(tuple(p.shape), model.init_scale, np.float32)
         else:
             sd[name] = rng.standard_normal(tuple(p.shape), dtype=np.float32) * np.float32(0.02)
     return sd
