@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths once on one NVIDIA GPU: sync inference
-and the Stage I contrastive training step.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: sync inference,
+the Stage I contrastive training step, and the same step with an 8-head video
+tower, which runs the Motionformer's packed flow.
 
     python3 chip_smoke.py
 
@@ -8,15 +9,21 @@ Phases, each printed as it runs with its seconds:
 1. device and build: torch / CUDA versions, the card's name and power limit,
    the seconds nvcc took for the kernels (built into build/torch_kernels/).
 2. per kernel at its main path's shapes in bf16 (K1-K4 at sync inference's,
-   K5 and K6, the divided attention's forward and backward, at Stage I's):
+   K5 and K6, the divided attention's forward and backward, at Stage I's;
+   K7a and K7c, the packed layout's forward and backward, at the 8-head
+   Stage I step's (28, 1569, 2304), 8 heads of 96, and K7c also at the
+   packed block's 12 heads of 64, checked but not reported; K7b, the packed
+   forward at groupable heads, at (28, 1569, 2304), 12 heads of 64):
    the kernel against its plain PyTorch version (for K6 the autograd gradient
    of K5's plain version, for seeded random cotangents), both held against a
    plain f32 anchor on the same inputs. Tolerance for each output: kernel
    error <= 2 x plain-bf16 error + eps, with eps = 1e-2 x max|anchor| (bf16
    keeps 8 bits; the two sides round at other places). Each kernel and its
-   plain version are timed with CUDA events; K3 also against
-   torch.nn.functional.scaled_dot_product_attention on views of the same
-   packed QKV (a yardstick only: the port never calls it).
+   plain version are timed with CUDA events; K3, K7a and K7b also against
+   one torch.nn.functional.scaled_dot_product_attention call on views of the
+   same packed QKV (for K7a/K7b with a boolean mask of the divided
+   attention's pattern), held to the kernel's tolerance (a yardstick only:
+   the port never calls it).
 3. the full-width inference slice: Synchformer S=14 (ViT-B towers of 12
    layers, D=768, 3-layer GlobalTransformer), B=8, seeded weights, through
    SyncPredictor(impl='kernel') and (impl='plain') in bf16, both against an
@@ -35,10 +42,23 @@ Phases, each printed as it runs with its seconds:
    blocks' qkv weights by their q, k and v rows, the qkv biases, the video
    CLS token: 97 leaves), and 1 - the cosine
    of the whole gradient (stage1_agreement; scripts/stage1_planted_faults.py
-   shows that it fails a wrong K5 or K6); every loss finite, the logit
+   shows that it fails a wrong K5, K6, K7a or K7c); every loss finite, the logit
    scale clamped. Then 3 timed steps per bf16 path after the first
    (host clock around synchronised steps), the peak memory of each, and one
    eval step (the K1-K4 route) with its zero-shot precision.
+5. one packed DividedSpaceTimeBlock at 12 heads of 64 on (28, 1569, 768), the
+   path of K7b: forward and backward through forward_packed (drop-path 0, so
+   its MLP is K2) in bf16 kernel, bf16 plain and f32 plain; counters read
+   exactly K7b 2, K7c 2, K2 1; against f32 (packed_block_agreement), the
+   output and dx within 2 x plain-bf16 error + 1% of max|f32|, the time and
+   space qkv weights' gradients by their q, k and v rows within 2 x plain's
+   relative L2 error (scripts/stage1_planted_faults.py shows that it fails a
+   zero dk from K7c and a mode-swapped K7b).
+6. the Stage I step of phase 4 with the 8-head video tower
+   (build_avclip_8head: 8 heads of 96, the packed flow): the same three runs,
+   counters exactly K7a 24, K7c 24, K2 13, K3 12, K4 2 and K1, K5, K6, K7b 0,
+   stage1_agreement over the 97 leaves K7a / K7c feed, timing and peak
+   memory, and an eval step reading K7a 24, K2 24, K3 12, K4 2.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
 non-zero and no result line is printed.
@@ -55,7 +75,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-KEYS = ("K1", "K2", "K3", "K4", "K5", "K6")
+KEYS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7a", "K7b", "K7c")
 REPLACES = {
     "K1": "synchformer_tpu/ops/pallas/divided_attention.py:478",
     "K2": "synchformer_tpu/ops/pallas/fused_rows.py:188",
@@ -63,6 +83,9 @@ REPLACES = {
     "K4": "synchformer_tpu/ops/pallas/cls_pool.py:181",
     "K5": "synchformer_tpu/ops/pallas/divided_attention.py:524",
     "K6": "synchformer_tpu/ops/pallas/divided_attention_bwd.py:469",
+    "K7a": "synchformer_tpu/ops/pallas/divided_attention.py:599",
+    "K7b": "synchformer_tpu/ops/pallas/divided_attention.py:569",
+    "K7c": "synchformer_tpu/ops/pallas/divided_attention_bwd.py:211",
 }
 SOURCES = {
     "K1": "synchformer_tpu_torch/csrc/divided_attention.cu",
@@ -71,6 +94,9 @@ SOURCES = {
     "K4": "synchformer_tpu_torch/csrc/cls_pool.cu",
     "K5": "synchformer_tpu_torch/csrc/divided_attention.cu",
     "K6": "synchformer_tpu_torch/csrc/divided_attention_bwd.cu",
+    "K7a": "synchformer_tpu_torch/csrc/divided_attention.cu",
+    "K7b": "synchformer_tpu_torch/csrc/divided_attention.cu",
+    "K7c": "synchformer_tpu_torch/csrc/divided_attention_bwd.cu",
 }
 NAMES = {
     "K1": "divided_attention_proj",
@@ -79,23 +105,43 @@ NAMES = {
     "K4": "fused_cls_pool_tokens",
     "K5": "divided_attention",
     "K6": "divided_attention_bwd",
+    "K7a": "divided_attention_packed",
+    "K7b": "divided_attention_packed_groupable",
+    "K7c": "divided_attention_packed_bwd",
 }
 # the path whose run gives each kernel's launches (and whose shapes it is timed at)
 PATHS = {"K1": "sync_inference", "K2": "sync_inference", "K3": "sync_inference",
-         "K4": "sync_inference", "K5": "stage1_train", "K6": "stage1_train"}
+         "K4": "sync_inference", "K5": "stage1_train", "K6": "stage1_train",
+         "K7a": "stage1_train_8head", "K7b": "packed_block_12x64",
+         "K7c": "stage1_train_8head"}
 MIN_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 2}
 # one Stage I step: 12 blocks x (time + space) divided attentions; the AST's
 # 12 layers; K2 on the AST's 12 layers and on video block 0, the one block
 # whose drop-path rate (linspace(0, 0.2, 12)[0]) is 0; both aggregators
-STAGE1_LAUNCHES = {"K1": 0, "K2": 13, "K3": 12, "K4": 2, "K5": 24, "K6": 24}
-# the gradient leaves that K5 / K6 feed directly (step_gradients)
+STAGE1_LAUNCHES = {"K1": 0, "K2": 13, "K3": 12, "K4": 2, "K5": 24, "K6": 24, "K7a": 0,
+                   "K7b": 0, "K7c": 0}
+# its eval step: the split flow's K1 pair and K2 in every video block
+STAGE1_EVAL_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 2}
+# the same step with the 8-head video tower: the packed flow, K7a / K7c in
+# place of K5 / K6
+STAGE1_8HEAD_LAUNCHES = {"K1": 0, "K2": 13, "K3": 12, "K4": 2, "K5": 0, "K6": 0, "K7a": 24,
+                         "K7b": 0, "K7c": 24}
+# its eval step: the packed K7a pair and K2 over the whole packed x per block
+STAGE1_8HEAD_EVAL_LAUNCHES = {"K1": 0, "K2": 24, "K3": 12, "K4": 2, "K7a": 24, "K7c": 0}
+# one packed block at 12 heads of 64, forward and backward, drop-path 0
+PACKED_BLOCK_LAUNCHES = {"K2": 1, "K7a": 0, "K7b": 2, "K7c": 2}
+# the gradient leaves that the divided attention's backward (K6, or K7c in
+# the packed flow) feeds directly (step_gradients)
 STAGE1_LEAVES = re.compile(
     r"vfeat_extractor\.(cls_token|blocks\.\d+\.(attn|timeattn)\.qkv\.(weight|bias))")
+PAIRED = ("K1", "K5", "K6", "K7a", "K7b", "K7c")  # timed as a (space + time) pair
 MAX_CLIP = 1.0  # Stage I's max_clip_norm
 B, S = 8, 14
 B1 = 2  # Stage I's base_batch_size
 D, H, DH = 768, 12, 64
+H8, DH8 = 8, 96  # the 8-head video tower's heads
 F_T, N_P = 8, 196  # frames after the 3-D patch embed, patches per frame
+SEQ = 1 + F_T * N_P  # the packed layout's tokens per segment
 FRAMES = (16, 224, 224, 3)  # raw frames of a segment: T, H, W, C
 # the NVIDIA H100 SXM's published peaks: HBM bytes/s, dense bf16 tensor FLOP/s
 HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
@@ -141,32 +187,48 @@ def bound(nbytes: float, flops: float):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def attention_flops(b: int, mode: str, matmuls: int) -> float:
+def attention_flops(b: int, mode: str, matmuls: int, h: int = H, dh: int = DH) -> float:
     """Divided attention over b segments: per head, every group's L queries
     against its L + 1 keys and the CLS query against 1 + f*n keys, ``matmuls``
     (L x (L+1) x dh) products of 2 FLOPs a MAC (2 forward, 5 backward)."""
     groups, length = (F_T, N_P) if mode == "space" else (N_P, F_T)
     per_head = groups * length * (length + 1) + F_T * N_P + 1
-    return 2.0 * matmuls * b * H * per_head * DH
+    return 2.0 * matmuls * b * h * per_head * dh
 
 
 def gib(n_bytes: float) -> str:
     return f"{n_bytes / 2 ** 30:.2f} GiB"
 
 
+def packed_mask(torch, dev, mode: str):
+    """The packed divided attention as a boolean (1 + f*n)^2 mask, True where
+    a query sees a key: the CLS query sees every key, a patch the CLS and the
+    patches of its frame (space) or of its spatial position (time)."""
+    idx = torch.arange(F_T * N_P, device=dev)
+    group = idx // N_P if mode == "space" else idx % N_P
+    mask = torch.ones(SEQ, SEQ, dtype=torch.bool, device=dev)
+    mask[1:, 1:] = group[:, None] == group[None, :]
+    return mask
+
+
 def kernel_cases(torch, dev):
     """(key, label, kernel fn, plain fn on given dtype, (bytes, FLOPs), library
-    fn or None) at main-path shapes."""
+    fn or None) at main-path shapes. A library fn returns (B, heads, L, dh);
+    a key with a suffix ('K7c 12x64') is another shape of its kernel, checked
+    and logged but not reported."""
     import torch.nn.functional as F
 
     from synchformer_tpu_torch.ops.kernels.cls_pool import fused_cls_pool_tokens
     from synchformer_tpu_torch.ops.kernels.divided_attention import (
         divided_attention,
+        divided_attention_packed,
         divided_attention_proj,
     )
     from synchformer_tpu_torch.ops.kernels.divided_attention_bwd import (
         divided_attention_bwd,
         divided_attention_bwd_plain,
+        divided_attention_packed_bwd,
+        divided_attention_packed_bwd_plain,
     )
     from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_mlp_residual
     from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
@@ -262,6 +324,33 @@ def kernel_cases(torch, dev):
                       lambda dt, m=mode: divided_attention_bwd_plain(
                           *cast([qkv_p1, qkv_c1, dop, doc], dt), h, m),
                       (7 * act1 + 2 * bs1 * 7 * d * 2, attention_flops(bs1, mode, 5)), None))
+    # K7a / K7c at the 8-head Stage I step's packed qkv, K7b at 12 heads of 64;
+    # the library yardstick: one masked scaled_dot_product_attention over the
+    # whole packed sequence (mask built outside the timed call)
+    qkv7, do7 = rn(bs1, SEQ, 3 * d), rn(bs1, SEQ, d)
+    act7 = bs1 * SEQ * d * 2
+    masks = {mode: packed_mask(torch, dev, mode) for mode in ("space", "time")}
+    for key, heads, dh in (("K7a", H8, DH8), ("K7b", h, DH)):
+        q7, k7, v7 = (qkv7.view(bs1, SEQ, 3, heads, dh)[:, :, i].transpose(1, 2)
+                      for i in range(3))
+        for mode in ("space", "time"):
+            cases.append((key, f"{key} {mode} ({bs1},{SEQ},2304) {heads}x{dh}",
+                          lambda m=mode, hh=heads: divided_attention_packed(qkv7, hh, F_T, m),
+                          lambda dt, m=mode, hh=heads: divided_attention_packed(
+                              qkv7.to(dt), hh, F_T, m, impl="plain"),
+                          (4 * act7, attention_flops(bs1, mode, 2, heads, dh)),
+                          lambda m=mode, q=q7, k=k7, v=v7: F.scaled_dot_product_attention(
+                              q, k, v, attn_mask=masks[m])))
+    # K7c at the 8-head step's heads (reported) and at the packed block's 12
+    # heads of 64 (checked and logged only)
+    for key, heads, dh in (("K7c", H8, DH8), (f"K7c {h}x{DH}", h, DH)):
+        for mode in ("space", "time"):
+            cases.append((key, f"K7c {mode} ({bs1},{SEQ},2304) {heads}x{dh}",
+                          lambda m=mode, hh=heads: divided_attention_packed_bwd(
+                              qkv7, do7, hh, F_T, m),
+                          lambda dt, m=mode, hh=heads: divided_attention_packed_bwd_plain(
+                              qkv7.to(dt), do7.to(dt), hh, F_T, m),
+                          (7 * act7, attention_flops(bs1, mode, 5, heads, dh)), None))
     return cases
 
 
@@ -271,7 +360,7 @@ def check_kernels(torch, dev, report):
         torch.cuda.synchronize()
         k_out, p_out, a_out = (t if isinstance(t, tuple) else (t,)
                                for t in (k_out, p_out, a_out))
-        worst = 0.0
+        worst, tol0 = 0.0, 0.0
         for i, (k, p, a) in enumerate(zip(k_out, p_out, a_out)):
             if k.shape != a.shape or not bool(torch.isfinite(k.float()).all()):
                 fail(f"{label} output {i}: shape {tuple(k.shape)} or non-finite values")
@@ -281,11 +370,23 @@ def check_kernels(torch, dev, report):
             kp = maxabs(k, p)
             worst = max(worst, kp)
             ok = err_k <= 2.0 * err_p + eps
+            if i == 0:
+                tol0 = 2.0 * err_p + eps
             log(f"[kernels] {label} out{i}: |kernel-f32| {err_k:.3e} (rel {rel:.2e}) "
                 f"|plain_bf16-f32| {err_p:.3e} |kernel-plain| {kp:.3e} "
                 f"tol {2.0 * err_p + eps:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{label} output {i} outside tolerance")
+        if library is not None:
+            # the yardstick must compute the same function: held to output 0's
+            # tolerance against the f32 anchor
+            lib_out = library().transpose(1, 2).flatten(2)
+            err_l = maxabs(lib_out, a_out[0])
+            log(f"[kernels] {label} library: |library-f32| {err_l:.3e} tol {tol0:.3e} "
+                f"{'ok' if err_l <= tol0 else 'FAIL'}")
+            if err_l > tol0:
+                fail(f"{label}: the library yardstick computes another function")
+            del lib_out
         del k_out, p_out, a_out
         ms = cuda_time_ms(kern)
         plain_ms = cuda_time_ms(lambda: plain(torch.bfloat16))
@@ -294,18 +395,20 @@ def check_kernels(torch, dev, report):
         log(f"[timing] {label}: kernel {ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, "
             f"library {'-' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
             f"{bound_ms:.4f} ms ({bound_by}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.2f} GFLOP)")
-        r = report.setdefault(key, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                    "bound_s": [0.0, 0.0], "library_ms": None})
+        if key not in report:  # another shape of a kernel: checked and logged only
+            continue
+        r = report[key]
         r["max_abs_err"] = max(r["max_abs_err"], worst)
-        # the main paths call K1, K5 and K6 in both modes per block: report
-        # the pair; the other kernels report their tower shape (the first
-        # case listed)
-        if key in ("K1", "K5", "K6") or "ms_set" not in r:
+        # the main paths call the divided attentions in both modes per block:
+        # report the pair; the other kernels report their tower shape (the
+        # first case listed)
+        if key in PAIRED or "ms_set" not in r:
             r["ms"] += ms
             r["plain_ms"] += plain_ms
             r["bound_s"][0] += cost[0] / HBM_BPS
             r["bound_s"][1] += cost[1] / BF16_FLOPS
-            r["library_ms"] = lib_ms
+            if lib_ms is not None:
+                r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
             r["ms_set"] = True
 
 
@@ -442,7 +545,7 @@ def step_gradients(torch, tr, m) -> dict:
             "leaves": leaves}
 
 
-def stage1_agreement(ref: dict, plain: dict, kern: dict) -> list:
+def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1") -> list:
     """Hold the kernel path's first step against the f32 run, each check at
     2 x the plain bf16 path's error (the two bf16 paths round at other places
     only inside the kernels). Arguments are step_gradients' records; returns
@@ -467,7 +570,7 @@ def stage1_agreement(ref: dict, plain: dict, kern: dict) -> list:
         r = ref["metrics"][key]
         err_k, err_p = abs(kern["metrics"][key] - r), abs(plain["metrics"][key] - r)
         ok, tol = check(key, err_k, err_p, rel_eps * abs(r))
-        log(f"[stage1] {key}: |kernel-f32| {err_k:.3e}, |plain_bf16-f32| {err_p:.3e}, "
+        log(f"[{tag}] {key}: |kernel-f32| {err_k:.3e}, |plain_bf16-f32| {err_p:.3e}, "
             f"tol {tol:.3e} {'ok' if ok else 'FAIL'}")
 
     def rel(a, b):
@@ -479,7 +582,7 @@ def stage1_agreement(ref: dict, plain: dict, kern: dict) -> list:
         ok, _ = check(name, err_k, err_p, 0.0)
         bad += not ok
         worst = max(worst, (err_k / max(err_p, 1e-30), f"{name} {err_k:.3e} vs {err_p:.3e}"))
-    log(f"[stage1] {len(ref['leaves'])} K5/K6-fed gradient leaves, relative L2 error to "
+    log(f"[{tag}] {len(ref['leaves'])} attention-fed gradient leaves, relative L2 error to "
         f"f32 within 2 x plain bf16's: {len(ref['leaves']) - bad} ok, {bad} FAIL; worst "
         f"ratio {worst[0]:.3f} ({worst[1]})")
 
@@ -490,24 +593,32 @@ def stage1_agreement(ref: dict, plain: dict, kern: dict) -> list:
     err_k, err_p = one_minus_cos(kern["flat"], ref["flat"]), one_minus_cos(plain["flat"],
                                                                            ref["flat"])
     ok, tol = check("cosine", err_k, err_p, 0.0)
-    log(f"[stage1] gradient 1 - cosine to f32: kernel {err_k:.3e}, plain bf16 {err_p:.3e}, "
+    log(f"[{tag}] gradient 1 - cosine to f32: kernel {err_k:.3e}, plain bf16 {err_p:.3e}, "
         f"tol {tol:.3e} {'ok' if ok else 'FAIL'}")
     return failed
 
 
-def run_stage1(torch, dev, report):
+def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
+               eval_launches=STAGE1_EVAL_LAUNCHES, tag="stage1", path="stage1_train"):
+    """The Stage I step of ``build`` (default build_avclip) through
+    AVCLIPTrainer: (c) f32 plain with remat, (a) bf16 kernel, (b) bf16 plain;
+    exact launch counts of (a)'s first step (reported for the kernels whose
+    PATHS entry is ``path``) and of an eval step, agreement, then timing
+    windows of 3 steps (plain, kernel, kernel, plain) and the peak memory of
+    each bf16 path's first step."""
     from synchformer_tpu_torch.models.presets import build_avclip
     from synchformer_tpu_torch.ops.kernels import _build
     from synchformer_tpu_torch.utils.convert import seeded_state_dict
 
+    build = build or build_avclip
     t0 = time.perf_counter()
-    sd = seeded_state_dict(build_avclip(device="meta"), seed=0)
+    sd = seeded_state_dict(build(device="meta"), seed=0)
     batch = stage1_batch(torch, B1, S)
-    log(f"[stage1] weights + batch {time.perf_counter() - t0:.1f} s; video "
+    log(f"[{tag}] {build.__name__}: weights + batch {time.perf_counter() - t0:.1f} s; video "
         f"{tuple(batch['video'].shape)} uint8, audio {tuple(batch['audio'].shape)}")
 
     def trainer(precision, impl, remat=False):
-        return stage1_trainer(build_avclip, sd, dev, precision, impl, remat)
+        return stage1_trainer(build, sd, dev, precision, impl, remat)
 
     def first_step(tr, what, resident=0):
         """step_gradients' record of the first step, and its peak memory above
@@ -520,10 +631,19 @@ def run_stage1(torch, dev, report):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         peak = torch.cuda.max_memory_allocated() - resident
-        log(f"[stage1] {what} first step: loss {m['loss']:.6f}, grad_norm "
+        log(f"[{tag}] {what} first step: loss {m['loss']:.6f}, grad_norm "
             f"{m['grad_norm']:.6f}, logit_scale {m['logit_scale']:.6f}, {secs:.2f} s, "
             f"peak memory {gib(peak)}")
         return step_gradients(torch, tr, m), peak
+
+    def exact_counts(what, want):
+        counts = dict(_build.launches)
+        log(f"[{tag}] launches in {what}: {counts}")
+        for key, need in want.items():
+            if counts.get(key, 0) != need:
+                fail(f"{tag}: {key} launched {counts.get(key, 0)} times in {what}, "
+                     f"expected {need}")
+        return counts
 
     t0 = time.perf_counter()
     tr = trainer("fp32", "plain", remat=True)
@@ -531,24 +651,21 @@ def run_stage1(torch, dev, report):
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[stage1] (c) {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] (c) {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     resident = torch.cuda.memory_allocated()
     trainers = {"kernel": trainer("amp", "kernel")}
     _build.launches.clear()
     kern, k_peak = first_step(trainers["kernel"], "(a) bf16 kernel", resident)
-    counts = dict(_build.launches)
-    log(f"[stage1] launches in one kernel-path step: {counts}")
-    for key, need in STAGE1_LAUNCHES.items():
-        if counts.get(key, 0) != need:
-            fail(f"Stage I: {key} launched {counts.get(key, 0)} times, expected {need}")
-    for key in ("K5", "K6"):
-        report[key]["launches"] = counts.get(key, 0)
+    counts = exact_counts("one kernel-path step", launches)
+    for key in KEYS:
+        if PATHS[key] == path:
+            report[key]["launches"] = counts[key]
     resident = torch.cuda.memory_allocated()
     trainers["plain"] = trainer("amp", "plain")
     plain, p_peak = first_step(trainers["plain"], "(b) bf16 plain", resident)
-    log(f"[stage1] (a) and (b) first steps {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] (a) and (b) first steps {time.perf_counter() - t0:.1f} s")
 
     # 3 steps per window, in the order plain, kernel, kernel, plain
     times = {"plain": [], "kernel": []}
@@ -562,22 +679,120 @@ def run_stage1(torch, dev, report):
 
     _build.launches.clear()
     out = trainers["kernel"].eval_step(batch)
-    eval_counts = dict(_build.launches)
+    torch.cuda.synchronize()
+    exact_counts("one eval step", eval_launches)
     if (out["vfeat"].shape != (B1, S, D) or not bool(torch.isfinite(out["loss"]))
             or not bool(torch.isfinite(out["vfeat"]).all())):
-        fail("Stage I eval step: features of the wrong shape or non-finite")
-    log(f"[stage1] eval step (launches {eval_counts}): loss {out['loss'].item():.6f}, "
-        f"zero-shot precision {out['precision'].item():.4f} (window 8 of {S} segments)")
+        fail(f"{tag} eval step: features of the wrong shape or non-finite")
+    log(f"[{tag}] eval step: loss {out['loss'].item():.6f}, zero-shot precision "
+        f"{out['precision'].item():.4f} (window 8 of {S} segments)")
     del trainers, out
 
-    failed = stage1_agreement(ref, plain, kern)
+    failed = stage1_agreement(ref, plain, kern, tag)
     if failed:
-        fail(f"Stage I kernel-path first step outside tolerance: {failed}")
+        fail(f"{tag}: kernel-path first step outside tolerance: {failed}")
     for what, peak in (("kernel", k_peak), ("plain", p_peak)):
         best = min(times[what]) * 1e3
-        log(f"[timing] stage1 {what} path: {best:.1f} ms/step of {B1} clips x {S} segments "
+        log(f"[timing] {tag} {what} path: {best:.1f} ms/step of {B1} clips x {S} segments "
             f"= {B1 * 1e3 / best:.3f} samples/s (runs "
             f"{[round(t * 1e3, 1) for t in times[what]]} ms); peak memory {gib(peak)}")
+
+
+def run_stage1_8head(torch, dev, report):
+    from synchformer_tpu_torch.models.presets import build_avclip_8head
+
+    run_stage1(torch, dev, report, build_avclip_8head, STAGE1_8HEAD_LAUNCHES,
+               STAGE1_8HEAD_EVAL_LAUNCHES, "stage1_8head", "stage1_train_8head")
+
+
+def packed_block(torch, dev, b: int = B1 * S, d: int = D, h: int = H, f: int = F_T,
+                 n: int = N_P):
+    """(block, x, cotangent, f): a DividedSpaceTimeBlock of width d at h
+    heads with seeded weights (LN scales 1 + 0.1 N(0,1), the rest 0.02
+    N(0,1)), and a seeded f32 input (b, 1 + f*n, d) and output cotangent."""
+    from synchformer_tpu_torch.models.motionformer import DividedSpaceTimeBlock
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    blk = DividedSpaceTimeBlock(d, h, device=dev)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if name.startswith("norm"):
+                p.copy_((1.0 if name.endswith("weight") else 0.0)
+                        + 0.1 * torch.randn(p.shape, generator=g, device=dev))
+            else:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g, device=dev))
+    x0 = torch.randn(b, 1 + f * n, d, generator=g, device=dev)
+    cot = torch.randn(b, 1 + f * n, d, generator=g, device=dev)
+    return blk, x0, cot, f
+
+
+def packed_block_grads(torch, setup, dtype, impl: str) -> dict:
+    """One forward and backward of packed_block's block through forward_packed
+    (training, drop-path 0: its MLP is K2) in ``dtype`` on route ``impl``:
+    the output y, dx, and the time and space qkv weights' gradients by their
+    q, k and v rows."""
+    blk, x0, cot, f = setup
+    blk.zero_grad(set_to_none=True)
+    x = x0.detach().to(dtype).requires_grad_()  # a new leaf, also in f32
+    y = blk.forward_packed(x, f, impl, None, None)
+    (y.float() * cot).sum().backward()
+    out = {"y": y.detach(), "dx": x.grad}
+    named = dict(blk.named_parameters())
+    for name in ("timeattn.qkv.weight", "attn.qkv.weight"):
+        out.update({f"{name}[{part}]": rows.clone()
+                    for part, rows in zip("qkv", named[name].grad.chunk(3))})
+    return out
+
+
+def packed_block_agreement(ref: dict, plain: dict, kern: dict) -> list:
+    """Hold packed_block_grads' kernel record against the f32 one: y and dx
+    by max-abs error within 2 x the plain bf16 record's + 1% of max|f32|; each
+    weight's q, k and v rows by relative L2 error within 2 x plain's, no eps
+    (a zero dk shows in the k rows as an error of 1). Returns the names that
+    failed."""
+    failed = []
+    for name, a in ref.items():
+        k, p = kern[name], plain[name]
+        if name in ("y", "dx"):
+            err_k, err_p = maxabs(k, a), maxabs(p, a)
+            tol = 2.0 * err_p + 1e-2 * float(a.float().abs().max())
+        else:
+            a64 = a.double()
+            err_k, err_p = (float((t.double() - a64).norm() / a64.norm()) for t in (k, p))
+            tol = 2.0 * err_p
+        ok = bool(k.float().isfinite().all()) and err_k <= tol
+        if not ok:
+            failed.append(name)
+        log(f"[packed_block] {name}: |kernel-f32| {err_k:.3e} |plain_bf16-f32| {err_p:.3e} "
+            f"tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+    return failed
+
+
+def run_packed_block(torch, dev, report):
+    """K7b's path: one packed DividedSpaceTimeBlock at 12 heads of 64 on
+    (28, 1569, 768), forward and backward (training, drop-path 0), through
+    the kernel route, against the plain route in bf16 and in f32."""
+    from synchformer_tpu_torch.ops.kernels import _build
+
+    setup = packed_block(torch, dev)
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    kern = packed_block_grads(torch, setup, torch.bfloat16, "kernel")
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    log(f"[packed_block] launches in one forward + backward: {counts}")
+    for key, need in PACKED_BLOCK_LAUNCHES.items():
+        if counts.get(key, 0) != need:
+            fail(f"packed block: {key} launched {counts.get(key, 0)} times, expected {need}")
+    report["K7b"]["launches"] = counts["K7b"]
+    plain = packed_block_grads(torch, setup, torch.bfloat16, "plain")
+    ref = packed_block_grads(torch, setup, torch.float32, "plain")
+    failed = packed_block_agreement(ref, plain, kern)
+    if failed:
+        fail(f"packed block outside tolerance: {failed}")
+
+
+PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head)
 
 
 def main() -> int:
@@ -599,14 +814,14 @@ def main() -> int:
     secs = _build.build_all()
     log(f"[build] nvcc sm_90a kernels in {secs:.1f} s -> {_build.BUILD_DIR}")
 
-    report: dict = {}
-    for name, phase in (("kernels", check_kernels), ("slice", run_slice),
-                        ("stage1", run_stage1)):
+    report: dict = {key: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                          "bound_s": [0.0, 0.0], "library_ms": None} for key in KEYS}
+    for phase in PHASES:
         t0 = time.perf_counter()
         phase(torch, dev, report)
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"[phase] {name} {time.perf_counter() - t0:.1f} s")
+        log(f"[phase] {phase.__name__} {time.perf_counter() - t0:.1f} s")
     kernels = []
     for key in KEYS:
         r = report[key]

@@ -1,25 +1,37 @@
-"""Show that chip_smoke.py's Stage I check fails a wrong K5 or K6.
+"""Show that chip_smoke.py's Stage I and packed-block checks fail a wrong K5,
+K6, K7a/K7b or K7c.
 
     python scripts/stage1_planted_faults.py            # full width, one NVIDIA GPU
     python scripts/stage1_planted_faults.py --tiny --device cpu   # a dry run
 
-Takes the Stage I first step as chip_smoke.py's phase 4 does: (c) f32 plain
-with remat and (b) bf16 plain, then the bf16 kernel path once per planted
-fault, each from the same seeded weights, batch and generator seed, and holds
-each kernel-path step against (c) and (b) with chip_smoke.stage1_agreement.
-A fault is a wrapper around a kernel's Python entry where DividedAttentionFn
-calls it; the code under test is not edited:
+Takes the Stage I first step as chip_smoke.py's phases 4 and 6 do, once per
+token flow: the split flow on build_avclip (K5 / K6) and the packed flow on
+build_avclip_8head (K7a / K7c). Per flow: (c) f32 plain with remat and (b)
+bf16 plain, then the bf16 kernel path once per planted fault, each from the
+same seeded weights, batch and generator seed, and holds each kernel-path
+step against (c) and (b) with chip_smoke.stage1_agreement. A fault is a
+wrapper around a kernel's Python entry where DividedAttentionFn or
+DividedAttentionPackedFn calls it; the code under test is not edited.
+Split flow:
 - none: the control, which must pass;
 - k6_dk_zero: K6 returns a zero dk (patches and CLS);
 - k6_cls_key_zero: K6 returns a zero dk and dv for the CLS key only;
 - k6_mode_swapped: K6 runs the other mode's backward (space for time and back);
 - k5_feature_order: K5 returns its outputs in dh-major feature order, not
   head-major.
+Packed flow:
+- none: the control;
+- k7c_dk_zero: K7c returns a zero dk (patches and CLS);
+- k7a_mode_swapped: K7a runs the other mode (space for time and back).
+Then the packed flow's faults once more on chip_smoke.py's phase-5 packed
+block (12 heads of 64: the same entry launches K7b there), held with
+chip_smoke.packed_block_agreement.
 Prints one line per fault with the checks that failed, and exits non-zero
-unless the control passed and every fault failed at least one check.
---tiny takes the CPU tests' tiny AVCLIP (drop-path 0.2) at B=2, S=2: on CPU
-tensors the kernel wrappers run their plain versions, which the faults wrap
-all the same.
+unless each control passed and every fault failed at least one check.
+--tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
+build_tiny_avclip_packed, drop-path 0.2) at B=2, S=2 and a block of
+TINY_BLOCK's size: on CPU tensors the kernel wrappers run their plain
+versions, which the faults wrap all the same.
 """
 from __future__ import annotations
 
@@ -36,7 +48,12 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from synchformer_tpu_torch.models.presets import build_avclip, build_tiny_avclip  # noqa: E402
+from synchformer_tpu_torch.models.presets import (  # noqa: E402
+    build_avclip,
+    build_avclip_8head,
+    build_tiny_avclip,
+    build_tiny_avclip_packed,
+)
 from synchformer_tpu_torch.ops.kernels import divided_attention_bwd as dab  # noqa: E402
 from synchformer_tpu_torch.utils.convert import seeded_state_dict  # noqa: E402
 
@@ -68,24 +85,78 @@ def k5_feature_order(fwd, bwd, qkv_p, qkv_c, num_heads, mode):
     return tuple(head_minor(t, num_heads) for t in fwd(qkv_p, qkv_c, num_heads, mode))
 
 
-FAULTS = {"none": None, "k6_dk_zero": k6_dk_zero, "k6_cls_key_zero": k6_cls_key_zero,
-          "k6_mode_swapped": k6_mode_swapped, "k5_feature_order": k5_feature_order}
+def k7c_dk_zero(fwd, bwd, qkv, dout, num_heads, num_frames, mode):
+    dqkv = bwd(qkv, dout, num_heads, num_frames, mode)
+    d = dout.shape[-1]
+    dqkv[..., d:2 * d] = 0
+    return dqkv
 
 
-def planted(fault):
-    """Context: the fault's wrapper in place of K5's or K6's entry."""
-    fwd, bwd = dab.divided_attention, dab.divided_attention_bwd
-    name = "divided_attention" if fault is k5_feature_order else "divided_attention_bwd"
+def k7a_mode_swapped(fwd, bwd, qkv, num_heads, num_frames, mode):
+    return fwd(qkv, num_heads, num_frames, "time" if mode == "space" else "space")
+
+
+# per flow: the entries a fault may replace (forward, backward), each fault
+# with the entry it replaces
+FLOWS = {
+    "split": (("divided_attention", "divided_attention_bwd"),
+              {"none": None, "k6_dk_zero": (k6_dk_zero, 1),
+               "k6_cls_key_zero": (k6_cls_key_zero, 1),
+               "k6_mode_swapped": (k6_mode_swapped, 1),
+               "k5_feature_order": (k5_feature_order, 0)}),
+    "packed": (("divided_attention_packed", "divided_attention_packed_bwd"),
+               {"none": None, "k7c_dk_zero": (k7c_dk_zero, 1),
+                "k7a_mode_swapped": (k7a_mode_swapped, 0)}),
+}
+
+
+# --tiny's packed block: 2 heads of 64 (groupable, so K7b's entry), 1 + 2 x 4 tokens
+TINY_BLOCK = {"b": 2, "d": 128, "h": 2, "f": 2, "n": 4}
+
+
+def planted(entries, fault):
+    """Context: the fault's wrapper in place of one of ``entries`` (the
+    forward's and the backward's names in divided_attention_bwd)."""
+    originals = tuple(getattr(dab, name) for name in entries)
 
     class _Ctx:
         def __enter__(self):
             if fault is not None:
-                setattr(dab, name, functools.partial(fault, fwd, bwd))
+                fn, which = fault
+                setattr(dab, entries[which], functools.partial(fn, *originals))
 
         def __exit__(self, *exc):
-            dab.divided_attention, dab.divided_attention_bwd = fwd, bwd
+            for name, fn in zip(entries, originals):
+                setattr(dab, name, fn)
 
     return _Ctx()
+
+
+def verdict(what: str, caught: dict) -> bool:
+    """Log and return whether the control ("none") passed and every fault
+    failed at least one check; ``caught`` maps each fault to its failed checks."""
+    every = all(caught[n] for n in caught if n != "none")
+    chip_smoke.log(f"[result] {what}: control passed: {not caught['none']}; every fault "
+                   f"caught: {every}")
+    return not caught["none"] and every
+
+
+def block_faults(dev, tiny: bool) -> dict:
+    """The packed flow's faults on chip_smoke's packed block (phase 5: 12
+    heads of 64, K7b / K7c; TINY_BLOCK with --tiny): each fault's failed
+    checks of packed_block_agreement."""
+    entries, faults = FLOWS["packed"]
+    setup = chip_smoke.packed_block(torch, dev, **(TINY_BLOCK if tiny else {}))
+    ref = chip_smoke.packed_block_grads(torch, setup, torch.float32, "plain")
+    plain = chip_smoke.packed_block_grads(torch, setup, torch.bfloat16, "plain")
+    caught = {}
+    for name, fault in faults.items():
+        with planted(entries, fault):
+            kern = chip_smoke.packed_block_grads(torch, setup, torch.bfloat16, "kernel")
+        caught[name] = chip_smoke.packed_block_agreement(ref, plain, kern)
+        chip_smoke.log(f"[fault] packed_block {name}: {len(caught[name])} checks failed: "
+                       f"{caught[name]}")
+    return caught
 
 
 def main() -> int:
@@ -97,44 +168,46 @@ def main() -> int:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu (with --tiny) for a dry run")
     if args.tiny:
-        build = functools.partial(build_tiny_avclip, drop_path_rate=0.2)
+        builds = {"split": functools.partial(build_tiny_avclip, drop_path_rate=0.2),
+                  "packed": functools.partial(build_tiny_avclip_packed, drop_path_rate=0.2)}
         batch = chip_smoke.stage1_batch(torch, 2, 2, (4, 32, 32, 3))
     else:
-        build = build_avclip
+        builds = {"split": build_avclip, "packed": build_avclip_8head}
         batch = chip_smoke.stage1_batch(torch, chip_smoke.B1, chip_smoke.S)
     if dev.type == "cuda":
         chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
-    sd = seeded_state_dict(build(device="meta"), seed=0)
 
-    def first_step(precision, impl, remat=False, fault=None):
-        t = time.perf_counter()
-        tr = chip_smoke.stage1_trainer(build, sd, dev, precision, impl, remat)
-        with planted(fault):
-            m = chip_smoke.checked_step(tr, batch, f"{precision} {impl}")
-        rec = chip_smoke.step_gradients(torch, tr, m)
-        del tr
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-        chip_smoke.log(f"[step] {precision} {impl}: loss {m['loss']:.6f}, grad_norm "
-                       f"{m['grad_norm']:.6f} ({time.perf_counter() - t:.1f} s)")
-        return rec
+    ok = True
+    for flow in ("split", "packed"):
+        build, (entries, faults) = builds[flow], FLOWS[flow]
+        sd = seeded_state_dict(build(device="meta"), seed=0)
 
-    ref = first_step("fp32", "plain", remat=True)
-    plain = first_step("amp", "plain")
-    caught = {}
-    for name, fault in FAULTS.items():
-        chip_smoke.log(f"[fault] {name}")
-        kern = first_step("amp", "kernel", fault=fault)
-        caught[name] = chip_smoke.stage1_agreement(ref, plain, kern)
-        del kern
-        chip_smoke.log(f"[fault] {name}: {len(caught[name])} checks failed: "
-                       f"{caught[name][:6]}{' ...' if len(caught[name]) > 6 else ''}")
-    ok = not caught["none"] and all(caught[n] for n in FAULTS if n != "none")
-    chip_smoke.log(f"[result] control passed: {not caught['none']}; every fault caught: "
-                   f"{all(caught[n] for n in FAULTS if n != 'none')}")
-    return 0 if ok else 1
+        def first_step(precision, impl, remat=False, fault=None):
+            t = time.perf_counter()
+            tr = chip_smoke.stage1_trainer(build, sd, dev, precision, impl, remat)
+            with planted(entries, fault):
+                m = chip_smoke.checked_step(tr, batch, f"{precision} {impl}")
+            rec = chip_smoke.step_gradients(torch, tr, m)
+            del tr
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            chip_smoke.log(f"[step] {flow} {precision} {impl}: loss {m['loss']:.6f}, "
+                           f"grad_norm {m['grad_norm']:.6f} ({time.perf_counter() - t:.1f} s)")
+            return rec
 
+        ref = first_step("fp32", "plain", remat=True)
+        plain = first_step("amp", "plain")
+        caught = {}
+        for name, fault in faults.items():
+            chip_smoke.log(f"[fault] {flow} {name}")
+            kern = first_step("amp", "kernel", fault=fault)
+            caught[name] = chip_smoke.stage1_agreement(ref, plain, kern, flow)
+            del kern
+            chip_smoke.log(f"[fault] {flow} {name}: {len(caught[name])} checks failed: "
+                           f"{caught[name][:6]}{' ...' if len(caught[name]) > 6 else ''}")
+        ok = verdict(flow, caught) and ok
+    return 0 if verdict("packed_block", block_faults(dev, args.tiny)) and ok else 1
 
 if __name__ == "__main__":
     sys.exit(main())

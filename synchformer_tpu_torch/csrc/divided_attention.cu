@@ -1,47 +1,66 @@
 // K1: divided space-time attention on the split (CLS, patches) layout with
-// the output projection and residual in the epilogue, and K5: the same
-// attention without them.
+// the output projection and residual in the epilogue; K5: the same
+// attention without them; K7a/K7b: the same attention on the packed layout.
 //
 // K1 replaces synchformer_tpu/ops/pallas/divided_attention.py::
 // divided_attention_proj_4d (body _kernel_4d_proj with _cls_row_4d,
 // _space_pair_v3, _time_pair_v3); K5 replaces divided_attention_pallas_4d
-// (body _kernel_4d), the forward of the Stage I training step. K5 runs
-// launches (1) and (2) below and writes the attention straight to its
-// output; its bound at Stage I's (28, 8, 196, 2304) is the ~270 MB it moves.
+// (body _kernel_4d), the forward of the Stage I training step; K7a replaces
+// divided_attention_pallas (body _kernel with _cls_row, _space_segment,
+// _time_block_mxu), the forward of the Motionformer's packed flow, and K7b
+// its v3 body (_divided_attention_pallas_v3, _kernel_v3), the same function
+// at 128-lane-groupable heads. K5 and K7 run launches (1) and (2) below and
+// write the attention straight to their output; the bound at Stage I's
+// 28 segments is the ~270 MB they move.
 //
-// Semantics, per head (12 of 64 on the main path), q scaled by dh^-0.5:
+// Layouts. Split: patches (B, f, n, 3D) and CLS (B, 1, 3D), outputs (B, f, n,
+// D) and (B, 1, D). Packed: one (B, 1 + f*n, 3D) tensor, the CLS row first in
+// each segment, output (B, 1 + f*n, D). Both are read and written in place:
+// the kernels take a patch base and a CLS base per tensor and the number of
+// rows from one segment to the next (split: f*n for patches, 1 for the CLS;
+// packed: 1 + f*n for both, the patch base one row after the CLS base).
+//
+// Semantics, per head (head_dim DH in {32, 64, 96, 128}, a template
+// parameter), q scaled by DH^-0.5 and rounded to bf16:
 // - each patch token attends {CLS} U its group: the n tokens of its frame
-//   (space, 197 keys) or the f tokens at its spatial position (time, 9 keys);
-// - the CLS query attends all 1 + f*n keys and leaves un-projected;
-// - patches: y = res + (attn @ Wo^T + bo), rounded once.
+//   (space, n + 1 keys) or the f tokens at its spatial position (time, f + 1);
+// - the CLS query attends all 1 + f*n keys;
+// - f32 logits and softmax, probabilities rounded to bf16 before P @ V;
+// - K1 patches: y = res + (attn @ Wo^T + bo), rounded once; the CLS row leaves
+//   un-projected.
 //
 // Three launches. (1) group attention: one block per (head, group, batch)
 // stages the group's K/V rows (plus the CLS row) in shared memory with a
 // padded pitch, each warp walks query rows (logits one key per lane, f32
-// softmax by shuffles, bf16 probabilities, P @ V two columns per lane) and
-// writes the bf16 attention output to a scratch buffer in device memory. Space
-// and time differ only in the group/member strides, so one kernel serves both.
-// (2) the CLS row: one block per (head, batch) over all 1569 keys. (3) the
-// projection + residual on the tile GEMM. The TPU kernel keeps the attention
-// output in VMEM before the projection; here it round-trips device memory
-// (2 x 270 MB per call at B=112), which a later fused epilogue removes.
-// Bound: the space call is ~104 GFLOP of attention math on CUDA cores; the
-// tensor cores only run the projection.
+// softmax by shuffles, bf16 probabilities, P @ V in bf16 pairs of columns,
+// DH/64 pairs per lane rounded up) and writes the bf16 attention output.
+// Space and time differ only in the group/member strides, so one kernel
+// serves both. (2) the CLS row: one block per (head, batch) over all 1 + f*n
+// keys, a thread per key row for the logits (16-byte loads), a warp per key
+// for P @ V (a few keys' loads in flight). (3) K1 only: the projection +
+// residual on the tile GEMM. The TPU kernel keeps the attention output in
+// VMEM before the projection; here it round-trips device memory (2 x 270 MB
+// per call at B=112), which a later fused epilogue removes. The attention products run on CUDA cores (~104
+// GFLOP for K1's space call), which bounds these first ports in practice.
 #include "tile_gemm.cuh"
 
 using sft::bf16;
 
 namespace {
 
-constexpr int DH = 64;
-constexpr int PITCH = DH + 2;
 constexpr int WARPS = 8;
 
-// qkv_p rows: token (b, g, j) = b*f*n + g*gs + j*ms, each 3D wide.
+// Patch rows of segment b: qkv_p + (b * in_p + token) * 3D, token = g*gs +
+// i*ms; output rows attn + (b * out_p + token) * D. The CLS row of segment b:
+// qkv_c + b * in_c * 3D.
+template <int DH>
 __global__ void __launch_bounds__(WARPS * 32)
 group_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
-                       bf16* __restrict__ attn, int fn, int L, int gs, int ms, int H,
-                       float scale) {
+                       bf16* __restrict__ attn, int L, int gs, int ms, int H, int in_p,
+                       int in_c, int out_p, float scale) {
+  constexpr int PITCH = DH + 2;  // bf16 row pitch: an odd number of words
+  constexpr int NP = (DH / 2 + 31) / 32;  // bf16 pairs of a row per lane
+  constexpr bool FULL = (DH / 2) % 32 == 0;  // every lane holds NP pairs
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int D = H * DH;
@@ -51,12 +70,14 @@ group_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ 
   float* qs_all = reinterpret_cast<float*>(Vs + nk * PITCH);
   float* ps_all = qs_all + WARPS * DH;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int64_t tok0 = (int64_t)b * fn + (int64_t)g * gs;
+  const int64_t tok0 = (int64_t)g * gs;
+  const bf16* pin = qkv_p + (int64_t)b * in_p * 3 * D;
+  bf16* pout = attn + (int64_t)b * out_p * D;
 
   for (int idx = tid; idx < nk * (DH / 2); idx += blockDim.x) {
     const int r = idx / (DH / 2), t = idx % (DH / 2);
-    const bf16* row = r == 0 ? qkv_c + (int64_t)b * 3 * D
-                             : qkv_p + (tok0 + (int64_t)(r - 1) * ms) * 3 * D;
+    const bf16* row = r == 0 ? qkv_c + (int64_t)b * in_c * 3 * D
+                             : pin + (tok0 + (int64_t)(r - 1) * ms) * 3 * D;
     reinterpret_cast<__nv_bfloat162*>(Ks + r * PITCH)[t] =
         reinterpret_cast<const __nv_bfloat162*>(row + D + h * DH)[t];
     reinterpret_cast<__nv_bfloat162*>(Vs + r * PITCH)[t] =
@@ -68,7 +89,7 @@ group_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ 
   float* ps = ps_all + warp * nk;
   for (int i = warp; i < L; i += WARPS) {
     const int64_t tok = tok0 + (int64_t)i * ms;
-    const bf16* qrow = qkv_p + tok * 3 * D + h * DH;
+    const bf16* qrow = pin + tok * 3 * D + h * DH;
     for (int d = lane; d < DH; d += 32) qs[d] = sft::bf16r(__bfloat162float(qrow[d]) * scale);
     __syncwarp();
     float m = -INFINITY;
@@ -94,24 +115,40 @@ group_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ 
     const float inv = 1.f / sum;
     for (int j = lane; j < nk; j += 32) ps[j] = sft::bf16r(ps[j] * inv);
     __syncwarp();
-    float a0 = 0.f, a1 = 0.f;
+    float a[NP][2] = {};
     for (int j = 0; j < nk; ++j) {
-      const float2 v = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(Vs + j * PITCH)[lane]);
-      a0 += ps[j] * v.x;
-      a1 += ps[j] * v.y;
+      const __nv_bfloat162* vr = reinterpret_cast<const __nv_bfloat162*>(Vs + j * PITCH);
+#pragma unroll
+      for (int u = 0; u < NP; ++u) {
+        const int t = lane + 32 * u;
+        if (FULL || t < DH / 2) {
+          const float2 v = __bfloat1622float2(vr[t]);
+          a[u][0] += ps[j] * v.x;
+          a[u][1] += ps[j] * v.y;
+        }
+      }
     }
-    reinterpret_cast<__nv_bfloat162*>(attn + tok * D + h * DH)[lane] =
-        __floats2bfloat162_rn(a0, a1);
+    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(pout + tok * D + h * DH);
+#pragma unroll
+    for (int u = 0; u < NP; ++u) {
+      const int t = lane + 32 * u;
+      if (FULL || t < DH / 2) orow[t] = __floats2bfloat162_rn(a[u][0], a[u][1]);
+    }
     __syncwarp();
   }
 }
 
 constexpr int CLS_THREADS = 256;
+constexpr int KEYS_IN_FLIGHT = 4;  // loads a CLS-row warp starts before it sums
 
 // CLS query of (b, h) over [CLS; all f*n patches].
+template <int DH>
 __global__ void __launch_bounds__(CLS_THREADS)
 cls_row_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
-               bf16* __restrict__ out_c, int fn, int H, float scale) {
+               bf16* __restrict__ out_c, int fn, int H, int in_p, int in_c, int out_cs,
+               float scale) {
+  constexpr int NP = (DH / 2 + 31) / 32;  // bf16 pairs of a row per lane
+  constexpr bool FULL = (DH / 2) % 32 == 0;  // every lane holds NP pairs
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int D = H * DH;
@@ -121,8 +158,8 @@ cls_row_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
   float* acc = red + 32;                              // (CLS_THREADS / 32) x DH
   float* ps = acc + (CLS_THREADS / 32) * DH;          // nk
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const bf16* crow = qkv_c + (int64_t)b * 3 * D;
-  const bf16* prow0 = qkv_p + (int64_t)b * fn * 3 * D;
+  const bf16* crow = qkv_c + (int64_t)b * in_c * 3 * D;
+  const bf16* prow0 = qkv_p + (int64_t)b * in_p * 3 * D;
 
   if (tid < DH) qs[tid] = sft::bf16r(__bfloat162float(crow[h * DH + tid]) * scale);
   __syncthreads();
@@ -130,13 +167,7 @@ cls_row_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
   float m = -INFINITY;
   for (int j = tid; j < nk; j += CLS_THREADS) {
     const bf16* row = j == 0 ? crow : prow0 + (int64_t)(j - 1) * 3 * D;
-    const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(row + D + h * DH);
-    float s = 0.f;
-#pragma unroll 8
-    for (int t = 0; t < DH / 2; ++t) {
-      const float2 kv = __bfloat1622float2(kr[t]);
-      s += qs[2 * t] * kv.x + qs[2 * t + 1] * kv.y;
-    }
+    const float s = sft::dot_row_bf16<DH>(qs, row + D + h * DH);
     ps[j] = s;
     m = fmaxf(m, s);
   }
@@ -161,64 +192,114 @@ cls_row_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
   for (int j = tid; j < nk; j += CLS_THREADS) ps[j] = sft::bf16r(ps[j] * inv);
   __syncthreads();
 
-  // each warp takes keys j = warp, warp + 8, ...; each lane two columns
-  float a0 = 0.f, a1 = 0.f;
-  for (int j = warp; j < nk; j += CLS_THREADS / 32) {
-    const bf16* row = j == 0 ? crow : prow0 + (int64_t)(j - 1) * 3 * D;
-    const float2 v = __bfloat1622float2(
-        reinterpret_cast<const __nv_bfloat162*>(row + 2 * D + h * DH)[lane]);
-    a0 += ps[j] * v.x;
-    a1 += ps[j] * v.y;
+  // each warp takes keys j = warp, warp + 8, ...; each lane a pair of
+  // columns, one sweep over the keys per pair; the sweep is bound by load
+  // latency, so it loads KEYS_IN_FLIGHT keys before it sums them (in key
+  // order)
+#pragma unroll
+  for (int u = 0; u < NP; ++u) {
+    const int t = lane + 32 * u;
+    if (FULL || t < DH / 2) {
+      float a0 = 0.f, a1 = 0.f;
+      constexpr int STEP = CLS_THREADS / 32;
+      for (int j0 = warp; j0 < nk; j0 += STEP * KEYS_IN_FLIGHT) {
+        float2 v[KEYS_IN_FLIGHT];
+#pragma unroll
+        for (int k = 0; k < KEYS_IN_FLIGHT; ++k) {
+          const int j = j0 + k * STEP;
+          const bf16* row = j == 0 ? crow : prow0 + (int64_t)(j - 1) * 3 * D;
+          v[k] = j < nk ? __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(
+                              row + 2 * D + h * DH)[t])
+                        : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int k = 0; k < KEYS_IN_FLIGHT; ++k) {
+          const int j = j0 + k * STEP;
+          if (j < nk) {
+            a0 += ps[j] * v[k].x;
+            a1 += ps[j] * v[k].y;
+          }
+        }
+      }
+      acc[warp * DH + 2 * t] = a0;
+      acc[warp * DH + 2 * t + 1] = a1;
+    }
   }
-  acc[warp * DH + 2 * lane] = a0;
-  acc[warp * DH + 2 * lane + 1] = a1;
   __syncthreads();
   if (tid < DH) {
     float s = 0.f;
     for (int w = 0; w < CLS_THREADS / 32; ++w) s += acc[w * DH + tid];
-    out_c[(int64_t)b * D + h * DH + tid] = __float2bfloat16(s);
+    out_c[(int64_t)b * out_cs * D + h * DH + tid] = __float2bfloat16(s);
   }
 }
 
-// The attention of every patch (group kernel) and of the CLS row, written to
-// attn_p (B, f, n, D) and out_c (B, 1, D) in head-major feature order.
-int launch_attention(const bf16* qkv_p, const bf16* qkv_c, bf16* attn_p, bf16* out_c,
-                     int B, int f, int n, int H, int mode, cudaStream_t s) {
+// The attention of every patch (group kernel) and of the CLS row. Row strides
+// between segments: in_p / in_c of the patch / CLS rows of qkv, out_p / out_c
+// of the outputs.
+template <int DH>
+int launch_attention(const bf16* qkv_p, const bf16* qkv_c, bf16* attn_p, bf16* out_c, int B,
+                     int f, int n, int H, int mode, int in_p, int in_c, int out_p, int out_cs,
+                     cudaStream_t s) {
   const int fn = f * n;
-  const float scale = 0.125f;  // 64^-0.5
+  const float scale = (float)pow((double)DH, -0.5);
   const int L = mode == 0 ? n : f, G = mode == 0 ? f : n;
   const int gs = mode == 0 ? n : 1, ms = mode == 0 ? 1 : n;
-  const size_t smem_g = 2 * (size_t)(L + 1) * PITCH * sizeof(bf16) +
+  const size_t smem_g = 2 * (size_t)(L + 1) * (DH + 2) * sizeof(bf16) +
                         (size_t)WARPS * (DH + L + 1) * sizeof(float);
-  cudaFuncSetAttribute(group_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(group_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem_g);
   SFT_CHECK_LAUNCH();
-  group_attention_kernel<<<dim3(H, G, B), WARPS * 32, smem_g, s>>>(qkv_p, qkv_c, attn_p, fn,
-                                                                   L, gs, ms, H, scale);
+  group_attention_kernel<DH><<<dim3(H, G, B), WARPS * 32, smem_g, s>>>(
+      qkv_p, qkv_c, attn_p, L, gs, ms, H, in_p, in_c, out_p, scale);
   SFT_CHECK_LAUNCH();
   const size_t smem_c = (DH + 32 + (CLS_THREADS / 32) * DH + (size_t)(fn + 1)) * sizeof(float);
-  cudaFuncSetAttribute(cls_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
+  cudaFuncSetAttribute(cls_row_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem_c);
   SFT_CHECK_LAUNCH();
-  cls_row_kernel<<<dim3(H, B), CLS_THREADS, smem_c, s>>>(qkv_p, qkv_c, out_c, fn, H, scale);
+  cls_row_kernel<DH><<<dim3(H, B), CLS_THREADS, smem_c, s>>>(qkv_p, qkv_c, out_c, fn, H, in_p,
+                                                             in_c, out_cs, scale);
   SFT_CHECK_LAUNCH();
   return 0;
 }
 
+// launch_attention at the head_dim of the call; the instantiated set is
+// {32, 64, 96, 128}, and the wrappers refuse any other before they launch.
+int dispatch_attention(int dh, const bf16* qkv_p, const bf16* qkv_c, bf16* attn_p,
+                       bf16* out_c, int B, int f, int n, int H, int mode, int in_p, int in_c,
+                       int out_p, int out_cs, cudaStream_t s) {
+  switch (dh) {
+    case 32:
+      return launch_attention<32>(qkv_p, qkv_c, attn_p, out_c, B, f, n, H, mode, in_p, in_c,
+                                  out_p, out_cs, s);
+    case 64:
+      return launch_attention<64>(qkv_p, qkv_c, attn_p, out_c, B, f, n, H, mode, in_p, in_c,
+                                  out_p, out_cs, s);
+    case 96:
+      return launch_attention<96>(qkv_p, qkv_c, attn_p, out_c, B, f, n, H, mode, in_p, in_c,
+                                  out_p, out_cs, s);
+    case 128:
+      return launch_attention<128>(qkv_p, qkv_c, attn_p, out_c, B, f, n, H, mode, in_p, in_c,
+                                   out_p, out_cs, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// K1. mode 0 = space (groups are frames), 1 = time (groups are spatial positions).
+// K1. mode 0 = space (groups are frames), 1 = time (groups are spatial
+// positions). The projection GEMM needs D % 64 == 0.
 extern "C" int sft_divided_attention_proj(const void* qkv_p, const void* qkv_c,
                                           const void* res, const void* wo, const void* bo,
                                           void* attn_scratch, void* out_p, void* out_c,
                                           int B, int f, int n, int H, int dh, int mode,
                                           void* stream) {
-  if (dh != DH) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int D = H * DH, fn = f * n;
-  const int err = launch_attention(static_cast<const bf16*>(qkv_p),
-                                   static_cast<const bf16*>(qkv_c),
-                                   static_cast<bf16*>(attn_scratch), static_cast<bf16*>(out_c),
-                                   B, f, n, H, mode, s);
+  const int D = H * dh, fn = f * n;
+  const int err = dispatch_attention(dh, static_cast<const bf16*>(qkv_p),
+                                     static_cast<const bf16*>(qkv_c),
+                                     static_cast<bf16*>(attn_scratch), static_cast<bf16*>(out_c),
+                                     B, f, n, H, mode, fn, 1, fn, 1, s);
   if (err != 0) return err;
   sft::gemm_bf16<sft::EPI_BIAS_RESIDUAL>(
       static_cast<const bf16*>(attn_scratch), static_cast<const bf16*>(wo),
@@ -228,13 +309,25 @@ extern "C" int sft_divided_attention_proj(const void* qkv_p, const void* qkv_c,
   return 0;
 }
 
-// K5: the same attention without the projection: out_p (B, f, n, D) and
-// out_c (B, 1, D), the outputs of divided_attention_pallas_4d.
+// K5: the attention without the projection on the split layout: out_p
+// (B, f, n, D) and out_c (B, 1, D), the outputs of divided_attention_pallas_4d.
 extern "C" int sft_divided_attention(const void* qkv_p, const void* qkv_c, void* out_p,
                                      void* out_c, int B, int f, int n, int H, int dh,
                                      int mode, void* stream) {
-  if (dh != DH) return (int)cudaErrorInvalidValue;
-  return launch_attention(static_cast<const bf16*>(qkv_p), static_cast<const bf16*>(qkv_c),
-                          static_cast<bf16*>(out_p), static_cast<bf16*>(out_c), B, f, n, H,
-                          mode, static_cast<cudaStream_t>(stream));
+  const int fn = f * n;
+  return dispatch_attention(dh, static_cast<const bf16*>(qkv_p),
+                            static_cast<const bf16*>(qkv_c), static_cast<bf16*>(out_p),
+                            static_cast<bf16*>(out_c), B, f, n, H, mode, fn, 1, fn, 1,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// K7a / K7b: the same attention on the packed layout, qkv (B, 1 + f*n, 3D) ->
+// out (B, 1 + f*n, D), the output of divided_attention_pallas.
+extern "C" int sft_divided_attention_packed(const void* qkv, void* out, int B, int f, int n,
+                                            int H, int dh, int mode, void* stream) {
+  const int seq = 1 + f * n, D = H * dh;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  bf16* o = static_cast<bf16*>(out);
+  return dispatch_attention(dh, q + 3 * D, q, o + D, o, B, f, n, H, mode, seq, seq, seq, seq,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -11,6 +11,8 @@
 //   from the row itself or from precomputed [mean, meansq] row statistics.
 // - row_stats: f32 [mean, meansq, 0 x 6] of bf16 rows, the layout the
 //   slab LN+MLP kernel of the JAX package emits.
+// - dot_row_bf16: an f32 vector against a bf16 row of device memory, with
+//   16-byte loads.
 //
 // The tile GEMM is the simple form: one 64x64 output tile per block, four
 // warps of 32x32, a 32-deep K step staged through shared memory without
@@ -45,6 +47,30 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// <a, row> over N values (N % 8 == 0): a f32 (shared memory), row bf16 in
+// device memory, 16-byte aligned. Every 16-byte load is started before the
+// sums, which run in element order: a thread walking rows of its own is bound
+// by load latency, not by the arithmetic.
+template <int N>
+__device__ __forceinline__ float dot_row_bf16(const float* __restrict__ a,
+                                              const bf16* __restrict__ row) {
+  static_assert(N % 8 == 0, "dot_row_bf16 takes whole 16-byte chunks");
+  uint4 w[N / 8];
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) w[c] = __ldg(reinterpret_cast<const uint4*>(row) + c);
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&w[c]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 v = __bfloat1622float2(p[e]);
+      s += a[8 * c + 2 * e] * v.x + a[8 * c + 2 * e + 1] * v.y;
+    }
+  }
+  return s;
 }
 
 enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2 };

@@ -1,7 +1,15 @@
 """Motionformer video tower (synchformer_tpu/models/motionformer.py) on 5-D
-patch-major input, split (CLS, patches) flow only.
+patch-major input, in the JAX package's two token flows.
 
-Eval (``deterministic=True``), per block, as the JAX package's deterministic
+The flow follows the JAX choice (motionformer.py:554-559) for every head
+layout, whatever ``impl``: the split (CLS, patches) flow where the heads pair
+into 128 lanes (``heads_groupable``, the TPU's lane rule, of which the port
+keeps its own copy), the packed (B*S, 1 + f*n, D) flow otherwise. The two
+round at other points (split eval fuses projection + residual and chains the
+LN statistics; packed does neither), so taking JAX's flow keeps the port's
+numbers on the JAX package's for every layout. ``packed`` says which.
+
+Split flow. Eval (``deterministic=True``), per block, as the JAX package's deterministic
 kernel path runs it (motionformer.py:494-516, 548-610):
 - time attention on norm3 (LN of the patches from the previous block's row
   statistics), then space attention on norm1, each through K1 with the
@@ -22,6 +30,17 @@ linspace(0, 0.2, depth)), else the plain composition with drop-path. The
 drop-path factors are drawn before the block, so that ``remat=True``
 (torch.utils.checkpoint around each block) recomputes the same ones.
 
+Packed flow (motionformer.py:612-667), eval and training alike: the CLS
+row is prepended to the patch tokens with the tiled 'separate' position
+embedding; per block, time attention on norm3 (LN -> QKV -> K7a/K7b through
+DividedAttentionPackedFn, backward K7c -> projection) with its residual,
+space attention on norm1 with drop-path on its residual, then the MLP on the
+whole packed x through K2 where the block is not stochastic (eval, or
+drop-path 0), else the plain composition with drop-path; drop-path factors
+drawn before the block as in the split flow. At the end the CLS row is dropped
+and the final norm is a plain LayerNorm. No statistics chain, no fused
+projection.
+
 Then the SpatialAggregator (K4) pools each frame, and with
 ``agg_time_module='AveragePooling'`` the frames are averaged. State names
 follow the reference (``patch_embed_3d.proj``,
@@ -39,8 +58,14 @@ from torch.utils.checkpoint import checkpoint
 
 from synchformer_tpu_torch.models.aggregators import AveragePooling, SpatialAggregator
 from synchformer_tpu_torch.models.layers import Container, DropPath, LayerNorm, Linear, mlp
-from synchformer_tpu_torch.ops.kernels.divided_attention import divided_attention_proj
-from synchformer_tpu_torch.ops.kernels.divided_attention_bwd import divided_attention_split
+from synchformer_tpu_torch.ops.kernels.divided_attention import (
+    divided_attention_proj,
+    heads_groupable,
+)
+from synchformer_tpu_torch.ops.kernels.divided_attention_bwd import (
+    divided_attention_split,
+    packed_divided_attention,
+)
 from synchformer_tpu_torch.ops.kernels.fused_rows import (
     fused_ln_mlp_residual,
     ln_mlp_residual_plain,
@@ -74,6 +99,14 @@ class DividedAttention(nn.Module):
         qkv_p = self.qkv(ln_patches)
         out_p, out_c = divided_attention_split(qkv_p, qkv_c, self.num_heads, mode, impl=impl)
         return self.proj(out_c), self.proj(out_p)
+
+    def attend_packed(self, ln_x, num_frames: int, mode: str, impl: str):
+        """Packed flow, eval and training: LN'd x (B, 1 + f*n, D) -> projected
+        attention, differentiable (K7a/K7b forward, K7c backward on the kernel
+        route)."""
+        out = packed_divided_attention(self.qkv(ln_x), self.num_heads, num_frames, mode,
+                                       impl=impl)
+        return self.proj(out)
 
 
 class DividedSpaceTimeBlock(nn.Module):
@@ -127,14 +160,25 @@ class DividedSpaceTimeBlock(nn.Module):
         if self.drop_path.rate == 0.0:  # not stochastic: the patches' MLP is K2
             patches = fused_ln_mlp_residual(patches, *mlp_args, impl=impl)
             return ln_mlp_residual_plain(cls, *mlp_args), patches
+        return (cls + DropPath.drop(self._mlp_plain(cls), mlp_scale),
+                patches + DropPath.drop(self._mlp_plain(patches), mlp_scale))
 
-        def mlp_part(t):
-            return mlp(layer_norm(t, self.norm2.weight, self.norm2.bias, self.eps, t.dtype),
-                       self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
-                       self.mlp.fc2.bias)
+    def _mlp_plain(self, t):
+        return mlp(layer_norm(t, self.norm2.weight, self.norm2.bias, self.eps, t.dtype),
+                   self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
+                   self.mlp.fc2.bias)
 
-        return (cls + DropPath.drop(mlp_part(cls), mlp_scale),
-                patches + DropPath.drop(mlp_part(patches), mlp_scale))
+    def forward_packed(self, x, num_frames: int, impl: str,
+                       space_scale: Optional[torch.Tensor], mlp_scale: Optional[torch.Tensor]):
+        """Packed flow, eval and training: x (B, 1 + f*n, D) -> x. The scales
+        are this block's drop-path factors (DropPath.draw); both None in eval
+        and at drop-path 0, where the MLP is K2 on the whole packed x."""
+        x = x + self.timeattn.attend_packed(self.norm3(x), num_frames, "time", impl)
+        x = x + DropPath.drop(self.attn.attend_packed(self.norm1(x), num_frames, "space", impl),
+                              space_scale)
+        if mlp_scale is None:  # not stochastic
+            return fused_ln_mlp_residual(x, *self._mlp_args(x.dtype), impl=impl)
+        return x + DropPath.drop(self._mlp_plain(x), mlp_scale)
 
 
 class MotionFormerEncoder(nn.Module):
@@ -152,6 +196,7 @@ class MotionFormerEncoder(nn.Module):
         self.f = temporal_resolution
         self.grid = img_size // patch_size
         self.remat = remat
+        self.packed = not heads_groupable(num_heads, embed_dim // num_heads)
         n = self.grid * self.grid
         self.patch_embed_3d = Container(proj=nn.Conv3d(
             in_chans, d, (z_block_size, patch_size, patch_size),
@@ -186,27 +231,47 @@ class MotionFormerEncoder(nn.Module):
         patch_pos = (self.pos_embed[:, None, 1:] + self.temp_embed[:, :, None]).to(dtype)
         patches = (tokens + patch_pos).contiguous()
         cls = self.cls_token.to(dtype).expand(b * s, 1, d) + self.pos_embed[:, :1].to(dtype)
-        if deterministic:
+        if not deterministic and generator is None:
+            raise ValueError("training (deterministic=False) needs a generator")
+        if self.packed:
+            feats = self._packed_flow(cls, patches, impl, deterministic, generator)
+        elif deterministic:
             stats = None
             for blk in self.blocks:
                 cls, patches, stats = blk(cls, patches, stats, impl)
             feats = layer_norm_from_stats(patches, stats[..., 0:1], stats[..., 1:2],
                                           self.norm.weight, self.norm.bias, self.eps, dtype)
         else:
-            if generator is None:
-                raise ValueError("training (deterministic=False) needs a generator")
             for blk in self.blocks:
-                # space then MLP, as the JAX block draws them
-                scales = [blk.drop_path.draw(b * s, generator, x.device, dtype)
-                          for _ in range(2)]
-                if self.remat:
-                    cls, patches = checkpoint(blk.forward_train, cls, patches, impl, *scales,
-                                              use_reentrant=False)
-                else:
-                    cls, patches = blk.forward_train(cls, patches, impl, *scales)
+                cls, patches = self._run_block(blk.forward_train, blk, generator, cls, patches,
+                                               impl)
             feats = self.norm(patches)
         feats = feats.reshape(b * s, f, self.grid, self.grid, d)
         feats = self.spatial_attn_agg(feats, impl)
         if self.temp_attn_agg is not None:
             return self.temp_attn_agg(feats).reshape(b, s, d)
         return feats.reshape(b, s, f, d)
+
+    def _run_block(self, fn, blk, generator, *args):
+        """One training block: its drop-path factors drawn first (space then
+        MLP, as the JAX block draws them), then ``fn(*args, *scales)``, under
+        torch.utils.checkpoint with remat."""
+        n = args[0].shape[0]
+        scales = [blk.drop_path.draw(n, generator, args[0].device, args[0].dtype)
+                  for _ in range(2)]
+        if self.remat:
+            return checkpoint(fn, *args, *scales, use_reentrant=False)
+        return fn(*args, *scales)
+
+    def _packed_flow(self, cls, patches, impl: str, deterministic: bool,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """[CLS; patches] -> the blocks on the packed (B*S, 1 + f*n, D) layout
+        -> the final norm of the patch rows (B*S, f, n, D)."""
+        bs, f, n, d = patches.shape
+        x = torch.cat([cls, patches.reshape(bs, f * n, d)], dim=1)
+        for blk in self.blocks:
+            if deterministic:
+                x = blk.forward_packed(x, f, impl, None, None)
+            else:
+                x = self._run_block(blk.forward_packed, blk, generator, x, f, impl)
+        return self.norm(x[:, 1:]).reshape(bs, f, n, d)

@@ -1,7 +1,8 @@
 """Model presets: the full-width sync model (configs/sync.yaml model section,
 as synchformer_tpu/models/presets.py::build_synchformer), the full-width
-Stage I AVCLIP (configs/segment_avclip.yaml, as build_avclip), and tiny ones
-for the CPU tests. All come in f32: SyncPredictor casts the sync model's
+Stage I AVCLIP (configs/segment_avclip.yaml, as build_avclip) and its 8-head
+video-tower variant (build_avclip_8head, the packed flow), and tiny ones for
+the CPU tests. All come in f32: SyncPredictor casts the sync model's
 matrices to the compute dtype once; AVCLIP trains f32 master parameters under
 the activations' compute dtype."""
 from __future__ import annotations
@@ -15,8 +16,12 @@ N_OFFSET_CLS = 21
 # tiny widths for the CPU parity tests: 4 heads of 64 (the JAX split path's
 # 128-lane grouping holds), depth 2, 32 px frames in 8 px patches, 4 frames
 # -> 2 temporal tokens; the real mel geometry (128 x 66 -> 74 AST tokens)
-TINY = dict(d=256, heads=4, depth=2, img_size=32, patch_size=8,
+TINY = dict(d=256, heads=4, audio_heads=4, depth=2, img_size=32, patch_size=8,
             temporal_resolution=2, n_layer=2)
+# the packed-flow counterpart: a video tower of 2 heads of 96, which do not
+# pair into 128 lanes, so the JAX Motionformer takes its packed flow
+# (motionformer.py:554-559); the AST keeps heads of 64, as build_avclip_8head
+TINY_PACKED = dict(TINY, d=192, heads=2, audio_heads=3)
 
 
 def build_synchformer(n_segments: int = 14, device=None) -> Synchformer:
@@ -51,12 +56,37 @@ def build_avclip(remat: bool = False, device=None) -> AVCLIP:
                   d=D, device=device)
 
 
+def build_avclip_8head(remat: bool = False, device=None) -> AVCLIP:
+    """build_avclip with an 8-head video tower: 8 heads of 96, the head layout
+    of configs/sync.yaml's GlobalTransformer (n_head 8, n_embd 768). Heads of
+    96 do not pair into 128 TPU lanes, so the JAX Motionformer runs its packed
+    flow (motionformer.py:554-559), which reaches K7a and K7c; this is the
+    widest such shape, at the published width and depth, and it puts them
+    under the same Stage I step as build_avclip. No published checkpoint has
+    an 8-head Motionformer: the JAX package runs it through its config
+    (vfeat_extractor.params.num_heads: 8)."""
+    return AVCLIP(vfeat_extractor=dict(depth=12, num_heads=8, remat=remat,
+                                       drop_path_rate=0.2),
+                  afeat_extractor=dict(depth=12, num_heads=12, remat=remat),
+                  d=D, device=device)
+
+
 def build_tiny_avclip(remat: bool = False, drop_path_rate: float = 0.0,
                       device=None) -> AVCLIP:
-    t = TINY
+    return _tiny_avclip(TINY, remat, drop_path_rate, device)
+
+
+def build_tiny_avclip_packed(remat: bool = False, drop_path_rate: float = 0.0,
+                             device=None) -> AVCLIP:
+    """TINY_PACKED towers: the video tower runs the packed flow."""
+    return _tiny_avclip(TINY_PACKED, remat, drop_path_rate, device)
+
+
+def _tiny_avclip(t: dict, remat: bool, drop_path_rate: float, device) -> AVCLIP:
     return AVCLIP(vfeat_extractor=dict(depth=t["depth"], num_heads=t["heads"],
                                        patch_size=t["patch_size"], img_size=t["img_size"],
                                        temporal_resolution=t["temporal_resolution"],
                                        remat=remat, drop_path_rate=drop_path_rate),
-                  afeat_extractor=dict(depth=t["depth"], num_heads=t["heads"], remat=remat),
+                  afeat_extractor=dict(depth=t["depth"], num_heads=t["audio_heads"],
+                                       remat=remat),
                   d=t["d"], device=device)

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the tile GEMM's grid puts 64-row tiles on gridDim.y (at most 65535)
 MAX_GEMM_ROWS = 65535 * 64
 
-# launches of each kernel wrapper on a CUDA tensor, keyed K1..K6
+# launches of each kernel wrapper on a CUDA tensor, keyed K1..K6, K7a, K7b, K7c
 launches: collections.Counter = collections.Counter()
 
 _libs: dict = {}
@@ -50,8 +50,10 @@ _SIGNATURES = {
     "standard_attention": {"sft_standard_attention": [_P, _P, _I, _I, _I, _I, _P]},
     "cls_pool": {"sft_cls_pool_tokens": [_P] * 20 + [_I] * 5 + [_F, _P]},
     "divided_attention": {"sft_divided_attention_proj": [_P] * 8 + [_I] * 6 + [_P],
-                          "sft_divided_attention": [_P] * 4 + [_I] * 6 + [_P]},
-    "divided_attention_bwd": {"sft_divided_attention_bwd": [_P] * 10 + [_I] * 6 + [_P]},
+                          "sft_divided_attention": [_P] * 4 + [_I] * 6 + [_P],
+                          "sft_divided_attention_packed": [_P] * 2 + [_I] * 6 + [_P]},
+    "divided_attention_bwd": {"sft_divided_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
+                              "sft_divided_attention_packed_bwd": [_P] * 7 + [_I] * 6 + [_P]},
 }
 
 

@@ -1,5 +1,6 @@
 """K1: split-layout divided space-time attention with the output projection
-and residual in the epilogue; K5: the same attention without them.
+and residual in the epilogue; K5: the same attention without them; K7a/K7b:
+the same attention on the packed layout.
 
 K1 replaces synchformer_tpu/ops/pallas/divided_attention.py::
 divided_attention_proj_4d (body _kernel_4d_proj with _cls_row_4d,
@@ -9,6 +10,19 @@ divided_attention_pallas_4d (body _kernel_4d) with the same file's
 step (its backward, K6, is in divided_attention_bwd.py); at Stage I's qkv
 (28, 8, 196, 2304) it moves ~270 MB, which bounds it at ~81 us on the H100,
 while this first port's CUDA-core attention math bounds it in practice.
+
+K7a replaces divided_attention_pallas (body _kernel, the v1 kernel the TPU
+runs at heads that do not pair into 128 lanes) and K7b its v3 body
+(_divided_attention_pallas_v3, groupable heads), both with the
+``sft_divided_attention_packed`` entry: the same launches as K5 reading the
+packed (B, 1 + f*n, 3D) qkv and writing the (B, 1 + f*n, D) output in place,
+no copy into the split layout. The lane rule decides which row the launch
+counts under (``heads_groupable``); the CUDA code is one. Main-path shape:
+(28, 1569, 2304), 8 heads of 96, in the Stage I step of the 8-head video
+tower (models/presets.py::build_avclip_8head).
+
+Every kernel here takes head_dim in ``HEAD_DIMS`` (a template parameter of
+the CUDA code); the CLS query of each head attends all 1 + f*n keys.
 
 K1's main-path shapes (sync inference): qkv_patches (112, 8, 196, 2304), qkv_cls (112, 1, 2304),
 res (112, 8, 196, 768), 12 heads of 64, bf16; space groups are frames (197
@@ -27,10 +41,22 @@ import torch
 from synchformer_tpu_torch.ops.kernels import _build
 from synchformer_tpu_torch.ops.numerics import dense
 
-__all__ = ["divided_attention", "divided_attention_proj", "divided_attention_plain",
-           "divided_attention_proj_plain"]
+__all__ = ["divided_attention", "divided_attention_proj", "divided_attention_packed",
+           "divided_attention_plain", "divided_attention_proj_plain",
+           "divided_attention_packed_plain", "heads_groupable", "HEAD_DIMS"]
 
 _MODES = {"space": 0, "time": 1}
+# the head dims the CUDA kernels are instantiated for
+HEAD_DIMS = (32, 64, 96, 128)
+
+
+def heads_groupable(num_heads: int, dh: int) -> bool:
+    """The JAX package's 128-lane rule (synchformer_tpu/models/motionformer.py
+    :554-559, ops/pallas/divided_attention.py:611-615): heads pair into
+    128-lane groups. True: the Motionformer takes the split flow and the
+    packed kernel is the v3 body (K7b); False: the packed flow, v1 body (K7a)."""
+    hpg = max(1, 128 // dh)
+    return num_heads % hpg == 0 and (dh * hpg) % 128 == 0
 
 
 def _attend(q, k, v):
@@ -70,29 +96,72 @@ def divided_attention_plain(qkv_patches, qkv_cls, num_heads: int, mode: str):
     return out_p.reshape(b, f, n, d), out_c
 
 
+def divided_attention_packed_plain(qkv, num_heads: int, num_frames: int, mode: str):
+    """The XLA DividedAttention math on the packed layout, without the
+    keep-mask: qkv (B, 1 + f*n, 3D), tokens [CLS, frame-major patches] ->
+    (B, 1 + f*n, D) before the projection."""
+    b, seq, threed = qkv.shape
+    n = (seq - 1) // num_frames
+    out_p, out_c = divided_attention_plain(qkv[:, 1:].reshape(b, num_frames, n, threed),
+                                           qkv[:, :1], num_heads, mode)
+    return torch.cat([out_c, out_p.reshape(b, seq - 1, -1)], dim=1)
+
+
 def divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo, bo,
                                  num_heads: int, mode: str):
     attn_p, attn_c = divided_attention_plain(qkv_patches, qkv_cls, num_heads, mode)
     return res_patches + dense(attn_p, wo, bo, res_patches.dtype), attn_c
 
 
+def _check_heads(what: str, d: int, num_heads: int, mode: str, b: int, f: int, n: int) -> int:
+    """The checks every divided-attention kernel makes on its shape; returns
+    head_dim."""
+    if mode not in _MODES:
+        raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
+    dh = d // num_heads
+    _build.require(dh * num_heads == d and dh in HEAD_DIMS,
+                   f"{what} takes head_dim in {HEAD_DIMS}, got D={d} over {num_heads} heads")
+    _build.require(0 < b <= 65535 and 0 < f <= 65535 and 0 < n <= 65535
+                   and b * f * n <= _build.MAX_GEMM_ROWS, f"{what} shape out of range")
+    return dh
+
+
 def check_split_qkv(what: str, qkv_patches, qkv_cls, num_heads: int, mode: str,
                     *others: torch.Tensor):
     """The checks every split-layout kernel (K1, K5, K6) makes before it
-    launches: contiguous bf16 qkv on one device, head_dim 64, grid ranges.
-    Returns (b, f, n, d)."""
-    if mode not in _MODES:
-        raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
+    launches: contiguous bf16 qkv on one device, head_dim in HEAD_DIMS, grid
+    ranges. Returns (b, f, n, d)."""
     _build.require_same_device(what, qkv_patches, qkv_cls, *others)
+    _build.require(qkv_patches.ndim == 4, f"{what} takes qkv_patches (B, f, n, 3D)")
     b, f, n, threed = qkv_patches.shape
     d = threed // 3
     _build.require(all(t.dtype == torch.bfloat16 and t.is_contiguous()
                        for t in (qkv_patches, qkv_cls)),
                    f"{what} takes contiguous bf16 qkv")
     _build.require(qkv_cls.shape == (b, 1, threed), f"{what}: qkv_cls shape mismatch")
-    _build.require(d == num_heads * 64, f"{what} takes head_dim 64")
-    _build.require(b <= 65535 and f <= 65535 and n <= 65535
-                   and b * f * n <= _build.MAX_GEMM_ROWS, f"{what} shape out of range")
+    _build.require(qkv_patches.data_ptr() % 16 == 0 and qkv_cls.data_ptr() % 16 == 0,
+                   f"{what} reads qkv rows with 16-byte loads: 16-byte aligned qkv")
+    _check_heads(what, d, num_heads, mode, b, f, n)
+    return b, f, n, d
+
+
+def check_packed_qkv(what: str, qkv, num_heads: int, num_frames: int, mode: str,
+                     *others: torch.Tensor):
+    """The checks every packed-layout kernel (K7a/b, K7c) makes before it
+    launches: contiguous bf16 qkv (B, 1 + f*n, 3D) on one device, head_dim in
+    HEAD_DIMS, grid ranges. Returns (b, f, n, d)."""
+    _build.require_same_device(what, qkv, *others)
+    _build.require(qkv.ndim == 3 and qkv.dtype == torch.bfloat16 and qkv.is_contiguous(),
+                   f"{what} takes a contiguous bf16 qkv (B, 1 + f*n, 3D)")
+    b, seq, threed = qkv.shape
+    f = num_frames
+    _build.require(f > 0 and seq > 1 and (seq - 1) % f == 0,
+                   f"{what}: sequence {seq} is not 1 + {f} frames x n patches")
+    n = (seq - 1) // f
+    d = threed // 3
+    _build.require(qkv.data_ptr() % 16 == 0,
+                   f"{what} reads qkv rows with 16-byte loads: 16-byte aligned qkv")
+    _check_heads(what, d, num_heads, mode, b, f, n)
     return b, f, n, d
 
 
@@ -109,22 +178,41 @@ def divided_attention(qkv_patches, qkv_cls, num_heads: int, mode: str,
     fn = _build.library("divided_attention", "sft_divided_attention")
     _build.launches["K5"] += 1
     _build.check(fn(qkv_patches.data_ptr(), qkv_cls.data_ptr(), out_p.data_ptr(),
-                    out_c.data_ptr(), b, f, n, num_heads, 64, _MODES[mode],
+                    out_c.data_ptr(), b, f, n, num_heads, d // num_heads, _MODES[mode],
                     _build.stream_ptr()), "K5 divided_attention")
     return out_p, out_c
+
+
+def divided_attention_packed(qkv, num_heads: int, num_frames: int, mode: str,
+                             impl: str = "kernel"):
+    """K7a / K7b: packed divided attention, qkv (B, 1 + f*n, 3D) -> (B,
+    1 + f*n, D) in head-major feature order, before the projection (the JAX
+    divided_attention_pallas). Forward only; the differentiable form is
+    divided_attention_bwd.packed_divided_attention."""
+    if not _build.use_kernel(qkv, impl):
+        return divided_attention_packed_plain(qkv, num_heads, num_frames, mode)
+    b, f, n, d = check_packed_qkv("K7", qkv, num_heads, num_frames, mode)
+    dh = d // num_heads
+    out = torch.empty((b, 1 + f * n, d), dtype=torch.bfloat16, device=qkv.device)
+    fn = _build.library("divided_attention", "sft_divided_attention_packed")
+    key = "K7b" if heads_groupable(num_heads, dh) else "K7a"
+    _build.launches[key] += 1
+    _build.check(fn(qkv.data_ptr(), out.data_ptr(), b, f, n, num_heads, dh, _MODES[mode],
+                    _build.stream_ptr()), f"{key} divided_attention_packed")
+    return out
 
 
 def divided_attention_proj(qkv_patches, qkv_cls, res_patches, wo, bo,
                            num_heads: int, mode: str, impl: str = "kernel"):
     """K1: returns (res + attn_patches @ wo^T + bo, raw CLS attention
-    (B, 1, D)). wo (D, D) bf16 (out, in); bo f32. The kernel takes head_dim
-    64."""
+    (B, 1, D)). wo (D, D) bf16 (out, in); bo f32."""
     if not _build.use_kernel(qkv_patches, impl):
         return divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo,
                                             bo, num_heads, mode)
     b, f, n, d = check_split_qkv("K1", qkv_patches, qkv_cls, num_heads, mode,
                                  res_patches, wo, bo)
     bf = torch.bfloat16
+    _build.require(d % 64 == 0, "K1's projection GEMM takes D % 64 == 0")
     _build.require(all(t.dtype == bf and t.is_contiguous() for t in (res_patches, wo)),
                    "K1 takes a contiguous bf16 residual and wo")
     _build.require(res_patches.shape == (b, f, n, d) and wo.shape == (d, d),
@@ -137,6 +225,6 @@ def divided_attention_proj(qkv_patches, qkv_cls, res_patches, wo, bo,
     _build.launches["K1"] += 1
     _build.check(fn(qkv_patches.data_ptr(), qkv_cls.data_ptr(), res_patches.data_ptr(),
                     wo.data_ptr(), bo.data_ptr(), scratch.data_ptr(), out_p.data_ptr(),
-                    out_c.data_ptr(), b, f, n, num_heads, 64, _MODES[mode],
+                    out_c.data_ptr(), b, f, n, num_heads, d // num_heads, _MODES[mode],
                     _build.stream_ptr()), "K1 divided_attention_proj")
     return out_p, out_c

@@ -98,6 +98,20 @@ def _depth(p: Mapping, stem: str) -> int:
     return n
 
 
+def divided_block_sd(b: Mapping, prefix: str) -> SD:
+    """DividedSpaceTimeBlock params -> the reference block names. The JAX
+    tree is the same in the split and the packed flow."""
+    sd = {}
+    for n in ("norm1", "norm2", "norm3"):
+        sd.update(_layernorm(b[n], f"{prefix}.{n}"))
+    for n in ("attn", "timeattn"):
+        sd.update(_linear(b[n]["qkv"], f"{prefix}.{n}.qkv"))
+        sd.update(_linear(b[n]["proj"], f"{prefix}.{n}.proj"))
+    sd.update(_linear(b["mlp"]["fc1"], f"{prefix}.mlp.fc1"))
+    sd.update(_linear(b["mlp"]["fc2"], f"{prefix}.mlp.fc2"))
+    return sd
+
+
 def motionformer_sd(p: Mapping, prefix: str = "") -> SD:
     sd = {f"{prefix}cls_token": _a(p["cls_token"]),
           f"{prefix}pos_embed": _a(p["pos_embed"]),
@@ -105,14 +119,7 @@ def motionformer_sd(p: Mapping, prefix: str = "") -> SD:
           **_conv(p["patch_embed_3d"], f"{prefix}patch_embed_3d.proj"),
           **_layernorm(p["norm"], f"{prefix}norm")}
     for i in range(_depth(p, "blocks_")):
-        b, q = p[f"blocks_{i}"], f"{prefix}blocks.{i}"
-        for n in ("norm1", "norm2", "norm3"):
-            sd.update(_layernorm(b[n], f"{q}.{n}"))
-        for n in ("attn", "timeattn"):
-            sd.update(_linear(b[n]["qkv"], f"{q}.{n}.qkv"))
-            sd.update(_linear(b[n]["proj"], f"{q}.{n}.proj"))
-        sd.update(_linear(b["mlp"]["fc1"], f"{q}.mlp.fc1"))
-        sd.update(_linear(b["mlp"]["fc2"], f"{q}.mlp.fc2"))
+        sd.update(divided_block_sd(p[f"blocks_{i}"], f"{prefix}blocks.{i}"))
     sd.update(cls_pool_layer_sd(p["spatial_attn_agg"]["cls_layer"],
                                 f"{prefix}spatial_attn_agg"))
     return sd

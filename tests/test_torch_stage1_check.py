@@ -1,8 +1,11 @@
-"""chip_smoke.py's Stage I agreement check fails a wrong K5 or K6 and passes
-the right ones, on the tiny AVCLIP (drop-path 0.2, B=2, S=2) on the CPU.
+"""chip_smoke.py's Stage I agreement check fails a wrong K5, K6, K7a or K7c
+and passes the right ones, on the tiny AVCLIPs (drop-path 0.2, B=2, S=2) on
+the CPU: build_tiny_avclip for the split flow (K5 / K6) and
+build_tiny_avclip_packed for the packed flow (K7a / K7c); and so does its
+packed-block check (phase 5) under the packed flow's faults, on a tiny block.
 
-The faults are scripts/stage1_planted_faults.py's: wrappers around K5's or
-K6's entry where DividedAttentionFn calls it. On CPU tensors the kernel path
+The faults are scripts/stage1_planted_faults.py's: wrappers around a kernel's
+entry where DividedAttentionFn or DividedAttentionPackedFn calls it. On CPU tensors the kernel path
 runs the plain versions, so the unfaulted kernel path equals the plain bf16
 path exactly and the control passes at a ratio of 1; each fault must fail at
 least one check, and those named below the checks that the full-width chip
@@ -34,24 +37,42 @@ def _faults_module():
 faults = _faults_module()
 
 
-@pytest.fixture(scope="module")
-def setup():
-    from synchformer_tpu_torch.models.presets import build_tiny_avclip
+SPLIT_ENTRIES, SPLIT = faults.FLOWS["split"]
+PACKED_ENTRIES, PACKED = faults.FLOWS["packed"]
+
+
+def _setup(tiny_build, entries):
+    """(first_step, the f32 remat step, the plain bf16 step) of a tiny AVCLIP
+    at drop-path 0.2; first_step plants a fault on ``entries``."""
     from synchformer_tpu_torch.utils.convert import seeded_state_dict
 
     def build(remat=False, device=None):
-        return build_tiny_avclip(remat=remat, drop_path_rate=0.2, device=device)
+        return tiny_build(remat=remat, drop_path_rate=0.2, device=device)
 
     sd = seeded_state_dict(build(device="meta"), seed=0)
     batch = chip_smoke.stage1_batch(torch, 2, 2, (4, 32, 32, 3))
 
     def first_step(precision, impl, remat=False, fault=None):
         tr = chip_smoke.stage1_trainer(build, sd, "cpu", precision, impl, remat)
-        with faults.planted(fault):
+        with faults.planted(entries, fault):
             m = chip_smoke.checked_step(tr, batch, f"{precision} {impl}")
         return chip_smoke.step_gradients(torch, tr, m)
 
     return first_step, first_step("fp32", "plain", remat=True), first_step("amp", "plain")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    from synchformer_tpu_torch.models.presets import build_tiny_avclip
+
+    return _setup(build_tiny_avclip, SPLIT_ENTRIES)
+
+
+@pytest.fixture(scope="module")
+def packed_setup():
+    from synchformer_tpu_torch.models.presets import build_tiny_avclip_packed
+
+    return _setup(build_tiny_avclip_packed, PACKED_ENTRIES)
 
 
 # every fault must fail these (a subset of what it failed at full width)
@@ -60,13 +81,14 @@ MUST_FAIL = {
     "k6_cls_key_zero": ["vfeat_extractor.cls_token"],
     "k6_mode_swapped": ["vfeat_extractor.blocks.0.timeattn.qkv.weight[q]"],
     "k5_feature_order": ["loss", "grad_norm", "cosine"],
+    "k7c_dk_zero": ["vfeat_extractor.blocks.1.timeattn.qkv.weight[k]"],
+    "k7a_mode_swapped": ["loss", "grad_norm", "cosine"],
 }
 
 
-@pytest.mark.parametrize("name", list(faults.FAULTS))
-def test_stage1_check_against_planted_fault(setup, name):
+def _check(setup, name, fault):
     first_step, ref, plain = setup
-    kern = first_step("amp", "kernel", fault=faults.FAULTS[name])
+    kern = first_step("amp", "kernel", fault=fault)
     failed = chip_smoke.stage1_agreement(ref, plain, kern)
     # per block, two qkv weights by their q, k, v rows and two qkv biases;
     # and the CLS token (97 leaves at depth 12, 17 at the tiny depth 2)
@@ -75,3 +97,41 @@ def test_stage1_check_against_planted_fault(setup, name):
         assert failed == []
     else:
         assert set(MUST_FAIL[name]) <= set(failed), failed
+
+
+@pytest.mark.parametrize("name", list(SPLIT))
+def test_stage1_check_against_planted_fault(setup, name):
+    _check(setup, name, SPLIT[name])
+
+
+@pytest.mark.parametrize("name", list(PACKED))
+def test_packed_stage1_check_against_planted_fault(packed_setup, name):
+    _check(packed_setup, name, PACKED[name])
+
+
+@pytest.fixture(scope="module")
+def block_setup():
+    """(block, the f32 record, the plain bf16 record) of chip_smoke's packed
+    block at the script's TINY_BLOCK size (2 heads of 64, 1 + 2 x 4 tokens)."""
+    setup = chip_smoke.packed_block(torch, "cpu", **faults.TINY_BLOCK)
+    return (setup, chip_smoke.packed_block_grads(torch, setup, torch.float32, "plain"),
+            chip_smoke.packed_block_grads(torch, setup, torch.bfloat16, "plain"))
+
+
+# what each fault must fail in chip_smoke's packed-block check
+BLOCK_MUST_FAIL = {"k7c_dk_zero": ["timeattn.qkv.weight[k]", "attn.qkv.weight[k]"],
+                   "k7a_mode_swapped": ["y", "attn.qkv.weight[v]"]}
+
+
+@pytest.mark.parametrize("name", list(PACKED))
+def test_packed_block_check_against_planted_fault(block_setup, name):
+    setup, ref, plain = block_setup
+    with faults.planted(PACKED_ENTRIES, PACKED[name]):
+        kern = chip_smoke.packed_block_grads(torch, setup, torch.bfloat16, "kernel")
+    failed = chip_smoke.packed_block_agreement(ref, plain, kern)
+    # y, dx and two qkv weights by their q, k, v rows
+    assert len(ref) == 2 + 2 * 3
+    if name == "none":
+        assert failed == []
+    else:
+        assert set(BLOCK_MUST_FAIL[name]) <= set(failed), failed

@@ -2,7 +2,8 @@
 
 A tiny AVCLIP (presets.TINY towers: D=256, 4 heads of 64, depth 2, 32 px
 frames, the real 128 x 66 mel geometry; drop-path 0; S=2, B=2) gets the JAX
-model's parameters through avclip_state_dict_from_jax. Both sides take the
+model's parameters through avclip_state_dict_from_jax. The check_* helpers
+serve tests/test_torch_packed.py's packed-flow AVCLIP as well. Both sides take the
 same normalised frames (JAX as (B, S, T, H, W, C) through its conv patch
 embed, the port patch-major through its dense one) and the same log-mel, in
 f32. The JAX side runs its XLA path; the Pallas kernels and their custom
@@ -28,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_models import JAX_AUD, JAX_VIS, randomize
+from test_torch_models import randomize
 
 from synchformer_tpu_torch.models.layers import DropPath
 from synchformer_tpu_torch.models.presets import TINY, build_tiny_avclip
@@ -52,33 +53,46 @@ GRAD_REL_TO_MAX = 2e-5
 PARAM_ATOL, SETTLED_GRAD = 2e-6, 1e-5
 
 
-def jax_tiny_avclip():
+def jax_tiny_avclip(t):
+    """The JAX AVCLIP at the tiny widths ``t`` (presets.TINY or TINY_PACKED),
+    on its XLA path."""
     from synchformer_tpu.models.avclip import AVCLIP
 
+    vis = dict(embed_dim=t["d"], depth=t["depth"], num_heads=t["heads"],
+               patch_size=t["patch_size"], z_block_size=2,
+               temporal_resolution=t["temporal_resolution"], img_size=t["img_size"],
+               drop_path_rate=0.0, agg_time_module="AveragePooling")
+    aud = dict(hidden_size=t["d"], depth=t["depth"], num_heads=t["audio_heads"],
+               agg_time_module="AveragePooling")
     nothing = dict(target="synchformer_tpu.models.bridges.DoNothingBridge", params={})
     return AVCLIP(
-        n_embd=TINY["d"],
+        n_embd=t["d"],
         afeat_extractor=dict(target="synchformer_tpu.models.ast_encoder.ASTEncoder",
-                             params=dict(JAX_AUD, agg_time_module="AveragePooling")),
+                             params=aud),
         vfeat_extractor=dict(target="synchformer_tpu.models.motionformer.MotionFormerEncoder",
-                             params=dict(JAX_VIS, agg_time_module="AveragePooling")),
+                             params=vis),
         aproj=nothing, vproj=nothing)
 
 
 @pytest.fixture(scope="module")
 def case():
-    """JAX model, randomised params (logit scale 0.07), inputs, the JAX loss
-    and gradients of AVCLIP.apply(deterministic=False), its eval features, and
-    the JAX state after one make_avclip_train_step."""
+    return make_case(TINY, build_tiny_avclip)
+
+
+def make_case(t, build):
+    """JAX model at the tiny widths ``t``, randomised params (logit scale
+    0.07), inputs, the JAX loss and gradients of
+    AVCLIP.apply(deterministic=False), its eval features, and the JAX state
+    after one make_avclip_train_step; ``build`` makes the port's model."""
     from synchformer_tpu.train.state import SyncTrainState, make_lr_schedule, make_optimizer
     from synchformer_tpu.train.step import make_avclip_train_step
 
     rng = np.random.default_rng(0)
-    t_in = 2 * TINY["temporal_resolution"]
-    u8 = rng.integers(0, 256, (B, S, t_in, TINY["img_size"], TINY["img_size"], 3), np.uint8)
+    t_in = 2 * t["temporal_resolution"]
+    u8 = rng.integers(0, 256, (B, S, t_in, t["img_size"], t["img_size"], 3), np.uint8)
     frames = ((u8.astype(np.float32) / 255.0) - 0.5) / 0.5
     aud = rng.standard_normal((B, S, 66, 128)).astype(np.float32)
-    model = jax_tiny_avclip()
+    model = jax_tiny_avclip(t)
     params = randomize(jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(frames),
                                            jnp.asarray(aud)))["params"]
     params = {**params, "logit_scale": jnp.asarray(0.07, jnp.float32)}
@@ -99,7 +113,8 @@ def case():
     state = SyncTrainState.create(params, tx, trainable_keys=tuple(params.keys()))
     new_state, metrics = make_avclip_train_step(model, donate=False)(
         state, {"vis": jnp.asarray(frames), "aud": jnp.asarray(aud)}, jax.random.PRNGKey(0))
-    return dict(params=params, frames=frames, u8=u8, aud=aud, loss=float(loss),
+    return dict(t=t, build=build, params=params, frames=frames, u8=u8, aud=aud,
+                loss=float(loss),
                 grads=avclip_state_dict_from_jax(grads),
                 grad_norm=float(jnp.sqrt(sum(jnp.sum(g * g)
                                              for g in jax.tree.leaves(grads)))),
@@ -111,14 +126,14 @@ def case():
 
 
 def port_model(case, remat=False):
-    model = build_tiny_avclip(remat=remat)
+    model = case["build"](remat=remat)
     load_numpy_state_dict(model, avclip_state_dict_from_jax(case["params"]))
     return model
 
 
 def port_inputs(case):
     vis = torch.from_numpy(np.ascontiguousarray(patchify_frames(case["frames"], 2,
-                                                                TINY["patch_size"])))
+                                                                case["t"]["patch_size"])))
     return vis, torch.from_numpy(case["aud"])
 
 
@@ -135,6 +150,10 @@ def test_avclip_loss_and_grads_match_jax(case, impl):
     """Loss, every parameter's gradient and the global norm against
     jax.value_and_grad of AVCLIP.apply(deterministic=False); the kernel route
     on CPU tensors launches nothing."""
+    check_loss_and_grads(case, impl)
+
+
+def check_loss_and_grads(case, impl):
     _build.launches.clear()
     loss, grads = port_grads(case, impl)
     assert sum(_build.launches.values()) == 0
@@ -157,6 +176,10 @@ def test_avclip_train_step_matches_jax(case, impl):
     """Parameters and metrics after one avclip_train_step (AdamW, cosine
     schedule with the reference warm-up, clip 1.0, logit-scale clamp) against
     make_avclip_train_step with the same settings."""
+    check_train_step(case, impl)
+
+
+def check_train_step(case, impl):
     model = port_model(case)
     vis, aud = port_inputs(case)
     opt = tstate.make_adamw(model.named_parameters(), WD)
@@ -186,6 +209,10 @@ def test_avclip_eval_step_matches_jax(case, impl):
     """The deterministic eval step (K1-K4 route on impl='kernel') against
     AVCLIP.apply(deterministic=True): loss and the (B, S, D) features; its
     zero-shot precision equals the probe on those features."""
+    check_eval_step(case, impl)
+
+
+def check_eval_step(case, impl):
     from synchformer_tpu.train.stage_clip import zero_shot_precision as jax_zsp
 
     vis, aud = port_inputs(case)
@@ -202,6 +229,10 @@ def test_avclip_eval_step_matches_jax(case, impl):
 def test_remat_grads_equal_plain_grads(case):
     """remat=True (torch.utils.checkpoint around every block and layer) gives
     the gradients of remat=False."""
+    check_remat(case)
+
+
+def check_remat(case):
     loss0, g0 = port_grads(case, "kernel")
     loss1, g1 = port_grads(case, "kernel", remat=True)
     assert loss1 == loss0
