@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA GPU: sync inference,
-the Stage I contrastive training step, and the same step with an 8-head video
-tower, which runs the Motionformer's packed flow.
+the Stage I contrastive training step, the same step with an 8-head video
+tower, which runs the Motionformer's packed flow, on both attention routes
+(attn_impl 'pallas' and 'pallas_fused'), and sync inference with that tower
+on both routes.
 
     python3 chip_smoke.py
 
@@ -13,7 +15,10 @@ Phases, each printed as it runs with its seconds:
    K7a and K7c, the packed layout's forward and backward, at the 8-head
    Stage I step's (28, 1569, 2304), 8 heads of 96, and K7c also at the
    packed block's 12 heads of 64, checked but not reported; K7b, the packed
-   forward at groupable heads, at (28, 1569, 2304), 12 heads of 64):
+   forward at groupable heads, at (28, 1569, 2304), 12 heads of 64; K6's
+   space pass also at 36 patches a frame, checked but not reported; K8a in
+   both modes, K8b and K8c at the 8-head serving tower's x (112, 1569, 768),
+   8 heads of 96, hidden 3072, K8c's rows flattened, QKV 2304 wide):
    the kernel against its plain PyTorch version (for K6 the autograd gradient
    of K5's plain version, for seeded random cotangents), both held against a
    plain f32 anchor on the same inputs. Tolerance for each output: kernel
@@ -59,9 +64,25 @@ Phases, each printed as it runs with its seconds:
    counters exactly K7a 24, K7c 24, K2 13, K3 12, K4 2 and K1, K5, K6, K7b 0,
    stage1_agreement over the 97 leaves K7a / K7c feed, timing and peak
    memory, and an eval step reading K7a 24, K2 24, K3 12, K4 2.
-The line before the last is a JSON record of the kernels; the last line is
-{"ok": true, "device": {...}}. Any failed phase raises, so the exit code is
-non-zero and no result line is printed.
+7. in the same phase, the step on attn_impl='pallas_fused' (d), bf16 kernel
+   path only, held against phase 6's (c) and (b) (same weights and generator
+   seed; its plain route is the same composition): counters exactly K8a 24,
+   K7c 24, K8b 1, K2 12, K3 12, K4 2 and K7a 0, stage1_agreement, timed in
+   turns with phase 6's paths, peak memory, an eval step reading K8a 24, K8b
+   12, K2 12, K3 12, K4 2.
+8. sync inference with the 8-head video tower (build_synchformer_8head, B=8,
+   S=14, seeded weights) on attn_impl='pallas_fused' through SyncPredictor:
+   bf16 kernel, bf16 plain and f32 plain; counters exactly K8a 24, K8b 12,
+   K2 12, K3 12, K4 2, the rest 0; serving_agreement (probabilities by phase
+   3's rule, the video tower's features within 2 x plain's relative error;
+   scripts/stage1_planted_faults.py shows that it fails a mode-swapped K8a
+   and one without its LayerNorm); then clips/s of the fused kernel path, of
+   the same weights on attn_impl='pallas' (counters K7a 24, K2 24) and of the
+   plain path, taken in turns.
+The line before the last is a JSON record of the kernels, with the one TPU
+kernel still to port beside them; the last line is {"ok": true, "device":
+{...}}. Any failed phase raises, so the exit code is non-zero and no result
+line is printed.
 """
 from __future__ import annotations
 
@@ -75,7 +96,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-KEYS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7a", "K7b", "K7c")
+KEYS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7a", "K7b", "K7c", "K8a", "K8b", "K8c")
 REPLACES = {
     "K1": "synchformer_tpu/ops/pallas/divided_attention.py:478",
     "K2": "synchformer_tpu/ops/pallas/fused_rows.py:188",
@@ -86,7 +107,12 @@ REPLACES = {
     "K7a": "synchformer_tpu/ops/pallas/divided_attention.py:599",
     "K7b": "synchformer_tpu/ops/pallas/divided_attention.py:569",
     "K7c": "synchformer_tpu/ops/pallas/divided_attention_bwd.py:211",
+    "K8a": "synchformer_tpu/ops/pallas/fused_block.py:148",
+    "K8b": "synchformer_tpu/ops/pallas/fused_block.py:274",
+    "K8c": "synchformer_tpu/ops/pallas/fused_rows.py:65",
 }
+# the one TPU kernel without a port (ROADMAP): listed beside the kernels line
+NOT_PORTED = [{"name": "fused_cls_pool", "replaces": "synchformer_tpu/ops/pallas/cls_pool.py:265"}]
 SOURCES = {
     "K1": "synchformer_tpu_torch/csrc/divided_attention.cu",
     "K2": "synchformer_tpu_torch/csrc/ln_mlp.cu",
@@ -97,6 +123,9 @@ SOURCES = {
     "K7a": "synchformer_tpu_torch/csrc/divided_attention.cu",
     "K7b": "synchformer_tpu_torch/csrc/divided_attention.cu",
     "K7c": "synchformer_tpu_torch/csrc/divided_attention_bwd.cu",
+    "K8a": "synchformer_tpu_torch/csrc/fused_block.cu",
+    "K8b": "synchformer_tpu_torch/csrc/fused_block.cu",
+    "K8c": "synchformer_tpu_torch/csrc/ln_mlp.cu",
 }
 NAMES = {
     "K1": "divided_attention_proj",
@@ -108,12 +137,17 @@ NAMES = {
     "K7a": "divided_attention_packed",
     "K7b": "divided_attention_packed_groupable",
     "K7c": "divided_attention_packed_bwd",
+    "K8a": "fused_divided_attention",
+    "K8b": "fused_mlp_residual",
+    "K8c": "fused_ln_matmul",
 }
 # the path whose run gives each kernel's launches (and whose shapes it is timed at)
+# (K8c: no model path calls it; its GEMM is K8a's prologue)
 PATHS = {"K1": "sync_inference", "K2": "sync_inference", "K3": "sync_inference",
          "K4": "sync_inference", "K5": "stage1_train", "K6": "stage1_train",
          "K7a": "stage1_train_8head", "K7b": "packed_block_12x64",
-         "K7c": "stage1_train_8head"}
+         "K7c": "stage1_train_8head", "K8a": "sync_inference_8head_fused",
+         "K8b": "sync_inference_8head_fused", "K8c": "none"}
 MIN_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 2}
 # one Stage I step: 12 blocks x (time + space) divided attentions; the AST's
 # 12 layers; K2 on the AST's 12 layers and on video block 0, the one block
@@ -125,16 +159,29 @@ STAGE1_EVAL_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 2}
 # the same step with the 8-head video tower: the packed flow, K7a / K7c in
 # place of K5 / K6
 STAGE1_8HEAD_LAUNCHES = {"K1": 0, "K2": 13, "K3": 12, "K4": 2, "K5": 0, "K6": 0, "K7a": 24,
-                         "K7b": 0, "K7c": 24}
+                         "K7b": 0, "K7c": 24, "K8a": 0, "K8b": 0}
 # its eval step: the packed K7a pair and K2 over the whole packed x per block
-STAGE1_8HEAD_EVAL_LAUNCHES = {"K1": 0, "K2": 24, "K3": 12, "K4": 2, "K7a": 24, "K7c": 0}
+STAGE1_8HEAD_EVAL_LAUNCHES = {"K1": 0, "K2": 24, "K3": 12, "K4": 2, "K7a": 24, "K7c": 0,
+                              "K8a": 0, "K8b": 0}
+# the same step under attn_impl='pallas_fused': K8a in place of LN -> QKV ->
+# K7a, backward K7c; K8b for video block 0's MLP (drop-path 0), K2 for the
+# AST's 12 layers
+STAGE1_FUSED_LAUNCHES = {"K1": 0, "K2": 12, "K3": 12, "K4": 2, "K5": 0, "K6": 0, "K7a": 0,
+                         "K7b": 0, "K7c": 24, "K8a": 24, "K8b": 1, "K8c": 0}
+# its eval step: K8a's pair and K8b in every video block
+STAGE1_FUSED_EVAL_LAUNCHES = {"K1": 0, "K2": 12, "K3": 12, "K4": 2, "K7a": 0, "K7c": 0,
+                              "K8a": 24, "K8b": 12}
+# one forward of the 8-head sync model (build_synchformer_8head) on each route
+SERVING_FUSED_LAUNCHES = {"K1": 0, "K2": 12, "K3": 12, "K4": 2, "K5": 0, "K6": 0, "K7a": 0,
+                          "K7b": 0, "K7c": 0, "K8a": 24, "K8b": 12, "K8c": 0}
+SERVING_PALLAS_LAUNCHES = {"K1": 0, "K2": 24, "K3": 12, "K4": 2, "K7a": 24, "K8a": 0, "K8b": 0}
 # one packed block at 12 heads of 64, forward and backward, drop-path 0
 PACKED_BLOCK_LAUNCHES = {"K2": 1, "K7a": 0, "K7b": 2, "K7c": 2}
 # the gradient leaves that the divided attention's backward (K6, or K7c in
 # the packed flow) feeds directly (step_gradients)
 STAGE1_LEAVES = re.compile(
     r"vfeat_extractor\.(cls_token|blocks\.\d+\.(attn|timeattn)\.qkv\.(weight|bias))")
-PAIRED = ("K1", "K5", "K6", "K7a", "K7b", "K7c")  # timed as a (space + time) pair
+PAIRED = ("K1", "K5", "K6", "K7a", "K7b", "K7c", "K8a")  # timed as a (space + time) pair
 MAX_CLIP = 1.0  # Stage I's max_clip_norm
 B, S = 8, 14
 B1 = 2  # Stage I's base_batch_size
@@ -324,6 +371,14 @@ def kernel_cases(torch, dev):
                       lambda dt, m=mode: divided_attention_bwd_plain(
                           *cast([qkv_p1, qkv_c1, dop, doc], dt), h, m),
                       (7 * act1 + 2 * bs1 * 7 * d * 2, attention_flops(bs1, mode, 5)), None))
+    # K6's space pass at n <= 47, where the CLS key's per-group partials take
+    # the loop its small-frame repair added (checked and logged only)
+    n36 = rn(bs1, F_T, 36, 3 * d), rn(bs1, 1, 3 * d), rn(bs1, F_T, 36, d), rn(bs1, 1, d)
+    cases.append(("K6 n36", f"K6 space ({bs1},8,36,2304)",
+                  lambda: divided_attention_bwd(*n36, h, "space"),
+                  lambda dt: divided_attention_bwd_plain(*cast(list(n36), dt), h, "space"),
+                  (7 * bs1 * F_T * 36 * d * 2 + 2 * bs1 * 7 * d * 2,
+                   10.0 * bs1 * h * (F_T * 36 * 37 + F_T * 36 + 1) * DH), None))
     # K7a / K7c at the 8-head Stage I step's packed qkv, K7b at 12 heads of 64;
     # the library yardstick: one masked scaled_dot_product_attention over the
     # whole packed sequence (mask built outside the timed call)
@@ -351,37 +406,98 @@ def kernel_cases(torch, dev):
                           lambda dt, m=mode, hh=heads: divided_attention_packed_bwd_plain(
                               qkv7.to(dt), do7.to(dt), hh, F_T, m),
                           (7 * act7, attention_flops(bs1, mode, 5, heads, dh)), None))
+    return cases + k8_cases(torch, dev)
+
+
+def k8_cases(torch, dev, bs: int = B * S, f: int = F_T, n: int = N_P, d: int = D,
+             heads: int = H8) -> list:
+    """kernel_cases' records of K8a (space and time), K8b and K8c at the
+    serving shape of the 8-head sync model's video tower: x (bs, 1 + f*n, d)
+    with a row offset and scale a LayerNorm removes, ``heads`` heads, hidden
+    4d, and K8c's LN + QKV product on the flattened rows."""
+    from synchformer_tpu_torch.ops.kernels.fused_block import (
+        fused_divided_attention,
+        fused_mlp_residual,
+    )
+    from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_matmul
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, std=1.0, mean=0.0, dtype=bf):
+        return (mean + torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def cast(args, dtype):
+        return [a.to(dtype) if torch.is_tensor(a) and a.dtype == bf else a for a in args]
+
+    seq, hid = 1 + f * n, 4 * d
+    rows = bs * seq
+    x = rn(bs, seq, d, std=2.0, mean=0.5)
+    ln = (1.0 + rn(d, std=0.1, dtype=f32), rn(d, std=0.1, dtype=f32))
+    w, bias = rn(3 * d, d, std=0.05), rn(3 * d, std=0.02, dtype=f32)
+    act, wqkv = rows * d * 2, 3 * d * d * 2 + (3 * d + 2 * d) * 4
+    cases = []
+    for mode in ("space", "time"):
+        args = [x, *ln, w, bias, heads, f, mode]
+        flops = 2.0 * rows * d * 3 * d + attention_flops(bs, mode, 2, heads, d // heads)
+        cases.append(("K8a", f"K8a {mode} ({bs},{seq},{d}) {heads}x{d // heads}",
+                      lambda a=args: fused_divided_attention(*a),
+                      lambda dt, a=args: fused_divided_attention(*cast(a, dt), impl="plain"),
+                      (2 * act + wqkv, flops), None))
+    args = [x, *ln, rn(hid, d, std=0.02), rn(hid, std=0.02, dtype=f32), rn(d, hid, std=0.02),
+            rn(d, std=0.02, dtype=f32), 1e-6]
+    cases.append(("K8b", f"K8b ({bs},{seq},{d}) -> {hid}",
+                  lambda a=args: fused_mlp_residual(*a),
+                  lambda dt, a=args: fused_mlp_residual(*cast(a, dt), impl="plain"),
+                  (2 * act + 2 * d * hid * 2 + (hid + 3 * d) * 4, 4.0 * rows * d * hid), None))
+    args = [x.view(rows, d), *ln, w, bias]
+    cases.append(("K8c", f"K8c ({rows},{d}) -> {3 * d}",
+                  lambda a=args: fused_ln_matmul(*a),
+                  lambda dt, a=args: fused_ln_matmul(*cast(a, dt), impl="plain"),
+                  (act + rows * 3 * d * 2 + wqkv, 2.0 * rows * d * 3 * d), None))
     return cases
+
+
+def hold_outputs(label: str, k_out, p_out, a_out, tag: str = "kernels"):
+    """Each output of a kernel case against the f32 anchor: finite, of the
+    anchor's shape, and within 2 x the plain bf16 error + 1e-2 x max|anchor|.
+    Returns (the failed output indices, the largest |kernel - plain|, output
+    0's tolerance)."""
+    failed, worst, tol0 = [], 0.0, 0.0
+    k_out, p_out, a_out = (t if isinstance(t, tuple) else (t,) for t in (k_out, p_out, a_out))
+    for i, (k, p, a) in enumerate(zip(k_out, p_out, a_out)):
+        if k.shape != a.shape or not bool(k.float().isfinite().all()):
+            log(f"[{tag}] {label} output {i}: shape {tuple(k.shape)} or non-finite values FAIL")
+            failed.append(i)
+            continue
+        err_k, err_p = maxabs(k, a), maxabs(p, a)
+        amax = float(a.float().abs().max())
+        tol = 2.0 * err_p + 1e-2 * amax
+        kp = maxabs(k, p)
+        worst = max(worst, kp)
+        if i == 0:
+            tol0 = tol
+        if err_k > tol:
+            failed.append(i)
+        rel = err_k / max(amax, 1e-30)
+        log(f"[{tag}] {label} out{i}: |kernel-f32| {err_k:.3e} (rel {rel:.2e}) "
+            f"|plain_bf16-f32| {err_p:.3e} |kernel-plain| {kp:.3e} tol {tol:.3e} "
+            f"{'ok' if err_k <= tol else 'FAIL'}")
+    return failed, worst, tol0
 
 
 def check_kernels(torch, dev, report):
     for key, label, kern, plain, cost, library in kernel_cases(torch, dev):
         k_out, p_out, a_out = kern(), plain(torch.bfloat16), plain(torch.float32)
         torch.cuda.synchronize()
-        k_out, p_out, a_out = (t if isinstance(t, tuple) else (t,)
-                               for t in (k_out, p_out, a_out))
-        worst, tol0 = 0.0, 0.0
-        for i, (k, p, a) in enumerate(zip(k_out, p_out, a_out)):
-            if k.shape != a.shape or not bool(torch.isfinite(k.float()).all()):
-                fail(f"{label} output {i}: shape {tuple(k.shape)} or non-finite values")
-            err_k, err_p = maxabs(k, a), maxabs(p, a)
-            eps = 1e-2 * float(a.float().abs().max())
-            rel = err_k / max(float(a.float().abs().max()), 1e-30)
-            kp = maxabs(k, p)
-            worst = max(worst, kp)
-            ok = err_k <= 2.0 * err_p + eps
-            if i == 0:
-                tol0 = 2.0 * err_p + eps
-            log(f"[kernels] {label} out{i}: |kernel-f32| {err_k:.3e} (rel {rel:.2e}) "
-                f"|plain_bf16-f32| {err_p:.3e} |kernel-plain| {kp:.3e} "
-                f"tol {2.0 * err_p + eps:.3e} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"{label} output {i} outside tolerance")
+        failed, worst, tol0 = hold_outputs(label, k_out, p_out, a_out)
+        if failed:
+            fail(f"{label} outputs {failed} outside tolerance")
         if library is not None:
             # the yardstick must compute the same function: held to output 0's
             # tolerance against the f32 anchor
             lib_out = library().transpose(1, 2).flatten(2)
-            err_l = maxabs(lib_out, a_out[0])
+            err_l = maxabs(lib_out, a_out if torch.is_tensor(a_out) else a_out[0])
             log(f"[kernels] {label} library: |library-f32| {err_l:.3e} tol {tol0:.3e} "
                 f"{'ok' if err_l <= tol0 else 'FAIL'}")
             if err_l > tol0:
@@ -412,21 +528,28 @@ def check_kernels(torch, dev, report):
             r["ms_set"] = True
 
 
-def run_slice(torch, dev, report):
+def slice_inputs(torch, dev, b: int = B, s: int = S, frames=FRAMES, patch: int = 16):
+    """Seeded patch-major uint8 video (b, s, ...) and PCM (b, s, 10240) on dev."""
     import numpy as np
 
+    from synchformer_tpu_torch.ops.video import patchify_frames
+
+    rng = np.random.default_rng(1)
+    u8 = rng.integers(0, 256, (b, s, *frames), dtype=np.uint8)
+    video = torch.from_numpy(np.ascontiguousarray(patchify_frames(u8, 2, patch))).to(dev)
+    pcm = torch.from_numpy((rng.standard_normal((b, s, 10240)) * 0.1).astype(np.float32)).to(dev)
+    return video, pcm
+
+
+def run_slice(torch, dev, report):
     from synchformer_tpu_torch.infer import SyncPredictor
     from synchformer_tpu_torch.models.presets import build_synchformer
     from synchformer_tpu_torch.ops.kernels import _build
-    from synchformer_tpu_torch.ops.video import patchify_frames
     from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
 
     t0 = time.perf_counter()
     sd = seeded_state_dict(build_synchformer(S, device="meta"), seed=0)
-    rng = np.random.default_rng(1)
-    frames = rng.integers(0, 256, (B, S, 16, 224, 224, 3), dtype=np.uint8)
-    video = torch.from_numpy(np.ascontiguousarray(patchify_frames(frames))).to(dev)
-    pcm = torch.from_numpy((rng.standard_normal((B, S, 10240)) * 0.1).astype(np.float32)).to(dev)
+    video, pcm = slice_inputs(torch, dev)
     log(f"[slice] weights + inputs {time.perf_counter() - t0:.1f} s; video {tuple(video.shape)} "
         f"{video.dtype}, pcm {tuple(pcm.shape)}")
 
@@ -481,6 +604,118 @@ def run_slice(torch, dev, report):
         best = min(ts)
         log(f"[timing] slice {impl} path: {best * 1e3:.1f} ms/batch of {B} clips "
             f"= {B / best:.2f} clips/s (runs {[round(t * 1e3, 1) for t in ts]} ms)")
+
+
+def serving_record(torch, pred, video, pcm) -> dict:
+    """One SyncPredictor forward: its logits, probabilities and the video
+    tower's output features (read by a forward hook), in f32."""
+    feats = {}
+    hook = pred.model.vfeat_extractor.register_forward_hook(
+        lambda mod, args, out: feats.update(v=out.float()))
+    try:
+        logits = pred.logits(video, pcm).float()
+    finally:
+        hook.remove()
+    return {"logits": logits, "probs": torch.softmax(logits, -1), "vfeat": feats["v"]}
+
+
+def serving_agreement(ref: dict, plain: dict, kern: dict, tag: str) -> list:
+    """Hold serving_record's kernel record against the f32 one: finite
+    values of the f32 shapes; the probabilities within 2 x the plain bf16
+    error + 5e-3 (phase 3's rule); the video tower's features by relative L2
+    error within 2 x plain's, no eps (at seeded weights the probabilities sit
+    near 1/21 and move little when one kernel is wrong; the features do not).
+    Returns the names of the checks that failed."""
+    failed = []
+    for name, a in ref.items():
+        k, p = kern[name], plain[name]
+        if k.shape != a.shape or not bool(k.isfinite().all()):
+            log(f"[{tag}] {name}: shape {tuple(k.shape)} or non-finite values FAIL")
+            failed.append(name)
+            continue
+        if name == "logits":
+            continue
+        if name == "probs":
+            err_k, err_p = maxabs(k, a), maxabs(p, a)
+            tol = 2.0 * err_p + 5e-3
+        else:
+            a64 = a.double()
+            err_k, err_p = (float((t.double() - a64).norm() / a64.norm()) for t in (k, p))
+            tol = 2.0 * err_p
+        if err_k > tol:
+            failed.append(name)
+        log(f"[{tag}] {name}: |kernel-f32| {err_k:.3e} |plain_bf16-f32| {err_p:.3e} "
+            f"tol {tol:.3e} {'ok' if err_k <= tol else 'FAIL'}")
+    return failed
+
+
+def run_serving_8head(torch, dev, report):
+    """The 8-head sync model (build_synchformer_8head: the video tower at 8
+    heads of 96, the packed flow) under attn_impl='pallas_fused' through
+    SyncPredictor at B=8, S=14: bf16 kernel (K8a, K8b), bf16 plain and f32
+    plain from one seeded state dict; exact launch counts, serving_agreement,
+    then clips/s of both routes' kernel paths and of the plain path, taken in
+    turns, the same weights on attn_impl='pallas' (K7a, K2) beside them."""
+    from synchformer_tpu_torch.infer import SyncPredictor
+    from synchformer_tpu_torch.models.presets import build_synchformer_8head
+    from synchformer_tpu_torch.ops.kernels import _build
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
+
+    tag = "serving_8head"
+    sd = seeded_state_dict(build_synchformer_8head(S, device="meta"), seed=0)
+    video, pcm = slice_inputs(torch, dev)
+
+    def predictor(dtype, impl, attn_impl="pallas_fused"):
+        m = build_synchformer_8head(S, attn_impl, device=dev)
+        load_numpy_state_dict(m, sd)
+        return SyncPredictor(m, dev, dtype, impl)
+
+    def counted(pred, want, what):
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        rec = serving_record(torch, pred, video, pcm)
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        log(f"[{tag}] launches in one {what} forward: {counts}")
+        for key, need in want.items():
+            if counts.get(key, 0) != need:
+                fail(f"{tag}: {key} launched {counts.get(key, 0)} times in one {what} forward, "
+                     f"expected {need}")
+        return rec, counts
+
+    p32 = predictor(torch.float32, "plain")
+    ref = serving_record(torch, p32, video, pcm)
+    del p32
+    preds = {"fused": predictor(torch.bfloat16, "kernel"),
+             "plain": predictor(torch.bfloat16, "plain"),
+             "pallas": predictor(torch.bfloat16, "kernel", "pallas")}
+    kern, counts = counted(preds["fused"], SERVING_FUSED_LAUNCHES, "pallas_fused kernel-path")
+    for key in KEYS:
+        if PATHS[key] == "sync_inference_8head_fused":
+            report[key]["launches"] = counts[key]
+    plain = serving_record(torch, preds["plain"], video, pcm)
+    failed = serving_agreement(ref, plain, kern, tag)
+    log(f"[{tag}] f32 top-1 {ref['probs'].argmax(-1).tolist()} kernel top-1 "
+        f"{kern['probs'].argmax(-1).tolist()}")
+    if failed:
+        fail(f"{tag}: kernel path outside tolerance: {failed}")
+    counted(preds["pallas"], SERVING_PALLAS_LAUNCHES, "pallas kernel-path")
+
+    times = {name: [] for name in preds}
+    for name in ("plain", "fused", "pallas", "pallas", "fused", "plain"):
+        pred = preds[name]
+        pred(video, pcm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pred(video, pcm)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / 3)
+    for name, what in (("fused", "pallas_fused kernel"), ("pallas", "pallas kernel"),
+                       ("plain", "plain")):
+        best = min(times[name])
+        log(f"[timing] {tag} {what} path: {best * 1e3:.1f} ms/batch of {B} clips = "
+            f"{B / best:.2f} clips/s (runs {[round(t * 1e3, 1) for t in times[name]]} ms)")
 
 
 def stage1_batch(torch, b: int, s: int, frames=FRAMES) -> dict:
@@ -599,13 +834,17 @@ def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1") ->
 
 
 def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
-               eval_launches=STAGE1_EVAL_LAUNCHES, tag="stage1", path="stage1_train"):
+               eval_launches=STAGE1_EVAL_LAUNCHES, tag="stage1", path="stage1_train",
+               fused=None):
     """The Stage I step of ``build`` (default build_avclip) through
     AVCLIPTrainer: (c) f32 plain with remat, (a) bf16 kernel, (b) bf16 plain;
     exact launch counts of (a)'s first step (reported for the kernels whose
     PATHS entry is ``path``) and of an eval step, agreement, then timing
     windows of 3 steps (plain, kernel, kernel, plain) and the peak memory of
-    each bf16 path's first step."""
+    each bf16 path's first step. ``fused``: (build, launches, eval launches)
+    of the same model on attn_impl='pallas_fused', whose bf16 kernel step (d)
+    is held against (c) and (b) (its plain route is the same composition),
+    counted, and timed in the same turns."""
     from synchformer_tpu_torch.models.presets import build_avclip
     from synchformer_tpu_torch.ops.kernels import _build
     from synchformer_tpu_torch.utils.convert import seeded_state_dict
@@ -614,11 +853,11 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
     t0 = time.perf_counter()
     sd = seeded_state_dict(build(device="meta"), seed=0)
     batch = stage1_batch(torch, B1, S)
-    log(f"[{tag}] {build.__name__}: weights + batch {time.perf_counter() - t0:.1f} s; video "
+    log(f"[{tag}] weights + batch {time.perf_counter() - t0:.1f} s; video "
         f"{tuple(batch['video'].shape)} uint8, audio {tuple(batch['audio'].shape)}")
 
-    def trainer(precision, impl, remat=False):
-        return stage1_trainer(build, sd, dev, precision, impl, remat)
+    def trainer(precision, impl, remat=False, make=build):
+        return stage1_trainer(make, sd, dev, precision, impl, remat)
 
     def first_step(tr, what, resident=0):
         """step_gradients' record of the first step, and its peak memory above
@@ -665,44 +904,71 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
     resident = torch.cuda.memory_allocated()
     trainers["plain"] = trainer("amp", "plain")
     plain, p_peak = first_step(trainers["plain"], "(b) bf16 plain", resident)
-    log(f"[{tag}] (a) and (b) first steps {time.perf_counter() - t0:.1f} s")
+    peaks = {"kernel": k_peak, "plain": p_peak}
+    order = ("plain", "kernel", "kernel", "plain")
+    if fused is not None:
+        resident = torch.cuda.memory_allocated()
+        trainers["fused"] = trainer("amp", "kernel", make=fused[0])
+        _build.launches.clear()
+        kern_f, peaks["fused"] = first_step(trainers["fused"],
+                                            "(d) bf16 kernel, attn_impl='pallas_fused'", resident)
+        exact_counts("one pallas_fused kernel-path step", fused[1])
+        order = ("plain", "kernel", "fused", "fused", "kernel", "plain")
+    log(f"[{tag}] bf16 first steps {time.perf_counter() - t0:.1f} s")
 
-    # 3 steps per window, in the order plain, kernel, kernel, plain
-    times = {"plain": [], "kernel": []}
-    for impl in ("plain", "kernel", "kernel", "plain"):
+    # 3 steps per window, in the order plain, kernel, kernel, plain (with
+    # the fused route's windows in the middle)
+    times = {name: [] for name in trainers}
+    for name in order:
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(3):
-            checked_step(trainers[impl], batch, impl)
+            checked_step(trainers[name], batch, name)
         torch.cuda.synchronize()
-        times[impl].append((time.perf_counter() - t) / 3)
+        times[name].append((time.perf_counter() - t) / 3)
 
-    _build.launches.clear()
-    out = trainers["kernel"].eval_step(batch)
-    torch.cuda.synchronize()
-    exact_counts("one eval step", eval_launches)
-    if (out["vfeat"].shape != (B1, S, D) or not bool(torch.isfinite(out["loss"]))
-            or not bool(torch.isfinite(out["vfeat"]).all())):
-        fail(f"{tag} eval step: features of the wrong shape or non-finite")
-    log(f"[{tag}] eval step: loss {out['loss'].item():.6f}, zero-shot precision "
-        f"{out['precision'].item():.4f} (window 8 of {S} segments)")
-    del trainers, out
+    def eval_step(name, want):
+        _build.launches.clear()
+        out = trainers[name].eval_step(batch)
+        torch.cuda.synchronize()
+        exact_counts(f"one {name} eval step", want)
+        if (out["vfeat"].shape != (B1, S, D) or not bool(torch.isfinite(out["loss"]))
+                or not bool(torch.isfinite(out["vfeat"]).all())):
+            fail(f"{tag} {name} eval step: features of the wrong shape or non-finite")
+        log(f"[{tag}] {name} eval step: loss {out['loss'].item():.6f}, zero-shot precision "
+            f"{out['precision'].item():.4f} (window 8 of {S} segments)")
+
+    eval_step("kernel", eval_launches)
+    if fused is not None:
+        eval_step("fused", fused[2])
+    del trainers
 
     failed = stage1_agreement(ref, plain, kern, tag)
+    if fused is not None:
+        failed += [f"fused {name}" for name in stage1_agreement(ref, plain, kern_f,
+                                                                 f"{tag}_fused")]
     if failed:
         fail(f"{tag}: kernel-path first step outside tolerance: {failed}")
-    for what, peak in (("kernel", k_peak), ("plain", p_peak)):
-        best = min(times[what]) * 1e3
+    for name, what in (("kernel", "kernel"), ("fused", "pallas_fused kernel"), ("plain", "plain")):
+        if name not in times:
+            continue
+        best = min(times[name]) * 1e3
         log(f"[timing] {tag} {what} path: {best:.1f} ms/step of {B1} clips x {S} segments "
             f"= {B1 * 1e3 / best:.3f} samples/s (runs "
-            f"{[round(t * 1e3, 1) for t in times[what]]} ms); peak memory {gib(peak)}")
+            f"{[round(t * 1e3, 1) for t in times[name]]} ms); peak memory {gib(peaks[name])}")
 
 
 def run_stage1_8head(torch, dev, report):
+    """Phase 6, with phase 7 (the step on attn_impl='pallas_fused') held
+    against the same f32 and plain bf16 runs."""
+    import functools
+
     from synchformer_tpu_torch.models.presets import build_avclip_8head
 
+    fused = (functools.partial(build_avclip_8head, attn_impl="pallas_fused"),
+             STAGE1_FUSED_LAUNCHES, STAGE1_FUSED_EVAL_LAUNCHES)
     run_stage1(torch, dev, report, build_avclip_8head, STAGE1_8HEAD_LAUNCHES,
-               STAGE1_8HEAD_EVAL_LAUNCHES, "stage1_8head", "stage1_train_8head")
+               STAGE1_8HEAD_EVAL_LAUNCHES, "stage1_8head", "stage1_train_8head", fused)
 
 
 def packed_block(torch, dev, b: int = B1 * S, d: int = D, h: int = H, f: int = F_T,
@@ -792,7 +1058,8 @@ def run_packed_block(torch, dev, report):
         fail(f"packed block outside tolerance: {failed}")
 
 
-PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head)
+PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
+          run_serving_8head)
 
 
 def main() -> int:
@@ -814,7 +1081,7 @@ def main() -> int:
     secs = _build.build_all()
     log(f"[build] nvcc sm_90a kernels in {secs:.1f} s -> {_build.BUILD_DIR}")
 
-    report: dict = {key: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+    report: dict = {key: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                           "bound_s": [0.0, 0.0], "library_ms": None} for key in KEYS}
     for phase in PHASES:
         t0 = time.perf_counter()
@@ -834,7 +1101,7 @@ def main() -> int:
                                      else "operations"),
                         "library_ms": r["library_ms"]})
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "not_ported": NOT_PORTED}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

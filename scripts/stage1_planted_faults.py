@@ -1,5 +1,5 @@
-"""Show that chip_smoke.py's Stage I and packed-block checks fail a wrong K5,
-K6, K7a/K7b or K7c.
+"""Show that chip_smoke.py's Stage I, packed-block, serving and kernel checks
+fail a wrong K5, K6, K7a/K7b, K7c, K8a or K8b.
 
     python scripts/stage1_planted_faults.py            # full width, one NVIDIA GPU
     python scripts/stage1_planted_faults.py --tiny --device cpu   # a dry run
@@ -23,15 +23,27 @@ Packed flow:
 - none: the control;
 - k7c_dk_zero: K7c returns a zero dk (patches and CLS);
 - k7a_mode_swapped: K7a runs the other mode (space for time and back).
+Packed flow on attn_impl='pallas_fused' (phase 7's step; the faults wrap the
+entries of ops/kernels/fused_block.py, where FusedDividedAttentionFn and
+FusedMlpFn call them):
+- none: the control;
+- k8a_dk_zero: the K7c call in K8a's backward returns a zero dk.
 Then the packed flow's faults once more on chip_smoke.py's phase-5 packed
 block (12 heads of 64: the same entry launches K7b there), held with
-chip_smoke.packed_block_agreement.
+chip_smoke.packed_block_agreement; and these faults on phase 8's serving
+check (chip_smoke.serving_agreement, the 8-head sync model on
+attn_impl='pallas_fused') and, with k8b_residual_dropped, on phase 2's
+K8a / K8b cases (chip_smoke.hold_outputs):
+- k8a_mode_swapped: K8a runs the other mode;
+- k8a_ln_skipped: K8a without its LayerNorm (the attention of x's own QKV);
+- k8b_residual_dropped: K8b returns the MLP branch without the residual.
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
-build_tiny_avclip_packed, drop-path 0.2) at B=2, S=2 and a block of
-TINY_BLOCK's size: on CPU tensors the kernel wrappers run their plain
-versions, which the faults wrap all the same.
+build_tiny_avclip_packed, drop-path 0.2) at B=2, S=2, a block of
+TINY_BLOCK's size, the tiny Synchformer with TINY_PACKED's towers and
+phase 2's K8 cases at TINY_K8's size: on CPU tensors the kernel wrappers run
+their plain versions, which the faults wrap all the same.
 """
 from __future__ import annotations
 
@@ -48,14 +60,26 @@ sys.path.insert(0, REPO)
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from synchformer_tpu_torch.infer import SyncPredictor  # noqa: E402
 from synchformer_tpu_torch.models.presets import (  # noqa: E402
+    TINY_PACKED,
     build_avclip,
     build_avclip_8head,
+    build_synchformer_8head,
     build_tiny_avclip,
     build_tiny_avclip_packed,
+    build_tiny_synchformer,
 )
 from synchformer_tpu_torch.ops.kernels import divided_attention_bwd as dab  # noqa: E402
-from synchformer_tpu_torch.utils.convert import seeded_state_dict  # noqa: E402
+from synchformer_tpu_torch.ops.kernels import fused_block as fb  # noqa: E402
+from synchformer_tpu_torch.ops.kernels.divided_attention import (  # noqa: E402
+    divided_attention_packed,
+)
+from synchformer_tpu_torch.ops.numerics import dense  # noqa: E402
+from synchformer_tpu_torch.utils.convert import (  # noqa: E402
+    load_numpy_state_dict,
+    seeded_state_dict,
+)
 
 
 def head_minor(t, num_heads):
@@ -96,38 +120,67 @@ def k7a_mode_swapped(fwd, bwd, qkv, num_heads, num_frames, mode):
     return fwd(qkv, num_heads, num_frames, "time" if mode == "space" else "space")
 
 
-# per flow: the entries a fault may replace (forward, backward), each fault
-# with the entry it replaces
+def k8a_dk_zero(attn, bwd, mlp, qkv, dout, num_heads, num_frames, mode):
+    return k7c_dk_zero(None, bwd, qkv, dout, num_heads, num_frames, mode)
+
+
+def k8a_mode_swapped(attn, bwd, mlp, x, g, b, w, bias, num_heads, num_frames, mode, eps):
+    return attn(x, g, b, w, bias, num_heads, num_frames, "time" if mode == "space" else "space",
+                eps)
+
+
+def k8a_ln_skipped(attn, bwd, mlp, x, g, b, w, bias, num_heads, num_frames, mode, eps):
+    return divided_attention_packed(dense(x, w, bias, x.dtype).contiguous(), num_heads,
+                                    num_frames, mode)
+
+
+def k8b_residual_dropped(attn, bwd, mlp, x, *args):
+    return mlp(x, *args) - x
+
+
+# the entries of ops/kernels/fused_block.py a K8 fault may replace: K8a's
+# forward, the K7c call in its backward, K8b's forward
+K8_ENTRIES = (fb, ("_fused_attention", "divided_attention_packed_bwd", "_fused_mlp"))
+
+# per flow: the module and the entries a fault may replace (forward,
+# backward), each fault with the entry it replaces
 FLOWS = {
-    "split": (("divided_attention", "divided_attention_bwd"),
+    "split": (dab, ("divided_attention", "divided_attention_bwd"),
               {"none": None, "k6_dk_zero": (k6_dk_zero, 1),
                "k6_cls_key_zero": (k6_cls_key_zero, 1),
                "k6_mode_swapped": (k6_mode_swapped, 1),
                "k5_feature_order": (k5_feature_order, 0)}),
-    "packed": (("divided_attention_packed", "divided_attention_packed_bwd"),
+    "packed": (dab, ("divided_attention_packed", "divided_attention_packed_bwd"),
                {"none": None, "k7c_dk_zero": (k7c_dk_zero, 1),
                 "k7a_mode_swapped": (k7a_mode_swapped, 0)}),
+    "packed_fused": (*K8_ENTRIES, {"none": None, "k8a_dk_zero": (k8a_dk_zero, 1)}),
 }
+# the K8 faults on phase 8's serving check and on phase 2's K8a / K8b cases
+SERVING_FAULTS = {"none": None, "k8a_mode_swapped": (k8a_mode_swapped, 0),
+                  "k8a_ln_skipped": (k8a_ln_skipped, 0)}
+KERNEL_FAULTS = {**SERVING_FAULTS, "k8b_residual_dropped": (k8b_residual_dropped, 2)}
 
 
 # --tiny's packed block: 2 heads of 64 (groupable, so K7b's entry), 1 + 2 x 4 tokens
 TINY_BLOCK = {"b": 2, "d": 128, "h": 2, "f": 2, "n": 4}
+# --tiny's K8 cases: 2 heads of 48 on x (2, 1 + 2 x 4, 96)
+TINY_K8 = {"bs": 2, "f": 2, "n": 4, "d": 96, "heads": 2}
 
 
-def planted(entries, fault):
-    """Context: the fault's wrapper in place of one of ``entries`` (the
-    forward's and the backward's names in divided_attention_bwd)."""
-    originals = tuple(getattr(dab, name) for name in entries)
+def planted(module, entries, fault):
+    """Context: the fault's wrapper in place of one of ``entries`` (names in
+    ``module``); the wrapper gets every entry's original first."""
+    originals = tuple(getattr(module, name) for name in entries)
 
     class _Ctx:
         def __enter__(self):
             if fault is not None:
                 fn, which = fault
-                setattr(dab, entries[which], functools.partial(fn, *originals))
+                setattr(module, entries[which], functools.partial(fn, *originals))
 
         def __exit__(self, *exc):
             for name, fn in zip(entries, originals):
-                setattr(dab, name, fn)
+                setattr(module, name, fn)
 
     return _Ctx()
 
@@ -145,16 +198,67 @@ def block_faults(dev, tiny: bool) -> dict:
     """The packed flow's faults on chip_smoke's packed block (phase 5: 12
     heads of 64, K7b / K7c; TINY_BLOCK with --tiny): each fault's failed
     checks of packed_block_agreement."""
-    entries, faults = FLOWS["packed"]
+    module, entries, faults = FLOWS["packed"]
     setup = chip_smoke.packed_block(torch, dev, **(TINY_BLOCK if tiny else {}))
     ref = chip_smoke.packed_block_grads(torch, setup, torch.float32, "plain")
     plain = chip_smoke.packed_block_grads(torch, setup, torch.bfloat16, "plain")
     caught = {}
     for name, fault in faults.items():
-        with planted(entries, fault):
+        with planted(module, entries, fault):
             kern = chip_smoke.packed_block_grads(torch, setup, torch.bfloat16, "kernel")
         caught[name] = chip_smoke.packed_block_agreement(ref, plain, kern)
         chip_smoke.log(f"[fault] packed_block {name}: {len(caught[name])} checks failed: "
+                       f"{caught[name]}")
+    return caught
+
+
+def serving_faults(dev, tiny: bool) -> dict:
+    """The K8a faults on phase 8: the 8-head sync model on
+    attn_impl='pallas_fused' (the tiny Synchformer with TINY_PACKED's towers,
+    B=2, S=2, with --tiny) through SyncPredictor, each fault's failed checks
+    of serving_agreement."""
+    if tiny:
+        build = functools.partial(build_tiny_synchformer, 2, t=TINY_PACKED,
+                                  attn_impl="pallas_fused")
+        video, pcm = chip_smoke.slice_inputs(torch, dev, 2, 2, (4, 32, 32, 3), 8)
+    else:
+        build = functools.partial(build_synchformer_8head, chip_smoke.S, "pallas_fused")
+        video, pcm = chip_smoke.slice_inputs(torch, dev)
+    sd = seeded_state_dict(build(device="meta"), seed=0)
+
+    def record(dtype, impl, fault=None):
+        model = build(device=dev)
+        load_numpy_state_dict(model, sd)
+        pred = SyncPredictor(model, dev, dtype, impl)
+        with planted(*K8_ENTRIES, fault):
+            return chip_smoke.serving_record(torch, pred, video, pcm)
+
+    ref, plain = record(torch.float32, "plain"), record(torch.bfloat16, "plain")
+    caught = {}
+    for name, fault in SERVING_FAULTS.items():
+        caught[name] = chip_smoke.serving_agreement(ref, plain,
+                                                    record(torch.bfloat16, "kernel", fault),
+                                                    f"serving {name}")
+        chip_smoke.log(f"[fault] serving {name}: {len(caught[name])} checks failed: "
+                       f"{caught[name]}")
+    return caught
+
+
+def kernel_faults(dev, tiny: bool) -> dict:
+    """The K8a / K8b faults on phase 2's K8a and K8b cases (TINY_K8's size
+    with --tiny), each fault's cases that hold_outputs failed."""
+    cases = [c for c in chip_smoke.k8_cases(torch, dev, **(TINY_K8 if tiny else {}))
+             if c[0] in ("K8a", "K8b")]
+    anchors = [(plain(torch.bfloat16), plain(torch.float32)) for _, _, _, plain, _, _ in cases]
+    caught = {}
+    for name, fault in KERNEL_FAULTS.items():
+        caught[name] = []
+        for (_, label, kern, _, _, _), (p_out, a_out) in zip(cases, anchors):
+            with planted(*K8_ENTRIES, fault):
+                k_out = kern()
+            if chip_smoke.hold_outputs(label, k_out, p_out, a_out, f"kernels {name}")[0]:
+                caught[name].append(label)
+        chip_smoke.log(f"[fault] kernels {name}: {len(caught[name])} cases failed: "
                        f"{caught[name]}")
     return caught
 
@@ -169,23 +273,27 @@ def main() -> int:
         raise SystemExit("no CUDA device: pass --device cpu (with --tiny) for a dry run")
     if args.tiny:
         builds = {"split": functools.partial(build_tiny_avclip, drop_path_rate=0.2),
-                  "packed": functools.partial(build_tiny_avclip_packed, drop_path_rate=0.2)}
+                  "packed": functools.partial(build_tiny_avclip_packed, drop_path_rate=0.2),
+                  "packed_fused": functools.partial(build_tiny_avclip_packed, drop_path_rate=0.2,
+                                                    attn_impl="pallas_fused")}
         batch = chip_smoke.stage1_batch(torch, 2, 2, (4, 32, 32, 3))
     else:
-        builds = {"split": build_avclip, "packed": build_avclip_8head}
+        builds = {"split": build_avclip, "packed": build_avclip_8head,
+                  "packed_fused": functools.partial(build_avclip_8head,
+                                                    attn_impl="pallas_fused")}
         batch = chip_smoke.stage1_batch(torch, chip_smoke.B1, chip_smoke.S)
     if dev.type == "cuda":
         chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
 
     ok = True
-    for flow in ("split", "packed"):
-        build, (entries, faults) = builds[flow], FLOWS[flow]
+    for flow in ("split", "packed", "packed_fused"):
+        build, (module, entries, faults) = builds[flow], FLOWS[flow]
         sd = seeded_state_dict(build(device="meta"), seed=0)
 
         def first_step(precision, impl, remat=False, fault=None):
             t = time.perf_counter()
             tr = chip_smoke.stage1_trainer(build, sd, dev, precision, impl, remat)
-            with planted(entries, fault):
+            with planted(module, entries, fault):
                 m = chip_smoke.checked_step(tr, batch, f"{precision} {impl}")
             rec = chip_smoke.step_gradients(torch, tr, m)
             del tr
@@ -207,7 +315,9 @@ def main() -> int:
             chip_smoke.log(f"[fault] {flow} {name}: {len(caught[name])} checks failed: "
                            f"{caught[name][:6]}{' ...' if len(caught[name]) > 6 else ''}")
         ok = verdict(flow, caught) and ok
-    return 0 if verdict("packed_block", block_faults(dev, args.tiny)) and ok else 1
+    ok = verdict("packed_block", block_faults(dev, args.tiny)) and ok
+    ok = verdict("serving", serving_faults(dev, args.tiny)) and ok
+    return 0 if verdict("kernels", kernel_faults(dev, args.tiny)) and ok else 1
 
 if __name__ == "__main__":
     sys.exit(main())

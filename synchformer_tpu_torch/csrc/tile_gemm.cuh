@@ -6,11 +6,16 @@
 //   columns of the product. Epilogues: bias; bias + erf-GELU; bias, rounded
 //   to bf16, then added to a residual row (rounded once more), which is the
 //   `res + (acc + b).astype(bf16)` of the JAX kernels.
+// - gemm_ln_bf16: the same product with the LayerNorm of A applied while its
+//   tile is staged in shared memory (per-row [mean, rstd] from ln_stats, f32
+//   affine, rounded to bf16), so the normalised rows never reach device
+//   memory: the LN + matmul of K8c and of K8a's prologue.
 // - ln_rows: the LayerNorm prologue as its own pass (f32 statistics in the
 //   fast-variance form max(E[x^2] - E[x]^2, 0), f32 affine, bf16 out), either
 //   from the row itself or from precomputed [mean, meansq] row statistics.
 // - row_stats: f32 [mean, meansq, 0 x 6] of bf16 rows, the layout the
-//   slab LN+MLP kernel of the JAX package emits.
+//   slab LN+MLP kernel of the JAX package emits; ln_stats: f32 [mean, rstd]
+//   of bf16 rows, for gemm_ln_bf16.
 // - dot_row_bf16: an f32 vector against a bf16 row of device memory, with
 //   16-byte loads.
 //
@@ -82,14 +87,46 @@ constexpr int GEMM_THREADS = 128;
 constexpr int GEMM_LDS = GEMM_BK + 8;  // bf16 row pitch of the staged tiles
 constexpr int GEMM_LDC = GEMM_BN + 4;  // f32 row pitch of the output tile
 
+// The LayerNorm a GEMM applies to A's rows while it stages them: stats[r] =
+// (mean, rstd) of row r in f32, g / b the f32 affine of the K columns.
+struct LnPrologue {
+  const float2* stats;
+  const float* g;
+  const float* b;
+};
+
+// 8 bf16 of row r, columns c..c+7: (x - mean) * rstd * g + b in f32, rounded
+// to bf16 (flax LayerNorm numerics).
+__device__ __forceinline__ uint4 ln_apply8(uint4 raw, float2 st, const float* __restrict__ g,
+                                           const float* __restrict__ b) {
+  const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float4 g0 = __ldg(reinterpret_cast<const float4*>(g));
+  const float4 g1 = __ldg(reinterpret_cast<const float4*>(g) + 1);
+  const float4 b0 = __ldg(reinterpret_cast<const float4*>(b));
+  const float4 b1 = __ldg(reinterpret_cast<const float4*>(b) + 1);
+  const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+  const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  uint4 out;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 v = __bfloat1622float2(in[e]);
+    o[e] = __floats2bfloat162_rn((v.x - st.x) * st.y * gs[2 * e] + bs[2 * e],
+                                 (v.y - st.x) * st.y * gs[2 * e + 1] + bs[2 * e + 1]);
+  }
+  return out;
+}
+
 // Requires N % 64 == 0, K % 32 == 0 and 16-byte aligned A and W rows; rows
 // of A beyond M are masked. R (residual) has row stride r_stride elements;
-// 0 broadcasts one row to every output row.
-template <int EPI>
+// 0 broadcasts one row to every output row. With LN, A's rows are normalised
+// by ln as they are staged (ln.g and ln.b 16-byte aligned).
+template <int EPI, bool LN>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                  const float* __restrict__ bias, const bf16* __restrict__ R,
-                 int64_t r_stride, bf16* __restrict__ C, int M, int N, int K) {
+                 int64_t r_stride, bf16* __restrict__ C, int M, int N, int K,
+                 LnPrologue ln) {
   using namespace nvcuda;
   __shared__ __align__(32) bf16 As[GEMM_BM * GEMM_LDS];
   __shared__ __align__(32) bf16 Ws[GEMM_BN * GEMM_LDS];
@@ -114,8 +151,10 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
       const int idx = tid + v * GEMM_THREADS;
       const int r = idx / 4, c = (idx % 4) * 8;
       uint4 a = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M)
+      if (m0 + r < M) {
         a = *reinterpret_cast<const uint4*>(A + (m0 + r) * K + k0 + c);
+        if constexpr (LN) a = ln_apply8(a, ln.stats[m0 + r], ln.g + k0 + c, ln.b + k0 + c);
+      }
       *reinterpret_cast<uint4*>(As + r * GEMM_LDS + c) = a;
       *reinterpret_cast<uint4*>(Ws + r * GEMM_LDS + c) =
           *reinterpret_cast<const uint4*>(W + (int64_t)(n0 + r) * K + k0 + c);
@@ -163,7 +202,16 @@ template <int EPI>
 inline void gemm_bf16(const bf16* A, const bf16* W, const float* bias, const bf16* R,
                       int64_t r_stride, bf16* C, int M, int N, int K, cudaStream_t s) {
   dim3 grid(N / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-  gemm_bf16_kernel<EPI><<<grid, GEMM_THREADS, 0, s>>>(A, W, bias, R, r_stride, C, M, N, K);
+  gemm_bf16_kernel<EPI, false><<<grid, GEMM_THREADS, 0, s>>>(A, W, bias, R, r_stride, C, M, N,
+                                                             K, LnPrologue{});
+}
+
+// C = LN(A) @ W^T + bias, rounded once to bf16.
+inline void gemm_ln_bf16(const bf16* A, const bf16* W, const float* bias, bf16* C, int M, int N,
+                         int K, LnPrologue ln, cudaStream_t s) {
+  dim3 grid(N / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
+  gemm_bf16_kernel<EPI_BIAS, true><<<grid, GEMM_THREADS, 0, s>>>(A, W, bias, nullptr, 0, C, M,
+                                                                 N, K, ln);
 }
 
 // One warp per row. stats (rows, 8) f32 [mean, meansq, ...] when given.
@@ -221,6 +269,32 @@ inline void row_stats(const bf16* x, float* stats, int64_t rows, int D, cudaStre
   const int warps = 8;
   row_stats_kernel<<<(unsigned)((rows + warps - 1) / warps), warps * 32, 0, s>>>(
       x, stats, rows, D);
+}
+
+// One warp per row: (mean, rstd) with rstd = rsqrt(max(E[x^2] - E[x]^2, 0) +
+// eps) in f32 (D even, rows 4-byte aligned).
+__global__ void ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats,
+                                int64_t rows, int D, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (row >= rows) return;
+  const __nv_bfloat162* xr = reinterpret_cast<const __nv_bfloat162*>(x + row * D);
+  float s = 0.f, s2 = 0.f;
+  for (int d = lane; d < D / 2; d += 32) {
+    const float2 v = __bfloat1622float2(xr[d]);
+    s += v.x + v.y;
+    s2 += v.x * v.x + v.y * v.y;
+  }
+  const float mean = warp_sum(s) / D;
+  const float msq = warp_sum(s2) / D;
+  if (lane == 0) stats[row] = make_float2(mean, rsqrtf(fmaxf(msq - mean * mean, 0.f) + eps));
+}
+
+inline void ln_stats(const bf16* x, float2* stats, int64_t rows, int D, float eps,
+                     cudaStream_t s) {
+  const int warps = 8;
+  ln_stats_kernel<<<(unsigned)((rows + warps - 1) / warps), warps * 32, 0, s>>>(x, stats, rows,
+                                                                               D, eps);
 }
 
 }  // namespace sft

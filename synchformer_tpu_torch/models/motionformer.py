@@ -41,6 +41,18 @@ drawn before the block as in the split flow. At the end the CLS row is dropped
 and the final norm is a plain LayerNorm. No statistics chain, no fused
 projection.
 
+``attn_impl`` is the JAX option of the same name: 'pallas' (the default, all
+of the above) or 'pallas_fused'. Under 'pallas_fused' the packed flow runs
+each attention's LN + QKV + attention through K8a (FusedDividedAttentionFn,
+backward K7c; motionformer.py:176-189) and the MLP of each non-stochastic
+block through K8b (:394-403); the split flow's eval takes neither the fused
+projection (K1) nor the statistics chain (:300-301, :581-582): its blocks run
+as in training with no drop-path (K5, then the projection and residual
+outside; K2 without statistics), then a plain final norm. Split-flow training
+is the same on both routes. ``impl`` keeps its meaning on both: on
+'pallas_fused' the plain versions are the JAX _fused_attention_ref and
+_fused_mlp_ref, the same operations as the 'pallas' plain path.
+
 Then the SpatialAggregator (K4) pools each frame, and with
 ``agg_time_module='AveragePooling'`` the frames are averaged. State names
 follow the reference (``patch_embed_3d.proj``,
@@ -65,6 +77,10 @@ from synchformer_tpu_torch.ops.kernels.divided_attention import (
 from synchformer_tpu_torch.ops.kernels.divided_attention_bwd import (
     divided_attention_split,
     packed_divided_attention,
+)
+from synchformer_tpu_torch.ops.kernels.fused_block import (
+    fused_divided_attention,
+    fused_mlp_residual,
 )
 from synchformer_tpu_torch.ops.kernels.fused_rows import (
     fused_ln_mlp_residual,
@@ -100,20 +116,28 @@ class DividedAttention(nn.Module):
         out_p, out_c = divided_attention_split(qkv_p, qkv_c, self.num_heads, mode, impl=impl)
         return self.proj(out_c), self.proj(out_p)
 
-    def attend_packed(self, ln_x, num_frames: int, mode: str, impl: str):
-        """Packed flow, eval and training: LN'd x (B, 1 + f*n, D) -> projected
-        attention, differentiable (K7a/K7b forward, K7c backward on the kernel
-        route)."""
-        out = packed_divided_attention(self.qkv(ln_x), self.num_heads, num_frames, mode,
-                                       impl=impl)
+    def attend_packed(self, x, norm: LayerNorm, num_frames: int, mode: str, impl: str,
+                      attn_impl: str):
+        """Packed flow, eval and training: the block's x (B, 1 + f*n, D) and
+        this attention's pre-norm -> projected attention, differentiable. On
+        the kernel route 'pallas' runs LN -> QKV -> K7a/K7b, 'pallas_fused'
+        K8a; the backward is K7c on both."""
+        if attn_impl == "pallas_fused":
+            out = fused_divided_attention(x, norm.weight, norm.bias, self.qkv.weight.to(x.dtype),
+                                          self.qkv.bias, self.num_heads, num_frames, mode,
+                                          norm.eps, impl=impl)
+        else:
+            out = packed_divided_attention(self.qkv(norm(x)), self.num_heads, num_frames, mode,
+                                           impl=impl)
         return self.proj(out)
 
 
 class DividedSpaceTimeBlock(nn.Module):
     def __init__(self, d: int, num_heads: int, eps: float = 1e-6, mlp_ratio: float = 4.0,
-                 drop_path: float = 0.0, device=None):
+                 drop_path: float = 0.0, attn_impl: str = "pallas", device=None):
         super().__init__()
         self.eps = eps
+        self.attn_impl = attn_impl
         hidden = int(d * mlp_ratio)
         self.norm1 = LayerNorm(d, eps, device)
         self.norm2 = LayerNorm(d, eps, device)
@@ -148,16 +172,16 @@ class DividedSpaceTimeBlock(nn.Module):
 
     def forward_train(self, cls, patches, impl: str, space_scale: Optional[torch.Tensor],
                       mlp_scale: Optional[torch.Tensor]):
-        """Training: (cls, patches) -> (cls, patches). ``space_scale`` and
-        ``mlp_scale`` are this block's drop-path factors (DropPath.draw), or
-        None at drop-path 0."""
+        """Training, and eval under 'pallas_fused': (cls, patches) -> (cls,
+        patches). ``space_scale`` and ``mlp_scale`` are this block's drop-path
+        factors (DropPath.draw), both None at drop-path 0 and in eval."""
         t_c, t_p = self.timeattn.attend(self.norm3(cls), self.norm3(patches), "time", impl)
         cls, patches = cls + t_c, patches + t_p
         s_c, s_p = self.attn.attend(self.norm1(cls), self.norm1(patches), "space", impl)
         cls = cls + DropPath.drop(s_c, space_scale)
         patches = patches + DropPath.drop(s_p, space_scale)
         mlp_args = self._mlp_args(patches.dtype)
-        if self.drop_path.rate == 0.0:  # not stochastic: the patches' MLP is K2
+        if mlp_scale is None:  # not stochastic: the patches' MLP is K2
             patches = fused_ln_mlp_residual(patches, *mlp_args, impl=impl)
             return ln_mlp_residual_plain(cls, *mlp_args), patches
         return (cls + DropPath.drop(self._mlp_plain(cls), mlp_scale),
@@ -172,12 +196,15 @@ class DividedSpaceTimeBlock(nn.Module):
                        space_scale: Optional[torch.Tensor], mlp_scale: Optional[torch.Tensor]):
         """Packed flow, eval and training: x (B, 1 + f*n, D) -> x. The scales
         are this block's drop-path factors (DropPath.draw); both None in eval
-        and at drop-path 0, where the MLP is K2 on the whole packed x."""
-        x = x + self.timeattn.attend_packed(self.norm3(x), num_frames, "time", impl)
-        x = x + DropPath.drop(self.attn.attend_packed(self.norm1(x), num_frames, "space", impl),
-                              space_scale)
+        and at drop-path 0, where the MLP is K2 ('pallas') or K8b
+        ('pallas_fused') on the whole packed x."""
+        x = x + self.timeattn.attend_packed(x, self.norm3, num_frames, "time", impl,
+                                            self.attn_impl)
+        x = x + DropPath.drop(self.attn.attend_packed(x, self.norm1, num_frames, "space", impl,
+                                                      self.attn_impl), space_scale)
         if mlp_scale is None:  # not stochastic
-            return fused_ln_mlp_residual(x, *self._mlp_args(x.dtype), impl=impl)
+            mlp = fused_mlp_residual if self.attn_impl == "pallas_fused" else fused_ln_mlp_residual
+            return mlp(x, *self._mlp_args(x.dtype), impl=impl)
         return x + DropPath.drop(self._mlp_plain(x), mlp_scale)
 
 
@@ -186,16 +213,19 @@ class MotionFormerEncoder(nn.Module):
                  patch_size: int = 16, z_block_size: int = 2, temporal_resolution: int = 8,
                  img_size: int = 224, in_chans: int = 3, ln_eps: float = 1e-6,
                  drop_path_rate: float = 0.2, agg_time_module: str = "Identity",
-                 remat: bool = False, device=None):
+                 remat: bool = False, attn_impl: str = "pallas", device=None):
         super().__init__()
         if agg_time_module not in ("Identity", "AveragePooling"):
             raise ValueError(f"agg_time_module must be 'Identity' or 'AveragePooling', "
                              f"got {agg_time_module!r}")
+        if attn_impl not in ("pallas", "pallas_fused"):
+            raise ValueError(f"attn_impl must be 'pallas' or 'pallas_fused', got {attn_impl!r}")
         d = embed_dim
         self.eps = ln_eps
         self.f = temporal_resolution
         self.grid = img_size // patch_size
         self.remat = remat
+        self.attn_impl = attn_impl
         self.packed = not heads_groupable(num_heads, embed_dim // num_heads)
         n = self.grid * self.grid
         self.patch_embed_3d = Container(proj=nn.Conv3d(
@@ -207,7 +237,7 @@ class MotionFormerEncoder(nn.Module):
         dpr = np.linspace(0.0, drop_path_rate, depth)
         self.blocks = nn.ModuleList([DividedSpaceTimeBlock(d, num_heads, ln_eps,
                                                            drop_path=float(dpr[i]),
-                                                           device=device)
+                                                           attn_impl=attn_impl, device=device)
                                      for i in range(depth)])
         self.norm = LayerNorm(d, ln_eps, device)
         self.spatial_attn_agg = SpatialAggregator(d, num_heads, device=device)
@@ -235,7 +265,7 @@ class MotionFormerEncoder(nn.Module):
             raise ValueError("training (deterministic=False) needs a generator")
         if self.packed:
             feats = self._packed_flow(cls, patches, impl, deterministic, generator)
-        elif deterministic:
+        elif deterministic and self.attn_impl == "pallas":
             stats = None
             for blk in self.blocks:
                 cls, patches, stats = blk(cls, patches, stats, impl)
@@ -243,8 +273,8 @@ class MotionFormerEncoder(nn.Module):
                                           self.norm.weight, self.norm.bias, self.eps, dtype)
         else:
             for blk in self.blocks:
-                cls, patches = self._run_block(blk.forward_train, blk, generator, cls, patches,
-                                               impl)
+                cls, patches = self._run_block(blk.forward_train, blk, deterministic, generator,
+                                               cls, patches, impl)
             feats = self.norm(patches)
         feats = feats.reshape(b * s, f, self.grid, self.grid, d)
         feats = self.spatial_attn_agg(feats, impl)
@@ -252,10 +282,13 @@ class MotionFormerEncoder(nn.Module):
             return self.temp_attn_agg(feats).reshape(b, s, d)
         return feats.reshape(b, s, f, d)
 
-    def _run_block(self, fn, blk, generator, *args):
-        """One training block: its drop-path factors drawn first (space then
-        MLP, as the JAX block draws them), then ``fn(*args, *scales)``, under
-        torch.utils.checkpoint with remat."""
+    def _run_block(self, fn, blk, deterministic: bool, generator, *args):
+        """One block: ``fn(*args, None, None)`` in eval; in training its
+        drop-path factors drawn first (space then MLP, as the JAX block draws
+        them), then ``fn(*args, *scales)``, under torch.utils.checkpoint with
+        remat."""
+        if deterministic:
+            return fn(*args, None, None)
         n = args[0].shape[0]
         scales = [blk.drop_path.draw(n, generator, args[0].device, args[0].dtype)
                   for _ in range(2)]
@@ -270,8 +303,5 @@ class MotionFormerEncoder(nn.Module):
         bs, f, n, d = patches.shape
         x = torch.cat([cls, patches.reshape(bs, f * n, d)], dim=1)
         for blk in self.blocks:
-            if deterministic:
-                x = blk.forward_packed(x, f, impl, None, None)
-            else:
-                x = self._run_block(blk.forward_packed, blk, generator, x, f, impl)
+            x = self._run_block(blk.forward_packed, blk, deterministic, generator, x, f, impl)
         return self.norm(x[:, 1:]).reshape(bs, f, n, d)

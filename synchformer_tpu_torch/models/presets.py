@@ -1,10 +1,12 @@
 """Model presets: the full-width sync model (configs/sync.yaml model section,
-as synchformer_tpu/models/presets.py::build_synchformer), the full-width
-Stage I AVCLIP (configs/segment_avclip.yaml, as build_avclip) and its 8-head
-video-tower variant (build_avclip_8head, the packed flow), and tiny ones for
-the CPU tests. All come in f32: SyncPredictor casts the sync model's
-matrices to the compute dtype once; AVCLIP trains f32 master parameters under
-the activations' compute dtype."""
+as synchformer_tpu/models/presets.py::build_synchformer) and its 8-head
+video-tower variant (build_synchformer_8head), the full-width Stage I AVCLIP
+(configs/segment_avclip.yaml, as build_avclip) and its 8-head variant
+(build_avclip_8head), and tiny ones for the CPU tests. The 8-head towers run
+the packed flow and take ``attn_impl`` ('pallas' or 'pallas_fused', the JAX
+option). All come in f32: SyncPredictor casts the sync model's matrices to
+the compute dtype once; AVCLIP trains f32 master parameters under the
+activations' compute dtype."""
 from __future__ import annotations
 
 from synchformer_tpu_torch.models.avclip import AVCLIP
@@ -34,13 +36,26 @@ def build_synchformer(n_segments: int = 14, device=None) -> Synchformer:
         device=device).eval()
 
 
-def build_tiny_synchformer(n_segments: int = 2, device=None) -> Synchformer:
-    t = TINY
+def build_synchformer_8head(n_segments: int = 14, attn_impl: str = "pallas",
+                            device=None) -> Synchformer:
+    """build_synchformer with the video tower at 8 heads of 96, which runs the
+    packed flow (as build_avclip_8head does for Stage I)."""
+    return Synchformer(
+        vfeat_extractor=dict(depth=12, num_heads=8, attn_impl=attn_impl),
+        afeat_extractor=dict(depth=12, num_heads=12),
+        d=D, n_segments=n_segments, n_layer=3, n_head=8, num_cls=N_OFFSET_CLS,
+        device=device).eval()
+
+
+def build_tiny_synchformer(n_segments: int = 2, device=None, t: dict = TINY,
+                           attn_impl: str = "pallas") -> Synchformer:
+    """Towers and transformer at the tiny widths ``t`` (TINY or TINY_PACKED)."""
     return Synchformer(
         vfeat_extractor=dict(depth=t["depth"], num_heads=t["heads"],
                              patch_size=t["patch_size"], img_size=t["img_size"],
-                             temporal_resolution=t["temporal_resolution"]),
-        afeat_extractor=dict(depth=t["depth"], num_heads=t["heads"]),
+                             temporal_resolution=t["temporal_resolution"],
+                             attn_impl=attn_impl),
+        afeat_extractor=dict(depth=t["depth"], num_heads=t["audio_heads"]),
         d=t["d"], n_segments=n_segments, n_layer=t["n_layer"], n_head=t["heads"],
         num_cls=N_OFFSET_CLS, device=device).eval()
 
@@ -56,7 +71,7 @@ def build_avclip(remat: bool = False, device=None) -> AVCLIP:
                   d=D, device=device)
 
 
-def build_avclip_8head(remat: bool = False, device=None) -> AVCLIP:
+def build_avclip_8head(remat: bool = False, device=None, attn_impl: str = "pallas") -> AVCLIP:
     """build_avclip with an 8-head video tower: 8 heads of 96, the head layout
     of configs/sync.yaml's GlobalTransformer (n_head 8, n_embd 768). Heads of
     96 do not pair into 128 TPU lanes, so the JAX Motionformer runs its packed
@@ -66,7 +81,7 @@ def build_avclip_8head(remat: bool = False, device=None) -> AVCLIP:
     an 8-head Motionformer: the JAX package runs it through its config
     (vfeat_extractor.params.num_heads: 8)."""
     return AVCLIP(vfeat_extractor=dict(depth=12, num_heads=8, remat=remat,
-                                       drop_path_rate=0.2),
+                                       drop_path_rate=0.2, attn_impl=attn_impl),
                   afeat_extractor=dict(depth=12, num_heads=12, remat=remat),
                   d=D, device=device)
 
@@ -77,16 +92,18 @@ def build_tiny_avclip(remat: bool = False, drop_path_rate: float = 0.0,
 
 
 def build_tiny_avclip_packed(remat: bool = False, drop_path_rate: float = 0.0,
-                             device=None) -> AVCLIP:
+                             device=None, attn_impl: str = "pallas") -> AVCLIP:
     """TINY_PACKED towers: the video tower runs the packed flow."""
-    return _tiny_avclip(TINY_PACKED, remat, drop_path_rate, device)
+    return _tiny_avclip(TINY_PACKED, remat, drop_path_rate, device, attn_impl)
 
 
-def _tiny_avclip(t: dict, remat: bool, drop_path_rate: float, device) -> AVCLIP:
+def _tiny_avclip(t: dict, remat: bool, drop_path_rate: float, device,
+                 attn_impl: str = "pallas") -> AVCLIP:
     return AVCLIP(vfeat_extractor=dict(depth=t["depth"], num_heads=t["heads"],
                                        patch_size=t["patch_size"], img_size=t["img_size"],
                                        temporal_resolution=t["temporal_resolution"],
-                                       remat=remat, drop_path_rate=drop_path_rate),
+                                       remat=remat, drop_path_rate=drop_path_rate,
+                                       attn_impl=attn_impl),
                   afeat_extractor=dict(depth=t["depth"], num_heads=t["audio_heads"],
                                        remat=remat),
                   d=t["d"], device=device)

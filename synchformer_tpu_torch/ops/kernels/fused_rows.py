@@ -1,4 +1,5 @@
-"""K2: LN + MLP + residual over rows (+ per-row LN statistics of the output).
+"""K2: LN + MLP + residual over rows (+ per-row LN statistics of the output);
+K8c: LN + one matmul.
 
 Replaces synchformer_tpu/ops/pallas/fused_rows.py::fused_ln_mlp_residual and
 fused_ln_mlp_residual_stats (bodies _ln_mlp_slab_kernel, _ln_mlp_kernel) with
@@ -14,6 +15,16 @@ kernel kept them in VMEM. The stats keep the JAX (..., 8) f32 layout
 For training, ``impl='kernel'`` goes through ``LnMlpFn``: the forward is the
 kernel, the backward recomputes the plain version and differentiates it (the
 JAX custom_vjp, fused_rows.py:300-372).
+
+K8c replaces fused_rows.py::fused_ln_matmul (_ln_matmul_pallas, body
+_ln_matmul_kernel) with csrc/ln_mlp.cu's ``sft_ln_matmul``: a row-statistics
+pre-pass, then the tile GEMM with the LayerNorm applied to each A tile as it
+is staged in shared memory, f32 accumulation, the bias in f32 and one bf16
+rounding; the normalised rows never reach device memory. No model path calls
+it (in the JAX package only tests/test_fused_rows.py does); its GEMM is K8a's
+prologue (ops/kernels/fused_block.py). At (175728, 768) -> 2304 it is 621.9
+GFLOP, bound by the tensor cores. ``LnMatmulFn``'s backward is the plain
+version's (the JAX custom_vjp, fused_rows.py:99-124).
 """
 from __future__ import annotations
 
@@ -29,7 +40,8 @@ from synchformer_tpu_torch.ops.numerics import (
 )
 
 __all__ = ["fused_ln_mlp_residual", "ln_mlp_residual_plain", "layer_norm_from_stats",
-           "LnMlpFn"]
+           "LnMlpFn", "fused_ln_matmul", "fused_ln_matmul_plain", "LnMatmulFn",
+           "check_ln_params"]
 
 
 def row_stats(out: torch.Tensor) -> torch.Tensor:
@@ -110,3 +122,66 @@ def _ln_mlp(x, g, b, w1, b1, w2, b2, eps: float, emit_stats: bool):
                     h_buf.data_ptr(), out.data_ptr(), _build.ptr(stats), rows, d,
                     hidden, float(eps), _build.stream_ptr()), "K2 ln_mlp")
     return (out, stats) if emit_stats else out
+
+
+def check_ln_params(what: str, *params: torch.Tensor) -> None:
+    """LN parameters and biases a kernel reads as f32 vectors, 16 bytes at a
+    time."""
+    _build.require(all(t.dtype == torch.float32 and t.is_contiguous() and t.data_ptr() % 16 == 0
+                       for t in params),
+                   f"{what} takes contiguous, 16-byte aligned f32 LN params and biases")
+
+
+def fused_ln_matmul_plain(x, g, b, w, bias, eps: float):
+    """The JAX reference composition _ln_matmul_ref: dense(LayerNorm(x))."""
+    return dense(layer_norm(x, g, b, eps, x.dtype), w, bias, x.dtype)
+
+
+def fused_ln_matmul(x, g, b, w, bias, eps: float = 1e-6, impl: str = "kernel"):
+    """K8c: LayerNorm(x) @ w^T + bias; w (out, in) in x's dtype, LN params and
+    bias f32. Differentiable on both routes."""
+    _build.use_kernel(x, impl)  # validates impl and device
+    if impl == "plain":
+        return fused_ln_matmul_plain(x, g, b, w, bias, eps)
+    return LnMatmulFn.apply(x, g, b, w, bias, eps)
+
+
+class LnMatmulFn(torch.autograd.Function):
+    """K8c forward; backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, w, bias, eps: float):
+        ctx.save_for_backward(x, g, b, w, bias)
+        ctx.eps = eps
+        return _ln_matmul(x, g, b, w, bias, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(lambda *a: fused_ln_matmul_plain(*a, ctx.eps), ctx.saved_tensors,
+                         ctx.needs_input_grad[:5], (grad,)) + (None,)
+
+
+def _ln_matmul(x, g, b, w, bias, eps: float):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if not _build.use_kernel(x, "kernel"):
+        return fused_ln_matmul_plain(x, g, b, w, bias, eps)
+    _build.require_same_device("K8c", x, g, b, w, bias)
+    d = x.shape[-1]
+    n_out = w.shape[0]
+    _build.require(x.dtype == torch.bfloat16 and x.is_contiguous() and x.data_ptr() % 16 == 0,
+                   "K8c takes a contiguous, 16-byte aligned bf16 x")
+    _build.require(w.shape == (n_out, d) and w.dtype == torch.bfloat16 and w.is_contiguous(),
+                   "K8c takes a contiguous bf16 w (out, in)")
+    check_ln_params("K8c", g, b, bias)
+    _build.require(g.shape == b.shape == (d,) and bias.shape == (n_out,), "K8c shape mismatch")
+    _build.require(d % 32 == 0 and n_out % 64 == 0, "K8c needs d % 32 == 0, out % 64 == 0")
+    rows = x.numel() // d
+    _build.require(0 < rows <= _build.MAX_GEMM_ROWS, "K8c row count out of range")
+    stats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+    out = torch.empty((*x.shape[:-1], n_out), dtype=x.dtype, device=x.device)
+    fn = _build.library("ln_mlp", "sft_ln_matmul")
+    _build.launches["K8c"] += 1
+    _build.check(fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                    stats.data_ptr(), out.data_ptr(), rows, d, n_out, float(eps),
+                    _build.stream_ptr()), "K8c ln_matmul")
+    return out

@@ -1,8 +1,12 @@
-"""chip_smoke.py's Stage I agreement check fails a wrong K5, K6, K7a or K7c
-and passes the right ones, on the tiny AVCLIPs (drop-path 0.2, B=2, S=2) on
-the CPU: build_tiny_avclip for the split flow (K5 / K6) and
-build_tiny_avclip_packed for the packed flow (K7a / K7c); and so does its
-packed-block check (phase 5) under the packed flow's faults, on a tiny block.
+"""chip_smoke.py's Stage I agreement check fails a wrong K5, K6, K7a, K7c or
+K8a and passes the right ones, on the tiny AVCLIPs (drop-path 0.2, B=2, S=2)
+on the CPU: build_tiny_avclip for the split flow (K5 / K6) and
+build_tiny_avclip_packed for the packed flow (K7a / K7c) and for the packed
+flow on attn_impl='pallas_fused' (K8a's backward); so does its packed-block
+check (phase 5) under the packed flow's faults, on a tiny block; and its
+serving check (phase 8, the tiny Synchformer with TINY_PACKED's towers on
+'pallas_fused') and phase 2's check of the K8a / K8b cases (at TINY_K8's
+size) fail a wrong K8a or K8b.
 
 The faults are scripts/stage1_planted_faults.py's: wrappers around a kernel's
 entry where DividedAttentionFn or DividedAttentionPackedFn calls it. On CPU tensors the kernel path
@@ -37,13 +41,15 @@ def _faults_module():
 faults = _faults_module()
 
 
-SPLIT_ENTRIES, SPLIT = faults.FLOWS["split"]
-PACKED_ENTRIES, PACKED = faults.FLOWS["packed"]
+SPLIT_ENTRIES, SPLIT = faults.FLOWS["split"][:2], faults.FLOWS["split"][2]
+PACKED_ENTRIES, PACKED = faults.FLOWS["packed"][:2], faults.FLOWS["packed"][2]
+FUSED_ENTRIES, FUSED = faults.FLOWS["packed_fused"][:2], faults.FLOWS["packed_fused"][2]
 
 
 def _setup(tiny_build, entries):
     """(first_step, the f32 remat step, the plain bf16 step) of a tiny AVCLIP
-    at drop-path 0.2; first_step plants a fault on ``entries``."""
+    at drop-path 0.2; first_step plants a fault on ``entries`` (module,
+    names)."""
     from synchformer_tpu_torch.utils.convert import seeded_state_dict
 
     def build(remat=False, device=None):
@@ -54,7 +60,7 @@ def _setup(tiny_build, entries):
 
     def first_step(precision, impl, remat=False, fault=None):
         tr = chip_smoke.stage1_trainer(build, sd, "cpu", precision, impl, remat)
-        with faults.planted(entries, fault):
+        with faults.planted(*entries, fault):
             m = chip_smoke.checked_step(tr, batch, f"{precision} {impl}")
         return chip_smoke.step_gradients(torch, tr, m)
 
@@ -75,6 +81,16 @@ def packed_setup():
     return _setup(build_tiny_avclip_packed, PACKED_ENTRIES)
 
 
+@pytest.fixture(scope="module")
+def fused_setup():
+    import functools
+
+    from synchformer_tpu_torch.models.presets import build_tiny_avclip_packed
+
+    return _setup(functools.partial(build_tiny_avclip_packed, attn_impl="pallas_fused"),
+                  FUSED_ENTRIES)
+
+
 # every fault must fail these (a subset of what it failed at full width)
 MUST_FAIL = {
     "k6_dk_zero": ["vfeat_extractor.blocks.1.timeattn.qkv.weight[k]"],
@@ -83,6 +99,7 @@ MUST_FAIL = {
     "k5_feature_order": ["loss", "grad_norm", "cosine"],
     "k7c_dk_zero": ["vfeat_extractor.blocks.1.timeattn.qkv.weight[k]"],
     "k7a_mode_swapped": ["loss", "grad_norm", "cosine"],
+    "k8a_dk_zero": ["vfeat_extractor.blocks.1.timeattn.qkv.weight[k]"],
 }
 
 
@@ -109,6 +126,11 @@ def test_packed_stage1_check_against_planted_fault(packed_setup, name):
     _check(packed_setup, name, PACKED[name])
 
 
+@pytest.mark.parametrize("name", list(FUSED))
+def test_fused_stage1_check_against_planted_fault(fused_setup, name):
+    _check(fused_setup, name, FUSED[name])
+
+
 @pytest.fixture(scope="module")
 def block_setup():
     """(block, the f32 record, the plain bf16 record) of chip_smoke's packed
@@ -126,7 +148,7 @@ BLOCK_MUST_FAIL = {"k7c_dk_zero": ["timeattn.qkv.weight[k]", "attn.qkv.weight[k]
 @pytest.mark.parametrize("name", list(PACKED))
 def test_packed_block_check_against_planted_fault(block_setup, name):
     setup, ref, plain = block_setup
-    with faults.planted(PACKED_ENTRIES, PACKED[name]):
+    with faults.planted(*PACKED_ENTRIES, PACKED[name]):
         kern = chip_smoke.packed_block_grads(torch, setup, torch.bfloat16, "kernel")
     failed = chip_smoke.packed_block_agreement(ref, plain, kern)
     # y, dx and two qkv weights by their q, k, v rows
@@ -135,3 +157,32 @@ def test_packed_block_check_against_planted_fault(block_setup, name):
         assert failed == []
     else:
         assert set(BLOCK_MUST_FAIL[name]) <= set(failed), failed
+
+
+@pytest.fixture(scope="module")
+def serving_caught():
+    return faults.serving_faults("cpu", tiny=True)
+
+
+@pytest.mark.parametrize("name", list(faults.SERVING_FAULTS))
+def test_serving_check_against_planted_fault(serving_caught, name):
+    """Phase 8's serving_agreement: the probabilities alone move little at
+    seeded weights; the video tower's features fail each K8a fault."""
+    failed = serving_caught[name]
+    assert failed == ([] if name == "none" else ["vfeat"]), failed
+
+
+@pytest.fixture(scope="module")
+def kernel_caught():
+    return faults.kernel_faults("cpu", tiny=True)
+
+
+@pytest.mark.parametrize("name", list(faults.KERNEL_FAULTS))
+def test_k8_kernel_check_against_planted_fault(kernel_caught, name):
+    """Phase 2's check of the K8a (space, time) and K8b cases: each K8a fault
+    fails both K8a cases, the K8b fault the K8b case, the control none."""
+    failed = [label.split()[0] + ("" if label.startswith("K8b") else " " + label.split()[1])
+              for label in kernel_caught[name]]
+    want = {"none": [], "k8a_mode_swapped": ["K8a space", "K8a time"],
+            "k8a_ln_skipped": ["K8a space", "K8a time"], "k8b_residual_dropped": ["K8b"]}
+    assert failed == want[name], failed

@@ -53,17 +53,17 @@ GRAD_REL_TO_MAX = 2e-5
 PARAM_ATOL, SETTLED_GRAD = 2e-6, 1e-5
 
 
-def jax_tiny_avclip(t):
+def jax_tiny_avclip(t, attn_impl: str = "xla"):
     """The JAX AVCLIP at the tiny widths ``t`` (presets.TINY or TINY_PACKED),
-    on its XLA path."""
+    both towers on ``attn_impl`` (default: the XLA path)."""
     from synchformer_tpu.models.avclip import AVCLIP
 
     vis = dict(embed_dim=t["d"], depth=t["depth"], num_heads=t["heads"],
                patch_size=t["patch_size"], z_block_size=2,
                temporal_resolution=t["temporal_resolution"], img_size=t["img_size"],
-               drop_path_rate=0.0, agg_time_module="AveragePooling")
+               drop_path_rate=0.0, agg_time_module="AveragePooling", attn_impl=attn_impl)
     aud = dict(hidden_size=t["d"], depth=t["depth"], num_heads=t["audio_heads"],
-               agg_time_module="AveragePooling")
+               agg_time_module="AveragePooling", attn_impl=attn_impl)
     nothing = dict(target="synchformer_tpu.models.bridges.DoNothingBridge", params={})
     return AVCLIP(
         n_embd=t["d"],
@@ -79,11 +79,19 @@ def case():
     return make_case(TINY, build_tiny_avclip)
 
 
-def make_case(t, build):
-    """JAX model at the tiny widths ``t``, randomised params (logit scale
-    0.07), inputs, the JAX loss and gradients of
-    AVCLIP.apply(deterministic=False), its eval features, and the JAX state
-    after one make_avclip_train_step; ``build`` makes the port's model."""
+def make_case(t, build, attn_impl: str = "xla"):
+    """JAX model at the tiny widths ``t`` on ``attn_impl`` (its Pallas
+    kernels in interpret mode), randomised params (logit scale 0.07),
+    inputs, the JAX loss and gradients of AVCLIP.apply(deterministic=False),
+    its eval features, and the JAX state after one make_avclip_train_step;
+    ``build`` makes the port's model."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        return _make_case(t, build, attn_impl)
+
+
+def _make_case(t, build, attn_impl):
     from synchformer_tpu.train.state import SyncTrainState, make_lr_schedule, make_optimizer
     from synchformer_tpu.train.step import make_avclip_train_step
 
@@ -92,9 +100,11 @@ def make_case(t, build):
     u8 = rng.integers(0, 256, (B, S, t_in, t["img_size"], t["img_size"], 3), np.uint8)
     frames = ((u8.astype(np.float32) / 255.0) - 0.5) / 0.5
     aud = rng.standard_normal((B, S, 66, 128)).astype(np.float32)
-    model = jax_tiny_avclip(t)
-    params = randomize(jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(frames),
-                                           jnp.asarray(aud)))["params"]
+    model = jax_tiny_avclip(t, attn_impl)
+    # the parameter tree does not depend on attn_impl: initialise on the XLA
+    # path, which traces no Pallas kernel
+    params = randomize(jax.jit(jax_tiny_avclip(t).init)(jax.random.PRNGKey(0), jnp.asarray(frames),
+                                                        jnp.asarray(aud)))["params"]
     params = {**params, "logit_scale": jnp.asarray(0.07, jnp.float32)}
     rngs = {"dropout": jax.random.PRNGKey(1), "droppath": jax.random.PRNGKey(2)}
 
@@ -104,8 +114,8 @@ def make_case(t, build):
         return out["losses"]["segment_contrastive_loss"]
 
     loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
-    ev = model.apply({"params": params}, jnp.asarray(frames), jnp.asarray(aud),
-                     deterministic=True)
+    ev = jax.jit(lambda p: model.apply({"params": p}, jnp.asarray(frames), jnp.asarray(aud),
+                                       deterministic=True))(params)
 
     sched = make_lr_schedule("cosine", LR, WARMUP, TOTAL)
     tx = make_optimizer("adamw", lr=sched, weight_decay=WD, max_clip_norm=1.0,
