@@ -2,8 +2,8 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: sync inference,
 the Stage I contrastive training step, the same step with an 8-head video
 tower, which runs the Motionformer's packed flow, on both attention routes
-(attn_impl 'pallas' and 'pallas_fused'), and sync inference with that tower
-on both routes.
+(attn_impl 'pallas' and 'pallas_fused'), sync inference with that tower on
+both routes, and the MoCo Stage I step with global representations.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,12 @@ Phases, each printed as it runs with its seconds:
    forward at groupable heads, at (28, 1569, 2304), 12 heads of 64; K6's
    space pass also at 36 patches a frame, checked but not reported; K8a in
    both modes, K8b and K8c at the 8-head serving tower's x (112, 1569, 768),
-   8 heads of 96, hidden 3072, K8c's rows flattened, QKV 2304 wide):
+   8 heads of 96, hidden 3072, K8c's rows flattened, QKV 2304 wide; K4b,
+   the CLS-pool layer with the CLS row inside x, at the MoCo step's video
+   global aggregator (2, 15, 768) and, checked but not reported, at the
+   Stage I spatial aggregator's groups with their CLS row inside, (224, 197,
+   768), where each group's query differs; and K4b over [cls; x] against K4
+   over x with the same CLS row, (224, 197, 768)):
    the kernel against its plain PyTorch version (for K6 the autograd gradient
    of K5's plain version, for seeded random cotangents), both held against a
    plain f32 anchor on the same inputs. Tolerance for each output: kernel
@@ -79,9 +84,24 @@ Phases, each printed as it runs with its seconds:
    and one without its LayerNorm); then clips/s of the fused kernel path, of
    the same weights on attn_impl='pallas' (counters K7a 24, K2 24) and of the
    plain path, taken in turns.
-The line before the last is a JSON record of the kernels, with the one TPU
-kernel still to port beside them; the last line is {"ok": true, "device":
-{...}}. Any failed phase raises, so the exit code is non-zero and no result
+9. the MoCo Stage I step (build_moco_avclip: build_avclip's towers, both
+   with a global segment aggregator over 14 segments, the video tower's
+   positional dropout 0.1, which sends its query-pass global aggregator
+   through K4b; queues 1024 x 14 and 1024, momentum 0.995, alpha 0.4), B=2,
+   S=14, through AVCLIPTrainer with cfg.model.target naming
+   MultilevelMoCoCLIP: (a) bf16 kernel, (b) bf16 plain, (c) f32 plain with
+   remat, from one seeded state dict. Counters exactly K4b 1, K4 7, K5 24,
+   K6 24, K1 24, K2 37, K3 24 and the rest 0 (the key pass takes the eval
+   path); moco_agreement (stage1_agreement's checks over the leaves K5 / K6
+   and K4b feed, with both levels' losses, then the momentum parameters, the
+   keys written into the queues and the query pass's global aggregator
+   outputs, each within 2 x plain's relative error;
+   scripts/stage1_planted_faults.py shows that it fails a K4b that shares
+   group 0's query and one that drops its residual); timing windows, peak
+   memory, and an eval step reading K1 48, K2 48, K3 24, K4 8.
+The line before the last is a JSON record of the kernels, with the TPU
+kernels still to port beside them (none); the last line is {"ok": true,
+"device": {...}}. Any failed phase raises, so the exit code is non-zero and no result
 line is printed.
 """
 from __future__ import annotations
@@ -96,12 +116,13 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-KEYS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7a", "K7b", "K7c", "K8a", "K8b", "K8c")
+KEYS = ("K1", "K2", "K3", "K4", "K4b", "K5", "K6", "K7a", "K7b", "K7c", "K8a", "K8b", "K8c")
 REPLACES = {
     "K1": "synchformer_tpu/ops/pallas/divided_attention.py:478",
     "K2": "synchformer_tpu/ops/pallas/fused_rows.py:188",
     "K3": "synchformer_tpu/ops/pallas/standard_attention.py:62",
     "K4": "synchformer_tpu/ops/pallas/cls_pool.py:181",
+    "K4b": "synchformer_tpu/ops/pallas/cls_pool.py:265",
     "K5": "synchformer_tpu/ops/pallas/divided_attention.py:524",
     "K6": "synchformer_tpu/ops/pallas/divided_attention_bwd.py:469",
     "K7a": "synchformer_tpu/ops/pallas/divided_attention.py:599",
@@ -111,13 +132,14 @@ REPLACES = {
     "K8b": "synchformer_tpu/ops/pallas/fused_block.py:274",
     "K8c": "synchformer_tpu/ops/pallas/fused_rows.py:65",
 }
-# the one TPU kernel without a port (ROADMAP): listed beside the kernels line
-NOT_PORTED = [{"name": "fused_cls_pool", "replaces": "synchformer_tpu/ops/pallas/cls_pool.py:265"}]
+# TPU kernels without a port (ROADMAP): listed beside the kernels line
+NOT_PORTED: list = []
 SOURCES = {
     "K1": "synchformer_tpu_torch/csrc/divided_attention.cu",
     "K2": "synchformer_tpu_torch/csrc/ln_mlp.cu",
     "K3": "synchformer_tpu_torch/csrc/standard_attention.cu",
     "K4": "synchformer_tpu_torch/csrc/cls_pool.cu",
+    "K4b": "synchformer_tpu_torch/csrc/cls_pool.cu",
     "K5": "synchformer_tpu_torch/csrc/divided_attention.cu",
     "K6": "synchformer_tpu_torch/csrc/divided_attention_bwd.cu",
     "K7a": "synchformer_tpu_torch/csrc/divided_attention.cu",
@@ -132,6 +154,7 @@ NAMES = {
     "K2": "fused_ln_mlp_residual",
     "K3": "standard_attention",
     "K4": "fused_cls_pool_tokens",
+    "K4b": "fused_cls_pool",
     "K5": "divided_attention",
     "K6": "divided_attention_bwd",
     "K7a": "divided_attention_packed",
@@ -144,7 +167,8 @@ NAMES = {
 # the path whose run gives each kernel's launches (and whose shapes it is timed at)
 # (K8c: no model path calls it; its GEMM is K8a's prologue)
 PATHS = {"K1": "sync_inference", "K2": "sync_inference", "K3": "sync_inference",
-         "K4": "sync_inference", "K5": "stage1_train", "K6": "stage1_train",
+         "K4": "sync_inference", "K4b": "stage1_train_moco", "K5": "stage1_train",
+         "K6": "stage1_train",
          "K7a": "stage1_train_8head", "K7b": "packed_block_12x64",
          "K7c": "stage1_train_8head", "K8a": "sync_inference_8head_fused",
          "K8b": "sync_inference_8head_fused", "K8c": "none"}
@@ -152,22 +176,22 @@ MIN_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 2}
 # one Stage I step: 12 blocks x (time + space) divided attentions; the AST's
 # 12 layers; K2 on the AST's 12 layers and on video block 0, the one block
 # whose drop-path rate (linspace(0, 0.2, 12)[0]) is 0; both aggregators
-STAGE1_LAUNCHES = {"K1": 0, "K2": 13, "K3": 12, "K4": 2, "K5": 24, "K6": 24, "K7a": 0,
-                   "K7b": 0, "K7c": 0}
+STAGE1_LAUNCHES = {"K1": 0, "K2": 13, "K3": 12, "K4": 2, "K4b": 0, "K5": 24, "K6": 24,
+                   "K7a": 0, "K7b": 0, "K7c": 0}
 # its eval step: the split flow's K1 pair and K2 in every video block
 STAGE1_EVAL_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 2}
 # the same step with the 8-head video tower: the packed flow, K7a / K7c in
 # place of K5 / K6
-STAGE1_8HEAD_LAUNCHES = {"K1": 0, "K2": 13, "K3": 12, "K4": 2, "K5": 0, "K6": 0, "K7a": 24,
-                         "K7b": 0, "K7c": 24, "K8a": 0, "K8b": 0}
+STAGE1_8HEAD_LAUNCHES = {"K1": 0, "K2": 13, "K3": 12, "K4": 2, "K4b": 0, "K5": 0, "K6": 0,
+                         "K7a": 24, "K7b": 0, "K7c": 24, "K8a": 0, "K8b": 0}
 # its eval step: the packed K7a pair and K2 over the whole packed x per block
 STAGE1_8HEAD_EVAL_LAUNCHES = {"K1": 0, "K2": 24, "K3": 12, "K4": 2, "K7a": 24, "K7c": 0,
                               "K8a": 0, "K8b": 0}
 # the same step under attn_impl='pallas_fused': K8a in place of LN -> QKV ->
 # K7a, backward K7c; K8b for video block 0's MLP (drop-path 0), K2 for the
 # AST's 12 layers
-STAGE1_FUSED_LAUNCHES = {"K1": 0, "K2": 12, "K3": 12, "K4": 2, "K5": 0, "K6": 0, "K7a": 0,
-                         "K7b": 0, "K7c": 24, "K8a": 24, "K8b": 1, "K8c": 0}
+STAGE1_FUSED_LAUNCHES = {"K1": 0, "K2": 12, "K3": 12, "K4": 2, "K4b": 0, "K5": 0, "K6": 0,
+                         "K7a": 0, "K7b": 0, "K7c": 24, "K8a": 24, "K8b": 1, "K8c": 0}
 # its eval step: K8a's pair and K8b in every video block
 STAGE1_FUSED_EVAL_LAUNCHES = {"K1": 0, "K2": 12, "K3": 12, "K4": 2, "K7a": 0, "K7c": 0,
                               "K8a": 24, "K8b": 12}
@@ -177,6 +201,22 @@ SERVING_FUSED_LAUNCHES = {"K1": 0, "K2": 12, "K3": 12, "K4": 2, "K5": 0, "K6": 0
 SERVING_PALLAS_LAUNCHES = {"K1": 0, "K2": 24, "K3": 12, "K4": 2, "K7a": 24, "K8a": 0, "K8b": 0}
 # one packed block at 12 heads of 64, forward and backward, drop-path 0
 PACKED_BLOCK_LAUNCHES = {"K2": 1, "K7a": 0, "K7b": 2, "K7c": 2}
+# one MoCo step (build_moco_avclip): the query pass as phase 4's step (K5 24,
+# K2 13, K3 12, K4 for the spatial and frequency aggregators) with the audio
+# global aggregator on K4 and the video one, its positional dropout live, on
+# K4b; K6 24 in the backward; the key pass as the eval path (K1 24, K2 24, K3
+# 12, K4 4: spatial, frequency and both global aggregators)
+MOCO_LAUNCHES = {"K1": 24, "K2": 37, "K3": 24, "K4": 7, "K4b": 1, "K5": 24, "K6": 24,
+                 "K7a": 0, "K7b": 0, "K7c": 0, "K8a": 0, "K8b": 0, "K8c": 0}
+# its eval step: both passes on the eval path
+MOCO_EVAL_LAUNCHES = {"K1": 48, "K2": 48, "K3": 24, "K4": 8, "K4b": 0, "K5": 0, "K6": 0}
+MOCO_TARGET = "synchformer_tpu.models.moco_clip.MultilevelMoCoCLIP"
+MOCO_ALPHA = 0.4  # training.alpha, the ALBEF weight (tests/test_stage_clip.py's)
+# the leaves that K5 / K6 and K4b feed: phase 4's, and every parameter of the
+# video global aggregator
+MOCO_LEAVES = re.compile(
+    r"v_encoder\.(cls_token|blocks\.\d+\.(attn|timeattn)\.qkv\.(weight|bias)"
+    r"|global_attn_agg\..+)")
 # the gradient leaves that the divided attention's backward (K6, or K7c in
 # the packed flow) feeds directly (step_gradients)
 STAGE1_LEAVES = re.compile(
@@ -406,7 +446,89 @@ def kernel_cases(torch, dev):
                           lambda dt, m=mode, hh=heads: divided_attention_packed_bwd_plain(
                               qkv7.to(dt), do7.to(dt), hh, F_T, m),
                           (7 * act7, attention_flops(bs1, mode, 5, heads, dh)), None))
-    return cases + k8_cases(torch, dev)
+    return cases + k4b_cases(torch, dev) + k8_cases(torch, dev)
+
+
+def k4b_cases(torch, dev, d: int = D, h: int = H,
+              shapes=((B1, 1 + S), (B1 * S * F_T, 1 + N_P))) -> list:
+    """kernel_cases' records of K4b at ``shapes`` (groups, rows), the CLS row
+    inside each group's rows: the MoCo step's video global aggregator (B1, 1 +
+    S) (reported) and the Stage I spatial aggregator's groups with their CLS
+    row inside (checked and logged only), where every group's row 0 and so its
+    query differ."""
+    from synchformer_tpu_torch.ops.kernels.cls_pool import cls_pool_plain, fused_cls_pool
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf, f32 = torch.bfloat16, torch.float32
+    hid = 4 * d
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def cast(args, dtype):
+        return [a.to(dtype) if torch.is_tensor(a) and a.dtype == bf else a for a in args]
+
+    # QKV and projection weights at std (2 / d)^0.5: logits of std 2, so the
+    # attention is peaked and its output as large as the residual row's; a
+    # wrong query then moves the output well above the 1% eps
+    w_att = (2.0 / d) ** 0.5
+    cases = []
+    for i, (groups, n) in enumerate(shapes):
+        args = [rn(groups, n, d), 1.0 + rn(d, std=0.1, dtype=f32), rn(d, std=0.1, dtype=f32),
+                rn(3 * d, d, std=w_att), rn(3 * d, std=0.02, dtype=f32), rn(d, d, std=w_att),
+                rn(d, std=0.02, dtype=f32), 1.0 + rn(d, std=0.1, dtype=f32),
+                rn(d, std=0.1, dtype=f32), rn(hid, d, std=0.02), rn(hid, std=0.02, dtype=f32),
+                rn(d, hid, std=0.02), rn(d, std=0.02, dtype=f32)]
+        # per group: q and U = Wk^T q (2 D^2 each), logits and the p-weighted
+        # sum over n rows per head, Wv, proj and the MLP
+        flops = groups * (8.0 * d * d + 4.0 * h * n * d + 4.0 * d * hid)
+        nbytes = (groups * n * d * 2 + (4 * d * d + 2 * d * hid) * 2 + (9 * d + hid) * 4
+                  + groups * d * 2)
+        what = "global" if i == 0 else "spatial"
+        cases.append(("K4b" if i == 0 else f"K4b {what}", f"K4b {what} ({groups},{n},{d})",
+                      lambda a=args: fused_cls_pool(*a, num_heads=h, eps=1e-6),
+                      lambda dt, a=args: cls_pool_plain(*cast(a, dt), h, 1e-6),
+                      (nbytes, flops), None))
+    return cases
+
+
+def check_k4b_concat(torch, dev, d: int = D, h: int = H, groups: int = B1 * S * F_T,
+                     m: int = N_P, tag: str = "kernels") -> bool:
+    """K4b over [cls; x] against K4 over x with the same CLS row (the JAX
+    contract, tests/test_cls_pool.py:114-135): both held to the f32 anchor by
+    hold_outputs' rule, and |K4b - K4| within that tolerance. Returns whether
+    all three held."""
+    from synchformer_tpu_torch.ops.kernels.cls_pool import (
+        cls_pool_tokens_plain,
+        fused_cls_pool,
+        fused_cls_pool_tokens,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    x, cls = rn(groups, m, d), rn(d, dtype=f32)
+    layer = [1.0 + rn(d, std=0.1, dtype=f32), rn(d, std=0.1, dtype=f32), rn(3 * d, d, std=0.02),
+             rn(3 * d, std=0.02, dtype=f32), rn(d, d, std=0.02), rn(d, std=0.02, dtype=f32),
+             1.0 + rn(d, std=0.1, dtype=f32), rn(d, std=0.1, dtype=f32),
+             rn(4 * d, d, std=0.02), rn(4 * d, std=0.02, dtype=f32), rn(d, 4 * d, std=0.02),
+             rn(d, std=0.02, dtype=f32)]
+    full = torch.cat([cls.to(bf).expand(groups, 1, d), x], dim=1).contiguous()
+    k4b = fused_cls_pool(full, *layer, num_heads=h, eps=1e-6)
+    k4 = fused_cls_pool_tokens(x, cls, *layer, num_heads=h, eps=1e-6)
+    plain = cls_pool_tokens_plain(x, cls, *layer, h, 1e-6)
+    anchor = cls_pool_tokens_plain(x.float(), cls, *[t.float() for t in layer], h, 1e-6)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    label = f"K4b [cls; x] vs K4 ({groups},{1 + m},{d})"
+    ok = not hold_outputs(f"{label}: K4b", k4b, plain, anchor, tag)[0]
+    failed, _, tol = hold_outputs(f"{label}: K4", k4, plain, anchor, tag)
+    diff = maxabs(k4b, k4)
+    log(f"[{tag}] {label}: |K4b-K4| {diff:.3e} tol {tol:.3e} {'ok' if diff <= tol else 'FAIL'}")
+    return ok and not failed and diff <= tol
 
 
 def k8_cases(torch, dev, bs: int = B * S, f: int = F_T, n: int = N_P, d: int = D,
@@ -487,6 +609,8 @@ def hold_outputs(label: str, k_out, p_out, a_out, tag: str = "kernels"):
 
 
 def check_kernels(torch, dev, report):
+    if not check_k4b_concat(torch, dev):
+        fail("K4b over [cls; x] disagrees with K4 over x")
     for key, label, kern, plain, cost, library in kernel_cases(torch, dev):
         k_out, p_out, a_out = kern(), plain(torch.bfloat16), plain(torch.float32)
         torch.cuda.synchronize()
@@ -728,9 +852,12 @@ def stage1_batch(torch, b: int, s: int, frames=FRAMES) -> dict:
                                       .astype(np.float32))}
 
 
-def stage1_trainer(build, state_dict, dev, precision: str, impl: str, remat: bool = False):
+def stage1_trainer(build, state_dict, dev, precision: str, impl: str, remat: bool = False,
+                   moco: bool = False):
     """An AVCLIPTrainer on ``build(remat=..., device=dev)`` loaded with
-    ``state_dict``: Stage I's optimiser settings, generator seed 0, flip p 0.5."""
+    ``state_dict``: Stage I's optimiser settings, generator seed 0, flip p 0.5;
+    with ``moco``, cfg.model.target names MultilevelMoCoCLIP and alpha is
+    MOCO_ALPHA."""
     from synchformer_tpu_torch.train.stage_clip import AVCLIPTrainer
     from synchformer_tpu_torch.utils.convert import load_numpy_state_dict
 
@@ -738,25 +865,27 @@ def stage1_trainer(build, state_dict, dev, precision: str, impl: str, remat: boo
     load_numpy_state_dict(model, state_dict)
     cfg = {"training": {"seed": 0, "precision": precision, "learning_rate": 1e-4,
                         "weight_decay": 0.2, "warmup": 1000, "total_steps": 100_000,
-                        "max_clip_norm": MAX_CLIP, "zero_shot_window": 8},
+                        "max_clip_norm": MAX_CLIP, "zero_shot_window": 8, "alpha": MOCO_ALPHA},
            "data": {"p_horizontal_flip": 0.5, "p_audio_aug": 0.0}}
+    if moco:
+        cfg["model"] = {"target": MOCO_TARGET}
     return AVCLIPTrainer(cfg, device=dev, model=model, impl=impl)
 
 
 def checked_step(tr, batch, what: str) -> dict:
     """One train step's metrics, failing on a non-finite loss or gradient norm
-    or a logit scale outside its clamp."""
+    or (AVCLIP) a logit scale outside its clamp."""
     import math
 
     m = tr.train_step(batch)
     if not (m["loss_finite"] and math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
         fail(f"{what}: non-finite loss or gradient norm {m}")
-    if not 0.001 <= m["logit_scale"] <= 0.5:
+    if "logit_scale" in m and not 0.001 <= m["logit_scale"] <= 0.5:
         fail(f"{what}: logit scale {m['logit_scale']} outside [0.001, 0.5]")
     return m
 
 
-def step_gradients(torch, tr, m) -> dict:
+def step_gradients(torch, tr, m, leaves_re=STAGE1_LEAVES) -> dict:
     """The gradient of the step just taken, as Stage I's check reads it: the
     metrics, every parameter's gradient flattened in f32 (``flat``), and the
     leaves that K5 / K6 feed directly (``leaves``), undone from the clip: each
@@ -764,14 +893,16 @@ def step_gradients(torch, tr, m) -> dict:
     (at random weights the attention is near uniform and the v rows carry
     most of the norm), each qkv bias whole (its k part is zero in exact math:
     the softmax is shift-invariant), and the video CLS token, whose gradient
-    flows through the CLS rows of every divided attention."""
+    flows through the CLS rows of every divided attention. ``leaves_re``
+    picks the leaves (MOCO_LEAVES for the MoCo step, whose aggregator
+    in_proj weights split the same way)."""
     unclip = max(m["grad_norm"] / MAX_CLIP, 1.0)
     named = dict(tr.model.named_parameters())
     leaves = {}
     for name, p in named.items():
-        if STAGE1_LEAVES.fullmatch(name):
+        if leaves_re.fullmatch(name):
             g = p.grad.float() * unclip
-            if name.endswith("weight"):
+            if name.endswith(("qkv.weight", "in_proj_weight")):
                 leaves.update({f"{name}[{part}]": rows for part, rows in zip("qkv", g.chunk(3))})
             else:
                 leaves[name] = g
@@ -780,7 +911,8 @@ def step_gradients(torch, tr, m) -> dict:
             "leaves": leaves}
 
 
-def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1") -> list:
+def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1",
+                     metric_eps=(("loss", 1e-4), ("grad_norm", 1e-3))) -> list:
     """Hold the kernel path's first step against the f32 run, each check at
     2 x the plain bf16 path's error (the two bf16 paths round at other places
     only inside the kernels). Arguments are step_gradients' records; returns
@@ -789,7 +921,8 @@ def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1") ->
       bf16 features; bf16 paths have read 5e-5 from f32, and at random
       weights the loss sits 0.015 above chance (ln 28), so eps is 2% of that;
     - gradient norm, eps 1e-3 x the f32 norm (both bf16 paths read ~0.3%
-      low, the same rounding);
+      low, the same rounding); ``metric_eps`` lists these metrics and their
+      relative eps;
     - every leaf of step_gradients, relative L2 error, no eps;
     - 1 - cosine of the whole flattened gradient to the f32 one, no eps."""
     failed = []
@@ -801,7 +934,7 @@ def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1") ->
             failed.append(name)
         return ok, tol
 
-    for key, rel_eps in (("loss", 1e-4), ("grad_norm", 1e-3)):
+    for key, rel_eps in metric_eps:
         r = ref["metrics"][key]
         err_k, err_p = abs(kern["metrics"][key] - r), abs(plain["metrics"][key] - r)
         ok, tol = check(key, err_k, err_p, rel_eps * abs(r))
@@ -1058,8 +1191,157 @@ def run_packed_block(torch, dev, report):
         fail(f"packed block outside tolerance: {failed}")
 
 
+def moco_record(torch, tr, m, feats: dict) -> dict:
+    """step_gradients' record of a MoCo step over MOCO_LEAVES, with what the
+    step wrote besides: the momentum model's parameters (flattened), the queue
+    columns the keys went into, and the query pass's global aggregator
+    outputs ``feats`` (video and audio, before normalisation), in f32."""
+    rec = step_gradients(torch, tr, m, MOCO_LEAVES)
+    q = tr.queues
+    rec["ema"] = torch.cat([p.float().flatten() for p in tr.model_m.parameters()])
+    rec["written"] = {
+        "queue segment_v": q.segment_v[:, :B1 * S].float(),
+        "queue segment_a": q.segment_a[:, :B1 * S].float(),
+        "queue global_v": q.global_v[:, :B1].float(),
+        "queue global_a": q.global_a[:, :B1].float(),
+        **{f"query global_{k}": v for k, v in feats.items()}}
+    return rec
+
+
+def moco_agreement(ref: dict, plain: dict, kern: dict, tag: str = "moco") -> list:
+    """stage1_agreement over moco_record's gradients with both levels' losses
+    and the total (eps 1e-4 of each) and the gradient norm (1e-3), then, each
+    by relative L2 error within 2 x the plain bf16 record's, no eps: the
+    momentum parameters after the step (updated from the f32 masters before
+    it, so both errors are 0), the keys written into the queues (the key
+    pass, on the eval path's kernels) and the query pass's global aggregator
+    outputs (the video one is K4b's). Returns the names that failed."""
+    failed = stage1_agreement(ref, plain, kern, tag, (
+        ("loss", 1e-4), ("segment_contrastive_loss", 1e-4),
+        ("global_contrastive_loss", 1e-4), ("grad_norm", 1e-3)))
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    for name in ("ema", *ref["written"]):
+        pick = (lambda r: r[name]) if name == "ema" else (lambda r: r["written"][name])
+        a, k, p = pick(ref), pick(kern), pick(plain)
+        err_k, err_p = rel(k, a), rel(p, a)
+        ok = bool(k.isfinite().all()) and err_k <= 2.0 * err_p
+        if not ok:
+            failed.append(name)
+        log(f"[{tag}] {name}: relative L2 |kernel-f32| {err_k:.3e} |plain_bf16-f32| "
+            f"{err_p:.3e} tol {2.0 * err_p:.3e} {'ok' if ok else 'FAIL'}")
+    return failed
+
+
+def moco_first_step(torch, tr, batch, what: str, tag: str = "moco", resident: int = 0):
+    """The first step of a MoCo trainer: moco_record's record and the peak
+    memory above ``resident`` bytes (0 off the card)."""
+    feats = {}
+    hooks = [getattr(tr.model, f"{t}_encoder").global_attn_agg.register_forward_hook(
+        lambda mod, args, out, t=t: feats.update({t: out.detach().float()})) for t in "va"]
+    cuda = tr.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        m = checked_step(tr, batch, what)
+    finally:
+        for h in hooks:
+            h.remove()
+    if cuda:
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident if cuda else 0
+    log(f"[{tag}] {what} first step: loss {m['loss']:.6f} (segment "
+        f"{m['segment_contrastive_loss']:.6f}, global {m['global_contrastive_loss']:.6f}), "
+        f"grad_norm {m['grad_norm']:.6f}, {time.perf_counter() - t0:.2f} s, peak memory "
+        f"{gib(peak)}")
+    return moco_record(torch, tr, m, feats), peak
+
+
+def run_moco(torch, dev, report, tag: str = "moco"):
+    """The MoCo Stage I step (build_moco_avclip: build_avclip's towers with
+    global representations, the video tower's positional dropout 0.1, queues
+    1024 x 14 and 1024, alpha 0.4) through AVCLIPTrainer at B=2, S=14: (c) f32
+    plain with remat, (a) bf16 kernel, (b) bf16 plain, from one seeded state
+    dict, batch and generator seed; exact launch counts of (a)'s first step
+    and of an eval step, moco_agreement, then 3-step windows in the order
+    plain, kernel, kernel, plain, and each bf16 path's peak memory."""
+    from synchformer_tpu_torch.models.presets import build_moco_avclip
+    from synchformer_tpu_torch.ops.kernels import _build
+    from synchformer_tpu_torch.utils.convert import seeded_state_dict
+
+    t0 = time.perf_counter()
+    sd = seeded_state_dict(build_moco_avclip(device="meta"), seed=0)
+    batch = stage1_batch(torch, B1, S)
+    log(f"[{tag}] weights + batch {time.perf_counter() - t0:.1f} s")
+
+    def trainer(precision, impl, remat=False):
+        return stage1_trainer(build_moco_avclip, sd, dev, precision, impl, remat, moco=True)
+
+    tr = trainer("fp32", "plain", remat=True)
+    ref, _ = moco_first_step(torch, tr, batch, "(c) f32 plain, remat", tag)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    resident = torch.cuda.memory_allocated()
+    trainers = {"kernel": trainer("amp", "kernel")}
+    _build.launches.clear()
+    kern, k_peak = moco_first_step(torch, trainers["kernel"], batch, "(a) bf16 kernel", tag,
+                                   resident)
+    counts = dict(_build.launches)
+    log(f"[{tag}] launches in one kernel-path step: {counts}")
+    for key, need in MOCO_LAUNCHES.items():
+        if counts.get(key, 0) != need:
+            fail(f"{tag}: {key} launched {counts.get(key, 0)} times in one step, expected {need}")
+    for key in KEYS:
+        if PATHS[key] == "stage1_train_moco":
+            report[key]["launches"] = counts.get(key, 0)
+    resident = torch.cuda.memory_allocated()
+    trainers["plain"] = trainer("amp", "plain")
+    plain, p_peak = moco_first_step(torch, trainers["plain"], batch, "(b) bf16 plain", tag,
+                                    resident)
+    peaks = {"kernel": k_peak, "plain": p_peak}
+    failed = moco_agreement(ref, plain, kern, tag)
+    if failed:
+        fail(f"{tag}: kernel-path first step outside tolerance: {failed}")
+    del ref, plain, kern
+
+    times = {name: [] for name in trainers}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            checked_step(trainers[name], batch, name)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t) / 3)
+
+    _build.launches.clear()
+    out = trainers["kernel"].eval_step(batch)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    log(f"[{tag}] launches in one kernel eval step: {counts}")
+    for key, need in MOCO_EVAL_LAUNCHES.items():
+        if counts.get(key, 0) != need:
+            fail(f"{tag}: {key} launched {counts.get(key, 0)} times in one eval step, "
+                 f"expected {need}")
+    if (out["vfeat"].shape != (B1, S, D) or not bool(torch.isfinite(out["loss"]))
+            or not bool(torch.isfinite(out["vfeat"]).all())):
+        fail(f"{tag} eval step: features of the wrong shape or non-finite")
+    log(f"[{tag}] kernel eval step: loss {out['loss'].item():.6f}, zero-shot precision "
+        f"{out['precision'].item():.4f} (window 8 of {S} segments)")
+    for name in ("kernel", "plain"):
+        best = min(times[name]) * 1e3
+        log(f"[timing] {tag} {name} path: {best:.1f} ms/step of {B1} clips x {S} segments "
+            f"= {B1 * 1e3 / best:.3f} samples/s (runs "
+            f"{[round(t * 1e3, 1) for t in times[name]]} ms); peak memory {gib(peaks[name])}")
+
+
 PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
-          run_serving_8head)
+          run_serving_8head, run_moco)
 
 
 def main() -> int:

@@ -1,5 +1,5 @@
-"""Show that chip_smoke.py's Stage I, packed-block, serving and kernel checks
-fail a wrong K5, K6, K7a/K7b, K7c, K8a or K8b.
+"""Show that chip_smoke.py's Stage I, packed-block, serving, MoCo and kernel
+checks fail a wrong K5, K6, K7a/K7b, K7c, K8a, K8b or K4b.
 
     python scripts/stage1_planted_faults.py            # full width, one NVIDIA GPU
     python scripts/stage1_planted_faults.py --tiny --device cpu   # a dry run
@@ -37,13 +37,21 @@ K8a / K8b cases (chip_smoke.hold_outputs):
 - k8a_mode_swapped: K8a runs the other mode;
 - k8a_ln_skipped: K8a without its LayerNorm (the attention of x's own QKV);
 - k8b_residual_dropped: K8b returns the MLP branch without the residual.
+Then the K4b faults (wrapping ops/kernels/cls_pool.py's _cls_pool, where
+ClsPoolFn calls it) on phase 9's MoCo step (chip_smoke.moco_agreement) and on
+phase 2's K4b cases (chip_smoke.hold_outputs):
+- none: the control;
+- k4b_shared_q: every group attends with group 0's query, the q and U that
+  K4's shared-CLS prep would give (the plain composition with that query);
+- k4b_residual_dropped: K4b's output without the CLS row's residual.
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
-build_tiny_avclip_packed, drop-path 0.2) at B=2, S=2, a block of
-TINY_BLOCK's size, the tiny Synchformer with TINY_PACKED's towers and
-phase 2's K8 cases at TINY_K8's size: on CPU tensors the kernel wrappers run
-their plain versions, which the faults wrap all the same.
+build_tiny_avclip_packed, drop-path 0.2) and tiny MoCo model
+(build_tiny_moco_avclip, drop-path 0.2) at B=2, S=2, a block of TINY_BLOCK's
+size, the tiny Synchformer with TINY_PACKED's towers and phase 2's K8 and K4b
+cases at TINY_K8's and TINY_K4B's sizes: on CPU tensors the kernel wrappers
+run their plain versions, which the faults wrap all the same.
 """
 from __future__ import annotations
 
@@ -65,17 +73,20 @@ from synchformer_tpu_torch.models.presets import (  # noqa: E402
     TINY_PACKED,
     build_avclip,
     build_avclip_8head,
+    build_moco_avclip,
     build_synchformer_8head,
     build_tiny_avclip,
     build_tiny_avclip_packed,
+    build_tiny_moco_avclip,
     build_tiny_synchformer,
 )
+from synchformer_tpu_torch.ops.kernels import cls_pool as tcls  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import divided_attention_bwd as dab  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import fused_block as fb  # noqa: E402
 from synchformer_tpu_torch.ops.kernels.divided_attention import (  # noqa: E402
     divided_attention_packed,
 )
-from synchformer_tpu_torch.ops.numerics import dense  # noqa: E402
+from synchformer_tpu_torch.ops.numerics import dense, exact_gelu, layer_norm  # noqa: E402
 from synchformer_tpu_torch.utils.convert import (  # noqa: E402
     load_numpy_state_dict,
     seeded_state_dict,
@@ -138,6 +149,29 @@ def k8b_residual_dropped(attn, bwd, mlp, x, *args):
     return mlp(x, *args) - x
 
 
+def k4b_shared_q(fwd, x, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1, w2, fb2, num_heads,
+                 eps):
+    bsz, n, d = x.shape
+    dtype, dh = x.dtype, d // num_heads
+    ln = layer_norm(x, g1, b1, eps, dtype)
+    q = dense(ln[:1, :1], wqkv[:d], bqkv[:d], dtype).reshape(1, 1, num_heads, dh)
+    k, v = dense(ln, wqkv[d:], bqkv[d:], dtype).reshape(bsz, n, 2, num_heads, dh).unbind(2)
+    logits = torch.einsum("bqhd,bnhd->bhqn", q.float().expand(bsz, -1, -1, -1), k.float())
+    p = torch.softmax(logits * dh ** -0.5, dim=-1).to(dtype)
+    att = dense(torch.einsum("bhqn,bnhd->bqhd", p, v).reshape(bsz, 1, d), wp, bp, dtype)[:, 0]
+    y = x[:, 0] + att
+    h = exact_gelu(dense(layer_norm(y, g2, b2, eps, dtype), w1, fb1, dtype))
+    return y + dense(h, w2, fb2, dtype)
+
+
+def k4b_residual_dropped(fwd, x, *args):
+    return fwd(x, *args) - x[:, 0]
+
+
+K4B_ENTRIES = (tcls, ("_cls_pool",))
+K4B_FAULTS = {"none": None, "k4b_shared_q": (k4b_shared_q, 0),
+              "k4b_residual_dropped": (k4b_residual_dropped, 0)}
+
 # the entries of ops/kernels/fused_block.py a K8 fault may replace: K8a's
 # forward, the K7c call in its backward, K8b's forward
 K8_ENTRIES = (fb, ("_fused_attention", "divided_attention_packed_bwd", "_fused_mlp"))
@@ -165,6 +199,8 @@ KERNEL_FAULTS = {**SERVING_FAULTS, "k8b_residual_dropped": (k8b_residual_dropped
 TINY_BLOCK = {"b": 2, "d": 128, "h": 2, "f": 2, "n": 4}
 # --tiny's K8 cases: 2 heads of 48 on x (2, 1 + 2 x 4, 96)
 TINY_K8 = {"bs": 2, "f": 2, "n": 4, "d": 96, "heads": 2}
+# --tiny's K4b cases: 2 heads of 64, (2, 3) and (8, 5) rows
+TINY_K4B = {"d": 128, "h": 2, "shapes": ((2, 3), (8, 5))}
 
 
 def planted(module, entries, fault):
@@ -249,17 +285,64 @@ def kernel_faults(dev, tiny: bool) -> dict:
     with --tiny), each fault's cases that hold_outputs failed."""
     cases = [c for c in chip_smoke.k8_cases(torch, dev, **(TINY_K8 if tiny else {}))
              if c[0] in ("K8a", "K8b")]
+    return cases_caught(cases, K8_ENTRIES, KERNEL_FAULTS)
+
+
+def k4b_kernel_faults(dev, tiny: bool) -> dict:
+    """The K4b faults on phase 2's K4b cases (TINY_K4B's size with --tiny),
+    each fault's cases that hold_outputs failed."""
+    return cases_caught(chip_smoke.k4b_cases(torch, dev, **(TINY_K4B if tiny else {})),
+                        K4B_ENTRIES, K4B_FAULTS)
+
+
+def cases_caught(cases, entries, faults) -> dict:
+    """``faults`` (wrapping ``entries``) on phase 2's ``cases``, each fault's
+    cases that hold_outputs failed."""
     anchors = [(plain(torch.bfloat16), plain(torch.float32)) for _, _, _, plain, _, _ in cases]
     caught = {}
-    for name, fault in KERNEL_FAULTS.items():
+    for name, fault in faults.items():
         caught[name] = []
         for (_, label, kern, _, _, _), (p_out, a_out) in zip(cases, anchors):
-            with planted(*K8_ENTRIES, fault):
+            with planted(*entries, fault):
                 k_out = kern()
             if chip_smoke.hold_outputs(label, k_out, p_out, a_out, f"kernels {name}")[0]:
                 caught[name].append(label)
         chip_smoke.log(f"[fault] kernels {name}: {len(caught[name])} cases failed: "
                        f"{caught[name]}")
+    return caught
+
+
+def moco_faults(dev, tiny: bool) -> dict:
+    """The K4b faults on phase 9's MoCo step (build_moco_avclip at B=2, S=14;
+    build_tiny_moco_avclip, drop-path 0.2, at B=2, S=2 with --tiny): (c) f32
+    plain with remat, (b) bf16 plain, then the bf16 kernel path once per
+    fault, each fault's failed checks of moco_agreement."""
+    if tiny:
+        build = functools.partial(build_tiny_moco_avclip, drop_path_rate=0.2)
+        batch = chip_smoke.stage1_batch(torch, 2, 2, (4, 32, 32, 3))
+    else:
+        build = build_moco_avclip
+        batch = chip_smoke.stage1_batch(torch, chip_smoke.B1, chip_smoke.S)
+    sd = seeded_state_dict(build(device="meta"), seed=0)
+
+    def record(precision, impl, remat=False, fault=None):
+        tr = chip_smoke.stage1_trainer(build, sd, dev, precision, impl, remat, moco=True)
+        with planted(*K4B_ENTRIES, fault):
+            rec, _ = chip_smoke.moco_first_step(torch, tr, batch, f"{precision} {impl}",
+                                                "moco_faults")
+        del tr
+        gc.collect()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        return rec
+
+    ref, plain = record("fp32", "plain", remat=True), record("amp", "plain")
+    caught = {}
+    for name, fault in K4B_FAULTS.items():
+        caught[name] = chip_smoke.moco_agreement(ref, plain, record("amp", "kernel", fault=fault),
+                                                 f"moco {name}")
+        chip_smoke.log(f"[fault] moco {name}: {len(caught[name])} checks failed: "
+                       f"{caught[name][:6]}{' ...' if len(caught[name]) > 6 else ''}")
     return caught
 
 
@@ -317,7 +400,9 @@ def main() -> int:
         ok = verdict(flow, caught) and ok
     ok = verdict("packed_block", block_faults(dev, args.tiny)) and ok
     ok = verdict("serving", serving_faults(dev, args.tiny)) and ok
-    return 0 if verdict("kernels", kernel_faults(dev, args.tiny)) and ok else 1
+    ok = verdict("kernels", kernel_faults(dev, args.tiny)) and ok
+    ok = verdict("moco", moco_faults(dev, args.tiny)) and ok
+    return 0 if verdict("kernels_k4b", k4b_kernel_faults(dev, args.tiny)) and ok else 1
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,13 +2,20 @@
 
 The reference's BaseEncoderLayer (ref: visual/motionformer.py:275-347,
 audio/ast.py:253-279): a learned CLS row plus one norm-first
-nn.TransformerEncoderLayer, of which only the CLS row is kept. State names:
-cls_token, norm1, norm2, self_attn.{in_proj_weight, in_proj_bias, out_proj},
-linear1, linear2. The CLS row goes in as the block's shared ``cls_row``, so on
-the kernel route the whole layer is K4. ``AveragePooling`` is the towers' time
-tail in the Stage I configuration (configs/segment_avclip.yaml).
+nn.TransformerEncoderLayer, of which only the CLS row is kept, with an
+optional learned positional embedding and its dropout (the global segment
+aggregator, ``TemporalAggregator``). State names: cls_token, pos_emb, norm1,
+norm2, self_attn.{in_proj_weight, in_proj_bias, out_proj}, linear1, linear2.
+As in the JAX layer (aggregators.py:52-86), the CLS row goes in as the
+block's shared ``cls_row`` (on the kernel route the whole layer is K4) unless
+the positional dropout is live; then [cls; x] is formed, the embedding added
+and dropped, and the block runs with the CLS row inside x (K4b).
+``AveragePooling`` is the towers' time tail in the Stage I configuration
+(configs/segment_avclip.yaml).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -19,18 +26,31 @@ from synchformer_tpu_torch.models.layers import (
     LayerNorm,
     Linear,
     PreLNBlock,
+    element_dropout,
 )
 
 
 class CLSPoolEncoderLayer(PreLNBlock):
     """(B, N, D) -> (B, D): the CLS row of one pre-LN encoder layer over
-    [cls; x]. LN eps 1e-6, MLP 4D, exact GELU."""
+    [cls; x]. LN eps 1e-6, MLP 4D, exact GELU. ``add_pos_emb`` adds a learned
+    (1, 1 + pos_max_len, D) embedding to [cls; x], dropped at ``pos_emb_drop``
+    in training. The block's own dropout is not ported: ``dropout`` above 0
+    is refused in training."""
 
     def __init__(self, d: int, num_heads: int, eps: float = 1e-6, mlp_ratio: float = 4.0,
-                 device=None):
+                 dropout: float = 0.0, add_pos_emb: bool = False,
+                 pos_max_len: Optional[int] = None, pos_emb_drop: float = 0.0, device=None):
         super().__init__(num_heads, eps)
         hidden = int(d * mlp_ratio)
+        self.dropout = float(dropout)
+        self.pos_emb_drop = float(pos_emb_drop)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
+        if add_pos_emb:
+            if pos_max_len is None:
+                raise ValueError("add_pos_emb needs pos_max_len")
+            self.pos_emb = nn.Parameter(torch.zeros(1, 1 + pos_max_len, d, device=device))
+        else:
+            self.pos_emb = None
         self.norm1 = LayerNorm(d, eps, device)
         self.norm2 = LayerNorm(d, eps, device)
         self.self_attn = Container(out_proj=Linear(d, d, device=device))
@@ -46,8 +66,23 @@ class CLSPoolEncoderLayer(PreLNBlock):
             sa.out_proj.weight, sa.out_proj.bias, self.norm2.weight, self.norm2.bias,
             self.linear1.weight, self.linear1.bias, self.linear2.weight, self.linear2.bias)
 
-    def pool(self, x: torch.Tensor, impl: str) -> torch.Tensor:
-        return super().forward(x, impl, query_rows=1, cls_row=self.cls_token[0])[:, 0, :]
+    def pool(self, x: torch.Tensor, impl: str, deterministic: bool = True,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not deterministic and self.dropout > 0.0:
+            raise NotImplementedError("the aggregator block's dropout is not ported: "
+                                      "set its dropout to 0")
+        b, n, d = x.shape
+        cls, pos = self.cls_token[0], self.pos_emb
+        if deterministic or self.pos_emb_drop == 0.0:  # JAX split_cls
+            if pos is not None:
+                cls = cls + pos[0, :1]
+                x = x + pos[:, 1:1 + n].to(x.dtype)
+            return super().forward(x, impl, query_rows=1, cls_row=cls)[:, 0, :]
+        if generator is None:
+            raise ValueError("a live positional dropout needs a generator")
+        x = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, d), x], dim=1)
+        x = element_dropout(x + pos[:, :1 + n].to(x.dtype), self.pos_emb_drop, generator)
+        return super().forward(x, impl, query_rows=1)[:, 0, :]
 
 
 class SpatialAggregator(CLSPoolEncoderLayer):
@@ -65,6 +100,16 @@ class FrequencyAggregator(CLSPoolEncoderLayer):
         bs, f, t, d = x.shape
         flat = x.transpose(1, 2).reshape(bs * t, f, d)
         return self.pool(flat, impl).reshape(bs, t, d)
+
+
+class TemporalAggregator(CLSPoolEncoderLayer):
+    """(B, t, D) -> (B, D). With add_pos_emb=True this is the towers' global
+    segment aggregator (ref: TemporalTransformerEncoderLayer,
+    motionformer.py:378-393)."""
+
+    def forward(self, x: torch.Tensor, impl: str = "plain", deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.pool(x, impl, deterministic, generator)
 
 
 class AveragePooling(nn.Module):

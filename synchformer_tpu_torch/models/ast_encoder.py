@@ -5,20 +5,32 @@ steps per segment through the frequency aggregator, then, with
 Patch conv 16x16, stride (10, 10) over the (F=128, T=66) log-mel, scanned
 frequency-major (12 x 6 = 72 tokens) and run as one matmul on unfolded
 patches; CLS and distillation tokens; 12 HF AST layers (LN eps 1e-12) on K3 +
-K2; final LayerNorm; FrequencyAggregator on K4. Its dropouts are 0, so
+K2; final LayerNorm; FrequencyAggregator on K4. Its dropouts are not
+ported: ``hidden_dropout`` and ``attn_dropout`` above 0 are refused, so
 training runs the same route (the kernels' autograd Functions carry the
-backward); ``remat=True`` wraps each layer in torch.utils.checkpoint. State
-names follow the reference (``ast.embeddings.*``, ``ast.encoder.layer.{i}.*``,
-``ast.layernorm``, ``freq_attn_agg.*``).
+backward); ``remat=True`` wraps each layer in torch.utils.checkpoint. With
+``add_global_repr`` a TemporalAggregator with a positional embedding over
+``max_segments`` pools the (B, S, D) segment features into one global feature
+per clip (ast_encoder.py:177-186); its positional dropout is hidden_dropout,
+0, so it runs on K4. ``forward`` returns the segment features,
+``forward_with_global`` them and the global feature. State names follow the
+reference (``ast.embeddings.*``, ``ast.encoder.layer.{i}.*``,
+``ast.layernorm``, ``freq_attn_agg.*``, ``global_attn_agg.*``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from synchformer_tpu_torch.models.aggregators import AveragePooling, FrequencyAggregator
+from synchformer_tpu_torch.models.aggregators import (
+    AveragePooling,
+    FrequencyAggregator,
+    TemporalAggregator,
+)
 from synchformer_tpu_torch.models.layers import ASTLayer, Container, LayerNorm
 from synchformer_tpu_torch.ops.numerics import dense
 
@@ -27,11 +39,20 @@ class ASTEncoder(nn.Module):
     def __init__(self, hidden_size: int = 768, depth: int = 12, num_heads: int = 12,
                  patch_size: int = 16, frequency_stride: int = 10, time_stride: int = 10,
                  num_mel_bins: int = 128, max_spec_t: int = 66, ln_eps: float = 1e-12,
-                 agg_time_module: str = "Identity", remat: bool = False, device=None):
+                 agg_time_module: str = "Identity", remat: bool = False,
+                 hidden_dropout: float = 0.0, attn_dropout: float = 0.0,
+                 add_global_repr: bool = False, max_segments: Optional[int] = None,
+                 device=None):
         super().__init__()
         if agg_time_module not in ("Identity", "AveragePooling"):
             raise ValueError(f"agg_time_module must be 'Identity' or 'AveragePooling', "
                              f"got {agg_time_module!r}")
+        if hidden_dropout > 0.0 or attn_dropout > 0.0:
+            raise NotImplementedError("the AST's dropouts are not ported: set hidden_dropout "
+                                      "and attn_dropout to 0")
+        if add_global_repr and agg_time_module != "AveragePooling":
+            raise ValueError("add_global_repr pools (B, S, D) segment features: it needs "
+                             "agg_time_module='AveragePooling'")
         d = hidden_size
         self.patch_size = patch_size
         self.strides = (frequency_stride, time_stride)
@@ -52,10 +73,22 @@ class ASTEncoder(nn.Module):
         self.freq_attn_agg = FrequencyAggregator(d, num_heads, device=device)
         self.temp_attn_agg = (AveragePooling(1) if agg_time_module == "AveragePooling"
                               else None)
+        self.max_segments = max_segments
+        self.global_attn_agg = (
+            TemporalAggregator(d, num_heads, add_pos_emb=True,
+                               pos_max_len=max_segments if max_segments is not None else 16,
+                               device=device)
+            if add_global_repr else None)
 
     def forward(self, x: torch.Tensor, impl: str = "plain") -> torch.Tensor:
         """x (B, S, T, F) log-mel in the compute dtype -> (B, S, t, D), or
         (B, S, D) with the AveragePooling time tail."""
+        return self.forward_with_global(x, impl)[0]
+
+    def forward_with_global(self, x: torch.Tensor, impl: str = "plain"):
+        """forward's features and, with add_global_repr, the (B, D) global
+        feature (else None). No dropout is live, so training and eval are
+        one computation."""
         b, s, t_spec, f_spec = x.shape
         emb = self.ast.embeddings
         w = emb.patch_embeddings.projection.weight
@@ -78,6 +111,9 @@ class ASTEncoder(nn.Module):
         tokens = self.ast.layernorm(tokens)
         feats = tokens[:, 2:, :].reshape(b * s, fdim, tdim, d)
         feats = self.freq_attn_agg(feats, impl)
-        if self.temp_attn_agg is not None:
-            return self.temp_attn_agg(feats).reshape(b, s, d)
-        return feats.reshape(b, s, tdim, d)
+        if self.temp_attn_agg is None:
+            return feats.reshape(b, s, tdim, d), None
+        feats = self.temp_attn_agg(feats).reshape(b, s, d)
+        if self.global_attn_agg is None:
+            return feats, None
+        return feats, self.global_attn_agg(feats, impl)

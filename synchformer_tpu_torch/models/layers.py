@@ -10,7 +10,8 @@ do.
 
 ``impl`` chooses the route: 'kernel' sends the packed QKV through K3, the
 LN+MLP half through K2 and the CLS-pool layer through K4 (each wrapper runs
-its plain version on CPU tensors); 'plain' is the reference composition.
+its plain version on CPU tensors), or through K4b where the CLS row is row 0
+of x; 'plain' is the reference composition.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from synchformer_tpu_torch.ops.kernels.cls_pool import fused_cls_pool_tokens
+from synchformer_tpu_torch.ops.kernels.cls_pool import fused_cls_pool, fused_cls_pool_tokens
 from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_mlp_residual
 from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
 from synchformer_tpu_torch.ops.numerics import dense, exact_gelu, layer_norm
@@ -88,6 +89,15 @@ class DropPath(nn.Module):
         return x * scale.reshape(-1, *(1,) * (x.ndim - 1))
 
 
+def element_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax nn.Dropout in training: each element kept with probability
+    1 - rate (drawn from ``generator``) and scaled by 1 / (1 - rate)."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def scaled_dot_attention(q, k, v):
     """q, k, v (..., H, N, dh); f32 logits scaled by dh^-0.5 in f32, f32
     softmax, probabilities in the compute dtype."""
@@ -149,16 +159,21 @@ def preln_block(x, p: BlockParams, num_heads: int, eps: float, impl: str,
                 query_rows: Optional[int] = None, cls_row=None):
     """x + attn(ln1(x)); x + mlp(ln2(x)) (JAX PreLNBlock.__call__).
 
-    Routes for impl='kernel', as in the JAX package: query_rows=1 with a
-    shared ``cls_row`` -> K4 (whole layer for the CLS row); otherwise the
-    attention goes through K3 and the LN+MLP half through K2."""
+    Routes for impl='kernel', as in the JAX package (layers.py:281-311):
+    query_rows=1 on a 3-D x -> the whole layer for the CLS row, K4 with a
+    shared ``cls_row``, K4b without one (row 0 of x is the CLS row);
+    otherwise the attention goes through K3 and the LN+MLP half through K2.
+    The block has no dropout, so no route depends on training."""
     d = x.shape[-1]
     dtype = x.dtype
-    if query_rows == 1 and cls_row is not None and impl == "kernel" and x.ndim == 3:
-        out = fused_cls_pool_tokens(
-            x, cls_row.reshape(d), p.ln1_w, p.ln1_b, p.wqkv.to(dtype), p.bqkv,
-            p.wproj.to(dtype), p.bproj, p.ln2_w, p.ln2_b, p.w1.to(dtype), p.b1,
-            p.w2.to(dtype), p.b2, num_heads=num_heads, eps=eps, impl=impl)
+    if query_rows == 1 and impl == "kernel" and x.ndim == 3:
+        mats = (p.ln1_w, p.ln1_b, p.wqkv.to(dtype), p.bqkv, p.wproj.to(dtype), p.bproj,
+                p.ln2_w, p.ln2_b, p.w1.to(dtype), p.b1, p.w2.to(dtype), p.b2)
+        if cls_row is not None:
+            out = fused_cls_pool_tokens(x, cls_row.reshape(d), *mats, num_heads=num_heads,
+                                        eps=eps, impl=impl)
+        else:
+            out = fused_cls_pool(x.contiguous(), *mats, num_heads=num_heads, eps=eps, impl=impl)
         return out[:, None, :]
     if cls_row is not None:
         cls = cls_row.reshape(1, 1, d).to(dtype).expand(x.shape[0], 1, d)

@@ -54,10 +54,18 @@ is the same on both routes. ``impl`` keeps its meaning on both: on
 _fused_mlp_ref, the same operations as the 'pallas' plain path.
 
 Then the SpatialAggregator (K4) pools each frame, and with
-``agg_time_module='AveragePooling'`` the frames are averaged. State names
-follow the reference (``patch_embed_3d.proj``,
+``agg_time_module='AveragePooling'`` the frames are averaged. With
+``add_global_repr`` (the MoCo Stage I towers) a TemporalAggregator with a
+positional embedding over ``max_segments`` pools the (B, S, D) segment
+features into one global feature per clip (motionformer.py:696-705); in
+training its positional dropout is ``pos_dropout``, and where that is above 0
+the CLS row goes in inside x, through K4b. ``pos_dropout`` also drops the
+tokens after their positional embeddings in training, on both flows
+(motionformer.py:569-571, 629). ``forward`` returns the segment features,
+``forward_with_global`` them and the global feature. State names follow the
+reference (``patch_embed_3d.proj``,
 ``blocks.{i}.{norm1,norm2,norm3,attn,timeattn,mlp}``, ``norm``,
-``spatial_attn_agg``).
+``spatial_attn_agg``, ``global_attn_agg``).
 """
 from __future__ import annotations
 
@@ -68,8 +76,19 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from synchformer_tpu_torch.models.aggregators import AveragePooling, SpatialAggregator
-from synchformer_tpu_torch.models.layers import Container, DropPath, LayerNorm, Linear, mlp
+from synchformer_tpu_torch.models.aggregators import (
+    AveragePooling,
+    SpatialAggregator,
+    TemporalAggregator,
+)
+from synchformer_tpu_torch.models.layers import (
+    Container,
+    DropPath,
+    LayerNorm,
+    Linear,
+    element_dropout,
+    mlp,
+)
 from synchformer_tpu_torch.ops.kernels.divided_attention import (
     divided_attention_proj,
     heads_groupable,
@@ -213,11 +232,16 @@ class MotionFormerEncoder(nn.Module):
                  patch_size: int = 16, z_block_size: int = 2, temporal_resolution: int = 8,
                  img_size: int = 224, in_chans: int = 3, ln_eps: float = 1e-6,
                  drop_path_rate: float = 0.2, agg_time_module: str = "Identity",
-                 remat: bool = False, attn_impl: str = "pallas", device=None):
+                 remat: bool = False, attn_impl: str = "pallas", pos_dropout: float = 0.0,
+                 add_global_repr: bool = False, max_segments: Optional[int] = None,
+                 device=None):
         super().__init__()
         if agg_time_module not in ("Identity", "AveragePooling"):
             raise ValueError(f"agg_time_module must be 'Identity' or 'AveragePooling', "
                              f"got {agg_time_module!r}")
+        if add_global_repr and agg_time_module != "AveragePooling":
+            raise ValueError("add_global_repr pools (B, S, D) segment features: it needs "
+                             "agg_time_module='AveragePooling'")
         if attn_impl not in ("pallas", "pallas_fused"):
             raise ValueError(f"attn_impl must be 'pallas' or 'pallas_fused', got {attn_impl!r}")
         d = embed_dim
@@ -243,13 +267,28 @@ class MotionFormerEncoder(nn.Module):
         self.spatial_attn_agg = SpatialAggregator(d, num_heads, device=device)
         self.temp_attn_agg = (AveragePooling(1) if agg_time_module == "AveragePooling"
                               else None)
+        self.pos_dropout = float(pos_dropout)
+        self.max_segments = max_segments
+        self.global_attn_agg = (
+            TemporalAggregator(d, num_heads, add_pos_emb=True,
+                               pos_max_len=max_segments if max_segments is not None else 16,
+                               pos_emb_drop=pos_dropout, device=device)
+            if add_global_repr else None)
 
     def forward(self, x: torch.Tensor, impl: str = "plain", deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, S, f, n, z*p*p*c) patch-major frames: uint8 with the folded
         normalisation, or normalised floats in the compute dtype -> (B, S, f, D),
         or (B, S, D) with the AveragePooling time tail. ``deterministic=False``
-        runs the training block and needs ``generator`` for drop-path."""
+        runs the training block and needs ``generator`` for drop-path and
+        dropout."""
+        return self.forward_with_global(x, impl, deterministic, generator)[0]
+
+    def forward_with_global(self, x: torch.Tensor, impl: str = "plain",
+                            deterministic: bool = True,
+                            generator: Optional[torch.Generator] = None):
+        """forward's features and, with add_global_repr, the (B, D) global
+        feature (else None)."""
         b, s, f, n, pk = x.shape
         if (f, n) != (self.f, self.grid * self.grid):
             raise ValueError(f"patch-major input {tuple(x.shape)} does not match the tower")
@@ -263,6 +302,9 @@ class MotionFormerEncoder(nn.Module):
         cls = self.cls_token.to(dtype).expand(b * s, 1, d) + self.pos_embed[:, :1].to(dtype)
         if not deterministic and generator is None:
             raise ValueError("training (deterministic=False) needs a generator")
+        if not deterministic:
+            cls = element_dropout(cls, self.pos_dropout, generator)
+            patches = element_dropout(patches, self.pos_dropout, generator)
         if self.packed:
             feats = self._packed_flow(cls, patches, impl, deterministic, generator)
         elif deterministic and self.attn_impl == "pallas":
@@ -278,9 +320,12 @@ class MotionFormerEncoder(nn.Module):
             feats = self.norm(patches)
         feats = feats.reshape(b * s, f, self.grid, self.grid, d)
         feats = self.spatial_attn_agg(feats, impl)
-        if self.temp_attn_agg is not None:
-            return self.temp_attn_agg(feats).reshape(b, s, d)
-        return feats.reshape(b, s, f, d)
+        if self.temp_attn_agg is None:
+            return feats.reshape(b, s, f, d), None
+        feats = self.temp_attn_agg(feats).reshape(b, s, d)
+        if self.global_attn_agg is None:
+            return feats, None
+        return feats, self.global_attn_agg(feats, impl, deterministic, generator)
 
     def _run_block(self, fn, blk, deterministic: bool, generator, *args):
         """One block: ``fn(*args, None, None)`` in eval; in training its

@@ -1,15 +1,17 @@
 """Model presets: the full-width sync model (configs/sync.yaml model section,
 as synchformer_tpu/models/presets.py::build_synchformer) and its 8-head
 video-tower variant (build_synchformer_8head), the full-width Stage I AVCLIP
-(configs/segment_avclip.yaml, as build_avclip) and its 8-head variant
-(build_avclip_8head), and tiny ones for the CPU tests. The 8-head towers run
-the packed flow and take ``attn_impl`` ('pallas' or 'pallas_fused', the JAX
-option). All come in f32: SyncPredictor casts the sync model's matrices to
-the compute dtype once; AVCLIP trains f32 master parameters under the
-activations' compute dtype."""
+(configs/segment_avclip.yaml, as build_avclip), its 8-head variant
+(build_avclip_8head), the MoCo Stage I model at the same widths with global
+representations (build_moco_avclip), and tiny ones for the CPU tests. The
+8-head towers run the packed flow and take ``attn_impl`` ('pallas' or
+'pallas_fused', the JAX option). All come in f32: SyncPredictor casts the
+sync model's matrices to the compute dtype once; AVCLIP and MoCo train f32
+master parameters under the activations' compute dtype."""
 from __future__ import annotations
 
 from synchformer_tpu_torch.models.avclip import AVCLIP
+from synchformer_tpu_torch.models.moco_clip import MultilevelMoCoCLIP
 from synchformer_tpu_torch.models.sync_model import Synchformer
 
 D = 768
@@ -84,6 +86,38 @@ def build_avclip_8head(remat: bool = False, device=None, attn_impl: str = "palla
                                        drop_path_rate=0.2, attn_impl=attn_impl),
                   afeat_extractor=dict(depth=12, num_heads=12, remat=remat),
                   d=D, device=device)
+
+
+def build_moco_avclip(remat: bool = False, device=None) -> MultilevelMoCoCLIP:
+    """build_avclip's towers and scales as MultilevelMoCoCLIP with global
+    representations: both towers add_global_repr with a
+    TransformerEncoderLayer segment aggregator over 14 segments (the towers
+    must agree, config/sanity.py:25); the Motionformer's pos_dropout 0.1
+    (drop_rate 0), which puts the query pass's video global aggregator on
+    K4b; the AST's dropouts 0. queue_size 1024 (a segment queue of 1024 x 14
+    and a global queue of 1024) and momentum 0.995 are chosen, not taken from
+    a shipped config."""
+    glob = dict(add_global_repr=True, max_segments=14, remat=remat)
+    return MultilevelMoCoCLIP(
+        vfeat_extractor=dict(depth=12, num_heads=12, drop_path_rate=0.2, pos_dropout=0.1,
+                             **glob),
+        afeat_extractor=dict(depth=12, num_heads=12, **glob),
+        d=D, queue_size=1024, momentum=0.995, device=device)
+
+
+def build_tiny_moco_avclip(remat: bool = False, drop_path_rate: float = 0.0,
+                           pos_dropout: float = 0.1, device=None) -> MultilevelMoCoCLIP:
+    """build_moco_avclip at the TINY widths and depth 1, max_segments 2,
+    queue_size 4 (queues of 8 and 4), momentum 0.9."""
+    t = TINY
+    glob = dict(add_global_repr=True, max_segments=2, remat=remat)
+    return MultilevelMoCoCLIP(
+        vfeat_extractor=dict(depth=1, num_heads=t["heads"], patch_size=t["patch_size"],
+                             img_size=t["img_size"],
+                             temporal_resolution=t["temporal_resolution"],
+                             drop_path_rate=drop_path_rate, pos_dropout=pos_dropout, **glob),
+        afeat_extractor=dict(depth=1, num_heads=t["audio_heads"], **glob),
+        d=t["d"], queue_size=4, momentum=0.9, device=device)
 
 
 def build_tiny_avclip(remat: bool = False, drop_path_rate: float = 0.0,

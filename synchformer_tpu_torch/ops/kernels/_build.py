@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the tile GEMM's grid puts 64-row tiles on gridDim.y (at most 65535)
 MAX_GEMM_ROWS = 65535 * 64
 
-# launches of each kernel wrapper on a CUDA tensor, keyed K1..K6, K7a, K7b,
-# K7c, K8a, K8b, K8c
+# launches of each kernel wrapper on a CUDA tensor, keyed K1..K4, K4b, K5,
+# K6, K7a, K7b, K7c, K8a, K8b, K8c
 launches: collections.Counter = collections.Counter()
 
 _libs: dict = {}
@@ -50,7 +50,8 @@ _SIGNATURES = {
     "ln_mlp": {"sft_ln_mlp": [_P] * 11 + [_L, _I, _I, _F, _P],
                "sft_ln_matmul": [_P] * 7 + [_L, _I, _I, _F, _P]},
     "standard_attention": {"sft_standard_attention": [_P, _P, _I, _I, _I, _I, _P]},
-    "cls_pool": {"sft_cls_pool_tokens": [_P] * 20 + [_I] * 5 + [_F, _P]},
+    "cls_pool": {"sft_cls_pool_tokens": [_P] * 20 + [_I] * 5 + [_F, _P],
+                 "sft_cls_pool": [_P] * 20 + [_I] * 5 + [_F, _P]},
     "divided_attention": {"sft_divided_attention_proj": [_P] * 8 + [_I] * 6 + [_P],
                           "sft_divided_attention": [_P] * 4 + [_I] * 6 + [_P],
                           "sft_divided_attention_packed": [_P] * 2 + [_I] * 6 + [_P]},

@@ -1,5 +1,6 @@
 """The Stage I train and eval steps of AVCLIP (synchformer_tpu/train/step.py::
-make_avclip_train_step, make_avclip_eval_step) and the zero-shot probe
+make_avclip_train_step, make_avclip_eval_step) and of MultilevelMoCoCLIP
+(make_moco_train_step, make_moco_eval_step), and the zero-shot probe
 (synchformer_tpu/train/stage_clip.py::shifted_window_predictions,
 zero_shot_precision).
 
@@ -9,6 +10,13 @@ K5 call, the plain compositions for K2, K3 and K4, autograd for the rest),
 global-norm clipping, AdamW at the schedule's rate for this step, then the
 logit scale clamped in place. The eval step runs the towers deterministically,
 so they take the sync-inference kernels K1-K4.
+
+One MoCo step, in the JAX step's order (step.py:140-208): the momentum model's
+EMA update first, from the online parameters before the step; the query pass
+in training mode and the key pass (the momentum model, deterministic); the
+two levels' losses summed; backward into the online parameters only; clip;
+AdamW. Unlike the AVCLIP step, no scale is clamped after the update. Then the
+keys are written into the queues.
 """
 from __future__ import annotations
 
@@ -17,6 +25,12 @@ from typing import Dict
 import torch
 
 from synchformer_tpu_torch.models.avclip import AVCLIP
+from synchformer_tpu_torch.models.moco_clip import (
+    MoCoQueues,
+    MultilevelMoCoCLIP,
+    moco_forward,
+    momentum_update,
+)
 from synchformer_tpu_torch.train.state import Schedule, clip_grads_by_global_norm_, set_lr
 
 
@@ -33,18 +47,62 @@ def avclip_train_step(model: AVCLIP, optimizer: torch.optim.Optimizer, schedule:
     optimizer.zero_grad(set_to_none=True)
     loss, _, _ = model(vis, aud, impl, deterministic=False, generator=generator)
     loss.backward()
-    for p in params:  # as optax, an unused parameter gets a zero gradient (and decays)
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    grad_norm = clip_grads_by_global_norm_(grads, max_clip_norm)
-    set_lr(optimizer, schedule(step))
-    optimizer.step()
+    grad_norm = _apply_update(params, optimizer, schedule, step, max_clip_norm)
     with torch.no_grad():
         model.logit_scale.clamp_(model.clamp_scale_min, model.clamp_scale_max)
     return {"loss": loss.detach(), "grad_norm": grad_norm,
             "logit_scale": model.logit_scale.detach().clone(),
             "loss_finite": torch.isfinite(loss.detach())}
+
+
+def _apply_update(params, optimizer, schedule: Schedule, step: int,
+                  max_clip_norm: float) -> torch.Tensor:
+    """Zero gradients for unused parameters (optax gives them, and they
+    decay), clip by global norm, set the step's rate, AdamW; returns the norm
+    before clipping."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grad_norm = clip_grads_by_global_norm_([p.grad for p in params], max_clip_norm)
+    set_lr(optimizer, schedule(step))
+    optimizer.step()
+    return grad_norm
+
+
+def moco_train_step(model: MultilevelMoCoCLIP, model_m: MultilevelMoCoCLIP,
+                    queues: MoCoQueues, optimizer: torch.optim.Optimizer, schedule: Schedule,
+                    step: int, vis: torch.Tensor, aud: torch.Tensor,
+                    generator: torch.Generator, alpha: float, impl: str = "kernel",
+                    max_clip_norm: float = 1.0) -> Dict[str, torch.Tensor]:
+    """One MoCo update: ``model_m`` and ``queues`` change in place, AdamW
+    steps ``model``. Inputs as avclip_train_step's; ``alpha`` is the ALBEF
+    soft-target weight. Returns loss (the sum of the levels), each level's
+    loss, grad_norm (before clipping) and loss_finite, as device tensors."""
+    momentum_update(model, model_m, model.momentum)
+    params = [p for p in model.parameters() if p.requires_grad]
+    optimizer.zero_grad(set_to_none=True)
+    losses, _, _ = moco_forward(model, model_m, queues, vis, aud, impl, generator, alpha,
+                                train=True)
+    loss = sum(losses.values())
+    loss.backward()
+    grad_norm = _apply_update(params, optimizer, schedule, step, max_clip_norm)
+    return {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()},
+            "grad_norm": grad_norm, "loss_finite": torch.isfinite(loss.detach())}
+
+
+@torch.no_grad()
+def moco_eval_step(model: MultilevelMoCoCLIP, model_m: MultilevelMoCoCLIP, queues: MoCoQueues,
+                   vis: torch.Tensor, aud: torch.Tensor, window: int,
+                   impl: str = "kernel") -> Dict[str, torch.Tensor]:
+    """Both passes deterministic: the loss against the queues as they stand
+    (no enqueue, alpha 0), the zero-shot precision of the query pass's
+    segment features, and those (B, S, D) features in f32."""
+    b, s = vis.shape[:2]
+    losses, out, _ = moco_forward(model, model_m, queues, vis, aud, impl, train=False)
+    vfeat = out["segment_vfeat"].reshape(b, s, -1).float()
+    afeat = out["segment_afeat"].reshape(b, s, -1).float()
+    return {"loss": sum(losses.values()), "precision": zero_shot_precision(afeat, vfeat, window),
+            "afeat": afeat, "vfeat": vfeat}
 
 
 def shifted_window_predictions(afeat: torch.Tensor, vfeat: torch.Tensor, window: int):

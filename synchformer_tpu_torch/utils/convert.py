@@ -1,8 +1,9 @@
 """Weights: the JAX package's parameter tree -> the port's state dict, and a
 seeded initialiser in the port's own layout.
 
-``state_dict_from_jax`` (Synchformer) and ``avclip_state_dict_from_jax``
-(Stage I AVCLIP) are the inverse of synchformer_tpu/utils/checkpoint.py::
+``state_dict_from_jax`` (Synchformer), ``avclip_state_dict_from_jax``
+(Stage I AVCLIP) and ``moco_state_dict_from_jax`` (MultilevelMoCoCLIP, its
+online or its EMA parameters) are the inverse of synchformer_tpu/utils/checkpoint.py::
 convert_sync_checkpoint: Dense (in, out) -> Linear (out, in); fused [q|k|v]
 columns -> the reference's separate q/k/v rows (AST, sync transformer) or its
 packed in_proj / qkv rows (aggregators, Motionformer); Conv (*K, I, O) ->
@@ -78,13 +79,15 @@ def ast_layer_sd(p: Mapping, prefix: str) -> SD:
 
 
 def cls_pool_layer_sd(p: Mapping, prefix: str) -> SD:
-    """CLSPoolEncoderLayer params -> BaseEncoderLayer names."""
+    """CLSPoolEncoderLayer params -> BaseEncoderLayer names (with its
+    positional embedding where it has one)."""
     blk = p["block"]
-    sd = {f"{prefix}.cls_token": _a(p["cls_token"]),
+    sd = {f"{prefix}.{k}": _a(p[k]) for k in ("cls_token", "pos_emb") if k in p}
+    sd.update({
           **_layernorm(blk["ln1"], f"{prefix}.norm1"),
           **_layernorm(blk["ln2"], f"{prefix}.norm2"),
           f"{prefix}.self_attn.in_proj_weight": _a(blk["attn"]["qkv"]["kernel"]).T,
-          f"{prefix}.self_attn.in_proj_bias": _a(blk["attn"]["qkv"]["bias"])}
+          f"{prefix}.self_attn.in_proj_bias": _a(blk["attn"]["qkv"]["bias"])})
     sd.update(_linear(blk["attn"]["proj"], f"{prefix}.self_attn.out_proj"))
     sd.update(_linear(blk["mlp"]["fc1"], f"{prefix}.linear1"))
     sd.update(_linear(blk["mlp"]["fc2"], f"{prefix}.linear2"))
@@ -122,7 +125,14 @@ def motionformer_sd(p: Mapping, prefix: str = "") -> SD:
         sd.update(divided_block_sd(p[f"blocks_{i}"], f"{prefix}blocks.{i}"))
     sd.update(cls_pool_layer_sd(p["spatial_attn_agg"]["cls_layer"],
                                 f"{prefix}spatial_attn_agg"))
-    return sd
+    return {**sd, **_global_agg_sd(p, prefix)}
+
+
+def _global_agg_sd(p: Mapping, prefix: str) -> SD:
+    """A tower's global segment aggregator, where it has one."""
+    if "global_attn_agg" not in p:
+        return {}
+    return cls_pool_layer_sd(p["global_attn_agg"]["cls_layer"], f"{prefix}global_attn_agg")
 
 
 def ast_sd(p: Mapping, prefix: str = "") -> SD:
@@ -135,7 +145,7 @@ def ast_sd(p: Mapping, prefix: str = "") -> SD:
     for i in range(_depth(p, "layer_")):
         sd.update(ast_layer_sd(p[f"layer_{i}"], f"{prefix}ast.encoder.layer.{i}"))
     sd.update(cls_pool_layer_sd(p["freq_attn_agg"]["cls_layer"], f"{prefix}freq_attn_agg"))
-    return sd
+    return {**sd, **_global_agg_sd(p, prefix)}
 
 
 def global_transformer_sd(p: Mapping, prefix: str = "transformer.") -> SD:
@@ -171,6 +181,20 @@ def avclip_state_dict_from_jax(params: Mapping) -> SD:
             "logit_scale": _a(p["logit_scale"])}
 
 
+def moco_state_dict_from_jax(params: Mapping) -> SD:
+    """MultilevelMoCoCLIP params tree (the online parameters or the EMA
+    copy) -> the port's MoCo state dict: both towers with their global
+    segment aggregators and the 0-d logit scales (its four DoNothing
+    projections hold no parameters)."""
+    p = params.get("params", params)
+    sd = {**motionformer_sd(p["v_encoder"], "v_encoder."),
+          **ast_sd(p["a_encoder"], "a_encoder.")}
+    for scale in ("segment_logit_scale", "global_logit_scale"):
+        if scale in p:
+            sd[scale] = _a(p[scale])
+    return sd
+
+
 @torch.no_grad()
 def load_numpy_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
     """Copy numpy arrays into the model's parameters (strict: every name on
@@ -189,7 +213,8 @@ def load_numpy_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray]) 
 
 def seeded_state_dict(model: torch.nn.Module, seed: int) -> SD:
     """Random weights in the port's layout from a numpy seed: LayerNorm
-    weight 1 and bias 0; an AVCLIP's ``logit_scale`` its ``init_scale``;
+    weight 1 and bias 0; an AVCLIP's ``logit_scale`` (a MoCo model's
+    ``segment_logit_scale`` and ``global_logit_scale``) its ``init_scale``;
     every other parameter normal with std 0.02."""
     rng = np.random.default_rng(seed)
     ln_params = set()
@@ -201,7 +226,7 @@ def seeded_state_dict(model: torch.nn.Module, seed: int) -> SD:
         if name in ln_params:
             fill = 1.0 if name.endswith("weight") else 0.0
             sd[name] = np.full(tuple(p.shape), fill, np.float32)
-        elif name == "logit_scale":
+        elif name.endswith("logit_scale"):
             sd[name] = np.full(tuple(p.shape), model.init_scale, np.float32)
         else:
             sd[name] = rng.standard_normal(tuple(p.shape), dtype=np.float32) * np.float32(0.02)

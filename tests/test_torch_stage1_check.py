@@ -3,10 +3,12 @@ K8a and passes the right ones, on the tiny AVCLIPs (drop-path 0.2, B=2, S=2)
 on the CPU: build_tiny_avclip for the split flow (K5 / K6) and
 build_tiny_avclip_packed for the packed flow (K7a / K7c) and for the packed
 flow on attn_impl='pallas_fused' (K8a's backward); so does its packed-block
-check (phase 5) under the packed flow's faults, on a tiny block; and its
+check (phase 5) under the packed flow's faults, on a tiny block; its
 serving check (phase 8, the tiny Synchformer with TINY_PACKED's towers on
 'pallas_fused') and phase 2's check of the K8a / K8b cases (at TINY_K8's
-size) fail a wrong K8a or K8b.
+size) fail a wrong K8a or K8b; and its MoCo check (phase 9, the tiny MoCo
+model) and phase 2's check of the K4b cases (at TINY_K4B's size) fail a
+wrong K4b.
 
 The faults are scripts/stage1_planted_faults.py's: wrappers around a kernel's
 entry where DividedAttentionFn or DividedAttentionPackedFn calls it. On CPU tensors the kernel path
@@ -186,3 +188,39 @@ def test_k8_kernel_check_against_planted_fault(kernel_caught, name):
     want = {"none": [], "k8a_mode_swapped": ["K8a space", "K8a time"],
             "k8a_ln_skipped": ["K8a space", "K8a time"], "k8b_residual_dropped": ["K8b"]}
     assert failed == want[name], failed
+
+
+@pytest.fixture(scope="module")
+def moco_caught():
+    return faults.moco_faults("cpu", tiny=True)
+
+
+# what each K4b fault must fail in phase 9's moco_agreement on the tiny model
+MOCO_MUST_FAIL = {"k4b_shared_q": ["query global_v"],
+                  "k4b_residual_dropped": ["global_contrastive_loss", "query global_v"]}
+
+
+@pytest.mark.parametrize("name", list(faults.K4B_FAULTS))
+def test_moco_check_against_planted_fault(moco_caught, name):
+    """Phase 9's moco_agreement: a K4b that shares group 0's query moves the
+    query pass's video global features (the groups' CLS rows differ only by
+    the positional dropout); one that drops its residual moves the global
+    loss as well."""
+    failed = moco_caught[name]
+    if name == "none":
+        assert failed == []
+    else:
+        assert set(MOCO_MUST_FAIL[name]) <= set(failed), failed
+
+
+@pytest.fixture(scope="module")
+def k4b_kernel_caught():
+    return faults.k4b_kernel_faults("cpu", tiny=True)
+
+
+@pytest.mark.parametrize("name", list(faults.K4B_FAULTS))
+def test_k4b_kernel_check_against_planted_fault(k4b_kernel_caught, name):
+    """Phase 2's check of the K4b cases: each fault fails both (the groups'
+    rows, and so their queries, differ), the control neither."""
+    failed = [label.split()[1] for label in k4b_kernel_caught[name]]
+    assert failed == ([] if name == "none" else ["global", "spatial"]), failed
