@@ -22,8 +22,13 @@ Phases, each printed as it runs with its seconds:
    the CLS-pool layer with the CLS row inside x, at the MoCo step's video
    global aggregator (2, 15, 768) and, checked but not reported, at the
    Stage I spatial aggregator's groups with their CLS row inside, (224, 197,
-   768), where each group's query differs; and K4b over [cls; x] against K4
-   over x with the same CLS row, (224, 197, 768)):
+   768), where each group's query differs; K4b over [cls; x] against K4
+   over x with the same CLS row, (224, 197, 768); and, checked but not
+   reported, the two tensor-core attentions at ragged shapes (ragged_cases:
+   K3 at 17, 74 and 197 tokens, the space pass split and packed at 49 and 196
+   patches a frame for head_dim 32, 64, 96 and 128 and packed at 300, where
+   it takes two sweeps) and in guard bands (each input at the start of a
+   buffer whose remainder is NaN)):
    the kernel against its plain PyTorch version (for K6 the autograd gradient
    of K5's plain version, for seeded random cotangents), both held against a
    plain f32 anchor on the same inputs. Tolerance for each output: kernel
@@ -33,7 +38,11 @@ Phases, each printed as it runs with its seconds:
    one torch.nn.functional.scaled_dot_product_attention call on views of the
    same packed QKV (for K7a/K7b with a boolean mask of the divided
    attention's pattern), held to the kernel's tolerance (a yardstick only:
-   the port never calls it).
+   the port never calls it). K3 and the divided attention forwards (K1, K5,
+   K7a, K7b, K8a), and their library calls, are also timed by launch with
+   torch.profiler (device time only: the attention kernels, the CLS row and,
+   for K1 and K8a, the GEMMs, each apart) and by the host's time to enqueue
+   a call.
 3. the full-width inference slice: Synchformer S=14 (ViT-B towers of 12
    layers, D=768, 3-layer GlobalTransformer), B=8, seeded weights, through
    SyncPredictor(impl='kernel') and (impl='plain') in bf16, both against an
@@ -222,6 +231,9 @@ MOCO_LEAVES = re.compile(
 STAGE1_LEAVES = re.compile(
     r"vfeat_extractor\.(cls_token|blocks\.\d+\.(attn|timeattn)\.qkv\.(weight|bias))")
 PAIRED = ("K1", "K5", "K6", "K7a", "K7b", "K7c", "K8a")  # timed as a (space + time) pair
+# the kernels whose calls (and library yardsticks) phase 2 also times by
+# launch: the tensor-core attentions and the divided attention forwards
+BY_LAUNCH = ("K1", "K3", "K5", "K7a", "K7b", "K8a")
 MAX_CLIP = 1.0  # Stage I's max_clip_norm
 B, S = 8, 14
 B1 = 2  # Stage I's base_batch_size
@@ -580,6 +592,120 @@ def k8_cases(torch, dev, bs: int = B * S, f: int = F_T, n: int = N_P, d: int = D
     return cases
 
 
+# rows of NaN after a guard-band case's input: a kernel that reads past the
+# last row of its input makes its output non-finite
+GUARD_ROWS = 64
+
+
+def guarded(torch, t):
+    """t's values at the start of a larger buffer whose remainder is NaN."""
+    n = t.numel()
+    buf = torch.full((n + GUARD_ROWS * t.shape[-1],), float("nan"), dtype=t.dtype,
+                     device=t.device)
+    buf[:n] = t.flatten()
+    return buf[:n].view(t.shape)
+
+
+def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17, 74, 197),
+                 space_ns=(49, N_P), long_n: int = 300) -> list:
+    """kernel_cases' records (no cost, no library) of the two tensor-core
+    attention kernels at ragged shapes, checked and logged only: K3 at
+    ``k3_lens`` tokens (197: two sweeps over 80-key chunks); the space pass
+    through K5's split entry and K7's packed entry at ``space_ns`` patches a
+    frame for every head_dim of HEAD_DIMS, and packed at ``long_n`` patches,
+    head_dim 64 (two sweeps over 208-key chunks); then each kernel with its
+    input at the start of a NaN-filled buffer (guarded). The packed entry is
+    called through divided_attention_bwd, where the packed flow's Function
+    calls it, so that scripts/stage1_planted_faults.py can wrap it. q and k at
+    std 1.5: logits of std about 2, so one key's weight can be large."""
+    from synchformer_tpu_torch.ops.kernels import divided_attention as tda
+    from synchformer_tpu_torch.ops.kernels import divided_attention_bwd as dab
+    from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+
+    def rn(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) * 1.5).to(bf)
+
+    def k3(qkv, label):
+        h = d // DH
+        return ("K3 ragged", label, lambda: standard_attention(qkv, h),
+                lambda dt: standard_attention(qkv.to(dt), h, impl="plain"), None, None)
+
+    def split(qkv_p, qkv_c, h, label):
+        return ("space ragged", label, lambda: tda.divided_attention(qkv_p, qkv_c, h, "space"),
+                lambda dt: tda.divided_attention(qkv_p.to(dt), qkv_c.to(dt), h, "space",
+                                                 impl="plain"), None, None)
+
+    def packed(qkv, h, label):
+        return ("space ragged", label,
+                lambda: dab.divided_attention_packed(qkv, h, f, "space"),
+                lambda dt: dab.divided_attention_packed(qkv.to(dt), h, f, "space",
+                                                        impl="plain"), None, None)
+
+    cases = [k3(rn(4 * bs, n, 3 * d), f"K3 ({4 * bs},{n},{3 * d})") for n in k3_lens]
+    for n in space_ns:
+        for dh in tda.HEAD_DIMS:
+            h = d // dh
+            cases.append(split(rn(bs, f, n, 3 * d), rn(bs, 1, 3 * d), h,
+                               f"space split ({bs},{f},{n},{3 * d}) {h}x{dh}"))
+            cases.append(packed(rn(bs, 1 + f * n, 3 * d), h,
+                                f"space packed ({bs},{1 + f * n},{3 * d}) {h}x{dh}"))
+    cases.append(packed(rn(bs, 1 + f * long_n, 3 * d), d // 64,
+                        f"space packed ({bs},{1 + f * long_n},{3 * d}) {d // 64}x64"))
+    n = space_ns[-1]
+    cases.append(k3(guarded(torch, rn(4 * bs, 74, 3 * d)), f"K3 guard band ({4 * bs},74,{3 * d})"))
+    cases.append(split(guarded(torch, rn(bs, f, n, 3 * d)), guarded(torch, rn(bs, 1, 3 * d)),
+                       d // 64, f"space split guard band ({bs},{f},{n},{3 * d}) {d // 64}x64"))
+    cases.append(packed(guarded(torch, rn(bs, 1 + f * n, 3 * d)), d // 96,
+                        f"space packed guard band ({bs},{1 + f * n},{3 * d}) {d // 96}x96"))
+    return cases
+
+
+def check_ragged(torch, dev) -> None:
+    """ragged_cases, each held by hold_outputs' rule; fails on any miss."""
+    for _, label, kern, plain, _, _ in ragged_cases(torch, dev):
+        k_out, p_out, a_out = kern(), plain(torch.bfloat16), plain(torch.float32)
+        torch.cuda.synchronize()
+        failed = hold_outputs(label, k_out, p_out, a_out, "ragged")[0]
+        if failed:
+            fail(f"{label} outputs {failed} outside tolerance")
+
+
+def host_ms(torch, fn, calls: int = 20) -> float:
+    """Host ms per call to enqueue ``calls`` calls of ``fn`` back to back,
+    from an idle device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def launch_times(torch, fn, calls: int = 5) -> dict:
+    """Device ms per call of each CUDA kernel that ``fn`` launches, by name,
+    from torch.profiler over ``calls`` calls after one warm-up call; {} when
+    the profiler records no device time."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[re.sub(r"\(.*", "", e.name)] += e.time_range.elapsed_us() / 1e3 / calls
+    return dict(by_name)
+
+
 def hold_outputs(label: str, k_out, p_out, a_out, tag: str = "kernels"):
     """Each output of a kernel case against the f32 anchor: finite, of the
     anchor's shape, and within 2 x the plain bf16 error + 1e-2 x max|anchor|.
@@ -611,6 +737,7 @@ def hold_outputs(label: str, k_out, p_out, a_out, tag: str = "kernels"):
 def check_kernels(torch, dev, report):
     if not check_k4b_concat(torch, dev):
         fail("K4b over [cls; x] disagrees with K4 over x")
+    check_ragged(torch, dev)
     for key, label, kern, plain, cost, library in kernel_cases(torch, dev):
         k_out, p_out, a_out = kern(), plain(torch.bfloat16), plain(torch.float32)
         torch.cuda.synchronize()
@@ -635,6 +762,13 @@ def check_kernels(torch, dev, report):
         log(f"[timing] {label}: kernel {ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, "
             f"library {'-' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
             f"{bound_ms:.4f} ms ({bound_by}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.2f} GFLOP)")
+        if key in BY_LAUNCH:  # the device time of each launch, the host's of a call
+            for what, fn in (("", kern), (" library", library)):
+                if fn is not None:
+                    by = launch_times(torch, fn)
+                    log(f"[timing] {label}{what} by launch (torch.profiler): "
+                        + (", ".join(f"{name} {t:.4f} ms" for name, t in by.items())
+                           or "not measured") + f"; host {host_ms(torch, fn):.4f} ms a call")
         if key not in report:  # another shape of a kernel: checked and logged only
             continue
         r = report[key]

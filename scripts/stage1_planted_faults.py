@@ -44,13 +44,23 @@ phase 2's K4b cases (chip_smoke.hold_outputs):
 - k4b_shared_q: every group attends with group 0's query, the q and U that
   K4's shared-CLS prep would give (the plain composition with that query);
 - k4b_residual_dropped: K4b's output without the CLS row's residual.
+Then the faults of the two tensor-core attention kernels on phase 2's ragged
+and guard-band cases (chip_smoke.ragged_cases, chip_smoke.hold_outputs), K3's
+wrapping ops/kernels/standard_attention.py's _standard_attention (where
+StandardAttentionFn calls it) and the space pass's wrapping the packed entry
+where DividedAttentionPackedFn calls it:
+- none: the control;
+- k3_probs_unnormalised: K3's output scaled as if each row's softmax sum
+  were 1 (the unnormalised exp(s - m) @ v);
+- space_cls_key_dropped: the space pass's patch rows without the CLS key's
+  f32 term (p_cls * v_cls left out).
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
 build_tiny_avclip_packed, drop-path 0.2) and tiny MoCo model
 (build_tiny_moco_avclip, drop-path 0.2) at B=2, S=2, a block of TINY_BLOCK's
 size, the tiny Synchformer with TINY_PACKED's towers and phase 2's K8 and K4b
-cases at TINY_K8's and TINY_K4B's sizes: on CPU tensors the kernel wrappers
+cases at TINY_K8's and TINY_K4B's sizes and the ragged cases at TINY_RAGGED's: on CPU tensors the kernel wrappers
 run their plain versions, which the faults wrap all the same.
 """
 from __future__ import annotations
@@ -83,6 +93,7 @@ from synchformer_tpu_torch.models.presets import (  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import cls_pool as tcls  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import divided_attention_bwd as dab  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import fused_block as fb  # noqa: E402
+from synchformer_tpu_torch.ops.kernels import standard_attention as tsa  # noqa: E402
 from synchformer_tpu_torch.ops.kernels.divided_attention import (  # noqa: E402
     divided_attention_packed,
 )
@@ -168,6 +179,43 @@ def k4b_residual_dropped(fwd, x, *args):
     return fwd(x, *args) - x[:, 0]
 
 
+def k3_probs_unnormalised(fwd, qkv, num_heads):
+    b, n, threed = qkv.shape
+    d = threed // 3
+    dh = d // num_heads
+    q, k = (t.float().unflatten(-1, (num_heads, dh)).transpose(1, 2)
+            for t in qkv.split(d, dim=-1)[:2])
+    logits = (q * dh ** -0.5) @ k.transpose(-1, -2)
+    rowsum = torch.exp(logits - logits.amax(-1, keepdim=True)).sum(-1)  # (b, h, n)
+    out = fwd(qkv, num_heads).float().unflatten(-1, (num_heads, dh))
+    return (out * rowsum.transpose(1, 2)[..., None]).flatten(-2).to(qkv.dtype)
+
+
+def space_cls_key_dropped(fwd, bwd, qkv, num_heads, num_frames, mode):
+    out = fwd(qkv, num_heads, num_frames, mode)
+    if mode != "space":
+        return out
+    b, seq, threed = qkv.shape
+    d = threed // 3
+    dh, n = d // num_heads, (seq - 1) // num_frames
+    q, k, v = (t.float().unflatten(-1, (num_heads, dh)) for t in qkv.split(d, dim=-1))
+    qp = q[:, 1:].reshape(b, num_frames, n, num_heads, dh) * dh ** -0.5
+    kp = k[:, 1:].reshape(b, num_frames, n, num_heads, dh)
+    cls_logit = torch.einsum("bfnhd,bhd->bfnh", qp, k[:, 0])
+    logits = torch.einsum("bfnhd,bfmhd->bfnhm", qp, kp)
+    m = torch.maximum(logits.amax(-1), cls_logit)
+    ec = torch.exp(cls_logit - m)
+    p_cls = ec / (torch.exp(logits - m[..., None]).sum(-1) + ec)      # (b, f, n, h)
+    term = (p_cls[..., None] * v[:, 0][:, None, None]).reshape(b, seq - 1, d)
+    out = out.clone()
+    out[:, 1:] = (out[:, 1:].float() - term).to(out.dtype)
+    return out
+
+
+K3_ENTRIES = (tsa, ("_standard_attention",))
+K3_FAULTS = {"none": None, "k3_probs_unnormalised": (k3_probs_unnormalised, 0)}
+SPACE_FAULTS = {"none": None, "space_cls_key_dropped": (space_cls_key_dropped, 0)}
+
 K4B_ENTRIES = (tcls, ("_cls_pool",))
 K4B_FAULTS = {"none": None, "k4b_shared_q": (k4b_shared_q, 0),
               "k4b_residual_dropped": (k4b_residual_dropped, 0)}
@@ -201,6 +249,8 @@ TINY_BLOCK = {"b": 2, "d": 128, "h": 2, "f": 2, "n": 4}
 TINY_K8 = {"bs": 2, "f": 2, "n": 4, "d": 96, "heads": 2}
 # --tiny's K4b cases: 2 heads of 64, (2, 3) and (8, 5) rows
 TINY_K4B = {"d": 128, "h": 2, "shapes": ((2, 3), (8, 5))}
+# --tiny's ragged cases: one segment of 2 frames
+TINY_RAGGED = {"bs": 1, "f": 2}
 
 
 def planted(module, entries, fault):
@@ -293,6 +343,17 @@ def k4b_kernel_faults(dev, tiny: bool) -> dict:
     each fault's cases that hold_outputs failed."""
     return cases_caught(chip_smoke.k4b_cases(torch, dev, **(TINY_K4B if tiny else {})),
                         K4B_ENTRIES, K4B_FAULTS)
+
+
+def ragged_kernel_faults(dev, tiny: bool):
+    """K3's and the space pass's faults on phase 2's ragged and guard-band
+    cases (TINY_RAGGED's size with --tiny): for each kernel, each fault's
+    cases that hold_outputs failed."""
+    cases = chip_smoke.ragged_cases(torch, dev, **(TINY_RAGGED if tiny else {}))
+    k3 = cases_caught([c for c in cases if c[0] == "K3 ragged"], K3_ENTRIES, K3_FAULTS)
+    space = cases_caught([c for c in cases if c[0] == "space ragged"], FLOWS["packed"][:2],
+                         SPACE_FAULTS)
+    return k3, space
 
 
 def cases_caught(cases, entries, faults) -> dict:
@@ -402,7 +463,10 @@ def main() -> int:
     ok = verdict("serving", serving_faults(dev, args.tiny)) and ok
     ok = verdict("kernels", kernel_faults(dev, args.tiny)) and ok
     ok = verdict("moco", moco_faults(dev, args.tiny)) and ok
-    return 0 if verdict("kernels_k4b", k4b_kernel_faults(dev, args.tiny)) and ok else 1
+    ok = verdict("kernels_k4b", k4b_kernel_faults(dev, args.tiny)) and ok
+    k3, space = ragged_kernel_faults(dev, args.tiny)
+    ok = verdict("kernels_k3", k3) and ok
+    return 0 if verdict("kernels_space", space) and ok else 1
 
 if __name__ == "__main__":
     sys.exit(main())

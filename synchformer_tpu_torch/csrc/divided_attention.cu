@@ -25,24 +25,25 @@
 // - each patch token attends {CLS} U its group: the n tokens of its frame
 //   (space, n + 1 keys) or the f tokens at its spatial position (time, f + 1);
 // - the CLS query attends all 1 + f*n keys;
-// - f32 logits and softmax, probabilities rounded to bf16 before P @ V;
+// - f32 logits and softmax; in space mode exp(s - m) is rounded to bf16
+//   unnormalised, the CLS key's term stays f32 and the row is divided once
+//   (the TPU kernels' _space_segment / _space_pair_v3); in time mode and for
+//   the CLS row the normalised probabilities are rounded to bf16 before P @ V;
 // - K1 patches: y = res + (attn @ Wo^T + bo), rounded once; the CLS row leaves
 //   un-projected.
 //
 // Three launches, (1) and (2) in divided_attention.cuh, which K8a
-// (csrc/fused_block.cu) shares. (1) group attention: one block per (head, group, batch)
-// stages the group's K/V rows (plus the CLS row) in shared memory with a
-// padded pitch, each warp walks query rows (logits one key per lane, f32
-// softmax by shuffles, bf16 probabilities, P @ V in bf16 pairs of columns,
-// DH/64 pairs per lane rounded up) and writes the bf16 attention output.
-// Space and time differ only in the group/member strides, so one kernel
-// serves both. (2) the CLS row: one block per (head, batch) over all 1 + f*n
-// keys, a thread per key row for the logits (16-byte loads), a warp per key
-// for P @ V (a few keys' loads in flight). (3) K1 only: the projection +
-// residual on the tile GEMM. The TPU kernel keeps the attention output in
-// VMEM before the projection; here it round-trips device memory (2 x 270 MB
-// per call at B=112), which a later fused epilogue removes. The attention products run on CUDA cores (~104
-// GFLOP for K1's space call), which bounds these first ports in practice.
+// (csrc/fused_block.cu) shares. (1) group attention: in space mode the
+// tensor-core kernel of mma_attention.cuh (blocks of up to 8 query tiles of
+// 16 rows over a frame's [CLS; n] keys staged by cp.async, both products on
+// mma.sync); in time mode (9 keys a group) one block per (head, position,
+// batch) on CUDA cores, each warp a query row. (2) the CLS row: one block per
+// (head, batch) over all 1 + f*n keys, a thread per key row for the logits
+// (16-byte loads), a warp per key for P @ V (a few keys' loads in flight).
+// (3) K1 only: the projection + residual on the tile GEMM. The TPU kernel
+// keeps the attention output in VMEM before the projection; here it
+// round-trips device memory (2 x 270 MB per call at B=112), which a later
+// fused epilogue removes.
 #include "divided_attention.cuh"
 
 using sft::bf16;

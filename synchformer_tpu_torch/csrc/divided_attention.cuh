@@ -3,23 +3,33 @@
 // attention of every patch token and (2) the CLS row over all 1 + f*n keys,
 // on the split or the packed layout (csrc/divided_attention.cu says how the
 // layouts and the launches work).
+//
+// Launch (1) in space mode (a group is a frame: n queries over [CLS; n]
+// keys) is the tensor-core kernel of mma_attention.cuh on the TPU kernels'
+// recipe (exp rounded to bf16 unnormalised, the CLS key's term in f32, one
+// division). In time mode (a group is a spatial position: f = 8 queries over
+// f + 1 keys, too short for a 16-row tile) it is group_attention_kernel below,
+// on CUDA cores.
 #pragma once
 
-#include "tile_gemm.cuh"
+#include "mma_attention.cuh"
 
 namespace sft {
 namespace attn {
 
 constexpr int WARPS = 8;
 
-// Patch rows of segment b: qkv_p + (b * in_p + token) * 3D, token = g*gs +
-// i*ms; output rows attn + (b * out_p + token) * D. The CLS row of segment b:
-// qkv_c + b * in_c * 3D.
+// Time mode's group attention: one block per (head, position, segment), each
+// warp one query row at a time (logits one key per lane, f32 softmax by
+// shuffles, normalised probabilities rounded to bf16, P @ V in bf16 pairs of
+// columns). Query i of position g, segment b: qkv_p + (b * in_p + g + i * n)
+// * 3D; output rows attn + (b * out_p + g + i * n) * D. The CLS row of
+// segment b: qkv_c + b * in_c * 3D.
 template <int DH>
 __global__ void __launch_bounds__(WARPS * 32)
 group_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
-                       bf16* __restrict__ attn, int L, int gs, int ms, int H, int in_p,
-                       int in_c, int out_p, float scale) {
+                       bf16* __restrict__ attn, int L, int n, int H, int in_p, int in_c,
+                       int out_p, float scale) {
   constexpr int PITCH = DH + 2;  // bf16 row pitch: an odd number of words
   constexpr int NP = (DH / 2 + 31) / 32;  // bf16 pairs of a row per lane
   constexpr bool FULL = (DH / 2) % 32 == 0;  // every lane holds NP pairs
@@ -32,14 +42,14 @@ group_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ 
   float* qs_all = reinterpret_cast<float*>(Vs + nk * PITCH);
   float* ps_all = qs_all + WARPS * DH;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int64_t tok0 = (int64_t)g * gs;
+  const int64_t tok0 = g;
   const bf16* pin = qkv_p + (int64_t)b * in_p * 3 * D;
   bf16* pout = attn + (int64_t)b * out_p * D;
 
   for (int idx = tid; idx < nk * (DH / 2); idx += blockDim.x) {
     const int r = idx / (DH / 2), t = idx % (DH / 2);
     const bf16* row = r == 0 ? qkv_c + (int64_t)b * in_c * 3 * D
-                             : pin + (tok0 + (int64_t)(r - 1) * ms) * 3 * D;
+                             : pin + (tok0 + (int64_t)(r - 1) * n) * 3 * D;
     reinterpret_cast<__nv_bfloat162*>(Ks + r * PITCH)[t] =
         reinterpret_cast<const __nv_bfloat162*>(row + D + h * DH)[t];
     reinterpret_cast<__nv_bfloat162*>(Vs + r * PITCH)[t] =
@@ -50,7 +60,7 @@ group_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ 
   float* qs = qs_all + warp * DH;
   float* ps = ps_all + warp * nk;
   for (int i = warp; i < L; i += WARPS) {
-    const int64_t tok = tok0 + (int64_t)i * ms;
+    const int64_t tok = tok0 + (int64_t)i * n;
     const bf16* qrow = pin + tok * 3 * D + h * DH;
     for (int d = lane; d < DH; d += 32) qs[d] = sft::bf16r(__bfloat162float(qrow[d]) * scale);
     __syncwarp();
@@ -195,25 +205,32 @@ cls_row_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
   }
 }
 
-// The attention of every patch (group kernel) and of the CLS row. Row strides
-// between segments: in_p / in_c of the patch / CLS rows of qkv, out_p / out_c
-// of the outputs.
+// keys of a space-mode chunk: one sweep up to 207 patches a frame
+constexpr int SPACE_KT = 13;
+
+// The attention of every patch (space: the tensor-core kernel; time: the
+// group kernel) and of the CLS row. Row strides between segments: in_p / in_c
+// of the patch / CLS rows of qkv, out_p / out_c of the outputs.
 template <int DH>
 int launch_attention(const bf16* qkv_p, const bf16* qkv_c, bf16* attn_p, bf16* out_c, int B,
                      int f, int n, int H, int mode, int in_p, int in_c, int out_p, int out_cs,
                      cudaStream_t s) {
   const int fn = f * n;
   const float scale = (float)pow((double)DH, -0.5);
-  const int L = mode == 0 ? n : f, G = mode == 0 ? f : n;
-  const int gs = mode == 0 ? n : 1, ms = mode == 0 ? 1 : n;
-  const size_t smem_g = 2 * (size_t)(L + 1) * (DH + 2) * sizeof(bf16) +
-                        (size_t)WARPS * (DH + L + 1) * sizeof(float);
-  cudaFuncSetAttribute(group_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_g);
-  SFT_CHECK_LAUNCH();
-  group_attention_kernel<DH><<<dim3(H, G, B), WARPS * 32, smem_g, s>>>(
-      qkv_p, qkv_c, attn_p, L, gs, ms, H, in_p, in_c, out_p, scale);
-  SFT_CHECK_LAUNCH();
+  if (mode == 0) {
+    const tc::Problem p{qkv_p, qkv_c, attn_p, in_p, in_c, out_p, n, n, H, 0, 0, 0, scale};
+    const int err = tc::launch<DH, SPACE_KT, true>(p, f, B, s);
+    if (err != 0) return err;
+  } else {
+    const size_t smem_g = 2 * (size_t)(f + 1) * (DH + 2) * sizeof(bf16) +
+                          (size_t)WARPS * (DH + f + 1) * sizeof(float);
+    cudaFuncSetAttribute(group_attention_kernel<DH>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_g);
+    SFT_CHECK_LAUNCH();
+    group_attention_kernel<DH><<<dim3(H, n, B), WARPS * 32, smem_g, s>>>(
+        qkv_p, qkv_c, attn_p, f, n, H, in_p, in_c, out_p, scale);
+    SFT_CHECK_LAUNCH();
+  }
   const size_t smem_c = (DH + 32 + (CLS_THREADS / 32) * DH + (size_t)(fn + 1)) * sizeof(float);
   cudaFuncSetAttribute(cls_row_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem_c);

@@ -11,13 +11,13 @@
 // D = 768): (1) ln_stats and (2) the tile GEMM with the LayerNorm applied as
 // it stages x (gemm_ln_bf16, K8c's code: f32 accumulation, bias in f32, one
 // rounding), then (3) and (4), the group and CLS-row launches of K7a
-// (divided_attention.cuh). That attention rounds the normalised
-// probabilities to bf16 and sums P @ V in f32, as the XLA composition does;
-// the TPU body's time mode (_time_block) rounds each exp * v product to bf16
-// before its f32 sum instead. The two agree in f32. At the serving shape
-// (112, 1569, 768), 8 heads of 96, the QKV product is 621.9 GFLOP and the
-// space attention 106.8 GFLOP (time 5.4): bound by the tensor cores; the
-// attention runs on CUDA cores here, which bounds this port in practice.
+// (divided_attention.cuh). Its space mode runs on the tensor cores with the
+// TPU kernels' recipe (mma_attention.cuh); its time mode rounds the
+// normalised probabilities to bf16 and sums P @ V in f32, as the XLA
+// composition does, where the TPU body's _time_block rounds each exp * v
+// product to bf16 before its f32 sum. The two agree in f32. At the serving
+// shape (112, 1569, 768), 8 heads of 96, the QKV product is 621.9 GFLOP and
+// the space attention 106.8 GFLOP (time 5.4): bound by the tensor cores.
 //
 // K8b replaces _fused_mlp_pallas (body _fused_mlp_kernel). One launch; a CTA
 // takes MLP_BM rows and keeps them on chip from LN to output:
@@ -43,6 +43,9 @@
 #include "divided_attention.cuh"
 
 using sft::bf16;
+using sft::cp_async16;
+using sft::cp_async_commit;
+using sft::cp_async_wait;
 
 namespace {
 
@@ -83,18 +86,6 @@ constexpr size_t MLP_SMEM = (size_t)MLP_BM * XS_LD * 2 + 2 * (size_t)WBUF * 2 +
                             (size_t)MLP_BM * HF_LD * 4 + (size_t)MLP_BM * HS_LD * 2;
 static_assert(MLP_BM / 16 * (MLP_HC / 16) == 2 * MLP_WARPS, "two fc1 fragments per warp");
 static_assert(MLP_WARPS * 256 <= MLP_BM * HF_LD, "epilogue scratch fits the fc1 chunk");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __global__ void __launch_bounds__(MLP_THREADS, 1)
 fused_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ g,

@@ -8,8 +8,11 @@ _space_pair_v3, _time_pair_v3) with csrc/divided_attention.cu; K5 replaces
 divided_attention_pallas_4d (body _kernel_4d) with the same file's
 ``sft_divided_attention`` entry. K5 is the forward of the Stage I training
 step (its backward, K6, is in divided_attention_bwd.py); at Stage I's qkv
-(28, 8, 196, 2304) it moves ~270 MB, which bounds it at ~81 us on the H100,
-while this first port's CUDA-core attention math bounds it in practice.
+(28, 8, 196, 2304) it moves ~270 MB, which bounds it at ~81 us on the H100.
+Every entry's space pass (a frame's n queries over [CLS; n] keys) runs on the
+tensor cores (csrc/mma_attention.cuh, the TPU kernels' recipe: exp rounded to
+bf16 unnormalised, the CLS key's term in f32, one division); the time pass
+(f + 1 keys) and the CLS row run on CUDA cores.
 
 K7a replaces divided_attention_pallas (body _kernel, the v1 kernel the TPU
 runs at heads that do not pair into 128 lanes) and K7b its v3 body
@@ -27,8 +30,8 @@ the CUDA code); the CLS query of each head attends all 1 + f*n keys.
 K1's main-path shapes (sync inference): qkv_patches (112, 8, 196, 2304), qkv_cls (112, 1, 2304),
 res (112, 8, 196, 768), 12 heads of 64, bf16; space groups are frames (197
 keys with the CLS), time groups are spatial positions (9 keys). The space call
-is ~104 GFLOP of attention on CUDA cores in this first port, which bounds it;
-the projection runs on the tensor cores. The attention output passes through
+is ~104 GFLOP of attention and the projection 207 GFLOP, both on the tensor
+cores. The attention output passes through
 a device-memory scratch before the projection, where the TPU kernel kept it in
 VMEM. The CLS row's attention leaves un-projected: the caller projects it and
 adds its residual (as synchformer_tpu/ops/pallas/divided_attention_bwd.py::

@@ -1,13 +1,14 @@
 """K3: unmasked full-softmax MHSA straight from packed (B, N, [q|k|v]).
 
 Replaces synchformer_tpu/ops/pallas/standard_attention.py::standard_attention
-(body _standard_attention_pallas / _kernel) with csrc/standard_attention.cu.
-On the main path it serves the AST encoder's 12 layers at (112, 74, 2304).
-At 1.2 GFLOP per call it is bound by latency, not by the tensor cores: one
-block per (batch, head) holds that head's K/V in shared memory and each warp
-walks query rows; the ragged N=74 is handled by loop bounds, not padding.
-For training, ``impl='kernel'`` goes through ``StandardAttentionFn``: kernel
-forward, backward through the plain version (the JAX custom_vjp,
+(body _standard_attention_pallas / _kernel) with csrc/standard_attention.cu,
+the tensor-core attention of csrc/mma_attention.cuh. On the main path it
+serves the AST encoder's 12 layers at (112, 74, 2304): 51 MB a call, bound
+by the bytes. One block per (batch row, head), a warp per 16-row query tile
+(74 tokens pad to 80); both products on mma.sync, the softmax normalised in
+f32 and rounded to bf16 in registers, as the TPU kernel does. Where a
+gradient is wanted, ``impl='kernel'`` goes through ``StandardAttentionFn``:
+kernel forward, backward through the plain version (the JAX custom_vjp,
 standard_attention.py:102-119).
 """
 from __future__ import annotations
@@ -45,6 +46,10 @@ def standard_attention(qkv: torch.Tensor, num_heads: int,
     _build.use_kernel(qkv, impl)  # validates impl and device
     if impl == "plain":
         return standard_attention_plain(qkv, num_heads)
+    if not (torch.is_grad_enabled() and qkv.requires_grad):
+        # nothing to differentiate: skip the autograd Function, whose host
+        # time is a large share of a call at the AST's shape
+        return _standard_attention(qkv, num_heads)
     return StandardAttentionFn.apply(qkv, num_heads)
 
 
@@ -72,6 +77,8 @@ def _standard_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     dh = d // num_heads
     _build.require(qkv.dtype == torch.bfloat16 and qkv.is_contiguous(),
                    "K3 takes a contiguous bf16 qkv")
+    _build.require(qkv.data_ptr() % 16 == 0,
+                   "K3 reads qkv rows with 16-byte copies: 16-byte aligned qkv")
     _build.require(dh == 64 and d == num_heads * dh, "K3 takes head_dim 64")
     _build.require(n <= 1024 and b <= 65535, "K3 shape out of range")
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)

@@ -21,7 +21,9 @@ dtype. ``precision: amp`` is bf16 compute over f32 master parameters.
 Read from ``cfg``: model.target, training.{seed, precision, learning_rate,
 weight_decay, warmup, total_steps, max_clip_norm, zero_shot_window, alpha},
 data.{p_horizontal_flip, p_audio_aug, n_segments}. The audio augmentations (synchformer_tpu/ops/dsp.py) are
-not ported: a p_audio_aug above 0 is refused rather than ignored. There is no
+not ported: a p_audio_aug above 0 is refused rather than ignored. So is a
+non-empty model.params: the JAX trainer instantiates cfg.model from it, this
+port builds only its presets. There is no
 loader, checkpointing or logging here; those wait for data staging.
 """
 from __future__ import annotations
@@ -66,6 +68,11 @@ class AVCLIPTrainer:
         if float(data.get("p_audio_aug", 0.0)) > 0.0:
             raise NotImplementedError("the Stage I audio augmentations are not ported: "
                                       "set data.p_audio_aug to 0")
+        if cfg.get("model", {}).get("params"):
+            raise NotImplementedError(
+                "cfg.model.params is not read: the JAX trainer builds the model from it, the "
+                "port only from its preset (build_avclip / build_moco_avclip); drop "
+                "model.params until the port has a registry (ROADMAP §1 item 1)")
         if impl not in ("kernel", "plain"):
             raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
         self.impl = impl

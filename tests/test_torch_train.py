@@ -330,6 +330,31 @@ def test_trainer_defaults_to_the_card_and_refuses_audio_augs():
                       model=build_tiny_avclip())
 
 
+def test_trainer_refuses_model_params():
+    """A non-empty cfg.model.params is refused: the JAX trainer builds the
+    model from it (synchformer_tpu/train/stage_clip.py:94-96), the port only
+    from its preset. A cfg with only model.target, as chip_smoke.py builds
+    it, still trains."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from synchformer_tpu_torch.models.presets import build_tiny_moco_avclip
+    from synchformer_tpu_torch.utils.convert import seeded_state_dict
+
+    cfg = {"model": {"target": chip_smoke.MOCO_TARGET, "params": {"queue_size": 4096}},
+           "training": {"seed": 0}}
+    with pytest.raises(NotImplementedError, match="model.params"):
+        AVCLIPTrainer(cfg, device="cpu", model=build_tiny_moco_avclip())
+    sd = seeded_state_dict(build_tiny_moco_avclip(device="meta"), seed=0)
+    tr = chip_smoke.stage1_trainer(build_tiny_moco_avclip, sd, "cpu", "fp32", "plain",
+                                   moco=True)
+    m = chip_smoke.checked_step(tr, chip_smoke.stage1_batch(torch, B, S, (4, 32, 32, 3)),
+                                "fp32 plain")
+    assert tr.is_moco and tr.step == 1 and np.isfinite(m["loss"])
+
+
 def test_trainer_steps_on_cpu():
     """AVCLIPTrainer on the loader's batch layout (uint8 frames, PCM): two f32
     steps on the CPU with drop-path live, finite, the logit scale clamped,
