@@ -24,11 +24,16 @@ Phases, each printed as it runs with its seconds:
    Stage I spatial aggregator's groups with their CLS row inside, (224, 197,
    768), where each group's query differs; K4b over [cls; x] against K4
    over x with the same CLS row, (224, 197, 768); and, checked but not
-   reported, the two tensor-core attentions at ragged shapes (ragged_cases:
-   K3 at 17, 74 and 197 tokens, the space pass split and packed at 49 and 196
-   patches a frame for head_dim 32, 64, 96 and 128 and packed at 300, where
-   it takes two sweeps) and in guard bands (each input at the start of a
-   buffer whose remainder is NaN)):
+   reported, the two tensor-core attentions and the time pass at ragged
+   shapes (ragged_cases: K3 at 17, 74 and 197 tokens, the space pass split
+   and packed at 49 and 196 patches a frame for head_dim 32, 64, 96 and 128
+   and packed at 300, where it takes two sweeps, the time pass split and
+   packed at 49, 196 and 37 patches for every head_dim) and in guard bands
+   (each input at the start of a buffer whose remainder is NaN)); first of
+   all the Hopper GEMM under K1 and K2 on its own entry (gemm_cases: K2's
+   fc1 / fc2 at the video tower's and the AST's rows, K1's projection, each
+   timed beside one F.linear call, cuBLAS, as a yardstick; ragged cases at
+   1, 127, 129 and 8288 rows and N = 384; a guard-band case):
    the kernel against its plain PyTorch version (for K6 the autograd gradient
    of K5's plain version, for seeded random cotangents), both held against a
    plain f32 anchor on the same inputs. Tolerance for each output: kernel
@@ -46,7 +51,11 @@ Phases, each printed as it runs with its seconds:
 3. the full-width inference slice: Synchformer S=14 (ViT-B towers of 12
    layers, D=768, 3-layer GlobalTransformer), B=8, seeded weights, through
    SyncPredictor(impl='kernel') and (impl='plain') in bf16, both against an
-   f32 plain run. Launch counters are zeroed before the kernel-path forward
+   f32 plain run by serving_agreement (the probabilities within 2 x the
+   plain bf16 error + 5e-3, the video tower's features by relative L2 error
+   within 2 x plain's; scripts/stage1_planted_faults.py shows that it fails
+   a mode-swapped K1, a K1 without the CLS key and a K2 without its
+   residual). Launch counters are zeroed before the kernel-path forward
    and must show K1 >= 24, K2 >= 24, K3 >= 12, K4 >= 2. Then clips/s of both
    paths (host clock around synchronised forwards, after warm-up).
 4. the full-width Stage I step: AVCLIP (ViT-B towers, AveragePooling time
@@ -286,12 +295,13 @@ def bound(nbytes: float, flops: float):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def attention_flops(b: int, mode: str, matmuls: int, h: int = H, dh: int = DH) -> float:
+def attention_flops(b: int, mode: str, matmuls: int, h: int = H, dh: int = DH, f: int = F_T,
+                    n: int = N_P) -> float:
     """Divided attention over b segments: per head, every group's L queries
     against its L + 1 keys and the CLS query against 1 + f*n keys, ``matmuls``
     (L x (L+1) x dh) products of 2 FLOPs a MAC (2 forward, 5 backward)."""
-    groups, length = (F_T, N_P) if mode == "space" else (N_P, F_T)
-    per_head = groups * length * (length + 1) + F_T * N_P + 1
+    groups, length = (f, n) if mode == "space" else (n, f)
+    per_head = groups * length * (length + 1) + f * n + 1
     return 2.0 * matmuls * b * h * per_head * dh
 
 
@@ -321,7 +331,6 @@ def kernel_cases(torch, dev):
     from synchformer_tpu_torch.ops.kernels.divided_attention import (
         divided_attention,
         divided_attention_packed,
-        divided_attention_proj,
     )
     from synchformer_tpu_torch.ops.kernels.divided_attention_bwd import (
         divided_attention_bwd,
@@ -329,7 +338,6 @@ def kernel_cases(torch, dev):
         divided_attention_packed_bwd,
         divided_attention_packed_bwd_plain,
     )
-    from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_mlp_residual
     from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -349,37 +357,8 @@ def kernel_cases(torch, dev):
     def cast(args, dtype):
         return [a.to(dtype) if torch.is_tensor(a) and a.dtype == bf else a for a in args]
 
-    cases = []
+    cases = k1_k2_cases(torch, dev)
     bs = B * S
-    wo, bo = rn(d, d, std=0.02), rn(d, std=0.02, dtype=torch.float32)
-    qkv_p, qkv_c = rn(bs, F_T, N_P, 3 * d), rn(bs, 1, 3 * d)
-    res = rn(bs, F_T, N_P, d)
-    act = bs * F_T * N_P * d * 2  # one (bs, f, n, D) bf16 activation
-    for mode in ("space", "time"):
-        args = [qkv_p, qkv_c, res, wo, bo]
-        cost = (5 * act + d * d * 2 + d * 4 + 2 * bs * 3 * d * 2,
-                attention_flops(bs, mode, 2) + 2.0 * bs * F_T * N_P * d * d)
-        cases.append(("K1", f"K1 {mode} ({bs},8,196,2304)",
-                      lambda a=args, m=mode, i="kernel": divided_attention_proj(*a, h, m, impl=i),
-                      lambda dt, a=args, m=mode: divided_attention_proj(*cast(a, dt), h, m,
-                                                                        impl="plain"),
-                      cost, None))
-    x4 = rn(bs, F_T, N_P, d)
-    g2, b2 = ln_params()
-    args = [x4, g2, b2, *mlp_params(), 1e-6]
-    weights = 2 * d * hid * 2 + (hid + 3 * d) * 4
-    rows = bs * F_T * N_P
-    cases.append(("K2", f"K2 stats ({bs},8,196,768)",
-                  lambda a=args: fused_ln_mlp_residual(*a, emit_stats=True),
-                  lambda dt, a=args: fused_ln_mlp_residual(*cast(a, dt), emit_stats=True,
-                                                           impl="plain"),
-                  (2 * rows * d * 2 + rows * 8 * 4 + weights, 4.0 * rows * d * hid), None))
-    x3 = rn(bs, 74, d)
-    args = [x3, g2, b2, *mlp_params(), 1e-12]
-    cases.append(("K2", f"K2 rows ({bs},74,768)",
-                  lambda a=args: fused_ln_mlp_residual(*a),
-                  lambda dt, a=args: fused_ln_mlp_residual(*cast(a, dt), impl="plain"),
-                  (2 * bs * 74 * d * 2 + weights, 4.0 * bs * 74 * d * hid), None))
     qkv = rn(bs, 74, 3 * d)
     q, k, v = (qkv.view(bs, 74, 3, h, DH)[:, :, i].transpose(1, 2) for i in range(3))
     cases.append(("K3", f"K3 ({bs},74,2304)",
@@ -459,6 +438,64 @@ def kernel_cases(torch, dev):
                               qkv7.to(dt), do7.to(dt), hh, F_T, m),
                           (7 * act7, attention_flops(bs1, mode, 5, heads, dh)), None))
     return cases + k4b_cases(torch, dev) + k8_cases(torch, dev)
+
+
+def k1_k2_cases(torch, dev, bs: int = B * S, f: int = F_T, n: int = N_P, d: int = D,
+                h: int = H, ast_tokens: int = 74) -> list:
+    """kernel_cases' records of K1 (space and time) at sync inference's
+    split qkv (bs, f, n, 3d), h heads, and of K2 at the video tower's
+    (bs, f, n, d) with row statistics and at the AST's (bs, ast_tokens, d)
+    rows, hidden 4d. The kernel calls look the wrappers up in their modules at
+    call time, so that scripts/stage1_planted_faults.py can wrap their
+    entries."""
+    from synchformer_tpu_torch.ops.kernels import divided_attention as tda
+    from synchformer_tpu_torch.ops.kernels import fused_rows as frows
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    hid = 4 * d
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def cast(args, dtype):
+        return [a.to(dtype) if torch.is_tensor(a) and a.dtype == bf else a for a in args]
+
+    cases = []
+    wo, bo = rn(d, d, std=0.02), rn(d, std=0.02, dtype=torch.float32)
+    qkv_p, qkv_c = rn(bs, f, n, 3 * d), rn(bs, 1, 3 * d)
+    res = rn(bs, f, n, d)
+    act = bs * f * n * d * 2  # one (bs, f, n, D) bf16 activation
+    for mode in ("space", "time"):
+        args = [qkv_p, qkv_c, res, wo, bo]
+        cost = (5 * act + d * d * 2 + d * 4 + 2 * bs * 3 * d * 2,
+                attention_flops(bs, mode, 2, h, d // h, f, n) + 2.0 * bs * f * n * d * d)
+        cases.append(("K1", f"K1 {mode} ({bs},{f},{n},{3 * d})",
+                      lambda a=args, m=mode: tda.divided_attention_proj(*a, h, m),
+                      lambda dt, a=args, m=mode: tda.divided_attention_proj(
+                          *cast(a, dt), h, m, impl="plain"),
+                      cost, None))
+    g2, b2 = 1.0 + rn(d, std=0.1, dtype=torch.float32), rn(d, std=0.1, dtype=torch.float32)
+
+    def mlp_params():
+        return (rn(hid, d, std=0.02), rn(hid, std=0.02, dtype=torch.float32),
+                rn(d, hid, std=0.02), rn(d, std=0.02, dtype=torch.float32))
+
+    weights = 2 * d * hid * 2 + (hid + 3 * d) * 4
+    args = [rn(bs, f, n, d), g2, b2, *mlp_params(), 1e-6]
+    rows = bs * f * n
+    cases.append(("K2", f"K2 stats ({bs},{f},{n},{d})",
+                  lambda a=args: frows.fused_ln_mlp_residual(*a, emit_stats=True),
+                  lambda dt, a=args: frows.fused_ln_mlp_residual(*cast(a, dt), emit_stats=True,
+                                                                 impl="plain"),
+                  (2 * rows * d * 2 + rows * 8 * 4 + weights, 4.0 * rows * d * hid), None))
+    args = [rn(bs, ast_tokens, d), g2, b2, *mlp_params(), 1e-12]
+    rows = bs * ast_tokens
+    cases.append(("K2", f"K2 rows ({bs},{ast_tokens},{d})",
+                  lambda a=args: frows.fused_ln_mlp_residual(*a),
+                  lambda dt, a=args: frows.fused_ln_mlp_residual(*cast(a, dt), impl="plain"),
+                  (2 * rows * d * 2 + weights, 4.0 * rows * d * hid), None))
+    return cases
 
 
 def k4b_cases(torch, dev, d: int = D, h: int = H,
@@ -607,14 +644,16 @@ def guarded(torch, t):
 
 
 def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17, 74, 197),
-                 space_ns=(49, N_P), long_n: int = 300) -> list:
+                 space_ns=(49, N_P), long_n: int = 300, time_ns=(49, N_P, 37)) -> list:
     """kernel_cases' records (no cost, no library) of the two tensor-core
     attention kernels at ragged shapes, checked and logged only: K3 at
     ``k3_lens`` tokens (197: two sweeps over 80-key chunks); the space pass
     through K5's split entry and K7's packed entry at ``space_ns`` patches a
     frame for every head_dim of HEAD_DIMS, and packed at ``long_n`` patches,
     head_dim 64 (two sweeps over 208-key chunks); then each kernel with its
-    input at the start of a NaN-filled buffer (guarded). The packed entry is
+    input at the start of a NaN-filled buffer (guarded); then the time pass
+    split and packed at ``time_ns`` patches a frame for every head_dim (49
+    and 37: no tile of 2 or 4 positions divides them), and in guard bands. The packed entry is
     called through divided_attention_bwd, where the packed flow's Function
     calls it, so that scripts/stage1_planted_faults.py can wrap it. q and k at
     std 1.5: logits of std about 2, so one key's weight can be large."""
@@ -633,15 +672,15 @@ def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17,
         return ("K3 ragged", label, lambda: standard_attention(qkv, h),
                 lambda dt: standard_attention(qkv.to(dt), h, impl="plain"), None, None)
 
-    def split(qkv_p, qkv_c, h, label):
-        return ("space ragged", label, lambda: tda.divided_attention(qkv_p, qkv_c, h, "space"),
-                lambda dt: tda.divided_attention(qkv_p.to(dt), qkv_c.to(dt), h, "space",
+    def split(qkv_p, qkv_c, h, label, mode="space"):
+        return (f"{mode} ragged", label, lambda: tda.divided_attention(qkv_p, qkv_c, h, mode),
+                lambda dt: tda.divided_attention(qkv_p.to(dt), qkv_c.to(dt), h, mode,
                                                  impl="plain"), None, None)
 
-    def packed(qkv, h, label):
-        return ("space ragged", label,
-                lambda: dab.divided_attention_packed(qkv, h, f, "space"),
-                lambda dt: dab.divided_attention_packed(qkv.to(dt), h, f, "space",
+    def packed(qkv, h, label, mode="space"):
+        return (f"{mode} ragged", label,
+                lambda: dab.divided_attention_packed(qkv, h, f, mode),
+                lambda dt: dab.divided_attention_packed(qkv.to(dt), h, f, mode,
                                                         impl="plain"), None, None)
 
     cases = [k3(rn(4 * bs, n, 3 * d), f"K3 ({4 * bs},{n},{3 * d})") for n in k3_lens]
@@ -660,7 +699,96 @@ def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17,
                        d // 64, f"space split guard band ({bs},{f},{n},{3 * d}) {d // 64}x64"))
     cases.append(packed(guarded(torch, rn(bs, 1 + f * n, 3 * d)), d // 96,
                         f"space packed guard band ({bs},{1 + f * n},{3 * d}) {d // 96}x96"))
+    # the time pass (a block per tile of spatial positions): every head_dim
+    # at time_ns patches a frame, split and packed, then in guard bands
+    for n in time_ns:
+        for dh in tda.HEAD_DIMS:
+            h = d // dh
+            cases.append(split(rn(bs, f, n, 3 * d), rn(bs, 1, 3 * d), h,
+                               f"time split ({bs},{f},{n},{3 * d}) {h}x{dh}", "time"))
+            cases.append(packed(rn(bs, 1 + f * n, 3 * d), h,
+                                f"time packed ({bs},{1 + f * n},{3 * d}) {h}x{dh}", "time"))
+    n = time_ns[0]
+    cases.append(split(guarded(torch, rn(bs, f, n, 3 * d)), guarded(torch, rn(bs, 1, 3 * d)),
+                       d // 64, f"time split guard band ({bs},{f},{n},{3 * d}) {d // 64}x64",
+                       "time"))
+    cases.append(packed(guarded(torch, rn(bs, 1 + f * n, 3 * d)), d // 96,
+                        f"time packed guard band ({bs},{1 + f * n},{3 * d}) {d // 96}x96",
+                        "time"))
     return cases
+
+
+# the Hopper GEMM under K1 and K2 at its callers' shapes (rows, N, K,
+# epilogue): K2's fc1 / fc2 at the video tower's and the AST's rows, K1's
+# projection; then ragged rows (one, either side of the 128-row tile)
+GEMM_SHAPES = (
+    ("K2 fc1 video", B * S * F_T * N_P, 4 * D, D, "gelu"),
+    ("K2 fc2 video", B * S * F_T * N_P, D, 4 * D, "residual"),
+    ("K2 fc1 AST", B * S * 74, 4 * D, D, "gelu"),
+    ("K2 fc2 AST", B * S * 74, D, 4 * D, "residual"),
+    ("K1 projection", B * S * F_T * N_P, D, D, "residual"),
+)
+GEMM_RAGGED = ((1, D, D, "residual"), (127, 4 * D, D, "gelu"), (129, D, 4 * D, "residual"),
+               (8288, 4 * D, D, "gelu"), (300, 384, 128, "bias"))
+
+
+def gemm_cases(torch, dev, shapes=GEMM_SHAPES, ragged=GEMM_RAGGED, guard: bool = True) -> list:
+    """(label, kernel fn, plain fn on given dtype, (bytes, FLOPs), library fn)
+    of the Hopper GEMM alone (ops/kernels/gemm.py) at ``shapes`` (timed), at
+    ``ragged`` rows (library None: checked and logged only) and, with
+    ``guard``, with A, W and the residual each at the start of a NaN-filled
+    buffer (guarded). The library fn is one F.linear call with the bias
+    (cuBLAS: a yardstick, never called by the port)."""
+    import torch.nn.functional as F
+
+    from synchformer_tpu_torch.ops.kernels.gemm import gemm
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    bf = torch.bfloat16
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def case(label, m, n, k, epi, timed, wrap=lambda t: t):
+        a, w = wrap(rn(m, k)), wrap(rn(n, k, std=k ** -0.5))
+        bias = rn(n, std=0.1, dtype=torch.float32)
+        r = wrap(rn(m, n)) if epi == "residual" else None
+        up = (lambda t, dt: None if t is None else t.to(dt))
+        nbytes = (m * k + n * k + m * n * (2 if r is not None else 1)) * 2 + n * 4
+        lib_bias = bias.to(bf)
+        return (f"GEMM {label} ({m},{k}) -> {n} {epi}",
+                lambda: gemm(a, w, bias, epi, r),
+                lambda dt: gemm(a.to(dt), w.to(dt), bias, epi, up(r, dt), impl="plain"),
+                (nbytes, 2.0 * m * n * k),
+                (lambda: F.linear(a, w, lib_bias)) if timed else None)
+
+    cases = [case(*shape, timed=True) for shape in shapes]
+    cases += [case(f"ragged {m} rows", m, n, k, epi, False) for m, n, k, epi in ragged]
+    if guard:
+        cases.append(case("guard band", 129, D, 4 * D, "residual", False,
+                          lambda t: guarded(torch, t)))
+    return cases
+
+
+def check_gemms(torch, dev) -> None:
+    """gemm_cases, each held by hold_outputs' rule (the ragged and
+    guard-band cases before any timing); the timed ones logged with TFLOP/s,
+    their bound and one F.linear call's time."""
+    cases = gemm_cases(torch, dev)
+    for label, kern, plain, _, _ in cases:
+        k_out, p_out, a_out = kern(), plain(torch.bfloat16), plain(torch.float32)
+        torch.cuda.synchronize()
+        if hold_outputs(label, k_out, p_out, a_out)[0]:
+            fail(f"{label} outside tolerance")
+        del k_out, p_out, a_out
+    for label, kern, plain, cost, library in cases:
+        if library is None:
+            continue
+        ms, lib_ms = cuda_time_ms(kern), cuda_time_ms(library)
+        bound_ms, bound_by = bound(*cost)
+        log(f"[timing] {label}: kernel {ms:.3f} ms = {cost[1] / ms / 1e9:.1f} TFLOP/s, "
+            f"F.linear (cuBLAS) {lib_ms:.3f} ms = {cost[1] / lib_ms / 1e9:.1f} TFLOP/s, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.2f} GFLOP)")
 
 
 def check_ragged(torch, dev) -> None:
@@ -735,6 +863,7 @@ def hold_outputs(label: str, k_out, p_out, a_out, tag: str = "kernels"):
 
 
 def check_kernels(torch, dev, report):
+    check_gemms(torch, dev)
     if not check_k4b_concat(torch, dev):
         fail("K4b over [cls; x] disagrees with K4 over x")
     check_ragged(torch, dev)
@@ -817,15 +946,14 @@ def run_slice(torch, dev, report):
         return SyncPredictor(m, dev, dtype, impl)
 
     p32 = predictor(torch.float32, "plain")
-    ref_logits = p32.logits(video, pcm).float()
-    ref = torch.softmax(ref_logits, -1)
+    ref = serving_record(torch, p32, video, pcm)
     del p32
     pk = predictor(torch.bfloat16, "kernel")
     pp = predictor(torch.bfloat16, "plain")
 
     torch.cuda.synchronize()
     _build.launches.clear()
-    k_logits = pk.logits(video, pcm).float()
+    kern = serving_record(torch, pk, video, pcm)
     torch.cuda.synchronize()
     counts = dict(_build.launches)
     log(f"[slice] launches in one kernel-path forward: {counts}")
@@ -833,20 +961,18 @@ def run_slice(torch, dev, report):
         if counts.get(key, 0) < need:
             fail(f"{key} launched {counts.get(key, 0)} times, expected >= {need}")
         report[key]["launches"] = counts[key]
-    p_logits = pp.logits(video, pcm).float()
-    k_probs, p_probs = torch.softmax(k_logits, -1), torch.softmax(p_logits, -1)
-    for name, t in (("kernel", k_probs), ("plain", p_probs)):
+    plain = serving_record(torch, pp, video, pcm)
+    for name, rec in (("kernel", kern), ("plain", plain)):
+        t = rec["probs"]
         if t.shape != (B, 21) or not bool(torch.isfinite(t).all()):
             fail(f"{name} path probabilities: shape {tuple(t.shape)} or non-finite")
-    err_k, err_p = maxabs(k_probs, ref), maxabs(p_probs, ref)
-    lerr_k, lerr_p = maxabs(k_logits, ref_logits), maxabs(p_logits, ref_logits)
-    tol = 2.0 * err_p + 5e-3
-    log(f"[slice] probs max|kernel-f32| {err_k:.3e}, max|plain_bf16-f32| {err_p:.3e}, "
-        f"max|kernel-plain| {maxabs(k_probs, p_probs):.3e}, tol {tol:.3e}; logits "
-        f"max|kernel-f32| {lerr_k:.3e}, max|plain_bf16-f32| {lerr_p:.3e}; "
-        f"f32 top-1 {ref.argmax(-1).tolist()} kernel top-1 {k_probs.argmax(-1).tolist()}")
-    if err_k > tol:
-        fail("kernel-path probabilities outside tolerance")
+    log(f"[slice] max|kernel-plain| probs {maxabs(kern['probs'], plain['probs']):.3e}; logits "
+        f"max|kernel-f32| {maxabs(kern['logits'], ref['logits']):.3e}, max|plain_bf16-f32| "
+        f"{maxabs(plain['logits'], ref['logits']):.3e}; f32 top-1 "
+        f"{ref['probs'].argmax(-1).tolist()} kernel top-1 {kern['probs'].argmax(-1).tolist()}")
+    failed = serving_agreement(ref, plain, kern, "slice")
+    if failed:
+        fail(f"kernel-path forward outside tolerance: {failed}")
 
     times = {"plain": [], "kernel": []}
     for impl in ("plain", "kernel", "kernel", "plain"):

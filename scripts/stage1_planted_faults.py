@@ -1,5 +1,5 @@
 """Show that chip_smoke.py's Stage I, packed-block, serving, MoCo and kernel
-checks fail a wrong K5, K6, K7a/K7b, K7c, K8a, K8b or K4b.
+checks fail a wrong K1, K2, K5, K6, K7a/K7b, K7c, K8a, K8b or K4b.
 
     python scripts/stage1_planted_faults.py            # full width, one NVIDIA GPU
     python scripts/stage1_planted_faults.py --tiny --device cpu   # a dry run
@@ -54,6 +54,19 @@ where DividedAttentionPackedFn calls it:
   were 1 (the unnormalised exp(s - m) @ v);
 - space_cls_key_dropped: the space pass's patch rows without the CLS key's
   f32 term (p_cls * v_cls left out).
+Then the K1 and K2 faults (wrapping ops/kernels/divided_attention.py's
+_divided_attention_proj, where divided_attention_proj calls it, and
+ops/kernels/fused_rows.py's _ln_mlp, where LnMlpFn calls it) on phase 3's
+sync inference (chip_smoke.serving_agreement on build_synchformer; the tiny
+Synchformer at B=2, S=2 with --tiny) and on phase 2's K1 / K2 cases
+(chip_smoke.k1_k2_cases, chip_smoke.hold_outputs; TINY_K12's size with
+--tiny):
+- none: the control;
+- k1_mode_swapped: K1 runs the other mode's attention before the projection;
+- k1_cls_key_dropped: K1's patch rows without the CLS key's term (p_cls *
+  v_cls, projected) in their attention;
+- k2_residual_dropped: K2 returns the MLP branch without the residual (and
+  that branch's row statistics).
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
@@ -84,6 +97,7 @@ from synchformer_tpu_torch.models.presets import (  # noqa: E402
     build_avclip,
     build_avclip_8head,
     build_moco_avclip,
+    build_synchformer,
     build_synchformer_8head,
     build_tiny_avclip,
     build_tiny_avclip_packed,
@@ -91,8 +105,10 @@ from synchformer_tpu_torch.models.presets import (  # noqa: E402
     build_tiny_synchformer,
 )
 from synchformer_tpu_torch.ops.kernels import cls_pool as tcls  # noqa: E402
+from synchformer_tpu_torch.ops.kernels import divided_attention as tda  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import divided_attention_bwd as dab  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import fused_block as fb  # noqa: E402
+from synchformer_tpu_torch.ops.kernels import fused_rows as frows  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import standard_attention as tsa  # noqa: E402
 from synchformer_tpu_torch.ops.kernels.divided_attention import (  # noqa: E402
     divided_attention_packed,
@@ -212,6 +228,60 @@ def space_cls_key_dropped(fwd, bwd, qkv, num_heads, num_frames, mode):
     return out
 
 
+def k1_mode_swapped(fwd, qkv_p, qkv_c, res, wo, bo, num_heads, mode):
+    return fwd(qkv_p, qkv_c, res, wo, bo, num_heads, "time" if mode == "space" else "space")
+
+
+def cls_key_term(qkv_p, qkv_c, num_heads, mode, chunk: int = 8):
+    """Each patch row's CLS-key term of the divided attention in f32, p_cls *
+    v_cls per head, (B, f, n, D): p_cls from the softmax over [CLS; the
+    group's keys], the group a frame (space) or a spatial position (time).
+    Taken ``chunk`` segments at a time."""
+    b, f, n, threed = qkv_p.shape
+    d = threed // 3
+    dh = d // num_heads
+    terms = []
+    for s0 in range(0, b, chunk):
+        qp, kp, _ = (t.float().unflatten(-1, (num_heads, dh))
+                     for t in qkv_p[s0:s0 + chunk].split(d, dim=-1))
+        _, kc, vc = (t.float().unflatten(-1, (num_heads, dh))
+                     for t in qkv_c[s0:s0 + chunk, 0].split(d, dim=-1))
+        qp = qp * dh ** -0.5
+        cls_logit = torch.einsum("bfnhd,bhd->bfnh", qp, kc)
+        pattern = "bfnhd,bfmhd->bfnhm" if mode == "space" else "bfnhd,bgnhd->bfnhg"
+        logits = torch.einsum(pattern, qp, kp)
+        m = torch.maximum(logits.amax(-1), cls_logit)
+        ec = torch.exp(cls_logit - m)
+        p_cls = ec / (torch.exp(logits - m[..., None]).sum(-1) + ec)
+        terms.append((p_cls[..., None] * vc[:, None, None]).flatten(-2))
+        del logits
+    return torch.cat(terms)
+
+
+def k1_cls_key_dropped(fwd, qkv_p, qkv_c, res, wo, bo, num_heads, mode):
+    out_p, out_c = fwd(qkv_p, qkv_c, res, wo, bo, num_heads, mode)
+    term = cls_key_term(qkv_p, qkv_c, num_heads, mode) @ wo.float().t()
+    return (out_p.float() - term).to(out_p.dtype), out_c
+
+
+def k2_residual_dropped(fwd, x, g, b, w1, b1, w2, b2, eps, emit_stats):
+    out = fwd(x, g, b, w1, b1, w2, b2, eps, emit_stats)
+    if emit_stats:
+        y = out[0] - x
+        return y, frows.row_stats(y)
+    return out - x
+
+
+K1_ENTRIES = (tda, ("_divided_attention_proj",))
+K2_ENTRIES = (frows, ("_ln_mlp",))
+K1_FAULTS = {"none": None, "k1_mode_swapped": (k1_mode_swapped, 0),
+             "k1_cls_key_dropped": (k1_cls_key_dropped, 0)}
+K2_FAULTS = {"none": None, "k2_residual_dropped": (k2_residual_dropped, 0)}
+# the K1 / K2 faults on phase 3's sync inference, each with the entries it wraps
+SLICE_FAULTS = {"none": (K1_ENTRIES, None),
+                **{name: (K1_ENTRIES, f) for name, f in K1_FAULTS.items() if f is not None},
+                **{name: (K2_ENTRIES, f) for name, f in K2_FAULTS.items() if f is not None}}
+
 K3_ENTRIES = (tsa, ("_standard_attention",))
 K3_FAULTS = {"none": None, "k3_probs_unnormalised": (k3_probs_unnormalised, 0)}
 SPACE_FAULTS = {"none": None, "space_cls_key_dropped": (space_cls_key_dropped, 0)}
@@ -251,6 +321,8 @@ TINY_K8 = {"bs": 2, "f": 2, "n": 4, "d": 96, "heads": 2}
 TINY_K4B = {"d": 128, "h": 2, "shapes": ((2, 3), (8, 5))}
 # --tiny's ragged cases: one segment of 2 frames
 TINY_RAGGED = {"bs": 1, "f": 2}
+# --tiny's K1 / K2 cases: 2 heads of 64, 2 segments of 2 frames of 4 patches
+TINY_K12 = {"bs": 2, "f": 2, "n": 4, "d": 128, "h": 2, "ast_tokens": 5}
 
 
 def planted(module, entries, fault):
@@ -354,6 +426,50 @@ def ragged_kernel_faults(dev, tiny: bool):
     space = cases_caught([c for c in cases if c[0] == "space ragged"], FLOWS["packed"][:2],
                          SPACE_FAULTS)
     return k3, space
+
+
+def slice_faults(dev, tiny: bool) -> dict:
+    """The K1 / K2 faults on phase 3: the sync model (build_synchformer at B=8,
+    S=14; the tiny Synchformer at B=2, S=2 with --tiny) through SyncPredictor
+    on the kernel route, each fault's failed checks of serving_agreement
+    against the f32 and bf16 plain records."""
+    if tiny:
+        build = functools.partial(build_tiny_synchformer, 2)
+        video, pcm = chip_smoke.slice_inputs(torch, dev, 2, 2, (4, 32, 32, 3), 8)
+    else:
+        build = functools.partial(build_synchformer, chip_smoke.S)
+        video, pcm = chip_smoke.slice_inputs(torch, dev)
+    sd = seeded_state_dict(build(device="meta"), seed=0)
+
+    def record(dtype, impl, entries=K1_ENTRIES, fault=None):
+        model = build(device=dev)
+        load_numpy_state_dict(model, sd)
+        pred = SyncPredictor(model, dev, dtype, impl)
+        with planted(*entries, fault):
+            rec = chip_smoke.serving_record(torch, pred, video, pcm)
+        del model, pred
+        gc.collect()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        return rec
+
+    ref, plain = record(torch.float32, "plain"), record(torch.bfloat16, "plain")
+    caught = {}
+    for name, (entries, fault) in SLICE_FAULTS.items():
+        caught[name] = chip_smoke.serving_agreement(
+            ref, plain, record(torch.bfloat16, "kernel", entries, fault), f"slice {name}")
+        chip_smoke.log(f"[fault] slice {name}: {len(caught[name])} checks failed: "
+                       f"{caught[name]}")
+    return caught
+
+
+def k1_k2_kernel_faults(dev, tiny: bool):
+    """The K1 and K2 faults on phase 2's K1 / K2 cases (TINY_K12's size with
+    --tiny): for each kernel, each fault's cases that hold_outputs failed."""
+    cases = chip_smoke.k1_k2_cases(torch, dev, **(TINY_K12 if tiny else {}))
+    k1 = cases_caught([c for c in cases if c[0] == "K1"], K1_ENTRIES, K1_FAULTS)
+    k2 = cases_caught([c for c in cases if c[0] == "K2"], K2_ENTRIES, K2_FAULTS)
+    return k1, k2
 
 
 def cases_caught(cases, entries, faults) -> dict:
@@ -466,7 +582,11 @@ def main() -> int:
     ok = verdict("kernels_k4b", k4b_kernel_faults(dev, args.tiny)) and ok
     k3, space = ragged_kernel_faults(dev, args.tiny)
     ok = verdict("kernels_k3", k3) and ok
-    return 0 if verdict("kernels_space", space) and ok else 1
+    ok = verdict("kernels_space", space) and ok
+    ok = verdict("slice", slice_faults(dev, args.tiny)) and ok
+    k1, k2 = k1_k2_kernel_faults(dev, args.tiny)
+    ok = verdict("kernels_k1", k1) and ok
+    return 0 if verdict("kernels_k2", k2) and ok else 1
 
 if __name__ == "__main__":
     sys.exit(main())

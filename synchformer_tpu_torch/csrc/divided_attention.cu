@@ -36,21 +36,27 @@
 // (csrc/fused_block.cu) shares. (1) group attention: in space mode the
 // tensor-core kernel of mma_attention.cuh (blocks of up to 8 query tiles of
 // 16 rows over a frame's [CLS; n] keys staged by cp.async, both products on
-// mma.sync); in time mode (9 keys a group) one block per (head, position,
-// batch) on CUDA cores, each warp a query row. (2) the CLS row: one block per
-// (head, batch) over all 1 + f*n keys, a thread per key row for the logits
-// (16-byte loads), a warp per key for P @ V (a few keys' loads in flight).
-// (3) K1 only: the projection + residual on the tile GEMM. The TPU kernel
-// keeps the attention output in VMEM before the projection; here it
-// round-trips device memory (2 x 270 MB per call at B=112), which a later
-// fused epilogue removes.
+// mma.sync); in time mode (9 keys a group) one block per tile of P spatial
+// positions and segment, all heads, its key / value rows staged by 16-byte
+// cp.async, four lanes a query on CUDA cores (bound by memory). (2) the CLS
+// row: one block per (head, batch) over all 1 + f*n keys, a thread per key
+// row for the logits (16-byte loads), a warp per key for P @ V (a few keys'
+// loads in flight). It stays its own launch: the recipe normalises the CLS
+// query's softmax over all 1 + f*n keys before rounding the probabilities to
+// bf16, so a split softmax folded into (1) would round at another place.
+// (3) K1 only: the projection + residual on the Hopper GEMM of
+// wgmma_gemm.cuh (EPI_BIAS_RESIDUAL). The TPU kernel keeps the attention
+// output in VMEM before the projection; here it round-trips device memory
+// (2 x 270 MB per call at B=112, about 0.16 ms), which a later fused epilogue
+// removes.
 #include "divided_attention.cuh"
+#include "wgmma_gemm.cuh"
 
 using sft::bf16;
 using sft::attn::dispatch_attention;
 
 // K1. mode 0 = space (groups are frames), 1 = time (groups are spatial
-// positions). The projection GEMM needs D % 64 == 0.
+// positions). The projection GEMM needs D % 128 == 0.
 extern "C" int sft_divided_attention_proj(const void* qkv_p, const void* qkv_c,
                                           const void* res, const void* wo, const void* bo,
                                           void* attn_scratch, void* out_p, void* out_c,
@@ -63,12 +69,10 @@ extern "C" int sft_divided_attention_proj(const void* qkv_p, const void* qkv_c,
                                      static_cast<bf16*>(attn_scratch), static_cast<bf16*>(out_c),
                                      B, f, n, H, mode, fn, 1, fn, 1, s);
   if (err != 0) return err;
-  sft::gemm_bf16<sft::EPI_BIAS_RESIDUAL>(
+  return sft::wgmma_gemm<sft::EPI_BIAS_RESIDUAL>(
       static_cast<const bf16*>(attn_scratch), static_cast<const bf16*>(wo),
       static_cast<const float*>(bo), static_cast<const bf16*>(res), D,
-      static_cast<bf16*>(out_p), B * fn, D, D, s);
-  SFT_CHECK_LAUNCH();
-  return 0;
+      static_cast<bf16*>(out_p), (long long)B * fn, D, D, s);
 }
 
 // K5: the attention without the projection on the split layout: out_p

@@ -3,26 +3,32 @@
 // bf16 output. K8c: LN(x) @ W^T + b.
 //
 // Replaces synchformer_tpu/ops/pallas/fused_rows.py::_ln_mlp_pallas_slab /
-// _ln_mlp_pallas (bodies _ln_mlp_slab_kernel, _ln_mlp_kernel). The TPU kernel
-// keeps the LN output and the (rows, 4D) fc1 activation in VMEM; this first
-// port writes both to device memory and runs four launches: LN, fc1 + GELU,
-// fc2 + residual, row statistics. At the tower's shape (175616 rows, 768 ->
-// 3072 -> 768) the two GEMMs are 1.66 TFLOP (830 GFLOP each) and bound by the
-// tensor cores; the spilled fc1 activation adds 2 x 1.08 GB of traffic,
-// which keeping it on chip (a later change) removes.
+// _ln_mlp_pallas (bodies _ln_mlp_slab_kernel, _ln_mlp_kernel). Four launches:
+// LN (ln_rows), fc1 + bias + GELU and fc2 + bias + residual on the Hopper
+// GEMM of wgmma_gemm.cuh (TMA, wgmma, persistent; redesigned from the WMMA
+// tile GEMM), then the row statistics (row_stats). At the video tower's shape
+// (175616 rows, 768 -> 3072 -> 768) the two GEMMs are 1.66 TFLOP (830 GFLOP
+// each) and bound by the tensor cores. The TPU kernel keeps the LN output and
+// the (rows, 4D) fc1 activation in VMEM; here both pass through device memory
+// (the activation 2 x 1.08 GB, about 0.64 ms at 3.35 TB/s): a 128-row slab of
+// the 3072-wide activation (768 KB in bf16) fits neither one block's shared
+// memory (227 KB) nor its registers, so fc2 cannot take it from fc1 on chip
+// without splitting the hidden dimension across blocks.
 //
 // K8c replaces synchformer_tpu/ops/pallas/fused_rows.py::_ln_matmul_pallas
-// (body _ln_matmul_kernel): the LayerNorm is applied to each A tile as the
-// tile GEMM stages it (gemm_ln_bf16), f32 accumulation, the bias added in f32
-// and the sum rounded once, so the normalised rows never reach device memory.
-// The row statistics come from a pre-pass (ln_stats: one read of x, 8 bytes a
-// row out) rather than from each column tile's CTA, which would re-read every
-// row once per 64 output columns (36 times at 768 -> 2304). At the QKV shape
-// (175728 rows, 768 -> 2304) it is 621.9 GFLOP, bound by the tensor cores.
-#include "tile_gemm.cuh"
+// (body _ln_matmul_kernel) and stays on the WMMA tile GEMM: the LayerNorm is
+// applied to each A tile as the tile GEMM stages it (gemm_ln_bf16), f32
+// accumulation, the bias added in f32 and the sum rounded once, so the
+// normalised rows never reach device memory. The row statistics come from a
+// pre-pass (ln_stats: one read of x, 8 bytes a row out) rather than from each
+// column tile's CTA, which would re-read every row once per 64 output columns
+// (36 times at 768 -> 2304). At the QKV shape (175728 rows, 768 -> 2304) it is
+// 621.9 GFLOP, bound by the tensor cores.
+#include "wgmma_gemm.cuh"
 
 using sft::bf16;
 
+// K2. Needs d % 128 == 0 and hidden % 128 == 0 (the Hopper GEMM's N and K).
 extern "C" int sft_ln_mlp(const void* x, const void* g, const void* b, const void* w1,
                           const void* b1, const void* w2, const void* b2, void* ln_buf,
                           void* h_buf, void* out, void* stats, long long rows, int d,
@@ -32,16 +38,14 @@ extern "C" int sft_ln_mlp(const void* x, const void* g, const void* b, const voi
   sft::ln_rows(xb, nullptr, static_cast<const float*>(g), static_cast<const float*>(b),
                static_cast<bf16*>(ln_buf), rows, d, eps, s);
   SFT_CHECK_LAUNCH();
-  sft::gemm_bf16<sft::EPI_BIAS_GELU>(static_cast<const bf16*>(ln_buf),
-                                     static_cast<const bf16*>(w1),
-                                     static_cast<const float*>(b1), nullptr, 0,
-                                     static_cast<bf16*>(h_buf), (int)rows, hidden, d, s);
-  SFT_CHECK_LAUNCH();
-  sft::gemm_bf16<sft::EPI_BIAS_RESIDUAL>(static_cast<const bf16*>(h_buf),
-                                         static_cast<const bf16*>(w2),
-                                         static_cast<const float*>(b2), xb, d,
-                                         static_cast<bf16*>(out), (int)rows, d, hidden, s);
-  SFT_CHECK_LAUNCH();
+  int err = sft::wgmma_gemm<sft::EPI_BIAS_GELU>(
+      static_cast<const bf16*>(ln_buf), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), nullptr, 0, static_cast<bf16*>(h_buf), rows, hidden, d, s);
+  if (err != 0) return err;
+  err = sft::wgmma_gemm<sft::EPI_BIAS_RESIDUAL>(
+      static_cast<const bf16*>(h_buf), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), xb, d, static_cast<bf16*>(out), rows, d, hidden, s);
+  if (err != 0) return err;
   if (stats != nullptr) {
     sft::row_stats(static_cast<const bf16*>(out), static_cast<float*>(stats), rows, d, s);
     SFT_CHECK_LAUNCH();

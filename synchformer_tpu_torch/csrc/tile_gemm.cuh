@@ -21,7 +21,9 @@
 //
 // The tile GEMM is the simple form: one 64x64 output tile per block, four
 // warps of 32x32, a 32-deep K step staged through shared memory without
-// pipelining. wgmma, TMA and warp specialisation are left for later work.
+// pipelining. It stays under K4, K4b, K8a and K8c; K1 and K2 run on the
+// Hopper GEMM of wgmma_gemm.cuh (TMA, wgmma, warp specialisation), whose
+// epilogues round as these do.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -31,11 +31,21 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the tile GEMM's grid puts 64-row tiles on gridDim.y (at most 65535)
+# the tile GEMM's grid (csrc/tile_gemm.cuh, under K4, K4b, K8a and K8c) puts
+# 64-row tiles on gridDim.y (at most 65535)
 MAX_GEMM_ROWS = 65535 * 64
+# the Hopper GEMM (csrc/wgmma_gemm.cuh, under K1 and K2): TMA row coordinates
+# are 32-bit; its persistent grid has no limit of its own
+WGMMA_MAX_ROWS = 2 ** 31 - 1
+WGMMA_BM, WGMMA_BK = 128, 64
+# the time pass of the divided attention (csrc/divided_attention.cuh)
+TIME_WARPS = 8
+TIME_SMEM_TARGET = 57344
+MAX_SMEM = 232448  # shared memory one block may take on the H100
 
 # launches of each kernel wrapper on a CUDA tensor, keyed K1..K4, K4b, K5,
-# K6, K7a, K7b, K7c, K8a, K8b, K8c
+# K6, K7a, K7b, K7c, K8a, K8b, K8c, and GEMM (the Hopper GEMM's own entry,
+# which no model path calls)
 launches: collections.Counter = collections.Counter()
 
 _libs: dict = {}
@@ -57,9 +67,56 @@ _SIGNATURES = {
                           "sft_divided_attention_packed": [_P] * 2 + [_I] * 6 + [_P]},
     "divided_attention_bwd": {"sft_divided_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
                               "sft_divided_attention_packed_bwd": [_P] * 7 + [_I] * 6 + [_P]},
+    "gemm": {"sft_gemm": [_P] * 4 + [_L, _P, _L, _I, _I, _I, _P]},
     "fused_block": {"sft_fused_divided_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
                     "sft_fused_mlp": [_P] * 8 + [_L, _I, _I, _F, _P]},
 }
+
+
+def gemm_plan(m: int, n: int, k: int, epilogue: str = "bias", sms: int = 132) -> dict:
+    """The launch plan of the Hopper GEMM (csrc/wgmma_gemm.cuh) for C[m, n]
+    = A[m, k] @ W[n, k]^T: its schedule (``cooperative``, 128 x 256 tiles,
+    for the GELU epilogue where n % 256 == 0; else ``ping-pong``, 128 x 128
+    tiles), the tile grid, and the persistent grid (one block an SM, at most
+    one a tile). Block b takes tiles b, b + grid, ...; tile t is row tile
+    t // tiles_n, column tile t % tiles_n. Raises on a shape the kernel does
+    not take."""
+    require(0 < m <= WGMMA_MAX_ROWS, f"the Hopper GEMM takes 1 to {WGMMA_MAX_ROWS} rows, got {m}")
+    require(n >= 128 and n % 128 == 0, f"the Hopper GEMM takes N % 128 == 0, got {n}")
+    require(k >= WGMMA_BK and k % WGMMA_BK == 0,
+            f"the Hopper GEMM takes K % {WGMMA_BK} == 0, got {k}")
+    cooperative = epilogue == "gelu" and n % 256 == 0
+    bn = 256 if cooperative else 128
+    tiles_m, tiles_n = -(-m // WGMMA_BM), n // bn
+    return {"schedule": "cooperative" if cooperative else "ping-pong", "bn": bn,
+            "tiles_m": tiles_m, "tiles_n": tiles_n, "grid": min(tiles_m * tiles_n, sms)}
+
+
+def gemm_block_tiles(plan: dict, block: int, consumer: int | None = None) -> list:
+    """The (row tile, column tile) pairs block ``block`` of ``plan`` walks,
+    in order; with ``consumer`` (0 or 1), those that consumer warpgroup
+    works on (ping-pong: every other one; cooperative: all of them, its 64
+    rows of each)."""
+    tiles, tn = plan["tiles_m"] * plan["tiles_n"], plan["tiles_n"]
+    mine = [(t // tn, t % tn) for t in range(block, tiles, plan["grid"])]
+    return mine[consumer::2] if consumer is not None and plan["schedule"] == "ping-pong" else mine
+
+
+def time_pass_plan(f: int, n: int, d: int) -> dict:
+    """The launch plan of the divided attention's time pass
+    (csrc/divided_attention.cuh::time_attention_kernel): ``p`` spatial
+    positions a block (the largest of 4, 2, 1 whose f * p + 1 key / value rows
+    fit TIME_SMEM_TARGET bytes, else 1), ``blocks`` position tiles a segment,
+    and the block's shared memory. Raises where even one position's rows do
+    not fit a block."""
+    def smem(p):
+        return (1 + f * p) * 2 * d * 2 + TIME_WARPS * 8 * (f + 1) * 4
+
+    p = next((p for p in (4, 2) if smem(p) <= TIME_SMEM_TARGET), 1)
+    require(smem(p) <= MAX_SMEM,
+            f"the time pass stages {f} frames' keys and values of width {d} in one block: "
+            f"{smem(p)} bytes of shared memory, more than {MAX_SMEM}")
+    return {"p": p, "blocks": -(-n // p), "smem": smem(p)}
 
 
 def _nvcc() -> str:

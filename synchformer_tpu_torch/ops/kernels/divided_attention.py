@@ -12,7 +12,9 @@ step (its backward, K6, is in divided_attention_bwd.py); at Stage I's qkv
 Every entry's space pass (a frame's n queries over [CLS; n] keys) runs on the
 tensor cores (csrc/mma_attention.cuh, the TPU kernels' recipe: exp rounded to
 bf16 unnormalised, the CLS key's term in f32, one division); the time pass
-(f + 1 keys) and the CLS row run on CUDA cores.
+(f + 1 keys: csrc/divided_attention.cuh::time_attention_kernel, a block per
+tile of spatial positions and segment, its keys and values staged once,
+bound by memory) and the CLS row run on CUDA cores.
 
 K7a replaces divided_attention_pallas (body _kernel, the v1 kernel the TPU
 runs at heads that do not pair into 128 lanes) and K7b its v3 body
@@ -31,7 +33,9 @@ K1's main-path shapes (sync inference): qkv_patches (112, 8, 196, 2304), qkv_cls
 res (112, 8, 196, 768), 12 heads of 64, bf16; space groups are frames (197
 keys with the CLS), time groups are spatial positions (9 keys). The space call
 is ~104 GFLOP of attention and the projection 207 GFLOP, both on the tensor
-cores. The attention output passes through
+cores: the projection + residual on the Hopper GEMM (csrc/wgmma_gemm.cuh),
+whose checks K1 takes (ops/kernels/gemm.py::check_gemm: D % 128 == 0,
+16-byte aligned rows, up to 2^31 - 1 rows). The attention output passes through
 a device-memory scratch before the projection, where the TPU kernel kept it in
 VMEM. The CLS row's attention leaves un-projected: the caller projects it and
 adds its residual (as synchformer_tpu/ops/pallas/divided_attention_bwd.py::
@@ -42,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from synchformer_tpu_torch.ops.kernels import _build
+from synchformer_tpu_torch.ops.kernels.gemm import check_gemm
 from synchformer_tpu_torch.ops.numerics import dense
 
 __all__ = ["divided_attention", "divided_attention_proj", "divided_attention_packed",
@@ -117,15 +122,21 @@ def divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo, bo,
 
 
 def _check_heads(what: str, d: int, num_heads: int, mode: str, b: int, f: int, n: int) -> int:
-    """The checks every divided-attention kernel makes on its shape; returns
-    head_dim."""
+    """The checks every divided-attention kernel makes on its shape: head_dim
+    in HEAD_DIMS and the limits of its grids (segments, frames and patches on
+    grid dimensions of at most 65535; in time mode the staged rows of one
+    position tile within a block's shared memory, _build.time_pass_plan).
+    Returns head_dim. A GEMM a caller runs besides (K1's projection, K8a's
+    QKV) checks its own rows."""
     if mode not in _MODES:
         raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
     dh = d // num_heads
     _build.require(dh * num_heads == d and dh in HEAD_DIMS,
                    f"{what} takes head_dim in {HEAD_DIMS}, got D={d} over {num_heads} heads")
-    _build.require(0 < b <= 65535 and 0 < f <= 65535 and 0 < n <= 65535
-                   and b * f * n <= _build.MAX_GEMM_ROWS, f"{what} shape out of range")
+    _build.require(0 < b <= 65535 and 0 < f <= 65535 and 0 < n <= 65535,
+                   f"{what} shape out of range")
+    if mode == "time":
+        _build.time_pass_plan(f, n, d)
     return dh
 
 
@@ -209,21 +220,27 @@ def divided_attention_proj(qkv_patches, qkv_cls, res_patches, wo, bo,
                            num_heads: int, mode: str, impl: str = "kernel"):
     """K1: returns (res + attn_patches @ wo^T + bo, raw CLS attention
     (B, 1, D)). wo (D, D) bf16 (out, in); bo f32."""
-    if not _build.use_kernel(qkv_patches, impl):
+    _build.use_kernel(qkv_patches, impl)  # validates impl and device
+    if impl == "plain":
+        return divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo,
+                                            bo, num_heads, mode)
+    return _divided_attention_proj(qkv_patches, qkv_cls, res_patches, wo, bo, num_heads, mode)
+
+
+def _divided_attention_proj(qkv_patches, qkv_cls, res_patches, wo, bo, num_heads: int,
+                            mode: str):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    if not _build.use_kernel(qkv_patches, "kernel"):
         return divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo,
                                             bo, num_heads, mode)
     b, f, n, d = check_split_qkv("K1", qkv_patches, qkv_cls, num_heads, mode,
                                  res_patches, wo, bo)
-    bf = torch.bfloat16
-    _build.require(d % 64 == 0, "K1's projection GEMM takes D % 64 == 0")
-    _build.require(all(t.dtype == bf and t.is_contiguous() for t in (res_patches, wo)),
-                   "K1 takes a contiguous bf16 residual and wo")
     _build.require(res_patches.shape == (b, f, n, d) and wo.shape == (d, d),
                    "K1 shape mismatch")
-    _build.require(bo.dtype == torch.float32 and bo.is_contiguous(), "K1 takes an f32 bo")
+    check_gemm("K1", b * f * n, wo, bo, res_patches)
     scratch = torch.empty_like(res_patches)
     out_p = torch.empty_like(res_patches)
-    out_c = torch.empty((b, 1, d), dtype=bf, device=qkv_patches.device)
+    out_c = torch.empty((b, 1, d), dtype=torch.bfloat16, device=qkv_patches.device)
     fn = _build.library("divided_attention")
     _build.launches["K1"] += 1
     _build.check(fn(qkv_patches.data_ptr(), qkv_cls.data_ptr(), res_patches.data_ptr(),

@@ -114,7 +114,8 @@ def _fused_attention(x, g, b, w, bias, num_heads: int, num_frames: int, mode: st
                    "K8a takes a contiguous bf16 w (3D, D)")
     check_ln_params("K8a", g, b, bias)
     _build.require(g.shape == b.shape == (d,) and bias.shape == (3 * d,), "K8a shape mismatch")
-    _build.require(d % 64 == 0, "K8a's QKV GEMM takes D % 64 == 0")
+    _build.require(d % 64 == 0 and 0 < bsz * seq <= _build.MAX_GEMM_ROWS,
+                   "K8a's QKV GEMM takes D % 64 == 0 and its rows within the tile GEMM's grid")
     qkv = torch.empty((bsz, seq, 3 * d), dtype=x.dtype, device=x.device)
     _, f, n, _ = check_packed_qkv("K8a", qkv, num_heads, num_frames, mode)
     stats = torch.empty((bsz * seq, 2), dtype=torch.float32, device=x.device)

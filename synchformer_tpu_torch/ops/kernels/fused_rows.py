@@ -7,9 +7,12 @@ csrc/ln_mlp.cu. Both the 4-D patch slabs of the video tower and the 3-D token
 rows of the AST reach one kernel over flattened rows.
 
 On the H100 the two GEMMs (fc1 768->3072 with GELU, fc2 3072->768 with the
-residual) bound it on the tensor cores; this first port passes the LN output
-and the (rows, 3072) fc1 activation through device memory, where the TPU
-kernel kept them in VMEM. The stats keep the JAX (..., 8) f32 layout
+residual) bound it on the tensor cores; they run on the Hopper GEMM
+(csrc/wgmma_gemm.cuh: TMA, wgmma, a persistent grid), so the wrapper takes
+what that kernel takes (ops/kernels/gemm.py::check_gemm): d and hidden
+multiples of 128, 16-byte aligned rows, up to 2^31 - 1 rows. The LN output
+and the (rows, 3072) fc1 activation pass through device memory, where the
+TPU kernel kept them in VMEM. The stats keep the JAX (..., 8) f32 layout
 [mean, meansq, 0 x 6] so that consumers and tests compare like with like.
 
 For training, ``impl='kernel'`` goes through ``LnMlpFn``: the forward is the
@@ -32,6 +35,7 @@ import torch
 
 from synchformer_tpu_torch.ops.autograd import plain_vjp
 from synchformer_tpu_torch.ops.kernels import _build
+from synchformer_tpu_torch.ops.kernels.gemm import check_gemm
 from synchformer_tpu_torch.ops.numerics import (
     dense,
     exact_gelu,
@@ -107,9 +111,10 @@ def _ln_mlp(x, g, b, w1, b1, w2, b2, eps: float, emit_stats: bool):
                    "K2 takes contiguous bf16 weights (hidden, d) and (d, hidden)")
     _build.require(all(t.dtype == torch.float32 and t.is_contiguous()
                        for t in (g, b, b1, b2)), "K2 takes f32 LN params and biases")
-    _build.require(d % 64 == 0 and hidden % 64 == 0, "K2 needs d, hidden % 64 == 0")
     rows = x.numel() // d
-    _build.require(0 < rows <= _build.MAX_GEMM_ROWS, "K2 row count out of range")
+    # fc1 reads the LN output (allocated like x), fc2 the residual x
+    check_gemm("K2 fc1", rows, w1, b1, x)
+    check_gemm("K2 fc2", rows, w2, b2, x)
     ln_buf = torch.empty_like(x)
     h_buf = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)

@@ -98,13 +98,39 @@ def test_divided_attention_proj_matches_jax(rng, mode):
     _close(y_c, jy_c, PALLAS)
 
 
+@pytest.mark.parametrize("mode", ["space", "time"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_divided_attention_proj_at_eight_frames(rng, mode, dh):
+    """K1 plain vs divided_attention_proj_split in interpret mode at the
+    Motionformer's f = 8 frames and n = 49 patches, which no position tile of
+    2 or 4 divides (the time pass's masked tail on the card), for head_dim
+    32, 64 and 128 at D = 256; tolerance PALLAS (the Pallas kernel's
+    unnormalised-softmax order in f32)."""
+    b, f, n = 1, 8, 49
+    heads = D // dh
+    qkv_p, qkv_c = _r(rng, b, f, n, 3 * D), _r(rng, b, 1, 3 * D)
+    res_p, res_c = _r(rng, b, f, n, D), _r(rng, b, 1, D)
+    wo, bo = _r(rng, D, D, s=D ** -0.5), _r(rng, D, s=0.02)
+    y_p, attn_c = divided_attention_proj(_t(qkv_p), _t(qkv_c), _t(res_p), _t(wo.T), _t(bo),
+                                         heads, mode)
+    y_c = res_c + (attn_c.numpy() @ wo + bo)
+    with pltpu.force_tpu_interpret_mode():
+        jy_p, jy_c = divided_attention_proj_split(
+            jnp.asarray(qkv_p), jnp.asarray(qkv_c), jnp.asarray(res_p), jnp.asarray(res_c),
+            jnp.asarray(wo), jnp.asarray(bo), heads, mode)
+    _close(y_p, jy_p, PALLAS)
+    _close(y_c, jy_c, PALLAS)
+
+
 # --------------------------------------------------------------------- K2
 
-@pytest.mark.parametrize("shape", [(2, 2, 16, D), (2, 65, D)], ids=["rows4d", "slab3d"])
+@pytest.mark.parametrize("shape", [(2, 2, 16, D), (2, 65, D), (2, 3, 49, D)],
+                         ids=["rows4d", "slab3d", "rows294"])
 @pytest.mark.parametrize("stats", [False, True], ids=["plain", "stats"])
 def test_ln_mlp_residual_matches_jax(rng, shape, stats):
     """K2 plain (with and without row stats) vs _ln_mlp_ref / _ln_mlp_stats_ref
-    and vs the Pallas row / slab kernels in interpret mode."""
+    and vs the Pallas row / slab kernels in interpret mode; rows294: 2 x 3 x
+    49 rows, not a multiple of the Hopper GEMM's 128-row tile."""
     x = _r(rng, *shape)
     a = _mlp_args(rng)
     jargs = [jnp.asarray(v) for v in a.values()]
