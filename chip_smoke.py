@@ -29,13 +29,18 @@ Phases, each printed as it runs with its seconds:
    and packed at 49 and 196 patches a frame for head_dim 32, 64, 96 and 128
    and packed at 300, where it takes two sweeps, the time pass split and
    packed at 49, 196 and 37 patches for every head_dim) and in guard bands
-   (each input at the start of a buffer whose remainder is NaN)); first of
+   (each input at the start of a buffer whose remainder is NaN), and the
+   backward K6 / K7c at ragged shapes: the space pass at head_dim 128 and
+   196 patches, and at 207, 208 and 300 patches (one 208-row chunk of keys,
+   then two) for every head_dim, split and packed, the time pass at 8 frames
+   of 37 patches for every head_dim, split and packed); first of
    all the Hopper GEMM under K1 and K2 on its own entry (gemm_cases: K2's
    fc1 / fc2 at the video tower's and the AST's rows, K1's projection, each
    timed beside one F.linear call, cuBLAS, as a yardstick; ragged cases at
    1, 127, 129 and 8288 rows and N = 384; a guard-band case):
-   the kernel against its plain PyTorch version (for K6 the autograd gradient
-   of K5's plain version, for seeded random cotangents), both held against a
+   the kernel against its plain PyTorch version (for K6 and K7c the autograd
+   gradient of the forward's plain version, for seeded random cotangents),
+   both held against a
    plain f32 anchor on the same inputs. Tolerance for each output: kernel
    error <= 2 x plain-bf16 error + eps, with eps = 1e-2 x max|anchor| (bf16
    keeps 8 bits; the two sides round at other places). Each kernel and its
@@ -43,11 +48,14 @@ Phases, each printed as it runs with its seconds:
    one torch.nn.functional.scaled_dot_product_attention call on views of the
    same packed QKV (for K7a/K7b with a boolean mask of the divided
    attention's pattern), held to the kernel's tolerance (a yardstick only:
-   the port never calls it). K3 and the divided attention forwards (K1, K5,
-   K7a, K7b, K8a), and their library calls, are also timed by launch with
-   torch.profiler (device time only: the attention kernels, the CLS row and,
-   for K1 and K8a, the GEMMs, each apart) and by the host's time to enqueue
-   a call.
+   the port never calls it); K6 and K7c against the backward alone of the
+   same masked call (its forward run once, outside the timed region; for K6
+   over the same rows packed, 12 heads of 64), held likewise. K3 and the
+   divided attention forwards and backwards (K1, K5, K6, K7a, K7b, K7c,
+   K8a), and their library calls, are also timed by launch with
+   torch.profiler (device time only: the attention kernels, the CLS row,
+   for the backwards its reduction and, for K1 and K8a, the GEMMs, each
+   apart) and by the host's time to enqueue a call.
 3. the full-width inference slice: Synchformer S=14 (ViT-B towers of 12
    layers, D=768, 3-layer GlobalTransformer), B=8, seeded weights, through
    SyncPredictor(impl='kernel') and (impl='plain') in bf16, both against an
@@ -241,8 +249,9 @@ STAGE1_LEAVES = re.compile(
     r"vfeat_extractor\.(cls_token|blocks\.\d+\.(attn|timeattn)\.qkv\.(weight|bias))")
 PAIRED = ("K1", "K5", "K6", "K7a", "K7b", "K7c", "K8a")  # timed as a (space + time) pair
 # the kernels whose calls (and library yardsticks) phase 2 also times by
-# launch: the tensor-core attentions and the divided attention forwards
-BY_LAUNCH = ("K1", "K3", "K5", "K7a", "K7b", "K8a")
+# launch: the tensor-core attentions and the divided attention forwards and
+# backwards
+BY_LAUNCH = ("K1", "K3", "K5", "K6", "K7a", "K7b", "K7c", "K8a")
 MAX_CLIP = 1.0  # Stage I's max_clip_norm
 B, S = 8, 14
 B1 = 2  # Stage I's base_batch_size
@@ -396,12 +405,19 @@ def kernel_cases(torch, dev):
                       lambda dt, m=mode: divided_attention(qkv_p1.to(dt), qkv_c1.to(dt), h, m,
                                                            impl="plain"),
                       (4 * act1 + 2 * bs1 * 4 * d * 2, attention_flops(bs1, mode, 2)), None))
+    # K6's library yardstick: the backward of the masked
+    # scaled_dot_product_attention over the same rows in the packed layout
+    # (packed outside the timed call), 12 heads of 64
+    qkv6 = torch.cat([qkv_c1, qkv_p1.reshape(bs1, -1, 3 * d)], 1)
+    do6 = torch.cat([doc, dop.reshape(bs1, -1, d)], 1)
+    masks = {mode: packed_mask(torch, dev, mode) for mode in ("space", "time")}
     for mode in ("space", "time"):
         cases.append(("K6", f"K6 {mode} ({bs1},8,196,2304)",
                       lambda m=mode: divided_attention_bwd(qkv_p1, qkv_c1, dop, doc, h, m),
                       lambda dt, m=mode: divided_attention_bwd_plain(
                           *cast([qkv_p1, qkv_c1, dop, doc], dt), h, m),
-                      (7 * act1 + 2 * bs1 * 7 * d * 2, attention_flops(bs1, mode, 5)), None))
+                      (7 * act1 + 2 * bs1 * 7 * d * 2, attention_flops(bs1, mode, 5)),
+                      sdpa_backward(torch, qkv6, do6, h, DH, masks[mode])))
     # K6's space pass at n <= 47, where the CLS key's per-group partials take
     # the loop its small-frame repair added (checked and logged only)
     n36 = rn(bs1, F_T, 36, 3 * d), rn(bs1, 1, 3 * d), rn(bs1, F_T, 36, d), rn(bs1, 1, d)
@@ -415,7 +431,6 @@ def kernel_cases(torch, dev):
     # whole packed sequence (mask built outside the timed call)
     qkv7, do7 = rn(bs1, SEQ, 3 * d), rn(bs1, SEQ, d)
     act7 = bs1 * SEQ * d * 2
-    masks = {mode: packed_mask(torch, dev, mode) for mode in ("space", "time")}
     for key, heads, dh in (("K7a", H8, DH8), ("K7b", h, DH)):
         q7, k7, v7 = (qkv7.view(bs1, SEQ, 3, heads, dh)[:, :, i].transpose(1, 2)
                       for i in range(3))
@@ -427,8 +442,9 @@ def kernel_cases(torch, dev):
                           (4 * act7, attention_flops(bs1, mode, 2, heads, dh)),
                           lambda m=mode, q=q7, k=k7, v=v7: F.scaled_dot_product_attention(
                               q, k, v, attn_mask=masks[m])))
-    # K7c at the 8-head step's heads (reported) and at the packed block's 12
-    # heads of 64 (checked and logged only)
+    # K7c at the 8-head step's heads (reported, with the backward of K7a's
+    # masked scaled_dot_product_attention as its yardstick) and at the packed
+    # block's 12 heads of 64 (checked and logged only)
     for key, heads, dh in (("K7c", H8, DH8), (f"K7c {h}x{DH}", h, DH)):
         for mode in ("space", "time"):
             cases.append((key, f"K7c {mode} ({bs1},{SEQ},2304) {heads}x{dh}",
@@ -436,8 +452,26 @@ def kernel_cases(torch, dev):
                               qkv7, do7, hh, F_T, m),
                           lambda dt, m=mode, hh=heads: divided_attention_packed_bwd_plain(
                               qkv7.to(dt), do7.to(dt), hh, F_T, m),
-                          (7 * act7, attention_flops(bs1, mode, 5, heads, dh)), None))
+                          (7 * act7, attention_flops(bs1, mode, 5, heads, dh)),
+                          sdpa_backward(torch, qkv7, do7, heads, dh, masks[mode])
+                          if key == "K7c" else None))
     return cases + k4b_cases(torch, dev) + k8_cases(torch, dev)
+
+
+def sdpa_backward(torch, qkv, dout, heads: int, dh: int, mask):
+    """A library yardstick for a divided attention's backward: the gradient
+    (dq, dk, dv), each (B, heads, L, dh), of one masked
+    scaled_dot_product_attention over views of the packed qkv (B, L, 3D) for
+    the cotangent dout (B, L, D). The forward runs here, once; the returned
+    fn runs the backward alone."""
+    import torch.nn.functional as F
+
+    b, seq = qkv.shape[:2]
+    q, k, v = (qkv.view(b, seq, 3, heads, dh)[:, :, i].transpose(1, 2).detach()
+               .requires_grad_() for i in range(3))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    grad = dout.view(b, seq, heads, dh).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
 
 
 def k1_k2_cases(torch, dev, bs: int = B * S, f: int = F_T, n: int = N_P, d: int = D,
@@ -644,7 +678,8 @@ def guarded(torch, t):
 
 
 def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17, 74, 197),
-                 space_ns=(49, N_P), long_n: int = 300, time_ns=(49, N_P, 37)) -> list:
+                 space_ns=(49, N_P), long_n: int = 300, time_ns=(49, N_P, 37),
+                 bwd_ns=(207, 208, 300), bwd_time_n: int = 37) -> list:
     """kernel_cases' records (no cost, no library) of the two tensor-core
     attention kernels at ragged shapes, checked and logged only: K3 at
     ``k3_lens`` tokens (197: two sweeps over 80-key chunks); the space pass
@@ -653,10 +688,16 @@ def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17,
     head_dim 64 (two sweeps over 208-key chunks); then each kernel with its
     input at the start of a NaN-filled buffer (guarded); then the time pass
     split and packed at ``time_ns`` patches a frame for every head_dim (49
-    and 37: no tile of 2 or 4 positions divides them), and in guard bands. The packed entry is
+    and 37: no tile of 2 or 4 positions divides them), and in guard bands;
+    then the backward (K6 split, K7c packed, keyed 'bwd ragged'): the space
+    pass at head_dim 128 and 196 patches, at ``bwd_ns`` patches (207: one
+    208-row chunk of keys; 208 and 300: two) for every head_dim, split and
+    packed, and the time pass at f frames of ``bwd_time_n`` patches for every
+    head_dim, split and packed. The packed entries are
     called through divided_attention_bwd, where the packed flow's Function
-    calls it, so that scripts/stage1_planted_faults.py can wrap it. q and k at
-    std 1.5: logits of std about 2, so one key's weight can be large."""
+    calls them, so that scripts/stage1_planted_faults.py can wrap them. q and k at
+    std 1.5: logits of std about 2, so one key's weight can be large;
+    cotangents at std 1."""
     from synchformer_tpu_torch.ops.kernels import divided_attention as tda
     from synchformer_tpu_torch.ops.kernels import divided_attention_bwd as dab
     from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
@@ -715,6 +756,30 @@ def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17,
     cases.append(packed(guarded(torch, rn(bs, 1 + f * n, 3 * d)), d // 96,
                         f"time packed guard band ({bs},{1 + f * n},{3 * d}) {d // 96}x96",
                         "time"))
+
+    def cot(*shape):
+        return rn(*shape) / 1.5
+
+    def bwd_split(n, h, mode="space"):
+        args = (rn(bs, f, n, 3 * d), rn(bs, 1, 3 * d), cot(bs, f, n, d), cot(bs, 1, d))
+        return ("bwd ragged", f"K6 {mode} ({bs},{f},{n},{3 * d}) {h}x{d // h}",
+                lambda: dab.divided_attention_bwd(*args, h, mode),
+                lambda dt: dab.divided_attention_bwd_plain(*(t.to(dt) for t in args), h, mode),
+                None, None)
+
+    def bwd_packed(n, h, mode="space"):
+        args = (rn(bs, 1 + f * n, 3 * d), cot(bs, 1 + f * n, d))
+        return ("bwd ragged", f"K7c {mode} ({bs},{1 + f * n},{3 * d}) {h}x{d // h}",
+                lambda: dab.divided_attention_packed_bwd(*args, h, f, mode),
+                lambda dt: dab.divided_attention_packed_bwd_plain(*(t.to(dt) for t in args), h,
+                                                                  f, mode), None, None)
+
+    cases.append(bwd_split(N_P, d // 128))
+    for n in bwd_ns:
+        for dh in tda.HEAD_DIMS:
+            cases += [bwd_split(n, d // dh), bwd_packed(n, d // dh)]
+    for dh in tda.HEAD_DIMS:
+        cases += [bwd_split(bwd_time_n, d // dh, "time"), bwd_packed(bwd_time_n, d // dh, "time")]
     return cases
 
 
@@ -830,7 +895,8 @@ def launch_times(torch, fn, calls: int = 5) -> dict:
     by_name = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[re.sub(r"\(.*", "", e.name)] += e.time_range.elapsed_us() / 1e3 / calls
+            name = e.name.replace("(anonymous namespace)::", "")
+            by_name[re.sub(r"\(.*", "", name)] += e.time_range.elapsed_us() / 1e3 / calls
     return dict(by_name)
 
 
@@ -875,9 +941,16 @@ def check_kernels(torch, dev, report):
             fail(f"{label} outputs {failed} outside tolerance")
         if library is not None:
             # the yardstick must compute the same function: held to output 0's
-            # tolerance against the f32 anchor
-            lib_out = library().transpose(1, 2).flatten(2)
-            err_l = maxabs(lib_out, a_out if torch.is_tensor(a_out) else a_out[0])
+            # tolerance against the f32 anchor (a backward's (dq, dk, dv) as
+            # the packed dqkv; against K6's split layout, its patch rows)
+            lib_out = library()
+            if isinstance(lib_out, tuple):
+                lib_out = torch.cat(lib_out, 1)
+            lib_out = lib_out.transpose(1, 2).flatten(2)
+            want = a_out if torch.is_tensor(a_out) else a_out[0]
+            if lib_out.shape != want.shape:
+                lib_out = lib_out[:, 1:].reshape(want.shape)
+            err_l = maxabs(lib_out, want)
             log(f"[kernels] {label} library: |library-f32| {err_l:.3e} tol {tol0:.3e} "
                 f"{'ok' if err_l <= tol0 else 'FAIL'}")
             if err_l > tol0:

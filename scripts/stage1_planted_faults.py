@@ -54,6 +54,14 @@ where DividedAttentionPackedFn calls it:
   were 1 (the unnormalised exp(s - m) @ v);
 - space_cls_key_dropped: the space pass's patch rows without the CLS key's
   f32 term (p_cls * v_cls left out).
+Then the backward's faults confined to frames of more than 207 patches,
+where its space pass stages the keys in a second 208-row chunk, on phase 2's
+backward ragged cases (wrapping divided_attention_bwd and
+divided_attention_packed_bwd where the two Functions call them):
+- none: the control;
+- k6_far_keys_dropped / k7c_far_keys_dropped: K6's / K7c's space pass leaves
+  the keys past the first chunk out of the key-major part (their dk and dv
+  zero).
 Then the K1 and K2 faults (wrapping ops/kernels/divided_attention.py's
 _divided_attention_proj, where divided_attention_proj calls it, and
 ops/kernels/fused_rows.py's _ln_mlp, where LnMlpFn calls it) on phase 3's
@@ -104,6 +112,7 @@ from synchformer_tpu_torch.models.presets import (  # noqa: E402
     build_tiny_moco_avclip,
     build_tiny_synchformer,
 )
+from synchformer_tpu_torch.ops.kernels import _build  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import cls_pool as tcls  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import divided_attention as tda  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import divided_attention_bwd as dab  # noqa: E402
@@ -156,6 +165,27 @@ def k7c_dk_zero(fwd, bwd, qkv, dout, num_heads, num_frames, mode):
 
 def k7a_mode_swapped(fwd, bwd, qkv, num_heads, num_frames, mode):
     return fwd(qkv, num_heads, num_frames, "time" if mode == "space" else "space")
+
+
+# the keys of a frame that the backward's space pass stages in its second
+# chunk: key j >= 16 * BWD_SPACE_CHUNK_TILES, patch j - 1 (key 0 is the CLS row)
+FAR_PATCH = 16 * _build.BWD_SPACE_CHUNK_TILES - 1
+
+
+def k6_far_keys_dropped(bwd, packed_bwd, qkv_p, qkv_c, dop, doc, num_heads, mode):
+    dqp, dqc = bwd(qkv_p, qkv_c, dop, doc, num_heads, mode)
+    if mode == "space":
+        dqp[:, :, FAR_PATCH:, dop.shape[-1]:] = 0
+    return dqp, dqc
+
+
+def k7c_far_keys_dropped(bwd, packed_bwd, qkv, dout, num_heads, num_frames, mode):
+    dqkv = packed_bwd(qkv, dout, num_heads, num_frames, mode)
+    if mode == "space":
+        b, seq, d = dout.shape
+        patches = dqkv[:, 1:].view(b, num_frames, (seq - 1) // num_frames, 3 * d)
+        patches[:, :, FAR_PATCH:, d:] = 0
+    return dqkv
 
 
 def k8a_dk_zero(attn, bwd, mlp, qkv, dout, num_heads, num_frames, mode):
@@ -285,6 +315,11 @@ SLICE_FAULTS = {"none": (K1_ENTRIES, None),
 K3_ENTRIES = (tsa, ("_standard_attention",))
 K3_FAULTS = {"none": None, "k3_probs_unnormalised": (k3_probs_unnormalised, 0)}
 SPACE_FAULTS = {"none": None, "space_cls_key_dropped": (space_cls_key_dropped, 0)}
+# the backward's faults confined to the multi-chunk space path (frames of more
+# than FAR_PATCH patches), on phase 2's 'bwd ragged' cases
+BWD_ENTRIES = (dab, ("divided_attention_bwd", "divided_attention_packed_bwd"))
+BWD_FAULTS = {"none": None, "k6_far_keys_dropped": (k6_far_keys_dropped, 0),
+              "k7c_far_keys_dropped": (k7c_far_keys_dropped, 1)}
 
 K4B_ENTRIES = (tcls, ("_cls_pool",))
 K4B_FAULTS = {"none": None, "k4b_shared_q": (k4b_shared_q, 0),
@@ -418,14 +453,15 @@ def k4b_kernel_faults(dev, tiny: bool) -> dict:
 
 
 def ragged_kernel_faults(dev, tiny: bool):
-    """K3's and the space pass's faults on phase 2's ragged and guard-band
-    cases (TINY_RAGGED's size with --tiny): for each kernel, each fault's
-    cases that hold_outputs failed."""
+    """K3's, the space pass's and the backward's faults on phase 2's ragged
+    and guard-band cases (TINY_RAGGED's size with --tiny): for each kernel,
+    each fault's cases that hold_outputs failed."""
     cases = chip_smoke.ragged_cases(torch, dev, **(TINY_RAGGED if tiny else {}))
     k3 = cases_caught([c for c in cases if c[0] == "K3 ragged"], K3_ENTRIES, K3_FAULTS)
     space = cases_caught([c for c in cases if c[0] == "space ragged"], FLOWS["packed"][:2],
                          SPACE_FAULTS)
-    return k3, space
+    bwd = cases_caught([c for c in cases if c[0] == "bwd ragged"], BWD_ENTRIES, BWD_FAULTS)
+    return k3, space, bwd
 
 
 def slice_faults(dev, tiny: bool) -> dict:
@@ -580,9 +616,10 @@ def main() -> int:
     ok = verdict("kernels", kernel_faults(dev, args.tiny)) and ok
     ok = verdict("moco", moco_faults(dev, args.tiny)) and ok
     ok = verdict("kernels_k4b", k4b_kernel_faults(dev, args.tiny)) and ok
-    k3, space = ragged_kernel_faults(dev, args.tiny)
+    k3, space, bwd = ragged_kernel_faults(dev, args.tiny)
     ok = verdict("kernels_k3", k3) and ok
     ok = verdict("kernels_space", space) and ok
+    ok = verdict("kernels_bwd", bwd) and ok
     ok = verdict("slice", slice_faults(dev, args.tiny)) and ok
     k1, k2 = k1_k2_kernel_faults(dev, args.tiny)
     ok = verdict("kernels_k1", k1) and ok

@@ -19,10 +19,12 @@
 //
 // Numerics, per head (head_dim DH in {32, 64, 96, 128}, a template
 // parameter), as the JAX body:
-// - q is pre-scaled by DH^-0.5 and rounded to bf16; dq is scaled once more
-//   at the end;
+// - q is pre-scaled by DH^-0.5 and rounded to bf16 wherever it is an
+//   operand; dq is scaled once more at the end;
 // - p over [CLS; group] in f32, sigma = sum(p * dp) with dp = <do, v> in f32,
-//   the CLS column included;
+//   the CLS column included. The space pass accumulates the row sum and
+//   sigma online over 16-key tiles (both rescaled by exp(m_old - m_new) as
+//   the row max grows), the time pass and the CLS row in one piece;
 // - ds is rounded to bf16 before the dq / dk products, p to bf16 before the
 //   dv product; the CLS key's ds and p stay f32;
 // - every patch's dk / dv sums the group term and the CLS-query term in f32
@@ -31,55 +33,50 @@
 // The CLS token plays three roles: (a) a query over all 1 + f*n keys, (b) a
 // key/value joined to every group, (c) through (a), a source of dk / dv on
 // every patch. On the TPU one grid step held a whole segment, so the sums over
-// groups stayed in VMEM; here blocks run in no order, so:
+// groups stayed in VMEM; here blocks run in no order, so four launches:
 // (1) cls_bwd_kernel, one block per (head, batch): role (a), a thread per
 //     key row for the logits and dp (16-byte loads). It writes dq of
 //     the CLS row, its own dk/dv of the CLS key and value to an f32 scratch,
 //     and, for every patch, the bf16-rounded ds and p of the CLS query over
 //     that patch (two f32 scalars per (batch, head, patch)). Those are all
 //     the (c) terms need: dk_j += ds_j q_cls, dv_j += p_j do_cls.
-// (2) the group terms and role (b), in time mode by group_bwd_kernel on CUDA
-//     cores, in space mode by space_bwd_tc_kernel on the tensor cores (its
-//     comment below). group_bwd_kernel: one block per (head, chunk of GPB
-//     groups, batch), as a time-mode group (8 queries over 9 keys) is too
-//     small for a block of its own. The chunk's Q,
-//     K, V and dO rows sit in shared memory with a padded pitch. Pass 1, one
-//     warp per query row: logits and dp one key per lane, f32 softmax and
-//     sigma by shuffles, dq in pairs of columns per lane; it keeps (max,
-//     1/sum, sigma) of the row. Pass 2, one warp per key row: recomputes p
-//     and ds one query per lane from those statistics, then dk / dv in pairs
-//     of columns per lane, adds the (c) terms from (1) and rounds once. The
-//     CLS key's partial dk / dv over the chunk go to an f32 scratch, one slot
-//     per chunk.
+// (2) the group terms and role (b): in space mode space_bwd_mma_kernel on the
+//     tensor cores, in time mode time_bwd_kernel, which reads and writes
+//     every row once (their comments below). Each writes the CLS key's
+//     partial dk / dv over its groups to an f32 scratch, one slot per block.
 // (3) cls_reduce_kernel, one block per (head, batch): sums the CLS key's
 //     partials in a fixed order. No atomics: the gradient is deterministic.
-// Bound at Stage I's 28 segments: the ~472 MB it moves (qkv and dO in, dqkv
-// out), ~0.14 ms. The space call's ~67 GFLOP of products go to the tensor
-// cores, through WMMA tiles staged in shared memory; the time call's ~3 GFLOP
-// stay on CUDA cores.
-#include "tile_gemm.cuh"
+// Bound at Stage I's 28 segments (12 heads of 64): the ~472 MB a call moves
+// (qkv and dO in, dqkv out), ~0.14 ms at 3.35 TB/s; the space call's
+// products (~67 GFLOP counted as five, nine as run: S and dP twice for the
+// query-major part, once more transposed for the key-major part) take
+// ~0.07 ms at the dense bf16 peak; the time call's ~3 GFLOP run on CUDA
+// cores with every bf16 operand unpacked, which takes longer than its bytes
+// (PERF.md has the times).
+#include "mma_attention.cuh"
 
 using sft::bf16;
+using sft::cp_async16;
+using sft::cp_async_commit;
+using sft::cp_async_wait;
+namespace tc = sft::tc;
 
 namespace {
 
-constexpr int CLS_THREADS = 256;
-constexpr int KEYS_IN_FLIGHT = 4;  // loads a CLS-row warp starts before it sums
-constexpr int WARPS = 16;
-constexpr int GPB = 16;  // time-mode groups per block of group_bwd_kernel
-
-template <int DH>
-__device__ __forceinline__ float dot_smem_bf16(const float* __restrict__ a,
-                                               const bf16* __restrict__ row) {
-  const __nv_bfloat162* r = reinterpret_cast<const __nv_bfloat162*>(row);
-  float s = 0.f;
-#pragma unroll 8
-  for (int t = 0; t < DH / 2; ++t) {
-    const float2 v = __bfloat1622float2(r[t]);
-    s += a[2 * t] * v.x + a[2 * t + 1] * v.y;
-  }
-  return s;
-}
+constexpr int CLS_THREADS = 512;
+constexpr int KEYS_IN_FLIGHT = 8;  // loads a CLS-row warp starts before it sums
+// the space pass: warps of a block at most (a 16-row tile each), and the
+// 16-row tiles of a streamed chunk (208 rows); ops/kernels/_build.py::
+// space_bwd_plan mirrors the plan
+constexpr int SPACE_WARPS = 8;
+constexpr int SPACE_CHUNK_TILES = 13;
+// the time pass: warps of a block, and the shared memory its P positions'
+// rows may take (the largest P of 4, 2, 1 that fits; 2 at D = 768, f = 8,
+// two blocks an SM); _build.py::time_bwd_plan mirrors the plan
+constexpr int WARPS = 8;
+constexpr int TIME_THREADS = WARPS * 32;
+constexpr size_t TIME_BWD_SMEM_TARGET = 114688;
+constexpr size_t MAX_SMEM = 232448;
 
 template <bool MAX>
 __device__ float block_reduce(float v, float* red) {
@@ -98,6 +95,20 @@ __device__ float block_reduce(float v, float* red) {
 struct Strides {
   int p, c, op, oc;
 };
+
+// The arguments of the group kernels (space and time mode). P: positions a
+// time-mode block; warps: warps a space-mode block; stats: (m, 1/l, sigma, 0)
+// of every query of the space pass (B x H x f*n float4).
+struct BwdArgs {
+  const bf16 *qkv_p, *qkv_c, *dop, *doc;
+  const float *ds_cls, *p_cls;
+  float *stats, *cls_part_g;
+  bf16* dqkv_p;
+  int fn, f, n, H, P, warps;
+  Strides st;
+  float scale;
+};
+
 
 // (1) The CLS query of (b, h) over [CLS; all f*n patches].
 template <int DH>
@@ -211,527 +222,607 @@ cls_bwd_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
   }
 }
 
-// (2) Time mode: groups [g0, g0 + GPB) of (b, h), a group per spatial
-// position, its L = f members one per frame. Member i of group g is patch
-// i*n + g of its segment; its key row in shared memory is 1 + (g - g0)*L + i,
-// row 0 is the CLS key. Writes dq, dk, dv of every member.
+// (2) Time mode: block (x, b) owns positions g0 = x * P .. g0 + P - 1 (those
+// below n) of segment b and all H heads. Staged row 0 is the segment's CLS
+// row, row 1 + i * P + p frame i at position g0 + p: its whole 3D-wide qkv
+// row and D-wide cotangent row, with 16-byte cp.async. A warp takes (position,
+// head) items; four lanes a query (a quad), each lane C = DH / 4 columns:
+// A. query i: f32 logits and dp over [CLS; the f frames] by quad shuffles, the
+//    softmax and sigma in f32, ds and p of the patch keys rounded to bf16 into
+//    the warp's scratch, the CLS key's kept f32; dq = (ds_c k_c + sum ds k)
+//    * scale, written with 16-byte stores;
+// B. the quad turns to patch key j: dk = sum_i ds_ij q_i + ds_cls_j q_cls,
+//    dv = sum_i p_ij do_i + p_cls_j do_cls in f32, rounded once, written
+//    with 16-byte stores.
+// The CLS key's partial dk / dv over the block's positions, from each
+// query's f32 ds_c and p_c, goes to cls_part_g slot x. Every byte of qkv and
+// of the cotangent is read once, every dqkv row written once.
 template <int DH>
-__global__ void __launch_bounds__(WARPS * 32)
-group_bwd_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
-                 const bf16* __restrict__ dop, const bf16* __restrict__ doc,
-                 const float* __restrict__ ds_cls, const float* __restrict__ p_cls,
-                 float* __restrict__ cls_part_g, bf16* __restrict__ dqkv_p, int L, int n,
-                 int H, Strides st, float scale) {
-  constexpr int PITCH = DH + 2;  // bf16 row pitch: an odd number of words
-  constexpr int NP = (DH / 2 + 31) / 32;  // bf16 pairs of a row per lane
-  constexpr bool FULL = (DH / 2) % 32 == 0;  // every lane holds NP pairs
+__global__ void __launch_bounds__(TIME_THREADS)
+time_bwd_kernel(const BwdArgs a) {
+  constexpr int C = DH / 4;  // columns a lane owns
+  constexpr int V = C / 8;   // its 16-byte pieces
+  static_assert(C % 8 == 0, "the time pass takes head_dim in {32, 64, 96, 128}");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, chunk = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const int fn = L * n;
-  const int g0 = chunk * GPB;
-  const int ng = min(GPB, n - g0);
-  const int rows = ng * L;  // queries, and patch keys
-  const int nk = L + 1;
-  const int cap = GPB * L;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // (1 + cap) x PITCH
-  bf16* Vs = Ks + (1 + cap) * PITCH;
-  bf16* Qs = Vs + (1 + cap) * PITCH;  // cap x PITCH, unscaled
-  bf16* Os = Qs + cap * PITCH;        // cap x PITCH
-  float* row_m = reinterpret_cast<float*>(Os + cap * PITCH);  // cap
-  float* row_inv = row_m + cap;                               // cap
-  float* row_sig = row_inv + cap;                             // cap
-  float* row_dsc = row_sig + cap;                             // cap: ds of the CLS key
-  float* row_pc = row_dsc + cap;                              // cap: p of the CLS key
-  float* qcs = row_pc + cap;                                  // DH: scaled CLS query
-  float* docs = qcs + DH;                                     // DH: CLS cotangent
-  float* wbuf = docs + DH;                                    // WARPS x (2 DH + 2 nk)
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int64_t bh = (int64_t)b * H + h;
-  const bf16* pin = qkv_p + (int64_t)b * st.p * 3 * D;
-  const bf16* pdo = dop + (int64_t)b * st.op * D;
-  bf16* pdq = dqkv_p + (int64_t)b * st.p * 3 * D;
-  const bf16* crow = qkv_c + (int64_t)b * st.c * 3 * D;
+  const int f = a.f, n = a.n, H = a.H, P = a.P;
+  const int D = H * DH, D3 = 3 * D;
+  const int g0 = blockIdx.x * P, b = blockIdx.y;
+  const int np = min(P, n - g0);
+  const int rows = 1 + f * P;
+  bf16* QKV = reinterpret_cast<bf16*>(smem);    // rows x 3D
+  bf16* DO = QKV + (size_t)rows * D3;            // rows x D
+  float* cls_w = reinterpret_cast<float*>(DO + (size_t)rows * D);  // P x H x f x (ds_c, p_c)
+  float* scr = cls_w + (size_t)P * H * f * 2;  // WARPS x 2 x f x (f + 1)
+  const bf16* pin = a.qkv_p + (int64_t)b * a.st.p * D3;
+  const bf16* pdo = a.dop + (int64_t)b * a.st.op * D;
+  bf16* pdq = a.dqkv_p + (int64_t)b * a.st.p * D3;
+  const int fn = f * n;
 
-  for (int idx = tid; idx < (1 + rows) * (DH / 2); idx += blockDim.x) {
-    const int r = idx / (DH / 2), t = idx % (DH / 2);
-    const bf16* row;
-    if (r == 0) {
-      row = crow;
-    } else {
-      const int gl = (r - 1) / L, i = (r - 1) % L;
-      const int64_t li = (int64_t)i * n + g0 + gl;
-      row = pin + li * 3 * D;
-      reinterpret_cast<__nv_bfloat162*>(Qs + (r - 1) * PITCH)[t] =
-          reinterpret_cast<const __nv_bfloat162*>(row + h * DH)[t];
-      reinterpret_cast<__nv_bfloat162*>(Os + (r - 1) * PITCH)[t] =
-          reinterpret_cast<const __nv_bfloat162*>(pdo + li * D + h * DH)[t];
+  // stage: qkv rows (3D / 8 pieces each), then cotangent rows (D / 8)
+  for (int idx = threadIdx.x; idx < rows * (D3 / 8); idx += TIME_THREADS) {
+    const int r = idx / (D3 / 8), c = idx % (D3 / 8);
+    const bf16* src = a.qkv_c + (int64_t)b * a.st.c * D3;
+    bool valid = true;
+    if (r > 0) {
+      const int i = (r - 1) / P, p = (r - 1) % P;
+      valid = p < np;
+      src = pin + ((int64_t)i * n + g0 + (valid ? p : 0)) * D3;
     }
-    reinterpret_cast<__nv_bfloat162*>(Ks + r * PITCH)[t] =
-        reinterpret_cast<const __nv_bfloat162*>(row + D + h * DH)[t];
-    reinterpret_cast<__nv_bfloat162*>(Vs + r * PITCH)[t] =
-        reinterpret_cast<const __nv_bfloat162*>(row + 2 * D + h * DH)[t];
+    cp_async16(QKV + (size_t)r * D3 + c * 8, src + c * 8, valid);
   }
-  if (tid < DH) {
-    qcs[tid] = sft::bf16r(__bfloat162float(crow[h * DH + tid]) * scale);
-    docs[tid] = __bfloat162float(doc[(int64_t)b * st.oc * D + h * DH + tid]);
+  for (int idx = threadIdx.x; idx < rows * (D / 8); idx += TIME_THREADS) {
+    const int r = idx / (D / 8), c = idx % (D / 8);
+    const bf16* src = a.doc + (int64_t)b * a.st.oc * D;
+    bool valid = true;
+    if (r > 0) {
+      const int i = (r - 1) / P, p = (r - 1) % P;
+      valid = p < np;
+      src = pdo + ((int64_t)i * n + g0 + (valid ? p : 0)) * D;
+    }
+    cp_async16(DO + (size_t)r * D + c * 8, src + c * 8, valid);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // every staged q (the CLS row's too) scaled by DH^-0.5 and rounded, once
+  for (int idx = threadIdx.x; idx < rows * (D / 2); idx += TIME_THREADS) {
+    uint32_t* x = reinterpret_cast<uint32_t*>(QKV + (size_t)(idx / (D / 2)) * D3) + idx % (D / 2);
+    *x = tc::scale_bf16x2(*x, a.scale);
   }
   __syncthreads();
 
-  float* va = wbuf + warp * (2 * DH + 2 * nk);  // DH
-  float* vb = va + DH;                          // DH
-  float* sa = vb + DH;                          // nk
-  float* sb = sa + nk;                          // nk
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad = lane / 4, part = lane % 4;
+  float* sp = scr + (size_t)warp * 2 * f * (f + 1);  // s, then p (bf16-rounded), [i][j]
+  float* sd = sp + f * (f + 1);                      // dp, then ds (bf16-rounded), [i][j]
+  const float scale = a.scale;
 
-  // pass 1: query rows
-  for (int r = warp; r < rows; r += WARPS) {
-    const int gl = r / L;
-    const bf16* qrow = Qs + r * PITCH;
-    const bf16* orow = Os + r * PITCH;
-    for (int d = lane; d < DH; d += 32) {
-      va[d] = sft::bf16r(__bfloat162float(qrow[d]) * scale);
-      vb[d] = __bfloat162float(orow[d]);
-    }
-    __syncwarp();
-    float m = -INFINITY;
-    for (int kk = lane; kk < nk; kk += 32) {
-      const int kr = kk == 0 ? 0 : 1 + gl * L + kk - 1;
-      const float s = dot_smem_bf16<DH>(va, Ks + kr * PITCH);
-      sa[kk] = s;
-      sb[kk] = dot_smem_bf16<DH>(vb, Vs + kr * PITCH);
-      m = fmaxf(m, s);
-    }
-    m = sft::warp_max(m);
-    float sum = 0.f;
-    for (int kk = lane; kk < nk; kk += 32) {
-      const float e = __expf(sa[kk] - m);
-      sa[kk] = e;
-      sum += e;
-    }
-    const float inv = 1.f / sft::warp_sum(sum);
-    float sig = 0.f;
-    for (int kk = lane; kk < nk; kk += 32) {
-      const float p = sa[kk] * inv;
-      sa[kk] = p;
-      sig += p * sb[kk];
-    }
-    sig = sft::warp_sum(sig);
-    for (int kk = lane; kk < nk; kk += 32) {
-      const float p = sa[kk];
-      const float ds = p * (sb[kk] - sig);
-      if (kk == 0) {
-        row_dsc[r] = ds;
-        row_pc[r] = p;
-        sa[0] = ds;
-      } else {
-        sa[kk] = sft::bf16r(ds);
+  // the C columns of a staged row from ``row`` on, as f32
+  auto load_row = [&](float (&x)[C], const bf16* row) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const uint4 raw = reinterpret_cast<const uint4*>(row)[v];
+      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 y = __bfloat1622float2(e[u]);
+        x[8 * v + 2 * u] = y.x;
+        x[8 * v + 2 * u + 1] = y.y;
       }
     }
-    __syncwarp();
-    float a[NP][2] = {};
-    for (int kk = 0; kk < nk; ++kk) {
-      const int kr = kk == 0 ? 0 : 1 + gl * L + kk - 1;
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(Ks + kr * PITCH);
+  };
+  auto dot = [&](const float (&x)[C], const bf16* row) {
+    float s = 0.f;
 #pragma unroll
-      for (int u = 0; u < NP; ++u) {
-        const int t = lane + 32 * u;
-        if (FULL || t < DH / 2) {
-          const float2 k = __bfloat1622float2(k2[t]);
-          a[u][0] += sa[kk] * k.x;
-          a[u][1] += sa[kk] * k.y;
+    for (int v = 0; v < V; ++v) {
+      const uint4 raw = reinterpret_cast<const uint4*>(row)[v];
+      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 y = __bfloat1622float2(e[u]);
+        s += x[8 * v + 2 * u] * y.x + x[8 * v + 2 * u + 1] * y.y;
+      }
+    }
+    return s;
+  };
+  auto axpy = [&](float (&acc)[C], float w, const bf16* row) {
+    float x[C];
+    load_row(x, row);
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] += w * x[c];
+  };
+  auto store_row = [&](bf16* dst, const float (&x)[C], float mul) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      uint4 w;
+      uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        wp[u] = tc::pack_bf16(x[8 * v + 2 * u] * mul, x[8 * v + 2 * u + 1] * mul);
+      reinterpret_cast<uint4*>(dst)[v] = w;
+    }
+  };
+  auto srow = [&](int j, int p) { return j == 0 ? 0 : 1 + (j - 1) * P + p; };
+
+  for (int item = warp; item < np * H; item += WARPS) {
+    const int p = item / H, h = item % H;
+    const int col = h * DH + part * C;
+    float* cw = cls_w + ((size_t)p * H + h) * f * 2;
+    // A. the queries, 8 at a time (a quad each)
+    for (int i0 = 0; i0 < f; i0 += 8) {
+      const int i = i0 + quad;
+      const bool live = i < f;
+      const int r = live ? srow(i + 1, p) : 0;
+      float q[C], o[C];
+      load_row(q, QKV + (size_t)r * D3 + col);
+      load_row(o, DO + (size_t)r * D + col);
+      for (int j = 0; j <= f; ++j) {
+        const int kr = srow(j, p);
+        const float s = tc::quad_sum(dot(q, QKV + (size_t)kr * D3 + D + col));
+        const float dp = tc::quad_sum(dot(o, QKV + (size_t)kr * D3 + 2 * D + col));
+        if (live && part == 0) {
+          sp[i * (f + 1) + j] = s;
+          sd[i * (f + 1) + j] = dp;
         }
       }
-    }
-    const int i = r % L;
-    const int64_t li = (int64_t)i * n + g0 + gl;
-    __nv_bfloat162* dq = reinterpret_cast<__nv_bfloat162*>(pdq + li * 3 * D + h * DH);
+      __syncwarp();
+      float dsc = 0.f;
+      if (live) {
+        const float* si = sp + i * (f + 1);
+        const float* di = sd + i * (f + 1);
+        float m = -INFINITY;
+        for (int j = 0; j <= f; ++j) m = fmaxf(m, si[j]);
+        float sum = 0.f;
+        for (int j = 0; j <= f; ++j) sum += __expf(si[j] - m);
+        const float inv = 1.f / sum;
+        float sig = 0.f;
+        for (int j = 0; j <= f; ++j) sig += __expf(si[j] - m) * inv * di[j];
+        const float pc = __expf(si[0] - m) * inv;
+        dsc = pc * (di[0] - sig);
+        __syncwarp(0xfu << (quad * 4));  // the quad has read its row
+        if (part == 0) {
+          for (int j = 1; j <= f; ++j) {
+            const float pj = __expf(si[j] - m) * inv;
+            sd[i * (f + 1) + j] = sft::bf16r(pj * (di[j] - sig));
+            sp[i * (f + 1) + j] = sft::bf16r(pj);
+          }
+          cw[2 * i] = dsc;
+          cw[2 * i + 1] = pc;
+        }
+      }
+      __syncwarp();
+      if (live) {
+        float acc[C];
+        load_row(acc, QKV + D + col);  // the CLS key
 #pragma unroll
-    for (int u = 0; u < NP; ++u) {
-      const int t = lane + 32 * u;
-      if (FULL || t < DH / 2) dq[t] = __floats2bfloat162_rn(a[u][0] * scale, a[u][1] * scale);
+        for (int c = 0; c < C; ++c) acc[c] *= dsc;
+        for (int j = 1; j <= f; ++j)
+          axpy(acc, sd[i * (f + 1) + j], QKV + (size_t)srow(j, p) * D3 + D + col);
+        const int64_t tok = (int64_t)i * n + g0 + p;
+        store_row(pdq + tok * D3 + col, acc, scale);
+      }
     }
-    if (lane == 0) {
-      row_m[r] = m;
-      row_inv[r] = inv;
-      row_sig[r] = sig;
+    __syncwarp();
+    // B. the patch keys, 8 at a time (a quad each)
+    const int64_t bh = (int64_t)b * H + h;
+    for (int j0 = 0; j0 < f; j0 += 8) {
+      const int jk = j0 + quad;  // key jk + 1: frame jk
+      if (jk < f) {
+        const int64_t tok = (int64_t)jk * n + g0 + p;
+        float kacc[C], vacc[C];
+        load_row(kacc, QKV + col);  // the CLS query, scaled
+        load_row(vacc, DO + col);   // the CLS cotangent
+        const float dsa = a.ds_cls[bh * fn + tok], pa = a.p_cls[bh * fn + tok];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          kacc[c] *= dsa;
+          vacc[c] *= pa;
+        }
+        for (int i = 0; i < f; ++i) {
+          const int r = srow(i + 1, p);
+          axpy(kacc, sd[i * (f + 1) + jk + 1], QKV + (size_t)r * D3 + col);
+          axpy(vacc, sp[i * (f + 1) + jk + 1], DO + (size_t)r * D + col);
+        }
+        store_row(pdq + tok * D3 + D + col, kacc, 1.f);
+        store_row(pdq + tok * D3 + 2 * D + col, vacc, 1.f);
+      }
     }
     __syncwarp();
   }
   __syncthreads();
 
-  // the CLS key's partial dk / dv over this chunk
-  for (int t = tid; t < 2 * DH; t += blockDim.x) {
-    const int c = t % DH;
+  // the CLS key's partial dk / dv over the block's positions, per head, in
+  // a fixed order: positions, then frames
+  for (int idx = threadIdx.x; idx < 2 * D; idx += TIME_THREADS) {
+    const int h = idx / (2 * DH), w = idx % (2 * DH), c = h * DH + w % DH;
+    const bool is_k = w < DH;
     float acc = 0.f;
-    if (t < DH) {
-      for (int r = 0; r < rows; ++r)
-        acc += row_dsc[r] * sft::bf16r(__bfloat162float(Qs[r * PITCH + c]) * scale);
-    } else {
-      for (int r = 0; r < rows; ++r) acc += row_pc[r] * __bfloat162float(Os[r * PITCH + c]);
-    }
-    cls_part_g[(bh * gridDim.y + chunk) * 2 * DH + t] = acc;
-  }
-
-  // pass 2: patch key rows
-  for (int r = warp; r < rows; r += WARPS) {
-    const int gl = r / L, j = r % L;
-    const bf16* krow = Ks + (1 + r) * PITCH;
-    const bf16* vrow = Vs + (1 + r) * PITCH;
-    for (int d = lane; d < DH; d += 32) {
-      va[d] = __bfloat162float(krow[d]);
-      vb[d] = __bfloat162float(vrow[d]);
-    }
-    __syncwarp();
-    for (int i = lane; i < L; i += 32) {
-      const int qr = gl * L + i;
-      const bf16* qrow = Qs + qr * PITCH;
-      // the logit as pass 1 formed it: scaled q (exact) times k, same order
-      const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(qrow);
-      float s = 0.f;
-#pragma unroll 8
-      for (int t = 0; t < DH / 2; ++t) {
-        const float2 q = __bfloat1622float2(q2[t]);
-        s += sft::bf16r(q.x * scale) * va[2 * t] + sft::bf16r(q.y * scale) * va[2 * t + 1];
-      }
-      const float p = __expf(s - row_m[qr]) * row_inv[qr];
-      const float dp = dot_smem_bf16<DH>(vb, Os + qr * PITCH);
-      sa[i] = sft::bf16r(p * (dp - row_sig[qr]));
-      sb[i] = sft::bf16r(p);
-    }
-    __syncwarp();
-    float kacc[NP][2] = {}, vacc[NP][2] = {};
-    for (int i = 0; i < L; ++i) {
-      const int qr = gl * L + i;
-      const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(Qs + qr * PITCH);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(Os + qr * PITCH);
-#pragma unroll
-      for (int u = 0; u < NP; ++u) {
-        const int t = lane + 32 * u;
-        if (FULL || t < DH / 2) {
-          const float2 q = __bfloat1622float2(q2[t]);
-          const float2 o = __bfloat1622float2(o2[t]);
-          kacc[u][0] += sa[i] * sft::bf16r(q.x * scale);
-          kacc[u][1] += sa[i] * sft::bf16r(q.y * scale);
-          vacc[u][0] += sb[i] * o.x;
-          vacc[u][1] += sb[i] * o.y;
-        }
+    for (int p = 0; p < np; ++p) {
+      const float* cw = cls_w + ((size_t)p * H + h) * f * 2;
+      for (int i = 0; i < f; ++i) {
+        const int r = srow(i + 1, p);
+        acc += is_k ? cw[2 * i] * __bfloat162float(QKV[(size_t)r * D3 + c])
+                    : cw[2 * i + 1] * __bfloat162float(DO[(size_t)r * D + c]);
       }
     }
-    const int64_t li = (int64_t)j * n + g0 + gl;
-    const int64_t pi = bh * fn + li;
-    const float dsa = ds_cls[pi], pa = p_cls[pi];
-    bf16* out = pdq + li * 3 * D + h * DH;
-#pragma unroll
-    for (int u = 0; u < NP; ++u) {
-      const int t = lane + 32 * u;
-      if (FULL || t < DH / 2) {
-        const float k0 = kacc[u][0] + dsa * qcs[2 * t], k1 = kacc[u][1] + dsa * qcs[2 * t + 1];
-        const float v0 = vacc[u][0] + pa * docs[2 * t], v1 = vacc[u][1] + pa * docs[2 * t + 1];
-        reinterpret_cast<__nv_bfloat162*>(out + D)[t] = __floats2bfloat162_rn(k0, k1);
-        reinterpret_cast<__nv_bfloat162*>(out + 2 * D)[t] = __floats2bfloat162_rn(v0, v1);
-      }
-    }
-    __syncwarp();
+    a.cls_part_g[(((int64_t)b * H + h) * gridDim.x + blockIdx.x) * 2 * DH + w] = acc;
   }
 }
 
-
-// (2') Space mode on the tensor cores: one block per (h, group, b), one
-// group of L queries over L + 1 keys ([CLS; members]), padded to 16-row
-// tiles, one warp per tile. WMMA 16x16x16 bf16 products with f32 sums; every
-// elementwise step goes through a per-warp f32 tile in shared memory, so no
-// fragment layout is assumed. Pass 1, warp w on query tile w: a sweep over
-// the key tiles for the row max, sum and sigma (online), a second sweep for
-// p and ds (bf16) and dq += ds k. Pass 2, warp w on key tile w: a sweep over
-// the query tiles for p^T and ds^T, dk += ds^T q, dv += p^T do. The CLS key
-// keeps f32 ds and p as in the CUDA-core kernel: its column is left out of
-// the products and added in f32. The whole group's Q, dO, K and V stay in
-// shared memory: at n = 196 that is 173 KB at DH 96, and DH 128 fits n <= 175.
-constexpr int TQ = 16;
-
+// (2') Space mode on the tensor cores: block (h, group, b), one frame's n
+// queries over its nk = n + 1 keys [CLS; members], W = min(SPACE_WARPS,
+// key tiles) warps. mma.sync.m16n8k16 (bf16 in, f32 sums) with every
+// fragment in registers, as the forward's mma_attention.cuh: 16-byte
+// cp.async staging, ldmatrix / ldmatrix.trans, row statistics by quad
+// shuffles, p and ds packed from the accumulators straight into A fragments.
+// Shared memory is fixed by DH, not by n: W 16-row tiles the warps own and a
+// streamed chunk of SPACE_CHUNK_TILES 16-row tiles (208 rows: one chunk up
+// to 207 patches a frame; past that, more chunks, restaged per sweep).
+// Query-major part, rounds of W query tiles, warp w on tile w of the round
+// (its Q and dO fragments held in registers):
+//   sweep 1 over the key chunks: S = q K^T and dP = dO V^T, per 16-key tile;
+//     the row max m, sum l and sigma accumulated online (l and sum(e * dp)
+//     rescaled by exp(m_old - m_new) as the max grows; sigma = that / l);
+//   sweep 2: S and dP again, p = exp(s - m) / l and ds = p (dp - sigma) in
+//     f32, ds rounded to bf16 into A fragments, dq += ds K; the CLS key's
+//     ds_c and p_c stay f32: dq = (dq + ds_c k_c) * scale, and the warp adds
+//     ds_c q and p_c do of its rows to its share of the CLS key's partial;
+//   (m, 1/l, sigma) of each row go to the f32 scratch ``stats``.
+// Key-major part, rounds of W key tiles, warp w on tile w: over the query
+// chunks (their stats staged beside them), S^T = K q^T and dP^T = V dO^T, so
+// p^T and ds^T land in accumulator layout: p^T rounded to bf16 feeds
+// dv += p^T dO, ds^T rounded feeds dk += ds^T q; each patch key adds its
+// CLS-query terms (ds_cls q_cls, p_cls do_cls, from (1)) in f32 and is
+// rounded once. The CLS key's row is left out of both products.
+// q is scaled by DH^-0.5 and rounded to bf16 in shared memory once it has
+// landed, before any warp reads it. The warps' CLS partials are summed in warp order into the group's
+// cls_part_g slot.
 template <int DH>
-struct SpaceTile {
-  static constexpr int QP = DH + 8;  // bf16 pitch of the staged rows: 32-byte aligned tiles
-  // columns of dq / dk / dv a warp writes back per step of its epilogue: the
-  // whole row up to DH 64, 16-column chunks above, which keeps the scratch small
-  static constexpr int EPI = DH <= 64 ? DH : 16;
-  // per-warp f32 scratch: the S and dP tiles and two bf16 tiles (3 x 256
-  // floats), or a 16 x EPI epilogue chunk
-  static constexpr int SCR = TQ * EPI > 3 * TQ * TQ ? TQ * EPI : 3 * TQ * TQ;
-
-  static size_t smem(int QT, int KT) {
-    const int warps = QT > KT ? QT : KT;
-    return (size_t)(2 * QT + 2 * KT) * TQ * QP * sizeof(bf16) +
-           (5 * (size_t)QT * TQ + (size_t)warps * SCR) * sizeof(float);
-  }
-};
-
-template <int DH>
-__global__ void __launch_bounds__(32 * 16)
-space_bwd_tc_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
-                    const bf16* __restrict__ dop, const bf16* __restrict__ doc,
-                    const float* __restrict__ ds_cls, const float* __restrict__ p_cls,
-                    float* __restrict__ cls_part_g, bf16* __restrict__ dqkv_p, int fn, int L,
-                    int H, int QT, int KT, Strides strd, float scale) {
-  using namespace nvcuda;
-  constexpr int QP = SpaceTile<DH>::QP, EPI = SpaceTile<DH>::EPI, SCR = SpaceTile<DH>::SCR;
-  constexpr int NT = DH / 16;  // 16-column tiles of a row
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  const int h = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const int nk = L + 1;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);  // QT*16 x QP, unscaled
-  bf16* Os = Qs + QT * TQ * QP;              // QT*16 x QP
-  bf16* Ks = Os + QT * TQ * QP;              // KT*16 x QP, row 0 the CLS key
-  bf16* Vs = Ks + KT * TQ * QP;
-  float* row_m = reinterpret_cast<float*>(Vs + KT * TQ * QP);  // QT*16 each
-  float* row_inv = row_m + QT * TQ;
-  float* row_sig = row_inv + QT * TQ;
-  float* row_dsc = row_sig + QT * TQ;
-  float* row_pc = row_dsc + QT * TQ;
-  float* scratch = row_pc + QT * TQ;  // warps x SCR
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int64_t tok_g = (int64_t)g * L;  // the group's first patch in its segment
+__global__ void __launch_bounds__(SPACE_WARPS * 32, DH <= 64 ? 2 : 1)
+space_bwd_mma_kernel(const BwdArgs a) {
+  constexpr int PITCH = DH + 8;  // bf16; an odd count of 16-byte units: ldmatrix conflict-free
+  constexpr int CPR = DH / 8;    // 16-byte pieces of a row
+  constexpr int NS = DH / 16;    // 16-wide steps over the head dim
+  constexpr int CR = 16 * SPACE_CHUNK_TILES;  // rows of a streamed chunk
+  constexpr int CU = DH / 32;    // CLS-partial columns a lane owns
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int H = a.H, D = H * DH, D3 = 3 * D, W = a.warps;
+  const int n = a.n, nk = n + 1;
+  const int ntq = (n + 15) / 16, ntk = (nk + 15) / 16;
+  bf16* own0 = reinterpret_cast<bf16*>(smem);  // W * 16 rows: q (query-major) / k (key-major)
+  bf16* own1 = own0 + W * 16 * PITCH;          // do / v
+  bf16* str0 = own1 + W * 16 * PITCH;          // CR rows: k (query-major) / q (key-major)
+  bf16* str1 = str0 + CR * PITCH;              // v / do
+  float4* sstat = reinterpret_cast<float4*>(str1 + CR * PITCH);  // CR: streamed rows' stats
+  float* wrow = reinterpret_cast<float*>(sstat + CR);  // W x 16 x (ds_c, p_c)
+  float* wcls = wrow + W * 32;                          // W x 2 DH
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t tok0 = (int64_t)grp * n;  // the group's first patch in its segment
   const int64_t bh = (int64_t)b * H + h;
-  const bf16* pin = qkv_p + (int64_t)b * strd.p * 3 * D;
-  const bf16* pdo = dop + (int64_t)b * strd.op * D;
-  bf16* pdq = dqkv_p + (int64_t)b * strd.p * 3 * D;
-  const bf16* crow = qkv_c + (int64_t)b * strd.c * 3 * D;
-  const bf16* docr = doc + (int64_t)b * strd.oc * D;
+  const bf16* pin = a.qkv_p + ((int64_t)b * a.st.p + tok0) * D3 + h * DH;
+  const bf16* pdo = a.dop + ((int64_t)b * a.st.op + tok0) * D + h * DH;
+  const bf16* crow = a.qkv_c + (int64_t)b * a.st.c * D3 + h * DH;
+  const bf16* cdo = a.doc + (int64_t)b * a.st.oc * D + h * DH;
+  bf16* pdq = a.dqkv_p + ((int64_t)b * a.st.p + tok0) * D3 + h * DH;
+  float4* stats = reinterpret_cast<float4*>(a.stats) + bh * a.fn + tok0;
+  const float scale = a.scale;
 
-  // stage: query / cotangent rows 0..L-1, key / value rows 0 (CLS) .. L; zero padding
-  const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
-  for (int idx = tid; idx < QT * TQ * (DH / 2); idx += blockDim.x) {
-    const int r = idx / (DH / 2), t = idx % (DH / 2);
-    __nv_bfloat162 q = zero2, o = zero2;
-    if (r < L) {
-      const int64_t tok = tok_g + r;
-      q = reinterpret_cast<const __nv_bfloat162*>(pin + tok * 3 * D + h * DH)[t];
-      o = reinterpret_cast<const __nv_bfloat162*>(pdo + tok * D + h * DH)[t];
+  // rows [first, first + rows) of the queries (q | do) or of the keys (k | v)
+  // into d0 | d1, zero past the last
+  auto stage = [&](bf16* d0, bf16* d1, int first, int rows, bool keys) {
+    for (int idx = tid; idx < rows * CPR; idx += blockDim.x) {
+      const int r = idx / CPR, c = idx % CPR, j = first + r;
+      const bf16 *s0, *s1;
+      bool ok;
+      if (keys) {
+        ok = j < nk;
+        const bf16* row = j == 0 ? crow : pin + (int64_t)(ok ? j - 1 : 0) * D3;
+        s0 = row + D;
+        s1 = row + 2 * D;
+      } else {
+        ok = j < n;
+        s0 = pin + (int64_t)(ok ? j : 0) * D3;
+        s1 = pdo + (int64_t)(ok ? j : 0) * D;
+      }
+      cp_async16(d0 + r * PITCH + c * 8, s0 + c * 8, ok);
+      cp_async16(d1 + r * PITCH + c * 8, s1 + c * 8, ok);
     }
-    reinterpret_cast<__nv_bfloat162*>(Qs + r * QP)[t] = q;
-    reinterpret_cast<__nv_bfloat162*>(Os + r * QP)[t] = o;
-  }
-  for (int idx = tid; idx < KT * TQ * (DH / 2); idx += blockDim.x) {
-    const int r = idx / (DH / 2), t = idx % (DH / 2);
-    __nv_bfloat162 k = zero2, v = zero2;
-    if (r < nk) {
-      const bf16* row = r == 0 ? crow : pin + (tok_g + r - 1) * 3 * D;
-      k = reinterpret_cast<const __nv_bfloat162*>(row + D + h * DH)[t];
-      v = reinterpret_cast<const __nv_bfloat162*>(row + 2 * D + h * DH)[t];
+  };
+  // q rows [0, rows) of a staged buffer scaled by DH^-0.5 and rounded, in
+  // place, once per staging (after it has landed)
+  auto scale_q = [&](bf16* q, int rows) {
+    for (int idx = tid; idx < rows * (DH / 2); idx += blockDim.x) {
+      uint32_t* x = reinterpret_cast<uint32_t*>(q + (idx / (DH / 2)) * PITCH) + idx % (DH / 2);
+      *x = tc::scale_bf16x2(*x, scale);
     }
-    reinterpret_cast<__nv_bfloat162*>(Ks + r * QP)[t] = k;
-    reinterpret_cast<__nv_bfloat162*>(Vs + r * QP)[t] = v;
-  }
-  __syncthreads();
-
-  float* st = scratch + warp * SCR;  // S tile: [0, 256); dP tile: [256, 512)
-  bf16* tb = reinterpret_cast<bf16*>(st + 2 * TQ * TQ);  // two bf16 16 x 16 tiles
-  const int er = lane / 2, ec0 = (lane % 2) * 8;  // this lane's row and 8 columns of a tile
-
-  // S = A_rows(16) . B_rows(16)^T over dh, into st[0..256); dP likewise into st[256..512)
-  auto two_products = [&](const bf16* a1, const bf16* b1, const bf16* a2, const bf16* b2) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
+  };
+  // the B fragments of 16 rows (two n8 blocks) and the A fragment of a
+  // 16-row tile at 16-wide step ks, from shared memory
+  auto b_frag = [&](uint32_t (&r)[4], const bf16* rows, int ks) {
+    tc::ldmatrix_x4(r, rows + ((lane & 7) + (lane >> 4) * 8) * PITCH + ks * 16 +
+                           ((lane >> 3) & 1) * 8);
+  };
+  auto a_frag = [&](uint32_t (&r)[4], const bf16* rows, int ks) {
+    tc::ldmatrix_x4(r, rows + (lane & 15) * PITCH + ks * 16 + (lane >> 4) * 8);
+  };
+  // acc[DH / 8] += A (16 x 16, packed from x) times the 16 rows of B (x DH)
+  auto pv = [&](float (&acc)[DH / 8][4], const float (&x)[2][4], const bf16* rows) {
+    const uint32_t af[4] = {tc::pack_bf16(x[0][0], x[0][1]), tc::pack_bf16(x[0][2], x[0][3]),
+                            tc::pack_bf16(x[1][0], x[1][1]), tc::pack_bf16(x[1][2], x[1][3])};
 #pragma unroll
-    for (int kk = 0; kk < NT; ++kk) {
-      wmma::load_matrix_sync(fa, a1 + kk * 16, QP);
-      wmma::load_matrix_sync(fb, b1 + kk * 16, QP);
-      wmma::mma_sync(acc, fa, fb, acc);
+    for (int jj = 0; jj < NS; ++jj) {
+      uint32_t bb[4];
+      tc::ldmatrix_x4_trans(bb, rows + ((lane & 7) + ((lane >> 3) & 1) * 8) * PITCH + jj * 16 +
+                                    (lane >> 4) * 8);
+      tc::mma_bf16(acc[2 * jj], af, bb[0], bb[1]);
+      tc::mma_bf16(acc[2 * jj + 1], af, bb[2], bb[3]);
     }
-    wmma::store_matrix_sync(st, acc, TQ, wmma::mem_row_major);
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < NT; ++kk) {
-      wmma::load_matrix_sync(fa, a2 + kk * 16, QP);
-      wmma::load_matrix_sync(fb, b2 + kk * 16, QP);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(st + TQ * TQ, acc, TQ, wmma::mem_row_major);
-    __syncwarp();
   };
 
-  // pass 1: query tile w
-  if (warp < QT) {
-    const int w = warp;
-    const int qrow = w * TQ + er;
-    float m = -INFINITY, l = 0.f, sp = 0.f;
-    for (int kt = 0; kt < KT; ++kt) {
-      two_products(Qs + w * TQ * QP, Ks + kt * TQ * QP, Os + w * TQ * QP, Vs + kt * TQ * QP);
-      float s[8], mt = -INFINITY;
+  // ---------------------------------------------------------- query-major
+  float ck[CU], cv[CU];  // this lane's columns of the warp's CLS-key partial
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int key = kt * TQ + ec0 + e;
-        s[e] = key < nk ? st[er * TQ + ec0 + e] * scale : -INFINITY;
-        mt = fmaxf(mt, s[e]);
+  for (int u = 0; u < CU; ++u) ck[u] = cv[u] = 0.f;
+  const int nkc = (ntk + SPACE_CHUNK_TILES - 1) / SPACE_CHUNK_TILES;  // key chunks
+  int staged = -1;
+  for (int t0 = 0; t0 < ntq; t0 += W) {
+    const bool active = t0 + warp < ntq;
+    const bf16* qw = own0 + warp * 16 * PITCH;
+    const bf16* ow = own1 + warp * 16 * PITCH;
+    __syncthreads();  // the own buffers' last readers are done
+    stage(own0, own1, t0 * 16, W * 16, false);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    scale_q(own0, W * 16);
+    __syncthreads();
+    uint32_t qa[NS][4], oa[NS][4];
+    if (active) {
+#pragma unroll
+      for (int ks = 0; ks < NS; ++ks) {
+        a_frag(qa[ks], qw, ks);
+        a_frag(oa[ks], ow, ks);
       }
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      const float m_new = fmaxf(m, mt);
-      float es = 0.f, eps = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float ex = s[e] == -INFINITY ? 0.f : __expf(s[e] - m_new);
-        es += ex;
-        eps += ex * st[TQ * TQ + er * TQ + ec0 + e];
-      }
-      es += __shfl_xor_sync(0xffffffffu, es, 1);
-      eps += __shfl_xor_sync(0xffffffffu, eps, 1);
-      const float c = m == -INFINITY ? 0.f : __expf(m - m_new);
-      l = l * c + es;
-      sp = sp * c + eps;
-      m = m_new;
-      __syncwarp();
     }
-    const float inv = 1.f / l, sig = sp * inv;
-    if (lane % 2 == 0) {
-      row_m[qrow] = m;
-      row_inv[qrow] = inv;
-      row_sig[qrow] = sig;
-    }
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[NT];
+    // rows g and g + 8 of the warp's tile; l and e * dp per lane until the end
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, e0 = 0.f, e1 = 0.f;
+    float inv0 = 0.f, inv1 = 0.f, sg0 = 0.f, sg1 = 0.f, dsc0 = 0.f, dsc1 = 0.f, pc0 = 0.f,
+          pc1 = 0.f;
+    float dq[DH / 8][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) wmma::fill_fragment(dq[n], 0.f);
-    for (int kt = 0; kt < KT; ++kt) {
-      two_products(Qs + w * TQ * QP, Ks + kt * TQ * QP, Os + w * TQ * QP, Vs + kt * TQ * QP);
+    for (int j = 0; j < DH / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+    for (int sweep = 0; sweep < 2; ++sweep) {
+      for (int c = 0; c < nkc; ++c) {
+        const int k0 = c * CR, ntc = min(SPACE_CHUNK_TILES, ntk - c * SPACE_CHUNK_TILES);
+        if (staged != c) {
+          __syncthreads();  // the chunk buffers' last readers are done
+          stage(str0, str1, k0, ntc * 16, true);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          staged = c;
+        }
+        if (!active) continue;
+        for (int kt = 0; kt < ntc; ++kt) {
+          float s[2][4] = {}, dp[2][4] = {};
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int key = kt * TQ + ec0 + e;
-        float ds = 0.f;
-        if (key < nk) {
-          const float p = __expf(st[er * TQ + ec0 + e] * scale - m) * inv;
-          ds = p * (st[TQ * TQ + er * TQ + ec0 + e] - sig);
-          if (key == 0) {
-            row_dsc[qrow] = ds;
-            row_pc[qrow] = p;
-            ds = 0.f;  // the CLS key's term is added in f32 below
+          for (int ks = 0; ks < NS; ++ks) {
+            uint32_t bk[4], bv[4];
+            b_frag(bk, str0 + kt * 16 * PITCH, ks);
+            b_frag(bv, str1 + kt * 16 * PITCH, ks);
+            tc::mma_bf16(s[0], qa[ks], bk[0], bk[1]);
+            tc::mma_bf16(s[1], qa[ks], bk[2], bk[3]);
+            tc::mma_bf16(dp[0], oa[ks], bv[0], bv[1]);
+            tc::mma_bf16(dp[1], oa[ks], bv[2], bv[3]);
           }
-        }
-        tb[er * TQ + ec0 + e] = __float2bfloat16(ds);
-      }
-      __syncwarp();
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, tb, TQ);
+          const int jb = k0 + kt * 16;  // the tile's first key
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        wmma::load_matrix_sync(fb, Ks + kt * TQ * QP + n * 16, QP);
-        wmma::mma_sync(dq[n], fa, fb, dq[n]);
-      }
-      __syncwarp();
-    }
-    // dq = scale * (sum ds k + ds_cls k_cls), EPI columns at a time
+          for (int nb = 0; nb < 2; ++nb) {
+            const int j = jb + 8 * nb + 2 * t;
+            if (j >= nk) s[nb][0] = s[nb][2] = -INFINITY;
+            if (j + 1 >= nk) s[nb][1] = s[nb][3] = -INFINITY;
+          }
+          if (sweep == 0) {
+            const float n0 = fmaxf(m0, tc::quad_max(fmaxf(fmaxf(s[0][0], s[0][1]),
+                                                          fmaxf(s[1][0], s[1][1]))));
+            const float n1 = fmaxf(m1, tc::quad_max(fmaxf(fmaxf(s[0][2], s[0][3]),
+                                                          fmaxf(s[1][2], s[1][3]))));
+            const float c0 = __expf(m0 - n0), c1 = __expf(m1 - n1);
+            l0 *= c0;
+            e0 *= c0;
+            l1 *= c1;
+            e1 *= c1;
 #pragma unroll
-    for (int c0 = 0; c0 < DH; c0 += EPI) {
+            for (int nb = 0; nb < 2; ++nb) {
 #pragma unroll
-      for (int n = c0 / 16; n < (c0 + EPI) / 16; ++n)
-        wmma::store_matrix_sync(st + n * 16 - c0, dq[n], EPI, wmma::mem_row_major);
-      __syncwarp();
-      for (int idx = lane; idx < TQ * EPI / 2; idx += 32) {
-        const int r = idx / (EPI / 2), c = 2 * (idx % (EPI / 2));
-        const int q = w * TQ + r;
-        if (q >= L) continue;
-        const float dsc = row_dsc[q];
-        const float d0 = (st[r * EPI + c] + dsc * __bfloat162float(Ks[c0 + c])) * scale;
-        const float d1 = (st[r * EPI + c + 1] + dsc * __bfloat162float(Ks[c0 + c + 1])) * scale;
-        reinterpret_cast<__nv_bfloat162*>(pdq + (tok_g + q) * 3 * D + h * DH + c0)[c / 2] =
-            __floats2bfloat162_rn(d0, d1);
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-
-  // the CLS key's partial dk / dv over the group, in f32
-  for (int t = tid; t < 2 * DH; t += blockDim.x) {
-    const int c = t % DH;
-    float acc = 0.f;
-    if (t < DH) {
-      for (int r = 0; r < L; ++r)
-        acc += row_dsc[r] * sft::bf16r(__bfloat162float(Qs[r * QP + c]) * scale);
-    } else {
-      for (int r = 0; r < L; ++r) acc += row_pc[r] * __bfloat162float(Os[r * QP + c]);
-    }
-    cls_part_g[(bh * gridDim.y + g) * 2 * DH + t] = acc;
-  }
-
-  // pass 2: key tile w
-  if (warp < KT) {
-    const int w = warp;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[NT], dv[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      wmma::fill_fragment(dk[n], 0.f);
-      wmma::fill_fragment(dv[n], 0.f);
-    }
-    bf16* pt = tb;             // P tile [query][key], bf16
-    bf16* dst = tb + TQ * TQ;  // dS tile [query][key], bf16
-    for (int qt = 0; qt < QT; ++qt) {
-      two_products(Qs + qt * TQ * QP, Ks + w * TQ * QP, Os + qt * TQ * QP, Vs + w * TQ * QP);
-      const int q = qt * TQ + er;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int key = w * TQ + ec0 + e;
-        float p = 0.f, ds = 0.f;
-        if (q < L && key < nk && key > 0) {  // the CLS key's column is done in f32 above
-          p = __expf(st[er * TQ + ec0 + e] * scale - row_m[q]) * row_inv[q];
-          ds = p * (st[TQ * TQ + er * TQ + ec0 + e] - row_sig[q]);
-        }
-        pt[er * TQ + ec0 + e] = __float2bfloat16(p);
-        dst[er * TQ + ec0 + e] = __float2bfloat16(ds);
-      }
-      __syncwarp();
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, pt, TQ);  // P^T
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        wmma::load_matrix_sync(fb, Os + qt * TQ * QP + n * 16, QP);
-        wmma::mma_sync(dv[n], fa, fb, dv[n]);
-      }
-      wmma::load_matrix_sync(fa, dst, TQ);  // dS^T
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        wmma::load_matrix_sync(fb, Qs + qt * TQ * QP + n * 16, QP);
-        wmma::mma_sync(dk[n], fa, fb, dk[n]);
-      }
-      __syncwarp();
-    }
-    // dk = scale * sum ds q_raw + ds_cls q_cls; dv = sum p do + p_cls do_cls,
-    // EPI columns at a time
-#pragma unroll
-    for (int which = 0; which < 2; ++which) {
-#pragma unroll
-      for (int c0 = 0; c0 < DH; c0 += EPI) {
-#pragma unroll
-        for (int n = c0 / 16; n < (c0 + EPI) / 16; ++n)
-          wmma::store_matrix_sync(st + n * 16 - c0, which == 0 ? dk[n] : dv[n], EPI,
-                                  wmma::mem_row_major);
-        __syncwarp();
-        for (int idx = lane; idx < TQ * EPI / 2; idx += 32) {
-          const int r = idx / (EPI / 2), c = 2 * (idx % (EPI / 2));
-          const int key = w * TQ + r;
-          if (key < 1 || key >= nk) continue;
-          const int64_t tok = tok_g + key - 1;
-          const int64_t pi = bh * fn + tok;
-          const int col = h * DH + c0 + c;
-          float d0, d1;
-          if (which == 0) {
-            const float dsa = ds_cls[pi];
-            const float q0 = sft::bf16r(__bfloat162float(crow[col]) * scale);
-            const float q1 = sft::bf16r(__bfloat162float(crow[col + 1]) * scale);
-            d0 = st[r * EPI + c] * scale + dsa * q0;
-            d1 = st[r * EPI + c + 1] * scale + dsa * q1;
+              for (int u = 0; u < 2; ++u) {
+                const float x0 = __expf(s[nb][u] - n0), x1 = __expf(s[nb][2 + u] - n1);
+                l0 += x0;
+                e0 += x0 * dp[nb][u];
+                l1 += x1;
+                e1 += x1 * dp[nb][2 + u];
+              }
+            }
+            m0 = n0;
+            m1 = n1;
           } else {
-            const float pa = p_cls[pi];
-            d0 = st[r * EPI + c] + pa * __bfloat162float(docr[col]);
-            d1 = st[r * EPI + c + 1] + pa * __bfloat162float(docr[col + 1]);
+#pragma unroll
+            for (int nb = 0; nb < 2; ++nb) {
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const float p0 = __expf(s[nb][u] - m0) * inv0;
+                const float p1 = __expf(s[nb][2 + u] - m1) * inv1;
+                s[nb][u] = p0 * (dp[nb][u] - sg0);
+                s[nb][2 + u] = p1 * (dp[nb][2 + u] - sg1);
+                if (jb + 8 * nb + 2 * t + u == 0) {  // the CLS key: f32, outside the product
+                  dsc0 = s[nb][u];
+                  dsc1 = s[nb][2 + u];
+                  pc0 = p0;
+                  pc1 = p1;
+                  s[nb][u] = s[nb][2 + u] = 0.f;
+                }
+              }
+            }
+            pv(dq, s, str0 + kt * 16 * PITCH);
           }
-          reinterpret_cast<__nv_bfloat162*>(pdq + tok * 3 * D + (1 + which) * D + col)[0] =
-              __floats2bfloat162_rn(d0, d1);
         }
-        __syncwarp();
+      }
+      if (sweep == 0 && active) {
+        l0 = tc::quad_sum(l0);
+        l1 = tc::quad_sum(l1);
+        inv0 = 1.f / l0;
+        inv1 = 1.f / l1;
+        sg0 = tc::quad_sum(e0) * inv0;
+        sg1 = tc::quad_sum(e1) * inv1;
+      }
+    }
+    if (active) {
+      const int r0 = (t0 + warp) * 16 + g;
+      const bool v0 = r0 < n, v1 = r0 + 8 < n;
+      // lane 4g holds the CLS column (key 0): its ds_c / p_c to the quad
+      dsc0 = __shfl_sync(0xffffffffu, dsc0, lane & ~3);
+      dsc1 = __shfl_sync(0xffffffffu, dsc1, lane & ~3);
+      pc0 = __shfl_sync(0xffffffffu, pc0, lane & ~3);
+      pc1 = __shfl_sync(0xffffffffu, pc1, lane & ~3);
+      if (!v0) dsc0 = pc0 = 0.f;
+      if (!v1) dsc1 = pc1 = 0.f;
+      if (t == 0) {
+        if (v0) stats[r0] = make_float4(m0, inv0, sg0, 0.f);
+        if (v1) stats[r0 + 8] = make_float4(m1, inv1, sg1, 0.f);
+        float* wr = wrow + warp * 32;
+        wr[2 * g] = dsc0;
+        wr[2 * g + 1] = pc0;
+        wr[2 * (g + 8)] = dsc1;
+        wr[2 * (g + 8) + 1] = pc1;
+      }
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        const float2 kc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(crow + D + col));
+        if (v0)
+          *reinterpret_cast<__nv_bfloat162*>(pdq + (int64_t)r0 * D3 + col) =
+              __floats2bfloat162_rn((dq[j][0] + dsc0 * kc.x) * scale,
+                                    (dq[j][1] + dsc0 * kc.y) * scale);
+        if (v1)
+          *reinterpret_cast<__nv_bfloat162*>(pdq + (int64_t)(r0 + 8) * D3 + col) =
+              __floats2bfloat162_rn((dq[j][2] + dsc1 * kc.x) * scale,
+                                    (dq[j][3] + dsc1 * kc.y) * scale);
+      }
+      __syncwarp();
+      const float* wr = wrow + warp * 32;
+#pragma unroll
+      for (int u = 0; u < CU; ++u) {
+        const int col = lane + 32 * u;
+        for (int r = 0; r < 16; ++r) {
+          ck[u] += wr[2 * r] * __bfloat162float(qw[r * PITCH + col]);
+          cv[u] += wr[2 * r + 1] * __bfloat162float(ow[r * PITCH + col]);
+        }
+      }
+      __syncwarp();
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < CU; ++u) {
+    wcls[warp * 2 * DH + lane + 32 * u] = ck[u];
+    wcls[warp * 2 * DH + DH + lane + 32 * u] = cv[u];
+  }
+  __syncthreads();  // the stats and the warps' CLS partials are written
+  for (int c = tid; c < 2 * DH; c += blockDim.x) {
+    float acc = 0.f;
+    for (int w = 0; w < W; ++w) acc += wcls[w * 2 * DH + c];
+    a.cls_part_g[(bh * gridDim.y + grp) * 2 * DH + c] = acc;
+  }
+
+  // ------------------------------------------------------------ key-major
+  const int nqc = (ntq + SPACE_CHUNK_TILES - 1) / SPACE_CHUNK_TILES;  // query chunks
+  staged = -1;
+  for (int t0 = 0; t0 < ntk; t0 += W) {
+    const int kt_own = t0 + warp;
+    const bool active = kt_own < ntk;
+    const bf16* kw = own0 + warp * 16 * PITCH;
+    const bf16* vw = own1 + warp * 16 * PITCH;
+    __syncthreads();
+    stage(own0, own1, t0 * 16, W * 16, true);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float dk[DH / 8][4], dv[DH / 8][4];
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+    // keys g and g + 8 of the warp's tile: patch keys only (not the CLS row)
+    const int kj0 = kt_own * 16 + g, kj1 = kj0 + 8;
+    const bool kv0 = kj0 >= 1 && kj0 < nk, kv1 = kj1 >= 1 && kj1 < nk;
+    for (int c = 0; c < nqc; ++c) {
+      const int q0 = c * CR, ntc = min(SPACE_CHUNK_TILES, ntq - c * SPACE_CHUNK_TILES);
+      if (staged != c) {
+        __syncthreads();
+        stage(str0, str1, q0, ntc * 16, false);
+        cp_async_commit();
+        for (int r = tid; r < ntc * 16; r += blockDim.x)
+          sstat[r] = q0 + r < n ? __ldcg(stats + q0 + r) : make_float4(0.f, 0.f, 0.f, 0.f);
+        cp_async_wait<0>();
+        __syncthreads();
+        scale_q(str0, ntc * 16);
+        __syncthreads();
+        staged = c;
+      }
+      if (!active) continue;
+      for (int qt = 0; qt < ntc; ++qt) {
+        float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < NS; ++ks) {
+          uint32_t ka[4], va[4], bq[4], bo[4];
+          a_frag(ka, kw, ks);
+          a_frag(va, vw, ks);
+          b_frag(bq, str0 + qt * 16 * PITCH, ks);
+          b_frag(bo, str1 + qt * 16 * PITCH, ks);
+          tc::mma_bf16(s[0], ka, bq[0], bq[1]);
+          tc::mma_bf16(s[1], ka, bq[2], bq[3]);
+          tc::mma_bf16(dp[0], va, bo[0], bo[1]);
+          tc::mma_bf16(dp[1], va, bo[2], bo[3]);
+        }
+        // s now holds p^T, dp ds^T; columns are queries 8 nb + 2 t + u
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int qi = qt * 16 + 8 * nb + 2 * t + u;
+            const float4 st = sstat[qi];  // zero past the last query: p = 0
+            const float p0 = kv0 ? __expf(s[nb][u] - st.x) * st.y : 0.f;
+            const float p1 = kv1 ? __expf(s[nb][2 + u] - st.x) * st.y : 0.f;
+            dp[nb][u] = p0 * (dp[nb][u] - st.z);
+            dp[nb][2 + u] = p1 * (dp[nb][2 + u] - st.z);
+            s[nb][u] = p0;
+            s[nb][2 + u] = p1;
+          }
+        }
+        pv(dv, s, str1 + qt * 16 * PITCH);
+        pv(dk, dp, str0 + qt * 16 * PITCH);
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int kj = half ? kj1 : kj0;
+        if (!(half ? kv1 : kv0)) continue;
+        const int64_t tok = kj - 1;  // the patch within the group
+        const int64_t pi = bh * a.fn + tok0 + tok;
+        const float dsa = a.ds_cls[pi], pa = a.p_cls[pi];
+        bf16* out = pdq + tok * D3;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float2 qc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(crow + col));
+          const float2 oc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cdo + col));
+          *reinterpret_cast<__nv_bfloat162*>(out + D + col) = __floats2bfloat162_rn(
+              dk[j][2 * half] + dsa * sft::bf16r(qc.x * scale),
+              dk[j][2 * half + 1] + dsa * sft::bf16r(qc.y * scale));
+          *reinterpret_cast<__nv_bfloat162*>(out + 2 * D + col) = __floats2bfloat162_rn(
+              dv[j][2 * half] + pa * oc.x, dv[j][2 * half + 1] + pa * oc.y);
+        }
       }
     }
   }
@@ -751,34 +842,55 @@ cls_reduce_kernel(const float* __restrict__ cls_part, const float* __restrict__ 
   dqkv_c[(int64_t)b * cstride * 3 * D + (1 + which) * D + h * DH + col] = __float2bfloat16(acc);
 }
 
-// launch_bwd's return code when a space-mode group does not fit one block
-// (more than 16 tiles of keys, or more shared memory than a block may opt
-// into); it launches nothing then. The wrappers name the shape.
-constexpr int kGroupTooLarge = -2;
+// The space pass's warps and shared memory for n patches a frame.
+inline int space_warps(int n) {
+  const int ntk = (n + 1 + 15) / 16;
+  return ntk < SPACE_WARPS ? ntk : SPACE_WARPS;
+}
 
-// mode 0 = space (groups are frames, one a block; n <= 255, and less at DH
-// 128, see SpaceTile), 1 = time (groups are spatial positions, GPB a block).
-// Scratch (f32, written before read): ds_cls and p_cls B*H*f*n each,
-// cls_part B*H*2*DH, cls_part_g B*H*G*2*DH with G the group count of the
-// mode (time mode fills the first B*H*ceil(n/GPB)*2*DH).
+template <int DH>
+size_t space_smem(int warps) {
+  const size_t rows = 2 * (size_t)warps * 16 + 2 * (size_t)SPACE_CHUNK_TILES * 16;
+  return rows * (DH + 8) * sizeof(bf16) + (size_t)SPACE_CHUNK_TILES * 16 * sizeof(float4) +
+         ((size_t)warps * 32 + (size_t)warps * 2 * DH) * sizeof(float);
+}
+
+// The time pass's shared memory for P positions of f frames, D = H * DH.
+inline size_t time_bwd_smem(int f, int D, int H, int P) {
+  return (size_t)(1 + f * P) * 4 * D * sizeof(bf16) + (size_t)P * H * f * 2 * sizeof(float) +
+         (size_t)WARPS * 2 * f * (f + 1) * sizeof(float);
+}
+
+inline int time_bwd_positions(int f, int D, int H) {
+  for (int P = 4; P > 1; P /= 2)
+    if (time_bwd_smem(f, D, H, P) <= TIME_BWD_SMEM_TARGET) return P;
+  return 1;
+}
+
+// mode 0 = space (groups are frames), 1 = time (groups are spatial
+// positions, P a block). Scratch (f32, written before read): ds_cls and
+// p_cls B*H*f*n each, cls_part B*H*2*DH, cls_part_g B*H*G*2*DH with G the
+// block count over a segment's groups (f in space mode, ceil(n / P) in
+// time mode), stats B*H*f*n*4 (space mode only).
 template <int DH>
 int launch_bwd(const bf16* qkv_p, const bf16* qkv_c, const bf16* dop, const bf16* doc,
-               float* ds_cls, float* p_cls, float* cls_part, float* cls_part_g, bf16* dqkv_p,
-               bf16* dqkv_c, int B, int f, int n, int H, int mode, Strides strd,
+               float* ds_cls, float* p_cls, float* cls_part, float* cls_part_g, float* stats,
+               bf16* dqkv_p, bf16* dqkv_c, int B, int f, int n, int H, int mode, Strides strd,
                cudaStream_t s) {
-  const int L = mode == 0 ? n : f;
-  const int QT = (L + TQ - 1) / TQ, KT = (L + 1 + TQ - 1) / TQ;  // space-mode tiles
-  if (mode == 0) {
-    int dev = 0, optin = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e != cudaSuccess) return (int)e;
-    if (KT > 16 || SpaceTile<DH>::smem(QT, KT) > (size_t)optin) return kGroupTooLarge;
-  }
-  const int fn = f * n;
+  const int fn = f * n, D = H * DH;
   const float scale = (float)pow((double)DH, -0.5);
-  const int nchunks = mode == 0 ? f : (n + GPB - 1) / GPB;
+  BwdArgs a{qkv_p, qkv_c, dop, doc, ds_cls, p_cls, stats, cls_part_g, dqkv_p,
+            fn, f, n, H, 1, 1, strd, scale};
+  size_t smem_g;
+  if (mode == 0) {
+    a.warps = space_warps(n);
+    smem_g = space_smem<DH>(a.warps);
+  } else {
+    a.P = time_bwd_positions(f, D, H);
+    smem_g = time_bwd_smem(f, D, H, a.P);
+  }
+  if (smem_g > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int nchunks = mode == 0 ? f : (n + a.P - 1) / a.P;
 
   const size_t smem_c = (2 * DH + 32 + 2 + (CLS_THREADS / 32) * DH + 2 * (size_t)(fn + 1)) *
                         sizeof(float);
@@ -790,27 +902,17 @@ int launch_bwd(const bf16* qkv_p, const bf16* qkv_c, const bf16* dop, const bf16
   SFT_CHECK_LAUNCH();
 
   if (mode == 0) {
-    const int warps = QT > KT ? QT : KT;
-    const size_t smem_t = SpaceTile<DH>::smem(QT, KT);
-    cudaFuncSetAttribute(space_bwd_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem_t);
-    SFT_CHECK_LAUNCH();
-    space_bwd_tc_kernel<DH><<<dim3(H, f, B), warps * 32, smem_t, s>>>(
-        qkv_p, qkv_c, dop, doc, ds_cls, p_cls, cls_part_g, dqkv_p, fn, L, H, QT, KT, strd,
-        scale);
-    SFT_CHECK_LAUNCH();
-  } else {
-    const size_t cap = (size_t)GPB * L;
-    const size_t smem_g = (2 * (1 + cap) + 2 * cap) * (DH + 2) * sizeof(bf16) +
-                          (5 * cap + 2 * DH + WARPS * (2 * DH + 2 * (size_t)(L + 1))) *
-                              sizeof(float);
-    cudaFuncSetAttribute(group_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(space_bwd_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem_g);
     SFT_CHECK_LAUNCH();
-    group_bwd_kernel<DH><<<dim3(H, nchunks, B), WARPS * 32, smem_g, s>>>(
-        qkv_p, qkv_c, dop, doc, ds_cls, p_cls, cls_part_g, dqkv_p, L, n, H, strd, scale);
+    space_bwd_mma_kernel<DH><<<dim3(H, f, B), a.warps * 32, smem_g, s>>>(a);
+  } else {
+    cudaFuncSetAttribute(time_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_g);
     SFT_CHECK_LAUNCH();
+    time_bwd_kernel<DH><<<dim3(nchunks, B), TIME_THREADS, smem_g, s>>>(a);
   }
+  SFT_CHECK_LAUNCH();
 
   cls_reduce_kernel<DH><<<dim3(H, B), 2 * DH, 0, s>>>(cls_part, cls_part_g, dqkv_c, H, nchunks,
                                                       strd.c);
@@ -821,16 +923,17 @@ int launch_bwd(const bf16* qkv_p, const bf16* qkv_c, const bf16* dop, const bf16
 // launch_bwd at the head_dim of the call; the instantiated set is {32, 64,
 // 96, 128}, and the wrappers refuse any other before they launch.
 int dispatch_bwd(int dh, const void* qkv_p, const void* qkv_c, const void* dop, const void* doc,
-                 void* ds_cls, void* p_cls, void* cls_part, void* cls_part_g, void* dqkv_p,
-                 void* dqkv_c, int B, int f, int n, int H, int mode, Strides strd,
+                 void* ds_cls, void* p_cls, void* cls_part, void* cls_part_g, void* stats,
+                 void* dqkv_p, void* dqkv_c, int B, int f, int n, int H, int mode, Strides strd,
                  void* stream) {
 #define SFT_BWD(DH_)                                                                          \
   launch_bwd<DH_>(static_cast<const bf16*>(qkv_p), static_cast<const bf16*>(qkv_c),           \
                   static_cast<const bf16*>(dop), static_cast<const bf16*>(doc),               \
                   static_cast<float*>(ds_cls), static_cast<float*>(p_cls),                    \
                   static_cast<float*>(cls_part), static_cast<float*>(cls_part_g),             \
-                  static_cast<bf16*>(dqkv_p), static_cast<bf16*>(dqkv_c), B, f, n, H, mode,   \
-                  strd, static_cast<cudaStream_t>(stream))
+                  static_cast<float*>(stats), static_cast<bf16*>(dqkv_p),                     \
+                  static_cast<bf16*>(dqkv_c), B, f, n, H, mode, strd,                         \
+                  static_cast<cudaStream_t>(stream))
   switch (dh) {
     case 32:
       return SFT_BWD(32);
@@ -852,23 +955,24 @@ int dispatch_bwd(int dh, const void* qkv_p, const void* qkv_c, const void* dop, 
 extern "C" int sft_divided_attention_bwd(const void* qkv_p, const void* qkv_c,
                                          const void* dop, const void* doc, void* ds_cls,
                                          void* p_cls, void* cls_part, void* cls_part_g,
-                                         void* dqkv_p, void* dqkv_c, int B, int f, int n,
-                                         int H, int dh, int mode, void* stream) {
+                                         void* stats, void* dqkv_p, void* dqkv_c, int B, int f,
+                                         int n, int H, int dh, int mode, void* stream) {
   const int fn = f * n;
-  return dispatch_bwd(dh, qkv_p, qkv_c, dop, doc, ds_cls, p_cls, cls_part, cls_part_g, dqkv_p,
-                      dqkv_c, B, f, n, H, mode, Strides{fn, 1, fn, 1}, stream);
+  return dispatch_bwd(dh, qkv_p, qkv_c, dop, doc, ds_cls, p_cls, cls_part, cls_part_g, stats,
+                      dqkv_p, dqkv_c, B, f, n, H, mode, Strides{fn, 1, fn, 1}, stream);
 }
 
 // K7c on the packed layout: dqkv (B, 1 + f*n, 3D) from qkv of that shape and
 // the cotangent dout (B, 1 + f*n, D). Scratch as K6's.
 extern "C" int sft_divided_attention_packed_bwd(const void* qkv, const void* dout,
                                                 void* ds_cls, void* p_cls, void* cls_part,
-                                                void* cls_part_g, void* dqkv, int B, int f,
-                                                int n, int H, int dh, int mode, void* stream) {
+                                                void* cls_part_g, void* stats, void* dqkv, int B,
+                                                int f, int n, int H, int dh, int mode,
+                                                void* stream) {
   const int seq = 1 + f * n, D = H * dh;
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* o = static_cast<const bf16*>(dout);
   bf16* dq = static_cast<bf16*>(dqkv);
-  return dispatch_bwd(dh, q + 3 * D, q, o + D, o, ds_cls, p_cls, cls_part, cls_part_g,
+  return dispatch_bwd(dh, q + 3 * D, q, o + D, o, ds_cls, p_cls, cls_part, cls_part_g, stats,
                       dq + 3 * D, dq, B, f, n, H, mode, Strides{seq, seq, seq, seq}, stream);
 }

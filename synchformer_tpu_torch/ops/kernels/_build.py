@@ -42,6 +42,13 @@ WGMMA_BM, WGMMA_BK = 128, 64
 TIME_WARPS = 8
 TIME_SMEM_TARGET = 57344
 MAX_SMEM = 232448  # shared memory one block may take on the H100
+# the divided attention's backward (csrc/divided_attention_bwd.cu): the
+# space pass's warps a block at most and 16-row tiles of a streamed chunk;
+# the time pass's warps and shared-memory target
+BWD_SPACE_WARPS = 8
+BWD_SPACE_CHUNK_TILES = 13
+BWD_TIME_WARPS = 8
+BWD_TIME_SMEM_TARGET = 114688
 
 # launches of each kernel wrapper on a CUDA tensor, keyed K1..K4, K4b, K5,
 # K6, K7a, K7b, K7c, K8a, K8b, K8c, and GEMM (the Hopper GEMM's own entry,
@@ -65,8 +72,8 @@ _SIGNATURES = {
     "divided_attention": {"sft_divided_attention_proj": [_P] * 8 + [_I] * 6 + [_P],
                           "sft_divided_attention": [_P] * 4 + [_I] * 6 + [_P],
                           "sft_divided_attention_packed": [_P] * 2 + [_I] * 6 + [_P]},
-    "divided_attention_bwd": {"sft_divided_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
-                              "sft_divided_attention_packed_bwd": [_P] * 7 + [_I] * 6 + [_P]},
+    "divided_attention_bwd": {"sft_divided_attention_bwd": [_P] * 11 + [_I] * 6 + [_P],
+                              "sft_divided_attention_packed_bwd": [_P] * 8 + [_I] * 6 + [_P]},
     "gemm": {"sft_gemm": [_P] * 4 + [_L, _P, _L, _I, _I, _I, _P]},
     "fused_block": {"sft_fused_divided_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
                     "sft_fused_mlp": [_P] * 8 + [_L, _I, _I, _F, _P]},
@@ -116,6 +123,45 @@ def time_pass_plan(f: int, n: int, d: int) -> dict:
     require(smem(p) <= MAX_SMEM,
             f"the time pass stages {f} frames' keys and values of width {d} in one block: "
             f"{smem(p)} bytes of shared memory, more than {MAX_SMEM}")
+    return {"p": p, "blocks": -(-n // p), "smem": smem(p)}
+
+
+def space_bwd_plan(n: int, dh: int) -> dict:
+    """The launch plan of the backward's space pass
+    (csrc/divided_attention_bwd.cu::space_bwd_mma_kernel) for frames of n
+    patches: ``warps`` a block (one 16-row tile each, at most
+    BWD_SPACE_WARPS), the query / key tiles, the streamed chunks of
+    BWD_SPACE_CHUNK_TILES tiles over the n + 1 keys and over the n queries,
+    and the block's shared memory, which depends on dh and the warps but
+    not otherwise on n."""
+    tq, tk = -(-n // 16), -(-(n + 1) // 16)
+    warps = min(tk, BWD_SPACE_WARPS)
+    pitch = (dh + 8) * 2
+    smem = ((2 * warps * 16 + 2 * BWD_SPACE_CHUNK_TILES * 16) * pitch
+            + BWD_SPACE_CHUNK_TILES * 16 * 16 + (warps * 32 + warps * 2 * dh) * 4)
+    require(smem <= MAX_SMEM, f"the backward's space pass at head_dim {dh} takes {smem} bytes "
+            f"of shared memory, more than {MAX_SMEM}")
+    return {"warps": warps, "query_tiles": tq, "key_tiles": tk,
+            "key_chunks": -(-tk // BWD_SPACE_CHUNK_TILES),
+            "query_chunks": -(-tq // BWD_SPACE_CHUNK_TILES), "smem": smem}
+
+
+def time_bwd_plan(f: int, n: int, d: int, heads: int) -> dict:
+    """The launch plan of the backward's time pass
+    (csrc/divided_attention_bwd.cu::time_bwd_kernel): ``p`` spatial
+    positions a block (the largest of 4, 2, 1 whose 1 + f * p rows of qkv
+    and cotangent, 4d wide, fit BWD_TIME_SMEM_TARGET bytes with the scratch,
+    else 1), ``blocks`` position tiles a segment (the CLS key's partial
+    slots), and the block's shared memory. Raises where even one position's
+    rows do not fit a block."""
+    def smem(p):
+        return ((1 + f * p) * 4 * d * 2 + p * heads * f * 2 * 4
+                + BWD_TIME_WARPS * 2 * f * (f + 1) * 4)
+
+    p = next((p for p in (4, 2) if smem(p) <= BWD_TIME_SMEM_TARGET), 1)
+    require(smem(p) <= MAX_SMEM,
+            f"the backward's time pass stages {f} frames' qkv and cotangent rows of width {d} "
+            f"in one block: {smem(p)} bytes of shared memory, more than {MAX_SMEM}")
     return {"p": p, "blocks": -(-n // p), "smem": smem(p)}
 
 

@@ -51,27 +51,26 @@ __all__ = ["divided_attention_bwd", "divided_attention_bwd_plain", "DividedAtten
            "divided_attention_packed_bwd_plain", "DividedAttentionPackedFn",
            "packed_divided_attention"]
 
-# the C entries' code for a space-mode group that does not fit one block
-# (csrc/divided_attention_bwd.cu::kGroupTooLarge); nothing was launched
-_GROUP_TOO_LARGE = -2
 
-
-def _check_code(what: str, code: int, n: int, dh: int):
-    _build.require(code != _GROUP_TOO_LARGE,
-                   f"{what}: a frame of {n} patches at head_dim {dh} does not fit the space "
-                   f"pass's shared memory")
-    _build.check(code, what)
-
-
-def _scratch(b: int, num_heads: int, fn: int, groups: int, dh: int, dev):
-    """f32 scratch of the backward: ds and p of the CLS query over every patch,
-    the CLS key's own dk / dv, and its per-group partial sums (a slot per
-    group at most: time mode packs several groups a block and fills fewer)."""
+def _scratch(b: int, num_heads: int, f: int, n: int, dh: int, mode: str, dev):
+    """f32 scratch of the backward: ds and p of the CLS query over every
+    patch, the CLS key's own dk / dv, its partial sums (a slot per block of
+    the group pass over a segment: a frame in space mode, a tile of
+    positions in time mode, from _build.time_bwd_plan, which raises before
+    any launch on frames whose rows do not fit a block), and the space
+    pass's row statistics (m, 1/l, sigma, 0) of every query (None in time
+    mode). The space pass takes every n: its shared memory is fixed by dh
+    (_build.space_bwd_plan)."""
     f32 = torch.float32
+    fn = f * n
+    if mode == "space":
+        slots, stats = f, torch.empty((b, num_heads, fn, 4), dtype=f32, device=dev)
+    else:
+        slots, stats = _build.time_bwd_plan(f, n, num_heads * dh, num_heads)["blocks"], None
     ds_cls = torch.empty((b, num_heads, fn), dtype=f32, device=dev)
     return (ds_cls, torch.empty_like(ds_cls),
             torch.empty((b, num_heads, 2 * dh), dtype=f32, device=dev),
-            torch.empty((b, num_heads, groups, 2 * dh), dtype=f32, device=dev))
+            torch.empty((b, num_heads, slots, 2 * dh), dtype=f32, device=dev), stats)
 
 
 def divided_attention_bwd_plain(qkv_patches, qkv_cls, dop, doc, num_heads: int, mode: str):
@@ -94,15 +93,15 @@ def divided_attention_bwd(qkv_patches, qkv_cls, dop, doc, num_heads: int, mode: 
     _build.require(all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in (dop, doc))
                    and dop.shape == (b, f, n, d) and doc.shape == (b, 1, d),
                    "K6 takes contiguous bf16 cotangents of the forward's shape")
-    scratch = _scratch(b, num_heads, f * n, f if mode == "space" else n, dh, qkv_patches.device)
+    scratch = _scratch(b, num_heads, f, n, dh, mode, qkv_patches.device)
     dqkv_p = torch.empty_like(qkv_patches)
     dqkv_c = torch.empty_like(qkv_cls)
     fn = _build.library("divided_attention_bwd")
     _build.launches["K6"] += 1
-    _check_code("K6 divided_attention_bwd",
-                fn(qkv_patches.data_ptr(), qkv_cls.data_ptr(), dop.data_ptr(), doc.data_ptr(),
-                   *(t.data_ptr() for t in scratch), dqkv_p.data_ptr(), dqkv_c.data_ptr(),
-                   b, f, n, num_heads, dh, _MODES[mode], _build.stream_ptr()), n, dh)
+    _build.check(fn(qkv_patches.data_ptr(), qkv_cls.data_ptr(), dop.data_ptr(), doc.data_ptr(),
+                    *map(_build.ptr, scratch), dqkv_p.data_ptr(), dqkv_c.data_ptr(),
+                    b, f, n, num_heads, dh, _MODES[mode], _build.stream_ptr()),
+                 "K6 divided_attention_bwd")
     return dqkv_p, dqkv_c
 
 
@@ -126,14 +125,13 @@ def divided_attention_packed_bwd(qkv, dout, num_heads: int, num_frames: int, mod
     _build.require(dout.dtype == torch.bfloat16 and dout.is_contiguous()
                    and dout.shape == (b, 1 + f * n, d),
                    "K7c takes a contiguous bf16 cotangent of the forward's shape")
-    scratch = _scratch(b, num_heads, f * n, f if mode == "space" else n, dh, qkv.device)
+    scratch = _scratch(b, num_heads, f, n, dh, mode, qkv.device)
     dqkv = torch.empty_like(qkv)
     fn = _build.library("divided_attention_bwd", "sft_divided_attention_packed_bwd")
     _build.launches["K7c"] += 1
-    _check_code("K7c divided_attention_packed_bwd",
-                fn(qkv.data_ptr(), dout.data_ptr(), *(t.data_ptr() for t in scratch),
-                   dqkv.data_ptr(), b, f, n, num_heads, dh, _MODES[mode], _build.stream_ptr()),
-                n, dh)
+    _build.check(fn(qkv.data_ptr(), dout.data_ptr(), *map(_build.ptr, scratch),
+                    dqkv.data_ptr(), b, f, n, num_heads, dh, _MODES[mode], _build.stream_ptr()),
+                 "K7c divided_attention_packed_bwd")
     return dqkv
 
 
