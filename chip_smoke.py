@@ -22,7 +22,9 @@ Phases, each printed as it runs with its seconds:
    the CLS-pool layer with the CLS row inside x, at the MoCo step's video
    global aggregator (2, 15, 768) and, checked but not reported, at the
    Stage I spatial aggregator's groups with their CLS row inside, (224, 197,
-   768), where each group's query differs; K4b over [cls; x] against K4
+   768), where each group's query differs; K8b also at D = 512, hidden 2048,
+   and K2 at D = 192, hidden 768, both checked but not reported; K4b over
+   [cls; x] against K4
    over x with the same CLS row, (224, 197, 768); and, checked but not
    reported, the two tensor-core attentions and the time pass at ragged
    shapes (ragged_cases: K3 at 17, 74 and 197 tokens, the space pass split
@@ -34,28 +36,32 @@ Phases, each printed as it runs with its seconds:
    196 patches, and at 207, 208 and 300 patches (one 208-row chunk of keys,
    then two) for every head_dim, split and packed, the time pass at 8 frames
    of 37 patches for every head_dim, split and packed); first of
-   all the Hopper GEMM under K1 and K2 on its own entry (gemm_cases: K2's
-   fc1 / fc2 at the video tower's and the AST's rows, K1's projection, each
-   timed beside one F.linear call, cuBLAS, as a yardstick; ragged cases at
-   1, 127, 129 and 8288 rows and N = 384; a guard-band case):
+   all the Hopper GEMM under K1, K2 and K8a-K8c on its own entry
+   (gemm_cases: K2's fc1 / fc2 at the video tower's and the AST's rows, K1's
+   projection, K8a's QKV and K8b's fc1 / fc2 at the 8-head serving tower's
+   rows, each timed beside one F.linear call, cuBLAS, as a yardstick; ragged
+   cases at 1, 127, 129, 300 and 8288 rows, N = 192, 384 and 576 (64-wide
+   last column tiles), K = 32 and 96; guard-band cases):
    the kernel against its plain PyTorch version (for K6 and K7c the autograd
    gradient of the forward's plain version, for seeded random cotangents),
    both held against a
    plain f32 anchor on the same inputs. Tolerance for each output: kernel
    error <= 2 x plain-bf16 error + eps, with eps = 1e-2 x max|anchor| (bf16
    keeps 8 bits; the two sides round at other places). Each kernel and its
-   plain version are timed with CUDA events; K3, K7a and K7b also against
+   plain version are timed with CUDA events; K3, K5, K7a and K7b also against
    one torch.nn.functional.scaled_dot_product_attention call on views of the
-   same packed QKV (for K7a/K7b with a boolean mask of the divided
-   attention's pattern), held to the kernel's tolerance (a yardstick only:
+   same packed QKV (for K5, K7a and K7b with a boolean mask of the divided
+   attention's pattern; for K5 over its rows packed, 12 heads of 64), held
+   to the kernel's tolerance (a yardstick only:
    the port never calls it); K6 and K7c against the backward alone of the
    same masked call (its forward run once, outside the timed region; for K6
-   over the same rows packed, 12 heads of 64), held likewise. K3 and the
+   over the same rows packed, 12 heads of 64), held likewise. K3, the
    divided attention forwards and backwards (K1, K5, K6, K7a, K7b, K7c,
-   K8a), and their library calls, are also timed by launch with
-   torch.profiler (device time only: the attention kernels, the CLS row,
-   for the backwards its reduction and, for K1 and K8a, the GEMMs, each
-   apart) and by the host's time to enqueue a call.
+   K8a), K2, K8b and K8c, and their library calls, are also timed by launch
+   with torch.profiler (device time only: the attention kernels, the CLS
+   row, for the backwards its reduction, the LayerNorm pass and row
+   statistics and, for K1, K2 and K8a-K8c, the GEMMs, each apart) and by the
+   host's time to enqueue a call.
 3. the full-width inference slice: Synchformer S=14 (ViT-B towers of 12
    layers, D=768, 3-layer GlobalTransformer), B=8, seeded weights, through
    SyncPredictor(impl='kernel') and (impl='plain') in bf16, both against an
@@ -172,7 +178,7 @@ SOURCES = {
     "K7b": "synchformer_tpu_torch/csrc/divided_attention.cu",
     "K7c": "synchformer_tpu_torch/csrc/divided_attention_bwd.cu",
     "K8a": "synchformer_tpu_torch/csrc/fused_block.cu",
-    "K8b": "synchformer_tpu_torch/csrc/fused_block.cu",
+    "K8b": "synchformer_tpu_torch/csrc/ln_mlp.cu",
     "K8c": "synchformer_tpu_torch/csrc/ln_mlp.cu",
 }
 NAMES = {
@@ -249,9 +255,9 @@ STAGE1_LEAVES = re.compile(
     r"vfeat_extractor\.(cls_token|blocks\.\d+\.(attn|timeattn)\.qkv\.(weight|bias))")
 PAIRED = ("K1", "K5", "K6", "K7a", "K7b", "K7c", "K8a")  # timed as a (space + time) pair
 # the kernels whose calls (and library yardsticks) phase 2 also times by
-# launch: the tensor-core attentions and the divided attention forwards and
-# backwards
-BY_LAUNCH = ("K1", "K3", "K5", "K6", "K7a", "K7b", "K7c", "K8a")
+# launch: the tensor-core attentions, the divided attention forwards and
+# backwards, and the fused route's kernels (their GEMMs apart)
+BY_LAUNCH = ("K1", "K2", "K3", "K5", "K6", "K7a", "K7b", "K7c", "K8a", "K8b", "K8c")
 MAX_CLIP = 1.0  # Stage I's max_clip_norm
 B, S = 8, 14
 B1 = 2  # Stage I's base_batch_size
@@ -347,6 +353,7 @@ def kernel_cases(torch, dev):
         divided_attention_packed_bwd,
         divided_attention_packed_bwd_plain,
     )
+    from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_mlp_residual
     from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -399,18 +406,21 @@ def kernel_cases(torch, dev):
     qkv_p1, qkv_c1 = rn(bs1, F_T, N_P, 3 * d), rn(bs1, 1, 3 * d)
     dop, doc = rn(bs1, F_T, N_P, d), rn(bs1, 1, d)
     act1 = bs1 * F_T * N_P * d * 2
+    # K5's and K6's library yardsticks: the masked scaled_dot_product_attention
+    # over the same rows in the packed layout (packed outside the timed
+    # call), 12 heads of 64; its forward for K5, its backward for K6
+    qkv6 = torch.cat([qkv_c1, qkv_p1.reshape(bs1, -1, 3 * d)], 1)
+    do6 = torch.cat([doc, dop.reshape(bs1, -1, d)], 1)
+    masks = {mode: packed_mask(torch, dev, mode) for mode in ("space", "time")}
+    q6, k6, v6 = (qkv6.view(bs1, SEQ, 3, h, DH)[:, :, i].transpose(1, 2) for i in range(3))
     for mode in ("space", "time"):
         cases.append(("K5", f"K5 {mode} ({bs1},8,196,2304)",
                       lambda m=mode: divided_attention(qkv_p1, qkv_c1, h, m),
                       lambda dt, m=mode: divided_attention(qkv_p1.to(dt), qkv_c1.to(dt), h, m,
                                                            impl="plain"),
-                      (4 * act1 + 2 * bs1 * 4 * d * 2, attention_flops(bs1, mode, 2)), None))
-    # K6's library yardstick: the backward of the masked
-    # scaled_dot_product_attention over the same rows in the packed layout
-    # (packed outside the timed call), 12 heads of 64
-    qkv6 = torch.cat([qkv_c1, qkv_p1.reshape(bs1, -1, 3 * d)], 1)
-    do6 = torch.cat([doc, dop.reshape(bs1, -1, d)], 1)
-    masks = {mode: packed_mask(torch, dev, mode) for mode in ("space", "time")}
+                      (4 * act1 + 2 * bs1 * 4 * d * 2, attention_flops(bs1, mode, 2)),
+                      lambda m=mode: F.scaled_dot_product_attention(q6, k6, v6,
+                                                                    attn_mask=masks[m])))
     for mode in ("space", "time"):
         cases.append(("K6", f"K6 {mode} ({bs1},8,196,2304)",
                       lambda m=mode: divided_attention_bwd(qkv_p1, qkv_c1, dop, doc, h, m),
@@ -455,6 +465,18 @@ def kernel_cases(torch, dev):
                           (7 * act7, attention_flops(bs1, mode, 5, heads, dh)),
                           sdpa_backward(torch, qkv7, do7, heads, dh, masks[mode])
                           if key == "K7c" else None))
+    # K2 at a width the Hopper GEMM takes in 64-column pieces (checked and
+    # logged only): D = 192, hidden 768
+    d2 = 192
+    args = [rn(bs1, F_T, 49, d2), 1.0 + rn(d2, std=0.1, dtype=torch.float32),
+            rn(d2, std=0.1, dtype=torch.float32), rn(4 * d2, d2, std=0.05),
+            rn(4 * d2, std=0.02, dtype=torch.float32), rn(d2, 4 * d2, std=0.05),
+            rn(d2, std=0.02, dtype=torch.float32), 1e-6]
+    rows2 = bs1 * F_T * 49
+    cases.append(("K2 d192", f"K2 ({bs1},{F_T},49,{d2}) -> {4 * d2}",
+                  lambda a=args: fused_ln_mlp_residual(*a),
+                  lambda dt, a=args: fused_ln_mlp_residual(*cast(a, dt), impl="plain"),
+                  (2 * rows2 * d2 * 2 + 2 * d2 * 4 * d2 * 2, 4.0 * rows2 * d2 * 4 * d2), None))
     return cases + k4b_cases(torch, dev) + k8_cases(torch, dev)
 
 
@@ -619,7 +641,11 @@ def k8_cases(torch, dev, bs: int = B * S, f: int = F_T, n: int = N_P, d: int = D
     """kernel_cases' records of K8a (space and time), K8b and K8c at the
     serving shape of the 8-head sync model's video tower: x (bs, 1 + f*n, d)
     with a row offset and scale a LayerNorm removes, ``heads`` heads, hidden
-    4d, and K8c's LN + QKV product on the flattened rows."""
+    4d, and K8c's LN + QKV product on the flattened rows; then K8b at
+    another width, 2d / 3 rounded down to a multiple of 64 (512 at d = 768),
+    hidden four times that, over a quarter of the segments (checked and
+    logged only). The LN parameters are random, so a kernel that applies
+    g / b to the wrong columns misses."""
     from synchformer_tpu_torch.ops.kernels.fused_block import (
         fused_divided_attention,
         fused_mlp_residual,
@@ -660,6 +686,16 @@ def k8_cases(torch, dev, bs: int = B * S, f: int = F_T, n: int = N_P, d: int = D
                   lambda a=args: fused_ln_matmul(*a),
                   lambda dt, a=args: fused_ln_matmul(*cast(a, dt), impl="plain"),
                   (act + rows * 3 * d * 2 + wqkv, 2.0 * rows * d * 3 * d), None))
+    bw, dw = max(1, bs // 4), max(64, 2 * d // 3 // 64 * 64)
+    args = [rn(bw, seq, dw, std=2.0, mean=0.5), 1.0 + rn(dw, std=0.1, dtype=f32),
+            rn(dw, std=0.1, dtype=f32), rn(4 * dw, dw, std=0.02),
+            rn(4 * dw, std=0.02, dtype=f32), rn(dw, 4 * dw, std=0.02),
+            rn(dw, std=0.02, dtype=f32), 1e-6]
+    cases.append((f"K8b d{dw}", f"K8b ({bw},{seq},{dw}) -> {4 * dw}",
+                  lambda a=args: fused_mlp_residual(*a),
+                  lambda dt, a=args: fused_mlp_residual(*cast(a, dt), impl="plain"),
+                  (2 * bw * seq * dw * 2 + 2 * dw * 4 * dw * 2, 4.0 * bw * seq * dw * 4 * dw),
+                  None))
     return cases
 
 
@@ -783,40 +819,52 @@ def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17,
     return cases
 
 
-# the Hopper GEMM under K1 and K2 at its callers' shapes (rows, N, K,
-# epilogue): K2's fc1 / fc2 at the video tower's and the AST's rows, K1's
-# projection; then ragged rows (one, either side of the 128-row tile)
+# the Hopper GEMM at its callers' shapes (rows, N, K, epilogue): K2's fc1 /
+# fc2 at the video tower's and the AST's rows, K1's projection, K8a's QKV
+# (K8c's product) and K8b's fc1 / fc2 at the 8-head serving tower's rows;
+# then ragged rows (one, either side of the 128-row tile), 64-wide last
+# column tiles (N = 192, 576) and K % 64 == 32 (K8c's d = 96)
 GEMM_SHAPES = (
     ("K2 fc1 video", B * S * F_T * N_P, 4 * D, D, "gelu"),
     ("K2 fc2 video", B * S * F_T * N_P, D, 4 * D, "residual"),
     ("K2 fc1 AST", B * S * 74, 4 * D, D, "gelu"),
     ("K2 fc2 AST", B * S * 74, D, 4 * D, "residual"),
     ("K1 projection", B * S * F_T * N_P, D, D, "residual"),
+    ("K8a QKV", B * S * SEQ, 3 * D, D, "bias"),
+    ("K8b fc1", B * S * SEQ, 4 * D, D, "gelu_poly"),
+    ("K8b fc2", B * S * SEQ, D, 4 * D, "residual"),
 )
 GEMM_RAGGED = ((1, D, D, "residual"), (127, 4 * D, D, "gelu"), (129, D, 4 * D, "residual"),
-               (8288, 4 * D, D, "gelu"), (300, 384, 128, "bias"))
+               (8288, 4 * D, D, "gelu"), (300, 384, 128, "bias"), (300, 192, 128, "residual"),
+               (127, 576, 192, "gelu_poly"), (1, 192, D, "bias"), (127, 576, D, "gelu_poly"),
+               (129, 4 * D, D, "gelu_poly"), (300, 3 * D, 96, "bias"),
+               (300, 192, 32, "residual"))
+# the guard-band cases (rows, N, K, epilogue): A, W and the residual each at
+# the start of a NaN-filled buffer; at K = 96 the last k-step reaches past K
+GEMM_GUARD = ((129, D, 4 * D, "residual"), (129, 576, 96, "residual"),
+              (129, D, 96, "gelu_poly"))
 
 
-def gemm_cases(torch, dev, shapes=GEMM_SHAPES, ragged=GEMM_RAGGED, guard: bool = True) -> list:
+def gemm_cases(torch, dev, shapes=GEMM_SHAPES, ragged=GEMM_RAGGED, guard=GEMM_GUARD) -> list:
     """(label, kernel fn, plain fn on given dtype, (bytes, FLOPs), library fn)
     of the Hopper GEMM alone (ops/kernels/gemm.py) at ``shapes`` (timed), at
-    ``ragged`` rows (library None: checked and logged only) and, with
-    ``guard``, with A, W and the residual each at the start of a NaN-filled
-    buffer (guarded). The library fn is one F.linear call with the bias
-    (cuBLAS: a yardstick, never called by the port)."""
+    ``ragged`` rows (library None: checked and logged only) and at
+    ``guard``'s, with each input at the start of a NaN-filled buffer
+    (guarded). The library fn is one F.linear call with the bias (cuBLAS: a
+    yardstick, never called by the port)."""
     import torch.nn.functional as F
 
     from synchformer_tpu_torch.ops.kernels.gemm import gemm
 
     g = torch.Generator(device=dev).manual_seed(8)
-    bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
 
     def rn(*shape, std=1.0, dtype=bf):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
 
     def case(label, m, n, k, epi, timed, wrap=lambda t: t):
         a, w = wrap(rn(m, k)), wrap(rn(n, k, std=k ** -0.5))
-        bias = rn(n, std=0.1, dtype=torch.float32)
+        bias = rn(n, std=0.1, dtype=f32)
         r = wrap(rn(m, n)) if epi == "residual" else None
         up = (lambda t, dt: None if t is None else t.to(dt))
         nbytes = (m * k + n * k + m * n * (2 if r is not None else 1)) * 2 + n * 4
@@ -829,9 +877,8 @@ def gemm_cases(torch, dev, shapes=GEMM_SHAPES, ragged=GEMM_RAGGED, guard: bool =
 
     cases = [case(*shape, timed=True) for shape in shapes]
     cases += [case(f"ragged {m} rows", m, n, k, epi, False) for m, n, k, epi in ragged]
-    if guard:
-        cases.append(case("guard band", 129, D, 4 * D, "residual", False,
-                          lambda t: guarded(torch, t)))
+    cases += [case("guard band", m, n, k, epi, False, lambda t: guarded(torch, t))
+              for m, n, k, epi in guard]
     return cases
 
 

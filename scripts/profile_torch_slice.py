@@ -1,16 +1,19 @@
 """Where the time of the PyTorch port's sync-inference slice goes, on one
 NVIDIA GPU.
 
-    python scripts/profile_torch_slice.py [--out build/profile_torch_slice.json]
+    python scripts/profile_torch_slice.py [--tower base|8head|8head_fused]
+        [--out build/profile_torch_slice.json]
 
 Builds the full-width Synchformer (S=14, ViT-B towers, seeded weights) as
-chip_smoke.py does and, after a warm-up, measures one forward of each path
+chip_smoke.py does (``--tower 8head``: build_synchformer_8head, the video
+tower at 8 heads of 96 on attn_impl 'pallas'; ``8head_fused``: the same on
+'pallas_fused') and, after a warm-up, measures one forward of each path
 (impl='kernel' and impl='plain') in bf16:
 - the forward's time on the stream (CUDA events around it);
-- the stream time spent inside each kernel wrapper the models call (K1-K4;
-  CUDA events recorded around every call, summed per wrapper; on the plain
-  path these are the plain versions the video tower calls), the rest being
-  the PyTorch ops between them;
+- the stream time spent inside each kernel wrapper the models call (K1-K4,
+  K7a's packed attention, K8a, K8b; CUDA events recorded around every call,
+  summed per wrapper; on the plain path these are the plain versions the
+  video tower calls), the rest being the PyTorch ops between them;
 - from torch.profiler, the device time of the top CUDA kernels by name, and
   the share of the span from the first kernel to the last in which none ran.
 """
@@ -30,7 +33,10 @@ import torch  # noqa: E402
 
 from synchformer_tpu_torch.infer import SyncPredictor  # noqa: E402
 from synchformer_tpu_torch.models import layers, motionformer  # noqa: E402
-from synchformer_tpu_torch.models.presets import build_synchformer  # noqa: E402
+from synchformer_tpu_torch.models.presets import (  # noqa: E402
+    build_synchformer,
+    build_synchformer_8head,
+)
 from synchformer_tpu_torch.ops.video import patchify_frames  # noqa: E402
 from synchformer_tpu_torch.utils.convert import (  # noqa: E402
     load_numpy_state_dict,
@@ -44,7 +50,14 @@ WRAPPERS = {
     "K2": [(motionformer, "fused_ln_mlp_residual"), (layers, "fused_ln_mlp_residual")],
     "K3": [(layers, "standard_attention")],
     "K4": [(layers, "fused_cls_pool_tokens")],
+    "K7a": [(motionformer, "packed_divided_attention")],
+    "K8a": [(motionformer, "fused_divided_attention")],
+    "K8b": [(motionformer, "fused_mlp_residual")],
 }
+TOWERS = {"base": lambda device: build_synchformer(S, device=device),
+          "8head": lambda device: build_synchformer_8head(S, "pallas", device=device),
+          "8head_fused": lambda device: build_synchformer_8head(S, "pallas_fused",
+                                                                device=device)}
 
 
 def timed_wrappers(spans):
@@ -103,12 +116,14 @@ def profile_forward(pred, video, pcm, top: int = 12):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--tower", choices=tuple(TOWERS), default="base")
     ap.add_argument("--out", default="build/profile_torch_slice.json")
     args = ap.parse_args()
+    build = TOWERS[args.tower]
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script measures the GPU")
     dev = torch.device("cuda", 0)
-    sd = seeded_state_dict(build_synchformer(S, device="meta"), seed=0)
+    sd = seeded_state_dict(build(device="meta"), seed=0)
     rng = np.random.default_rng(1)
     frames = rng.integers(0, 256, (B, S, 16, 224, 224, 3), dtype=np.uint8)
     video = torch.from_numpy(np.ascontiguousarray(patchify_frames(frames))).to(dev)
@@ -116,9 +131,10 @@ def main() -> int:
 
     spans = collections.defaultdict(list)
     timed_wrappers(spans)
-    result = {"device": torch.cuda.get_device_name(0), "batch": B, "segments": S}
+    result = {"device": torch.cuda.get_device_name(0), "tower": args.tower, "batch": B,
+              "segments": S}
     for impl in ("kernel", "plain"):
-        model = build_synchformer(S, device=dev)
+        model = build(device=dev)
         load_numpy_state_dict(model, sd)
         pred = SyncPredictor(model, dev, torch.bfloat16, impl)
         for _ in range(2):

@@ -32,11 +32,15 @@ Then the packed flow's faults once more on chip_smoke.py's phase-5 packed
 block (12 heads of 64: the same entry launches K7b there), held with
 chip_smoke.packed_block_agreement; and these faults on phase 8's serving
 check (chip_smoke.serving_agreement, the 8-head sync model on
-attn_impl='pallas_fused') and, with k8b_residual_dropped, on phase 2's
-K8a / K8b cases (chip_smoke.hold_outputs):
+attn_impl='pallas_fused') and, with k8b_residual_dropped and
+k8a_ln_columns_swapped, on phase 2's K8a / K8b cases (chip_smoke.hold_outputs):
 - k8a_mode_swapped: K8a runs the other mode;
 - k8a_ln_skipped: K8a without its LayerNorm (the attention of x's own QKV);
-- k8b_residual_dropped: K8b returns the MLP branch without the residual.
+- k8b_residual_dropped: K8b returns the MLP branch without the residual;
+- k8a_ln_columns_swapped: K8a applies g / b to the wrong columns within each
+  64-column span (8-column chunk j takes chunk j ^ 1's), what an indexing
+  error in a LayerNorm that reads x in 16-byte chunks gives; phase 2's
+  random g / b show it, where the serving checks' seeded LN (1 / 0) cannot.
 Then the K4b faults (wrapping ops/kernels/cls_pool.py's _cls_pool, where
 ClsPoolFn calls it) on phase 9's MoCo step (chip_smoke.moco_agreement) and on
 phase 2's K4b cases (chip_smoke.hold_outputs):
@@ -206,6 +210,14 @@ def k8b_residual_dropped(attn, bwd, mlp, x, *args):
     return mlp(x, *args) - x
 
 
+def k8a_ln_columns_swapped(attn, bwd, mlp, x, g, b, w, bias, num_heads, num_frames, mode, eps):
+    col = torch.arange(g.numel(), device=g.device)
+    swapped = col // 64 * 64 + (col % 64 // 8 ^ 1) * 8 + col % 8
+    swapped = torch.where(swapped < g.numel(), swapped, col)
+    return attn(x, g[swapped].contiguous(), b[swapped].contiguous(), w, bias, num_heads,
+                num_frames, mode, eps)
+
+
 def k4b_shared_q(fwd, x, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1, w2, fb2, num_heads,
                  eps):
     bsz, n, d = x.shape
@@ -345,7 +357,8 @@ FLOWS = {
 # the K8 faults on phase 8's serving check and on phase 2's K8a / K8b cases
 SERVING_FAULTS = {"none": None, "k8a_mode_swapped": (k8a_mode_swapped, 0),
                   "k8a_ln_skipped": (k8a_ln_skipped, 0)}
-KERNEL_FAULTS = {**SERVING_FAULTS, "k8b_residual_dropped": (k8b_residual_dropped, 2)}
+KERNEL_FAULTS = {**SERVING_FAULTS, "k8b_residual_dropped": (k8b_residual_dropped, 2),
+                 "k8a_ln_columns_swapped": (k8a_ln_columns_swapped, 0)}
 
 
 # --tiny's packed block: 2 heads of 64 (groupable, so K7b's entry), 1 + 2 x 4 tokens

@@ -1,4 +1,5 @@
-// The Hopper GEMM under K1's projection and K2's two MLP products:
+// The Hopper GEMM under K1's projection, K2's two MLP products and the
+// fused route's products (K8a's QKV, K8b's fc1 and fc2, K8c):
 //
 //   C[M,N] = epilogue(A[M,K] @ W[N,K]^T + bias)
 //
@@ -20,13 +21,13 @@
 //   products kept in flight, and hold 128 f32 accumulators a thread
 //   (setmaxnreg moves registers from the producer, 40, to them, 232). They
 //   share the work in one of two schedules:
-//   - ping-pong (EPI_BIAS, EPI_BIAS_RESIDUAL): each consumer owns whole
-//     128 x 128 tiles, the block's tiles in turns, and an order barrier lets
-//     one run its main loop while the other runs its epilogue, so the tensor
-//     cores do not wait for it;
-//   - cooperative (EPI_BIAS_GELU, where N % 256 == 0): both consumers work on
-//     one 128 x 256 tile, 64 rows each, and run its epilogue together. Its
-//     erf-GELU is the longest epilogue, and one warpgroup alone (one warp a
+//   - ping-pong (EPI_BIAS, EPI_BIAS_RESIDUAL, and the GELUs where N % 256
+//     != 0): each consumer owns whole 128 x 128 tiles, the block's tiles in
+//     turns, and an order barrier lets one run its main loop while the
+//     other runs its epilogue, so the tensor cores do not wait for it;
+//   - cooperative (the GELUs, where N % 256 == 0): both consumers work on
+//     one 128 x 256 tile, 64 rows each, and run its epilogue together. The
+//     GELU is the longest epilogue, and one warpgroup alone (one warp a
 //     scheduler) hides its latency so poorly that the ping-pong schedule was
 //     22% slower at fc1 on an NVIDIA H100 80GB HBM3 at 700 W (2.190 against
 //     1.706 ms, PERF.md), where it was 6% and 23% faster at fc2 and K1's
@@ -43,11 +44,16 @@
 // Epilogues, bit for bit those of tile_gemm.cuh:
 // - EPI_BIAS: bf16(acc + bias);
 // - EPI_BIAS_GELU: bf16(erf-GELU(acc + bias)), in f32;
+// - EPI_BIAS_GELU_POLY: bf16(GELU(acc + bias)) with the TPU kernels' clamped
+//   degree-9 erf polynomial (tile_gemm.cuh::gelu_poly), in f32 (K8b's fc1);
 // - EPI_BIAS_RESIDUAL: bf16(R + bf16(acc + bias)), the JAX
 //   `x + (y + b).astype(dtype)`.
 //
-// Shapes: K % 64 == 0, N % 128 == 0, 16-byte aligned A, W, R and C rows; any
-// M >= 1 up to 2^31 - 1 (TMA fills the rows past M with zeros, and the
+// Shapes: N % 64 == 0 (where N % 128 == 64, the last ping-pong tile takes W
+// rows past N as zeros from TMA, and its epilogue skips the right half);
+// K % 32 == 0 (TMA fills A's and W's columns past K with zeros, whose
+// products add nothing: K8c's d = 96); 16-byte aligned A, W, R and C rows;
+// any M >= 1 up to 2^31 - 1 (TMA fills the rows past M with zeros, and the
 // stores are masked). The TMA descriptors are
 // built per call on the host with cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the library links nothing beyond the runtime.
@@ -225,9 +231,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     return reinterpret_cast<bf16*>(base + s * CF::STAGE_BYTES + CF::A_BYTES);
   };
 
-  const int tiles_n = N / BN;
+  const int tiles_n = (N + BN - 1) / BN;
   const int tiles = ((M + BM - 1) / BM) * tiles_n;
-  const int ksteps = K / BK;
+  const int ksteps = (K + BK - 1) / BK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -320,6 +326,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     for (int p = 0; p < 4; ++p) {
       const int64_t row0 = (int64_t)m0 + (PP ? p / 2 : c) * 64;
       const int col0 = n0 + (PP ? p % 2 : p) * EPI_COLS;
+      // past N: the right half of a last ping-pong tile of 64 (the
+      // cooperative schedule runs only where N % 256 == 0). Checking every
+      // piece instead made K2's and K8b's fc1 2-10% slower (PERF.md)
+      if (PP && p % 2 == 1 && col0 >= N) continue;
       // the residual's 16-byte loads first, so that they are in flight
       // while the piece is staged
       uint4 res[64 * EPI_COLS / 8 / 128];
@@ -345,6 +355,12 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
           v1 = gelu_erf(v1);
           v2 = gelu_erf(v2);
           v3 = gelu_erf(v3);
+        }
+        if (EPI == EPI_BIAS_GELU_POLY) {
+          v0 = gelu_poly(v0);
+          v1 = gelu_poly(v1);
+          v2 = gelu_poly(v2);
+          v3 = gelu_poly(v3);
         }
         *reinterpret_cast<__nv_bfloat162*>(eb + r0 * EPI_PITCH + col) =
             __floats2bfloat162_rn(v0, v1);
@@ -417,7 +433,7 @@ int launch(const bf16* A, const bf16* W, const float* bias, const bf16* R, int64
   CUtensorMap ma, mw;
   if (!make_map(&ma, A, M, K, BM) || !make_map(&mw, W, N, K, CF::BN))
     return (int)cudaErrorInvalidValue;
-  const int tiles = ((M + BM - 1) / BM) * (N / CF::BN);
+  const int tiles = ((M + BM - 1) / BM) * ((N + CF::BN - 1) / CF::BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
   cudaFuncSetAttribute(gemm_kernel<EPI, PP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        CF::SMEM);
@@ -436,10 +452,10 @@ int launch(const bf16* A, const bf16* W, const float* bias, const bf16* R, int64
 template <int EPI>
 inline int wgmma_gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R,
                       int64_t r_stride, bf16* C, int64_t M, int N, int K, cudaStream_t s) {
-  if (M < 1 || M > INT_MAX || N < 128 || N % 128 != 0 || K < wg::BK || K % wg::BK != 0)
+  if (M < 1 || M > INT_MAX || N < 64 || N % 64 != 0 || K < 32 || K % 32 != 0)
     return (int)cudaErrorInvalidValue;
   if (wg::encoder() == nullptr) return (int)cudaErrorSymbolNotFound;
-  if (EPI == EPI_BIAS_GELU && N % 256 == 0)
+  if ((EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_POLY) && N % 256 == 0)
     return wg::launch<EPI, false>(A, W, bias, R, r_stride, C, (int)M, N, K, s);
   return wg::launch<EPI, true>(A, W, bias, R, r_stride, C, (int)M, N, K, s);
 }

@@ -31,13 +31,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the tile GEMM's grid (csrc/tile_gemm.cuh, under K4, K4b, K8a and K8c) puts
-# 64-row tiles on gridDim.y (at most 65535)
+# the tile GEMM's grid (csrc/tile_gemm.cuh, under K4 and K4b) puts 64-row
+# tiles on gridDim.y (at most 65535)
 MAX_GEMM_ROWS = 65535 * 64
-# the Hopper GEMM (csrc/wgmma_gemm.cuh, under K1 and K2): TMA row coordinates
-# are 32-bit; its persistent grid has no limit of its own
+# the Hopper GEMM (csrc/wgmma_gemm.cuh, under K1, K2 and K8a-K8c): TMA row
+# coordinates are 32-bit; its persistent grid has no limit of its own. N
+# comes in 64-column pieces (a last column tile may be 64 wide), K in
+# multiples of 32 over WGMMA_BK-deep k-steps (TMA fills A's and W's columns
+# past K with zeros)
 WGMMA_MAX_ROWS = 2 ** 31 - 1
 WGMMA_BM, WGMMA_BK = 128, 64
+WGMMA_N_QUANTUM, WGMMA_K_QUANTUM = 64, 32
 # the time pass of the divided attention (csrc/divided_attention.cuh)
 TIME_WARPS = 8
 TIME_SMEM_TARGET = 57344
@@ -64,7 +68,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # csrc/<name>.cu -> {its C entry: argtypes}; the first entry is the default
 _SIGNATURES = {
-    "ln_mlp": {"sft_ln_mlp": [_P] * 11 + [_L, _I, _I, _F, _P],
+    "ln_mlp": {"sft_ln_mlp": [_P] * 11 + [_L, _I, _I, _F, _I, _P],
                "sft_ln_matmul": [_P] * 7 + [_L, _I, _I, _F, _P]},
     "standard_attention": {"sft_standard_attention": [_P, _P, _I, _I, _I, _I, _P]},
     "cls_pool": {"sft_cls_pool_tokens": [_P] * 20 + [_I] * 5 + [_F, _P],
@@ -75,26 +79,26 @@ _SIGNATURES = {
     "divided_attention_bwd": {"sft_divided_attention_bwd": [_P] * 11 + [_I] * 6 + [_P],
                               "sft_divided_attention_packed_bwd": [_P] * 8 + [_I] * 6 + [_P]},
     "gemm": {"sft_gemm": [_P] * 4 + [_L, _P, _L, _I, _I, _I, _P]},
-    "fused_block": {"sft_fused_divided_attention": [_P] * 8 + [_I] * 6 + [_F, _P],
-                    "sft_fused_mlp": [_P] * 8 + [_L, _I, _I, _F, _P]},
+    "fused_block": {"sft_fused_divided_attention": [_P] * 8 + [_I] * 6 + [_F, _P]},
 }
 
 
 def gemm_plan(m: int, n: int, k: int, epilogue: str = "bias", sms: int = 132) -> dict:
     """The launch plan of the Hopper GEMM (csrc/wgmma_gemm.cuh) for C[m, n]
     = A[m, k] @ W[n, k]^T: its schedule (``cooperative``, 128 x 256 tiles,
-    for the GELU epilogue where n % 256 == 0; else ``ping-pong``, 128 x 128
-    tiles), the tile grid, and the persistent grid (one block an SM, at most
-    one a tile). Block b takes tiles b, b + grid, ...; tile t is row tile
-    t // tiles_n, column tile t % tiles_n. Raises on a shape the kernel does
-    not take."""
+    for the GELU epilogues where n % 256 == 0; else ``ping-pong``, 128 x 128
+    tiles, the last one 64 wide where n % 128 == 64), the tile grid, and the
+    persistent grid (one block an SM, at most one a tile). Block b takes
+    tiles b, b + grid, ...; tile t is row tile t // tiles_n, column tile t %
+    tiles_n. Raises on a shape the kernel does not take."""
     require(0 < m <= WGMMA_MAX_ROWS, f"the Hopper GEMM takes 1 to {WGMMA_MAX_ROWS} rows, got {m}")
-    require(n >= 128 and n % 128 == 0, f"the Hopper GEMM takes N % 128 == 0, got {n}")
-    require(k >= WGMMA_BK and k % WGMMA_BK == 0,
-            f"the Hopper GEMM takes K % {WGMMA_BK} == 0, got {k}")
-    cooperative = epilogue == "gelu" and n % 256 == 0
+    require(n >= WGMMA_N_QUANTUM and n % WGMMA_N_QUANTUM == 0,
+            f"the Hopper GEMM takes N % {WGMMA_N_QUANTUM} == 0, got {n}")
+    require(k >= WGMMA_K_QUANTUM and k % WGMMA_K_QUANTUM == 0,
+            f"the Hopper GEMM takes K % {WGMMA_K_QUANTUM} == 0, got {k}")
+    cooperative = epilogue in ("gelu", "gelu_poly") and n % 256 == 0
     bn = 256 if cooperative else 128
-    tiles_m, tiles_n = -(-m // WGMMA_BM), n // bn
+    tiles_m, tiles_n = -(-m // WGMMA_BM), -(-n // bn)
     return {"schedule": "cooperative" if cooperative else "ping-pong", "bn": bn,
             "tiles_m": tiles_m, "tiles_n": tiles_n, "grid": min(tiles_m * tiles_n, sms)}
 

@@ -34,7 +34,7 @@ res (112, 8, 196, 768), 12 heads of 64, bf16; space groups are frames (197
 keys with the CLS), time groups are spatial positions (9 keys). The space call
 is ~104 GFLOP of attention and the projection 207 GFLOP, both on the tensor
 cores: the projection + residual on the Hopper GEMM (csrc/wgmma_gemm.cuh),
-whose checks K1 takes (ops/kernels/gemm.py::check_gemm: D % 128 == 0,
+whose checks K1 takes (ops/kernels/gemm.py::check_gemm: D % 64 == 0,
 16-byte aligned rows, up to 2^31 - 1 rows). The attention output passes through
 a device-memory scratch before the projection, where the TPU kernel kept it in
 VMEM. The CLS row's attention leaves un-projected: the caller projects it and

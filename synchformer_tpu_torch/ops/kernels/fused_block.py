@@ -1,17 +1,18 @@
 """K8a: LayerNorm -> QKV projection -> packed divided attention; K8b: LN +
-MLP + residual in one launch. The attn_impl='pallas_fused' route of the
-Motionformer's packed flow (synchformer_tpu/models/motionformer.py:176-189,
-:394-403).
+MLP + residual. The attn_impl='pallas_fused' route of the Motionformer's
+packed flow (synchformer_tpu/models/motionformer.py:176-189, :394-403).
 
 K8a replaces synchformer_tpu/ops/pallas/fused_block.py::fused_divided_attention
 (_fused_attention_pallas, body _fused_attn_kernel) with csrc/fused_block.cu's
-``sft_fused_divided_attention``: one C entry that runs K8c's LN-prologue GEMM
-into a (B, 1 + f*n, 3D) bf16 qkv scratch, then K7a's group and CLS-row
-launches on it. The TPU kernel keeps that qkv in VMEM; here it passes through
-device memory (810 MB a call at the serving shape (112, 1569, 768)). The
-attention stage rounds the normalised probabilities to bf16 before an f32
-P @ V, as K7a and the XLA composition do; the TPU body's time mode rounds each
-exp * v product instead (the two agree in f32). The launch counts under K8a.
+``sft_fused_divided_attention``: one C entry that runs the LayerNorm of x
+into a bf16 scratch (ln_rows) and the Hopper GEMM (csrc/wgmma_gemm.cuh) on
+it into a (B, 1 + f*n, 3D) bf16 qkv scratch, then K7a's group and CLS-row
+launches on that. The TPU kernel keeps both in VMEM; here they pass through
+device memory (the qkv 810 MB a call at the serving shape (112, 1569,
+768)). It takes D % 64 == 0 and up to 2^31 - 1 rows. The attention stage rounds the normalised probabilities to bf16
+before an f32 P @ V, as K7a and the XLA composition do; the TPU body's time
+mode rounds each exp * v product instead (the two agree in f32). The launch
+counts under K8a.
 
 ``FusedDividedAttentionFn`` is the JAX custom VJP (fused_block.py:211-254)
 without the unused primal: the forward runs K8a and saves its inputs; the
@@ -20,9 +21,11 @@ backward recomputes LN + QKV with autograd (plain), runs K7c
 dqkv back through the dense and the LN. It launches no forward kernel.
 
 K8b replaces fused_mlp_residual (_fused_mlp_pallas, body _fused_mlp_kernel)
-with csrc/fused_block.cu's ``sft_fused_mlp``: one launch, 64 rows a CTA, the
-LN output and the fc1 activation kept in shared memory, fc2 accumulated in
-registers. Its GELU is the Pallas kernel's clamped degree-9 erf polynomial
+with K2's entry, csrc/ln_mlp.cu's ``sft_ln_mlp``: three launches, the
+LayerNorm into a bf16 scratch, fc1 on the Hopper GEMM with bias and GELU
+into a (rows, hidden) bf16 scratch, and fc2 with bias and the residual
+(csrc/ln_mlp.cu says why not one launch). It takes D and hidden multiples
+of 64. Its GELU is the Pallas kernel's clamped degree-9 erf polynomial
 (|err| <= 3e-5); K2 (fused_rows.py) and every plain version use exact erf.
 ``FusedMlpFn``'s backward is the plain version's (fused_block.py:327-329).
 
@@ -45,7 +48,12 @@ from synchformer_tpu_torch.ops.kernels.divided_attention import (
     divided_attention_packed_plain,
 )
 from synchformer_tpu_torch.ops.kernels.divided_attention_bwd import divided_attention_packed_bwd
-from synchformer_tpu_torch.ops.kernels.fused_rows import check_ln_params, ln_mlp_residual_plain
+from synchformer_tpu_torch.ops.kernels.fused_rows import (
+    check_ln_params,
+    ln_mlp_kernel,
+    ln_mlp_residual_plain,
+)
+from synchformer_tpu_torch.ops.kernels.gemm import check_gemm
 from synchformer_tpu_torch.ops.numerics import dense, layer_norm
 
 __all__ = ["fused_divided_attention", "fused_divided_attention_plain",
@@ -114,16 +122,16 @@ def _fused_attention(x, g, b, w, bias, num_heads: int, num_frames: int, mode: st
                    "K8a takes a contiguous bf16 w (3D, D)")
     check_ln_params("K8a", g, b, bias)
     _build.require(g.shape == b.shape == (d,) and bias.shape == (3 * d,), "K8a shape mismatch")
-    _build.require(d % 64 == 0 and 0 < bsz * seq <= _build.MAX_GEMM_ROWS,
-                   "K8a's QKV GEMM takes D % 64 == 0 and its rows within the tile GEMM's grid")
+    # the GEMM reads the LN output (allocated like x): D % 64 (3D % 64), the row limit
+    check_gemm("K8a", bsz * seq, w, bias, x)
     qkv = torch.empty((bsz, seq, 3 * d), dtype=x.dtype, device=x.device)
     _, f, n, _ = check_packed_qkv("K8a", qkv, num_heads, num_frames, mode)
-    stats = torch.empty((bsz * seq, 2), dtype=torch.float32, device=x.device)
+    ln = torch.empty_like(x)
     out = torch.empty_like(x)
     fn = _build.library("fused_block", "sft_fused_divided_attention")
     _build.launches["K8a"] += 1
     _build.check(fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                    stats.data_ptr(), qkv.data_ptr(), out.data_ptr(), bsz, f, n, num_heads,
+                    ln.data_ptr(), qkv.data_ptr(), out.data_ptr(), bsz, f, n, num_heads,
                     d // num_heads, _MODES[mode], float(eps), _build.stream_ptr()),
                  "K8a fused_divided_attention")
     return out
@@ -159,32 +167,8 @@ class FusedMlpFn(torch.autograd.Function):
                          ctx.needs_input_grad[:7], (grad,)) + (None,)
 
 
-# the width csrc/fused_block.cu's K8b is compiled for (8 warps of 96 columns)
-MLP_D = 768
-
-
 def _fused_mlp(x, g, b, w1, b1, w2, b2, eps: float):
     """The kernel on a CUDA tensor, the plain version on a CPU one."""
     if not _build.use_kernel(x, "kernel"):
         return fused_mlp_residual_plain(x, g, b, w1, b1, w2, b2, eps)
-    _build.require_same_device("K8b", x, g, b, w1, b1, w2, b2)
-    d = x.shape[-1]
-    hidden = w1.shape[0]
-    _build.require(x.dtype == torch.bfloat16 and x.is_contiguous() and x.data_ptr() % 16 == 0,
-                   "K8b takes a contiguous, 16-byte aligned bf16 x")
-    _build.require(d == MLP_D, f"K8b takes D = {MLP_D}, got {d}")
-    _build.require(w1.shape == (hidden, d) and w2.shape == (d, hidden)
-                   and w1.dtype == w2.dtype == torch.bfloat16
-                   and w1.is_contiguous() and w2.is_contiguous(),
-                   "K8b takes contiguous bf16 weights (hidden, d) and (d, hidden)")
-    check_ln_params("K8b", g, b, b1, b2)
-    _build.require(hidden % 64 == 0, "K8b needs hidden % 64 == 0")
-    rows = x.numel() // d
-    _build.require(0 < rows < 2 ** 31, "K8b row count out of range")
-    out = torch.empty_like(x)
-    fn = _build.library("fused_block", "sft_fused_mlp")
-    _build.launches["K8b"] += 1
-    _build.check(fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(), rows, d, hidden, float(eps),
-                    _build.stream_ptr()), "K8b fused_mlp_residual")
-    return out
+    return ln_mlp_kernel("K8b", x, g, b, w1, b1, w2, b2, eps, poly=True)

@@ -10,7 +10,7 @@ On the H100 the two GEMMs (fc1 768->3072 with GELU, fc2 3072->768 with the
 residual) bound it on the tensor cores; they run on the Hopper GEMM
 (csrc/wgmma_gemm.cuh: TMA, wgmma, a persistent grid), so the wrapper takes
 what that kernel takes (ops/kernels/gemm.py::check_gemm): d and hidden
-multiples of 128, 16-byte aligned rows, up to 2^31 - 1 rows. The LN output
+multiples of 64, 16-byte aligned rows, up to 2^31 - 1 rows. The LN output
 and the (rows, 3072) fc1 activation pass through device memory, where the
 TPU kernel kept them in VMEM. The stats keep the JAX (..., 8) f32 layout
 [mean, meansq, 0 x 6] so that consumers and tests compare like with like.
@@ -20,12 +20,12 @@ kernel, the backward recomputes the plain version and differentiates it (the
 JAX custom_vjp, fused_rows.py:300-372).
 
 K8c replaces fused_rows.py::fused_ln_matmul (_ln_matmul_pallas, body
-_ln_matmul_kernel) with csrc/ln_mlp.cu's ``sft_ln_matmul``: a row-statistics
-pre-pass, then the tile GEMM with the LayerNorm applied to each A tile as it
-is staged in shared memory, f32 accumulation, the bias in f32 and one bf16
-rounding; the normalised rows never reach device memory. No model path calls
-it (in the JAX package only tests/test_fused_rows.py does); its GEMM is K8a's
-prologue (ops/kernels/fused_block.py). At (175728, 768) -> 2304 it is 621.9
+_ln_matmul_kernel) with csrc/ln_mlp.cu's ``sft_ln_matmul``: the LayerNorm
+into a bf16 scratch (ln_rows), then the Hopper GEMM on it, f32
+accumulation, the bias in f32 and one bf16 rounding. It takes d % 32 == 0
+(the GEMM's K) and out % 64 == 0 (its N). No model path calls it (in the JAX
+package only tests/test_fused_rows.py does); its two launches are K8a's
+first two (ops/kernels/fused_block.py). At (175728, 768) -> 2304 it is 621.9
 GFLOP, bound by the tensor cores. ``LnMatmulFn``'s backward is the plain
 version's (the JAX custom_vjp, fused_rows.py:99-124).
 """
@@ -44,8 +44,8 @@ from synchformer_tpu_torch.ops.numerics import (
 )
 
 __all__ = ["fused_ln_mlp_residual", "ln_mlp_residual_plain", "layer_norm_from_stats",
-           "LnMlpFn", "fused_ln_matmul", "fused_ln_matmul_plain", "LnMatmulFn",
-           "check_ln_params"]
+           "LnMlpFn", "ln_mlp_kernel", "fused_ln_matmul", "fused_ln_matmul_plain",
+           "LnMatmulFn", "check_ln_params"]
 
 
 def row_stats(out: torch.Tensor) -> torch.Tensor:
@@ -100,32 +100,42 @@ def _ln_mlp(x, g, b, w1, b1, w2, b2, eps: float, emit_stats: bool):
     """The kernel on a CUDA tensor, the plain version on a CPU one."""
     if not _build.use_kernel(x, "kernel"):
         return ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2, eps, emit_stats)
-    _build.require_same_device("K2", x, g, b, w1, b1, w2, b2)
+    return ln_mlp_kernel("K2", x, g, b, w1, b1, w2, b2, eps, emit_stats)
+
+
+def ln_mlp_kernel(what: str, x, g, b, w1, b1, w2, b2, eps: float, emit_stats: bool = False,
+                  poly: bool = False):
+    """csrc/ln_mlp.cu's ``sft_ln_mlp`` on CUDA tensors, counted as ``what``:
+    K2 (the exact GELU, the output's row statistics with ``emit_stats``) or,
+    with ``poly``, K8b (the TPU kernel's polynomial GELU)."""
+    _build.require_same_device(what, x, g, b, w1, b1, w2, b2)
     d = x.shape[-1]
     hidden = w1.shape[0]
     _build.require(x.dtype == torch.bfloat16 and x.is_contiguous(),
-                   "K2 takes a contiguous bf16 x")
+                   f"{what} takes a contiguous bf16 x")
     _build.require(w1.shape == (hidden, d) and w2.shape == (d, hidden)
                    and w1.dtype == w2.dtype == torch.bfloat16
                    and w1.is_contiguous() and w2.is_contiguous(),
-                   "K2 takes contiguous bf16 weights (hidden, d) and (d, hidden)")
+                   f"{what} takes contiguous bf16 weights (hidden, d) and (d, hidden)")
     _build.require(all(t.dtype == torch.float32 and t.is_contiguous()
-                       for t in (g, b, b1, b2)), "K2 takes f32 LN params and biases")
+                       for t in (g, b, b1, b2)) and g.shape == b.shape == (d,),
+                   f"{what} takes f32 LN params (d,) and biases")
     rows = x.numel() // d
-    # fc1 reads the LN output (allocated like x), fc2 the residual x
-    check_gemm("K2 fc1", rows, w1, b1, x)
-    check_gemm("K2 fc2", rows, w2, b2, x)
+    # fc1 reads the LN output, fc2 the activation (both allocated like x) and
+    # the residual x: d % 64, hidden % 64, the row limit
+    check_gemm(f"{what} fc1", rows, w1, b1, x)
+    check_gemm(f"{what} fc2", rows, w2, b2, x)
     ln_buf = torch.empty_like(x)
     h_buf = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     stats = (torch.empty((*x.shape[:-1], 8), dtype=torch.float32, device=x.device)
              if emit_stats else None)
     fn = _build.library("ln_mlp")
-    _build.launches["K2"] += 1
+    _build.launches[what] += 1
     _build.check(fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
                     b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln_buf.data_ptr(),
                     h_buf.data_ptr(), out.data_ptr(), _build.ptr(stats), rows, d,
-                    hidden, float(eps), _build.stream_ptr()), "K2 ln_mlp")
+                    hidden, float(eps), int(poly), _build.stream_ptr()), f"{what} ln_mlp")
     return (out, stats) if emit_stats else out
 
 
@@ -179,14 +189,14 @@ def _ln_matmul(x, g, b, w, bias, eps: float):
                    "K8c takes a contiguous bf16 w (out, in)")
     check_ln_params("K8c", g, b, bias)
     _build.require(g.shape == b.shape == (d,) and bias.shape == (n_out,), "K8c shape mismatch")
-    _build.require(d % 32 == 0 and n_out % 64 == 0, "K8c needs d % 32 == 0, out % 64 == 0")
     rows = x.numel() // d
-    _build.require(0 < rows <= _build.MAX_GEMM_ROWS, "K8c row count out of range")
-    stats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+    # the GEMM reads the LN output (allocated like x): d % 32, out % 64, the row limit
+    check_gemm("K8c", rows, w, bias, x)
+    ln_buf = torch.empty_like(x)
     out = torch.empty((*x.shape[:-1], n_out), dtype=x.dtype, device=x.device)
     fn = _build.library("ln_mlp", "sft_ln_matmul")
     _build.launches["K8c"] += 1
     _build.check(fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                    stats.data_ptr(), out.data_ptr(), rows, d, n_out, float(eps),
+                    ln_buf.data_ptr(), out.data_ptr(), rows, d, n_out, float(eps),
                     _build.stream_ptr()), "K8c ln_matmul")
     return out

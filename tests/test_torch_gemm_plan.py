@@ -1,4 +1,5 @@
-"""The host side of the Hopper GEMM (csrc/wgmma_gemm.cuh, under K1 and K2)
+"""The host side of the Hopper GEMM (csrc/wgmma_gemm.cuh, under K1, K2 and
+K8a-K8c; its LayerNorm-fed products: tests/test_torch_ln_gemm.py)
 and of the divided attention's time pass (csrc/divided_attention.cuh), on
 the CPU: the launch plans cover every output tile and every spatial position
 exactly once at ragged sizes, the plans' constants are the CUDA sources',
@@ -63,8 +64,8 @@ def test_gemm_plan_covers_every_tile_once(m, n, sms, epilogue):
         assert _build.gemm_block_tiles(plan, 1)[0] == (0, 1)
 
 
-@pytest.mark.parametrize("m,n,k", [(0, 768, 768), (2 ** 31, 768, 768), (128, 64, 768),
-                                   (128, 700, 768), (128, 768, 32), (128, 768, 800)])
+@pytest.mark.parametrize("m,n,k", [(0, 768, 768), (2 ** 31, 768, 768), (128, 32, 768),
+                                   (128, 700, 768), (128, 768, 16), (128, 768, 808)])
 def test_gemm_plan_refuses(m, n, k):
     with pytest.raises(ValueError):
         _build.gemm_plan(m, n, k)
@@ -98,9 +99,9 @@ def test_check_gemm_refuses(fault):
     elif fault == "bias_shape":
         bias = torch.zeros(767, dtype=torch.float32)
     elif fault == "n_ragged":
-        w, bias, a = _gemm_operands(n=704)
+        w, bias, a = _gemm_operands(n=672)
     elif fault == "k_ragged":
-        w, bias, a = _gemm_operands(k=736)
+        w, bias, a = _gemm_operands(k=744)
     with pytest.raises(ValueError):
         check_gemm("T", 10, w, bias, a)
 
@@ -171,9 +172,9 @@ def _k2_args(rows=(2, 3, 49), d=256, hidden=1024):
 def test_k2_checks_before_launch(as_if_on_card, fault):
     args = _k2_args()
     if fault == "d_ragged":
-        args = _k2_args(d=192, hidden=768)
+        args = _k2_args(d=160, hidden=640)
     elif fault == "hidden_ragged":
-        args = _k2_args(hidden=1088)
+        args = _k2_args(hidden=1056)
     elif fault == "misaligned_x":
         args[0] = torch.zeros(2 * 3 * 49 * 256 + 1, dtype=bf)[1:].view(2, 3, 49, 256)
     elif fault == "weights_f32":
@@ -193,7 +194,7 @@ def _k1_args(d=256, heads=4, f=8, n=49):
 def test_k1_checks_before_launch(as_if_on_card, mode, fault):
     args = _k1_args()
     if fault == "d_ragged":
-        args = _k1_args(d=192, heads=3)
+        args = _k1_args(d=160, heads=5)
     elif fault == "misaligned_res":
         args[2] = torch.zeros(8 * 49 * 256 + 1, dtype=bf)[1:].view(1, 8, 49, 256)
     elif fault == "bo_bf16":

@@ -182,11 +182,14 @@ def kernel_caught():
 @pytest.mark.parametrize("name", list(faults.KERNEL_FAULTS))
 def test_k8_kernel_check_against_planted_fault(kernel_caught, name):
     """Phase 2's check of the K8a (space, time) and K8b cases: each K8a fault
-    fails both K8a cases, the K8b fault the K8b case, the control none."""
+    (g / b on the wrong columns included: the cases' LN parameters are
+    random) fails both K8a cases, the K8b fault the K8b case, the control
+    none."""
     failed = [label.split()[0] + ("" if label.startswith("K8b") else " " + label.split()[1])
               for label in kernel_caught[name]]
     want = {"none": [], "k8a_mode_swapped": ["K8a space", "K8a time"],
-            "k8a_ln_skipped": ["K8a space", "K8a time"], "k8b_residual_dropped": ["K8b"]}
+            "k8a_ln_skipped": ["K8a space", "K8a time"], "k8b_residual_dropped": ["K8b"],
+            "k8a_ln_columns_swapped": ["K8a space", "K8a time"]}
     assert failed == want[name], failed
 
 
