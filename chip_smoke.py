@@ -25,7 +25,12 @@ Phases, each printed as it runs with its seconds:
    768), where each group's query differs; K8b also at D = 512, hidden 2048,
    and K2 at D = 192, hidden 768, both checked but not reported; K4b over
    [cls; x] against K4
-   over x with the same CLS row, (224, 197, 768); and, checked but not
+   over x with the same CLS row, (224, 197, 768); K4, checked but not
+   reported, at the 8-head tower's spatial aggregator (896, 196, 768), 8
+   heads of 96, and (k4_cases) at the MoCo step's global aggregators (2, 14,
+   768), at ragged rows (1, 13, 197 and 300 a group), at 700 groups of 12
+   (the last block of three packed groups part-filled), in guard bands, and
+   at 8 heads of 96 ragged and in a guard band; and, checked but not
    reported, the two tensor-core attentions and the time pass at ragged
    shapes (ragged_cases: K3 at 17, 74 and 197 tokens, the space pass split
    and packed at 49 and 196 patches a frame for head_dim 32, 64, 96 and 128
@@ -57,11 +62,12 @@ Phases, each printed as it runs with its seconds:
    same masked call (its forward run once, outside the timed region; for K6
    over the same rows packed, 12 heads of 64), held likewise. K3, the
    divided attention forwards and backwards (K1, K5, K6, K7a, K7b, K7c,
-   K8a), K2, K8b and K8c, and their library calls, are also timed by launch
-   with torch.profiler (device time only: the attention kernels, the CLS
-   row, for the backwards its reduction, the LayerNorm pass and row
-   statistics and, for K1, K2 and K8a-K8c, the GEMMs, each apart) and by the
-   host's time to enqueue a call.
+   K8a), K2, K8b, K8c, K4 and K4b, and their library calls, are also timed
+   by launch with torch.profiler (device time only: the attention kernels,
+   the CLS row, for the backwards its reduction, the LayerNorm pass and row
+   statistics, for K1, K2, K8a-K8c, K4 and K4b the GEMMs, and K4's and
+   K4b's prep, pool pass and Wv product, each apart) and by the host's time
+   to enqueue a call.
 3. the full-width inference slice: Synchformer S=14 (ViT-B towers of 12
    layers, D=768, 3-layer GlobalTransformer), B=8, seeded weights, through
    SyncPredictor(impl='kernel') and (impl='plain') in bf16, both against an
@@ -256,8 +262,10 @@ STAGE1_LEAVES = re.compile(
 PAIRED = ("K1", "K5", "K6", "K7a", "K7b", "K7c", "K8a")  # timed as a (space + time) pair
 # the kernels whose calls (and library yardsticks) phase 2 also times by
 # launch: the tensor-core attentions, the divided attention forwards and
-# backwards, and the fused route's kernels (their GEMMs apart)
-BY_LAUNCH = ("K1", "K2", "K3", "K5", "K6", "K7a", "K7b", "K7c", "K8a", "K8b", "K8c")
+# backwards, the fused route's kernels (their GEMMs apart) and the CLS-pool
+# layers
+BY_LAUNCH = ("K1", "K2", "K3", "K4", "K4b", "K4b spatial", "K5", "K6", "K7a", "K7b", "K7c",
+             "K8a", "K8b", "K8c")
 MAX_CLIP = 1.0  # Stage I's max_clip_norm
 B, S = 8, 14
 B1 = 2  # Stage I's base_batch_size
@@ -382,24 +390,33 @@ def kernel_cases(torch, dev):
                   lambda dt: standard_attention(qkv.to(dt), h, impl="plain"),
                   (bs * 74 * 4 * d * 2, 4.0 * bs * h * 74 * 74 * DH),
                   lambda: F.scaled_dot_product_attention(q, k, v)))
-    for label, shape in ((f"spatial ({bs * F_T},196,768)", (bs * F_T, N_P, d)),
-                         (f"frequency ({bs * 6},12,768)", (bs * 6, 12, d))):
-        g1, b1 = ln_params()
-        g2_, b2_ = ln_params()
-        args = [rn(*shape), rn(d, std=0.02, dtype=torch.float32), g1, b1,
-                rn(3 * d, d, std=0.02), rn(3 * d, std=0.02, dtype=torch.float32),
-                rn(d, d, std=0.02), rn(d, std=0.02, dtype=torch.float32), g2_, b2_,
-                *mlp_params()]
+    # the spatial and frequency aggregators, then (key 'K4 8x96', checked and
+    # logged only) the 8-head tower's spatial aggregator, 8 heads of 96, on
+    # the spatial case's inputs (so that no later case's inputs move)
+    k4_args = {}
+    for key, label, shape, heads in (
+            ("K4", f"spatial ({bs * F_T},196,768)", (bs * F_T, N_P, d), h),
+            ("K4", f"frequency ({bs * 6},12,768)", (bs * 6, 12, d), h),
+            (f"K4 {H8}x{DH8}", f"spatial {H8}x{DH8} ({bs * F_T},196,768)", (bs * F_T, N_P, d),
+             H8)):
+        if shape not in k4_args:
+            g1, b1 = ln_params()
+            g2_, b2_ = ln_params()
+            k4_args[shape] = [rn(*shape), rn(d, std=0.02, dtype=torch.float32), g1, b1,
+                              rn(3 * d, d, std=0.02), rn(3 * d, std=0.02, dtype=torch.float32),
+                              rn(d, d, std=0.02), rn(d, std=0.02, dtype=torch.float32), g2_,
+                              b2_, *mlp_params()]
+        args = k4_args[shape]
         groups, m = shape[0], shape[1]
         # with one shared query: q and U = Wk^T q once; per group logits and
         # the p-weighted sum over m + 1 rows per head, Wv, proj and the MLP
-        flops = 4.0 * d * d + groups * (4.0 * h * (m + 1) * d + 4.0 * d * d + 4.0 * d * hid)
+        flops = 4.0 * d * d + groups * (4.0 * heads * (m + 1) * d + 4.0 * d * d + 4.0 * d * hid)
         nbytes = (groups * m * d * 2 + (4 * d * d + 2 * d * hid) * 2 + (9 * d + hid) * 4
                   + groups * d * 2)
-        cases.append(("K4", f"K4 {label}",
-                      lambda a=args: fused_cls_pool_tokens(*a, num_heads=h, eps=1e-6),
-                      lambda dt, a=args: fused_cls_pool_tokens(*cast(a, dt), num_heads=h,
-                                                               eps=1e-6, impl="plain"),
+        cases.append((key, f"K4 {label}",
+                      lambda a=args, nh=heads: fused_cls_pool_tokens(*a, num_heads=nh, eps=1e-6),
+                      lambda dt, a=args, nh=heads: fused_cls_pool_tokens(
+                          *cast(a, dt), num_heads=nh, eps=1e-6, impl="plain"),
                       (nbytes, flops), None))
     # K5 / K6 at Stage I's segments: B1 x S
     bs1 = B1 * S
@@ -634,6 +651,62 @@ def check_k4b_concat(torch, dev, d: int = D, h: int = H, groups: int = B1 * S * 
     diff = maxabs(k4b, k4)
     log(f"[{tag}] {label}: |K4b-K4| {diff:.3e} tol {tol:.3e} {'ok' if diff <= tol else 'FAIL'}")
     return ok and not failed and diff <= tol
+
+
+def k4_cases(torch, dev, d: int = D, h: int = H, global_rows=(B1, S),
+             ragged=((4, 1), (4, 13), (4, 197), (4, 300)), partial=(700, 12),
+             guard=((4, 196), (5, 12)), wide=(H8, (4, 197), (5, 12))) -> list:
+    """kernel_cases' records of K4 (no cost, no library), checked and logged
+    only: the MoCo step's global aggregators (B1 groups of S rows), ragged
+    rows (one group a block; 197 and 300 on a 2-block cluster, 300 also in
+    two passes a block), a group count that leaves the last block of packed
+    groups part-filled (700 groups of 12: three a block), guard bands
+    (every input at the start of a NaN-filled buffer) at a cluster shape and
+    a packed one, and, with wide = (heads, ragged shape, guard-band shape),
+    heads of another width than h's (the 8-head tower's 96: the Wv product
+    takes a head in 64-column pieces and drops the columns past it) at a
+    ragged cluster shape and in a guard band at a packed one. The QKV and
+    projection weights at std (2 / d)^0.5: a
+    peaked attention, as k4b_cases'. The kernel calls look the wrapper up in
+    its module at call time, so that scripts/stage1_planted_faults.py can
+    wrap its entry."""
+    from synchformer_tpu_torch.ops.kernels import cls_pool as tcls
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf, f32 = torch.bfloat16, torch.float32
+    hid = 4 * d
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def cast(args, dtype):
+        return [a.to(dtype) if torch.is_tensor(a) and a.dtype == bf else a for a in args]
+
+    w_att = (2.0 / d) ** 0.5
+    layer = [1.0 + rn(d, std=0.1, dtype=f32), rn(d, std=0.1, dtype=f32), rn(3 * d, d, std=w_att),
+             rn(3 * d, std=0.02, dtype=f32), rn(d, d, std=w_att), rn(d, std=0.02, dtype=f32),
+             1.0 + rn(d, std=0.1, dtype=f32), rn(d, std=0.1, dtype=f32), rn(hid, d, std=0.02),
+             rn(hid, std=0.02, dtype=f32), rn(d, hid, std=0.02), rn(d, std=0.02, dtype=f32)]
+    cls = rn(d, dtype=f32)
+
+    def case(key, what, groups, m, wrap=lambda t: t, heads=h):
+        args = [wrap(t) for t in [rn(groups, m, d), cls, *layer]]
+        return (key, f"K4 {what} ({groups},{m},{d})",
+                lambda: tcls.fused_cls_pool_tokens(*args, num_heads=heads, eps=1e-6),
+                lambda dt: tcls.fused_cls_pool_tokens(*cast(args, dt), num_heads=heads,
+                                                      eps=1e-6, impl="plain"), None, None)
+
+    cases = [case("K4 global", "global", *global_rows)]
+    cases += [case("K4 ragged", "ragged", *shape) for shape in ragged]
+    cases.append(case("K4 ragged", "part-filled last block", *partial))
+    cases += [case("K4 ragged", "guard band", *shape, lambda t: guarded(torch, t))
+              for shape in guard]
+    heads, ragged_w, guard_w = wide
+    hw = f"{heads}x{d // heads}"
+    cases.append(case("K4 ragged", f"{hw} ragged", *ragged_w, heads=heads))
+    cases.append(case("K4 ragged", f"{hw} guard band", *guard_w, lambda t: guarded(torch, t),
+                      heads=heads))
+    return cases
 
 
 def k8_cases(torch, dev, bs: int = B * S, f: int = F_T, n: int = N_P, d: int = D,
@@ -904,8 +977,9 @@ def check_gemms(torch, dev) -> None:
 
 
 def check_ragged(torch, dev) -> None:
-    """ragged_cases, each held by hold_outputs' rule; fails on any miss."""
-    for _, label, kern, plain, _, _ in ragged_cases(torch, dev):
+    """ragged_cases and k4_cases, each held by hold_outputs' rule; fails on
+    any miss."""
+    for _, label, kern, plain, _, _ in ragged_cases(torch, dev) + k4_cases(torch, dev):
         k_out, p_out, a_out = kern(), plain(torch.bfloat16), plain(torch.float32)
         torch.cuda.synchronize()
         failed = hold_outputs(label, k_out, p_out, a_out, "ragged")[0]
@@ -1588,14 +1662,17 @@ def moco_record(torch, tr, m, feats: dict) -> dict:
     return rec
 
 
-def moco_agreement(ref: dict, plain: dict, kern: dict, tag: str = "moco") -> list:
+def moco_agreement(ref: dict, plain: dict, kern: dict, tag: str = "moco",
+                   margins: dict | None = None) -> list:
     """stage1_agreement over moco_record's gradients with both levels' losses
     and the total (eps 1e-4 of each) and the gradient norm (1e-3), then, each
     by relative L2 error within 2 x the plain bf16 record's, no eps: the
     momentum parameters after the step (updated from the f32 masters before
     it, so both errors are 0), the keys written into the queues (the key
     pass, on the eval path's kernels) and the query pass's global aggregator
-    outputs (the video one is K4b's). Returns the names that failed."""
+    outputs (the video one is K4b's). Returns the names that failed; fills
+    ``margins``, when given, with each of these last checks' error over its
+    tolerance."""
     failed = stage1_agreement(ref, plain, kern, tag, (
         ("loss", 1e-4), ("segment_contrastive_loss", 1e-4),
         ("global_contrastive_loss", 1e-4), ("grad_norm", 1e-3)))
@@ -1610,6 +1687,9 @@ def moco_agreement(ref: dict, plain: dict, kern: dict, tag: str = "moco") -> lis
         ok = bool(k.isfinite().all()) and err_k <= 2.0 * err_p
         if not ok:
             failed.append(name)
+        if margins is not None:
+            margins[name] = (err_k / max(2.0 * err_p, 1e-30) if bool(k.isfinite().all())
+                             else float("inf"))
         log(f"[{tag}] {name}: relative L2 |kernel-f32| {err_k:.3e} |plain_bf16-f32| "
             f"{err_p:.3e} tol {2.0 * err_p:.3e} {'ok' if ok else 'FAIL'}")
     return failed

@@ -1,5 +1,5 @@
 """Show that chip_smoke.py's Stage I, packed-block, serving, MoCo and kernel
-checks fail a wrong K1, K2, K5, K6, K7a/K7b, K7c, K8a, K8b or K4b.
+checks fail a wrong K1, K2, K4, K5, K6, K7a/K7b, K7c, K8a, K8b or K4b.
 
     python scripts/stage1_planted_faults.py            # full width, one NVIDIA GPU
     python scripts/stage1_planted_faults.py --tiny --device cpu   # a dry run
@@ -48,6 +48,17 @@ phase 2's K4b cases (chip_smoke.hold_outputs):
 - k4b_shared_q: every group attends with group 0's query, the q and U that
   K4's shared-CLS prep would give (the plain composition with that query);
 - k4b_residual_dropped: K4b's output without the CLS row's residual.
+Then the K4 faults (wrapping _cls_pool_tokens, where ClsPoolTokensFn calls
+it) on phase 2's checked K4 cases (chip_smoke.k4_cases: the MoCo step's
+global aggregators, ragged rows, a part-filled last block, guard bands,
+8 heads of 96 ragged and in a guard band):
+- none: the control;
+- k4_cls_key_dropped: the shared CLS key's column is left out of the
+  softmax (the plain composition over x's rows alone);
+- k4_wv_head_shifted: head h's values take head h + 1's rows of Wv (for the
+  tokens' Z and the CLS value alike), an indexing error in the Wv product.
+Each kernel-case fault's line gives its margin: the error over the
+tolerance of the failed case nearest to passing.
 Then the faults of the two tensor-core attention kernels on phase 2's ragged
 and guard-band cases (chip_smoke.ragged_cases, chip_smoke.hold_outputs), K3's
 wrapping ops/kernels/standard_attention.py's _standard_attention (where
@@ -84,8 +95,8 @@ unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
 build_tiny_avclip_packed, drop-path 0.2) and tiny MoCo model
 (build_tiny_moco_avclip, drop-path 0.2) at B=2, S=2, a block of TINY_BLOCK's
-size, the tiny Synchformer with TINY_PACKED's towers and phase 2's K8 and K4b
-cases at TINY_K8's and TINY_K4B's sizes and the ragged cases at TINY_RAGGED's: on CPU tensors the kernel wrappers
+size, the tiny Synchformer with TINY_PACKED's towers and phase 2's K8, K4b and
+K4 cases at TINY_K8's, TINY_K4B's and TINY_K4's sizes and the ragged cases at TINY_RAGGED's: on CPU tensors the kernel wrappers
 run their plain versions, which the faults wrap all the same.
 """
 from __future__ import annotations
@@ -237,6 +248,29 @@ def k4b_residual_dropped(fwd, x, *args):
     return fwd(x, *args) - x[:, 0]
 
 
+def k4_cls_key_dropped(fwd, x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1, w2, fb2,
+                       num_heads, eps):
+    bsz, m, d = x.shape
+    dtype, dh = x.dtype, d // num_heads
+    c = cls.reshape(1, 1, d).to(dtype)
+    q = dense(layer_norm(c, g1, b1, eps, dtype), wqkv[:d], bqkv[:d], dtype)
+    kv = dense(layer_norm(x, g1, b1, eps, dtype), wqkv[d:], bqkv[d:], dtype)
+    k, v = kv.reshape(bsz, m, 2, num_heads, dh).unbind(2)
+    logits = torch.einsum("qhd,bnhd->bhn", q.reshape(1, num_heads, dh).float(), k.float())
+    p = torch.softmax(logits * dh ** -0.5, dim=-1).to(dtype)  # over x's rows alone
+    att = dense(torch.einsum("bhn,bnhd->bhd", p, v).reshape(bsz, d), wp, bp, dtype)
+    y = c.reshape(1, d) + att
+    h = exact_gelu(dense(layer_norm(y, g2, b2, eps, dtype), w1, fb1, dtype))
+    return y + dense(h, w2, fb2, dtype)
+
+
+def k4_wv_head_shifted(fwd, x, cls, g1, b1, wqkv, bqkv, *args):
+    d = x.shape[-1]
+    dh = d // args[-2]
+    wv = torch.roll(wqkv[2 * d:], -dh, dims=0)  # head h's value rows: head h + 1's
+    return fwd(x, cls, g1, b1, torch.cat([wqkv[:2 * d], wv]).contiguous(), bqkv, *args)
+
+
 def k3_probs_unnormalised(fwd, qkv, num_heads):
     b, n, threed = qkv.shape
     d = threed // 3
@@ -333,6 +367,10 @@ BWD_ENTRIES = (dab, ("divided_attention_bwd", "divided_attention_packed_bwd"))
 BWD_FAULTS = {"none": None, "k6_far_keys_dropped": (k6_far_keys_dropped, 0),
               "k7c_far_keys_dropped": (k7c_far_keys_dropped, 1)}
 
+K4_ENTRIES = (tcls, ("_cls_pool_tokens",))
+K4_FAULTS = {"none": None, "k4_cls_key_dropped": (k4_cls_key_dropped, 0),
+             "k4_wv_head_shifted": (k4_wv_head_shifted, 0)}
+
 K4B_ENTRIES = (tcls, ("_cls_pool",))
 K4B_FAULTS = {"none": None, "k4b_shared_q": (k4b_shared_q, 0),
               "k4b_residual_dropped": (k4b_residual_dropped, 0)}
@@ -367,6 +405,10 @@ TINY_BLOCK = {"b": 2, "d": 128, "h": 2, "f": 2, "n": 4}
 TINY_K8 = {"bs": 2, "f": 2, "n": 4, "d": 96, "heads": 2}
 # --tiny's K4b cases: 2 heads of 64, (2, 3) and (8, 5) rows
 TINY_K4B = {"d": 128, "h": 2, "shapes": ((2, 3), (8, 5))}
+# --tiny's K4 cases: 2 heads of 64, groups of 3, 1, 13 and 37 rows; 4 heads
+# of 32 for the cases at another head width
+TINY_K4 = {"d": 128, "h": 2, "global_rows": (2, 3), "ragged": ((2, 1), (2, 13)),
+           "partial": (5, 3), "guard": ((2, 37),), "wide": (4, (2, 37), (3, 3))}
 # --tiny's ragged cases: one segment of 2 frames
 TINY_RAGGED = {"bs": 1, "f": 2}
 # --tiny's K1 / K2 cases: 2 heads of 64, 2 segments of 2 frames of 4 patches
@@ -465,6 +507,13 @@ def k4b_kernel_faults(dev, tiny: bool) -> dict:
                         K4B_ENTRIES, K4B_FAULTS)
 
 
+def k4_kernel_faults(dev, tiny: bool) -> dict:
+    """The K4 faults on phase 2's checked K4 cases (chip_smoke.k4_cases;
+    TINY_K4's size with --tiny), each fault's cases that hold_outputs failed."""
+    return cases_caught(chip_smoke.k4_cases(torch, dev, **(TINY_K4 if tiny else {})),
+                        K4_ENTRIES, K4_FAULTS)
+
+
 def ragged_kernel_faults(dev, tiny: bool):
     """K3's, the space pass's and the backward's faults on phase 2's ragged
     and guard-band cases (TINY_RAGGED's size with --tiny): for each kernel,
@@ -521,20 +570,36 @@ def k1_k2_kernel_faults(dev, tiny: bool):
     return k1, k2
 
 
+def margin(k_out, p_out, a_out) -> float:
+    """The largest error / tolerance of hold_outputs' rule over the outputs
+    (above 1: the check fails; non-finite: inf)."""
+    k_out, p_out, a_out = (t if isinstance(t, tuple) else (t,) for t in (k_out, p_out, a_out))
+    worst = 0.0
+    for k, p, a in zip(k_out, p_out, a_out):
+        if not bool(k.float().isfinite().all()):
+            return float("inf")
+        tol = 2.0 * chip_smoke.maxabs(p, a) + 1e-2 * float(a.float().abs().max())
+        worst = max(worst, chip_smoke.maxabs(k, a) / tol)
+    return worst
+
+
 def cases_caught(cases, entries, faults) -> dict:
     """``faults`` (wrapping ``entries``) on phase 2's ``cases``, each fault's
-    cases that hold_outputs failed."""
+    cases that hold_outputs failed; logs each fault's margin (the error over
+    the tolerance of its case nearest to passing, of those it fails)."""
     anchors = [(plain(torch.bfloat16), plain(torch.float32)) for _, _, _, plain, _, _ in cases]
     caught = {}
     for name, fault in faults.items():
-        caught[name] = []
+        caught[name], margins = [], []
         for (_, label, kern, _, _, _), (p_out, a_out) in zip(cases, anchors):
             with planted(*entries, fault):
                 k_out = kern()
             if chip_smoke.hold_outputs(label, k_out, p_out, a_out, f"kernels {name}")[0]:
                 caught[name].append(label)
+                margins.append(margin(k_out, p_out, a_out))
         chip_smoke.log(f"[fault] kernels {name}: {len(caught[name])} cases failed: "
-                       f"{caught[name]}")
+                       f"{caught[name]}" + (f"; margin {min(margins):.3g} (error / tolerance)"
+                                             if margins else ""))
     return caught
 
 
@@ -565,10 +630,14 @@ def moco_faults(dev, tiny: bool) -> dict:
     ref, plain = record("fp32", "plain", remat=True), record("amp", "plain")
     caught = {}
     for name, fault in K4B_FAULTS.items():
+        margins = {}
         caught[name] = chip_smoke.moco_agreement(ref, plain, record("amp", "kernel", fault=fault),
-                                                 f"moco {name}")
+                                                 f"moco {name}", margins)
+        failed = [margins[c] for c in caught[name] if c in margins]
         chip_smoke.log(f"[fault] moco {name}: {len(caught[name])} checks failed: "
-                       f"{caught[name][:6]}{' ...' if len(caught[name]) > 6 else ''}")
+                       f"{caught[name][:6]}{' ...' if len(caught[name]) > 6 else ''}"
+                       + (f"; margin {min(failed):.3g} (error / tolerance, the query global "
+                          f"features {margins['query global_v']:.3g})" if failed else ""))
     return caught
 
 
@@ -629,6 +698,7 @@ def main() -> int:
     ok = verdict("kernels", kernel_faults(dev, args.tiny)) and ok
     ok = verdict("moco", moco_faults(dev, args.tiny)) and ok
     ok = verdict("kernels_k4b", k4b_kernel_faults(dev, args.tiny)) and ok
+    ok = verdict("kernels_k4", k4_kernel_faults(dev, args.tiny)) and ok
     k3, space, bwd = ragged_kernel_faults(dev, args.tiny)
     ok = verdict("kernels_k3", k3) and ok
     ok = verdict("kernels_space", space) and ok

@@ -1,33 +1,26 @@
 // Shared device building blocks for the port's Hopper kernels.
 //
-// - gemm_bf16: C[M,N] = epilogue(A[M,K] @ W[N,K]^T + bias), bf16 operands,
-//   fp32 accumulation on the tensor cores through WMMA (16x16x16 tiles).
-//   W is a torch Linear weight (out, in), row-major, so its rows are the
-//   columns of the product. Epilogues: bias; bias + erf-GELU; bias, rounded
-//   to bf16, then added to a residual row (rounded once more), which is the
-//   `res + (acc + b).astype(bf16)` of the JAX kernels.
+// - Epilogue: the epilogues of the products (wgmma_gemm.cuh, and
+//   cls_pool.cu's skinny product): bias; bias + erf-GELU; bias + the
+//   polynomial GELU; bias, rounded to bf16, then added to a residual row
+//   (rounded once more), which is the `res + (acc + b).astype(bf16)` of the
+//   JAX kernels.
 // - gelu_erf, gelu_poly: the exact erf-GELU of K2 and the TPU kernels'
 //   clamped polynomial erf-GELU of K8b, in f32.
 // - ln_rows: the LayerNorm prologue as its own pass (f32 statistics in the
 //   fast-variance form max(E[x^2] - E[x]^2, 0), f32 affine, bf16 out), either
 //   from the row itself or from precomputed [mean, meansq] row statistics:
-//   the A operand of every LayerNorm-fed product (K2, K4, K4b, K8a-K8c).
+//   the A operand of every LayerNorm-fed product (K2, K4's and K4b's LN2,
+//   K8a-K8c).
 // - row_stats: f32 [mean, meansq, 0 x 6] of bf16 rows, the layout the
 //   slab LN+MLP kernel of the JAX package emits.
 // - dot_row_bf16: an f32 vector against a bf16 row of device memory, with
 //   16-byte loads.
-//
-// The tile GEMM is the simple form: one 64x64 output tile per block, four
-// warps of 32x32, a 32-deep K step staged through shared memory without
-// pipelining. It stays under K4 and K4b; K1, K2 and K8a-K8c run on the
-// Hopper GEMM of wgmma_gemm.cuh (TMA, wgmma, warp specialisation), whose
-// epilogues round as these do.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace sft {
@@ -97,96 +90,6 @@ __device__ __forceinline__ float dot_row_bf16(const float* __restrict__ a,
 }
 
 enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2, EPI_BIAS_GELU_POLY = 3 };
-
-constexpr int GEMM_BM = 64;
-constexpr int GEMM_BN = 64;
-constexpr int GEMM_BK = 32;
-constexpr int GEMM_THREADS = 128;
-constexpr int GEMM_LDS = GEMM_BK + 8;  // bf16 row pitch of the staged tiles
-constexpr int GEMM_LDC = GEMM_BN + 4;  // f32 row pitch of the output tile
-
-// Requires N % 64 == 0, K % 32 == 0 and 16-byte aligned A and W rows; rows
-// of A beyond M are masked. R (residual) has row stride r_stride elements;
-// 0 broadcasts one row to every output row.
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                 const float* __restrict__ bias, const bf16* __restrict__ R,
-                 int64_t r_stride, bf16* __restrict__ C, int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(32) bf16 As[GEMM_BM * GEMM_LDS];
-  __shared__ __align__(32) bf16 Ws[GEMM_BN * GEMM_LDS];
-  __shared__ __align__(32) float Cs[GEMM_BM * GEMM_LDC];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int64_t m0 = (int64_t)blockIdx.y * GEMM_BM;
-  const int n0 = blockIdx.x * GEMM_BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += GEMM_BK) {
-    // 64 rows x 32 cols = 256 vectors of 8 bf16 per operand; 2 per thread
-#pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int idx = tid + v * GEMM_THREADS;
-      const int r = idx / 4, c = (idx % 4) * 8;
-      uint4 a = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M) a = *reinterpret_cast<const uint4*>(A + (m0 + r) * K + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * GEMM_LDS + c) = a;
-      *reinterpret_cast<uint4*>(Ws + r * GEMM_LDS + c) =
-          *reinterpret_cast<const uint4*>(W + (int64_t)(n0 + r) * K + k0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GEMM_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * GEMM_LDS + kk, GEMM_LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Ws + (wn * 32 + j * 16) * GEMM_LDS + kk, GEMM_LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * GEMM_LDC + wn * 32 + j * 16,
-                              acc[i][j], GEMM_LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int idx = tid; idx < GEMM_BM * GEMM_BN; idx += GEMM_THREADS) {
-    const int r = idx / GEMM_BN, c = idx % GEMM_BN;
-    const int64_t gm = m0 + r;
-    if (gm >= M) continue;
-    const int gn = n0 + c;
-    float v = Cs[r * GEMM_LDC + c] + bias[gn];
-    if (EPI == EPI_BIAS_GELU) v = gelu_erf(v);
-    if (EPI == EPI_BIAS_RESIDUAL) v = __bfloat162float(R[gm * r_stride + gn]) + bf16r(v);
-    C[gm * N + gn] = __float2bfloat16(v);
-  }
-}
-
-template <int EPI>
-inline void gemm_bf16(const bf16* A, const bf16* W, const float* bias, const bf16* R,
-                      int64_t r_stride, bf16* C, int M, int N, int K, cudaStream_t s) {
-  dim3 grid(N / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-  gemm_bf16_kernel<EPI><<<grid, GEMM_THREADS, 0, s>>>(A, W, bias, R, r_stride, C, M, N, K);
-}
 
 // One warp per row. stats (rows, 8) f32 [mean, meansq, ...] when given.
 __global__ void ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ stats,

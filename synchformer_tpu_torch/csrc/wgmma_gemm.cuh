@@ -1,5 +1,6 @@
-// The Hopper GEMM under K1's projection, K2's two MLP products and the
-// fused route's products (K8a's QKV, K8b's fc1 and fc2, K8c):
+// The Hopper GEMM under K1's projection, K2's two MLP products, the fused
+// route's products (K8a's QKV, K8b's fc1 and fc2, K8c) and, above a few
+// groups, the CLS-pool layers' (K4's and K4b's tail, K4b's q):
 //
 //   C[M,N] = epilogue(A[M,K] @ W[N,K]^T + bias)
 //
@@ -7,9 +8,9 @@
 // Linear weight (out, in), so both are K-major: the layout wgmma reads from
 // shared memory without a transpose.
 //
-// It replaces, for these callers, the WMMA tile GEMM of tile_gemm.cuh (one
-// 64x64 tile a block, plain loads, no pipelining: about 115-120 TFLOP/s on an
-// NVIDIA H100 80GB HBM3 at 700 W, PERF.md). At K2's shapes (175616 rows, 768
+// It replaced the WMMA tile GEMM these callers had (one 64x64 tile a block,
+// plain loads, no pipelining: about 115-120 TFLOP/s on an NVIDIA H100 80GB
+// HBM3 at 700 W, PERF.md). At K2's shapes (175616 rows, 768
 // -> 3072 -> 768: 830 GFLOP a product) the card is bound by its tensor cores,
 // so the design is about keeping them fed:
 // - tiles reach shared memory by TMA (cp.async.bulk.tensor.2d, 128-byte
@@ -41,7 +42,7 @@
 //   residual (its loads started before the piece is staged), with 16-byte
 //   accesses.
 //
-// Epilogues, bit for bit those of tile_gemm.cuh:
+// Epilogues (tile_gemm.cuh::Epilogue), each rounded as the JAX kernels do:
 // - EPI_BIAS: bf16(acc + bias);
 // - EPI_BIAS_GELU: bf16(erf-GELU(acc + bias)), in f32;
 // - EPI_BIAS_GELU_POLY: bf16(GELU(acc + bias)) with the TPU kernels' clamped

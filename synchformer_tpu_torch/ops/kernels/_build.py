@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,10 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the tile GEMM's grid (csrc/tile_gemm.cuh, under K4 and K4b) puts 64-row
-# tiles on gridDim.y (at most 65535)
-MAX_GEMM_ROWS = 65535 * 64
-# the Hopper GEMM (csrc/wgmma_gemm.cuh, under K1, K2 and K8a-K8c): TMA row
+# the Hopper GEMM (csrc/wgmma_gemm.cuh, under K1, K2, K4, K4b and K8a-K8c): TMA row
 # coordinates are 32-bit; its persistent grid has no limit of its own. N
 # comes in 64-column pieces (a last column tile may be 64 wide), K in
 # multiples of 32 over WGMMA_BK-deep k-steps (TMA fills A's and W's columns
@@ -53,6 +51,10 @@ BWD_SPACE_WARPS = 8
 BWD_SPACE_CHUNK_TILES = 13
 BWD_TIME_WARPS = 8
 BWD_TIME_SMEM_TARGET = 114688
+# the CLS-pool layer (csrc/cls_pool.cu, K4 and K4b): the pool pass's heads
+# (Z's 16-row tile) and groups a block at most
+CLS_MAXH = 16
+CLS_GMAX = 16
 
 # launches of each kernel wrapper on a CUDA tensor, keyed K1..K4, K4b, K5,
 # K6, K7a, K7b, K7c, K8a, K8b, K8c, and GEMM (the Hopper GEMM's own entry,
@@ -71,8 +73,8 @@ _SIGNATURES = {
     "ln_mlp": {"sft_ln_mlp": [_P] * 11 + [_L, _I, _I, _F, _I, _P],
                "sft_ln_matmul": [_P] * 7 + [_L, _I, _I, _F, _P]},
     "standard_attention": {"sft_standard_attention": [_P, _P, _I, _I, _I, _I, _P]},
-    "cls_pool": {"sft_cls_pool_tokens": [_P] * 20 + [_I] * 5 + [_F, _P],
-                 "sft_cls_pool": [_P] * 20 + [_I] * 5 + [_F, _P]},
+    "cls_pool": {"sft_cls_pool_tokens": [_P] * 21 + [_I] * 8 + [_F, _P],
+                 "sft_cls_pool": [_P] * 20 + [_I] * 8 + [_F, _P]},
     "divided_attention": {"sft_divided_attention_proj": [_P] * 8 + [_I] * 6 + [_P],
                           "sft_divided_attention": [_P] * 4 + [_I] * 6 + [_P],
                           "sft_divided_attention_packed": [_P] * 2 + [_I] * 6 + [_P]},
@@ -167,6 +169,43 @@ def time_bwd_plan(f: int, n: int, d: int, heads: int) -> dict:
             f"the backward's time pass stages {f} frames' qkv and cotangent rows of width {d} "
             f"in one block: {smem(p)} bytes of shared memory, more than {MAX_SMEM}")
     return {"p": p, "blocks": -(-n // p), "smem": smem(p)}
+
+
+def cls_pool_smem(rows: int, d: int, heads: int) -> int:
+    """Shared memory (bytes) of the CLS-pool pass (csrc/cls_pool.cu::
+    pool_smem) holding ``rows`` rows of x: the rows and U's hi and lo parts
+    at a pitch of d + 8 bf16, a zero row, the logits (16 heads of rows + 1
+    f32), P^T (16 rows of the rows rounded up to 16, + 8, bf16), the softmax
+    state of CLS_GMAX groups and the cluster's exchange slots."""
+    p, t16 = d + 8, -(-rows // 16) * 16
+    return (rows * p * 2 + 2 * heads * p * 2 + p * 2 + 16 * (rows + 1) * 4 + 16 * (t16 + 8) * 2
+            + CLS_GMAX * 16 * 3 * 4 + 2 * CLS_MAXH * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def cls_pool_plan(b: int, m: int, d: int, heads: int, shared_u: bool, sms: int = 132) -> dict:
+    """The launch plan of the CLS-pool pass (csrc/cls_pool.cu::pool_kernel)
+    over b groups of m rows of width d, with cap the most rows (a multiple of
+    16) a block holds in shared memory: ``groups`` a block (with a shared U,
+    K4's, short groups are packed: at most cap // m, CLS_GMAX, and as many as
+    keep two blocks an SM busy); ``cluster`` 1, or 2 when a group has more
+    than cap rows (its halves on a 2-block cluster; x read once while a half
+    fits, else each block streams its half in passes of ``rows``); ``rows`` a
+    block holds at once; ``blocks``. Raises where not even 16 rows fit."""
+    cap = 0
+    while cls_pool_smem(cap + 16, d, heads) <= MAX_SMEM:
+        cap += 16
+    require(cap >= 16, f"the CLS-pool pass holds no 16 rows of width {d} with {heads} heads "
+            f"in {MAX_SMEM} bytes of shared memory")
+    groups, cluster = 1, 1
+    if m <= cap:
+        if shared_u:
+            groups = max(1, min(CLS_GMAX, cap // m, -(-b // (2 * sms))))
+        rows = groups * m
+    else:
+        cluster, rows = 2, min(cap, -(-m // 2))
+    return {"groups": groups, "cluster": cluster, "rows": rows,
+            "blocks": -(-b // groups) * cluster}
 
 
 def _nvcc() -> str:

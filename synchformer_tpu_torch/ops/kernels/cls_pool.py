@@ -5,7 +5,8 @@ K4 replaces synchformer_tpu/ops/pallas/cls_pool.py::fused_cls_pool_tokens
 (body _cls_pool_tokens_pallas / _cls_pool_tokens_kernel) with
 csrc/cls_pool.cu's sft_cls_pool_tokens. Main-path shapes: the spatial
 aggregator's (896, 196, 768) and the frequency aggregator's (672, 12, 768),
-each with one learned CLS row.
+each with one learned CLS row; the MoCo step's global aggregators at (2, 14,
+768).
 
 K4b replaces cls_pool.py::fused_cls_pool (body _cls_pool_pallas /
 _cls_pool_kernel) with sft_cls_pool: row 0 of each group is its CLS row, so
@@ -14,16 +15,18 @@ query pass, where the video tower's global segment aggregator has its
 positional dropout live: x (B, 1 + S, 768), B=2, S=14.
 
 With one query the kernels skip the (N, 2D) K/V GEMM: logits are LN(x)
-against U_h = Wk_h^T q_h, and the output is the p-weighted sum of LN(x) times
-Wv_h. That reads x once per group and keeps the pool pass bound by that read.
-K4 forms q and U once for every group; K4b forms q per group on the tile GEMM
-and U per group in a pass of B D^2 MACs. The bf16 rounding of K and V in the
-reference is skipped, which the bf16 tolerance on the card covers. Proj, LN2
-and the MLP then run as GEMMs with the groups as rows; their (B, D) and
-(B, 4D) inputs pass through device memory, where the TPU kernels kept them
-in VMEM. For training, ``impl='kernel'`` goes through ``ClsPoolTokensFn`` /
-``ClsPoolFn``: kernel forward, backward through the plain version (the JAX
-custom_vjps, cls_pool.py:227-262 and 326-360).
+against U_h = Wk_h^T q_h, and the output is Z_h Wv_h^T with Z_h the
+p-weighted sum of LN(x). csrc/cls_pool.cu forms q and U across the card,
+reads x once in a pass on the tensor cores that writes Z (B, H, D) in f32,
+takes every group's Wv product at once, then proj, LN2 and the MLP with the
+groups as rows on the Hopper GEMM (or, at a few groups, a skinny product that
+spreads the weight read over the card). The pass's plan (_build.
+cls_pool_plan: groups a block, a 2-block cluster for a group longer than a
+block holds) is computed here and passed in. The bf16 rounding of K and V in
+the reference is skipped, which the bf16 tolerance on the card covers. For
+training, ``impl='kernel'`` goes through ``ClsPoolTokensFn`` / ``ClsPoolFn``:
+kernel forward, backward through the plain version (the JAX custom_vjps,
+cls_pool.py:227-262 and 326-360).
 """
 from __future__ import annotations
 
@@ -98,9 +101,10 @@ class ClsPoolTokensFn(torch.autograd.Function):
                          ctx.saved_tensors, ctx.needs_input_grad[:14], (g,)) + (None, None)
 
 
-def _check_layer(what: str, x, wqkv, wp, w1, w2, vecs, num_heads: int) -> None:
+def _check_layer(what: str, x, wqkv, wp, w1, w2, vecs, num_heads: int, shared_u: bool) -> dict:
     """The operands both kernels take: contiguous bf16 x and (out, in)
-    matrices, f32 LN params and biases, all on x's device."""
+    matrices, f32 LN params and biases, all on x's device. Returns the pool
+    pass's plan."""
     _build.require_same_device(what, x, wqkv, wp, w1, w2, *vecs)
     bsz, n, d = x.shape
     hidden = w1.shape[0]
@@ -111,9 +115,22 @@ def _check_layer(what: str, x, wqkv, wp, w1, w2, vecs, num_heads: int) -> None:
                        for w, s in mats), f"{what} takes contiguous bf16 (out, in) matrices")
     _build.require(all(t.dtype == torch.float32 and t.is_contiguous() for t in vecs),
                    f"{what} takes f32 LN params and biases")
-    _build.require(d % 64 == 0 and hidden % 64 == 0 and num_heads <= 16
+    _build.require(d % 64 == 0 and hidden % 64 == 0 and num_heads <= _build.CLS_MAXH
                    and d % num_heads == 0, f"{what} needs d, hidden % 64 == 0, <= 16 heads")
-    _build.require(0 < bsz <= _build.MAX_GEMM_ROWS and n >= 1, f"{what} shape out of range")
+    _build.require(bsz >= 1 and n >= 1, f"{what} shape out of range")
+    plan = _build.cls_pool_plan(bsz, n, d, num_heads, shared_u)
+    _build.require(plan["blocks"] < 2 ** 31, f"{what} shape out of range")
+    return plan
+
+
+def _scratch(x, n_wb: int, hidden: int):
+    """One bf16 allocation for the kernels' scratch: wb (n_wb values, a
+    multiple of 64), then att, y and ln2 (B, D) and the MLP activation (B,
+    hidden), each 16-byte aligned."""
+    bsz, d = x.shape[0], x.shape[-1]
+    ws = torch.empty(n_wb + 3 * bsz * d + bsz * hidden, dtype=torch.bfloat16, device=x.device)
+    wb, att, y, ln2, hbuf = ws.split([n_wb, bsz * d, bsz * d, bsz * d, bsz * hidden])
+    return (wb, att.view(bsz, d), y.view(bsz, d), ln2.view(bsz, d), hbuf.view(bsz, hidden))
 
 
 def _cls_pool_tokens(x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1, w2, fb2,
@@ -123,25 +140,25 @@ def _cls_pool_tokens(x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1, w2, fb
         return cls_pool_tokens_plain(x, cls, g1, b1, wqkv, bqkv, wp, bp, g2, b2,
                                      w1, fb1, w2, fb2, num_heads, eps)
     _build.require_same_device("K4", x, cls)
-    _check_layer("K4", x, wqkv, wp, w1, w2, (g1, b1, bqkv, bp, g2, b2, fb1, fb2), num_heads)
+    plan = _check_layer("K4", x, wqkv, wp, w1, w2, (g1, b1, bqkv, bp, g2, b2, fb1, fb2),
+                        num_heads, True)
     bsz, m, d = x.shape
-    hidden = w1.shape[0]
+    hidden, h, cl = w1.shape[0], num_heads, plan["cluster"]
     dev = x.device
     cls_b = cls.reshape(d).to(torch.bfloat16).contiguous()
-    work = torch.empty(3 * d + num_heads * d + 2 * num_heads, dtype=torch.float32, device=dev)
-    att = torch.empty((bsz, d), dtype=x.dtype, device=dev)
-    y = torch.empty_like(att)
-    ln2 = torch.empty_like(att)
-    hbuf = torch.empty((bsz, hidden), dtype=x.dtype, device=dev)
+    wb, att, y, ln2, hbuf = _scratch(x, (4 + 2 * h) * d, hidden)
+    wf = torch.empty(bsz * cl * h * d + 2 * h + bsz * cl * h + bsz * h, dtype=torch.float32,
+                     device=dev)
     out = torch.empty_like(att)
     fn = _build.library("cls_pool")
     _build.launches["K4"] += 1
     _build.check(fn(x.data_ptr(), cls_b.data_ptr(), g1.data_ptr(), b1.data_ptr(),
                     wqkv.data_ptr(), bqkv.data_ptr(), wp.data_ptr(), bp.data_ptr(),
                     g2.data_ptr(), b2.data_ptr(), w1.data_ptr(), fb1.data_ptr(),
-                    w2.data_ptr(), fb2.data_ptr(), work.data_ptr(), att.data_ptr(),
+                    w2.data_ptr(), fb2.data_ptr(), wb.data_ptr(), wf.data_ptr(), att.data_ptr(),
                     y.data_ptr(), ln2.data_ptr(), hbuf.data_ptr(), out.data_ptr(),
-                    bsz, m, d, num_heads, hidden, float(eps), _build.stream_ptr()),
+                    bsz, m, d, h, hidden, plan["groups"], cl, plan["rows"], float(eps),
+                    _build.stream_ptr()),
                  "K4 cls_pool_tokens")
     return out
 
@@ -180,24 +197,22 @@ def _cls_pool(x, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1, w2, fb2,
     if not _build.use_kernel(x, "kernel"):
         return cls_pool_plain(x, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, fb1, w2, fb2,
                               num_heads, eps)
-    _check_layer("K4b", x, wqkv, wp, w1, w2, (g1, b1, bqkv, bp, g2, b2, fb1, fb2), num_heads)
+    plan = _check_layer("K4b", x, wqkv, wp, w1, w2, (g1, b1, bqkv, bp, g2, b2, fb1, fb2),
+                        num_heads, False)
     bsz, n, d = x.shape
-    hidden = w1.shape[0]
+    hidden, h, cl = w1.shape[0], num_heads, plan["cluster"]
     dev = x.device
-    qbuf = torch.empty((2, bsz, d), dtype=x.dtype, device=dev)
-    ubuf = torch.empty(bsz * num_heads * (d + 1), dtype=torch.float32, device=dev)
-    att = torch.empty((bsz, d), dtype=x.dtype, device=dev)
-    y = torch.empty_like(att)
-    ln2 = torch.empty_like(att)
-    hbuf = torch.empty((bsz, hidden), dtype=x.dtype, device=dev)
+    wb, att, y, ln2, hbuf = _scratch(x, 2 * bsz * d * (1 + h), hidden)
+    wf = torch.empty(bsz * cl * h * d + bsz * h + bsz * cl * h, dtype=torch.float32, device=dev)
     out = torch.empty_like(att)
     fn = _build.library("cls_pool", "sft_cls_pool")
     _build.launches["K4b"] += 1
     _build.check(fn(x.data_ptr(), g1.data_ptr(), b1.data_ptr(), wqkv.data_ptr(),
                     bqkv.data_ptr(), wp.data_ptr(), bp.data_ptr(), g2.data_ptr(),
                     b2.data_ptr(), w1.data_ptr(), fb1.data_ptr(), w2.data_ptr(),
-                    fb2.data_ptr(), qbuf.data_ptr(), ubuf.data_ptr(), att.data_ptr(),
+                    fb2.data_ptr(), wb.data_ptr(), wf.data_ptr(), att.data_ptr(),
                     y.data_ptr(), ln2.data_ptr(), hbuf.data_ptr(), out.data_ptr(),
-                    bsz, n, d, num_heads, hidden, float(eps), _build.stream_ptr()),
+                    bsz, n, d, h, hidden, plan["groups"], cl, plan["rows"], float(eps),
+                    _build.stream_ptr()),
                  "K4b cls_pool")
     return out

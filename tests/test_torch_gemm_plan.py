@@ -131,10 +131,11 @@ def test_time_pass_plan_refuses_frames_that_do_not_fit():
 
 
 def test_divided_attention_row_limits_are_per_kernel():
-    """The time and space passes take as many rows as their grids allow (the
-    tile GEMM's 65535 x 64 rows no longer bounds K5, K6 or K7); the time
-    pass refuses frames its shared memory cannot stage."""
-    assert 65535 * 8 * 196 > _build.MAX_GEMM_ROWS
+    """The time and space passes take as many rows as their grids allow (no
+    tile GEMM's 65535 x 64 rows bounds K5, K6 or K7: its last callers, K4 and
+    K4b, left it and it is gone); the time pass refuses frames its shared
+    memory cannot stage."""
+    assert not hasattr(_build, "MAX_GEMM_ROWS")
     assert tda._check_heads("K5", 768, 12, "time", 65535, 8, 196) == 64
     assert tda._check_heads("K5", 768, 12, "space", 65535, 8, 196) == 64
     with pytest.raises(ValueError):

@@ -6,9 +6,10 @@ flow on attn_impl='pallas_fused' (K8a's backward); so does its packed-block
 check (phase 5) under the packed flow's faults, on a tiny block; its
 serving check (phase 8, the tiny Synchformer with TINY_PACKED's towers on
 'pallas_fused') and phase 2's check of the K8a / K8b cases (at TINY_K8's
-size) fail a wrong K8a or K8b; and its MoCo check (phase 9, the tiny MoCo
+size) fail a wrong K8a or K8b; its MoCo check (phase 9, the tiny MoCo
 model) and phase 2's check of the K4b cases (at TINY_K4B's size) fail a
-wrong K4b.
+wrong K4b; and phase 2's checked K4 cases (at TINY_K4's size) fail a wrong
+K4.
 
 The faults are scripts/stage1_planted_faults.py's: wrappers around a kernel's
 entry where DividedAttentionFn or DividedAttentionPackedFn calls it. On CPU tensors the kernel path
@@ -227,3 +228,21 @@ def test_k4b_kernel_check_against_planted_fault(k4b_kernel_caught, name):
     rows, and so their queries, differ), the control neither."""
     failed = [label.split()[1] for label in k4b_kernel_caught[name]]
     assert failed == ([] if name == "none" else ["global", "spatial"]), failed
+
+
+@pytest.fixture(scope="module")
+def k4_kernel_caught():
+    return faults.k4_kernel_faults("cpu", tiny=True)
+
+
+@pytest.mark.parametrize("name", list(faults.K4_FAULTS))
+def test_k4_kernel_check_against_planted_fault(k4_kernel_caught, name):
+    """Phase 2's checked K4 cases: each fault (the shared CLS key left out of
+    the softmax; head h's values from head h + 1's rows of Wv) fails every
+    case, the MoCo global aggregators', the ragged rows', the part-filled
+    last block's, the guard band's and, at another head width, the ragged
+    and guard-band ones; the control none."""
+    failed = [" ".join(label.split()[1:-1]) for label in k4_kernel_caught[name]]
+    want = ["global", "ragged", "ragged", "part-filled last block", "guard band",
+            "4x32 ragged", "4x32 guard band"]
+    assert failed == ([] if name == "none" else want), failed
