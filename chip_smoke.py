@@ -3,7 +3,8 @@
 the Stage I contrastive training step, the same step with an 8-head video
 tower, which runs the Motionformer's packed flow, on both attention routes
 (attn_impl 'pallas' and 'pallas_fused'), sync inference with that tower on
-both routes, and the MoCo Stage I step with global representations.
+both routes, the MoCo Stage I step with global representations, and the
+Stage II step and Stage III fine-tune over frozen towers.
 
     python3 chip_smoke.py
 
@@ -22,7 +23,10 @@ Phases, each printed as it runs with its seconds:
    the CLS-pool layer with the CLS row inside x, at the MoCo step's video
    global aggregator (2, 15, 768) and, checked but not reported, at the
    Stage I spatial aggregator's groups with their CLS row inside, (224, 197,
-   768), where each group's query differs; K8b also at D = 512, hidden 2048,
+   768), where each group's query differs; an AST layer at 8 heads of 96
+   (112, 74, 768), whose heads do not pair into 128 lanes, so that K3's gate
+   sends its attention to the plain composition (K3 0 launches, K2 1),
+   checked but not reported; K8b also at D = 512, hidden 2048,
    and K2 at D = 192, hidden 768, both checked but not reported; K4b over
    [cls; x] against K4
    over x with the same CLS row, (224, 197, 768); K4, checked but not
@@ -137,6 +141,27 @@ Phases, each printed as it runs with its seconds:
    scripts/stage1_planted_faults.py shows that it fails a K4b that shares
    group 0's query and one that drops its residual); timing windows, peak
    memory, and an eval step reading K1 48, K2 48, K3 24, K4 8.
+10. the Stage II step: configs/sync.yaml's model section (as a dict,
+   sync_config) built through the port's registry by SyncTrainer, its
+   towers loaded from a Stage I checkpoint that the phase writes from a
+   seeded full-width build_avclip(); B=16, S=14, seeded uint8 frames, PCM
+   and offset targets on the card; (a) bf16 kernel, (b) bf16 plain, (c) f32
+   plain from the same weights and generator seed (the flip and dropout
+   draws agree: the heads are plain on every route). Counters exactly K1
+   24, K2 24, K3 12, K4 2 and the rest 0 for (a)'s eval step and for its
+   first train step; sync_agreement against (c), each within 2 x (b)'s
+   error: the loss (+ 1e-3 of it) and gradient norm (+ 5e-3), every
+   trainable leaf's relative error and 1 - the cosine of the whole trainable
+   gradient, the update of one Adam step, the eval step's f32 logits and
+   per-example loss (scripts/stage1_planted_faults.py shows that it fails
+   the K1 and K4 faults); then 3-step windows in the order plain, kernel,
+   kernel, plain: ms/step, samples/s and each path's peak memory.
+11. the Stage III fine-tune: configs/ft_synchability.yaml's model (S=13,
+   pos-emb 184, the 2-class syncability head) through finetune_from phase
+   10's (a) state, whose report must list the fresh sync_head as missing,
+   the dropped off_head as unexpected and nothing mismatched, the pos-emb
+   trimmed 198 -> 184; B=16, the batch's first 13 segments, sync targets;
+   the same three runs, counters, agreement and timing as phase 10.
 The line before the last is a JSON record of the kernels, with the TPU
 kernels still to port beside them (none); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises, so the exit code is non-zero and no result
@@ -269,6 +294,13 @@ BY_LAUNCH = ("K1", "K2", "K3", "K4", "K4b", "K4b spatial", "K5", "K6", "K7a", "K
 MAX_CLIP = 1.0  # Stage I's max_clip_norm
 B, S = 8, 14
 B1 = 2  # Stage I's base_batch_size
+B2, S3 = 16, 13  # Stage II / III's base_batch_size; Stage III's segments
+SYNCABILITY_ACTION = "ft_avsync_model_for_syncability"
+# one Stage II / III step, and its eval step, on frozen towers: the towers'
+# eval path (the K1 pair and K2 in every video block, K3 and K2 in every AST
+# layer, K4 for both aggregators); the projections and the transformer are
+# plain on every route
+STAGE2_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 2}
 D, H, DH = 768, 12, 64
 H8, DH8 = 8, 96  # the 8-head video tower's heads
 F_T, N_P = 8, 196  # frames after the 3-D patch embed, patches per frame
@@ -651,6 +683,32 @@ def check_k4b_concat(torch, dev, d: int = D, h: int = H, groups: int = B1 * S * 
     diff = maxabs(k4b, k4)
     log(f"[{tag}] {label}: |K4b-K4| {diff:.3e} tol {tol:.3e} {'ok' if diff <= tol else 'FAIL'}")
     return ok and not failed and diff <= tol
+
+
+def check_ast_8x96(torch, dev, bs: int = B * S, n: int = 74, d: int = D, h: int = H8,
+                   tag: str = "kernels") -> bool:
+    """The K3 gate on the card: an AST layer at 8 heads of 96, which do not
+    pair into 128 lanes, on impl='kernel' in bf16 runs its attention as the
+    plain composition (K3's count unchanged) and its LN + MLP half on K2 (one
+    launch); its output held to the f32 plain version by hold_outputs' rule.
+    Returns whether all held."""
+    from synchformer_tpu_torch.models.layers import ASTLayer
+    from synchformer_tpu_torch.ops.kernels import _build
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
+
+    layer = ASTLayer(d, h, device=dev)
+    load_numpy_state_dict(layer, seeded_state_dict(layer, seed=7))
+    x = torch.randn(bs, n, d, generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+    before = dict(_build.launches)
+    with torch.no_grad():
+        kern = layer(x.bfloat16(), "kernel")
+        torch.cuda.synchronize()
+        k3, k2 = (_build.launches[k] - before.get(k, 0) for k in ("K3", "K2"))
+        plain, anchor = layer(x.bfloat16(), "plain"), layer(x, "plain")
+    label = f"AST layer {h}x{d // h} ({bs},{n},{d})"
+    failed = hold_outputs(label, kern, plain, anchor, tag)[0]
+    log(f"[{tag}] {label}: launches K3 {k3}, K2 {k2} {'ok' if (k3, k2) == (0, 1) else 'FAIL'}")
+    return not failed and (k3, k2) == (0, 1)
 
 
 def k4_cases(torch, dev, d: int = D, h: int = H, global_rows=(B1, S),
@@ -1053,6 +1111,8 @@ def check_kernels(torch, dev, report):
     check_gemms(torch, dev)
     if not check_k4b_concat(torch, dev):
         fail("K4b over [cls; x] disagrees with K4 over x")
+    if not check_ast_8x96(torch, dev):
+        fail("the AST layer at 8 heads of 96 reached K3 or disagrees with its plain version")
     check_ragged(torch, dev)
     for key, label, kern, plain, cost, library in kernel_cases(torch, dev):
         k_out, p_out, a_out = kern(), plain(torch.bfloat16), plain(torch.float32)
@@ -1404,7 +1464,7 @@ def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1",
         ok, _ = check(name, err_k, err_p, 0.0)
         bad += not ok
         worst = max(worst, (err_k / max(err_p, 1e-30), f"{name} {err_k:.3e} vs {err_p:.3e}"))
-    log(f"[{tag}] {len(ref['leaves'])} attention-fed gradient leaves, relative L2 error to "
+    log(f"[{tag}] {len(ref['leaves'])} gradient leaves, relative L2 error to "
         f"f32 within 2 x plain bf16's: {len(ref['leaves']) - bad} ok, {bad} FAIL; worst "
         f"ratio {worst[0]:.3f} ({worst[1]})")
 
@@ -1800,8 +1860,264 @@ def run_moco(torch, dev, report, tag: str = "moco"):
             f"{[round(t * 1e3, 1) for t in times[name]]} ms); peak memory {gib(peaks[name])}")
 
 
+def sync_config(action: str, n_segments: int, ckpt_path=None, half: bool = True,
+                widths: dict | None = None) -> dict:
+    """configs/sync.yaml's (action 'train_avsync_model') or
+    configs/ft_synchability.yaml's ('ft_avsync_model_for_syncability')
+    model, training and data sections as a Python dict (the card's machine
+    has no PyYAML): ViT-B towers (their defaults), both named ``ckpt_path``,
+    the GlobalTransformer (3 layers of 8 heads of 96, dropouts 0.1, pos-emb
+    2 + 14 n_segments tokens), Adam at 2e-6 on constant_with_warmup (1000
+    steps), clip 1, flip p 0.5, colour jitter and grayscale p 0. ``half``
+    is use_half_precision. ``widths`` (d, n_layer, n_head, audio / video
+    tower params) replaces the widths, for the planted faults' dry run."""
+    w = {"d": D, "n_layer": 3, "n_head": H8, "audio": {}, "video": {}, **(widths or {})}
+    d = w["d"]
+    seq = 2 + n_segments * (w["video"].get("temporal_resolution", F_T) + 6)
+    lin = {"target": "torch.nn.Linear", "params": {"in_features": d, "out_features": d}}
+    head = ("GlobalTransformerWithSyncabilityHead" if action == SYNCABILITY_ACTION
+            else "GlobalTransformer")
+    model = {"target": "synchformer_tpu.models.sync_model.Synchformer", "params": {
+        "afeat_extractor": {"target": "synchformer_tpu.models.ast_encoder.ASTEncoder", "params": {
+            "ckpt_path": ckpt_path, "max_spec_t": 66, "factorize_freq_time": True,
+            "agg_freq_module": "TransformerEncoderLayer", "agg_time_module": "Identity",
+            "add_global_repr": False, **w["audio"]}},
+        "vfeat_extractor": {
+            "target": "synchformer_tpu.models.motionformer.MotionFormerEncoder", "params": {
+                "ckpt_path": ckpt_path, "factorize_space_time": True,
+                "agg_space_module": "TransformerEncoderLayer", "agg_time_module": "Identity",
+                "add_global_repr": False, **w["video"]}},
+        "aproj": lin, "vproj": lin,
+        "transformer": {"target": f"synchformer_tpu.models.sync_model.{head}", "params": {
+            "n_layer": w["n_layer"], "n_head": w["n_head"], "n_embd": d, "tok_pdrop": 0.0,
+            "embd_pdrop": 0.1, "resid_pdrop": 0.1, "attn_pdrop": 0.1,
+            "pos_emb_cfg": {"target": "synchformer_tpu.models.pos_emb.RandInitPositionalEncoding",
+                            "params": {"block_shape": [seq], "n_embd": d}},
+            "off_head_cfg": {"target": "torch.nn.Linear",
+                             "params": {"in_features": d, "out_features": 21}}}}}}
+    training = {"base_learning_rate": 2e-6, "base_batch_size": B2, "use_half_precision": half,
+                "seed": 1337, "max_clip_norm": 1, "finetune": action == SYNCABILITY_ACTION,
+                "lr_scheduler": {"name": "constant_with_warmup", "warmup": 1000},
+                "optimizer": {"name": "adam", "betas": [0.9, 0.999], "momentum": 0.9,
+                              "weight_decay": 0}}
+    data = {"num_off_cls": 21, "n_segments": n_segments, "p_horizontal_flip": 0.5,
+            "p_color_jitter": 0.0, "p_gray_scale": 0.0, "p_audio_aug": 0.0}
+    return {"action": action, "model": model, "training": training, "data": data}
+
+
+def stage1_tower_ckpt(torch, build, path: str) -> str:
+    """A Stage I checkpoint for the sync towers: ``build(device='meta')``'s
+    seeded state dict (seed 1) under "model", written to ``path``."""
+    from synchformer_tpu_torch.utils.convert import seeded_state_dict
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    sd = seeded_state_dict(build(device="meta"), seed=1)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+    return path
+
+
+def sync_batch(torch, dev, b: int, s: int, frames=FRAMES) -> dict:
+    """One seeded loader batch on ``dev``: uint8 frames (b, s, *frames), PCM
+    (b, s, 10240), offset_target in [0, 21), sync_target in {0, 1}."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    video = rng.integers(0, 256, (b, s, *frames), dtype=np.uint8)
+    pcm = (rng.standard_normal((b, s, 10240)) * 0.1).astype(np.float32)
+    return {"video": torch.from_numpy(video).to(dev), "audio": torch.from_numpy(pcm).to(dev),
+            "offset_target": torch.from_numpy(rng.integers(0, 21, b)).to(dev),
+            "sync_target": torch.from_numpy(rng.integers(0, 2, b)).to(dev)}
+
+
+def sync_trainer(cfg: dict, dev, impl: str, half: bool):
+    """A SyncTrainer on ``cfg`` with use_half_precision ``half``; an f32
+    trainer takes the bf16 trainers' Adam eps (1e-7), so that the three
+    updates differ only by the gradients."""
+    from synchformer_tpu_torch.train.stage_sync import SyncTrainer
+
+    cfg = {**cfg, "training": {**cfg["training"], "use_half_precision": half}}
+    tr = SyncTrainer(cfg, device=dev, impl=impl)
+    for group in tr.optimizer.param_groups:
+        group["eps"] = 1e-7
+    return tr
+
+
+def sync_record(torch, tr, batch, what: str, tag: str, resident: int = 0):
+    """An eval step, then the first train step of a SyncTrainer: the eval
+    step's f32 logits and per-example loss, the kernels launched by each
+    (``launches``: eval, step; the counters are zeroed before each), the
+    step's metrics, each trainable leaf's gradient undone from the clip
+    (``leaves``), all of them flattened (``flat``), and the update it made
+    to the trainable parameters (``update``, after - before, in f64); and
+    the step's peak memory above ``resident`` bytes (0 off the card)."""
+    from synchformer_tpu_torch.ops.kernels import _build
+
+    cuda = tr.device.type == "cuda"
+    _build.launches.clear()
+    ev = tr.eval_step(batch)
+    rec = {"eval": {k: ev[k].float() for k in ("logits", "loss_vec")}}
+    params = {n: p for n, p in tr.model.named_parameters() if p.requires_grad}
+    before = torch.cat([p.detach().double().flatten() for p in params.values()])
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    launches = [dict(_build.launches)]
+    _build.launches.clear()
+    t = time.perf_counter()
+    m = checked_step(tr, batch, what)
+    if cuda:
+        torch.cuda.synchronize()
+    rec["launches"] = launches + [dict(_build.launches)]
+    peak = torch.cuda.max_memory_allocated() - resident if cuda else 0
+    log(f"[{tag}] {what} first step: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+        f"accuracy_1 {m['accuracy_1']:.4f}, {time.perf_counter() - t:.2f} s, peak memory "
+        f"{gib(peak)}")
+    unclip = max(m["grad_norm"] / tr.max_clip_norm, 1.0)
+    rec["metrics"] = m
+    rec["leaves"] = {n: p.grad.float() * unclip for n, p in params.items()}
+    rec["flat"] = torch.cat([g.flatten() for g in rec["leaves"].values()])
+    rec["update"] = torch.cat([p.detach().double().flatten() for p in params.values()]) - before
+    return rec, peak
+
+
+def sync_agreement(ref: dict, plain: dict, kern: dict, tag: str,
+                   margins: dict | None = None) -> list:
+    """Hold sync_record's kernel record against the f32 one, each check at
+    2 x the plain bf16 record's error: stage1_agreement's loss (+ 1e-3 of
+    it), gradient norm (+ 5e-3 of it), every trainable leaf's and the whole
+    gradient's (1 - cosine) errors, then, by relative L2 error with no eps,
+    the update of one Adam step and the eval step's f32 logits and
+    per-example loss. Returns the names of the checks that failed; fills
+    ``margins``, when given, with each of these last checks' error over its
+    tolerance. The two scalars' eps are about 3 x the bf16 paths' readings
+    at B=16 (loss 1.0e-4 to 3.3e-4 of it, gradient norm 5e-4 to 2.1e-3 of
+    it), where either path's error can also cancel to near 0 (the Stage
+    III plain loss read 2e-5 of it): 2 x one scalar's error alone is no
+    yardstick; the vectors carry the check."""
+    failed = stage1_agreement(ref, plain, kern, tag, (("loss", 1e-3), ("grad_norm", 5e-3)))
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    for name in ("update", "eval logits", "eval loss_vec"):
+        def pick(r):
+            return r["update"] if name == "update" else r["eval"][name.split()[1]]
+
+        a, k, p = pick(ref), pick(kern), pick(plain)
+        finite = bool(k.isfinite().all()) and k.shape == a.shape
+        err_k, err_p = (rel(k, a) if finite else float("inf")), rel(p, a)
+        ok = err_k <= 2.0 * err_p
+        if not ok:
+            failed.append(name)
+        if margins is not None:
+            margins[name] = err_k / max(2.0 * err_p, 1e-30)
+        log(f"[{tag}] {name}: relative L2 |kernel-f32| {err_k:.3e} |plain_bf16-f32| "
+            f"{err_p:.3e} tol {2.0 * err_p:.3e} {'ok' if ok else 'FAIL'}")
+    return failed
+
+
+def sync_step_phase(torch, dev, tag: str, make, batch, b: int) -> dict:
+    """One Stage II / III phase: ``make(impl, half)`` gives a SyncTrainer;
+    (c) f32 plain, (a) bf16 kernel, (b) bf16 plain from the same weights
+    and generator seed (so the flip and dropout draws agree: the heads are
+    plain on every route); exact launch counts of (a)'s eval step and first
+    step (STAGE2_LAUNCHES each); sync_agreement; then 3-step windows in
+    the order plain, kernel, kernel, plain, each path's ms/step, samples/s
+    and its first step's peak memory. Returns (a)'s state dict after its
+    first step, on the CPU."""
+    t0 = time.perf_counter()
+    tr = make("plain", False)
+    ref, _ = sync_record(torch, tr, batch, "(c) f32 plain", tag)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] (c) {time.perf_counter() - t0:.1f} s")
+
+    def exact_counts(what, counts):
+        log(f"[{tag}] launches in {what}: {counts}")
+        for key in KEYS:
+            if counts.get(key, 0) != STAGE2_LAUNCHES.get(key, 0):
+                fail(f"{tag}: {key} launched {counts.get(key, 0)} times in {what}, expected "
+                     f"{STAGE2_LAUNCHES.get(key, 0)}")
+
+    resident = torch.cuda.memory_allocated()
+    trainers = {"kernel": make("kernel", True)}
+    kern, k_peak = sync_record(torch, trainers["kernel"], batch, "(a) bf16 kernel", tag,
+                               resident)
+    exact_counts("one kernel eval step", kern["launches"][0])
+    exact_counts("one kernel step", kern["launches"][1])
+    state = {k: v.detach().to("cpu", copy=True)
+             for k, v in trainers["kernel"].model.state_dict().items()}
+    resident = torch.cuda.memory_allocated()
+    trainers["plain"] = make("plain", True)
+    plain, p_peak = sync_record(torch, trainers["plain"], batch, "(b) bf16 plain", tag, resident)
+    failed = sync_agreement(ref, plain, kern, tag)
+    if failed:
+        fail(f"{tag}: kernel-path first step outside tolerance: {failed}")
+    del ref, plain, kern
+    times = {name: [] for name in trainers}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            checked_step(trainers[name], batch, name)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t) / 3)
+    for name, peak in (("kernel", k_peak), ("plain", p_peak)):
+        best = min(times[name]) * 1e3
+        log(f"[timing] {tag} {name} path: {best:.1f} ms/step of {b} clips = "
+            f"{b * 1e3 / best:.3f} samples/s (runs {[round(t * 1e3, 1) for t in times[name]]} "
+            f"ms); peak memory {gib(peak)}")
+    return state
+
+
+def run_sync_training(torch, dev, report):
+    """Phases 10 and 11. Phase 10, the Stage II step: the sync.yaml model
+    section built through the registry by SyncTrainer, its towers loaded
+    from a Stage I checkpoint of a seeded full-width build_avclip(), B=16,
+    S=14, offset targets, through sync_step_phase. Phase 11, the Stage III
+    fine-tune: the ft_synchability.yaml model (S=13, the syncability head)
+    fine-tuned from phase 10's (a) state (finetune_from: the pos-emb trimmed
+    198 -> 184, the fresh sync_head reported missing, the dropped off_head
+    unexpected), B=16, the first 13 segments of the same batch, sync
+    targets, through sync_step_phase."""
+    from synchformer_tpu_torch.models.presets import build_avclip
+
+    t0 = time.perf_counter()
+    ckpt = stage1_tower_ckpt(torch, build_avclip, os.path.join(REPO, "build", "chip_smoke",
+                                                               "stage1_avclip.pt"))
+    batch = sync_batch(torch, dev, B2, S)
+    cfg = sync_config("train_avsync_model", S, ckpt)
+    log(f"[stage2] Stage I checkpoint + batch {time.perf_counter() - t0:.1f} s; video "
+        f"{tuple(batch['video'].shape)} uint8 on the card")
+    state = sync_step_phase(torch, dev, "stage2",
+                            lambda impl, half: sync_trainer(cfg, dev, impl, half), batch, B2)
+    os.remove(ckpt)
+
+    ft_cfg = sync_config(SYNCABILITY_ACTION, S3)
+    ft_batch = {k: (v[:, :S3] if k in ("video", "audio") else v) for k, v in batch.items()}
+    del batch
+    want = {"missing": ["transformer.sync_head.weight", "transformer.sync_head.bias"],
+            "unexpected": ["transformer.off_head.weight", "transformer.off_head.bias"],
+            "mismatched": []}
+
+    def make(impl, half):
+        tr = sync_trainer(ft_cfg, dev, impl, half)
+        report_ = tr.finetune_from(state)
+        pos = tr.model.transformer.pos_emb_cfg.pos_emb
+        if report_ != want or pos.shape[1] != 2 + S3 * 14 or not torch.equal(
+                pos.detach().cpu(), state["transformer.pos_emb_cfg.pos_emb"][:, :pos.shape[1]]):
+            fail(f"stage3: the fine-tune merge reported {report_}, expected {want}, or the "
+                 f"pos-emb was not trimmed 198 -> 184")
+        log(f"[stage3] finetune_from phase 10's state: {report_}; pos-emb "
+            f"{state['transformer.pos_emb_cfg.pos_emb'].shape[1]} -> {pos.shape[1]}")
+        return tr
+
+    sync_step_phase(torch, dev, "stage3", make, ft_batch, B2)
+
+
 PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
-          run_serving_8head, run_moco)
+          run_serving_8head, run_moco, run_sync_training)
 
 
 def main() -> int:

@@ -90,6 +90,13 @@ Synchformer at B=2, S=2 with --tiny) and on phase 2's K1 / K2 cases
   v_cls, projected) in their attention;
 - k2_residual_dropped: K2 returns the MLP branch without the residual (and
   that branch's row statistics).
+Then the K1 and K4 faults on phase 10's Stage II step (chip_smoke.sync_agreement:
+the sync.yaml model through SyncTrainer, its towers from a Stage I
+checkpoint of build_avclip, B=16, S=14; with --tiny the TINY towers, B=2,
+S=2), where the frozen towers run the eval path: the control, and
+k1_mode_swapped, k1_cls_key_dropped, k4_cls_key_dropped,
+k4_wv_head_shifted as above; each line gives the margin of the update and
+eval checks (error over tolerance).
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
@@ -116,6 +123,7 @@ import torch  # noqa: E402
 import chip_smoke  # noqa: E402
 from synchformer_tpu_torch.infer import SyncPredictor  # noqa: E402
 from synchformer_tpu_torch.models.presets import (  # noqa: E402
+    TINY,
     TINY_PACKED,
     build_avclip,
     build_avclip_8head,
@@ -641,6 +649,57 @@ def moco_faults(dev, tiny: bool) -> dict:
     return caught
 
 
+# the K1 and K4 faults on phase 10's Stage II step, each with the entries it wraps
+STAGE2_FAULTS = {"none": (K1_ENTRIES, None),
+                 **{name: (K1_ENTRIES, f) for name, f in K1_FAULTS.items() if f is not None},
+                 **{name: (K4_ENTRIES, f) for name, f in K4_FAULTS.items() if f is not None}}
+# --tiny's Stage II model: chip_smoke.sync_config's widths for the TINY towers
+TINY_SYNC = {"d": TINY["d"], "n_layer": TINY["n_layer"], "n_head": TINY["heads"],
+             "audio": {"hidden_size": TINY["d"], "depth": TINY["depth"],
+                       "num_heads": TINY["audio_heads"]},
+             "video": {"embed_dim": TINY["d"], "depth": TINY["depth"], "num_heads": TINY["heads"],
+                       "patch_size": TINY["patch_size"], "img_size": TINY["img_size"],
+                       "temporal_resolution": TINY["temporal_resolution"]}}
+
+
+def stage2_faults(dev, tiny: bool) -> dict:
+    """STAGE2_FAULTS on phase 10's Stage II step: (c) f32 plain, (b) bf16
+    plain, then the bf16 kernel path once per fault, each from the same
+    seeded weights, Stage I checkpoint, batch and generator seed; each
+    fault's failed checks of sync_agreement."""
+    if tiny:
+        build, widths, b, s, frames = build_tiny_avclip, TINY_SYNC, 2, 2, (4, 32, 32, 3)
+    else:
+        build, widths, b, s, frames = build_avclip, None, chip_smoke.B2, chip_smoke.S, \
+            chip_smoke.FRAMES
+    ckpt = chip_smoke.stage1_tower_ckpt(torch, build, os.path.join(
+        REPO, "build", "planted_faults", "stage1_avclip.pt"))
+    batch = chip_smoke.sync_batch(torch, dev, b, s, frames)
+
+    def record(impl, half, entries=K1_ENTRIES, fault=None):
+        cfg = chip_smoke.sync_config("train_avsync_model", s, ckpt, widths=widths)
+        tr = chip_smoke.sync_trainer(cfg, dev, impl, half)
+        with planted(*entries, fault):
+            rec, _ = chip_smoke.sync_record(torch, tr, batch, f"{impl} {half}", "stage2_faults")
+        del tr
+        gc.collect()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        return rec
+
+    ref, plain = record("plain", False), record("plain", True)
+    caught = {}
+    for name, (entries, fault) in STAGE2_FAULTS.items():
+        margins = {}
+        caught[name] = chip_smoke.sync_agreement(ref, plain, record("kernel", True, entries, fault),
+                                                 f"stage2 {name}", margins)
+        chip_smoke.log(f"[fault] stage2 {name}: {len(caught[name])} checks failed: "
+                       f"{caught[name][:6]}{' ...' if len(caught[name]) > 6 else ''}; margins "
+                       + ", ".join(f"{k} {v:.3g}" for k, v in margins.items()))
+    os.remove(ckpt)
+    return caught
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiny", action="store_true")
@@ -706,6 +765,7 @@ def main() -> int:
     ok = verdict("slice", slice_faults(dev, args.tiny)) and ok
     k1, k2 = k1_k2_kernel_faults(dev, args.tiny)
     ok = verdict("kernels_k1", k1) and ok
+    ok = verdict("stage2", stage2_faults(dev, args.tiny)) and ok
     return 0 if verdict("kernels_k2", k2) and ok else 1
 
 if __name__ == "__main__":

@@ -42,7 +42,7 @@ class SyncPredictor:
         video = video_u8_patches.to(self.device, non_blocking=True)
         mel = log_mel_spectrogram(pcm.to(self.device, non_blocking=True))  # (B, S, 128, 66)
         aud = mel.transpose(-1, -2).to(self.dtype)
-        return self.model(video, aud, self.impl)
+        return self.model(video, aud, impl=self.impl)[1]
 
     def __call__(self, video_u8_patches: torch.Tensor, pcm: torch.Tensor) -> torch.Tensor:
         return torch.softmax(self.logits(video_u8_patches, pcm).float(), dim=-1)

@@ -8,10 +8,18 @@ whose matrices were cast once (SyncPredictor) casts nothing. LN parameters and
 biases stay f32 and are cast where they are used, as the JAX numerics helpers
 do.
 
-``impl`` chooses the route: 'kernel' sends the packed QKV through K3, the
-LN+MLP half through K2 and the CLS-pool layer through K4 (each wrapper runs
-its plain version on CPU tensors), or through K4b where the CLS row is row 0
-of x; 'plain' is the reference composition.
+``impl`` chooses the route: 'kernel' sends the packed QKV through K3 where
+the heads are ``groupable`` (the JAX layer's gate), the LN+MLP half through
+K2 and the CLS-pool layer through K4 (each wrapper runs its plain version on
+CPU tensors), or through K4b where the CLS row is row 0 of x; 'plain' is the
+reference composition.
+
+Training dropouts (the sync transformer's block, JAX PreLNBlock with
+attn_dropout / resid_dropout): with a ``generator`` and a rate above 0, the
+attention probabilities, the projection's output, the MLP's hidden
+activations and its output are dropped element-wise, drawn in that order, and
+the block takes the plain composition (as the JAX block leaves its kernels
+when it is stochastic). Without a generator every route is the eval code.
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ from torch import nn
 
 from synchformer_tpu_torch.ops.kernels.cls_pool import fused_cls_pool, fused_cls_pool_tokens
 from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_mlp_residual
-from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
+from synchformer_tpu_torch.ops.kernels.standard_attention import groupable, standard_attention
 from synchformer_tpu_torch.ops.numerics import dense, exact_gelu, layer_norm
 
 
@@ -98,11 +106,15 @@ def element_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) ->
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def scaled_dot_attention(q, k, v):
+def scaled_dot_attention(q, k, v, dropout: float = 0.0,
+                         generator: Optional[torch.Generator] = None):
     """q, k, v (..., H, N, dh); f32 logits scaled by dh^-0.5 in f32, f32
-    softmax, probabilities in the compute dtype."""
+    softmax, probabilities in the compute dtype, dropped at ``dropout`` where
+    a generator is given."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if generator is not None:
+        probs = element_dropout(probs, dropout, generator)
     return torch.matmul(probs, v)
 
 
@@ -124,8 +136,11 @@ class BlockParams:
 
 
 def multi_head_self_attention(x, p: BlockParams, num_heads: int, impl: str,
-                              query_rows: Optional[int] = None):
-    """Fused-QKV MHSA with the output projection (JAX MultiHeadSelfAttention)."""
+                              query_rows: Optional[int] = None, attn_dropout: float = 0.0,
+                              generator: Optional[torch.Generator] = None):
+    """Fused-QKV MHSA with the output projection (JAX MultiHeadSelfAttention;
+    its projection dropout is the caller's). K3 only on impl='kernel' with
+    groupable heads and no live attention dropout, as the JAX layer."""
     d = x.shape[-1]
     dtype = x.dtype
     dh = d // num_heads
@@ -136,37 +151,50 @@ def multi_head_self_attention(x, p: BlockParams, num_heads: int, impl: str,
         q = q.reshape(*lead, query_rows, num_heads, dh).transpose(-3, -2)
         kv = kv.reshape(*lead, x.shape[-2], 2, num_heads, dh)
         k, v = (t.transpose(-3, -2) for t in kv.unbind(-3))
-        out = scaled_dot_attention(q, k, v).transpose(-3, -2).reshape(*lead, query_rows, d)
+        out = scaled_dot_attention(q, k, v, attn_dropout, generator)
+        out = out.transpose(-3, -2).reshape(*lead, query_rows, d)
         return dense(out, p.wproj, p.bproj, dtype)
     qkv = dense(x, p.wqkv, p.bqkv, dtype)
-    if impl == "kernel":
+    stochastic = generator is not None and attn_dropout > 0.0
+    if impl == "kernel" and groupable(num_heads, dh) and not stochastic:
         n = x.shape[-2]
         out = standard_attention(qkv.reshape(-1, n, 3 * d), num_heads, impl=impl)
         return dense(out.reshape(x.shape), p.wproj, p.bproj, dtype)
     qkv = qkv.reshape(*x.shape[:-1], 3, num_heads, dh)
     q, k, v = (t.transpose(-3, -2) for t in qkv.unbind(-3))
-    out = scaled_dot_attention(q, k, v).transpose(-3, -2).reshape(x.shape)
+    out = scaled_dot_attention(q, k, v, attn_dropout, generator)
+    out = out.transpose(-3, -2).reshape(x.shape)
     return dense(out, p.wproj, p.bproj, dtype)
 
 
-def mlp(x, w1, b1, w2, b2):
-    """fc1 -> exact GELU -> fc2 (JAX Mlp, deterministic)."""
+def mlp(x, w1, b1, w2, b2, dropout: float = 0.0,
+        generator: Optional[torch.Generator] = None):
+    """fc1 -> exact GELU -> fc2 (JAX Mlp); with a generator, its dropout
+    after the GELU and after fc2."""
     dtype = x.dtype
-    return dense(exact_gelu(dense(x, w1, b1, dtype)), w2, b2, dtype)
+    h = exact_gelu(dense(x, w1, b1, dtype))
+    if generator is not None:
+        h = element_dropout(h, dropout, generator)
+    h = dense(h, w2, b2, dtype)
+    return h if generator is None else element_dropout(h, dropout, generator)
 
 
 def preln_block(x, p: BlockParams, num_heads: int, eps: float, impl: str,
-                query_rows: Optional[int] = None, cls_row=None):
+                query_rows: Optional[int] = None, cls_row=None, attn_dropout: float = 0.0,
+                resid_dropout: float = 0.0, generator: Optional[torch.Generator] = None):
     """x + attn(ln1(x)); x + mlp(ln2(x)) (JAX PreLNBlock.__call__).
 
     Routes for impl='kernel', as in the JAX package (layers.py:281-311):
     query_rows=1 on a 3-D x -> the whole layer for the CLS row, K4 with a
     shared ``cls_row``, K4b without one (row 0 of x is the CLS row);
-    otherwise the attention goes through K3 and the LN+MLP half through K2.
-    The block has no dropout, so no route depends on training."""
+    otherwise the attention goes through K3 (groupable heads) and the LN+MLP
+    half through K2. With a ``generator`` and a dropout rate above 0 the
+    block is stochastic and runs the plain composition with its dropouts."""
     d = x.shape[-1]
     dtype = x.dtype
-    if query_rows == 1 and impl == "kernel" and x.ndim == 3:
+    if generator is not None and attn_dropout == 0.0 and resid_dropout == 0.0:
+        generator = None  # nothing to draw: the deterministic routes
+    if query_rows == 1 and impl == "kernel" and x.ndim == 3 and generator is None:
         mats = (p.ln1_w, p.ln1_b, p.wqkv.to(dtype), p.bqkv, p.wproj.to(dtype), p.bproj,
                 p.ln2_w, p.ln2_b, p.w1.to(dtype), p.b1, p.w2.to(dtype), p.b2)
         if cls_row is not None:
@@ -179,32 +207,40 @@ def preln_block(x, p: BlockParams, num_heads: int, eps: float, impl: str,
         cls = cls_row.reshape(1, 1, d).to(dtype).expand(x.shape[0], 1, d)
         x = torch.cat([cls, x], dim=1)
     attn = multi_head_self_attention(layer_norm(x, p.ln1_w, p.ln1_b, eps, dtype),
-                                     p, num_heads, impl, query_rows)
+                                     p, num_heads, impl, query_rows, attn_dropout, generator)
+    if generator is not None:
+        attn = element_dropout(attn, resid_dropout, generator)
     if query_rows is not None:
         x = x[..., :query_rows, :]
     x = x + attn
-    if impl == "kernel" and query_rows is None:
+    if impl == "kernel" and query_rows is None and generator is None:
         return fused_ln_mlp_residual(x.contiguous(), p.ln2_w, p.ln2_b, p.w1.to(dtype),
                                      p.b1, p.w2.to(dtype), p.b2, eps, impl=impl)
-    return x + mlp(layer_norm(x, p.ln2_w, p.ln2_b, eps, dtype), p.w1, p.b1, p.w2, p.b2)
+    return x + mlp(layer_norm(x, p.ln2_w, p.ln2_b, eps, dtype), p.w1, p.b1, p.w2, p.b2,
+                   resid_dropout, generator)
 
 
 class PreLNBlock(nn.Module):
     """A pre-LN transformer block. Subclasses hold the parameters under their
     reference names and expose them through ``block_params``."""
 
-    def __init__(self, num_heads: int, eps: float):
+    def __init__(self, num_heads: int, eps: float, attn_dropout: float = 0.0,
+                 resid_dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.eps = eps
+        self.attn_dropout = float(attn_dropout)
+        self.resid_dropout = float(resid_dropout)
 
     def block_params(self) -> BlockParams:
         raise NotImplementedError
 
     def forward(self, x, impl: str = "plain", query_rows: Optional[int] = None,
-                cls_row=None):
+                cls_row=None, generator: Optional[torch.Generator] = None):
+        """``generator``: training, the block's dropouts live; None: eval."""
         return preln_block(x, self.block_params(), self.num_heads, self.eps, impl,
-                           query_rows, cls_row)
+                           query_rows, cls_row, self.attn_dropout, self.resid_dropout,
+                           generator)
 
 
 class MinGPTBlock(PreLNBlock):
@@ -212,8 +248,8 @@ class MinGPTBlock(PreLNBlock):
     ln1, ln2, attn.{query,key,value,proj}, mlp.0 / mlp.2; LN eps 1e-5."""
 
     def __init__(self, d: int, num_heads: int, eps: float = 1e-5, mlp_ratio: float = 4.0,
-                 device=None):
-        super().__init__(num_heads, eps)
+                 attn_dropout: float = 0.0, resid_dropout: float = 0.0, device=None):
+        super().__init__(num_heads, eps, attn_dropout, resid_dropout)
         hidden = int(d * mlp_ratio)
         self.ln1 = LayerNorm(d, eps, device)
         self.ln2 = LayerNorm(d, eps, device)

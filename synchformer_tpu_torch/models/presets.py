@@ -1,5 +1,6 @@
 """Model presets: the full-width sync model (configs/sync.yaml model section,
-as synchformer_tpu/models/presets.py::build_synchformer) and its 8-head
+as synchformer_tpu/models/presets.py::build_synchformer; with
+``syncability``, configs/ft_synchability.yaml's) and its 8-head
 video-tower variant (build_synchformer_8head), the full-width Stage I AVCLIP
 (configs/segment_avclip.yaml, as build_avclip), its 8-head variant
 (build_avclip_8head), the MoCo Stage I model at the same widths with global
@@ -28,14 +29,18 @@ TINY = dict(d=256, heads=4, audio_heads=4, depth=2, img_size=32, patch_size=8,
 TINY_PACKED = dict(TINY, d=192, heads=2, audio_heads=3)
 
 
-def build_synchformer(n_segments: int = 14, device=None) -> Synchformer:
+def build_synchformer(n_segments: int = 14, syncability: bool = False,
+                      device=None) -> Synchformer:
     """ViT-B towers (D=768, 12 layers of 12 heads of 64) and a 3-layer,
-    8-head GlobalTransformer."""
+    8-head GlobalTransformer over 2 + 14 n_segments tokens with the
+    configs' dropouts (tok 0, embd / resid / attn 0.1): 21 offset logits
+    (configs/sync.yaml), or with ``syncability`` 2 syncability logits
+    (configs/ft_synchability.yaml, n_segments 13, pos-emb 184)."""
     return Synchformer(
         vfeat_extractor=dict(depth=12, num_heads=12),
         afeat_extractor=dict(depth=12, num_heads=12),
         d=D, n_segments=n_segments, n_layer=3, n_head=8, num_cls=N_OFFSET_CLS,
-        device=device).eval()
+        syncability=syncability, device=device).eval()
 
 
 def build_synchformer_8head(n_segments: int = 14, attn_impl: str = "pallas",
@@ -50,16 +55,20 @@ def build_synchformer_8head(n_segments: int = 14, attn_impl: str = "pallas",
 
 
 def build_tiny_synchformer(n_segments: int = 2, device=None, t: dict = TINY,
-                           attn_impl: str = "pallas") -> Synchformer:
-    """Towers and transformer at the tiny widths ``t`` (TINY or TINY_PACKED)."""
+                           attn_impl: str = "pallas", syncability: bool = False,
+                           dropout: float = 0.1, drop_path_rate: float = 0.2) -> Synchformer:
+    """Towers and transformer at the tiny widths ``t`` (TINY or TINY_PACKED);
+    ``dropout`` is the transformer's embd / resid / attn rate,
+    ``drop_path_rate`` the video tower's (live only where it trains)."""
     return Synchformer(
         vfeat_extractor=dict(depth=t["depth"], num_heads=t["heads"],
                              patch_size=t["patch_size"], img_size=t["img_size"],
                              temporal_resolution=t["temporal_resolution"],
-                             attn_impl=attn_impl),
+                             attn_impl=attn_impl, drop_path_rate=drop_path_rate),
         afeat_extractor=dict(depth=t["depth"], num_heads=t["audio_heads"]),
         d=t["d"], n_segments=n_segments, n_layer=t["n_layer"], n_head=t["heads"],
-        num_cls=N_OFFSET_CLS, device=device).eval()
+        num_cls=N_OFFSET_CLS, syncability=syncability, embd_pdrop=dropout,
+        resid_pdrop=dropout, attn_pdrop=dropout, device=device).eval()
 
 
 def build_avclip(remat: bool = False, device=None) -> AVCLIP:

@@ -18,7 +18,17 @@ import torch
 from synchformer_tpu_torch.ops.autograd import plain_vjp
 from synchformer_tpu_torch.ops.kernels import _build
 
-__all__ = ["standard_attention", "standard_attention_plain", "StandardAttentionFn"]
+__all__ = ["standard_attention", "standard_attention_plain", "StandardAttentionFn", "groupable"]
+
+
+def groupable(num_heads: int, head_dim: int) -> bool:
+    """The JAX layer's gate before K3 (synchformer_tpu/ops/pallas/
+    standard_attention.py:33-36, used at models/layers.py:162-175): the heads
+    pair into 128-lane groups. Where it fails (8 heads of 96), the attention
+    takes the plain composition on every device; where it holds, a head_dim
+    other than 64 reaches K3, which refuses it on the card."""
+    hpg = max(1, 128 // head_dim)
+    return num_heads % hpg == 0 and (head_dim * hpg) % 128 == 0
 
 
 def standard_attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:

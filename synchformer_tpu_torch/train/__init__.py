@@ -1,2 +1,4 @@
-"""Stage I training: schedules and AdamW (state.py), the AVCLIP train and
-eval steps (step.py), the trainer entry point (stage_clip.py)."""
+"""Training: schedules and optimizers (state.py), the Stage I and Stage II/III
+train and eval steps (step.py), the trainer entry points (stage_clip.py,
+stage_sync.py), the classification metrics (metrics.py) and the syncability
+evaluation (syncability_eval.py)."""

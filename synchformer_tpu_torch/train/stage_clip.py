@@ -6,11 +6,13 @@ AVCLIPTrainer), one step at a time.
     out = trainer.eval_step(batch)               # loss, zero-shot precision
 
 As in the JAX trainer (stage_clip.py:94-100), ``cfg.model.target`` selects
-the model: one naming MoCoCLIP trains MultilevelMoCoCLIP (default
-build_moco_avclip) with its momentum model, a copy of the model at the start
-updated as an EMA each step, and its feature queues (segment queue
-queue_size x max_segments, global queue queue_size, as _init_moco_state,
-stage_clip.py:223-235); anything else trains AVCLIP (default build_avclip).
+the model: one naming MoCoCLIP trains MultilevelMoCoCLIP with its momentum
+model, a copy of the model at the start updated as an EMA each step, and its
+feature queues (segment queue queue_size x max_segments, global queue
+queue_size, as _init_moco_state, stage_clip.py:223-235); anything else
+trains AVCLIP. Where ``cfg.model`` carries ``params``, the model is built
+from them through the port's registry (synchformer_tpu_torch.registry);
+without them, the preset (build_moco_avclip / build_avclip).
 
 ``batch`` is the loader's layout: ``video`` uint8 (B, S, 16, 224, 224, 3),
 ``audio`` PCM (B, S, 10240). Device prep happens inside: frames normalised in
@@ -18,13 +20,13 @@ the compute dtype with the per-clip horizontal flip (train only) and
 patchified on the device; PCM -> f32 log-mel -> (B, S, 66, 128) in the compute
 dtype. ``precision: amp`` is bf16 compute over f32 master parameters.
 
-Read from ``cfg``: model.target, training.{seed, precision, learning_rate,
+Read from ``cfg``: model.{target, params} (and the audio tower's
+max_spec_t, the log-mel's length), training.{seed, precision, learning_rate,
 weight_decay, warmup, total_steps, max_clip_norm, zero_shot_window, alpha},
-data.{p_horizontal_flip, p_audio_aug, n_segments}. The audio augmentations (synchformer_tpu/ops/dsp.py) are
-not ported: a p_audio_aug above 0 is refused rather than ignored. So is a
-non-empty model.params: the JAX trainer instantiates cfg.model from it, this
-port builds only its presets. There is no
-loader, checkpointing or logging here; those wait for data staging.
+data.{p_horizontal_flip, p_audio_aug, n_segments}. The audio augmentations
+(synchformer_tpu/ops/dsp.py) are not ported: a p_audio_aug above 0 is
+refused rather than ignored. There is no loader, checkpointing or logging
+here; those wait for data staging.
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ import torch
 from synchformer_tpu_torch.models.avclip import AVCLIP
 from synchformer_tpu_torch.models.moco_clip import MultilevelMoCoCLIP, init_queues
 from synchformer_tpu_torch.models.presets import build_avclip, build_moco_avclip
-from synchformer_tpu_torch.ops.mel import log_mel_spectrogram
+from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
 from synchformer_tpu_torch.ops.video import patchify_frames, prepare_video_batch
+from synchformer_tpu_torch.registry import instantiate_from_config
 from synchformer_tpu_torch.train.state import make_adamw, make_lr_schedule
 from synchformer_tpu_torch.train.step import (
     avclip_eval_step,
@@ -50,9 +53,10 @@ from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_st
 
 class AVCLIPTrainer:
     """Stage I training on one device, of AVCLIP or, where cfg.model.target
-    names MoCoCLIP, of MultilevelMoCoCLIP. ``model`` defaults to the
-    full-width ``build_avclip()`` / ``build_moco_avclip()`` with weights drawn
-    from training.seed (seeded_state_dict); the trainer moves it to
+    names MoCoCLIP, of MultilevelMoCoCLIP. ``model`` defaults to cfg.model
+    built through the registry where it has params, else the full-width
+    ``build_avclip()`` / ``build_moco_avclip()``, with weights drawn from
+    training.seed (seeded_state_dict); the trainer moves it to
     ``device``. ``impl`` picks the kernel route ('kernel') or the plain
     compositions ('plain')."""
 
@@ -68,11 +72,6 @@ class AVCLIPTrainer:
         if float(data.get("p_audio_aug", 0.0)) > 0.0:
             raise NotImplementedError("the Stage I audio augmentations are not ported: "
                                       "set data.p_audio_aug to 0")
-        if cfg.get("model", {}).get("params"):
-            raise NotImplementedError(
-                "cfg.model.params is not read: the JAX trainer builds the model from it, the "
-                "port only from its preset (build_avclip / build_moco_avclip); drop "
-                "model.params until the port has a registry (ROADMAP §1 item 1)")
         if impl not in ("kernel", "plain"):
             raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
         self.impl = impl
@@ -85,10 +84,17 @@ class AVCLIPTrainer:
         self.schedule = make_lr_schedule(
             "cosine", float(training.get("learning_rate", 1e-4)),
             int(training.get("warmup", 1000)), int(training.get("total_steps", 100_000)))
-        self.is_moco = "MoCoCLIP" in str(cfg.get("model", {}).get("target", ""))
+        model_cfg = cfg.get("model", {})
+        self.is_moco = "MoCoCLIP" in str(model_cfg.get("target", ""))
         self.alpha = float(training.get("alpha", 0.0))
+        self.mel_cfg = MelSpectrogramConfig(max_spec_t=int(
+            (model_cfg.get("params") or {}).get("afeat_extractor", {}).get("params", {})
+            .get("max_spec_t", 66)))
         if model is None:
-            model = (build_moco_avclip if self.is_moco else build_avclip)(device=self.device)
+            if model_cfg.get("params"):
+                model = instantiate_from_config(model_cfg, device=self.device)
+            else:
+                model = (build_moco_avclip if self.is_moco else build_avclip)(device=self.device)
             load_numpy_state_dict(model, seeded_state_dict(model, self.seed))
         if isinstance(model, MultilevelMoCoCLIP) != self.is_moco:
             raise TypeError(f"cfg.model.target {cfg.get('model', {}).get('target')!r} does not "
@@ -126,7 +132,7 @@ class AVCLIPTrainer:
         vfe = self.model.v_encoder if self.is_moco else self.model.vfeat_extractor
         p = vfe.patch_embed_3d.proj.kernel_size
         vis = patchify_frames(frames, p[0], p[1])
-        aud = log_mel_spectrogram(pcm).transpose(-1, -2).to(self.dtype)
+        aud = log_mel_spectrogram(pcm, self.mel_cfg).transpose(-1, -2).to(self.dtype)
         return vis, aud
 
     def train_step(self, batch: Dict[str, Any], alpha: Optional[float] = None) -> Dict[str, float]:

@@ -1,8 +1,16 @@
 """The Stage I train and eval steps of AVCLIP (synchformer_tpu/train/step.py::
 make_avclip_train_step, make_avclip_eval_step) and of MultilevelMoCoCLIP
-(make_moco_train_step, make_moco_eval_step), and the zero-shot probe
+(make_moco_train_step, make_moco_eval_step), the zero-shot probe
 (synchformer_tpu/train/stage_clip.py::shifted_window_predictions,
-zero_shot_precision).
+zero_shot_precision), and the Stage II/III steps of the Synchformer
+(make_sync_train_step, make_sync_eval_step).
+
+One Stage II/III train step: the towers on their eval path (K1-K4 on
+impl='kernel', under no_grad where frozen) or, with
+extractors_deterministic=False (towers that train), the Stage I training
+route; the transformer in training mode (its dropouts drawn from the
+generator); the mean f32 cross-entropy; backward into the parameters that
+need a gradient; global-norm clipping; the optimizer at the schedule's rate.
 
 One train step: forward with the towers in training mode (drop-path live,
 K5 for every divided attention), the contrastive loss, backward (K6 for every
@@ -20,9 +28,11 @@ keys are written into the queues.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+
+import torch.nn.functional as F
 
 from synchformer_tpu_torch.models.avclip import AVCLIP
 from synchformer_tpu_torch.models.moco_clip import (
@@ -31,7 +41,13 @@ from synchformer_tpu_torch.models.moco_clip import (
     moco_forward,
     momentum_update,
 )
-from synchformer_tpu_torch.train.state import Schedule, clip_grads_by_global_norm_, set_lr
+from synchformer_tpu_torch.models.sync_model import Synchformer
+from synchformer_tpu_torch.train.state import (
+    Schedule,
+    clip_grads_by_global_norm_,
+    global_norm,
+    set_lr,
+)
 
 
 def avclip_train_step(model: AVCLIP, optimizer: torch.optim.Optimizer, schedule: Schedule,
@@ -56,14 +72,16 @@ def avclip_train_step(model: AVCLIP, optimizer: torch.optim.Optimizer, schedule:
 
 
 def _apply_update(params, optimizer, schedule: Schedule, step: int,
-                  max_clip_norm: float) -> torch.Tensor:
+                  max_clip_norm: Optional[float]) -> torch.Tensor:
     """Zero gradients for unused parameters (optax gives them, and they
-    decay), clip by global norm, set the step's rate, AdamW; returns the norm
-    before clipping."""
+    decay), clip by global norm (no clip where max_clip_norm is None), set
+    the step's rate, step the optimizer; returns the norm before clipping."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grad_norm = clip_grads_by_global_norm_([p.grad for p in params], max_clip_norm)
+    grads = [p.grad for p in params]
+    grad_norm = (global_norm(grads) if max_clip_norm is None
+                 else clip_grads_by_global_norm_(grads, max_clip_norm))
     set_lr(optimizer, schedule(step))
     optimizer.step()
     return grad_norm
@@ -137,3 +155,37 @@ def avclip_eval_step(model: AVCLIP, vis: torch.Tensor, aud: torch.Tensor, window
     afeat = afeat.reshape(b, -1, afeat.shape[-1]).float()
     return {"loss": loss, "precision": zero_shot_precision(afeat, vfeat, window),
             "afeat": afeat, "vfeat": vfeat}
+
+
+def sync_train_step(model: Synchformer, optimizer: torch.optim.Optimizer, schedule: Schedule,
+                    step: int, vis: torch.Tensor, aud: torch.Tensor, targets: torch.Tensor,
+                    generator: torch.Generator, impl: str = "kernel",
+                    max_clip_norm: Optional[float] = 1.0,
+                    extractors_deterministic: bool = True) -> Dict[str, torch.Tensor]:
+    """One Stage II/III update of the parameters of ``model`` that need a
+    gradient, from normalised patch-major frames ``vis``, log-mel ``aud``
+    (both in the compute dtype) and integer ``targets`` (B,). Returns loss,
+    grad_norm (before clipping), accuracy_1 and loss_finite, as device
+    tensors."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    optimizer.zero_grad(set_to_none=True)
+    loss, logits = model(vis, aud, targets, impl, deterministic=False, generator=generator,
+                         extractors_deterministic=extractors_deterministic)
+    loss.backward()
+    grad_norm = _apply_update(params, optimizer, schedule, step, max_clip_norm)
+    with torch.no_grad():
+        accuracy = (logits.argmax(-1) == targets).float().mean()
+    return {"loss": loss.detach(), "grad_norm": grad_norm, "accuracy_1": accuracy,
+            "loss_finite": torch.isfinite(loss.detach())}
+
+
+@torch.no_grad()
+def sync_eval_step(model: Synchformer, vis: torch.Tensor, aud: torch.Tensor,
+                   targets: torch.Tensor, impl: str = "kernel") -> Dict[str, torch.Tensor]:
+    """Deterministic forward: f32 logits, the per-example cross-entropy
+    ``loss_vec`` and the targets."""
+    _, logits = model(vis, aud, impl=impl)
+    logits = logits.float()
+    return {"logits": logits, "loss_vec": F.cross_entropy(logits, targets.long(),
+                                                          reduction="none"),
+            "targets": targets}

@@ -9,10 +9,16 @@ columns -> the reference's separate q/k/v rows (AST, sync transformer) or its
 packed in_proj / qkv rows (aggregators, Motionformer); Conv (*K, I, O) ->
 (O, I, *K); LayerNorm scale -> weight. Everything stays numpy; load with
 ``load_numpy_state_dict``.
+
+On the port's own state dicts (numpy arrays or tensors): ``trim_sync_pos_emb``
+(the reference's pos-emb rule, synchformer_tpu/utils/checkpoint.py:383) and
+``merge_state_dict_nonstrict`` (load_state_dict(strict=False) with a report,
+as merge_params_nonstrict, :406).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import logging
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -149,12 +155,17 @@ def ast_sd(p: Mapping, prefix: str = "") -> SD:
 
 
 def global_transformer_sd(p: Mapping, prefix: str = "transformer.") -> SD:
+    """The offset head where the tree has one, the syncability head
+    (``sync_head``, a bare Dense) where it has that."""
     sd = {**_layernorm(p["vis_in_lnorm"], f"{prefix}vis_in_lnorm"),
           **_layernorm(p["aud_in_lnorm"], f"{prefix}aud_in_lnorm"),
           f"{prefix}OFF_tok": _a(p["OFF_tok"]), f"{prefix}MOD_tok": _a(p["MOD_tok"]),
           f"{prefix}pos_emb_cfg.pos_emb": _a(p["pos_emb"]["pos_emb"]),
-          **_layernorm(p["ln_f"], f"{prefix}ln_f"),
-          **_linear(p["off_head"]["linear"], f"{prefix}off_head")}
+          **_layernorm(p["ln_f"], f"{prefix}ln_f")}
+    if "off_head" in p:
+        sd.update(_linear(p["off_head"]["linear"], f"{prefix}off_head"))
+    if "sync_head" in p:
+        sd.update(_linear(p["sync_head"], f"{prefix}sync_head"))
     for i in range(_depth(p, "blocks_")):
         sd.update(mingpt_block_sd(p[f"blocks_{i}"], f"{prefix}blocks.{i}"))
     return sd
@@ -162,7 +173,8 @@ def global_transformer_sd(p: Mapping, prefix: str = "transformer.") -> SD:
 
 def state_dict_from_jax(params: Mapping) -> SD:
     """Synchformer params tree (numpy or JAX arrays) -> the port's state dict,
-    named as the reference's Stage II checkpoint."""
+    named as the reference's Stage II checkpoint (Stage III's with the
+    syncability transformer)."""
     p = params.get("params", params)
     return {**motionformer_sd(p["v_encoder"], "vfeat_extractor."),
             **ast_sd(p["a_encoder"], "afeat_extractor."),
@@ -193,6 +205,50 @@ def moco_state_dict_from_jax(params: Mapping) -> SD:
         if scale in p:
             sd[scale] = _a(p[scale])
     return sd
+
+
+SYNC_POS_EMB = "transformer.pos_emb_cfg.pos_emb"
+
+
+def trim_sync_pos_emb(sd: Mapping, target_seq_len: Optional[int],
+                      key: str = SYNC_POS_EMB) -> dict:
+    """A copy of ``sd`` whose sync positional embedding (1, L, D) is cut to
+    ``target_seq_len`` tokens where it is longer (e.g. 198 for S=14 -> 184
+    for S=13, ref sync_model.py:101-114); a shorter one is refused. No
+    target, or no such entry: the copy unchanged."""
+    out = dict(sd)
+    if target_seq_len is None or key not in out:
+        return out
+    pos = out[key]
+    if pos.shape[1] > target_seq_len:
+        logging.warning(f"trimming sync pos emb {pos.shape[1]} -> {target_seq_len}")
+        out[key] = pos[:, :target_seq_len]
+    elif pos.shape[1] < target_seq_len:
+        raise ValueError(f"cannot load shorter pos emb ({pos.shape[1]} < {target_seq_len})")
+    return out
+
+
+def merge_state_dict_nonstrict(init: Mapping, loaded: Mapping) -> Tuple[dict, dict]:
+    """torch's load_state_dict(strict=False) with a report, on flat state
+    dicts: names in both with equal shapes take the loaded value; names only
+    in ``init`` keep theirs (``missing``: a fresh head); names only in
+    ``loaded`` are dropped (``unexpected``); shape mismatches keep the init
+    value (``mismatched``, 'name: ckpt (..) vs model (..)'). Returns (merged,
+    report); the report's lists are in ``init``'s / ``loaded``'s order."""
+    report = {"missing": [], "unexpected": [], "mismatched": []}
+    merged = {}
+    for name, val in init.items():
+        if name not in loaded:
+            report["missing"].append(name)
+            merged[name] = val
+        elif tuple(loaded[name].shape) != tuple(val.shape):
+            report["mismatched"].append(f"{name}: ckpt {tuple(loaded[name].shape)} vs model "
+                                        f"{tuple(val.shape)}")
+            merged[name] = val
+        else:
+            merged[name] = loaded[name]
+    report["unexpected"] = [name for name in loaded if name not in init]
+    return merged, report
 
 
 @torch.no_grad()

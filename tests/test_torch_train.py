@@ -330,29 +330,36 @@ def test_trainer_defaults_to_the_card_and_refuses_audio_augs():
                       model=build_tiny_avclip())
 
 
-def test_trainer_refuses_model_params():
-    """A non-empty cfg.model.params is refused: the JAX trainer builds the
-    model from it (synchformer_tpu/train/stage_clip.py:94-96), the port only
-    from its preset. A cfg with only model.target, as chip_smoke.py builds
-    it, still trains."""
-    import os
-    import sys
+@pytest.mark.parametrize("moco", [False, True], ids=["avclip", "moco"])
+def test_trainer_builds_model_params_through_the_registry(moco):
+    """AVCLIPTrainer builds cfg.model from its params through the port's
+    registry (a tiny AVCLIP, or a tiny MoCo model with queues of 4 and
+    momentum 0.9), seeded from training.seed like its preset: one f32 plain
+    step from each gives the same metrics and parameters as the preset's
+    trainer."""
+    from test_torch_registry import tiny_model_cfg
 
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    import chip_smoke
     from synchformer_tpu_torch.models.presets import build_tiny_moco_avclip
     from synchformer_tpu_torch.utils.convert import seeded_state_dict
 
-    cfg = {"model": {"target": chip_smoke.MOCO_TARGET, "params": {"queue_size": 4096}},
-           "training": {"seed": 0}}
-    with pytest.raises(NotImplementedError, match="model.params"):
-        AVCLIPTrainer(cfg, device="cpu", model=build_tiny_moco_avclip())
-    sd = seeded_state_dict(build_tiny_moco_avclip(device="meta"), seed=0)
-    tr = chip_smoke.stage1_trainer(build_tiny_moco_avclip, sd, "cpu", "fp32", "plain",
-                                   moco=True)
-    m = chip_smoke.checked_step(tr, chip_smoke.stage1_batch(torch, B, S, (4, 32, 32, 3)),
-                                "fp32 plain")
-    assert tr.is_moco and tr.step == 1 and np.isfinite(m["loss"])
+    rng = np.random.default_rng(2)
+    batch = {"video": rng.integers(0, 256, (B, S, 4, 32, 32, 3), dtype=np.uint8),
+             "audio": (rng.standard_normal((B, S, 10240)) * 0.1).astype(np.float32)}
+    cfg = {"model": tiny_model_cfg(moco),
+           "training": {"precision": "fp32", "seed": 0, "warmup": 2, "total_steps": 10,
+                        "alpha": 0.4}}
+    built = AVCLIPTrainer(cfg, device="cpu", impl="plain")
+    preset = (build_tiny_moco_avclip if moco else build_tiny_avclip)()
+    load_numpy_state_dict(preset, seeded_state_dict(preset, 0))
+    ref = AVCLIPTrainer({**cfg, "model": {"target": cfg["model"]["target"]}}, device="cpu",
+                        model=preset, impl="plain")
+    assert built.is_moco == moco
+    if moco:  # the config's, not the full-width preset's 1024 / 0.995
+        assert (built.model.queue_size, built.model.momentum) == (4, 0.9)
+    assert built.train_step(batch) == ref.train_step(batch)
+    got, want = built.model.state_dict(), ref.model.state_dict()
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_trainer_steps_on_cpu():
