@@ -3,8 +3,11 @@
 the Stage I contrastive training step, the same step with an 8-head video
 tower, which runs the Motionformer's packed flow, on both attention routes
 (attn_impl 'pallas' and 'pallas_fused'), sync inference with that tower on
-both routes, the MoCo Stage I step with global representations, and the
-Stage II step and Stage III fine-tune over frozen towers.
+both routes, the MoCo Stage I step with global representations, the
+Stage II step and Stage III fine-tune over frozen towers, the audio
+augmentations, and the training entry point (python -m
+synchformer_tpu_torch.main: Stage I, II and III from the shipped configs
+through the loader, fit, checkpoints and resume).
 
     python3 chip_smoke.py
 
@@ -162,6 +165,26 @@ Phases, each printed as it runs with its seconds:
    the dropped off_head as unexpected and nothing mismatched, the pos-emb
    trimmed 198 -> 184; B=16, the batch's first 13 segments, sync targets;
    the same three runs, counters, agreement and timing as phase 10.
+12. the audio augmentations (ops/dsp.py) at the published Stage I crop, B=2
+   x 80,000 samples (5 s at 16 kHz) of seeded tones under noise: reverb,
+   volume, pitch shift, lowpass, noise and their chain, each forced on
+   (every row drawn) against the same function on the CPU in float64
+   (AUG_TOL; WSOLA's chosen offsets equal) and forced off (the input back
+   bit for bit), the reverb also against sox_reverb_scalar, a float64
+   transliteration of sox reverb.c, on 2400 samples (rtol 1e-3, atol
+   2e-5); ms per transform and per chain by CUDA events and by the host's
+   clock, and random_audio_aug_chain at p 0 and 0.2, draws included.
+13. the training entry point, synchformer_tpu_torch.main's dispatch
+   in-process (entry_plan): configs/segment_avclip.yaml (published widths,
+   p_audio_aug 0.2, B=2) over SyntheticAV, one epoch, then resumed to two;
+   configs/sync.yaml (B=16) with its towers from that run, two epochs;
+   configs/ft_synchability.yaml fine-tuned from Stage II's best store.
+   Every train step's launches exactly phase 4's or phase 10's; the step
+   counts, the augmentations drawn, ckpts/latest and ckpts/best; the resume
+   continuing the step counter from parameters equal bit for bit to the
+   first run's; Stage I and II ms/step inside fit and the loader's share
+   (scalars.jsonl); then measure_pipeline_throughput of the synthetic
+   pipeline alone at B=2 and B=16.
 The line before the last is a JSON record of the kernels, with the TPU
 kernels still to port beside them (none); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises, so the exit code is non-zero and no result
@@ -2116,8 +2139,380 @@ def run_sync_training(torch, dev, report):
     sync_step_phase(torch, dev, "stage3", make, ft_batch, B2)
 
 
+# phase 12: the audio augmentations at the published Stage I crop, 5 s at
+# 16 kHz, B=2 (configs/segment_avclip.yaml: crop_len_sec 5, afps 16000)
+AUG_B, AUG_N, AUG_SR = 2, 80_000, 16_000
+# each transform on the card at p=1 against the same function on the CPU in
+# float64, max |card - cpu64| over max |cpu64|: the FFT filters run in f64 on
+# both sides (only the f32 input and output round), volume and noise are one
+# rounding; the pitch shift's WSOLA correlations and its sinc sum run in f32
+# on the card (the offsets chosen must be equal), so the chain holds to that
+AUG_TOL = {"reverb": 1e-5, "volume": 1e-6, "pitch": 1e-4, "lowpass": 1e-5, "noise": 1e-6,
+           "chain": 1e-4}
+
+
+def aug_signal(b: int = AUG_B, n: int = AUG_N, sr: int = AUG_SR):
+    """Seeded PCM (b, n) in f32: three tones a row (a clear best WSOLA match
+    at every step) under noise at -34 dB."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    t = np.arange(n) / sr
+    rows = [0.5 * np.sin(2 * np.pi * (440 + 37 * r) * t) + 0.3 * np.sin(2 * np.pi * 1234 * t)
+            + 0.2 * np.sin(2 * np.pi * (97 + 5 * r) * t) for r in range(b)]
+    return (np.stack(rows) + 0.02 * rng.standard_normal((b, n))).astype(np.float32)
+
+
+def sox_reverb_scalar(x, sr, reverberance=50.0, hf_damping=50.0, room_scale=100.0,
+                      stereo_depth=100.0, wet_gain_db=0.0):
+    """Float64 sample-loop transliteration of sox reverb.c (reverb_create /
+    filter_array_create / comb_process / allpass_process), wet only, a mono
+    input -> the mean of the two spread channels (the reference's
+    `reverb -w` then wave.mean(dim=0))."""
+    import math
+
+    import numpy as np
+
+    r = sr / 44100.0
+    scale = room_scale / 100.0 * 0.9 + 0.1
+    depth = stereo_depth / 100.0
+    a = -1.0 / math.log(1.0 - 0.3)
+    b = 100.0 / (math.log(1.0 - 0.98) * a + 1.0)
+    feedback = 1.0 - math.exp((reverberance - b) / (a * b))
+    damping = hf_damping / 100.0 * 0.3 + 0.2
+    gain = 10.0 ** (wet_gain_db / 20.0) * 0.015
+    n = len(x)
+    outs = []
+    for c in range(2):
+        offset = c * depth
+        combs, aps = [], []
+        # the stereo-spread offset goes on the 44.1 kHz base length, before
+        # the rate and room scaling
+        for length in (1116, 1188, 1277, 1356, 1422, 1491, 1557, 1617):
+            combs.append(int(r * scale * (length + 12 * offset) + 0.5))
+            offset = -offset
+        for length in (225, 341, 441, 556):
+            aps.append(int(r * (length + 12 * offset) + 0.5))
+            offset = -offset
+        bufs = [np.zeros(d) for d in combs]
+        stores = [0.0] * len(combs)
+        ptrs = [0] * len(combs)
+        abufs = [np.zeros(d) for d in aps]
+        aptrs = [0] * len(aps)
+        y = np.zeros(n)
+        for i in range(n):
+            out = 0.0
+            for k, d in enumerate(combs):
+                o = bufs[k][ptrs[k]]
+                stores[k] = o + (stores[k] - o) * damping
+                bufs[k][ptrs[k]] = x[i] + stores[k] * feedback
+                ptrs[k] = (ptrs[k] + 1) % d
+                out += o
+            for k, d in enumerate(aps):
+                o = abufs[k][aptrs[k]]
+                abufs[k][aptrs[k]] = out + o * 0.5
+                aptrs[k] = (aptrs[k] + 1) % d
+                out = o - out
+            y[i] = out * gain
+        outs.append(y)
+    return (outs[0] + outs[1]) / 2.0
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in f64."""
+    return float((got.double().cpu() - want.double().cpu()).abs().max()
+                 / want.double().abs().max())
+
+
+def host_ms_synced(torch, fn, calls: int = 5) -> float:
+    """Host milliseconds a call, synchronised (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def run_audio_augs(torch, dev, report, b: int = AUG_B, n: int = AUG_N):
+    """Phase 12: the five augmentations (ops/dsp.py) and their chain on the
+    card at (b, n), forced on (every row drawn) and off (no row drawn),
+    against the same functions on the CPU in float64; the reverb also
+    against sox_reverb_scalar on the first 2400 samples; ms per transform
+    and per chain by CUDA events and by the host's clock."""
+    from synchformer_tpu_torch.ops import dsp
+
+    x_np = aug_signal(b, n)
+    x = torch.from_numpy(x_np).to(dev)
+    x64 = torch.from_numpy(x_np).double()
+    on, off = torch.ones(b, dtype=torch.bool), torch.zeros(b, dtype=torch.bool)
+    noise = torch.randn(x.shape, generator=torch.Generator(dev).manual_seed(12), device=dev)
+    transforms = {
+        "reverb": lambda v, rows: dsp.apply_reverb(v, rows, AUG_SR),
+        "volume": lambda v, rows: dsp.apply_volume(v, rows, 2.0),
+        "pitch": lambda v, rows: dsp.apply_pitch_shift(v, rows, AUG_SR, 1000.0),
+        "lowpass": lambda v, rows: dsp.apply_lowpass(v, rows, AUG_SR, 100.0),
+        "noise": lambda v, rows: dsp.apply_gauss_noise(v, rows, noise.to(v.device, v.dtype),
+                                                       0.01),
+        "chain": lambda v, rows: dsp.apply_audio_aug_chain(
+            v, {**{k: rows for k in dsp.AUG_CHAIN},
+                "noise_values": noise.to(v.device, v.dtype)}, AUG_SR),
+    }
+    t0 = time.perf_counter()
+    for name, fn in transforms.items():
+        got, want = fn(x, on), fn(x64, on)
+        err = rel_err(got, want)
+        ok = (got.dtype == torch.float32 and got.shape == x.shape
+              and bool(torch.isfinite(got).all()) and err <= AUG_TOL[name])
+        same_off = torch.equal(fn(x, off), x)
+        log(f"[augs] {name} p=1: max|card-cpu64| / max|cpu64| {err:.3e} tol {AUG_TOL[name]:.0e} "
+            f"{'ok' if ok else 'FAIL'}; p=0 {'identity' if same_off else 'CHANGED'}")
+        if not (ok and same_off):
+            fail(f"audio augmentation {name}: error {err:.3e} or not the identity at p=0")
+    offsets, offsets64 = [], []
+    stretched = dsp.tempo_wsola(x, 1.0 / 2.0 ** (1000.0 / 1200.0), AUG_SR, offsets=offsets)
+    dsp.tempo_wsola(x64, 1.0 / 2.0 ** (1000.0 / 1200.0), AUG_SR, offsets=offsets64)
+    same = torch.equal(torch.stack(offsets).cpu(), torch.stack(offsets64))
+    log(f"[augs] WSOLA: {len(offsets)} steps of {b} rows, n_out {stretched.shape[-1]}; offsets "
+        f"{'equal to' if same else 'DIFFERENT FROM'} the cpu64 run's")
+    if not same:
+        fail("WSOLA chose other offsets on the card than in float64 on the CPU")
+    short = x[:, :2400]
+    golden = torch.from_numpy(sox_reverb_scalar(x_np[0, :2400].astype("float64"), AUG_SR))
+    wet = dsp.reverb(short, AUG_SR)[0].double().cpu()
+    bad = (wet - golden).abs() > 2e-5 + 1e-3 * golden.abs()
+    log(f"[augs] reverb vs the sox reverb.c scalar spec (2400 samples): max abs err "
+        f"{float((wet - golden).abs().max()):.3e}, {int(bad.sum())} outside rtol 1e-3 atol 2e-5")
+    if bool(bad.any()):
+        fail("reverb disagrees with the sox scalar spec")
+    log(f"[augs] checks {time.perf_counter() - t0:.1f} s")
+    for name, fn in transforms.items():
+        ev = cuda_time_ms(lambda: fn(x, on), iters=5, warmup=1)
+        host = host_ms_synced(torch, lambda: fn(x, on))
+        log(f"[timing] augs {name} p=1 at ({b}, {n}): {ev:.3f} ms by CUDA events, {host:.3f} ms "
+            f"by the host's clock")
+    gens = (torch.Generator().manual_seed(0), torch.Generator(dev).manual_seed(0))
+    for p in (0.0, 0.2):
+        host = host_ms_synced(torch, lambda: dsp.random_audio_aug_chain(x, p, AUG_SR, *gens),
+                              calls=20)
+        log(f"[timing] augs random_audio_aug_chain p={p} at ({b}, {n}): {host:.3f} ms by the "
+            f"host's clock, draws included (mean of 20)")
+
+
+# phase 13: the entry point, python -m synchformer_tpu_torch.main, in-process
+ENTRY_CONFIGS = os.path.join(REPO, "synchformer_tpu", "config", "configs")
+SYNTHETIC_AV = "synchformer_tpu.data.datasets.SyntheticAV"
+
+
+def entry_plan(root: str) -> list:
+    """The runs of phase 13, in order: (tag, argv, the kernel launches of
+    each train step, the first epoch, the epochs). Stage I: the published
+    segment_avclip.yaml (p_audio_aug 0.2), B=2, SyntheticAV (8 clips a
+    split: 4 steps an epoch), its first epoch, then resumed for the second;
+    Stage II: sync.yaml, B=16, 32 clips a split (2 steps an epoch), its
+    towers from the Stage I run, 2 epochs, early stopping on mROCAUC (the
+    stopper starts at 0, the reference's, and a seeded model's accuracy_1
+    on 32 clips of 21 classes is 0 in about a fifth of epochs, which would
+    leave no best store to fine-tune from); Stage III: ft_synchability.yaml
+    fine-tuned from Stage II's best store, 1 epoch. Every run logs each step
+    (log_frequency 1) without the code snapshot."""
+    def argv(config, exp, n_clips, *extra):
+        return [f"config={os.path.join(ENTRY_CONFIGS, config)}", "device=cuda",
+                f"data.dataset.target={SYNTHETIC_AV}", f"data.dataset.params.n_clips={n_clips}",
+                f"logging.logdir={root}", f"logging.exp_name={exp}",
+                "logging.log_code_state=false", "logging.log_frequency=1", *extra]
+
+    stage1 = os.path.join(root, "stage1")
+    return [
+        ("stage1", argv("segment_avclip.yaml", "stage1", 8, "training.num_epochs=1"),
+         STAGE1_LAUNCHES, 0, 1),
+        ("stage1_resumed", argv("segment_avclip.yaml", "stage1", 8, "training.num_epochs=2",
+                                "training.resume=latest"), STAGE1_LAUNCHES, 1, 2),
+        ("stage2", argv("sync.yaml", "stage2", 32, "training.num_epochs=2",
+                        "training.metric_name=mROCAUC",
+                        f"model.params.afeat_extractor.params.ckpt_path={stage1}",
+                        f"model.params.vfeat_extractor.params.ckpt_path={stage1}"),
+         STAGE2_LAUNCHES, 0, 2),
+        ("stage3", argv("ft_synchability.yaml", "stage3", 32, "training.num_epochs=1",
+                        f"training.ckpt_path={os.path.join(root, 'stage2', 'ckpts', 'best')}",
+                        f"model.params.afeat_extractor.params.ckpt_path={stage1}",
+                        f"model.params.vfeat_extractor.params.ckpt_path={stage1}"),
+         STAGE2_LAUNCHES, 0, 1),
+    ]
+
+
+class FitRecorder:
+    """Wraps the trainers' train_step, fit and Stage I's resume while a run
+    goes: each train step's kernel launches (the counters' change across
+    the call), each fit's trainer summary (step, the augmentations drawn,
+    its run directory), and the parameters a Stage I resume restored,
+    held against ``want_state`` (name -> CPU tensor) bit for bit."""
+
+    def __init__(self, torch, classes):
+        from synchformer_tpu_torch.ops.kernels import _build
+
+        self.torch, self.classes, self.launches = torch, classes, _build.launches
+        self.steps, self.fits, self.resumes = [], [], []
+        self.want_state = None
+        self.saved = []
+
+    def __enter__(self):
+        torch, rec = self.torch, self
+        for cls in self.classes:
+            step, fit = cls.train_step, cls.fit
+            self.saved.append((cls, "train_step", step))
+            self.saved.append((cls, "fit", fit))
+
+            def train_step(tr, *a, _step=step, **k):
+                before = dict(rec.launches)
+                out = _step(tr, *a, **k)
+                rec.steps.append({key: rec.launches.get(key, 0) - before.get(key, 0)
+                                  for key in KEYS})
+                return out
+
+            def fit_(tr, *a, _fit=fit, **k):
+                out = _fit(tr, *a, **k)
+                rec.fits.append({"step": tr.step, "aug_drawn": dict(tr.aug_drawn),
+                                 "logdir": str(tr.logdir), "trainer": type(tr).__name__,
+                                 "state": {n: v.detach().to("cpu", copy=True)
+                                           for n, v in tr.model.state_dict().items()}
+                                 if hasattr(tr, "resume") else None})
+                return out
+
+            cls.train_step, cls.fit = train_step, fit_
+            if hasattr(cls, "resume"):
+                resume = cls.resume
+                self.saved.append((cls, "resume", resume))
+
+                def resume_(tr, stopper, _resume=resume):
+                    start = _resume(tr, stopper)
+                    sd = tr.model.state_dict()
+                    equal = rec.want_state is not None and sd.keys() == rec.want_state.keys() \
+                        and all(torch.equal(v.cpu(), rec.want_state[n]) for n, v in sd.items())
+                    rec.resumes.append({"start": start, "step": tr.step, "equal": equal})
+                    return start
+
+                cls.resume = resume_
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in reversed(self.saved):
+            setattr(cls, name, fn)
+        return False
+
+
+def fit_timing(logdir: str, tag: str, after_step: int = 0) -> dict:
+    """A fit's per-step telemetry from its run's scalars.jsonl (logged every
+    step), the steps after ``after_step`` (an earlier fit of the run):
+    batch and data seconds a step; ms/step, the median over the fit's steps
+    after its first (which waits for the loader's first batch and warms the
+    card up), and the loader's share (data over batch time) over the same
+    steps."""
+    rows = [json.loads(line) for line in open(os.path.join(logdir, "scalars.jsonl"))]
+    batch = [r["value"] for r in rows if r["tag"] == "train/batch_time" and r["step"] > after_step]
+    data = [r["value"] for r in rows if r["tag"] == "train/data_time" and r["step"] > after_step]
+    b, d = (batch[1:], data[1:]) if len(batch) > 1 else (batch, data)
+    ms = sorted(b)[len(b) // 2] * 1e3
+    share = sum(d) / sum(b)
+    log(f"[timing] {tag} inside fit: {ms:.1f} ms/step (median of {len(b)} after the first; "
+        f"every step {[round(v * 1e3, 1) for v in batch]} ms, loader wait "
+        f"{[round(v * 1e3, 1) for v in data]} ms); loader share {share:.3f}")
+    return {"ms": ms, "share": share}
+
+
+def run_entry_point(torch, dev, report, plan=None, pipelines=((2, 14), (16, 14))):
+    """Phase 13: synchformer_tpu_torch.main's dispatch in-process on each run
+    of ``plan`` (entry_plan's by default): every train step's launches
+    exact, the steps counted, the augmentations drawn, ckpts/latest and
+    ckpts/best written, the resume continuing the step counter from
+    restored parameters equal bit for bit to the first run's, Stage I and
+    II ms/step inside fit and the loader's share; then
+    measure_pipeline_throughput of the synthetic pipeline alone (Stage I's
+    geometry at each (batch, segments) of ``pipelines``, through the
+    StagedLoader onto the card)."""
+    import shutil
+
+    from synchformer_tpu_torch.data.datasets import SyntheticAV
+    from synchformer_tpu_torch.data.pipeline import (
+        StagedLoader,
+        SyncDataLoader,
+        measure_pipeline_throughput,
+    )
+    from synchformer_tpu_torch.data.transforms import SyncPipelineConfig
+    from synchformer_tpu_torch.main import main as entry
+    from synchformer_tpu_torch.train.stage_clip import AVCLIPTrainer
+    from synchformer_tpu_torch.train.stage_sync import SyncTrainer
+
+    root = os.path.join(REPO, "build", "chip_smoke", "runs")
+    shutil.rmtree(root, ignore_errors=True)
+    plan = entry_plan(root) if plan is None else plan(root)
+    timing, ended = {}, {}
+    with FitRecorder(torch, (AVCLIPTrainer, SyncTrainer)) as rec:
+        for tag, argv, launches, first_epoch, epochs in plan:
+            t0 = time.perf_counter()
+            n_steps = len(rec.steps)
+            results = entry(argv)
+            fit = rec.fits[-1]
+            steps = rec.steps[n_steps:]
+            shown = results.get("test", results)
+            log(f"[entry] {tag}: main({' '.join(a for a in argv if '=' in a)}) "
+                f"{time.perf_counter() - t0:.1f} s; {len(steps)} train steps, trainer step "
+                f"{fit['step']}; augmentations drawn in {fit['aug_drawn']} steps; "
+                f"{'test' if 'test' in results else 'valid'} "
+                f"{ {k: round(v, 4) for k, v in shown.items() if isinstance(v, float)} }")
+            for i, counts in enumerate(steps):
+                want = {key: launches.get(key, 0) for key in KEYS}
+                if counts != want:
+                    fail(f"{tag}: train step {i} launched {counts}, expected {want}")
+            log(f"[entry] {tag}: launches in each of its {len(steps)} train steps: "
+                f"{ {k: v for k, v in steps[0].items() if v} }")
+            start = ended["stage1"] if tag == "stage1_resumed" else 0
+            if fit["step"] != start + len(steps) or not steps:
+                fail(f"{tag}: trainer step {fit['step']} after {len(steps)} steps from {start}")
+            ended[tag] = fit["step"]
+            ckpts = os.path.join(fit["logdir"], "ckpts")
+            stores = {s: sorted(os.listdir(os.path.join(ckpts, s)))
+                      if os.path.isdir(os.path.join(ckpts, s)) else [] for s in ("latest", "best")}
+            want_latest = [f"{epochs - 1}.json", f"{epochs - 1}.pt"]
+            if not set(want_latest) <= set(stores["latest"]) or not stores["best"]:
+                fail(f"{tag}: checkpoint stores {stores}, expected latest {want_latest} and a best")
+            log(f"[entry] {tag}: ckpts/latest {stores['latest']}, ckpts/best {stores['best']}")
+            if tag == "stage1":
+                rec.want_state = fit["state"]
+            if tag == "stage1_resumed":
+                r = rec.resumes[-1]
+                log(f"[entry] resume: from epoch {r['start']} at step {r['step']}, parameters "
+                    f"{'equal to' if r['equal'] else 'DIFFERENT FROM'} the first run's, bit for bit")
+                if not (r["equal"] and r["start"] == first_epoch and r["step"] == start):
+                    fail(f"{tag}: resume {r}, expected epoch {first_epoch} at step {start}")
+            if tag in ("stage1_resumed", "stage2"):
+                timing[tag] = fit_timing(fit["logdir"], tag, start)
+            fit["state"] = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"[entry] Stage I ms/step inside fit {timing['stage1_resumed']['ms']:.1f} (loader share "
+        f"{timing['stage1_resumed']['share']:.3f}); Stage II {timing['stage2']['ms']:.1f} "
+        f"(loader share {timing['stage2']['share']:.3f})")
+    for b, s in pipelines:
+        cfg = SyncPipelineConfig(n_segments=s, do_offset=False, audio_jitter_sec=0.0,
+                                 p_audio_aug=0.2)
+        loader = StagedLoader(SyncDataLoader(SyntheticAV("train", n_clips=8 * b // 2), cfg, b,
+                                             num_workers=4, seed=0), device=dev)
+        for _ in loader:  # decode every clip once (the synthetic cache)
+            pass
+        stats = measure_pipeline_throughput(loader, lambda batch: None, epochs=2,
+                                            sync=torch.cuda.synchronize)
+        log(f"[timing] synthetic pipeline alone, B={b} S={s} (decode, geometry, staging onto "
+            f"the card): {stats['clips_per_sec']:.2f} clips/s over {stats['clips']} clips, host "
+            f"wait {stats['host_wait_frac']:.3f}; {loader.h2d_bytes / 2 ** 20:.0f} MiB staged in "
+            f"{loader.h2d_s:.2f} s of the stager's time")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
-          run_serving_8head, run_moco, run_sync_training)
+          run_serving_8head, run_moco, run_sync_training,
+          run_audio_augs, run_entry_point)
 
 
 def main() -> int:

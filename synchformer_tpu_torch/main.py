@@ -1,0 +1,59 @@
+"""Command-line entry point of the port (the counterpart of main.py):
+
+    python -m synchformer_tpu_torch.main config=<yaml> [k.path=v ...] [device=cpu]
+
+YAML + CLI-dotlist merge (CLI wins), the config sanity pass, then dispatch on
+``cfg.action`` (ref: main.py:8-46):
+
+- train_avclip                       -> Stage I contrastive pre-training
+- train_avsync_model                 -> Stage II offset training
+- ft_avsync_model_for_syncability    -> Stage III syncability fine-tune
+
+``device`` is an argument of the command, not a config key: it defaults to
+``cuda``, and the trainers raise where CUDA is not available unless it names
+the CPU. One process on one device; the distributed launch waits for
+ROADMAP §1 item 5.
+"""
+from __future__ import annotations
+
+import logging
+import sys
+from typing import Any, Optional, Sequence, Tuple
+
+
+def get_config(argv: Sequence[str]) -> Tuple[Any, str]:
+    """argv -> (the merged, checked config, the device)."""
+    from synchformer_tpu_torch.config.core import load_config, merge_cli_overrides
+    from synchformer_tpu_torch.config.sanity import cfg_sanity_check_and_patch
+
+    kv = dict(item.split("=", 1) for item in argv if "=" in item)
+    if "config" not in kv:
+        raise SystemExit("usage: python -m synchformer_tpu_torch.main config=<yaml> "
+                         "[k.path=v ...] [device=cpu]")
+    device = kv.pop("device", "cuda")
+    cfg = load_config(kv.pop("config"))
+    merge_cli_overrides(cfg, [f"{k}={v}" for k, v in kv.items()])
+    cfg_sanity_check_and_patch(cfg)
+    return cfg, device
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Any:
+    """Run the action of the config that ``argv`` (default sys.argv[1:])
+    names; returns the trainer's results."""
+    logging.basicConfig(level=logging.INFO)
+    cfg, device = get_config(sys.argv[1:] if argv is None else argv)
+    action = cfg["action"]
+    cfg_dict = cfg.to_dict()
+    if action == "train_avclip":
+        from synchformer_tpu_torch.train.stage_clip import train
+
+        return train(cfg_dict, device=device)
+    if action in ("train_avsync_model", "ft_avsync_model_for_syncability"):
+        from synchformer_tpu_torch.train.stage_sync import train
+
+        return train(cfg_dict, device=device)
+    raise NotImplementedError(f"action {action!r}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,1 @@
-"""Numerics helpers, front ends and kernels of the port."""
+"""Numerics helpers, front ends, audio DSP and kernels of the port."""

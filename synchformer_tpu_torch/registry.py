@@ -1,5 +1,5 @@
-"""Target-name registry: the port's models built from the configs' ``target`` /
-``params`` nodes (the counterpart of synchformer_tpu/registry.py:19-70).
+"""Target-name registry: the port's models and datasets built from the configs'
+``target`` / ``params`` nodes (the counterpart of synchformer_tpu/registry.py:19-70).
 
 The target strings of the shipped configs and of the reference
 (``synchformer_tpu.models.sync_model.Synchformer``, its alias
@@ -36,7 +36,9 @@ from synchformer_tpu_torch.models.sync_model import (
 _REGISTRY: Dict[str, Callable] = {}
 # target prefixes of the JAX package and of the reference: a target there
 # that the port lacks is one it has not ported
-_FOREIGN = ("synchformer_tpu.", "model.", "torch.nn.")
+_FOREIGN = ("synchformer_tpu.", "model.", "torch.nn.", "dataset.")
+# the target prefixes of the datasets: the JAX package's and the reference's
+_DATASETS = ("synchformer_tpu.data.datasets.", "dataset.")
 ITEM7 = "not ported (ROADMAP §1 item 7)"
 
 
@@ -55,9 +57,16 @@ def register(*names: str) -> Callable:
 
 def get_registered(target: str) -> Callable:
     """Resolve a target name: the registry first, then a dotted import path
-    outside the JAX package and the reference."""
+    outside the JAX package and the reference. The datasets
+    (synchformer_tpu_torch.data.datasets, which registers them here) are
+    imported at the first lookup that needs them."""
     if target in _REGISTRY:
         return _REGISTRY[target]
+    if target.startswith(_DATASETS):
+        import synchformer_tpu_torch.data.datasets  # noqa: F401
+
+        if target in _REGISTRY:
+            return _REGISTRY[target]
     if target.startswith(_FOREIGN):
         raise NotImplementedError(f"target {target!r}: {ITEM7}")
     if "." in target:

@@ -1,1 +1,2 @@
-"""Weight conversion and seeded initialisation."""
+"""Weight conversion and seeded initialisation, checkpoints, experiment
+logging and plots."""

@@ -11,12 +11,21 @@ non-strict: the Stage I
 towers' parameters that the sync towers lack (a global aggregator) are
 reported as unexpected; a tower that matches nothing raises. Reference
 pickles that need stub classes wait for their loader (ROADMAP §1 item 6).
+
+``CheckpointManager`` is the trainers' store (JAX :523-581 on orbax, here
+on ``torch.save``): ``<dir>/latest`` after every epoch, ``<dir>/best`` on
+improvement of ``best_metric``. A run directory of it is also a Stage I
+source (``load_stage1_tower``) and a fine-tune source
+(``load_run_checkpoint``).
 """
 from __future__ import annotations
 
+import json
 import logging
+import os
+import tempfile
 from pathlib import Path
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -29,19 +38,28 @@ TOWER_PREFIXES = {"audio": ("afeat_extractor.", "a_encoder."),
 
 def load_stage1_tower(ckpt_path: str, tower: str) -> Dict[str, torch.Tensor]:
     """One tower's parameters, named inside the tower, from a Stage I
-    ``.pt`` checkpoint. Raises on a path that does not exist, on a file
-    that is not a torch checkpoint, and where no entry belongs to the tower."""
+    checkpoint: a ``.pt`` file holding a state dict (bare or under "model"),
+    or a Stage I run of the port's CheckpointManager (the experiment
+    directory, its ``ckpts`` directory, or its ``best`` / ``latest`` store;
+    best where it has one, else latest, as synchformer_tpu/utils/
+    checkpoint.py:327 does for orbax runs). Raises on a path that does not
+    exist, on a file that is not a torch checkpoint, and where no entry
+    belongs to the tower."""
     if tower not in TOWER_PREFIXES:
         raise ValueError(f"tower must be 'audio' or 'visual', got {tower!r}")
     path = Path(ckpt_path)
     if not path.exists():
         raise FileNotFoundError(f"{tower} tower ckpt_path does not exist: {ckpt_path}")
-    if not path.is_file() or path.suffix not in (".pt", ".pth", ".pyth"):
-        raise ValueError(f"{tower} tower ckpt_path is not a torch checkpoint file: {ckpt_path}")
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(ckpt, Mapping):
-        raise ValueError(f"{ckpt_path} holds a {type(ckpt).__name__}, not a state dict")
-    sd = ckpt.get("model", ckpt)
+    if path.is_dir():
+        sd = load_run_checkpoint(path, ("best", "latest"))["trainable"]
+    else:
+        if path.suffix not in (".pt", ".pth", ".pyth"):
+            raise ValueError(f"{tower} tower ckpt_path is not a torch checkpoint file: "
+                             f"{ckpt_path}")
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if not isinstance(ckpt, Mapping):
+            raise ValueError(f"{ckpt_path} holds a {type(ckpt).__name__}, not a state dict")
+        sd = ckpt.get("model", ckpt)
     out = {}
     for prefix in TOWER_PREFIXES[tower]:
         out.update({k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)})
@@ -71,3 +89,119 @@ def init_tower_from_stage1(module: nn.Module, ckpt_path: str, tower: str) -> dic
                             f"{report[field][:6]}")
     logging.info(f"initialised the {tower} tower ({n_loaded} tensors) from {ckpt_path}")
     return report
+
+
+class CheckpointManager:
+    """best + latest checkpoints on ``torch.save`` (synchformer_tpu/utils/
+    checkpoint.py:523-581, on orbax there).
+
+    The reference's two-file cadence (ref: utils/logger.py:139-160,
+    scripts/train_sync.py:257-267): ``save_latest`` after every training
+    epoch for crash-resume, ``save_best`` when the early-stop metric
+    improves. Two stores, ``<dir>/latest`` and ``<dir>/best``; each keeps
+    ``max_to_keep`` checkpoints: latest the newest steps, best the highest
+    ``best_metric``. A checkpoint is ``<step>.pt`` (the payload) and
+    ``<step>.json`` (its metrics), each written to a temporary file and moved
+    into place with ``os.replace``; the ``.json`` goes last and marks the
+    checkpoint complete, so an interrupted save leaves the previous ones
+    readable (the reference hand-rolls tmp -> os.replace, ref:
+    train_clip.py:425-441). Payloads are nested dicts of tensors, numbers
+    and strings (state dicts, optimizer state, generator states); they are
+    read back with ``weights_only=True`` onto the CPU.
+    """
+
+    def __init__(self, directory: str, max_to_keep: int = 2):
+        self._dir = Path(directory).absolute()
+        self.max_to_keep = max_to_keep
+
+    def _steps(self, name: str) -> Dict[int, Dict[str, float]]:
+        """The complete checkpoints of a store: step -> metrics."""
+        store = self._dir / name
+        out = {}
+        if store.is_dir():
+            for meta in store.glob("*.json"):
+                if meta.stem.isdigit() and meta.with_suffix(".pt").exists():
+                    out[int(meta.stem)] = json.loads(meta.read_text())
+        return out
+
+    @staticmethod
+    def _write_atomic(path: Path, write) -> None:
+        fd, tmp = tempfile.mkstemp(prefix=f".{path.name}.", dir=path.parent)
+        os.close(fd)
+        try:
+            write(tmp)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+    def _save(self, name: str, step: int, payload: Dict[str, Any],
+              metrics: Optional[Dict[str, float]]) -> None:
+        store = self._dir / name
+        store.mkdir(parents=True, exist_ok=True)
+        self._write_atomic(store / f"{step}.pt", lambda tmp: torch.save(payload, tmp))
+        meta = json.dumps({k: float(v) for k, v in (metrics or {}).items()})
+        self._write_atomic(store / f"{step}.json", lambda tmp: Path(tmp).write_text(meta))
+        steps = self._steps(name)
+        if name == "best":
+            keep = sorted(steps, key=lambda s: (steps[s].get("best_metric", 0.0), s))
+        else:
+            keep = sorted(steps)
+        for old in keep[:-self.max_to_keep]:
+            (store / f"{old}.json").unlink()   # uncommit first
+            (store / f"{old}.pt").unlink()
+
+    def save_latest(self, step: int, payload: Dict[str, Any],
+                    metrics: Optional[Dict[str, float]] = None) -> None:
+        self._save("latest", step, payload, metrics)
+
+    def save_best(self, step: int, payload: Dict[str, Any],
+                  metrics: Optional[Dict[str, float]] = None) -> None:
+        self._save("best", step, payload, metrics)
+
+    def _restore(self, name: str, step: Optional[int]) -> Dict[str, Any]:
+        if step is None:
+            step = self.latest_step() if name == "latest" else self.best_step()
+        if step is None or step not in self._steps(name):
+            raise FileNotFoundError(f"no {name} checkpoint {'' if step is None else step} "
+                                    f"in {self._dir}")
+        return torch.load(self._dir / name / f"{step}.pt", map_location="cpu",
+                          weights_only=True)
+
+    def restore_latest(self, step: Optional[int] = None) -> Dict[str, Any]:
+        return self._restore("latest", step)
+
+    def restore_best(self, step: Optional[int] = None) -> Dict[str, Any]:
+        return self._restore("best", step)
+
+    def latest_step(self) -> Optional[int]:
+        return max(self._steps("latest"), default=None)
+
+    def best_step(self) -> Optional[int]:
+        """The step of the highest best_metric (orbax's best_fn)."""
+        steps = self._steps("best")
+        if not steps:
+            return None
+        return max(steps, key=lambda s: (steps[s].get("best_metric", 0.0), s))
+
+
+def load_run_checkpoint(path, stores: Sequence[str] = ("latest",)) -> Dict[str, Any]:
+    """The payload of a CheckpointManager run: ``path`` is a ``best`` or
+    ``latest`` store (that store), or an experiment or ``ckpts`` directory
+    (the first of ``stores`` holding a checkpoint; the JAX trainer's
+    fine-tune restores latest, its tower loader best, else latest)."""
+    path = Path(path)
+    if path.name in ("best", "latest") and path.is_dir():
+        ckpts_dir, stores = path.parent, (path.name,)
+    else:
+        for ckpts_dir in (path, path / "ckpts"):
+            if (ckpts_dir / "best").is_dir() or (ckpts_dir / "latest").is_dir():
+                break
+        else:
+            raise FileNotFoundError(f"{path} holds no 'best' / 'latest' checkpoint store")
+    mngr = CheckpointManager(str(ckpts_dir))
+    for store in stores:
+        step = mngr.best_step() if store == "best" else mngr.latest_step()
+        if step is not None:
+            return mngr.restore_best(step) if store == "best" else mngr.restore_latest(step)
+    raise FileNotFoundError(f"no checkpoint under {ckpts_dir} in {list(stores)}")

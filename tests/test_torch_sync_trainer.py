@@ -275,14 +275,19 @@ def test_sync_trainer_stage2_then_stage3_on_cpu(tmp_path):
 
 
 def test_sync_trainer_refusals():
-    """Without CUDA the trainer raises unless device='cpu'; p_audio_aug > 0
-    is refused; a non-finite loss raises."""
+    """Without CUDA the trainer raises unless device='cpu'; p_audio_aug 0.2
+    is accepted and a train step draws the augmentation chain (five row
+    masks from the CPU generator); a non-finite loss raises."""
     cfg = tiny_sync_cfg("train_avsync_model", S)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SyncTrainer(cfg)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        SyncTrainer({**cfg, "data": {"p_audio_aug": 0.2}}, device="cpu")
+    aug = SyncTrainer({**cfg, "data": {**cfg["data"], "p_audio_aug": 0.2}}, device="cpu")
+    state = aug.aug_generator.get_state()
+    assert aug.train_step(loader_batch(S))["loss_finite"]
+    want = torch.Generator().set_state(state)
+    torch.rand(5 * B, generator=want)  # five (B,) row masks
+    assert torch.equal(aug.aug_generator.get_state(), want.get_state())
     tr = SyncTrainer(cfg, device="cpu")
     with torch.no_grad():
         tr.model.transformer.ln_f.bias.fill_(float("nan"))

@@ -320,14 +320,28 @@ def test_zero_shot_precision_matches_jax():
 
 def test_trainer_defaults_to_the_card_and_refuses_audio_augs():
     """AVCLIPTrainer's device defaults to 'cuda' and raises without CUDA
-    unless the caller asks for the CPU; p_audio_aug > 0 is refused."""
+    unless the caller asks for the CPU. p_audio_aug 0.2 (the published
+    Stage I config's) is accepted: a training prep draws the augmentation
+    chain's row masks from the trainer's CPU generator (the crop of
+    ``audio_full`` where the batch has it), an eval prep draws nothing."""
     cfg = {"training": {"seed": 0}}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             AVCLIPTrainer(cfg, model=build_tiny_avclip())
-    with pytest.raises(NotImplementedError):
-        AVCLIPTrainer({**cfg, "data": {"p_audio_aug": 0.2}}, device="cpu",
-                      model=build_tiny_avclip())
+    tr = AVCLIPTrainer({**cfg, "data": {"p_audio_aug": 0.2}}, device="cpu",
+                       model=build_tiny_avclip())
+    rng = np.random.default_rng(0)
+    batch = {"video": rng.integers(0, 256, (B, S, 4, 32, 32, 3), dtype=np.uint8),
+             "audio": (rng.standard_normal((B, S, 10240)) * 0.1).astype(np.float32)}
+    state = tr.aug_generator.get_state()
+    tr.prepare(batch, train=False)
+    assert torch.equal(tr.aug_generator.get_state(), state)
+    tr.prepare(batch, train=True)
+    after = tr.aug_generator.get_state()
+    assert not torch.equal(after, state)
+    want = torch.Generator().set_state(state)
+    torch.rand(5 * B, generator=want)  # five (B,) row masks
+    assert torch.equal(after, want.get_state())
 
 
 @pytest.mark.parametrize("moco", [False, True], ids=["avclip", "moco"])
