@@ -7,7 +7,8 @@ both routes, the MoCo Stage I step with global representations, the
 Stage II step and Stage III fine-tune over frozen towers, the audio
 augmentations, and the training entry point (python -m
 synchformer_tpu_torch.main: Stage I, II and III from the shipped configs
-through the loader, fit, checkpoints and resume).
+through the loader, fit, checkpoints and resume), and data-parallel
+training (DDP in a one-rank NCCL group, torchrun, two ranks over gloo).
 
     python3 chip_smoke.py
 
@@ -185,6 +186,29 @@ Phases, each printed as it runs with its seconds:
    first run's; Stage I and II ms/step inside fit and the loader's share
    (scalars.jsonl); then measure_pipeline_throughput of the synthetic
    pipeline alone at B=2 and B=16.
+14. data-parallel training (parallel/dist.py). (a) One process in an NCCL
+   group of world 1 (a TCPStore on localhost): phase 4's Stage I step
+   through AVCLIPTrainer under DDP, then the same step without a group,
+   each with phase 4's exact counters and held against phase 4's f32 and
+   bf16 plain records by stage1_agreement, the two compared element by
+   element. (b) python -m torch.distributed.run --standalone
+   --nproc_per_node 1 -m synchformer_tpu_torch.main over phase 13's Stage
+   II plan (sync.yaml, SyntheticAV, one epoch, towers seeded) on NCCL, a
+   subprocess with a timeout: exit 0 and its checkpoints. (c) Two ranks of
+   a gloo group on the one card (NCCL refuses two ranks on one device;
+   gloo stages DDP's all-reduce and the all-gathers of CUDA tensors through
+   the host), subprocesses of this script (--dp-worker) with timeouts, each
+   rank's randomness off (flip p 0, drop-path 0, the transformer's dropouts
+   0, the positional dropout an exact identity): the full-width AVCLIP step
+   at global B=2, the MoCo step at B=2 (queues 1024 x 14 and 1024, their
+   bytes equal on both ranks) and the Stage II step at B=16 (K1 24, K2 24,
+   K3 12, K4 2 a rank, its rate base_learning_rate x 2), each rank's first
+   step on its rows held against the world-1 f32 plain step over the whole
+   batch by stage1_agreement, moco_agreement and sync_agreement, within 2 x
+   the world-1 bf16 kernel step's error; ms/step at world 2 and one gloo
+   all-reduce of the gradients' bytes (scripts/stage1_planted_faults.py
+   --only dp shows that it fails a gather without the sum over ranks, MoCo
+   keys that stay local and a Stage II rate not scaled by the ranks).
 The line before the last is a JSON record of the kernels, with the TPU
 kernels still to port beside them (none); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises, so the exit code is non-zero and no result
@@ -1390,11 +1414,11 @@ def stage1_batch(torch, b: int, s: int, frames=FRAMES) -> dict:
 
 
 def stage1_trainer(build, state_dict, dev, precision: str, impl: str, remat: bool = False,
-                   moco: bool = False):
+                   moco: bool = False, p_flip: float = 0.5):
     """An AVCLIPTrainer on ``build(remat=..., device=dev)`` loaded with
-    ``state_dict``: Stage I's optimiser settings, generator seed 0, flip p 0.5;
-    with ``moco``, cfg.model.target names MultilevelMoCoCLIP and alpha is
-    MOCO_ALPHA."""
+    ``state_dict``: Stage I's optimiser settings, generator seed 0, flip p
+    ``p_flip``; with ``moco``, cfg.model.target names MultilevelMoCoCLIP and
+    alpha is MOCO_ALPHA."""
     from synchformer_tpu_torch.train.stage_clip import AVCLIPTrainer
     from synchformer_tpu_torch.utils.convert import load_numpy_state_dict
 
@@ -1403,7 +1427,7 @@ def stage1_trainer(build, state_dict, dev, precision: str, impl: str, remat: boo
     cfg = {"training": {"seed": 0, "precision": precision, "learning_rate": 1e-4,
                         "weight_decay": 0.2, "warmup": 1000, "total_steps": 100_000,
                         "max_clip_norm": MAX_CLIP, "zero_shot_window": 8, "alpha": MOCO_ALPHA},
-           "data": {"p_horizontal_flip": 0.5, "p_audio_aug": 0.0}}
+           "data": {"p_horizontal_flip": p_flip, "p_audio_aug": 0.0}}
     if moco:
         cfg["model"] = {"target": MOCO_TARGET}
     return AVCLIPTrainer(cfg, device=dev, model=model, impl=impl)
@@ -1449,7 +1473,8 @@ def step_gradients(torch, tr, m, leaves_re=STAGE1_LEAVES) -> dict:
 
 
 def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1",
-                     metric_eps=(("loss", 1e-4), ("grad_norm", 1e-3))) -> list:
+                     metric_eps=(("loss", 1e-4), ("grad_norm", 1e-3)),
+                     margins: dict | None = None) -> list:
     """Hold the kernel path's first step against the f32 run, each check at
     2 x the plain bf16 path's error (the two bf16 paths round at other places
     only inside the kernels). Arguments are step_gradients' records; returns
@@ -1461,14 +1486,18 @@ def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1",
       low, the same rounding); ``metric_eps`` lists these metrics and their
       relative eps;
     - every leaf of step_gradients, relative L2 error, no eps;
-    - 1 - cosine of the whole flattened gradient to the f32 one, no eps."""
+    - 1 - cosine of the whole flattened gradient to the f32 one, no eps.
+    Fills ``margins``, when given, with each check's error over its tolerance
+    (the leaves' largest as ``leaves``)."""
     failed = []
+    ratios = {}
 
     def check(name, err_k, err_p, eps):
         tol = 2.0 * err_p + eps
         ok = err_k <= tol
         if not ok:
             failed.append(name)
+        ratios[name] = err_k / tol if tol > 0 else (0.0 if err_k == 0 else float("inf"))
         return ok, tol
 
     for key, rel_eps in metric_eps:
@@ -1500,6 +1529,9 @@ def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1",
     ok, tol = check("cosine", err_k, err_p, 0.0)
     log(f"[{tag}] gradient 1 - cosine to f32: kernel {err_k:.3e}, plain bf16 {err_p:.3e}, "
         f"tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+    if margins is not None:
+        leaves = [ratios.pop(name) for name in ref["leaves"]]
+        margins.update(ratios, leaves=max(leaves, default=0.0))
     return failed
 
 
@@ -1619,6 +1651,10 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
                                                                  f"{tag}_fused")]
     if failed:
         fail(f"{tag}: kernel-path first step outside tolerance: {failed}")
+    if tag == "stage1":
+        # phase 14 (a) holds its steps against these records
+        KEPT["stage1"] = {"sd": sd, "batch": batch, "ref": record_to_cpu(ref),
+                          "plain": record_to_cpu(plain)}
     for name, what in (("kernel", "kernel"), ("fused", "pallas_fused kernel"), ("plain", "plain")):
         if name not in times:
             continue
@@ -2139,6 +2175,412 @@ def run_sync_training(torch, dev, report):
     sync_step_phase(torch, dev, "stage3", make, ft_batch, B2)
 
 
+# phase 14: data-parallel training (parallel/dist.py, torch.distributed)
+# records of earlier phases that phase 14 reads
+KEPT: dict = {}
+DP_CASES = ("avclip", "moco", "stage2")
+# (c)'s worker processes: the group's timeout, the spawn's
+DP_GROUP_TIMEOUT_S, DP_SPAWN_TIMEOUT_S = 300, 600
+
+
+def record_to_cpu(rec: dict) -> dict:
+    """A step record (step_gradients' and the MoCo / Stage II records) with
+    every tensor copied to the CPU (the MoCo record's queue columns are views
+    of queues that later steps write)."""
+    def move(v):
+        if hasattr(v, "cpu"):
+            return v.detach().to("cpu", copy=True)
+        if isinstance(v, dict):
+            return {k: move(x) for k, x in v.items()}
+        return v
+
+    return {k: move(v) for k, v in rec.items()}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def randomness_off(model) -> None:
+    """Every drop-path rate to 0 and every positional dropout above 0 to 1e-9
+    (an exact identity: the keep probability rounds to 1 in f32, yet the
+    MoCo query pass's video global aggregator still takes K4b): a rank draws
+    from its own generator stream, so that draws at world 2 could not equal
+    world 1's over the same clips."""
+    from synchformer_tpu_torch.models.aggregators import CLSPoolEncoderLayer
+    from synchformer_tpu_torch.models.layers import DropPath
+
+    for mod in model.modules():
+        if isinstance(mod, DropPath):
+            mod.rate = 0.0
+        if isinstance(mod, CLSPoolEncoderLayer) and mod.pos_emb_drop > 0:
+            mod.pos_emb_drop = 1e-9
+        if getattr(mod, "pos_dropout", 0) > 0:
+            mod.pos_dropout = 1e-9
+
+
+def run_dp_world1(torch, dev, report):
+    """Phase 14 (a): one process in an NCCL group of world 1 (a TCPStore on
+    localhost): phase 4's Stage I step (build_avclip, B=2, S=14, amp, the
+    same weights, batch and generator seed) through AVCLIPTrainer under DDP,
+    its launches exactly phase 4's; then the same step without a group. Each
+    held against phase 4's f32 and bf16 plain records by stage1_agreement,
+    and the two compared element by element; ms/step of each (3 steps)."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from synchformer_tpu_torch.models.presets import build_avclip
+    from synchformer_tpu_torch.ops.kernels import _build
+
+    kept = KEPT.pop("stage1")
+    port = free_port()
+    store = dist.TCPStore("127.0.0.1", port, 1, True, timeout=datetime.timedelta(seconds=120))
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    recs, times = {}, {}
+    try:
+        for what in ("ddp", "no group"):
+            if what == "no group":
+                dist.destroy_process_group()
+            tr = stage1_trainer(build_avclip, kept["sd"], dev, "amp", "kernel")
+            if isinstance(tr.net, DistributedDataParallel) != (what == "ddp"):
+                fail(f"dp_world1: the trainer's net is a {type(tr.net).__name__} ({what})")
+            _build.launches.clear()
+            m = checked_step(tr, kept["batch"], f"dp_world1 {what}")
+            torch.cuda.synchronize()
+            counts = dict(_build.launches)
+            log(f"[dp_world1] {what}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}; "
+                f"launches {counts}")
+            for key, need in STAGE1_LAUNCHES.items():
+                if counts.get(key, 0) != need:
+                    fail(f"dp_world1 {what}: {key} launched {counts.get(key, 0)} times, "
+                         f"expected {need}")
+            recs[what] = record_to_cpu(step_gradients(torch, tr, m))
+            t = time.perf_counter()
+            for _ in range(3):
+                checked_step(tr, kept["batch"], f"dp_world1 {what}")
+            torch.cuda.synchronize()
+            times[what] = (time.perf_counter() - t) / 3
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    failed = []
+    for what, rec in recs.items():
+        failed += [f"{what} {n}" for n in stage1_agreement(kept["ref"], kept["plain"], rec,
+                                                             f"dp_world1 {what}")]
+    diff = float((recs["ddp"]["flat"] - recs["no group"]["flat"]).abs().max())
+    log(f"[dp_world1] DDP step against the step without a group: max |gradient difference| "
+        f"{diff:.3e}, loss {recs['ddp']['metrics']['loss']:.9f} vs "
+        f"{recs['no group']['metrics']['loss']:.9f}")
+    for what, secs in times.items():
+        log(f"[timing] dp_world1 {what}: {secs * 1e3:.1f} ms/step of {B1} clips x {S} segments")
+    if failed:
+        fail(f"dp_world1: outside tolerance: {failed}")
+
+
+def run_dp_launcher(torch, dev, report):
+    """Phase 14 (b): python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m synchformer_tpu_torch.main over phase 13's Stage
+    II plan (sync.yaml, SyntheticAV, B=16, 32 clips: 2 steps), one epoch, its
+    towers seeded (no Stage I run), on NCCL: exits 0 within its timeout and
+    writes ckpts/latest and ckpts/best; ms/step inside fit."""
+    import shutil
+
+    root = os.path.join(REPO, "build", "chip_smoke", "runs_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    argv = [a for a in dict((t, a) for t, a, *_ in entry_plan(root))["stage2"]
+            if "ckpt_path" not in a and "num_epochs" not in a] + ["training.num_epochs=1"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "synchformer_tpu_torch.main", *argv]
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"dp_launcher: torchrun exited {proc.returncode}: {proc.stderr[-3000:]}")
+    run = os.path.join(root, "stage2")
+    stores = {st: sorted(os.listdir(os.path.join(run, "ckpts", st)))
+              if os.path.isdir(os.path.join(run, "ckpts", st)) else [] for st in ("latest", "best")}
+    log(f"[dp_launcher] torchrun --standalone --nproc_per_node 1 -m synchformer_tpu_torch.main "
+        f"(sync.yaml, 1 epoch) exited 0 in {secs:.1f} s; ckpts/latest {stores['latest']}, "
+        f"ckpts/best {stores['best']}")
+    if stores["latest"] != ["0.json", "0.pt"]:
+        fail(f"dp_launcher: checkpoint stores {stores}")
+    fit_timing(run, "dp_launcher stage2")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def dp_case_setup(case: str, dev, tiny: dict | None, base_lr_scale: int = 1,
+                  weights: dict | None = None):
+    """(make, global batch) of one (c) case (a rank's rows are a slice of
+    the batch): ``make(precision_or_half, impl, remat)`` builds the trainer
+    with its randomness off. ``tiny``: the planted faults' dry run's widths;
+    ``weights``: a cache of the Stage I cases' seeded state dicts."""
+    import torch
+
+    from synchformer_tpu_torch.models import presets
+    from synchformer_tpu_torch.utils.convert import seeded_state_dict
+
+    t = tiny or {}
+    if case in ("avclip", "moco"):
+        build = getattr(presets, t.get(f"{case}_build", "build_avclip" if case == "avclip"
+                                       else "build_moco_avclip"))
+        cache = {} if weights is None else weights
+        if case not in cache:
+            cache[case] = seeded_state_dict(build(device="meta"), seed=0)
+        sd = cache[case]
+        batch = stage1_batch(torch, B1, t.get("s", S), t.get("frames", FRAMES))
+
+        def make(precision, impl, remat=False):
+            tr = stage1_trainer(build, sd, dev, precision, impl, remat, moco=case == "moco",
+                                p_flip=0.0)
+            randomness_off(tr.model)
+            if case == "moco":
+                randomness_off(tr.model_m)
+            return tr
+
+        return make, batch
+    cfg = sync_config("train_avsync_model", t.get("s", S), None, widths=t.get("widths"))
+    cfg["model"]["params"]["transformer"]["params"].update(embd_pdrop=0.0, resid_pdrop=0.0,
+                                                           attn_pdrop=0.0)
+    cfg["data"]["p_horizontal_flip"] = 0.0
+    cfg["training"]["base_learning_rate"] *= base_lr_scale
+    batch = sync_batch(torch, dev, B2, t.get("s", S), t.get("frames", FRAMES))
+
+    def make(half, impl, remat=False):
+        return sync_trainer(cfg, dev, impl, half)
+
+    return make, batch
+
+
+def dp_record(torch, case: str, tr, batch, what: str):
+    """The first step's record of one (c) case: step_gradients' (avclip),
+    moco_record's (moco) or sync_record's (stage2)."""
+    if case == "avclip":
+        return step_gradients(torch, tr, checked_step(tr, batch, what)), None
+    if case == "moco":
+        rec, _ = moco_first_step(torch, tr, batch, what, "dp_world2")
+        return rec, None
+    rec, _ = sync_record(torch, tr, batch, what, "dp_world2")
+    return rec, rec["launches"]
+
+
+def dp_worker(spec_path: str) -> int:
+    """One rank of phase 14 (c), started by run_dp_world2: joins the gloo
+    group from torchrun's variables (both ranks on cuda:0), takes each
+    case's first step at world 2 on its rows of the global batch under DDP,
+    then 2 timed steps, and checks the MoCo queues' bytes equal on both
+    ranks; then leaves the group, and rank 0 takes the world-1 steps over
+    the whole batch, f32 plain (remat for Stage I) and the bf16 kernel
+    path, and holds the world-2 record against the f32 one with the case's
+    agreement, the world-1 kernel step's error as the yardstick (the plain
+    bf16 one's slot): world 2 may differ from world 1 only by the order of
+    f32 sums and by the row count each GEMM sees. (With randomness off the
+    Stage I gradient is small, a norm of about 0.1, and the kernel path
+    there reads up to 2 x plain bf16's error, a margin phases 4 and 9 hold
+    with their randomness on.) Writes its result to spec['out'] + rank."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from synchformer_tpu_torch.ops.kernels import _build
+    from synchformer_tpu_torch.parallel import dist as pdist
+
+    spec = json.load(open(spec_path))
+    dev = pdist.init_from_env(spec["device"], backend="gloo")
+    rank, world = pdist.rank(), pdist.world()
+    if spec.get("hook"):
+        import importlib.util
+
+        path, fn = spec["hook"].split(":")
+        mod_spec = importlib.util.spec_from_file_location("dp_hook", path)
+        mod = importlib.util.module_from_spec(mod_spec)
+        mod_spec.loader.exec_module(mod)
+        getattr(mod, fn)(spec["fault"])
+    cuda = torch.device(dev).type == "cuda"
+    tiny = spec.get("tiny")
+    result = {"rank": rank, "world": world, "cases": {}}
+    records, weights = {}, {}
+    for case in spec["cases"]:
+        make, batch = dp_case_setup(case, dev, tiny, weights=weights)
+        n = batch["video"].shape[0] // world
+        local = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+        tr = make("amp" if case != "stage2" else True, "kernel")
+        _build.launches.clear()
+        rec, launches = dp_record(torch, case, tr, local, f"world {world} rank {rank} {case}")
+        counts = dict(_build.launches) if launches is None else launches[1]
+        res = {"launches": counts}
+        if case == "stage2":
+            # the eval step's outputs over the whole batch, in rank order
+            rec["eval"] = {k: torch.cat([x.to(v.device) for x in pdist.all_gather_object(
+                v.cpu())]) for k, v in rec["eval"].items()}
+            res["eval_launches"] = launches[0]
+        if case == "moco":
+            # the query pass's global aggregator outputs over the whole batch
+            for key in ("query global_v", "query global_a"):
+                v = rec["written"][key]
+                rec["written"][key] = torch.cat([x.to(v.device) for x in
+                                                 pdist.all_gather_object(v.cpu())])
+            q = tr.queues
+            digest = hashlib.sha256(b"".join(
+                getattr(q, k).cpu().numpy().tobytes()
+                for k in ("segment_v", "segment_a", "global_v", "global_a"))).hexdigest()
+            digests = pdist.all_gather_object((digest, q.segment_ptr, q.global_ptr))
+            res["queues_equal"] = all(d == digests[0] for d in digests)
+        # copied before the timed steps write the queues and gradients again
+        records[case] = record_to_cpu(rec) if rank == 0 else None
+        del rec
+        if cuda:
+            torch.cuda.synchronize()
+        pdist.barrier()
+        t = time.perf_counter()
+        for _ in range(spec.get("timed_steps", 2)):
+            checked_step(tr, local, f"world {world} {case}")
+        if cuda:
+            torch.cuda.synchronize()
+        pdist.barrier()
+        res["ms"] = (time.perf_counter() - t) / spec.get("timed_steps", 2) * 1e3
+        grads = [p.grad for p in tr.model.parameters() if p.grad is not None]
+        flat = torch.cat([g.flatten() for g in grads])
+        pdist.barrier()
+        t = time.perf_counter()
+        torch.distributed.all_reduce(flat)
+        if cuda:
+            torch.cuda.synchronize()
+        res["allreduce_ms"] = (time.perf_counter() - t) * 1e3
+        res["grad_bytes"] = flat.numel() * flat.element_size()
+        log(f"[dp_world2] rank {rank} {case}: launches {counts}; {res['ms']:.1f} ms/step over "
+            f"gloo; one all-reduce of the gradients' {res['grad_bytes'] / 2 ** 20:.0f} MiB "
+            f"{res['allreduce_ms']:.1f} ms")
+        del tr, flat, grads
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        result["cases"][case] = res
+    pdist.barrier()
+    pdist.destroy()
+    if rank == 0:
+        for case in spec["cases"]:
+            # the world-1 references: the JAX trainer's rate at 2 devices is
+            # base_learning_rate x 2 (Stage II / III)
+            make, batch = dp_case_setup(case, dev, tiny, base_lr_scale=world, weights=weights)
+            refs = {}
+            for name, args in (("ref", ("fp32" if case != "stage2" else False, "plain",
+                                        case != "stage2")),
+                               ("kernel", ("amp" if case != "stage2" else True, "kernel"))):
+                tr = make(*args)
+                rec, _ = dp_record(torch, case, tr, batch, f"world 1 {case} {name}")
+                refs[name] = record_to_cpu(rec)
+                del tr
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+            margins = {}
+            agree = {"avclip": stage1_agreement, "moco": moco_agreement,
+                     "stage2": sync_agreement}[case]
+            failed = agree(refs["ref"], refs["kernel"], records[case], f"dp_world2 {case}",
+                           margins=margins)
+            result["cases"][case].update(failed=failed, margins=margins)
+            del refs
+            records[case] = None
+    with open(f"{spec['out']}{rank}.json", "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_dp_world2(torch, dev, report=None, cases=DP_CASES, tiny=None, hook=None,
+                  fault=None, check: bool = True) -> dict:
+    """Phase 14 (c): two processes of one gloo group on the one card (NCCL
+    refuses two ranks on one device; gloo stages DDP's all-reduce and the
+    all-gathers of CUDA tensors through the host), dp_worker each, with
+    timeouts; each case at world 2 held against world 1 over the same
+    global batch: the full-width AVCLIP step at B=2 (1 a rank), the MoCo
+    step at B=2 (queues 1024 x 14 and 1024; bitwise equal on both ranks),
+    the Stage II step at B=16 (8 a rank; K1 24, K2 24, K3 12, K4 2 a rank).
+    ``hook`` ('path:function') is called with ``fault`` in each worker
+    before the cases (the planted faults); ``tiny`` the dry run's widths.
+    Returns rank 0's result; with ``check``, fails on any failed case."""
+    import shutil
+
+    workdir = os.path.join(REPO, "build", "chip_smoke", "dp")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    spec = {"device": torch.device(dev).type, "cases": list(cases), "tiny": tiny, "hook": hook,
+            "fault": fault, "out": os.path.join(workdir, "result_rank"),
+            "timed_steps": 1 if tiny else 2}
+    spec_path = os.path.join(workdir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "PYTHONHASHSEED": "0",
+               "SFT_DIST_TIMEOUT_S": str(DP_GROUP_TIMEOUT_S),
+               "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                                       spec_path], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_SPAWN_TIMEOUT_S))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        fail(f"dp_world2: the group did not finish within {DP_SPAWN_TIMEOUT_S} s")
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("[") or line.startswith("chip_smoke"):
+                log(f"  r{rank} {line}" if not line.startswith("[dp_world2]") else line)
+        if p.returncode != 0:
+            fail(f"dp_world2: rank {rank} exited {p.returncode}: {err[-3000:]}")
+    result = json.load(open(spec["out"] + "0.json"))
+    log(f"[dp_world2] two ranks over gloo on one card: {time.perf_counter() - t0:.1f} s")
+    failed = []
+    for case, res in result["cases"].items():
+        margins = ", ".join(f"{k} {v:.3g}" for k, v in res.get("margins", {}).items())
+        log(f"[dp_world2] {case}: {res['ms']:.1f} ms/step at world 2 (gloo); checks failed "
+            f"{res.get('failed')}; margins (error / tolerance) {margins}")
+        failed += [f"{case} {name}" for name in res.get("failed", [])]
+        if case == "moco" and not res["queues_equal"]:
+            failed.append("moco queues differ between the ranks")
+        if case == "stage2" and not tiny:
+            for what in ("launches", "eval_launches"):
+                for r in range(2):
+                    counts = json.load(open(spec["out"] + f"{r}.json"))["cases"][case][what]
+                    want = {k: STAGE2_LAUNCHES.get(k, 0) for k in KEYS}
+                    if {k: counts.get(k, 0) for k in KEYS} != want:
+                        failed.append(f"stage2 rank {r} {what} {counts}")
+    result["failed"] = failed
+    if check and failed:
+        fail(f"dp_world2: {failed}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return result
+
+
+def run_data_parallel(torch, dev, report):
+    """Phase 14: (a) run_dp_world1, (b) run_dp_launcher, (c) run_dp_world2."""
+    for part in (run_dp_world1, run_dp_launcher, run_dp_world2):
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        part(torch, dev, report)
+        log(f"[dp] {part.__name__} {time.perf_counter() - t0:.1f} s")
+
+
 # phase 12: the audio augmentations at the published Stage I crop, 5 s at
 # 16 kHz, B=2 (configs/segment_avclip.yaml: crop_len_sec 5, afps 16000)
 AUG_B, AUG_N, AUG_SR = 2, 80_000, 16_000
@@ -2512,7 +2954,7 @@ def run_entry_point(torch, dev, report, plan=None, pipelines=((2, 14), (16, 14))
 
 PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
           run_serving_8head, run_moco, run_sync_training,
-          run_audio_augs, run_entry_point)
+          run_audio_augs, run_entry_point, run_data_parallel)
 
 
 def main() -> int:
@@ -2562,4 +3004,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

@@ -97,6 +97,20 @@ S=2), where the frozen towers run the eval path: the control, and
 k1_mode_swapped, k1_cls_key_dropped, k4_cls_key_dropped,
 k4_wv_head_shifted as above; each line gives the margin of the update and
 eval checks (error over tolerance).
+Then the data-parallel faults on chip_smoke.py's phase 14 (c)
+(chip_smoke.run_dp_world2: two ranks of a gloo group on the one card, each
+case at world 2 held against world 1 over the same global batch). Each
+fault is applied in both worker processes by apply_dp_fault before the
+cases, and only on the case it concerns:
+- none: the control, on every case (AVCLIP, MoCo, Stage II);
+- dist_gather_local_grad: the InfoNCE's gather (parallel/dist.py
+  _AllGatherWithGrad) returns this rank's part of the incoming gradient
+  without the sum over ranks (AVCLIP);
+- moco_keys_local: MoCo uses and enqueues this rank's keys only, not
+  every rank's (models/moco_clip.py's all_gather_no_grad as the identity);
+- sync_lr_unscaled: Stage II's learning rate is base_learning_rate, not x
+  the number of ranks (stage_sync's make_lr_schedule given base / world).
+``--only dp`` runs these alone.
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
@@ -114,6 +128,7 @@ import gc
 import os
 import sys
 import time
+import types
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -700,14 +715,68 @@ def stage2_faults(dev, tiny: bool) -> dict:
     return caught
 
 
+# the data-parallel faults, each with the phase-14 (c) cases it runs on
+DP_FAULTS = {"none": chip_smoke.DP_CASES, "dist_gather_local_grad": ("avclip",),
+             "moco_keys_local": ("moco",), "sync_lr_unscaled": ("stage2",)}
+# --tiny's phase 14 (c): the tiny AVCLIP and MoCo at S=2 on 32 px frames, the
+# tiny Synchformer
+TINY_DP = {"avclip_build": "build_tiny_avclip", "moco_build": "build_tiny_moco_avclip",
+           "s": 2, "frames": (4, 32, 32, 3), "widths": TINY_SYNC}
+
+
+def apply_dp_fault(name: str) -> None:
+    """Plant DP_FAULTS' ``name`` in this process (a phase-14 (c) worker)."""
+    from synchformer_tpu_torch.models import moco_clip
+    from synchformer_tpu_torch.parallel import dist as pdist
+    from synchformer_tpu_torch.train import stage_sync
+
+    if name == "dist_gather_local_grad":
+        pdist._AllGatherWithGrad.backward = staticmethod(
+            lambda ctx, g: g[pdist.rank() * ctx.n:(pdist.rank() + 1) * ctx.n])
+    elif name == "moco_keys_local":
+        attrs = {k: getattr(pdist, k) for k in dir(pdist) if not k.startswith("__")}
+        moco_clip.pdist = types.SimpleNamespace(**{**attrs, "all_gather_no_grad": lambda x: x})
+    elif name == "sync_lr_unscaled":
+        make = stage_sync.make_lr_schedule
+        stage_sync.make_lr_schedule = lambda sched, base, warmup: make(sched, base / pdist.world(),
+                                                                      warmup)
+    elif name != "none":
+        raise ValueError(f"no data-parallel fault {name!r}")
+
+
+def dp_faults(dev, tiny: bool) -> dict:
+    """DP_FAULTS on chip_smoke.run_dp_world2 (phase 14 (c)); each fault's
+    failed checks, its margins logged."""
+    caught = {}
+    for name, cases in DP_FAULTS.items():
+        res = chip_smoke.run_dp_world2(torch, dev, cases=cases, tiny=TINY_DP if tiny else None,
+                                       hook=f"{os.path.abspath(__file__)}:apply_dp_fault",
+                                       fault=name, check=False)
+        caught[name] = res["failed"]
+        margins = "; ".join(f"{case}: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                                     r.get("margins", {}).items())
+                            for case, r in res["cases"].items())
+        chip_smoke.log(f"[fault] dp {name}: {len(caught[name])} checks failed: "
+                       f"{caught[name][:6]}{' ...' if len(caught[name]) > 6 else ''}; margins "
+                       f"{margins}")
+    return caught
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--only", choices=("all", "dp"), default="all",
+                    help="dp: the data-parallel faults of phase 14 (c) alone")
     args = ap.parse_args()
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu (with --tiny) for a dry run")
+    if args.only == "dp":
+        if dev.type == "cuda":
+            chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
+            _build.build_all()
+        return 0 if verdict("dp", dp_faults(dev, args.tiny)) else 1
     if args.tiny:
         builds = {"split": functools.partial(build_tiny_avclip, drop_path_rate=0.2),
                   "packed": functools.partial(build_tiny_avclip_packed, drop_path_rate=0.2),
@@ -766,6 +835,7 @@ def main() -> int:
     k1, k2 = k1_k2_kernel_faults(dev, args.tiny)
     ok = verdict("kernels_k1", k1) and ok
     ok = verdict("stage2", stage2_faults(dev, args.tiny)) and ok
+    ok = verdict("dp", dp_faults(dev, args.tiny)) and ok
     return 0 if verdict("kernels_k2", k2) and ok else 1
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 """Command-line entry point of the port (the counterpart of main.py):
 
     python -m synchformer_tpu_torch.main config=<yaml> [k.path=v ...] [device=cpu]
+    python -m torch.distributed.run --nproc_per_node N \\
+        -m synchformer_tpu_torch.main config=<yaml> [k.path=v ...] [device=cpu]
 
 YAML + CLI-dotlist merge (CLI wins), the config sanity pass, then dispatch on
 ``cfg.action`` (ref: main.py:8-46):
@@ -11,8 +13,14 @@ YAML + CLI-dotlist merge (CLI wins), the config sanity pass, then dispatch on
 
 ``device`` is an argument of the command, not a config key: it defaults to
 ``cuda``, and the trainers raise where CUDA is not available unless it names
-the CPU. One process on one device; the distributed launch waits for
-ROADMAP §1 item 5.
+the CPU. Run plainly, it is one process on one device. Under the launcher
+(torchrun's RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) every
+process joins one group before the dispatch (parallel/dist.py
+init_from_env: NCCL and the card cuda:LOCAL_RANK on ``cuda``, gloo with
+``device=cpu``) and trains data-parallel: training.base_batch_size is the
+global batch, split over the ranks, and Stage II/III's learning rate is
+base_learning_rate x the number of ranks. The group is left at the end,
+whatever the outcome; a rank that fails fails the run.
 """
 from __future__ import annotations
 
@@ -40,19 +48,25 @@ def get_config(argv: Sequence[str]) -> Tuple[Any, str]:
 def main(argv: Optional[Sequence[str]] = None) -> Any:
     """Run the action of the config that ``argv`` (default sys.argv[1:])
     names; returns the trainer's results."""
+    from synchformer_tpu_torch.parallel import dist as pdist
+
     logging.basicConfig(level=logging.INFO)
     cfg, device = get_config(sys.argv[1:] if argv is None else argv)
     action = cfg["action"]
     cfg_dict = cfg.to_dict()
-    if action == "train_avclip":
-        from synchformer_tpu_torch.train.stage_clip import train
+    device = pdist.init_from_env(device)
+    try:
+        if action == "train_avclip":
+            from synchformer_tpu_torch.train.stage_clip import train
 
-        return train(cfg_dict, device=device)
-    if action in ("train_avsync_model", "ft_avsync_model_for_syncability"):
-        from synchformer_tpu_torch.train.stage_sync import train
+            return train(cfg_dict, device=device)
+        if action in ("train_avsync_model", "ft_avsync_model_for_syncability"):
+            from synchformer_tpu_torch.train.stage_sync import train
 
-        return train(cfg_dict, device=device)
-    raise NotImplementedError(f"action {action!r}")
+            return train(cfg_dict, device=device)
+        raise NotImplementedError(f"action {action!r}")
+    finally:
+        pdist.destroy()
 
 
 if __name__ == "__main__":

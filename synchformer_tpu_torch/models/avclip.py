@@ -7,7 +7,16 @@ L2-normalised; the loss is the symmetric cross-entropy of
 ``sim = v @ a.T / clamp(logit_scale)`` in f32 (the temperature divides, as in
 the reference). ``logit_scale`` is a 0-d f32 parameter, clamped to
 [clamp_scale_min, clamp_scale_max] where it is used and after every update.
-Cross-replica negatives (``gather_for_loss``) are not ported.
+
+Over ranks (parallel/dist.py) the loss is the JAX step's over the global
+batch: this rank's (n, D) rows are scored against every rank's (world * n, D)
+columns, gathered with a backward that sums over ranks, and the positives sit
+on the rank-offset diagonal (labels arange(n) + rank * n); the gathered
+products run in f32, so that a column's gradient is rounded to the compute
+dtype once, after the sum over ranks. The JAX trainer
+passes no axis_name, so its InfoNCE spans the global batch whether
+``gather_for_loss`` is set or not (synchformer_tpu/models/avclip.py:71-80);
+the port does the same. At world 1 the gather is the identity.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from torch import nn
 from synchformer_tpu_torch.models.ast_encoder import ASTEncoder
 from synchformer_tpu_torch.models.bridges import DoNothingBridge
 from synchformer_tpu_torch.models.motionformer import MotionFormerEncoder
+from synchformer_tpu_torch.parallel import dist as pdist
 
 
 class AVCLIP(nn.Module):
@@ -60,11 +70,25 @@ class AVCLIP(nn.Module):
         return self._normalise(self.afeat_extractor(aud, impl), self.aproj)
 
     def contrastive_loss(self, vfeat: torch.Tensor, afeat: torch.Tensor) -> torch.Tensor:
-        """Symmetric InfoNCE with the temperature dividing the similarity."""
+        """Symmetric InfoNCE with the temperature dividing the similarity: this
+        rank's rows against the columns of every rank, the positives on the
+        rank-offset diagonal."""
         scale = self.scale()
-        labels = torch.arange(vfeat.shape[0], device=vfeat.device)
-        sim_v2a = (vfeat @ afeat.t()).float() / scale
-        sim_a2v = (afeat @ vfeat.t()).float() / scale
+        n = vfeat.shape[0]
+        labels = torch.arange(n, device=vfeat.device) + pdist.rank() * n
+        if pdist.world() == 1:
+            vfeat_all, afeat_all = vfeat, afeat
+        else:
+            # in f32 over ranks: each rank's part of a column's gradient is
+            # summed over ranks by the gather's backward, and rounded to the
+            # compute dtype only after that sum, as world 1's one product
+            # over the global batch accumulates it (bf16 parts that nearly
+            # cancel would each be rounded first)
+            vfeat, afeat = vfeat.float(), afeat.float()
+            vfeat_all = pdist.all_gather_with_grad(vfeat)
+            afeat_all = pdist.all_gather_with_grad(afeat)
+        sim_v2a = (vfeat @ afeat_all.t()).float() / scale
+        sim_a2v = (afeat @ vfeat_all.t()).float() / scale
         return (F.cross_entropy(sim_v2a, labels) + F.cross_entropy(sim_a2v, labels)) / 2.0
 
     def forward(self, vis, aud, impl: str = "plain", deterministic: bool = True,

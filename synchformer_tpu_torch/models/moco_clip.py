@@ -24,6 +24,13 @@ The machinery (model.py:585-883 of the reference, JAX moco_clip.py):
   queue roll.
 The JAX package threads this state through a jitted step; here the queues are
 a small mutable record and the momentum model a module, updated in place.
+
+Over ranks (parallel/dist.py) the step is the JAX step over the global batch
+(moco_clip.py:17-18, :192-194 there): the momentum keys of every level are
+gathered from every rank in rank order; they are both the in-batch negatives
+and what goes into the queues, so that every rank's queues stay identical;
+the targets sit on the rank-offset diagonal of [global keys | queue]. The
+query pass (``model``, possibly under DDP) sees this rank's rows only.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from torch import nn
 from synchformer_tpu_torch.models.ast_encoder import ASTEncoder
 from synchformer_tpu_torch.models.bridges import DoNothingBridge
 from synchformer_tpu_torch.models.motionformer import MotionFormerEncoder
+from synchformer_tpu_torch.parallel import dist as pdist
 
 
 def l2norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -132,7 +140,8 @@ def momentum_update(model: nn.Module, model_m: nn.Module, momentum: float) -> No
 def dequeue_and_enqueue(queue: torch.Tensor, ptr: int, feats: torch.Tensor) -> int:
     """Write the (B, D) keys into columns ptr..ptr+B of the (D, Q) queue;
     returns the next pointer (ref: model.py:839-857). Q must be a multiple of
-    B, as in the reference (the JAX dynamic_update_slice would clamp)."""
+    B, as in the reference (the JAX dynamic_update_slice would clamp); over
+    ranks B is the global key count."""
     batch, q_size = feats.shape[0], queue.shape[1]
     if q_size % batch:
         raise ValueError(f"queue size {q_size} is not a multiple of the batch {batch}")
@@ -141,15 +150,19 @@ def dequeue_and_enqueue(queue: torch.Tensor, ptr: int, feats: torch.Tensor) -> i
 
 
 def moco_contrastive_loss(vfeat, afeat, vfeat_all, afeat_all, scale, alpha: float = 0.0,
-                          vfeat_m=None, afeat_m=None) -> torch.Tensor:
-    """Symmetric InfoNCE against [momentum keys | queue] (D, B + Q), the
+                          vfeat_m=None, afeat_m=None, offset: int = 0) -> torch.Tensor:
+    """Symmetric InfoNCE against [momentum keys | queue] (D, K + Q), the
     temperature dividing, in f32 (the f32 queue promotes the product); ALBEF
     soft targets alpha * softmax(momentum similarity) + (1 - alpha) * I where
-    the momentum features are given (ref: model.py:694-721)."""
+    the momentum features are given (ref: model.py:694-721). Row i's positive
+    is column offset + i (over ranks: the keys are the global batch's, and
+    offset is rank * B)."""
     sim_v2a = (vfeat.float() @ afeat_all.float()) / scale
     sim_a2v = (afeat.float() @ vfeat_all.float()) / scale
     n, m = sim_v2a.shape
     eye = torch.eye(n, m, dtype=torch.float32, device=sim_v2a.device)
+    if offset:
+        eye = eye.roll(offset, dims=1)
     if vfeat_m is not None and afeat_m is not None:
         with torch.no_grad():
             sim_v2a_m = (vfeat_m.float() @ afeat_all.float()) / scale
@@ -170,28 +183,31 @@ def moco_forward(model: MultilevelMoCoCLIP, model_m: MultilevelMoCoCLIP, queues:
                  alpha: float = 0.0, train: bool = True):
     """One step's forward: the query pass (training when ``train``, its
     dropout and drop-path from ``generator``), the key pass (``model_m``,
-    deterministic, no_grad), the loss per level against [keys | queue] and,
-    when ``train``, the keys written into the queues. Returns (losses, out,
-    out_m)."""
+    deterministic, no_grad), the loss per level against [keys of every rank |
+    queue] and, when ``train``, those keys written into the queues. ``model``
+    may be under DDP. Returns (losses, out, out_m); out_m holds this rank's
+    keys."""
+    module = pdist.unwrap(model)
     out = model(vis, aud, impl, deterministic=not train, generator=generator)
     with torch.no_grad():
         out_m = model_m(vis, aud, impl, deterministic=True)
-    seg_scale, glob_scale = model.scales()
+    seg_scale, glob_scale = module.scales()
     levels = [("segment", seg_scale, queues.segment_v, queues.segment_a)]
-    if model.add_global_repr:
+    if module.add_global_repr:
         levels.append(("global", glob_scale, queues.global_v, queues.global_a))
-    losses = {}
+    losses, keys = {}, {}
     for level, scale, qv, qa in levels:
         v_m, a_m = out_m[f"{level}_vfeat"], out_m[f"{level}_afeat"]
-        v_all = torch.cat([v_m.t().float(), qv], dim=1)
-        a_all = torch.cat([a_m.t().float(), qa], dim=1)
+        keys[level] = (pdist.all_gather_no_grad(v_m), pdist.all_gather_no_grad(a_m))
+        v_all = torch.cat([keys[level][0].t().float(), qv], dim=1)
+        a_all = torch.cat([keys[level][1].t().float(), qa], dim=1)
         losses[f"{level}_contrastive_loss"] = moco_contrastive_loss(
-            out[f"{level}_vfeat"], out[f"{level}_afeat"], v_all, a_all, scale, alpha, v_m, a_m)
+            out[f"{level}_vfeat"], out[f"{level}_afeat"], v_all, a_all, scale, alpha, v_m, a_m,
+            offset=pdist.rank() * v_m.shape[0])
     if train:
         for level, _, qv, qa in levels:
             ptr = getattr(queues, f"{level}_ptr")
             if qv.shape[1] > 0:
-                dequeue_and_enqueue(qa, ptr, out_m[f"{level}_afeat"])
-                setattr(queues, f"{level}_ptr",
-                        dequeue_and_enqueue(qv, ptr, out_m[f"{level}_vfeat"]))
+                dequeue_and_enqueue(qa, ptr, keys[level][1])
+                setattr(queues, f"{level}_ptr", dequeue_and_enqueue(qv, ptr, keys[level][0]))
     return losses, out, out_m

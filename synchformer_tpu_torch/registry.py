@@ -246,9 +246,9 @@ def build_avclip(afeat_extractor, vfeat_extractor, aproj, vproj, n_embd: int = 7
                  init_scale: float = 0.07, clamp_scale_min: float = 0.001,
                  clamp_scale_max: float = 0.5, gather_for_loss: bool = False,
                  device=None) -> AVCLIP:
-    if gather_for_loss:
-        _refuse("AVCLIP gather_for_loss (negatives across devices)",
-                "not ported (ROADMAP §1 item 5)")
+    """``gather_for_loss`` is accepted and changes nothing: as in the JAX
+    trainer, which passes no axis_name, the InfoNCE always spans the global
+    batch (models/avclip.py)."""
     a, v = _stage1_towers(afeat_extractor, vfeat_extractor, aproj, vproj, n_embd)
     return AVCLIP(vfeat_extractor=v, afeat_extractor=a, d=n_embd, init_scale=init_scale,
                   clamp_scale_min=clamp_scale_min, clamp_scale_max=clamp_scale_max,

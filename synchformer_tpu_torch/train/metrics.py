@@ -16,7 +16,7 @@ metrics it uses are written here with sklearn's rules:
 - binary ``precision``, ``recall`` and ``f1`` of class 1, 0 where the
   denominator is 0 (zero_division=0).
 Non-finite outputs are replaced with random values, as the JAX function
-does. ``gather_dict`` waits for the port's distributed training.
+does. ``gather_dict`` is the evaluation's gather over ranks (JAX :135-156).
 """
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ from typing import Dict, Sequence
 
 import numpy as np
 from scipy import stats
+
+from synchformer_tpu_torch.parallel import dist as pdist
 
 
 def _softmax(logits: np.ndarray) -> np.ndarray:
@@ -195,3 +197,25 @@ def per_class_accuracy(targets, logits) -> Dict[object, float]:
         accs[int(c)] = float((preds[mask] == c).mean())
     accs["median"] = float(np.median([v for k, v in accs.items() if k != "median"]))
     return accs
+
+
+def gather_dict(results: Dict[str, object]) -> Dict[str, object]:
+    """Gather over ranks with the reference's reduce semantics (ref:
+    train_utils.py:615-629; JAX metrics.py:135-156): lists and arrays
+    concatenate in rank order along their first axis (ranks may hold
+    different numbers of rows: the eval loaders keep their last, short
+    shard), ints and floats average unweighted, anything else passes
+    through. At world 1 the identity."""
+    if pdist.world() == 1:
+        return results
+    gathered = pdist.all_gather_object(results)
+    out: Dict[str, object] = {}
+    for key, value in results.items():
+        values = [g[key] for g in gathered]
+        if isinstance(value, (list, np.ndarray)):
+            out[key] = np.concatenate([np.asarray(v) for v in values])
+        elif isinstance(value, (int, float)):
+            out[key] = float(np.mean(values))
+        else:
+            out[key] = value
+    return out

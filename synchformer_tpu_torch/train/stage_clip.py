@@ -1,5 +1,6 @@
 """Stage I trainer (synchformer_tpu/train/stage_clip.py::AVCLIPTrainer):
-segment-level audio-visual contrastive pre-training on one device.
+segment-level audio-visual contrastive pre-training on one device or over
+ranks.
 
     trainer = AVCLIPTrainer(cfg)                 # device="cuda" by default
     results = trainer.fit(train_ds, valid_ds)    # epochs, checkpoints, logs
@@ -26,6 +27,18 @@ generator seeded training.seed + 7, the noise from the trainer's device
 generator) on the crop before segmentation, or on the segments of a batch
 without the crop; PCM -> f32 log-mel -> (B, S, 66, 128) in the compute
 dtype. ``precision: amp`` is bf16 compute over f32 master parameters.
+
+Over ranks (a group joined by parallel/dist.py init_from_env, one process per
+card) the trainer is the JAX trainer at that many data devices:
+``base_batch_size`` is the global batch, and each rank loads and steps
+batch_size / world rows of its shard of the epoch; the model trains under DDP
+(``net``); AVCLIP's InfoNCE and MoCo's keys span the global batch; the
+generators of rank r are seeded seed + RANK_STRIDE * r (rank 0 draws the
+streams of a run without a group), the MoCo queues from training.seed + 1 on
+every rank (one shared state); rank 0 alone logs, plots and writes
+checkpoints; the validation's metrics are gathered (gather_dict) before they
+are logged and before early stopping decides, so every rank stops at the
+same epoch. training.model_parallel above 1 is refused.
 
 ``fit`` is the JAX fit loop (:238-395) on one process: the StagedLoader
 feeds the card; per-step Data(t) / Batch(t) / samples/s / LR / loss at
@@ -64,7 +77,9 @@ from synchformer_tpu_torch.models.presets import build_avclip, build_moco_avclip
 from synchformer_tpu_torch.ops.dsp import AUG_CHAIN, augment_batch_pcm
 from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
 from synchformer_tpu_torch.ops.video import patchify_frames, prepare_video_batch
+from synchformer_tpu_torch.parallel import dist as pdist
 from synchformer_tpu_torch.registry import instantiate_from_config
+from synchformer_tpu_torch.train.metrics import gather_dict
 from synchformer_tpu_torch.train.state import make_adamw, make_lr_schedule
 from synchformer_tpu_torch.train.step import (
     avclip_eval_step,
@@ -72,7 +87,11 @@ from synchformer_tpu_torch.train.step import (
     moco_eval_step,
     moco_train_step,
 )
-from synchformer_tpu_torch.utils.checkpoint import CheckpointManager
+from synchformer_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
+    generator_payload,
+    restore_generators,
+)
 from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
 from synchformer_tpu_torch.utils.logger import EarlyStopper, ExperimentLogger, Meter
 
@@ -83,15 +102,15 @@ class AVCLIPTrainer:
     built through the registry where it has params, else the full-width
     ``build_avclip()`` / ``build_moco_avclip()``, with weights drawn from
     training.seed (seeded_state_dict); the trainer moves it to
-    ``device``. ``impl`` picks the kernel route ('kernel') or the plain
-    compositions ('plain')."""
+    ``device`` (a bare 'cuda' is this rank's card). ``impl`` picks the kernel
+    route ('kernel') or the plain compositions ('plain')."""
 
     def __init__(self, cfg: Dict[str, Any], device="cuda",
                  model: Optional[Union[AVCLIP, MultilevelMoCoCLIP]] = None,
                  impl: str = "kernel"):
         training = cfg.get("training", {})
         data = cfg.get("data", {})
-        self.device = torch.device(device)
+        self.device = pdist.local_device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("AVCLIPTrainer: CUDA is not available; pass device='cpu' "
                                "to train on the CPU")
@@ -101,6 +120,8 @@ class AVCLIPTrainer:
         self.impl = impl
         self.seed = int(training.get("seed", 1337))
         self.batch_size = int(training.get("base_batch_size", 2))
+        self.local_batch = pdist.local_batch_size(self.batch_size,
+                                                  training.get("model_parallel", 1))
         self.num_epochs = int(training.get("num_epochs", 100))
         self.patience = int(training.get("patience", 20))
         self.dtype = (torch.bfloat16 if training.get("precision", "amp") == "amp"
@@ -143,11 +164,15 @@ class AVCLIPTrainer:
             raise TypeError(f"cfg.model.target {cfg.get('model', {}).get('target')!r} does not "
                             f"name the model given, a {type(model).__name__}")
         self.model = model.to(self.device)
+        # the model under DDP where a group is joined: what the train step runs
+        self.net = pdist.wrap_ddp(self.model, self.device)
         self.optimizer = make_adamw(self.model.named_parameters(),
                                     float(training.get("weight_decay", 0.2)))
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            pdist.stream_seed(self.seed, pdist.rank()))
         # the audio augmentations' row masks, drawn on the host (ops/dsp.py)
-        self.aug_generator = torch.Generator().manual_seed(self.seed + 7)
+        self.aug_generator = torch.Generator().manual_seed(
+            pdist.stream_seed(self.seed + 7, pdist.rank()))
         # per transform, the train steps in which some clip drew it
         self.aug_drawn = {name: 0 for name in AUG_CHAIN}
         self.step = 0
@@ -156,7 +181,8 @@ class AVCLIPTrainer:
 
     def _init_moco_state(self, n_segments: int) -> None:
         """The momentum model (a copy of the model in eval mode, no
-        gradients) and the queues, drawn from training.seed + 1."""
+        gradients) and the queues, drawn from training.seed + 1 (on every
+        rank: the queues are one state, kept equal over ranks)."""
         model = self.model
         max_segments = model.a_encoder.max_segments or n_segments
         self.model_m = copy.deepcopy(model).requires_grad_(False).eval()
@@ -194,12 +220,12 @@ class AVCLIPTrainer:
         self.model.train()
         vis, aud = self.prepare(batch, train=True)
         if self.is_moco:
-            out = moco_train_step(self.model, self.model_m, self.queues, self.optimizer,
+            out = moco_train_step(self.net, self.model_m, self.queues, self.optimizer,
                                   self.schedule, self.step, vis, aud, self.generator,
                                   self.alpha if alpha is None else alpha, self.impl,
                                   self.max_clip_norm)
         else:
-            out = avclip_train_step(self.model, self.optimizer, self.schedule, self.step, vis,
+            out = avclip_train_step(self.net, self.optimizer, self.schedule, self.step, vis,
                                     aud, self.generator, self.impl, self.max_clip_norm)
         self.step += 1
         metrics = {k: v.item() for k, v in out.items()}
@@ -220,12 +246,11 @@ class AVCLIPTrainer:
     def payload(self, epoch: int, stopper: EarlyStopper) -> Dict[str, Any]:
         """A checkpoint's payload: what a resumed run needs to continue bit
         for bit (the JAX payload's trainable / opt_state / epoch / stopper /
-        moco, and the step and the generators' states, which JAX derives
-        from the step)."""
+        moco, and the step and every rank's generator states, which JAX
+        derives from the step). Every rank calls it."""
         out = {"trainable": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
                "step": self.step, "epoch": epoch, "stopper": stopper.state_dict(),
-               "generators": {"device": self.generator.get_state(),
-                              "aug": self.aug_generator.get_state()}}
+               **generator_payload({"device": self.generator, "aug": self.aug_generator})}
         if self.is_moco:
             out["moco"] = {"model_m": self.model_m.state_dict(),
                            "queues": dataclasses.asdict(self.queues)}
@@ -234,12 +259,16 @@ class AVCLIPTrainer:
     @torch.no_grad()
     def load_payload(self, payload: Dict[str, Any]) -> None:
         """Restore the model, optimizer, step, generators and MoCo state of
-        a payload (the stopper and epoch are the caller's)."""
+        a payload (the stopper and epoch are the caller's). The generators
+        continue where the payload was written at this world size; else they
+        are re-seeded from the seed, the epoch after the payload's and the
+        rank (restore_generators)."""
         self.model.load_state_dict(payload["trainable"])
         self.optimizer.load_state_dict(payload["opt_state"])
         self.step = int(payload["step"])
-        self.generator.set_state(payload["generators"]["device"])
-        self.aug_generator.set_state(payload["generators"]["aug"])
+        restore_generators({"device": self.generator, "aug": self.aug_generator},
+                           payload, {"device": self.seed, "aug": self.seed + 7},
+                           int(payload["epoch"]) + 1)
         if self.is_moco:
             self.model_m.load_state_dict(payload["moco"]["model_m"])
             for name, value in payload["moco"]["queues"].items():
@@ -279,7 +308,10 @@ class AVCLIPTrainer:
 
     def log_similarity_matrices(self, out: Dict[str, Any], phase: str, epoch: int) -> None:
         """v2a/a2v/v2v/a2a heatmaps from one batch's segment features (ref:
-        training/train.py:405-467). Observability only: never fatal."""
+        training/train.py:405-467). Observability only: never fatal. Rank 0
+        only."""
+        if not pdist.is_master():
+            return
         try:
             from synchformer_tpu_torch.utils.viz import plot_similarity_matrices
 
@@ -304,8 +336,10 @@ class AVCLIPTrainer:
         epoch."""
         self.open_run()
         loaders = {
-            split: StagedLoader(SyncDataLoader(ds, self.pipe_cfg, self.batch_size, num_workers,
+            split: StagedLoader(SyncDataLoader(ds, self.pipe_cfg, self.local_batch, num_workers,
                                                self.seed, shuffle=split == "train",
+                                               process_index=pdist.rank(),
+                                               process_count=pdist.world(),
                                                decode_backend=decode_backend),
                                 device=self.device)
             for split, ds in (("train", train_ds), ("valid", valid_ds))
@@ -352,7 +386,7 @@ class AVCLIPTrainer:
             batch_m.update(time.perf_counter() - t_prev)  # full iteration
             t_prev = time.perf_counter()
             if (i + 1) % self.log_frequency == 0:
-                samples_per_s = self.batch_size / max(batch_m.avg, 1e-9)
+                samples_per_s = self.local_batch * pdist.world() / max(batch_m.avg, 1e-9)
                 lr_now = float(self.schedule(self.step))
                 logging.info(
                     f"Train Epoch: {epoch} [{(i + 1) * self.batch_size}"
@@ -379,7 +413,8 @@ class AVCLIPTrainer:
                                    self.aug_drawn[name] - drawn_before[name], epoch)
 
     def _validate(self, loader, epoch: int) -> Dict[str, float]:
-        """The zero-shot shifted-window validation."""
+        """The zero-shot shifted-window validation; the metrics averaged over
+        ranks (gather_dict)."""
         loader.set_epoch(epoch)
         prec_m, vloss_m = Meter(), Meter()
         out = None
@@ -389,7 +424,7 @@ class AVCLIPTrainer:
             vloss_m.update(float(out["loss"]))
         if out is not None:
             self.log_similarity_matrices(out, "valid", epoch)
-        metrics = {"precision": prec_m.avg, "loss": vloss_m.avg}
+        metrics = gather_dict({"precision": prec_m.avg, "loss": vloss_m.avg})
         self.logger.log_dict(metrics, epoch, prefix="valid/")
         self.logger.append_results("valid", {"epoch": epoch, **metrics})
         return metrics

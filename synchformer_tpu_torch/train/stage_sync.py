@@ -1,5 +1,6 @@
 """Stage II/III trainer (synchformer_tpu/train/stage_sync.py::SyncTrainer) on
-one device: audio-visual offset training and the syncability fine-tune.
+one device or over ranks: audio-visual offset training and the syncability
+fine-tune.
 
     trainer = SyncTrainer(cfg)                  # device="cuda" by default
     results = trainer.fit(train_ds, valid_ds, test_ds)
@@ -29,8 +30,19 @@ training.seed + 7, noise from the device generator); PCM -> f32 log-mel of
 the AST's max_spec_t frames -> (B, S, T, 128) in the compute dtype.
 
 Optimizer: training.optimizer (adam / adamw / sgd) at base_learning_rate x
-1 device on training.lr_scheduler (constant / constant_with_warmup), eps
-1e-7 under half precision, global-norm clipping at max_clip_norm.
+the number of ranks (the JAX trainer's n_data, stage_sync.py:161-165; ref:
+train_utils.py:218) on training.lr_scheduler (constant /
+constant_with_warmup), eps 1e-7 under half precision, global-norm clipping
+at max_clip_norm.
+
+Over ranks (a group joined by parallel/dist.py init_from_env) the trainer is
+the JAX trainer at that many data devices: ``base_batch_size`` is the global
+batch, each rank steps batch_size / world rows of its shard under DDP
+(``net``); the generators of rank r are seeded seed + RANK_STRIDE * r; the
+valid and test logits and targets are gathered (gather_dict) before the
+metrics, so every rank decides the same early stop; rank 0 alone logs,
+writes checkpoints, the input reconstruction, the test plots and the
+profile. training.model_parallel above 1 is refused.
 
 ``fit`` is the JAX loop (:487-593) on one process: train / valid phases
 (run_phase) fed by the StagedLoader, per-step telemetry into scalars.jsonl
@@ -61,6 +73,7 @@ from synchformer_tpu_torch.models.sync_model import Synchformer
 from synchformer_tpu_torch.ops.dsp import AUG_CHAIN, augment_batch_pcm
 from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
 from synchformer_tpu_torch.ops.video import patchify_frames, prepare_video_batch
+from synchformer_tpu_torch.parallel import dist as pdist
 from synchformer_tpu_torch.registry import instantiate_from_config
 from synchformer_tpu_torch.train.state import (
     SYNC_TRAINABLE_KEYS,
@@ -68,12 +81,14 @@ from synchformer_tpu_torch.train.state import (
     make_optimizer,
     set_trainable,
 )
-from synchformer_tpu_torch.train.metrics import calc_cls_metrics, per_class_accuracy
+from synchformer_tpu_torch.train.metrics import calc_cls_metrics, gather_dict, per_class_accuracy
 from synchformer_tpu_torch.train.step import sync_eval_step, sync_train_step
 from synchformer_tpu_torch.utils.checkpoint import (
     CheckpointManager,
+    generator_payload,
     init_tower_from_stage1,
     load_run_checkpoint,
+    restore_generators,
 )
 from synchformer_tpu_torch.utils.convert import (
     SYNC_POS_EMB,
@@ -93,7 +108,7 @@ class SyncTrainer:
                  impl: str = "kernel"):
         training = cfg.get("training", {})
         data = cfg.get("data", {})
-        self.device = torch.device(device)
+        self.device = pdist.local_device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SyncTrainer: CUDA is not available; pass device='cpu' "
                                "to train on the CPU")
@@ -109,6 +124,8 @@ class SyncTrainer:
         self.num_cls = 2 if syncability else int(data.get("num_off_cls", 21))
         self.num_epochs = int(training.get("num_epochs", 10000))
         self.batch_size = int(training.get("base_batch_size", 16))
+        self.local_batch = pdist.local_batch_size(self.batch_size,
+                                                  training.get("model_parallel", 1))
         self.metric_name = training.get("metric_name", "accuracy_1")
         self.patience = int(training.get("patience", 20))
         self.run_test_only = bool(training.get("run_test_only", False))
@@ -152,6 +169,9 @@ class SyncTrainer:
         set_trainable(self.model, self.trainable_keys)
         self.model.cast_matrices_(self.dtype, [getattr(self.model, k) for k in TOWERS
                                                if k not in keys])
+        # the model under DDP where a group is joined (its trainable
+        # parameters): what the train step runs
+        self.net = pdist.wrap_ddp(self.model, self.device)
 
         max_spec_t = ((self.model_params.get("afeat_extractor") or {}).get("params") or {}).get(
             "max_spec_t", 66)
@@ -161,15 +181,18 @@ class SyncTrainer:
         self.p_gray_scale = float(data.get("p_gray_scale", 0.0))
 
         lr_cfg = training.get("lr_scheduler", {})
-        self.schedule = make_lr_schedule(lr_cfg.get("name", "constant_with_warmup"),
-                                         float(training.get("base_learning_rate", 2e-6)),
-                                         int(lr_cfg.get("warmup", 1000)))
+        self.schedule = make_lr_schedule(
+            lr_cfg.get("name", "constant_with_warmup"),
+            float(training.get("base_learning_rate", 2e-6)) * pdist.world(),
+            int(lr_cfg.get("warmup", 1000)))
         clip = training.get("max_clip_norm", 1.0)
         self.max_clip_norm = None if clip is None else float(clip)
         self.optimizer = self._make_optimizer()
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            pdist.stream_seed(self.seed, pdist.rank()))
         # the audio augmentations' row masks, drawn on the host (ops/dsp.py)
-        self.aug_generator = torch.Generator().manual_seed(self.seed + 7)
+        self.aug_generator = torch.Generator().manual_seed(
+            pdist.stream_seed(self.seed + 7, pdist.rank()))
         # per transform, the train steps in which some clip drew it
         self.aug_drawn = {name: 0 for name in AUG_CHAIN}
         self.step = 0
@@ -239,7 +262,7 @@ class SyncTrainer:
         """One update. Returns loss, grad_norm, accuracy_1 and loss_finite;
         raises on a non-finite loss (stage_sync.py:336)."""
         vis, aud = self.prepare(batch, train=True)
-        out = sync_train_step(self.model, self.optimizer, self.schedule, self.step, vis, aud,
+        out = sync_train_step(self.net, self.optimizer, self.schedule, self.step, vis, aud,
                               self._targets(batch), self.generator, self.impl,
                               self.max_clip_norm,
                               extractors_deterministic=not self.towers_trainable)
@@ -265,12 +288,12 @@ class SyncTrainer:
     def payload(self, epoch: int, stopper: EarlyStopper) -> Dict[str, Any]:
         """A checkpoint's payload for an exact resume: trainable parameters,
         optimizer state, step, epoch, early stopper (ref ckpt dict:
-        utils/logger.py:139-160) and the generators' states."""
+        utils/logger.py:139-160) and every rank's generator states. Every
+        rank calls it."""
         return {"trainable": self.trainable_state_dict(),
                 "opt_state": self.optimizer.state_dict(), "step": self.step, "epoch": epoch,
                 "stopper": stopper.state_dict(),
-                "generators": {"device": self.generator.get_state(),
-                               "aug": self.aug_generator.get_state()}}
+                **generator_payload({"device": self.generator, "aug": self.aug_generator})}
 
     @torch.no_grad()
     def load_trainable(self, state: Mapping[str, torch.Tensor]) -> None:
@@ -301,7 +324,9 @@ class SyncTrainer:
     def dump_input_reconstruction(self, batch: Mapping[str, Any], tag: str) -> None:
         """Invert the pipeline for the first item and write what the model
         actually ingests (ref: train_sync.py:166-173, utils/logger.py:162-242).
-        Observability only: never fatal."""
+        Observability only: never fatal. Rank 0 only."""
+        if not pdist.is_master():
+            return
         try:
             from synchformer_tpu_torch.utils.viz import save_input_reconstruction
 
@@ -335,11 +360,11 @@ class SyncTrainer:
                 t0 = time.perf_counter()
                 meters["loss"].update(metrics["loss"])
                 meters["accuracy_1"].update(metrics["accuracy_1"])
-                meters["samples_per_sec"].update(n / dt)
+                meters["samples_per_sec"].update(n * pdist.world() / dt)
                 data_m.update(data_t)
                 batch_m.update(dt)
                 if self.step % self.log_frequency == 0:
-                    samples_per_s = n / max(batch_m.avg, 1e-9)
+                    samples_per_s = n * pdist.world() / max(batch_m.avg, 1e-9)
                     lr_now = float(self.schedule(self.step))
                     logging.info(
                         f"Train Epoch: {epoch} [{(i + 1) * n}/{n_iters * n}] "
@@ -358,13 +383,17 @@ class SyncTrainer:
         return metrics
 
     def _eval_pass(self, loader):
+        """Every rank's logits and targets over its shard of ``loader`` (the
+        wrap-around items dropped), concatenated in rank order."""
         all_logits, all_targets = [], []
         for batch in loader:
             mask = np.asarray(batch.get("pad_mask", np.ones(len(batch["video"]), bool)))
             out = self.eval_step(batch)
             all_logits.append(out["logits"].cpu().numpy()[mask])
             all_targets.append(np.asarray(batch[self.target_key])[mask])
-        return np.concatenate(all_logits), np.concatenate(all_targets)
+        gathered = gather_dict({"logits": np.concatenate(all_logits),
+                                "targets": np.concatenate(all_targets)})
+        return gathered["logits"], gathered["targets"]
 
     def maybe_resume(self, stopper: EarlyStopper) -> int:
         """Resume / fine-tune (ref: scripts/train_sync.py:68-99,
@@ -383,8 +412,9 @@ class SyncTrainer:
             self.load_trainable(payload["trainable"])
             self.optimizer.load_state_dict(payload["opt_state"])
             self.step = int(payload["step"])
-            self.generator.set_state(payload["generators"]["device"])
-            self.aug_generator.set_state(payload["generators"]["aug"])
+            restore_generators({"device": self.generator, "aug": self.aug_generator},
+                               payload, {"device": self.seed, "aug": self.seed + 7},
+                               int(payload["epoch"]) + 1)
             stopper.load_state_dict(payload["stopper"])
             logging.info(f"resumed from epoch {int(payload['epoch'])} "
                          "(params + optimizer + early-stopper state)")
@@ -408,7 +438,7 @@ class SyncTrainer:
 
         parents = Path(ckpt_path).absolute().parents
         found = [p for p in list(parents)[:3] if (p / "cfg.yaml").exists()]
-        if not found or not isinstance(self.cfg, dict):
+        if not found or not isinstance(self.cfg, dict) or not pdist.is_master():
             return
         try:
             with open(found[0] / "cfg.yaml") as f:
@@ -420,8 +450,9 @@ class SyncTrainer:
     def _maybe_profile(self, epoch: int):
         """torch.profiler over the first training epoch where training.trace
         is set (the JAX trainer's jax.profiler trace), its chrome trace
-        written to ``<logdir>/profile/trace_e0.json``."""
-        if not (self.cfg.get("training", {}).get("trace") and epoch == 0):
+        written to ``<logdir>/profile/trace_e0.json``; rank 0 only."""
+        if not (self.cfg.get("training", {}).get("trace") and epoch == 0
+                and pdist.is_master()):
             return contextlib.nullcontext()
         from torch.profiler import ProfilerActivity, profile
 
@@ -435,8 +466,10 @@ class SyncTrainer:
 
     def _loader(self, ds, num_workers: int, train: bool, decode_backend) -> StagedLoader:
         kwargs = {} if train else {"shuffle": False, "drop_last": False}
-        return StagedLoader(SyncDataLoader(ds, self.pipe_cfg, self.batch_size, num_workers,
-                                           self.seed, decode_backend=decode_backend, **kwargs),
+        return StagedLoader(SyncDataLoader(ds, self.pipe_cfg, self.local_batch, num_workers,
+                                           self.seed, decode_backend=decode_backend,
+                                           process_index=pdist.rank(),
+                                           process_count=pdist.world(), **kwargs),
                             device=self.device)
 
     def fit(self, train_ds, valid_ds, test_ds=None, num_workers: int = 6, iter_times: int = 1,
@@ -510,7 +543,10 @@ class SyncTrainer:
 
     def _dump_test_plots(self, targets: np.ndarray, logits: np.ndarray) -> None:
         """Per-class accuracy bars + pred/target histograms for the test
-        phase (ref: scripts/train_utils.py:440-563). Observability only."""
+        phase (ref: scripts/train_utils.py:440-563). Observability only.
+        Rank 0 only."""
+        if not pdist.is_master():
+            return
         try:
             from synchformer_tpu_torch.utils.viz import (
                 plot_per_class_accuracy,

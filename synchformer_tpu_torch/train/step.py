@@ -25,6 +25,15 @@ in training mode and the key pass (the momentum model, deterministic); the
 two levels' losses summed; backward into the online parameters only; clip;
 AdamW. Unlike the AVCLIP step, no scale is clamped after the update. Then the
 keys are written into the queues.
+
+Over ranks each train step takes its model under DDP (parallel/dist.py
+wrap_ddp): every rank runs the step on its rows, DDP averages the gradients
+over ranks during the backward, and then every rank clips and steps the same
+averaged gradients, so the parameters stay equal. The loss, accuracy and
+gradient norm in the metrics are the global batch's (the loss and accuracy
+averaged over ranks), so that a non-finite loss stops every rank. The
+attributes (the logit scale's clamp, MoCo's momentum) are read on the module
+under the wrapper.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from synchformer_tpu_torch.models.moco_clip import (
     momentum_update,
 )
 from synchformer_tpu_torch.models.sync_model import Synchformer
+from synchformer_tpu_torch.parallel import dist as pdist
 from synchformer_tpu_torch.train.state import (
     Schedule,
     clip_grads_by_global_norm_,
@@ -57,18 +67,21 @@ def avclip_train_step(model: AVCLIP, optimizer: torch.optim.Optimizer, schedule:
     """One update of every parameter of ``model`` from normalised patch-major
     frames ``vis`` (B, S, f, n, z*p*p*c) and log-mel ``aud`` (B, S, T, F), both
     in the compute dtype. ``step`` is the update's index (0 first), the
-    schedule's argument. Returns loss, grad_norm (before clipping),
-    logit_scale (after the clamp) and loss_finite, as device tensors."""
-    params = [p for p in model.parameters() if p.requires_grad]
+    schedule's argument. ``model`` may be under DDP. Returns loss, grad_norm
+    (before clipping), logit_scale (after the clamp) and loss_finite, as
+    device tensors."""
+    module = pdist.unwrap(model)
+    params = [p for p in module.parameters() if p.requires_grad]
     optimizer.zero_grad(set_to_none=True)
     loss, _, _ = model(vis, aud, impl, deterministic=False, generator=generator)
     loss.backward()
     grad_norm = _apply_update(params, optimizer, schedule, step, max_clip_norm)
     with torch.no_grad():
-        model.logit_scale.clamp_(model.clamp_scale_min, model.clamp_scale_max)
-    return {"loss": loss.detach(), "grad_norm": grad_norm,
-            "logit_scale": model.logit_scale.detach().clone(),
-            "loss_finite": torch.isfinite(loss.detach())}
+        module.logit_scale.clamp_(module.clamp_scale_min, module.clamp_scale_max)
+    loss = pdist.all_reduce_mean(loss.detach())
+    return {"loss": loss, "grad_norm": grad_norm,
+            "logit_scale": module.logit_scale.detach().clone(),
+            "loss_finite": torch.isfinite(loss)}
 
 
 def _apply_update(params, optimizer, schedule: Schedule, step: int,
@@ -94,18 +107,22 @@ def moco_train_step(model: MultilevelMoCoCLIP, model_m: MultilevelMoCoCLIP,
                     max_clip_norm: float = 1.0) -> Dict[str, torch.Tensor]:
     """One MoCo update: ``model_m`` and ``queues`` change in place, AdamW
     steps ``model``. Inputs as avclip_train_step's; ``alpha`` is the ALBEF
-    soft-target weight. Returns loss (the sum of the levels), each level's
-    loss, grad_norm (before clipping) and loss_finite, as device tensors."""
-    momentum_update(model, model_m, model.momentum)
-    params = [p for p in model.parameters() if p.requires_grad]
+    soft-target weight. ``model`` may be under DDP; ``model_m`` is not.
+    Returns loss (the sum of the levels), each level's loss, grad_norm (before
+    clipping) and loss_finite, as device tensors."""
+    module = pdist.unwrap(model)
+    momentum_update(module, model_m, module.momentum)
+    params = [p for p in module.parameters() if p.requires_grad]
     optimizer.zero_grad(set_to_none=True)
     losses, _, _ = moco_forward(model, model_m, queues, vis, aud, impl, generator, alpha,
                                 train=True)
     loss = sum(losses.values())
     loss.backward()
     grad_norm = _apply_update(params, optimizer, schedule, step, max_clip_norm)
-    return {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()},
-            "grad_norm": grad_norm, "loss_finite": torch.isfinite(loss.detach())}
+    losses = {k: pdist.all_reduce_mean(v.detach()) for k, v in losses.items()}
+    loss = pdist.all_reduce_mean(loss.detach())
+    return {"loss": loss, **losses, "grad_norm": grad_norm,
+            "loss_finite": torch.isfinite(loss)}
 
 
 @torch.no_grad()
@@ -164,19 +181,20 @@ def sync_train_step(model: Synchformer, optimizer: torch.optim.Optimizer, schedu
                     extractors_deterministic: bool = True) -> Dict[str, torch.Tensor]:
     """One Stage II/III update of the parameters of ``model`` that need a
     gradient, from normalised patch-major frames ``vis``, log-mel ``aud``
-    (both in the compute dtype) and integer ``targets`` (B,). Returns loss,
-    grad_norm (before clipping), accuracy_1 and loss_finite, as device
-    tensors."""
-    params = [p for p in model.parameters() if p.requires_grad]
+    (both in the compute dtype) and integer ``targets`` (B,). ``model`` may be
+    under DDP. Returns loss, grad_norm (before clipping), accuracy_1 and
+    loss_finite, as device tensors."""
+    params = [p for p in pdist.unwrap(model).parameters() if p.requires_grad]
     optimizer.zero_grad(set_to_none=True)
     loss, logits = model(vis, aud, targets, impl, deterministic=False, generator=generator,
                          extractors_deterministic=extractors_deterministic)
     loss.backward()
     grad_norm = _apply_update(params, optimizer, schedule, step, max_clip_norm)
     with torch.no_grad():
-        accuracy = (logits.argmax(-1) == targets).float().mean()
-    return {"loss": loss.detach(), "grad_norm": grad_norm, "accuracy_1": accuracy,
-            "loss_finite": torch.isfinite(loss.detach())}
+        accuracy = pdist.all_reduce_mean((logits.argmax(-1) == targets).float().mean())
+    loss = pdist.all_reduce_mean(loss.detach())
+    return {"loss": loss, "grad_norm": grad_norm, "accuracy_1": accuracy,
+            "loss_finite": torch.isfinite(loss)}
 
 
 @torch.no_grad()

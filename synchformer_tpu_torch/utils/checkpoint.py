@@ -14,9 +14,11 @@ pickles that need stub classes wait for their loader (ROADMAP §1 item 6).
 
 ``CheckpointManager`` is the trainers' store (JAX :523-581 on orbax, here
 on ``torch.save``): ``<dir>/latest`` after every epoch, ``<dir>/best`` on
-improvement of ``best_metric``. A run directory of it is also a Stage I
-source (``load_stage1_tower``) and a fine-tune source
-(``load_run_checkpoint``).
+improvement of ``best_metric``; over ranks rank 0 writes and every rank
+waits for the write, and every rank reads. ``generator_payload`` /
+``restore_generators`` keep each rank's generator states in a payload. A
+run directory of it is also a Stage I source (``load_stage1_tower``) and a
+fine-tune source (``load_run_checkpoint``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
+from synchformer_tpu_torch.parallel import dist as pdist
 from synchformer_tpu_torch.utils.convert import merge_state_dict_nonstrict
 
 TOWER_PREFIXES = {"audio": ("afeat_extractor.", "a_encoder."),
@@ -137,6 +140,12 @@ class CheckpointManager:
 
     def _save(self, name: str, step: int, payload: Dict[str, Any],
               metrics: Optional[Dict[str, float]]) -> None:
+        if pdist.is_master():
+            self._write(name, step, payload, metrics)
+        pdist.barrier()
+
+    def _write(self, name: str, step: int, payload: Dict[str, Any],
+               metrics: Optional[Dict[str, float]]) -> None:
         store = self._dir / name
         store.mkdir(parents=True, exist_ok=True)
         self._write_atomic(store / f"{step}.pt", lambda tmp: torch.save(payload, tmp))
@@ -183,6 +192,38 @@ class CheckpointManager:
         if not steps:
             return None
         return max(steps, key=lambda s: (steps[s].get("best_metric", 0.0), s))
+
+
+def generator_payload(generators: Mapping[str, torch.Generator]) -> Dict[str, Any]:
+    """A payload's generator entries: ``generators``, this rank's states by
+    name (rank 0's in the file, as a run without a group writes them), and,
+    gathered from every rank, ``generators_by_rank`` and ``world``, so that a
+    resume at the same world size continues every rank's streams. Every rank
+    calls it."""
+    states = {name: g.get_state() for name, g in generators.items()}
+    return {"generators": states, "generators_by_rank": pdist.all_gather_object(states),
+            "world": pdist.world()}
+
+
+def restore_generators(generators: Mapping[str, torch.Generator], payload: Mapping[str, Any],
+                       seeds: Mapping[str, int], epoch: int) -> bool:
+    """Set each generator from a payload's generator entries: this rank's
+    states where the payload was written at this world size (a payload
+    without ``world`` is world 1's); else each generator re-seeded
+    pdist.stream_seed(seeds[name], rank, epoch), with a warning. Returns True
+    where the states were restored."""
+    saved_world = int(payload.get("world", 1))
+    if saved_world == pdist.world():
+        mine = payload.get("generators_by_rank", [payload["generators"]])[pdist.rank()]
+        for name, g in generators.items():
+            g.set_state(mine[name])
+        return True
+    for name, g in generators.items():
+        g.manual_seed(pdist.stream_seed(seeds[name], pdist.rank(), epoch))
+    logging.warning(f"checkpoint written at world {saved_world}, resumed at world "
+                    f"{pdist.world()}: generators re-seeded from the seed, epoch {epoch} and "
+                    f"rank {pdist.rank()}")
+    return False
 
 
 def load_run_checkpoint(path, stores: Sequence[str] = ("latest",)) -> Dict[str, Any]:

@@ -11,6 +11,9 @@ Capability parity with ref: utils/logger.py (LoggerWithTBoard) —
   metrics as hparams
 - throughput meters (data-time / batch-time / samples-per-sec, ref:
   scripts/train_sync.py:219-228)
+- over ranks, rank 0 alone writes (``is_master``), and the experiment
+  directory's name is rank 0's on every rank (experiment_id is a timestamp,
+  which can differ between ranks by a second)
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import yaml
+
+from synchformer_tpu_torch.parallel import dist as pdist
 
 
 def show_cfg_diffs(old_cfg: Dict, new_cfg: Dict,
@@ -73,16 +78,16 @@ class Meter:
 class ExperimentLogger:
     def __init__(self, logdir: str, exp_name: Optional[str] = None,
                  cfg: Optional[Dict] = None, log_code_state: bool = True,
-                 is_master: bool = True, use_wandb: bool = False,
+                 is_master: Optional[bool] = None, use_wandb: bool = False,
                  patterns_to_ignore=("logs", ".git", "__pycache__", "data", "*.pt",
                                      "sbatch_logs", "*.mp4", "*.wav", "*.jpg",
                                      "*.gif", "misc*")):
-        self.is_master = is_master
-        self.exp_name = exp_name or experiment_id()
+        self.is_master = pdist.is_master() if is_master is None else is_master
+        self.exp_name = pdist.broadcast_object(exp_name or experiment_id())
         self.logdir = Path(logdir) / self.exp_name
         self._writer = None
         self._wandb = None
-        if not is_master:
+        if not self.is_master:
             return
         self.logdir.mkdir(parents=True, exist_ok=True)
         try:

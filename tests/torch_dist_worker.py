@@ -1,0 +1,361 @@
+"""One rank of the distributed tests' gloo group (tests/test_torch_distributed*.py).
+
+    RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
+        python tests/torch_dist_worker.py <suite> <workdir>
+
+The test process writes ``<workdir>/inputs.pt`` (state dicts, inputs,
+configs), starts ``spawn(...)`` and computes the JAX side meanwhile; each rank
+joins the group through parallel/dist.py init_from_env on the CPU, runs every
+case of ``<suite>`` and writes ``<workdir>/<suite>_rank<r>.pt``. This module
+imports torch and the port only, never JAX. Every rank runs one thread.
+"""
+from __future__ import annotations
+
+import copy
+import logging
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+# a hang fails within this many seconds: the group's timeout, and the spawn's
+GROUP_TIMEOUT_S = 60
+SPAWN_TIMEOUT_S = 110
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def group_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's variables for ``rank`` of ``world`` on localhost, one
+    thread, the group's timeout."""
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH",)}
+    # PYTHONHASHSEED: SyntheticAV's clips are seeded by hash(path), which
+    # differs between processes unless it is fixed
+    env.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+               PYTHONHASHSEED="0",
+               SFT_DIST_TIMEOUT_S=str(GROUP_TIMEOUT_S), PYTHONPATH=str(REPO))
+    return env
+
+
+def spawn(argv_of_rank, world: int = 2, cwd=REPO) -> list:
+    """Start ``world`` processes of one group: ``argv_of_rank(r)`` each."""
+    port = free_port()
+    return [subprocess.Popen(argv_of_rank(r), cwd=str(cwd), env=group_env(r, world, port),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+
+
+def spawn_suite(suite: str, workdir, world: int = 2) -> list:
+    return spawn(lambda r: [sys.executable, str(Path(__file__).resolve()), suite,
+                            str(workdir)], world)
+
+
+def wait(procs, timeout: float = SPAWN_TIMEOUT_S) -> list:
+    """Each process's (returncode, stdout, stderr); every process is killed
+    past ``timeout`` seconds, and the call raises."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            outs.append((p.returncode, out, err))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        errs = [p.communicate()[1][-3000:] for p in procs]
+        raise RuntimeError(f"the group did not finish in {timeout} s: {errs}")
+    return outs
+
+
+def results(workdir, suite: str, world: int = 2) -> list:
+    return [torch.load(Path(workdir) / f"{suite}_rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# the cases, run on every rank
+
+
+def _rows(x, pdist):
+    """This rank's rows of a global batch."""
+    n = x.shape[0] // pdist.world()
+    return x[pdist.rank() * n:(pdist.rank() + 1) * n]
+
+
+def _grads(module) -> dict:
+    return {n: p.grad.detach().clone() for n, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def _state(module) -> dict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def avclip_step(inp, pdist) -> dict:
+    """The tiny AVCLIP under DDP on this rank's rows: the loss and gradients
+    of one forward / backward, then one avclip_train_step (AdamW, cosine)."""
+    from synchformer_tpu_torch.models.presets import build_tiny_avclip
+    from synchformer_tpu_torch.train import state as tstate
+    from synchformer_tpu_torch.train.step import avclip_train_step
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict
+
+    model = build_tiny_avclip()
+    load_numpy_state_dict(model, inp["avclip_sd"])
+    net = pdist.wrap_ddp(model, "cpu")
+    vis, aud = _rows(inp["vis"], pdist), _rows(inp["aud"], pdist)
+    loss, _, _ = net(vis, aud, "kernel", deterministic=False, generator=torch.Generator())
+    loss.backward()
+    out = {"loss_local": loss.item(), "loss": pdist.all_reduce_mean(loss.detach()).item(),
+           "grads": _grads(model)}
+    h = inp["hyper"]
+    opt = tstate.make_adamw(model.named_parameters(), h["wd"])
+    sched = tstate.make_lr_schedule("cosine", h["lr"], h["warmup"], h["total"])
+    metrics = avclip_train_step(net, opt, sched, 0, vis, aud, torch.Generator(), "kernel", 1.0)
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    out["params"] = _state(model)
+    return out
+
+
+def gathered_infonce(inp, pdist) -> dict:
+    """AVCLIP.contrastive_loss on this rank's rows of the global features:
+    the loss and the features' gradients of loss / world, with the gather's
+    backward as it is and with a planted one that keeps only this rank's
+    part of the incoming gradient (no sum over ranks)."""
+    from synchformer_tpu_torch.models.presets import build_tiny_avclip
+
+    model = build_tiny_avclip()
+    out = {}
+    for variant in ("summed", "local_only"):
+        saved = pdist._AllGatherWithGrad.backward
+        if variant == "local_only":
+            pdist._AllGatherWithGrad.backward = staticmethod(
+                lambda ctx, g: g[pdist.rank() * ctx.n:(pdist.rank() + 1) * ctx.n])
+        try:
+            v = _rows(inp["feat_v"], pdist).clone().requires_grad_(True)
+            a = _rows(inp["feat_a"], pdist).clone().requires_grad_(True)
+            loss = model.contrastive_loss(v, a)
+            (loss / pdist.world()).backward()
+        finally:
+            pdist._AllGatherWithGrad.backward = saved
+        out[variant] = {"loss": loss.item(),
+                        "loss_mean": pdist.all_reduce_mean(loss.detach()).item(),
+                        "grad_v": v.grad.clone(), "grad_a": a.grad.clone()}
+    return out
+
+
+def gather_dict_case(inp, pdist) -> dict:
+    from synchformer_tpu_torch.train.metrics import gather_dict
+
+    r = pdist.rank()
+    local = {"logits": np.full((3, 2), float(r), np.float32),
+             "ragged": np.full((3 - r, 4), float(r), np.float32),
+             "as_list": [r, r],
+             "loss": float(r), "count": r + 1, "tag": "keep-me"}
+    return gather_dict(local)
+
+
+def sampler_case(inp, pdist) -> dict:
+    """EpochSampler's shard, the trainer's rows a rank (its loader's batches)
+    and the refusal of a global batch that does not divide."""
+    from synchformer_tpu_torch.data.datasets import SyntheticAV
+    from synchformer_tpu_torch.data.pipeline import EpochSampler, SyncDataLoader
+    from synchformer_tpu_torch.train.stage_clip import AVCLIPTrainer
+
+    out = {"indices": EpochSampler(10, True, 0, pdist.rank(), pdist.world()).indices(3).tolist()}
+    cfg = copy.deepcopy(inp["avclip_cfg"])
+    tr = AVCLIPTrainer(cfg, device="cpu")
+    loader = SyncDataLoader(SyntheticAV("train", n_clips=8), tr.pipe_cfg, tr.local_batch,
+                            num_workers=1, seed=0, process_index=pdist.rank(),
+                            process_count=pdist.world(), decode_backend="synthetic")
+    out["local_batch"] = tr.local_batch
+    out["batch_rows"] = [len(b["video"]) for b in loader]
+    cfg["training"]["base_batch_size"] = 3
+    try:
+        AVCLIPTrainer(cfg, device="cpu")
+        out["odd_batch"] = "accepted"
+    except ValueError as e:
+        out["odd_batch"] = str(e)
+    return out
+
+
+def eval_metrics_case(inp, pdist) -> dict:
+    """SyncTrainer's valid phase over an odd number of clips (the loader
+    keeps its last, short shard; the logits are gathered), and world 1's
+    over the same clips: one loader over every clip at the global batch,
+    the same eval step and metric calls, no collective."""
+    from synchformer_tpu_torch.data.datasets import SyntheticAV
+    from synchformer_tpu_torch.data.pipeline import SyncDataLoader
+    from synchformer_tpu_torch.train.metrics import calc_cls_metrics, per_class_accuracy
+    from synchformer_tpu_torch.train.stage_sync import SyncTrainer
+
+    tr = SyncTrainer(inp["sync_cfg"], device="cpu")
+    ds = SyntheticAV("valid", n_clips=inp["n_valid"])
+    loader = tr._loader(ds, 1, False, "synthetic")
+    logits, targets = tr._eval_pass(loader)
+    loader.set_epoch(0)
+    metrics = tr.run_phase(loader, 0, "valid")
+    whole = SyncDataLoader(ds, tr.pipe_cfg, tr.batch_size, 1, tr.seed, shuffle=False,
+                           drop_last=False, decode_backend="synthetic")
+    parts = []
+    for batch in whole:
+        mask = np.asarray(batch["pad_mask"])
+        parts.append((tr.eval_step(batch)["logits"].numpy()[mask],
+                      np.asarray(batch[tr.target_key])[mask]))
+    logits1 = np.concatenate([p[0] for p in parts])
+    targets1 = np.concatenate([p[1] for p in parts])
+    metrics1 = calc_cls_metrics(targets1, logits1, topk=(1, 5))
+    metrics1["per_class"] = per_class_accuracy(targets1, logits1)
+    return {"logits": logits, "targets": targets, "metrics": metrics,
+            "world1": {"logits": logits1, "targets": targets1, "metrics": metrics1}}
+
+
+def moco_step(inp, pdist) -> dict:
+    """The tiny MoCo under DDP on this rank's rows: each level's loss and the
+    gradients of one forward / backward, then one moco_train_step (EMA,
+    AdamW, the queues) from the same state."""
+    from synchformer_tpu_torch.models.moco_clip import MoCoQueues, moco_forward, momentum_update
+    from synchformer_tpu_torch.models.presets import build_tiny_moco_avclip
+    from synchformer_tpu_torch.train import state as tstate
+    from synchformer_tpu_torch.train.step import moco_train_step
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict
+
+    h = inp["hyper"]
+
+    def fresh():
+        model = build_tiny_moco_avclip(pos_dropout=h["pos_drop"])
+        model_m = build_tiny_moco_avclip(pos_dropout=h["pos_drop"]).requires_grad_(False)
+        load_numpy_state_dict(model, inp["moco_sd"])
+        load_numpy_state_dict(model_m, inp["moco_m_sd"])
+        q = inp["queues"]
+        queues = MoCoQueues(torch.tensor(q["segment_v"]), torch.tensor(q["segment_a"]),
+                            int(q["segment_ptr"]), torch.tensor(q["global_v"]),
+                            torch.tensor(q["global_a"]), int(q["global_ptr"]))
+        return model, model_m, queues
+
+    vis, aud = _rows(inp["vis"], pdist), _rows(inp["aud"], pdist)
+    model, model_m, queues = fresh()
+    net = pdist.wrap_ddp(model, "cpu")
+    momentum_update(model, model_m, model.momentum)
+    losses, _, _ = moco_forward(net, model_m, queues, vis, aud, "kernel", torch.Generator(),
+                                h["alpha"], train=True)
+    sum(losses.values()).backward()
+    out = {"losses": {k: pdist.all_reduce_mean(v.detach()).item() for k, v in losses.items()},
+           "grads": _grads(model)}
+    del net
+    model, model_m, queues = fresh()
+    net = pdist.wrap_ddp(model, "cpu")
+    opt = tstate.make_adamw(model.named_parameters(), h["wd"])
+    sched = tstate.make_lr_schedule("cosine", h["lr"], h["warmup"], h["total"])
+    metrics = moco_train_step(net, model_m, queues, opt, sched, 0, vis, aud, torch.Generator(),
+                              h["alpha"], "kernel", 1.0)
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    out["params"], out["params_m"] = _state(model), _state(model_m)
+    out["queues"] = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                     for k, v in vars(queues).items()}
+    return out
+
+
+def sync_step(inp, pdist) -> dict:
+    """SyncTrainer (Stage II offsets, or Stage III syncability) on the tiny
+    model: its learning rate against base_learning_rate, and, under its DDP
+    wrapper on this rank's rows, the loss and trainable gradients of one
+    forward / backward and one sync_train_step on its optimizer and
+    schedule."""
+    from synchformer_tpu_torch.models.presets import build_tiny_synchformer
+    from synchformer_tpu_torch.train.stage_sync import SyncTrainer
+    from synchformer_tpu_torch.train.step import sync_train_step
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict
+
+    out = {}
+    for name, case in inp["sync_cases"].items():
+        model = build_tiny_synchformer(inp["n_segments"], syncability=case["syncability"],
+                                       dropout=0.0, drop_path_rate=0.0)
+        load_numpy_state_dict(model, case["sd"])
+        tr = SyncTrainer(case["cfg"], device="cpu", model=model)
+        vis, aud = _rows(inp["vis"], pdist), _rows(inp["aud"], pdist)
+        targets = _rows(torch.as_tensor(case["targets"]), pdist).long()
+        loss, _ = tr.net(vis, aud, targets, "kernel", deterministic=False,
+                         generator=torch.Generator(), extractors_deterministic=True)
+        loss.backward()
+        res = {"loss": pdist.all_reduce_mean(loss.detach()).item(), "grads": _grads(model),
+               "lr": [tr.schedule(s) for s in range(8)]}
+        metrics = sync_train_step(tr.net, tr.optimizer, tr.schedule, 0, vis, aud, targets,
+                                  torch.Generator(), "kernel", tr.max_clip_norm)
+        res["metrics"] = {k: float(v) for k, v in metrics.items()}
+        res["params"] = tr.trainable_state_dict()
+        out[name] = res
+    return out
+
+
+def checkpoint_case(inp, pdist) -> dict:
+    """Stage I fit at world 2: run a (1 epoch), its resume to 2 epochs and run
+    c (2 epochs straight); the calls to CheckpointManager's writer on this
+    rank; a run whose exp_name is unset (the name is rank 0's)."""
+    from synchformer_tpu_torch.data.datasets import SyntheticAV
+    from synchformer_tpu_torch.train.stage_clip import AVCLIPTrainer
+    from synchformer_tpu_torch.utils.checkpoint import CheckpointManager
+
+    writes = []
+    write = CheckpointManager._write
+    CheckpointManager._write = lambda self, *a: (writes.append(a[:2]), write(self, *a))[1]
+
+    def fit(exp, epochs, **training):
+        cfg = copy.deepcopy(inp["fit_cfg"])
+        cfg["logging"]["exp_name"] = exp
+        cfg["training"].update(training)
+        tr = AVCLIPTrainer(cfg, device="cpu")
+        tr.fit(SyntheticAV("train", n_clips=8), SyntheticAV("valid", n_clips=4),
+               num_workers=1, max_epochs=epochs, decode_backend="synthetic")
+        return tr
+
+    def snap(tr):
+        return {"model": _state(tr.model), "opt": copy.deepcopy(tr.optimizer.state_dict()),
+                "step": tr.step, "gens": (tr.generator.get_state(),
+                                          tr.aug_generator.get_state())}
+
+    out = {"a": snap(fit("a", 1))}
+    out["resumed"] = snap(fit("a", 2, resume="latest"))
+    out["straight"] = snap(fit("c", 2))
+    tr = fit(None, 1)
+    out["unnamed"] = tr.logger is None and str(tr.logdir)
+    out["writes"] = writes
+    return out
+
+
+SUITES = {
+    "avclip": (avclip_step, gathered_infonce, gather_dict_case, sampler_case, eval_metrics_case),
+    "moco": (moco_step,),
+    "sync": (sync_step,),
+    "fit": (checkpoint_case,),
+}
+
+
+def main() -> None:
+    suite, workdir = sys.argv[1], Path(sys.argv[2])
+    torch.set_num_threads(1)
+    logging.basicConfig(level=logging.WARNING)
+    from synchformer_tpu_torch.parallel import dist as pdist
+
+    pdist.init_from_env("cpu")
+    try:
+        inp = torch.load(workdir / "inputs.pt", weights_only=False)
+        out = {case.__name__: case(inp, pdist) for case in SUITES[suite]}
+        out["world"], out["rank"] = pdist.world(), pdist.rank()
+        torch.save(out, workdir / f"{suite}_rank{pdist.rank()}.pt")
+    finally:
+        pdist.destroy()
+
+
+if __name__ == "__main__":
+    main()
