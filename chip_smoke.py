@@ -7,14 +7,19 @@ both routes, the MoCo Stage I step with global representations, the
 Stage II step and Stage III fine-tune over frozen towers, the audio
 augmentations, and the training entry point (python -m
 synchformer_tpu_torch.main: Stage I, II and III from the shipped configs
-through the loader, fit, checkpoints and resume), and data-parallel
-training (DDP in a one-rank NCCL group, torchrun, two ranks over gloo).
+through the loader, fit, checkpoints and resume), data-parallel
+training (DDP in a one-rank NCCL group, torchrun, two ranks over gloo), and
+the reference-checkpoint entry points (python -m
+synchformer_tpu_torch.example and python -m
+synchformer_tpu_torch.scripts.test_syncability on reference-style .pt
+files, and Stage I towers from one).
 
     python3 chip_smoke.py
 
 Phases, each printed as it runs with its seconds:
 1. device and build: torch / CUDA versions, the card's name and power limit,
-   the seconds nvcc took for the kernels (built into build/torch_kernels/).
+   the media decoders the machine has (data.media.available_backends), the
+   seconds nvcc took for the kernels (built into build/torch_kernels/).
 2. per kernel at its main path's shapes in bf16 (K1-K4 at sync inference's,
    K5 and K6, the divided attention's forward and backward, at Stage I's;
    K7a and K7c, the packed layout's forward and backward, at the 8-head
@@ -209,6 +214,32 @@ Phases, each printed as it runs with its seconds:
    all-reduce of the gradients' bytes (scripts/stage1_planted_faults.py
    --only dp shows that it fails a gather without the sum over ranks, MoCo
    keys that stay local and a Stage II rate not scaled by the ranks).
+15. the reference-checkpoint entry points at full width (12 + 12 layers,
+   768 wide, the published mel and video geometry), files under
+   build/chip_smoke/reference/, removed at the end. (a) Reference-style
+   Stage II and III checkpoints of seeded build_synchformer(14) and
+   build_synchformer(13, syncability): weights under "model" with module.
+   prefixes and one entry no model reads, args a pickled omegaconf
+   DictConfig (utils/reference_ckpt.py's stand-ins) holding the sync config
+   under the reference's target names, the legacy
+   model.modules.feature_selector transformer, ${} interpolations,
+   'torch.nn.Identity' time tails and an unknown legacy_knob. (b) python -m
+   synchformer_tpu_torch.example on the Stage II file, a subprocess with a
+   timeout, on a synthetic:// clip at offset 1.6 s: exit 0, its top 5, its
+   kernel launches exactly one forward's (K1 24, K2 24, K3 12, K4 2), its
+   probabilities held by serving_agreement against the item it wrote (out=)
+   through the plain bf16 and f32 paths in-process; ms/clip of its forward.
+   (c) SyncTrainer's towers from a reference-style Stage I file of a seeded
+   build_avclip() (a_encoder. / v_encoder. under "state_dict" with module.,
+   an AST position embedding of 1214 tokens whose first 74 are the model's):
+   empty reports, the AST embedding the file's first 74 rows bit for bit
+   (scripts/stage1_planted_faults.py --only ckpt shows that it fails a
+   reader that skips the trim). (d) the syncability CLI's main in-process
+   over the Stage III and II files and a SyntheticAV loader (8 clips, B=8,
+   iter_times 1): launches exactly both models' forwards, the ROC and
+   tiered pickles written, the sync and offset logits held by
+   serving_agreement against the plain f32 and bf16 paths on the same
+   batches; clips/s.
 The line before the last is a JSON record of the kernels, with the TPU
 kernels still to port beside them (none); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises, so the exit code is non-zero and no result
@@ -760,7 +791,8 @@ def check_ast_8x96(torch, dev, bs: int = B * S, n: int = 74, d: int = D, h: int 
 
 def k4_cases(torch, dev, d: int = D, h: int = H, global_rows=(B1, S),
              ragged=((4, 1), (4, 13), (4, 197), (4, 300)), partial=(700, 12),
-             guard=((4, 196), (5, 12)), wide=(H8, (4, 197), (5, 12))) -> list:
+             guard=((4, 196), (5, 12)), wide=(H8, (4, 197), (5, 12)),
+             time_tail=(B * S, F_T)) -> list:
     """kernel_cases' records of K4 (no cost, no library), checked and logged
     only: the MoCo step's global aggregators (B1 groups of S rows), ragged
     rows (one group a block; 197 and 300 on a 2-block cluster, 300 also in
@@ -770,7 +802,9 @@ def k4_cases(torch, dev, d: int = D, h: int = H, global_rows=(B1, S),
     a packed one, and, with wide = (heads, ragged shape, guard-band shape),
     heads of another width than h's (the 8-head tower's 96: the Wv product
     takes a head in 64-column pieces and drops the columns past it) at a
-    ragged cluster shape and in a guard band at a packed one. The QKV and
+    ragged cluster shape and in a guard band at a packed one, and a tower's
+    TransformerEncoderLayer time tail (time_tail: B*S groups of the 8
+    frames' features). The QKV and
     projection weights at std (2 / d)^0.5: a
     peaked attention, as k4b_cases'. The kernel calls look the wrapper up in
     its module at call time, so that scripts/stage1_planted_faults.py can
@@ -801,7 +835,8 @@ def k4_cases(torch, dev, d: int = D, h: int = H, global_rows=(B1, S),
                 lambda dt: tcls.fused_cls_pool_tokens(*cast(args, dt), num_heads=heads,
                                                       eps=1e-6, impl="plain"), None, None)
 
-    cases = [case("K4 global", "global", *global_rows)]
+    cases = [case("K4 global", "global", *global_rows),
+             case("K4 global", "time tail", *time_tail)]
     cases += [case("K4 ragged", "ragged", *shape) for shape in ragged]
     cases.append(case("K4 ragged", "part-filled last block", *partial))
     cases += [case("K4 ragged", "guard band", *shape, lambda t: guarded(torch, t))
@@ -2952,9 +2987,324 @@ def run_entry_point(torch, dev, report, plan=None, pipelines=((2, 14), (16, 14))
     shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 15: the reference-checkpoint entry points (python -m
+# synchformer_tpu_torch.example, python -m
+# synchformer_tpu_torch.scripts.test_syncability) on reference-style .pt files
+EXAMPLE_CLIP = "synthetic://example/0.mp4"
+EXAMPLE_OFFSET = 1.6
+# the reference's target names of the sync config's nodes (a Stage II / III
+# checkpoint's args); the transformer under its legacy module
+REFERENCE_TARGETS = {
+    "synchformer_tpu.models.sync_model.Synchformer": "model.sync_model.Synchformer",
+    "synchformer_tpu.models.ast_encoder.ASTEncoder": "model.modules.feat_extractors.audio.ast.AST",
+    "synchformer_tpu.models.motionformer.MotionFormerEncoder":
+        "model.modules.feat_extractors.visual.motionformer.MotionFormer",
+    "synchformer_tpu.models.sync_model.GlobalTransformer":
+        "model.modules.feature_selector.GlobalTransformer",
+    "synchformer_tpu.models.sync_model.GlobalTransformerWithSyncabilityHead":
+        "model.modules.feature_selector.GlobalTransformerWithSyncabilityHead",
+    "synchformer_tpu.models.pos_emb.RandInitPositionalEncoding":
+        "model.modules.transformer.RandInitPositionalEncoding",
+}
+# one entry each file holds that no model reads
+UNREAD_KEY = "afeat_extractor.ast.embeddings.legacy_unused"
+# the AudioSet position embedding a reference AST keeps (ref: audio/ast.py:240-245)
+AST_REF_TOKENS = 1214
+
+
+def reference_sync_args(action: str, n_segments: int, widths: dict | None = None) -> dict:
+    """The training config a reference Stage II (III) checkpoint stores, as
+    a plain tree: sync_config's sections under the reference's target names,
+    the transformer under the legacy model.modules.feature_selector, the
+    towers' ckpt_path pointing at no file, their time tails
+    'torch.nn.Identity', ${} interpolations for the projections' and the
+    offset head's widths, and a key no JAX class has (the AST's
+    legacy_knob)."""
+    cfg = sync_config(action, n_segments, ckpt_path="/nonexistent/stage1.pt", widths=widths)
+
+    def rename(node):
+        if isinstance(node, dict):
+            node = {k: rename(v) for k, v in node.items()}
+            if node.get("target") in REFERENCE_TARGETS:
+                node["target"] = REFERENCE_TARGETS[node["target"]]
+        return node
+
+    model = rename(cfg["model"])
+    p = model["params"]
+    for tower in ("afeat_extractor", "vfeat_extractor"):
+        p[tower]["params"]["agg_time_module"] = "torch.nn.Identity"
+    p["afeat_extractor"]["params"]["legacy_knob"] = 123
+    for proj in ("aproj", "vproj"):
+        p[proj] = {"target": "torch.nn.Linear", "params": {
+            "in_features": p[proj]["params"]["in_features"],
+            "out_features": "${model.params.transformer.params.n_embd}"}}
+    p["transformer"]["params"]["off_head_cfg"]["params"]["out_features"] = "${data.num_off_cls}"
+    return {"action": action, "model": model, "training": cfg["training"],
+            "data": {**cfg["data"], "max_off_sec": 2.0}}
+
+
+def write_reference_sync_ckpt(torch, path: str, action: str, n_segments: int, seed: int) -> dict:
+    """Phase 15 (a): a reference-style Stage II (III) checkpoint of a seeded
+    build_synchformer(n_segments) (with the syncability head for Stage
+    III's action): the weights under "model" with module. prefixes, with
+    UNREAD_KEY beside them, and reference_sync_args pickled as an omegaconf
+    DictConfig. Returns the seeded state dict."""
+    from synchformer_tpu_torch.models.presets import build_synchformer
+    from synchformer_tpu_torch.utils.convert import seeded_state_dict
+    from synchformer_tpu_torch.utils.reference_ckpt import save_reference_ckpt
+
+    sd = seeded_state_dict(build_synchformer(n_segments, action == SYNCABILITY_ACTION,
+                                             device="meta"), seed)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_reference_ckpt(path, {**sd, UNREAD_KEY: torch.zeros(4)},
+                        reference_sync_args(action, n_segments), extra={"epoch": 0})
+    return sd
+
+
+def write_reference_stage1_ckpt(torch, path: str, seed: int = 1, build=None) -> dict:
+    """Phase 15 (c): a reference-style Stage I checkpoint of a seeded
+    build_avclip() (or ``build()``): the towers under the reference's a_encoder. / v_encoder.
+    names, module.-prefixed, under "state_dict"; the AST position embedding
+    AST_REF_TOKENS long, its first 74 rows the model's own; a Stage I config
+    pickled as args. Returns the state dict as written (without module.)."""
+    import numpy as np
+
+    from synchformer_tpu_torch.models.presets import build_avclip
+    from synchformer_tpu_torch.utils.convert import AST_POS_EMB, seeded_state_dict
+    from synchformer_tpu_torch.utils.reference_ckpt import save_reference_ckpt
+
+    sd = seeded_state_dict((build or build_avclip)(device="meta"), seed)
+    sd = {k.replace("vfeat_extractor.", "v_encoder.").replace("afeat_extractor.", "a_encoder."): v
+          for k, v in sd.items()}
+    pos = sd[f"a_encoder.{AST_POS_EMB}"]
+    extra = np.random.default_rng(seed + 100).standard_normal(
+        (1, AST_REF_TOKENS - pos.shape[1], pos.shape[2]), dtype=np.float32) * np.float32(0.02)
+    sd[f"a_encoder.{AST_POS_EMB}"] = np.concatenate([pos, extra], axis=1)
+    args = {"action": "train_avclip", "model": {
+        "target": "model.modules.feat_extractors.train_clip_src.open_clip.model.AVCLIP",
+        "params": {"n_embd": int(pos.shape[2]), "init_scale": 0.07}}}
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_reference_ckpt(path, sd, args, weights_key="state_dict", extra={"epoch": 0})
+    return sd
+
+
+def stage1_reference_check(torch, dev, root: str, build=None, widths: dict | None = None,
+                           s: int = S) -> list:
+    """Phase 15 (c): SyncTrainer built from sync.yaml's model section with
+    both towers' ckpt_path at a reference-style Stage I file: each tower's
+    report lists nothing missing, unexpected or mismatched, and the AST
+    position embedding equals the file's first 74 rows bit for bit (the
+    video CLS token the file's). ``build`` / ``widths`` / ``s``: another
+    Stage I model (build_avclip's by default), sync_config's widths and
+    segments, for the planted faults' dry run. Returns the checks that
+    failed ('tower_init' where the towers' initialisation raised)."""
+    from synchformer_tpu_torch.utils.convert import AST_POS_EMB
+
+    path = os.path.join(root, "stage1_reference.pt")
+    sd = write_reference_stage1_ckpt(torch, path, build=build)
+    cfg = sync_config("train_avsync_model", s, ckpt_path=path, widths=widths)
+    try:
+        tr = sync_trainer(cfg, dev, "kernel", True)
+    except ValueError as e:
+        log(f"[reference] stage1: the towers' initialisation raised: {str(e)[:300]} FAIL")
+        return ["tower_init"]
+    finally:
+        os.remove(path)
+    failed = []
+    for key, rep in tr.tower_reports.items():
+        bad = {k: v for k, v in rep.items() if v}
+        log(f"[reference] stage1 -> {key}: report {bad or 'empty'} "
+            f"{'ok' if not bad else 'FAIL'}")
+        if bad:
+            failed.append(f"{key} report")
+    towers = tr.model
+    for name, got, want in (
+            ("ast pos emb", towers.afeat_extractor.ast.embeddings.position_embeddings,
+             sd[f"a_encoder.{AST_POS_EMB}"][:, :74]),
+            ("video cls token", towers.vfeat_extractor.cls_token, sd["v_encoder.cls_token"])):
+        got = got.detach().float().cpu()
+        want = torch.from_numpy(want)
+        same = tuple(got.shape) == tuple(want.shape) and torch.equal(got, want)
+        log(f"[reference] stage1: {name} {tuple(got.shape)} "
+            f"{'equal to the file bit for bit' if same else 'DIFFERS from the file'}"
+            + ("" if same or got.shape != want.shape
+               else f" (max |diff| {maxabs(got, want):.3e})"))
+        if not same:
+            failed.append(name)
+    del tr
+    return failed
+
+
+def example_records(torch, dev, ckpt: str, video, pcm) -> dict:
+    """The example's item through the port in-process, each predictor on its
+    own copy of the checkpoint's model: serving_record's logits and
+    probabilities on the plain path in f32 and bf16 and on the kernel path
+    in bf16, and the ms of one forward (CUDA events) of each bf16 path."""
+    from synchformer_tpu_torch.example import load_sync_checkpoint
+    from synchformer_tpu_torch.infer import SyncPredictor
+
+    out = {}
+    for name, dtype, impl in (("f32", torch.float32, "plain"), ("plain", torch.bfloat16, "plain"),
+                              ("kernel", torch.bfloat16, "kernel")):
+        model, info = load_sync_checkpoint(ckpt)
+        pred = SyncPredictor(model, dev, dtype, impl, info["max_spec_t"], info["num_mel_bins"])
+        logits = pred.logits(video, pcm).float()
+        out[name] = {"logits": logits, "probs": torch.softmax(logits, -1)}
+        if name != "f32":
+            out[name]["ms"] = cuda_time_ms(lambda: pred.logits(video, pcm), iters=5)
+        del pred, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_example_cli(torch, dev, root: str, ckpt_dir: str, exp: str) -> None:
+    """Phase 15 (b): python -m synchformer_tpu_torch.example on the Stage
+    II file, a subprocess with a timeout, on EXAMPLE_CLIP at EXAMPLE_OFFSET:
+    exit 0, the top 5 printed, its kernel launches exactly one forward's
+    (STAGE2_LAUNCHES), its probabilities held by serving_agreement against
+    the same prepared item (the .npz it writes) through the plain bf16 and
+    f32 paths in-process; ms/clip of each path."""
+    import numpy as np
+
+    from synchformer_tpu_torch.ops.video import patchify_frames
+
+    out = os.path.join(root, "example.npz")
+    cmd = [sys.executable, "-m", "synchformer_tpu_torch.example", f"exp_name={exp}",
+           f"vid_path={EXAMPLE_CLIP}", f"offset_sec={EXAMPLE_OFFSET}", f"ckpt_dir={ckpt_dir}",
+           f"out={out}"]
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"example: exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    top = [ln for ln in lines if ln.startswith("p=")]
+    for ln in lines:
+        log(f"[example] | {ln}")
+    if "Prediction Result:" not in lines or len(top) != 5:
+        fail(f"example: no top-5 printout in {proc.stdout[-2000:]}")
+    launches = [json.loads(ln.split(": ", 1)[1]) for ln in lines
+                if ln.startswith("kernel launches: ")]
+    if launches != [STAGE2_LAUNCHES]:
+        fail(f"example: kernel launches {launches}, expected one forward's {STAGE2_LAUNCHES}")
+    rec = np.load(out)
+    video = torch.from_numpy(np.ascontiguousarray(patchify_frames(rec["video"][None], 2, 16)))
+    pcm = torch.from_numpy(rec["audio"][None])
+    recs = example_records(torch, dev, os.path.join(ckpt_dir, f"{exp}.pt"), video, pcm)
+    cli = {"logits": torch.from_numpy(rec["logits"][None]).to(dev),
+           "probs": torch.from_numpy(rec["probs"][None]).to(dev)}
+    log(f"[example] the CLI's probabilities: max|cli-f32| "
+        f"{maxabs(cli['probs'], recs['f32']['probs']):.3e}, max|in-process kernel-cli| "
+        f"{maxabs(cli['probs'], recs['kernel']['probs']):.3e}; top-1 cli "
+        f"{int(cli['probs'].argmax())} f32 {int(recs['f32']['probs'].argmax())}")
+    failed = serving_agreement(recs["f32"], recs["plain"], cli, "example")
+    if failed:
+        fail(f"example: the CLI's output outside tolerance: {failed}")
+    log(f"[timing] example: the CLI {secs:.1f} s end to end (start, checkpoint read, model "
+        f"build, clip, forward); its forward at B=1 kernel {recs['kernel']['ms']:.2f} ms/clip, "
+        f"plain bf16 {recs['plain']['ms']:.2f} ms/clip; {smi_line()}")
+
+
+def run_syncability_cli(torch, dev, root: str, ckpt_off: str, ckpt_sync: str) -> None:
+    """Phase 15 (d): the syncability CLI's main in-process over the Stage
+    III and Stage II files and a SyntheticAV loader (8 clips, B=8,
+    iter_times 1): its launches exactly both models' forwards per batch, the
+    ROC and tiered pickles written, its sync and offset logits held by
+    serving_agreement against the same batches through the plain f32 and
+    bf16 paths; clips/s end to end and of the evaluation's forwards."""
+    import pickle
+
+    from synchformer_tpu_torch.ops.kernels import _build
+    from synchformer_tpu_torch.scripts import test_syncability as cli
+
+    logdir = os.path.join(root, "syncability")
+    argv = [f"ckpt_sync={ckpt_sync}", f"ckpt_off={ckpt_off}",
+            "dataset=synchformer_tpu.data.datasets.SyntheticAV", "batch_size=8", "iter_times=1",
+            f"logdir={logdir}"]
+    kv = dict(a.split("=", 1) for a in argv)
+    batches = list(cli.make_loader(kv))  # the clips decoded once, then the same batches
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    want = {k: 2 * v * len(batches) for k, v in STAGE2_LAUNCHES.items()}
+    log(f"[syncability] main: {out['n_evaluated']} clips in {len(batches)} batches, "
+        f"{secs:.1f} s end to end; launches {counts}; metrics {out['metrics_sync']}, "
+        f"ROC-AUC {out['roc']['roc_curve_sc']:.4f}")
+    if counts != want:
+        fail(f"syncability: launches {counts}, expected {want}")
+    for name in ("roc_test.pkl", "metrics_test.pkl"):
+        with open(os.path.join(logdir, name), "rb") as f:
+            pickle.load(f)
+    log(f"[syncability] wrote {sorted(os.listdir(logdir))}")
+    for tag, ckpt, n_seg, sync, key in (("sync", ckpt_sync, 13, True, "logits_sync"),
+                                        ("offset", ckpt_off, 14, False, "logits_off")):
+        recs, ms = {}, {}
+        for name, dtype, impl in (("f32", torch.float32, "plain"),
+                                  ("plain", torch.bfloat16, "plain"),
+                                  ("kernel", torch.bfloat16, "kernel")):
+            run = cli.eval_fn(cli.load_predictor(ckpt, n_seg, sync, dev, dtype, impl))
+            logits = torch.cat([run({"video": b["video"][:, :n_seg], "audio": b["audio"][:, :n_seg]})
+                                for b in batches])
+            recs[name] = {"logits": logits, "probs": torch.softmax(logits, -1)}
+            if name != "f32":
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for b in batches:
+                    run({"video": b["video"][:, :n_seg], "audio": b["audio"][:, :n_seg]})
+                torch.cuda.synchronize()
+                ms[name] = (time.perf_counter() - t1) * 1e3
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+        main_logits = torch.from_numpy(out[key]).to(dev)
+        cli_rec = {"logits": main_logits, "probs": torch.softmax(main_logits, -1)}
+        log(f"[syncability] {tag}: max|main-in-process kernel| logits "
+            f"{maxabs(main_logits, recs['kernel']['logits']):.3e}")
+        failed = serving_agreement(recs["f32"], recs["plain"], cli_rec, f"syncability {tag}")
+        if failed:
+            fail(f"syncability {tag}: the CLI's logits outside tolerance: {failed}")
+        n = out["n_evaluated"]
+        log(f"[timing] syncability {tag} model forwards over the {n} clips: kernel "
+            f"{ms['kernel']:.1f} ms ({n / ms['kernel'] * 1e3:.2f} clips/s), plain bf16 "
+            f"{ms['plain']:.1f} ms ({n / ms['plain'] * 1e3:.2f} clips/s)")
+    log(f"[timing] syncability CLI: {out['n_evaluated'] / secs:.2f} clips/s end to end "
+        f"(both checkpoints read, both models, the evaluation); {smi_line()}")
+
+
+def run_reference_ckpts(torch, dev, report):
+    """Phase 15: the reference-checkpoint entry points at full width. (a)
+    reference-style Stage II and III files of seeded build_synchformer(14)
+    and build_synchformer(13, syncability); (b) the example CLI on the Stage
+    II file as a subprocess; (c) SyncTrainer's towers from a
+    reference-style Stage I file; (d) the syncability CLI over both
+    files."""
+    import shutil
+
+    root = os.path.join(REPO, "build", "chip_smoke", "reference")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    exp2, exp3 = "reference_stage2", "reference_stage3"
+    write_reference_sync_ckpt(torch, os.path.join(root, f"{exp2}.pt"), "train_avsync_model", S, 0)
+    write_reference_sync_ckpt(torch, os.path.join(root, f"{exp3}.pt"), SYNCABILITY_ACTION, S3, 2)
+    log(f"[reference] (a) wrote {exp2}.pt and {exp3}.pt in {time.perf_counter() - t0:.1f} s")
+    run_example_cli(torch, dev, root, root, exp2)
+    failed = stage1_reference_check(torch, dev, root)
+    if failed:
+        fail(f"reference Stage I checkpoint: {failed}")
+    run_syncability_cli(torch, dev, root, os.path.join(root, f"{exp2}.pt"),
+                        os.path.join(root, f"{exp3}.pt"))
+    shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
           run_serving_8head, run_moco, run_sync_training,
-          run_audio_augs, run_entry_point, run_data_parallel)
+          run_audio_augs, run_entry_point, run_data_parallel, run_reference_ckpts)
 
 
 def main() -> int:
@@ -2973,6 +3323,9 @@ def main() -> int:
     smi = smi_line()
     log(f"[device] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    from synchformer_tpu_torch.data.media import available_backends
+
+    log(f"[device] media decoders: {available_backends()}")
     secs = _build.build_all()
     log(f"[build] nvcc sm_90a kernels in {secs:.1f} s -> {_build.BUILD_DIR}")
 

@@ -1,5 +1,6 @@
 """Show that chip_smoke.py's Stage I, packed-block, serving, MoCo and kernel
-checks fail a wrong K1, K2, K4, K5, K6, K7a/K7b, K7c, K8a, K8b or K4b.
+checks fail a wrong K1, K2, K4, K5, K6, K7a/K7b, K7c, K8a, K8b or K4b (and its
+data-parallel and reference-checkpoint checks their planted faults).
 
     python scripts/stage1_planted_faults.py            # full width, one NVIDIA GPU
     python scripts/stage1_planted_faults.py --tiny --device cpu   # a dry run
@@ -50,8 +51,8 @@ phase 2's K4b cases (chip_smoke.hold_outputs):
 - k4b_residual_dropped: K4b's output without the CLS row's residual.
 Then the K4 faults (wrapping _cls_pool_tokens, where ClsPoolTokensFn calls
 it) on phase 2's checked K4 cases (chip_smoke.k4_cases: the MoCo step's
-global aggregators, ragged rows, a part-filled last block, guard bands,
-8 heads of 96 ragged and in a guard band):
+global aggregators, a time tail's groups, ragged rows, a part-filled last
+block, guard bands, 8 heads of 96 ragged and in a guard band):
 - none: the control;
 - k4_cls_key_dropped: the shared CLS key's column is left out of the
   softmax (the plain composition over x's rows alone);
@@ -111,6 +112,10 @@ cases, and only on the case it concerns:
 - sync_lr_unscaled: Stage II's learning rate is base_learning_rate, not x
   the number of ranks (stage_sync's make_lr_schedule given base / world).
 ``--only dp`` runs these alone.
+Then the Stage I reader's fault on chip_smoke.py's phase 15 (c)
+(chip_smoke.stage1_reference_check, ckpt_faults): the control, and
+ast_pos_emb_untrimmed, a reader that keeps a reference file's 1214-token
+AST position embedding. ``--only ckpt`` runs these alone.
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
@@ -431,7 +436,8 @@ TINY_K4B = {"d": 128, "h": 2, "shapes": ((2, 3), (8, 5))}
 # --tiny's K4 cases: 2 heads of 64, groups of 3, 1, 13 and 37 rows; 4 heads
 # of 32 for the cases at another head width
 TINY_K4 = {"d": 128, "h": 2, "global_rows": (2, 3), "ragged": ((2, 1), (2, 13)),
-           "partial": (5, 3), "guard": ((2, 37),), "wide": (4, (2, 37), (3, 3))}
+           "partial": (5, 3), "guard": ((2, 37),), "wide": (4, (2, 37), (3, 3)),
+           "time_tail": (4, 2)}
 # --tiny's ragged cases: one segment of 2 frames
 TINY_RAGGED = {"bs": 1, "f": 2}
 # --tiny's K1 / K2 cases: 2 heads of 64, 2 segments of 2 frames of 4 patches
@@ -715,6 +721,32 @@ def stage2_faults(dev, tiny: bool) -> dict:
     return caught
 
 
+def ckpt_faults(dev, tiny: bool) -> dict:
+    """The Stage I reader's fault on phase 15 (c)
+    (chip_smoke.stage1_reference_check: SyncTrainer's towers from a
+    reference-style Stage I file whose AST position embedding holds 1214
+    tokens; --tiny: the tiny AVCLIP into TINY_SYNC's towers, B=2, S=2):
+    - none: the control;
+    - ast_pos_emb_untrimmed: utils/checkpoint.py reads the file without
+      cutting the AST position embedding to the tower's tokens.
+    Each fault's failed checks."""
+    from synchformer_tpu_torch.utils import checkpoint as tckpt
+
+    root = os.path.join(REPO, "build", "planted_faults", "reference")
+    kw = {"build": build_tiny_avclip, "widths": TINY_SYNC, "s": 2} if tiny else {}
+    trim = tckpt.trim_ast_pos_emb
+    caught = {}
+    for name, fn in (("none", trim), ("ast_pos_emb_untrimmed", lambda sd, n, prefix="": dict(sd))):
+        tckpt.trim_ast_pos_emb = fn
+        try:
+            caught[name] = chip_smoke.stage1_reference_check(torch, dev, root, **kw)
+        finally:
+            tckpt.trim_ast_pos_emb = trim
+        gc.collect()
+        chip_smoke.log(f"[fault] ckpt {name}: {len(caught[name])} checks failed: {caught[name]}")
+    return caught
+
+
 # the data-parallel faults, each with the phase-14 (c) cases it runs on
 DP_FAULTS = {"none": chip_smoke.DP_CASES, "dist_gather_local_grad": ("avclip",),
              "moco_keys_local": ("moco",), "sync_lr_unscaled": ("stage2",)}
@@ -766,8 +798,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--only", choices=("all", "dp"), default="all",
-                    help="dp: the data-parallel faults of phase 14 (c) alone")
+    ap.add_argument("--only", choices=("all", "dp", "ckpt"), default="all",
+                    help="dp: the data-parallel faults of phase 14 (c) alone; ckpt: the Stage "
+                         "I reader's of phase 15 (c) alone")
     args = ap.parse_args()
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -777,6 +810,8 @@ def main() -> int:
             chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
             _build.build_all()
         return 0 if verdict("dp", dp_faults(dev, args.tiny)) else 1
+    if args.only == "ckpt":
+        return 0 if verdict("ckpt", ckpt_faults(dev, args.tiny)) else 1
     if args.tiny:
         builds = {"split": functools.partial(build_tiny_avclip, drop_path_rate=0.2),
                   "packed": functools.partial(build_tiny_avclip_packed, drop_path_rate=0.2),
@@ -836,6 +871,7 @@ def main() -> int:
     ok = verdict("kernels_k1", k1) and ok
     ok = verdict("stage2", stage2_faults(dev, args.tiny)) and ok
     ok = verdict("dp", dp_faults(dev, args.tiny)) and ok
+    ok = verdict("ckpt", ckpt_faults(dev, args.tiny)) and ok
     return 0 if verdict("kernels_k2", k2) and ok else 1
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ block's shared ``cls_row`` (on the kernel route the whole layer is K4) unless
 the positional dropout is live; then [cls; x] is formed, the embedding added
 and dropped, and the block runs with the CLS row inside x (K4b).
 ``AveragePooling`` is the towers' time tail in the Stage I configuration
-(configs/segment_avclip.yaml).
+(configs/segment_avclip.yaml), and where a config names it, their frequency
+or spatial pool. ``time_tail`` builds a tower's time tail from the JAX
+option ``agg_time_module``.
 """
 from __future__ import annotations
 
@@ -113,13 +115,29 @@ class TemporalAggregator(CLSPoolEncoderLayer):
 
 
 class AveragePooling(nn.Module):
-    """Mean over one axis (synchformer_tpu/models/aggregators.py::
-    AveragePooling with ``bs t d -> bs d``): (BS, t, D) -> (BS, D). No
-    parameters."""
+    """Mean over ``dim`` (an axis or a tuple of axes;
+    synchformer_tpu/models/aggregators.py::AveragePooling with ``bs t d -> bs
+    d``, ``bs f t d -> bs t d`` or ``bs t h w d -> bs t d``). No parameters;
+    ``impl`` is accepted so that it stands wherever a CLS-pool aggregator
+    does."""
 
-    def __init__(self, dim: int = 1):
+    def __init__(self, dim=1):
         super().__init__()
         self.dim = dim
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "plain") -> torch.Tensor:
         return x.mean(dim=self.dim)
+
+
+def time_tail(agg_time_module: str, d: int, num_heads: int, device=None) -> Optional[nn.Module]:
+    """A tower's time tail, (BS, t, D) -> (BS, D), as the JAX towers read
+    ``agg_time_module`` (ast_encoder.py:164-172, motionformer.py:684-692):
+    'TransformerEncoderLayer' a TemporalAggregator without a positional
+    embedding (K4 on the kernel route), 'AveragePooling' the mean; any other
+    string (the reference configs' 'torch.nn.Identity', 'Identity') keeps the
+    (BS, t, D) features: None."""
+    if agg_time_module == "TransformerEncoderLayer":
+        return TemporalAggregator(d, num_heads, device=device)
+    if agg_time_module == "AveragePooling":
+        return AveragePooling(1)
+    return None

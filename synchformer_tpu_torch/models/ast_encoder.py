@@ -1,6 +1,11 @@
 """AST audio tower (synchformer_tpu/models/ast_encoder.py): features of 6 time
-steps per segment through the frequency aggregator, then, with
-``agg_time_module='AveragePooling'`` (the Stage I configuration), their mean.
+steps per segment through the frequency aggregator, then the time tail that
+``agg_time_module`` names, as the JAX tower reads it (aggregators.time_tail):
+'AveragePooling' (the Stage I configuration) their mean,
+'TransformerEncoderLayer' a TemporalAggregator (K4), any other string (the
+sync configs' 'Identity', the reference's 'torch.nn.Identity') none.
+``agg_freq_module`` 'AveragePooling' takes the mean over frequency in place
+of the FrequencyAggregator.
 
 Patch conv 16x16, stride (10, 10) over the (F=128, T=66) log-mel, scanned
 frequency-major (12 x 6 = 72 tokens) and run as one matmul on unfolded
@@ -15,7 +20,8 @@ per clip (ast_encoder.py:177-186); its positional dropout is hidden_dropout,
 0, so it runs on K4. ``forward`` returns the segment features,
 ``forward_with_global`` them and the global feature. State names follow the
 reference (``ast.embeddings.*``, ``ast.encoder.layer.{i}.*``,
-``ast.layernorm``, ``freq_attn_agg.*``, ``global_attn_agg.*``).
+``ast.layernorm``, ``freq_attn_agg.*``, ``temp_attn_agg.*``,
+``global_attn_agg.*``).
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from synchformer_tpu_torch.models.aggregators import (
     AveragePooling,
     FrequencyAggregator,
     TemporalAggregator,
+    time_tail,
 )
 from synchformer_tpu_torch.models.layers import ASTLayer, Container, LayerNorm
 from synchformer_tpu_torch.ops.numerics import dense
@@ -39,21 +46,23 @@ class ASTEncoder(nn.Module):
     def __init__(self, hidden_size: int = 768, depth: int = 12, num_heads: int = 12,
                  patch_size: int = 16, frequency_stride: int = 10, time_stride: int = 10,
                  num_mel_bins: int = 128, max_spec_t: int = 66, ln_eps: float = 1e-12,
+                 agg_freq_module: str = "TransformerEncoderLayer",
                  agg_time_module: str = "Identity", remat: bool = False,
                  hidden_dropout: float = 0.0, attn_dropout: float = 0.0,
                  add_global_repr: bool = False, max_segments: Optional[int] = None,
                  device=None):
         super().__init__()
-        if agg_time_module not in ("Identity", "AveragePooling"):
-            raise ValueError(f"agg_time_module must be 'Identity' or 'AveragePooling', "
-                             f"got {agg_time_module!r}")
+        if agg_freq_module not in ("TransformerEncoderLayer", "AveragePooling"):
+            raise ValueError(f"agg_freq_module must be 'TransformerEncoderLayer' or "
+                             f"'AveragePooling', got {agg_freq_module!r}")
         if hidden_dropout > 0.0 or attn_dropout > 0.0:
             raise NotImplementedError("the AST's dropouts are not ported: set hidden_dropout "
                                       "and attn_dropout to 0")
-        if add_global_repr and agg_time_module != "AveragePooling":
-            raise ValueError("add_global_repr pools (B, S, D) segment features: it needs "
-                             "agg_time_module='AveragePooling'")
         d = hidden_size
+        tail = time_tail(agg_time_module, d, num_heads, device)
+        if add_global_repr and tail is None:
+            raise ValueError("add_global_repr pools (B, S, D) segment features: it needs "
+                             "agg_time_module 'AveragePooling' or 'TransformerEncoderLayer'")
         self.patch_size = patch_size
         self.strides = (frequency_stride, time_stride)
         self.remat = remat
@@ -70,9 +79,10 @@ class ASTEncoder(nn.Module):
             encoder=Container(layer=nn.ModuleList(
                 [ASTLayer(d, num_heads, ln_eps, device=device) for _ in range(depth)])),
             layernorm=LayerNorm(d, ln_eps, device))
-        self.freq_attn_agg = FrequencyAggregator(d, num_heads, device=device)
-        self.temp_attn_agg = (AveragePooling(1) if agg_time_module == "AveragePooling"
-                              else None)
+        self.freq_attn_agg = (FrequencyAggregator(d, num_heads, device=device)
+                              if agg_freq_module == "TransformerEncoderLayer"
+                              else AveragePooling(1))
+        self.temp_attn_agg = tail
         self.max_segments = max_segments
         self.global_attn_agg = (
             TemporalAggregator(d, num_heads, add_pos_emb=True,
@@ -82,7 +92,7 @@ class ASTEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, impl: str = "plain") -> torch.Tensor:
         """x (B, S, T, F) log-mel in the compute dtype -> (B, S, t, D), or
-        (B, S, D) with the AveragePooling time tail."""
+        (B, S, D) with a time tail."""
         return self.forward_with_global(x, impl)[0]
 
     def forward_with_global(self, x: torch.Tensor, impl: str = "plain"):
@@ -113,7 +123,7 @@ class ASTEncoder(nn.Module):
         feats = self.freq_attn_agg(feats, impl)
         if self.temp_attn_agg is None:
             return feats.reshape(b, s, tdim, d), None
-        feats = self.temp_attn_agg(feats).reshape(b, s, d)
+        feats = self.temp_attn_agg(feats, impl).reshape(b, s, d)
         if self.global_attn_agg is None:
             return feats, None
         return feats, self.global_attn_agg(feats, impl)

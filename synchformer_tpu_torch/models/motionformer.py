@@ -53,8 +53,12 @@ is the same on both routes. ``impl`` keeps its meaning on both: on
 'pallas_fused' the plain versions are the JAX _fused_attention_ref and
 _fused_mlp_ref, the same operations as the 'pallas' plain path.
 
-Then the SpatialAggregator (K4) pools each frame, and with
-``agg_time_module='AveragePooling'`` the frames are averaged. With
+Then the SpatialAggregator (K4) pools each frame (``agg_space_module``
+'AveragePooling': the mean over the frame's patches), and the time tail that
+``agg_time_module`` names pools the frames as the JAX tower reads it
+(aggregators.time_tail): 'AveragePooling' their mean,
+'TransformerEncoderLayer' a TemporalAggregator (K4), any other string (the
+reference's 'torch.nn.Identity') none. With
 ``add_global_repr`` (the MoCo Stage I towers) a TemporalAggregator with a
 positional embedding over ``max_segments`` pools the (B, S, D) segment
 features into one global feature per clip (motionformer.py:696-705); in
@@ -80,6 +84,7 @@ from synchformer_tpu_torch.models.aggregators import (
     AveragePooling,
     SpatialAggregator,
     TemporalAggregator,
+    time_tail,
 )
 from synchformer_tpu_torch.models.layers import (
     Container,
@@ -231,17 +236,20 @@ class MotionFormerEncoder(nn.Module):
     def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  patch_size: int = 16, z_block_size: int = 2, temporal_resolution: int = 8,
                  img_size: int = 224, in_chans: int = 3, ln_eps: float = 1e-6,
-                 drop_path_rate: float = 0.2, agg_time_module: str = "Identity",
+                 drop_path_rate: float = 0.2,
+                 agg_space_module: str = "TransformerEncoderLayer",
+                 agg_time_module: str = "Identity",
                  remat: bool = False, attn_impl: str = "pallas", pos_dropout: float = 0.0,
                  add_global_repr: bool = False, max_segments: Optional[int] = None,
                  device=None):
         super().__init__()
-        if agg_time_module not in ("Identity", "AveragePooling"):
-            raise ValueError(f"agg_time_module must be 'Identity' or 'AveragePooling', "
-                             f"got {agg_time_module!r}")
-        if add_global_repr and agg_time_module != "AveragePooling":
+        if agg_space_module not in ("TransformerEncoderLayer", "AveragePooling"):
+            raise ValueError(f"agg_space_module must be 'TransformerEncoderLayer' or "
+                             f"'AveragePooling', got {agg_space_module!r}")
+        tail = time_tail(agg_time_module, embed_dim, num_heads, device)
+        if add_global_repr and tail is None:
             raise ValueError("add_global_repr pools (B, S, D) segment features: it needs "
-                             "agg_time_module='AveragePooling'")
+                             "agg_time_module 'AveragePooling' or 'TransformerEncoderLayer'")
         if attn_impl not in ("pallas", "pallas_fused"):
             raise ValueError(f"attn_impl must be 'pallas' or 'pallas_fused', got {attn_impl!r}")
         d = embed_dim
@@ -264,9 +272,10 @@ class MotionFormerEncoder(nn.Module):
                                                            attn_impl=attn_impl, device=device)
                                      for i in range(depth)])
         self.norm = LayerNorm(d, ln_eps, device)
-        self.spatial_attn_agg = SpatialAggregator(d, num_heads, device=device)
-        self.temp_attn_agg = (AveragePooling(1) if agg_time_module == "AveragePooling"
-                              else None)
+        self.spatial_attn_agg = (SpatialAggregator(d, num_heads, device=device)
+                                 if agg_space_module == "TransformerEncoderLayer"
+                                 else AveragePooling((2, 3)))
+        self.temp_attn_agg = tail
         self.pos_dropout = float(pos_dropout)
         self.max_segments = max_segments
         self.global_attn_agg = (
@@ -279,7 +288,7 @@ class MotionFormerEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, S, f, n, z*p*p*c) patch-major frames: uint8 with the folded
         normalisation, or normalised floats in the compute dtype -> (B, S, f, D),
-        or (B, S, D) with the AveragePooling time tail. ``deterministic=False``
+        or (B, S, D) with a time tail. ``deterministic=False``
         runs the training block and needs ``generator`` for drop-path and
         dropout."""
         return self.forward_with_global(x, impl, deterministic, generator)[0]
@@ -322,7 +331,7 @@ class MotionFormerEncoder(nn.Module):
         feats = self.spatial_attn_agg(feats, impl)
         if self.temp_attn_agg is None:
             return feats.reshape(b, s, f, d), None
-        feats = self.temp_attn_agg(feats).reshape(b, s, d)
+        feats = self.temp_attn_agg(feats, impl).reshape(b, s, d)
         if self.global_attn_agg is None:
             return feats, None
         return feats, self.global_attn_agg(feats, impl, deterministic, generator)

@@ -8,8 +8,16 @@ representations (build_moco_avclip), and tiny ones for the CPU tests. The
 8-head towers run the packed flow and take ``attn_impl`` ('pallas' or
 'pallas_fused', the JAX option). All come in f32: SyncPredictor casts the
 sync model's matrices to the compute dtype once; AVCLIP and MoCo train f32
-master parameters under the activations' compute dtype."""
+master parameters under the activations' compute dtype.
+
+``build_synchformer_from_ckpt_args`` builds the sync model a checkpoint's
+stored training config describes (a reference ``.pt``'s ``args``).
+"""
 from __future__ import annotations
+
+import copy
+import logging
+from typing import Optional
 
 from synchformer_tpu_torch.models.avclip import AVCLIP
 from synchformer_tpu_torch.models.moco_clip import MultilevelMoCoCLIP
@@ -150,3 +158,148 @@ def _tiny_avclip(t: dict, remat: bool, drop_path_rate: float, device,
                   afeat_extractor=dict(depth=t["depth"], num_heads=t["audio_heads"],
                                        remat=remat),
                   d=t["d"], device=device)
+
+
+# ---------------------------------------------------------------------------
+# the model from the training config stored inside a checkpoint
+# ---------------------------------------------------------------------------
+
+# The fields of the JAX package's classes (dataclasses.fields of each flax
+# module, parent and name included), by the class's target name: the params a
+# checkpoint config may give each node. The JAX package drops every other
+# key with a warning (presets.py::_inject_tpu_kwargs); so does the port.
+_JAX = "synchformer_tpu.models."
+JAX_FIELDS = {
+    f"{_JAX}sync_model.Synchformer": (
+        "afeat_extractor", "vfeat_extractor", "aproj", "vproj", "transformer", "parent", "name"),
+    f"{_JAX}sync_model.GlobalTransformer": (
+        "n_layer", "n_head", "n_embd", "tok_pdrop", "embd_pdrop", "resid_pdrop", "attn_pdrop",
+        "pos_emb_cfg", "off_head_cfg", "dtype", "parent", "name"),
+    f"{_JAX}ast_encoder.ASTEncoder": (
+        "hidden_size", "depth", "num_heads", "mlp_ratio", "patch_size", "frequency_stride",
+        "time_stride", "num_mel_bins", "max_spec_t", "ln_eps", "hidden_dropout",
+        "attn_dropout", "extract_features", "factorize_freq_time", "agg_freq_module",
+        "agg_time_module", "add_global_repr", "max_segments", "num_labels", "remat", "dtype",
+        "attn_impl", "ckpt_path", "feat_type", "agg_segments_module", "parent", "name"),
+    f"{_JAX}motionformer.MotionFormerEncoder": (
+        "embed_dim", "depth", "num_heads", "mlp_ratio", "attn_layer", "patch_size",
+        "z_block_size", "temporal_resolution", "img_size", "drop_rate", "pos_dropout",
+        "drop_path_rate", "ln_eps", "factorize_space_time", "agg_space_module",
+        "agg_time_module", "add_global_repr", "max_segments", "remat", "dtype", "attn_impl",
+        "ckpt_path", "extract_features", "agg_segments_module", "parent", "name"),
+    f"{_JAX}bridges.LinearBridge": ("in_features", "out_features", "use_bias", "dtype",
+                                    "parent", "name"),
+    f"{_JAX}bridges.DoNothingBridge": ("in_features", "out_features", "parent", "name"),
+    f"{_JAX}pos_emb.RandInitPositionalEncoding": ("block_shape", "n_embd", "init", "parent",
+                                                  "name"),
+    f"{_JAX}avclip.AVCLIP": (
+        "n_embd", "afeat_extractor", "vfeat_extractor", "aproj", "vproj", "init_scale",
+        "clamp_scale_min", "clamp_scale_max", "gather_for_loss", "parent", "name"),
+    f"{_JAX}moco_clip.MultilevelMoCoCLIP": (
+        "n_embd", "queue_size", "momentum", "afeat_extractor", "vfeat_extractor", "aproj",
+        "vproj", "init_scale", "clamp_scale_min", "clamp_scale_max", "parent", "name"),
+}
+JAX_FIELDS[f"{_JAX}sync_model.GlobalTransformerWithSyncabilityHead"] = \
+    JAX_FIELDS[f"{_JAX}sync_model.GlobalTransformer"]
+# the reference's target names, which the JAX registry resolves to these classes
+JAX_ALIASES = {
+    "model.sync_model.Synchformer": f"{_JAX}sync_model.Synchformer",
+    "model.sync_model.GlobalTransformer": f"{_JAX}sync_model.GlobalTransformer",
+    "model.sync_model.GlobalTransformerWithSyncabilityHead":
+        f"{_JAX}sync_model.GlobalTransformerWithSyncabilityHead",
+    "model.modules.feat_extractors.audio.ast.AST": f"{_JAX}ast_encoder.ASTEncoder",
+    "model.modules.feat_extractors.visual.motionformer.MotionFormer":
+        f"{_JAX}motionformer.MotionFormerEncoder",
+    "torch.nn.Linear": f"{_JAX}bridges.LinearBridge",
+    "model.modules.bridges.DoNothingBridge": f"{_JAX}bridges.DoNothingBridge",
+    "model.modules.transformer.RandInitPositionalEncoding":
+        f"{_JAX}pos_emb.RandInitPositionalEncoding",
+    "model.modules.feat_extractors.train_clip_src.open_clip.model.AVCLIP": f"{_JAX}avclip.AVCLIP",
+    "model.modules.feat_extractors.train_clip_src.open_clip.model.MultilevelMoCoCLIP":
+        f"{_JAX}moco_clip.MultilevelMoCoCLIP",
+}
+
+
+def patch_ckpt_model_cfg(model_cfg: dict) -> dict:
+    """The reference's patch_config (ref: example.py:76-84): tower ckpt_paths
+    are already merged into the model checkpoint, and legacy configs name the
+    transformer under ``model.modules.feature_selector``."""
+    cfg = copy.deepcopy(model_cfg)
+    params = cfg.get("params", {})
+    for tower in ("afeat_extractor", "vfeat_extractor"):
+        tp = (params.get(tower) or {}).get("params")
+        if isinstance(tp, dict) and "ckpt_path" in tp:
+            tp["ckpt_path"] = None
+    tfm = params.get("transformer")
+    if isinstance(tfm, dict) and isinstance(tfm.get("target"), str):
+        tfm["target"] = tfm["target"].replace(
+            ".modules.feature_selector.", ".sync_model.")
+    return cfg
+
+
+def drop_unknown_ckpt_params(node, attn_impl: Optional[str] = None,
+                             dropped: Optional[list] = None):
+    """The counterpart of the JAX _inject_tpu_kwargs (presets.py:158-192) on a
+    config tree: each target / params node of a JAX class loses the params
+    outside that class's fields (JAX_FIELDS; keys from other reference code
+    versions), with a warning, and where the class has ``attn_impl`` and one
+    is given, takes it unless it names one. ``dropped`` collects
+    (target, [keys]). A key the JAX class reads stays, so that the port's
+    registry builds it or refuses it (NotImplementedError naming ROADMAP §1
+    item 7). Returns a new tree."""
+    if not isinstance(node, dict):
+        return node
+    if "target" not in node:
+        return {k: drop_unknown_ckpt_params(v, attn_impl, dropped) for k, v in node.items()}
+    out = {k: v for k, v in node.items() if k != "params"}
+    params = {k: drop_unknown_ckpt_params(v, attn_impl, dropped)
+              for k, v in (node.get("params") or {}).items()}
+    target = node["target"]
+    names = JAX_FIELDS.get(JAX_ALIASES.get(target, target))
+    if names is not None:
+        unknown = sorted(k for k in params if k not in names)
+        if unknown:
+            logging.warning("%s: dropping unsupported cfg params %s", target, unknown)
+            if dropped is not None:
+                dropped.append((target, unknown))
+            params = {k: v for k, v in params.items() if k not in unknown}
+        if "attn_impl" in names and attn_impl is not None:
+            params.setdefault("attn_impl", attn_impl)
+    out["params"] = params
+    return out
+
+
+def build_synchformer_from_ckpt_args(args, device=None, attn_impl: Optional[str] = None):
+    """The sync model from the training config stored inside a checkpoint
+    (``ckpt['args']`` as plain_from_ckpt_args gives it, or a Config), as
+    synchformer_tpu/models/presets.py:195-233 builds it: interpolations
+    resolved, patch_ckpt_model_cfg, drop_unknown_ckpt_params, then the port's
+    registry. ``attn_impl`` is the towers' JAX option where the config names
+    none. Returns ``(model, info)``: info holds ``target_seq_len`` (the sync
+    position embedding's length, for the checkpoint's trim), ``num_cls``,
+    ``max_off_sec``, ``max_spec_t``, ``num_mel_bins`` and the raw ``data``
+    section, equal to the JAX function's."""
+    from synchformer_tpu_torch.config.core import Config
+    from synchformer_tpu_torch.registry import instantiate_from_config
+
+    cfg = args.to_dict() if isinstance(args, Config) else Config(args).to_dict()
+    if "model" not in cfg or "target" not in cfg.get("model", {}):
+        raise ValueError("checkpoint args carry no model.target section")
+    model_cfg = drop_unknown_ckpt_params(patch_ckpt_model_cfg(cfg["model"]), attn_impl)
+    model = instantiate_from_config(model_cfg, device=device)
+
+    tfm_p = (model_cfg.get("params", {}).get("transformer") or {}).get("params", {})
+    pos_p = (tfm_p.get("pos_emb_cfg") or {}).get("params", {})
+    block_shape = pos_p.get("block_shape") or [None]
+    off_p = (tfm_p.get("off_head_cfg") or {}).get("params", {})
+    afeat_p = (model_cfg.get("params", {}).get("afeat_extractor") or {}).get("params", {})
+    data = cfg.get("data", {}) or {}
+    info = dict(
+        target_seq_len=block_shape[0],
+        num_cls=int(off_p.get("out_features") or data.get("num_off_cls") or N_OFFSET_CLS),
+        max_off_sec=float(data.get("max_off_sec") or 2.0),
+        max_spec_t=int(afeat_p.get("max_spec_t") or 66),
+        num_mel_bins=int(afeat_p.get("num_mel_bins") or 128),
+        data=data,
+    )
+    return model, info

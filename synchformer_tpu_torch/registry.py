@@ -12,7 +12,13 @@ item 7 (or the item that holds it); it is never dropped. A tower's
 ``ckpt_path`` is not the model's: the trainer reads it (SyncTrainer
 .init_towers_from_ckpts). Parameters the JAX package itself ignores
 (``agg_segments_module``, ``feat_type``, the AST's ``num_labels`` in feature
-mode) are accepted. The JAX route option ``attn_impl`` of the towers keeps
+mode) are accepted. The towers' ``agg_time_module`` takes every value the
+JAX towers take ('TransformerEncoderLayer', 'AveragePooling', anything else
+as no time pool, e.g. the reference's 'torch.nn.Identity');
+``agg_freq_module`` / ``agg_space_module`` take 'TransformerEncoderLayer'
+and 'AveragePooling'. Keys outside the JAX classes' fields are not dropped
+here: models/presets.py::build_synchformer_from_ckpt_args drops them, as
+the JAX package does for checkpoint configs. The JAX route option ``attn_impl`` of the towers keeps
 its meaning where the port has it ('pallas_fused'); 'xla' and 'pallas' are
 the port's default flow, whose kernels the caller's ``impl`` picks.
 """
@@ -107,9 +113,12 @@ def _common_tower_params(p: dict, tower: str) -> dict:
         _refuse(f"{tower} extract_features: false (the classification head)")
     if float(p.pop("mlp_ratio", 4.0)) != 4.0:
         _refuse(f"{tower} mlp_ratio other than 4")
-    if p.get("agg_time_module", "Identity") not in ("Identity", "AveragePooling"):
-        _refuse(f"{tower} agg_time_module {p['agg_time_module']!r}")
     return p
+
+
+# the pools a tower takes in place of its CLS-pool aggregator (the JAX towers
+# run any other value as no pool, which leaves features no sync model takes)
+_POOLS = ("TransformerEncoderLayer", "AveragePooling")
 
 
 def ast_params(params: Mapping[str, Any]) -> dict:
@@ -118,8 +127,8 @@ def ast_params(params: Mapping[str, Any]) -> dict:
     p.pop("num_labels", None)
     if not p.pop("factorize_freq_time", True):
         _refuse("ASTEncoder factorize_freq_time: false")
-    if p.pop("agg_freq_module", "TransformerEncoderLayer") != "TransformerEncoderLayer":
-        _refuse("ASTEncoder agg_freq_module other than TransformerEncoderLayer")
+    if p.get("agg_freq_module", _POOLS[0]) not in _POOLS:
+        _refuse(f"ASTEncoder agg_freq_module {p['agg_freq_module']!r}")
     if float(p.get("hidden_dropout", 0.0)) > 0.0 or float(p.get("attn_dropout", 0.0)) > 0.0:
         _refuse("the AST's hidden_dropout / attn_dropout above 0")
     if p.pop("attn_impl", "xla") not in ("xla", "pallas"):
@@ -132,8 +141,8 @@ def motionformer_params(params: Mapping[str, Any]) -> dict:
     p = _common_tower_params(params, "MotionFormerEncoder")
     if not p.pop("factorize_space_time", True):
         _refuse("MotionFormerEncoder factorize_space_time: false")
-    if p.pop("agg_space_module", "TransformerEncoderLayer") != "TransformerEncoderLayer":
-        _refuse("MotionFormerEncoder agg_space_module other than TransformerEncoderLayer")
+    if p.get("agg_space_module", _POOLS[0]) not in _POOLS:
+        _refuse(f"MotionFormerEncoder agg_space_module {p['agg_space_module']!r}")
     if p.pop("attn_layer", "divided") != "divided":
         _refuse("the joint-attention Motionformer (attn_layer 'joint')")
     if float(p.pop("drop_rate", 0.0)) > 0.0:

@@ -160,7 +160,7 @@ class SyncTrainer:
                 model = build_synchformer(n_segments, syncability, device=self.device)
             load_numpy_state_dict(model, seeded_state_dict(model, self.seed))
         self.model = model.to(self.device).eval()
-        self.init_towers_from_ckpts()
+        self.tower_reports = self.init_towers_from_ckpts()
 
         keys = list(SYNC_TRAINABLE_KEYS)
         keys += [k for k in TOWERS if (self.model_params.get(k) or {}).get("is_trainable")]

@@ -11,7 +11,9 @@
 - ``evaluate_syncability``: both over any iterable of batches, each a dict
   with ``video``, ``audio``, ``sync_target`` (and ``offset_target`` where
   tiered) and optionally ``pad_mask``; the syncability model sees the first
-  ``n_segments_sync`` segments.
+  ``n_segments_sync`` segments;
+- ``filter_too_short_videos``: the reference protocol's exclusion of ten
+  VGGSound test videos shorter than 9.6 s (JAX :32-57).
 """
 from __future__ import annotations
 
@@ -25,6 +27,35 @@ import numpy as np
 from synchformer_tpu_torch.train.metrics import calc_cls_metrics, roc_auc, roc_curve
 
 CONF_THRESHOLDS = (0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.99)
+
+# The reference's eval protocol hardcodes 10 VGGSound test videos shorter
+# than 9.6 s and drops them before building the loader
+# (ref: scripts/test_syncability.py:113-125, applied at :224-226).
+VIDEO_IDS_SHORTER_THAN_9_6_SEC = frozenset({
+    "-7tYmeOmsRg_180000_190000.mp4",
+    "1_Q80fDGLRM_10000_20000.mp4",
+    "8qsCZLEoA1Q_4000_14000.mp4",
+    "F9bJVVYgFl4_73000_83000.mp4",
+    "KQAR_64a35I_11000_21000.mp4",
+    "TgJHM5oSWio_8000_18000.mp4",
+    "U9PyY8Ldf9A_5000_15000.mp4",
+    "aUfDxRelPHg_22000_32000.mp4",
+    "cLpDBj--as0_8000_18000.mp4",
+    "cRT5SWbyA54_4000_14000.mp4",
+})
+
+
+def filter_too_short_videos(dataset) -> int:
+    """Drop the reference protocol's too-short-video exclusion list from a
+    dataset's records in place; returns how many were removed
+    (ref: scripts/test_syncability.py:224-226)."""
+    before = len(dataset.records)
+    dataset.records = [r for r in dataset.records
+                       if Path(r.path).name not in VIDEO_IDS_SHORTER_THAN_9_6_SEC]
+    removed = before - len(dataset.records)
+    if removed:
+        logging.info(f"filtered {removed} too-short (<9.6 s) videos from the eval set")
+    return removed
 
 
 def _softmax(x):
@@ -83,7 +114,9 @@ def evaluate_syncability(eval_sync: Callable, batches: Iterable[Dict],
     logits (array or tensor). ``iter_times`` passes over ``batches`` (its
     ``set_epoch(i)`` is called where it has one). Returns n_evaluated, roc,
     metrics_sync and, with ``eval_off``, the tiered metrics; with ``logdir``
-    the ROC curve (and the tiered metrics) are pickled there."""
+    the ROC curve (and the tiered metrics) are pickled there. The evaluated
+    rows' f32 logits and targets come back too (``logits_sync``,
+    ``targets_sync``; with ``eval_off``, ``logits_off``, ``targets_off``)."""
     logits_s, targets_s, logits_o, targets_o = [], [], [], []
     for it in range(iter_times):
         if hasattr(batches, "set_epoch"):
@@ -101,15 +134,16 @@ def evaluate_syncability(eval_sync: Callable, batches: Iterable[Dict],
                 targets_o.append(_numpy(batch["offset_target"])[keep])
     logits_sync = np.concatenate(logits_s)
     targets_sync = np.concatenate(targets_s)
-    out: Dict = {"n_evaluated": int(len(targets_sync))}
+    out: Dict = {"n_evaluated": int(len(targets_sync)), "logits_sync": logits_sync,
+                 "targets_sync": targets_sync}
     out["roc"] = roc_outputs(logits_sync, targets_sync,
                              None if logdir is None else str(Path(logdir) / f"roc_{phase}.pkl"))
     out["metrics_sync"] = {k: round(v, 4) for k, v in calc_cls_metrics(
         targets_sync, logits_sync, topk=(1,), verbose=False).items()}
     if eval_off is not None:
-        out["tiered"] = tiered_offset_metrics(logits_sync, targets_sync,
-                                              np.concatenate(logits_o),
-                                              np.concatenate(targets_o))
+        out["logits_off"], out["targets_off"] = np.concatenate(logits_o), np.concatenate(targets_o)
+        out["tiered"] = tiered_offset_metrics(logits_sync, targets_sync, out["logits_off"],
+                                              out["targets_off"])
         if logdir is not None:
             with open(Path(logdir) / f"metrics_{phase}.pkl", "wb") as f:
                 pickle.dump(out["tiered"], f)

@@ -1,16 +1,27 @@
-"""Stage I -> Stage II tower initialisation from the port's own checkpoints
-(synchformer_tpu/utils/checkpoint.py::load_stage1_tower, :327, and
-SyncTrainer._maybe_init_towers_from_ckpts, train/stage_sync.py:215).
+"""Checkpoint files: the reference's ``.pt`` files, Stage I -> Stage II tower
+initialisation, and the trainers' own store.
 
-A Stage I checkpoint here is a ``.pt`` file that ``torch.save`` wrote from a
-port AVCLIP (towers under ``vfeat_extractor.`` / ``afeat_extractor.``) or
-MultilevelMoCoCLIP (``v_encoder.`` / ``a_encoder.``) state dict, bare or
-under ``"model"``. The port keeps the reference's names inside each tower,
-so extracting one strips a prefix. The merge into a sync model's tower is
-non-strict: the Stage I
-towers' parameters that the sync towers lack (a global aggregator) are
-reported as unexpected; a tower that matches nothing raises. Reference
-pickles that need stub classes wait for their loader (ROADMAP §1 item 6).
+``load_torch_checkpoint`` and ``plain_from_ckpt_args`` are the port's copies
+of synchformer_tpu/utils/checkpoint.py:444-520: a reference checkpoint keeps
+its training config under ``ckpt['args']`` as a pickled omegaconf
+DictConfig; where omegaconf cannot be imported, its classes unpickle into
+inert stubs (``_make_stub``), and plain_from_ckpt_args reads the config out
+of them as plain dicts and lists.
+
+Stage I towers (load_stage1_tower, :327, and
+SyncTrainer._maybe_init_towers_from_ckpts, train/stage_sync.py:215): a Stage
+I checkpoint is a ``.pt`` file holding a state dict (under "state_dict", as
+the reference writes it, under "model", as the port writes it, or bare;
+``module.`` prefixes stripped) of an AVCLIP (towers under
+``vfeat_extractor.`` / ``afeat_extractor.``, or the reference's ``v_encoder.``
+/ ``a_encoder.``) or a MultilevelMoCoCLIP, or a Stage I run of the port's
+CheckpointManager. The port keeps the reference's names inside each tower,
+so extracting one strips a prefix; the AST's position embedding is cut to
+the tower's tokens (convert.trim_ast_pos_emb). The merge into a sync
+model's tower is non-strict on names (the Stage I towers' parameters that
+the sync towers lack, a global aggregator, are reported as unexpected) and
+strict on shapes: a tensor of the tower whose shape differs raises, as does
+a tower that matches nothing.
 
 ``CheckpointManager`` is the trainers' store (JAX :523-581 on orbax, here
 on ``torch.save``): ``<dir>/latest`` after every epoch, ``<dir>/best`` on
@@ -25,6 +36,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import pickle
 import tempfile
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Sequence
@@ -33,21 +45,98 @@ import torch
 from torch import nn
 
 from synchformer_tpu_torch.parallel import dist as pdist
-from synchformer_tpu_torch.utils.convert import merge_state_dict_nonstrict
+from synchformer_tpu_torch.utils.convert import (
+    AST_POS_EMB,
+    merge_state_dict_nonstrict,
+    strip_module_prefix,
+    trim_ast_pos_emb,
+)
 
 TOWER_PREFIXES = {"audio": ("afeat_extractor.", "a_encoder."),
                   "visual": ("vfeat_extractor.", "v_encoder.")}
+# the AST's tokens at the published mel geometry (128 x 66 -> 12 x 6 + 2),
+# JAX convert_ast's max_patches
+AST_TOKENS = 74
+
+_STUB_CACHE: Dict = {}
 
 
-def load_stage1_tower(ckpt_path: str, tower: str) -> Dict[str, torch.Tensor]:
+def _make_stub(module: str, name: str):
+    """A shape-only stand-in for an unimportable pickled class: captures the
+    pickled state so plain_from_ckpt_args can walk it."""
+    cls = _STUB_CACHE.get((module, name))
+    if cls is None:
+        def _setstate(self, state):
+            self.__dict__.update(state if isinstance(state, dict) else {"_state": state})
+
+        cls = type(name, (), {"__module__": module, "__setstate__": _setstate})
+        _STUB_CACHE[(module, name)] = cls
+    return cls
+
+
+class _StubUnpickler(pickle.Unpickler):
+    """pickle.Unpickler that turns unimportable ``omegaconf.*`` classes into
+    stubs and refuses every other unimportable class."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except (ImportError, AttributeError):
+            if module.split(".")[0] == "omegaconf":
+                return _make_stub(module, name)
+            raise
+
+
+class _StubPickleModule:
+    Unpickler = _StubUnpickler
+    load = staticmethod(pickle.load)
+
+
+def load_torch_checkpoint(path: str) -> Dict:
+    """torch.load a reference .pt / .pyth file onto the CPU: weights only
+    where that reads it, else with the omegaconf stubs (a reference
+    checkpoint's ``args``, ref: train_utils.py:253)."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        pass
+    return torch.load(path, map_location="cpu", weights_only=False,
+                      pickle_module=_StubPickleModule)
+
+
+def plain_from_ckpt_args(obj) -> Any:
+    """``ckpt['args']`` -> plain Python containers: plain dicts as they are,
+    pickled omegaconf DictConfig / ListConfig / value nodes (stubs or the
+    real classes) by their ``_content`` / ``_val``; omegaconf's
+    mandatory-missing marker '???' becomes None."""
+    if isinstance(obj, Mapping):
+        return {k: plain_from_ckpt_args(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [plain_from_ckpt_args(v) for v in obj]
+    d = getattr(obj, "__dict__", None)
+    if isinstance(d, dict):
+        if "_content" in d:
+            return plain_from_ckpt_args(d["_content"])
+        if "_val" in d:
+            return plain_from_ckpt_args(d["_val"])
+    if isinstance(obj, str) and obj == "???":
+        return None
+    return obj
+
+
+def load_stage1_tower(ckpt_path: str, tower: str,
+                      max_patches: Optional[int] = AST_TOKENS) -> Dict[str, torch.Tensor]:
     """One tower's parameters, named inside the tower, from a Stage I
-    checkpoint: a ``.pt`` file holding a state dict (bare or under "model"),
-    or a Stage I run of the port's CheckpointManager (the experiment
-    directory, its ``ckpts`` directory, or its ``best`` / ``latest`` store;
-    best where it has one, else latest, as synchformer_tpu/utils/
-    checkpoint.py:327 does for orbax runs). Raises on a path that does not
-    exist, on a file that is not a torch checkpoint, and where no entry
-    belongs to the tower."""
+    checkpoint: a ``.pt`` file (read by load_torch_checkpoint) holding a
+    state dict under "state_dict", under "model" or bare, ``module.``
+    stripped; or a Stage I run of the port's CheckpointManager (the
+    experiment directory, its ``ckpts`` directory, or its ``best`` /
+    ``latest`` store; best where it has one, else latest, as
+    synchformer_tpu/utils/checkpoint.py:327 does for orbax runs). The audio
+    tower's position embedding is cut to ``max_patches`` tokens
+    (trim_ast_pos_emb; a shorter one raises; None: left as it is). Raises
+    on a path that does not exist, on a file that is not a torch checkpoint,
+    and where no entry belongs to the tower."""
     if tower not in TOWER_PREFIXES:
         raise ValueError(f"tower must be 'audio' or 'visual', got {tower!r}")
     path = Path(ckpt_path)
@@ -59,34 +148,40 @@ def load_stage1_tower(ckpt_path: str, tower: str) -> Dict[str, torch.Tensor]:
         if path.suffix not in (".pt", ".pth", ".pyth"):
             raise ValueError(f"{tower} tower ckpt_path is not a torch checkpoint file: "
                              f"{ckpt_path}")
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        ckpt = load_torch_checkpoint(str(path))
         if not isinstance(ckpt, Mapping):
             raise ValueError(f"{ckpt_path} holds a {type(ckpt).__name__}, not a state dict")
-        sd = ckpt.get("model", ckpt)
+        sd = ckpt.get("state_dict", ckpt.get("model", ckpt))
+    sd = strip_module_prefix(sd)
     out = {}
     for prefix in TOWER_PREFIXES[tower]:
         out.update({k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)})
     if not out:
         raise ValueError(f"{ckpt_path} holds no {tower} tower: no entry starts with "
                          f"{' or '.join(TOWER_PREFIXES[tower])}")
-    return out
+    return trim_ast_pos_emb(out, max_patches) if tower == "audio" else out
 
 
 @torch.no_grad()
 def init_tower_from_stage1(module: nn.Module, ckpt_path: str, tower: str) -> dict:
     """Load ``module`` (a sync model's tower) from a Stage I checkpoint,
-    non-strictly, each tensor converted to its parameter's dtype and device;
-    returns merge_state_dict_nonstrict's report. Raises where no parameter
-    of the tower matched."""
+    each tensor converted to its parameter's dtype and device, the AST's
+    position embedding cut to the tower's own tokens; returns
+    merge_state_dict_nonstrict's report. Raises where a tensor of the tower
+    has another shape in the checkpoint, and where no parameter matched."""
     init = module.state_dict()
-    merged, report = merge_state_dict_nonstrict(init, load_stage1_tower(ckpt_path, tower))
-    n_loaded = len(init) - len(report["missing"]) - len(report["mismatched"])
+    n_tokens = init[AST_POS_EMB].shape[1] if AST_POS_EMB in init else None
+    merged, report = merge_state_dict_nonstrict(
+        init, load_stage1_tower(ckpt_path, tower, max_patches=n_tokens))
+    if report["mismatched"]:
+        raise ValueError(f"{tower} tower: Stage I ckpt {ckpt_path} has tensors of other "
+                         f"shapes: {report['mismatched'][:6]}")
+    n_loaded = len(init) - len(report["missing"])
     if n_loaded == 0:
         raise ValueError(f"{tower} tower: Stage I ckpt {ckpt_path} matched no parameter "
-                         f"(missing {len(report['missing'])}, mismatched "
-                         f"{report['mismatched'][:3]})")
+                         f"(missing {len(report['missing'])})")
     module.load_state_dict(merged)
-    for field in ("missing", "unexpected", "mismatched"):
+    for field in ("missing", "unexpected"):
         if report[field]:
             logging.warning(f"{tower} tower <- {ckpt_path}: {field} ({len(report[field])}): "
                             f"{report[field][:6]}")

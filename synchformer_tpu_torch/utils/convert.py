@@ -11,9 +11,16 @@ packed in_proj / qkv rows (aggregators, Motionformer); Conv (*K, I, O) ->
 ``load_numpy_state_dict``.
 
 On the port's own state dicts (numpy arrays or tensors): ``trim_sync_pos_emb``
-(the reference's pos-emb rule, synchformer_tpu/utils/checkpoint.py:383) and
+(the reference's pos-emb rule, synchformer_tpu/utils/checkpoint.py:383),
+``trim_ast_pos_emb`` (the AST's, convert_ast's ``max_patches``, :191) and
 ``merge_state_dict_nonstrict`` (load_state_dict(strict=False) with a report,
 as merge_params_nonstrict, :406).
+
+Reference Stage II / III checkpoints, which keep the reference's names:
+``sync_state_dict_from_ckpt`` (the counterpart of convert_sync_checkpoint,
+:276) takes the state dict out of a checkpoint and
+``load_sync_state_dict`` loads it into a model, strictly on the names the
+model reads.
 """
 from __future__ import annotations
 
@@ -129,16 +136,19 @@ def motionformer_sd(p: Mapping, prefix: str = "") -> SD:
           **_layernorm(p["norm"], f"{prefix}norm")}
     for i in range(_depth(p, "blocks_")):
         sd.update(divided_block_sd(p[f"blocks_{i}"], f"{prefix}blocks.{i}"))
-    sd.update(cls_pool_layer_sd(p["spatial_attn_agg"]["cls_layer"],
-                                f"{prefix}spatial_attn_agg"))
-    return {**sd, **_global_agg_sd(p, prefix)}
+    return {**sd, **_aggregators_sd(p, prefix, "spatial_attn_agg")}
 
 
-def _global_agg_sd(p: Mapping, prefix: str) -> SD:
-    """A tower's global segment aggregator, where it has one."""
-    if "global_attn_agg" not in p:
-        return {}
-    return cls_pool_layer_sd(p["global_attn_agg"]["cls_layer"], f"{prefix}global_attn_agg")
+def _aggregators_sd(p: Mapping, prefix: str, pool: str) -> SD:
+    """A tower's CLS-pool aggregators where it has them: its spatial or
+    frequency pool (``pool``; an AveragePooling holds nothing), its time
+    tail (``temp_attn_agg``, a TransformerEncoderLayer) and its global
+    segment aggregator."""
+    sd = {}
+    for name in (pool, "temp_attn_agg", "global_attn_agg"):
+        if name in p:
+            sd.update(cls_pool_layer_sd(p[name]["cls_layer"], f"{prefix}{name}"))
+    return sd
 
 
 def ast_sd(p: Mapping, prefix: str = "") -> SD:
@@ -150,8 +160,7 @@ def ast_sd(p: Mapping, prefix: str = "") -> SD:
           **_layernorm(p["layernorm"], f"{prefix}ast.layernorm")}
     for i in range(_depth(p, "layer_")):
         sd.update(ast_layer_sd(p[f"layer_{i}"], f"{prefix}ast.encoder.layer.{i}"))
-    sd.update(cls_pool_layer_sd(p["freq_attn_agg"]["cls_layer"], f"{prefix}freq_attn_agg"))
-    return {**sd, **_global_agg_sd(p, prefix)}
+    return {**sd, **_aggregators_sd(p, prefix, "freq_attn_agg")}
 
 
 def global_transformer_sd(p: Mapping, prefix: str = "transformer.") -> SD:
@@ -287,3 +296,73 @@ def seeded_state_dict(model: torch.nn.Module, seed: int) -> SD:
         else:
             sd[name] = rng.standard_normal(tuple(p.shape), dtype=np.float32) * np.float32(0.02)
     return sd
+
+
+AST_POS_EMB = "ast.embeddings.position_embeddings"
+
+
+def trim_ast_pos_emb(sd: Mapping, n_tokens: Optional[int], prefix: str = "") -> dict:
+    """A copy of ``sd`` whose AST position embedding (``prefix`` +
+    ast.embeddings.position_embeddings, (1, N, D)) is cut to ``n_tokens``
+    where it is longer: a reference AST keeps the AudioSet embedding of 1214
+    tokens and slices it to the 2 + f * t tokens of its geometry at run time
+    (ref: audio/ast.py:240-245), 74 at the published 128 x 66 mel. A shorter
+    one is refused. No count, or no such entry: the copy unchanged."""
+    out = dict(sd)
+    key = prefix + AST_POS_EMB
+    if n_tokens is None or key not in out:
+        return out
+    pos = out[key]
+    if pos.shape[1] > n_tokens:
+        logging.info(f"trimming AST pos emb {pos.shape[1]} -> {n_tokens}")
+        out[key] = pos[:, :n_tokens]
+    elif pos.shape[1] < n_tokens:
+        raise ValueError(f"{key}: cannot load a shorter AST pos emb "
+                         f"({pos.shape[1]} < {n_tokens} tokens)")
+    return out
+
+
+def strip_module_prefix(sd: Mapping) -> dict:
+    """The names of a state dict saved from DistributedDataParallel without
+    its ``module.`` (every occurrence, as the JAX converter strips it)."""
+    return {k.replace("module.", ""): v for k, v in sd.items()}
+
+
+def sync_state_dict_from_ckpt(ckpt: Mapping, target_seq_len: Optional[int] = None) -> dict:
+    """A Stage II / III checkpoint ({'model': state dict, ...}, or a bare
+    state dict) -> the state dict in the port's names, which are the
+    reference's: ``module.`` stripped, the sync position embedding cut to
+    ``target_seq_len`` (trim_sync_pos_emb; a shorter one refused), as
+    synchformer_tpu/utils/checkpoint.py::convert_sync_checkpoint reads it."""
+    if not isinstance(ckpt, Mapping):
+        raise ValueError(f"a checkpoint is a mapping, not a {type(ckpt).__name__}")
+    sd = ckpt["model"] if "model" in ckpt else ckpt
+    return trim_sync_pos_emb(strip_module_prefix(sd), target_seq_len)
+
+
+@torch.no_grad()
+def load_sync_state_dict(model: torch.nn.Module, sd: Mapping) -> list:
+    """Load a state dict into ``model`` (its parameters keep their dtype and
+    device), strict on the names the model reads: a name the model reads and
+    ``sd`` lacks raises, naming it, as does a shape that differs, except that
+    the AST's position embedding is first cut to the model's tokens
+    (trim_ast_pos_emb). Names ``sd`` has and the model does not read are
+    logged and returned, as the JAX converter ignores them."""
+    own = model.state_dict()
+    pos = f"afeat_extractor.{AST_POS_EMB}"
+    if pos in own:
+        sd = trim_ast_pos_emb(sd, own[pos].shape[1], "afeat_extractor.")
+    missing = [k for k in own if k not in sd]
+    if missing:
+        raise KeyError(f"the checkpoint lacks {len(missing)} tensors the model reads: "
+                       f"{missing[:8]}")
+    for name, val in own.items():
+        if tuple(sd[name].shape) != tuple(val.shape):
+            raise ValueError(f"{name}: checkpoint {tuple(sd[name].shape)} vs model "
+                             f"{tuple(val.shape)}")
+    model.load_state_dict({k: torch.as_tensor(sd[k]) for k in own})
+    unused = [k for k in sd if k not in own]
+    if unused:
+        logging.info(f"the checkpoint's {len(unused)} tensors the model does not read: "
+                     f"{unused[:8]}")
+    return unused

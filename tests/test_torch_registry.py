@@ -177,7 +177,7 @@ def test_tiny_stage1_model_from_params_equals_the_preset(moco):
 
 @pytest.mark.parametrize("change,match", [
     (("afeat_extractor", "factorize_freq_time", False), "item 7"),
-    (("vfeat_extractor", "agg_space_module", "AveragePooling"), "item 7"),
+    (("vfeat_extractor", "agg_space_module", "Identity"), "item 7"),
     (("afeat_extractor", "hidden_dropout", 0.1), "item 7"),
     (("vfeat_extractor", "attn_layer", "joint"), "item 7"),
 ])

@@ -239,10 +239,10 @@ def k4_kernel_caught():
 def test_k4_kernel_check_against_planted_fault(k4_kernel_caught, name):
     """Phase 2's checked K4 cases: each fault (the shared CLS key left out of
     the softmax; head h's values from head h + 1's rows of Wv) fails every
-    case, the MoCo global aggregators', the ragged rows', the part-filled
-    last block's, the guard band's and, at another head width, the ragged
-    and guard-band ones; the control none."""
+    case, the MoCo global aggregators', a time tail's, the ragged rows', the
+    part-filled last block's, the guard band's and, at another head width,
+    the ragged and guard-band ones; the control none."""
     failed = [" ".join(label.split()[1:-1]) for label in k4_kernel_caught[name]]
-    want = ["global", "ragged", "ragged", "part-filled last block", "guard band",
+    want = ["global", "time tail", "ragged", "ragged", "part-filled last block", "guard band",
             "4x32 ragged", "4x32 guard band"]
     assert failed == ([] if name == "none" else want), failed
