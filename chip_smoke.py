@@ -12,7 +12,8 @@ training (DDP in a one-rank NCCL group, torchrun, two ranks over gloo), and
 the reference-checkpoint entry points (python -m
 synchformer_tpu_torch.example and python -m
 synchformer_tpu_torch.scripts.test_syncability on reference-style .pt
-files, and Stage I towers from one).
+files, and Stage I towers from one), and the legacy SparseSync family (S3D
+and ResNet-18 towers in a Synchformer, the SparseSync transformer).
 
     python3 chip_smoke.py
 
@@ -43,7 +44,12 @@ Phases, each printed as it runs with its seconds:
    heads of 96, and (k4_cases) at the MoCo step's global aggregators (2, 14,
    768), at ragged rows (1, 13, 197 and 300 a group), at 700 groups of 12
    (the last block of three packed groups part-filled), in guard bands, and
-   at 8 heads of 96 ragged and in a guard band; and, checked but not
+   at 8 heads of 96 ragged and in a guard band; K4, checked, timed with
+   its bound and not reported (k4_legacy_cases), at the legacy towers'
+   pools: S3D's spatial (224, 49, 1024), 8 heads of 128, hidden 4096, and
+   ResNet-18's frequency (336, 4, 512), 8 heads of 64, hidden 2048, the key
+   weights part aligned with the query's so that the CLS key carries
+   weight; and, checked but not
    reported, the two tensor-core attentions and the time pass at ragged
    shapes (ragged_cases: K3 at 17, 74 and 197 tokens, the space pass split
    and packed at 49 and 196 patches a frame for head_dim 32, 64, 96 and 128
@@ -240,6 +246,25 @@ Phases, each printed as it runs with its seconds:
    tiered pickles written, the sync and offset logits held by
    serving_agreement against the plain f32 and bf16 paths on the same
    batches; clips/s.
+16. the legacy SparseSync family (run_legacy), inference. (a)
+   presets.legacy_sync_model(14): configs/sync.yaml's model with the towers
+   swapped for S3DVisualFeatures (spatial TransformerEncoderLayer, time Identity)
+   and ResNet18AudioFeatures (frequency TransformerEncoderLayer, time
+   Identity) under the reference's names, through the port's registry,
+   projections 1024 / 512 -> 768, the GlobalTransformer 3 x 8 x 96 over 72
+   tokens; seeded weights (He-scale convs, BatchNorm near the identity);
+   B=8, S=14, uint8 frames (16 x 224² a segment, normalised on the card) and
+   PCM through SyncPredictor: bf16 kernel, bf16 plain, f32 plain with TF32
+   off; launches exactly K4 2 and every other kernel 0;
+   serving_agreement over the probabilities and both towers' features
+   (scripts/stage1_planted_faults.py --only legacy shows that it fails
+   k4_cls_key_dropped and k4_wv_head_shifted); ms/batch, clips/s and peak
+   memory per route, taken in turns. (b) SparseSyncTransformer (12 layers,
+   8 heads, 256 wide, L2Normalize pre-norms, the factorized positional
+   embeddings) on the trunks' dense maps of one 5 s clip a row, B=8: 125
+   frames of 224² -> S3D (16, 7, 7, 1024) -> ConvBridgeVisual; the clip's
+   501 mel frames -> ResNet-18 (4, 16, 512) -> ConvBridgeAudio; plain route,
+   bf16 against f32: finite (8, 21) logits within 0.1 relative L2; ms.
 The line before the last is a JSON record of the kernels, with the TPU
 kernels still to port beside them (none); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises, so the exit code is non-zero and no result
@@ -368,7 +393,7 @@ PAIRED = ("K1", "K5", "K6", "K7a", "K7b", "K7c", "K8a")  # timed as a (space + t
 # backwards, the fused route's kernels (their GEMMs apart) and the CLS-pool
 # layers
 BY_LAUNCH = ("K1", "K2", "K3", "K4", "K4b", "K4b spatial", "K5", "K6", "K7a", "K7b", "K7c",
-             "K8a", "K8b", "K8c")
+             "K8a", "K8b", "K8c", "K4 legacy")
 MAX_CLIP = 1.0  # Stage I's max_clip_norm
 B, S = 8, 14
 B1 = 2  # Stage I's base_batch_size
@@ -380,6 +405,21 @@ SYNCABILITY_ACTION = "ft_avsync_model_for_syncability"
 # plain on every route
 STAGE2_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 2}
 D, H, DH = 768, 12, 64
+# the legacy SparseSync towers (phase 16): S3D's time steps from 16 frames and
+# ResNet-18's from 66 mel frames (presets.LEGACY_TOKENS); K4 at their pools (what, groups, rows, d,
+# heads): S3D's spatial pool over a 7 x 7 frame at D 1024, 8 heads of 128;
+# ResNet-18's frequency pool over 4 bins at D 512, 8 heads of 64
+LEGACY_TV, LEGACY_TA = 2, 3
+LEGACY_K4 = (("spatial", B * S * LEGACY_TV, 49, 1024, 8),
+             ("frequency", B * S * LEGACY_TA, 4, 512, 8))
+# one legacy sync forward: K4 for the spatial and the frequency pools, nothing else
+LEGACY_LAUNCHES = {**{key: 0 for key in KEYS}, "K4": 2}
+# phase 16 (b): one 5 s clip a row, 125 frames at 25 fps, 80,000 samples at 16 kHz;
+# the SparseSync transformer's width (the JAX default) and the trunks' dense
+# maps of such a clip: S3D (t, h, w) of 125 frames of 224², ResNet-18 (f, t)
+# of its 501 mel frames
+CLIP_FRAMES, CLIP_SAMPLES = 125, 80000
+SPARSESYNC_D, SPARSESYNC_GRIDS = 256, ((16, 7, 7), (4, 16))
 H8, DH8 = 8, 96  # the 8-head video tower's heads
 F_T, N_P = 8, 196  # frames after the 3-D patch embed, patches per frame
 SEQ = 1 + F_T * N_P  # the packed layout's tokens per segment
@@ -517,17 +557,11 @@ def kernel_cases(torch, dev):
                               rn(d, d, std=0.02), rn(d, std=0.02, dtype=torch.float32), g2_,
                               b2_, *mlp_params()]
         args = k4_args[shape]
-        groups, m = shape[0], shape[1]
-        # with one shared query: q and U = Wk^T q once; per group logits and
-        # the p-weighted sum over m + 1 rows per head, Wv, proj and the MLP
-        flops = 4.0 * d * d + groups * (4.0 * heads * (m + 1) * d + 4.0 * d * d + 4.0 * d * hid)
-        nbytes = (groups * m * d * 2 + (4 * d * d + 2 * d * hid) * 2 + (9 * d + hid) * 4
-                  + groups * d * 2)
         cases.append((key, f"K4 {label}",
                       lambda a=args, nh=heads: fused_cls_pool_tokens(*a, num_heads=nh, eps=1e-6),
                       lambda dt, a=args, nh=heads: fused_cls_pool_tokens(
                           *cast(a, dt), num_heads=nh, eps=1e-6, impl="plain"),
-                      (nbytes, flops), None))
+                      k4_cost(shape[0], shape[1], d, heads, hid), None))
     # K5 / K6 at Stage I's segments: B1 x S
     bs1 = B1 * S
     qkv_p1, qkv_c1 = rn(bs1, F_T, N_P, 3 * d), rn(bs1, 1, 3 * d)
@@ -604,7 +638,7 @@ def kernel_cases(torch, dev):
                   lambda a=args: fused_ln_mlp_residual(*a),
                   lambda dt, a=args: fused_ln_mlp_residual(*cast(a, dt), impl="plain"),
                   (2 * rows2 * d2 * 2 + 2 * d2 * 4 * d2 * 2, 4.0 * rows2 * d2 * 4 * d2), None))
-    return cases + k4b_cases(torch, dev) + k8_cases(torch, dev)
+    return cases + k4b_cases(torch, dev) + k8_cases(torch, dev) + k4_legacy_cases(torch, dev)
 
 
 def sdpa_backward(torch, qkv, dout, heads: int, dh: int, mask):
@@ -846,6 +880,58 @@ def k4_cases(torch, dev, d: int = D, h: int = H, global_rows=(B1, S),
     cases.append(case("K4 ragged", f"{hw} ragged", *ragged_w, heads=heads))
     cases.append(case("K4 ragged", f"{hw} guard band", *guard_w, lambda t: guarded(torch, t),
                       heads=heads))
+    return cases
+
+
+def k4_cost(groups: int, m: int, d: int, heads: int, hid: int):
+    """(bytes, FLOPs) of K4 over groups of m rows: with one shared query, q
+    and U = Wk^T q once; per group the logits and the p-weighted sum over m
+    + 1 rows per head, Wv, proj and the MLP; x, the weights and the output
+    moved once."""
+    flops = 4.0 * d * d + groups * (4.0 * heads * (m + 1) * d + 4.0 * d * d + 4.0 * d * hid)
+    nbytes = (groups * m * d * 2 + (4 * d * d + 2 * d * hid) * 2 + (9 * d + hid) * 4
+              + groups * d * 2)
+    return nbytes, flops
+
+
+def k4_legacy_cases(torch, dev, shapes=LEGACY_K4) -> list:
+    """kernel_cases' records of K4 at the legacy towers' pools (LEGACY_K4;
+    key 'K4 legacy': checked, timed and logged with its bound, not reported,
+    the kernels line's K4 keeping the main path's shapes), hidden 4d. The
+    QKV and projection weights at std (2 / d)^0.5, a peaked attention, as
+    k4_cases', with the key weights a quarter of the query weights plus
+    noise: the CLS query attends in part to its own key (about 44% of the
+    weight over 49 rows at heads of 128, 65% over 4 at heads of 64), so that
+    both the CLS key and the rows' keys move the output. The kernel calls
+    look the wrapper up in its module at call time, so that
+    scripts/stage1_planted_faults.py can wrap its entry."""
+    from synchformer_tpu_torch.ops.kernels import cls_pool as tcls
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def cast(args, dtype):
+        return [a.to(dtype) if torch.is_tensor(a) and a.dtype == bf else a for a in args]
+
+    cases = []
+    for what, groups, m, d, heads in shapes:
+        hid, w_att = 4 * d, (2.0 / d) ** 0.5
+        wq, wk, wv = (rn(d, d, std=w_att, dtype=f32) for _ in range(3))
+        wqkv = torch.cat([wq, 0.25 * wq + 0.97 * wk, wv]).to(bf)
+        args = [rn(groups, m, d), rn(d, dtype=f32), 1.0 + rn(d, std=0.1, dtype=f32),
+                rn(d, std=0.1, dtype=f32), wqkv, rn(3 * d, std=0.02, dtype=f32),
+                rn(d, d, std=w_att), rn(d, std=0.02, dtype=f32), 1.0 + rn(d, std=0.1, dtype=f32),
+                rn(d, std=0.1, dtype=f32), rn(hid, d, std=0.02), rn(hid, std=0.02, dtype=f32),
+                rn(d, hid, std=0.02), rn(d, std=0.02, dtype=f32)]
+        cases.append(("K4 legacy", f"K4 legacy {what} {heads}x{d // heads} ({groups},{m},{d})",
+                      lambda a=args, nh=heads: tcls.fused_cls_pool_tokens(*a, num_heads=nh,
+                                                                          eps=1e-6),
+                      lambda dt, a=args, nh=heads: tcls.fused_cls_pool_tokens(
+                          *cast(a, dt), num_heads=nh, eps=1e-6, impl="plain"),
+                      k4_cost(groups, m, d, heads, hid), None))
     return cases
 
 
@@ -1326,17 +1412,23 @@ def run_slice(torch, dev, report):
             f"= {B / best:.2f} clips/s (runs {[round(t * 1e3, 1) for t in ts]} ms)")
 
 
-def serving_record(torch, pred, video, pcm) -> dict:
+def serving_record(torch, pred, video, pcm, audio: bool = False) -> dict:
     """One SyncPredictor forward: its logits, probabilities and the video
-    tower's output features (read by a forward hook), in f32."""
+    tower's output features (read by a forward hook), with ``audio`` also
+    the audio tower's, in f32."""
     feats = {}
-    hook = pred.model.vfeat_extractor.register_forward_hook(
-        lambda mod, args, out: feats.update(v=out.float()))
+    towers = {"vfeat": pred.model.vfeat_extractor}
+    if audio:
+        towers["afeat"] = pred.model.afeat_extractor
+    hooks = [tower.register_forward_hook(
+        lambda mod, args, out, name=name: feats.update({name: out.float()}))
+        for name, tower in towers.items()]
     try:
         logits = pred.logits(video, pcm).float()
     finally:
-        hook.remove()
-    return {"logits": logits, "probs": torch.softmax(logits, -1), "vfeat": feats["v"]}
+        for hook in hooks:
+            hook.remove()
+    return {"logits": logits, "probs": torch.softmax(logits, -1), **feats}
 
 
 def serving_agreement(ref: dict, plain: dict, kern: dict, tag: str) -> list:
@@ -3302,9 +3394,227 @@ def run_reference_ckpts(torch, dev, report):
     shutil.rmtree(root, ignore_errors=True)
 
 
+def legacy_predictors(torch, dev, b: int = B, s: int = S, frames=FRAMES,
+                      widths: dict | None = None):
+    """Phase 16 (a)'s three SyncPredictors of one seeded legacy Synchformer
+    (presets.legacy_sync_model, widths as its d / n_layer / n_head, through
+    the port's registry; seeded_state_dict's rule for BatchNorm models):
+    'f32' plain, 'plain' bf16, 'kernel' bf16; and seeded uint8 frames (b, s,
+    *frames) and PCM (b, s, 10240) on dev."""
+    import numpy as np
+
+    from synchformer_tpu_torch.infer import SyncPredictor
+    from synchformer_tpu_torch.models.presets import legacy_sync_model
+    from synchformer_tpu_torch.registry import instantiate_from_config
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
+
+    cfg = legacy_sync_model(s, **(widths or {}))
+    sd = seeded_state_dict(instantiate_from_config(cfg, device="meta"), seed=0)
+    preds = {}
+    for name, dtype, impl in (("f32", torch.float32, "plain"), ("plain", torch.bfloat16, "plain"),
+                              ("kernel", torch.bfloat16, "kernel")):
+        model = instantiate_from_config(cfg, device=dev)
+        load_numpy_state_dict(model, sd)
+        preds[name] = SyncPredictor(model, dev, dtype, impl)
+    rng = np.random.default_rng(5)
+    video = torch.from_numpy(rng.integers(0, 256, (b, s, *frames), dtype=np.uint8)).to(dev)
+    pcm = torch.from_numpy((rng.standard_normal((b, s, 10240)) * 0.1).astype(np.float32)).to(dev)
+    return preds, video, pcm
+
+
+def legacy_records(torch, preds, video, pcm, what: str = "") -> tuple:
+    """serving_record with both towers' features from each of
+    legacy_predictors' paths, the f32 reference with TF32 off in cuDNN's
+    convs (a full-f32 anchor); the kernel path's launches by key."""
+    from synchformer_tpu_torch.ops.kernels import _build
+
+    cuda = video.is_cuda
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = serving_record(torch, preds["f32"], video, pcm, audio=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    plain = serving_record(torch, preds["plain"], video, pcm, audio=True)
+    if cuda:
+        torch.cuda.synchronize()
+    _build.launches.clear()
+    kern = serving_record(torch, preds["kernel"], video, pcm, audio=True)
+    if cuda:
+        torch.cuda.synchronize()
+    return ref, plain, kern, dict(_build.launches)
+
+
+def sparsesync_parts(torch, dev):
+    """Phase 16 (b)'s modules through the port's registry, in a ModuleDict
+    seeded by seeded_state_dict: 'v' S3D unfactorized, 'a' ResNet-18
+    unfactorized, 'vb' ConvBridgeVisual 1024 -> SPARSESYNC_D, 'ab'
+    ConvBridgeAudio 512 -> SPARSESYNC_D, 't' SparseSyncTransformer (its
+    defaults, the JAX ones: 12 layers of 8 heads, SPARSESYNC_D wide) with
+    L2Normalize pre-norms and the factorized positional embeddings over the
+    maps' grids, SPARSESYNC_GRIDS."""
+    d = SPARSESYNC_D
+    vis_grid, aud_grid = SPARSESYNC_GRIDS
+    from torch import nn
+
+    from synchformer_tpu_torch.registry import instantiate_from_config
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
+
+    nodes = {
+        "v": {"target": "model.modules.feat_extractors.visual.s3d.S3DVisualFeatures",
+              "params": {"factorize_space_time": False}},
+        "a": {"target": "model.modules.feat_extractors.audio.resnet.ResNet18AudioFeatures",
+              "params": {"factorize_freq_time": False}},
+        "vb": {"target": "model.modules.bridges.ConvBridgeVisual",
+               "params": {"in_channels": 1024, "out_channels": d}},
+        "ab": {"target": "model.modules.bridges.ConvBridgeAudio",
+               "params": {"in_channels": 512, "out_channels": d}},
+        "t": {"target": "model.modules.transformer.Transformer", "params": {
+            "num_offset_cls": 21, "visual_block_shape": list(vis_grid),
+            "audio_block_shape": list(aud_grid),
+            "vis_pos_emb_module": {
+                "target": "model.modules.transformer.PositionEmbeddingLearnedVisual",
+                "params": {"block_shape": list(vis_grid), "n_embd": d}},
+            "aud_pos_emb_module": {
+                "target": "model.modules.transformer.PositionEmbeddingLearnedAudio",
+                "params": {"block_shape": list(aud_grid), "n_embd": d}},
+            "pre_norm_cfg": {"target": "model.modules.transformer.L2Normalize"}}}}
+    parts = nn.ModuleDict({k: instantiate_from_config(v) for k, v in nodes.items()})
+    load_numpy_state_dict(parts, seeded_state_dict(parts, seed=2))
+    return parts.to(dev).eval()
+
+
+def sparsesync_forward(torch, parts, frames_u8, pcm, dtype):
+    """One SparseSync forward over whole clips: frames (B, T, H, W, C) uint8
+    normalised as SyncPredictor does, S3D -> (B, t, h, w, 1024) ->
+    ConvBridgeVisual in its (B, t, D, h, w) layout -> (B, t, h, w, d); the
+    clip's log-mel (B, T', 128), every frame (MelSpectrogramConfig's
+    max_spec_t None), as one segment through ResNet-18 -> (B, f, t', 512) ->
+    ConvBridgeAudio in its (B, D, f, t') layout -> (B, f, t', d); then the
+    transformer's offset logits, all on the plain route (the unfactorized
+    trunks hold no CLS pool). Matrices of ``parts`` already in ``dtype``."""
+    from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
+    from synchformer_tpu_torch.ops.video import normalize_frames
+
+    with torch.no_grad():
+        v = parts["v"](normalize_frames(frames_u8).to(dtype)[:, None])[:, 0]
+        v = parts["vb"](v.permute(0, 1, 4, 2, 3)).permute(0, 1, 3, 4, 2)
+        mel = log_mel_spectrogram(pcm, MelSpectrogramConfig(max_spec_t=None))
+        a = parts["a"](mel.transpose(-1, -2).to(dtype)[:, None])[:, 0]
+        a = parts["ab"](a.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return parts["t"](v, a)
+
+
+def run_legacy(torch, dev, report):
+    """Phase 16: the legacy SparseSync family (models/s3d.py,
+    models/resnet_audio.py, models/sparsesync.py, the bridges and pos-embs)
+    at the reference's widths, inference.
+    (a) legacy sync inference: presets.legacy_sync_model(14) through the
+    port's registry (S3D + ResNet-18 towers, projections 1024 / 512 -> 768, the
+    GlobalTransformer 3 x 8 x 96 over 72 tokens), seeded, B=8, S=14, 16
+    frames of 224² and 66 x 128 log-mel a segment, through SyncPredictor on
+    the kernel route in bf16, the plain route in bf16 and the plain route in
+    f32 (the reference, TF32 off): launches exactly LEGACY_LAUNCHES (K4 2:
+    the spatial pool at (224, 49, 1024), 8 x 128, and the frequency pool at
+    (336, 4, 512), 8 x 64), serving_agreement over the probabilities and
+    both towers' features; then ms/batch, clips/s and peak memory per route.
+    (b) SparseSyncTransformer on the trunks' dense maps, one 5 s clip a row,
+    B=8 (sparsesync_parts, sparsesync_forward): 125 frames of 224² -> a (16,
+    7, 7) map, the clip's 501 mel frames -> (4, 16); the plain route in bf16
+    against f32 (TF32 off): finite (B, 21) logits, the relative L2 error of
+    the logits below 0.1 and the probabilities' largest error printed; ms of
+    each."""
+    from synchformer_tpu_torch.models.sync_model import Synchformer
+
+    tag = "legacy"
+    smi = smi_line()
+    t0 = time.perf_counter()
+    preds, video, pcm = legacy_predictors(torch, dev)
+    log(f"[{tag}] (a) three models + inputs {time.perf_counter() - t0:.1f} s; frames "
+        f"{tuple(video.shape)}, pcm {tuple(pcm.shape)}")
+    ref, plain, kern, counts = legacy_records(torch, preds, video, pcm)
+    log(f"[{tag}] launches in one kernel-path forward: {counts}")
+    for key, need in LEGACY_LAUNCHES.items():
+        if counts.get(key, 0) != need:
+            fail(f"{tag}: {key} launched {counts.get(key, 0)} times in one forward, "
+                 f"expected {need}")
+    for name, rec in (("kernel", kern), ("plain", plain)):
+        if rec["probs"].shape != (B, 21) or not bool(torch.isfinite(rec["probs"]).all()):
+            fail(f"{tag}: {name} probabilities of shape {tuple(rec['probs'].shape)} or "
+                 f"non-finite")
+    log(f"[{tag}] feats v {tuple(ref['vfeat'].shape)} std {float(ref['vfeat'].std()):.3f}, "
+        f"a {tuple(ref['afeat'].shape)} std {float(ref['afeat'].std()):.3f}; logits "
+        f"max|kernel-f32| {maxabs(kern['logits'], ref['logits']):.3e}, max|plain_bf16-f32| "
+        f"{maxabs(plain['logits'], ref['logits']):.3e}; f32 top-1 "
+        f"{ref['probs'].argmax(-1).tolist()} kernel top-1 {kern['probs'].argmax(-1).tolist()}")
+    failed = serving_agreement(ref, plain, kern, tag)
+    if failed:
+        fail(f"{tag}: kernel path outside tolerance: {failed}")
+    del ref, plain, kern
+    peak = {}
+    for name in ("plain", "kernel"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        preds[name](video, pcm)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+    times = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        preds[name](video, pcm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            preds[name](video, pcm)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / 3)
+    for name, ts in times.items():
+        best = min(ts)
+        log(f"[timing] {tag} (a) {name} path: {best * 1e3:.1f} ms/batch of {B} clips = "
+            f"{B / best:.2f} clips/s (runs {[round(t * 1e3, 1) for t in ts]} ms); peak "
+            f"{gib(peak[name])} above the weights; {smi}")
+    del preds, video, pcm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(6)
+    frames = torch.from_numpy(rng.integers(0, 256, (B, CLIP_FRAMES, *FRAMES[1:]),
+                                           dtype=np.uint8)).to(dev)
+    clip_pcm = torch.from_numpy((rng.standard_normal((B, CLIP_SAMPLES)) * 0.1).astype(
+        np.float32)).to(dev)
+    parts = {"f32": sparsesync_parts(torch, dev), "bf16": sparsesync_parts(torch, dev)}
+    Synchformer.cast_matrices_(parts["bf16"], torch.bfloat16)
+    log(f"[{tag}] (b) models + clips {time.perf_counter() - t0:.1f} s; frames "
+        f"{tuple(frames.shape)}, pcm {tuple(clip_pcm.shape)}")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {name: sparsesync_forward(torch, parts[name], frames, clip_pcm, dtype).float()
+               for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+        ms = {name: cuda_time_ms(lambda n=name, dt=dtype: sparsesync_forward(
+            torch, parts[n], frames, clip_pcm, dt), iters=3, warmup=1)
+            for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    got, want = out["bf16"], out["f32"]
+    if got.shape != (B, 21) or not bool(torch.isfinite(got).all()):
+        fail(f"{tag}: SparseSync logits of shape {tuple(got.shape)} or non-finite")
+    rel = float((got.double() - want.double()).norm() / want.double().norm())
+    perr = maxabs(torch.softmax(got, -1), torch.softmax(want, -1))
+    log(f"[{tag}] (b) SparseSync logits: relative L2 |bf16-f32| {rel:.3e} (limit 0.1), "
+        f"max|probs bf16-f32| {perr:.3e} {'ok' if rel < 0.1 else 'FAIL'}")
+    if not rel < 0.1:
+        fail(f"{tag}: SparseSync bf16 logits off f32 by {rel:.3e} (relative L2)")
+    log(f"[timing] {tag} (b) SparseSync plain path, B={B} clips of 5 s: bf16 "
+        f"{ms['bf16']:.1f} ms, f32 {ms['f32']:.1f} ms; {smi}")
+
+
 PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
           run_serving_8head, run_moco, run_sync_training,
-          run_audio_augs, run_entry_point, run_data_parallel, run_reference_ckpts)
+          run_audio_augs, run_entry_point, run_data_parallel, run_reference_ckpts, run_legacy)
 
 
 def main() -> int:

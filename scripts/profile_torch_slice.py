@@ -1,13 +1,15 @@
 """Where the time of the PyTorch port's sync-inference slice goes, on one
 NVIDIA GPU.
 
-    python scripts/profile_torch_slice.py [--tower base|8head|8head_fused]
+    python scripts/profile_torch_slice.py [--tower base|8head|8head_fused|legacy]
         [--out build/profile_torch_slice.json]
 
 Builds the full-width Synchformer (S=14, ViT-B towers, seeded weights) as
 chip_smoke.py does (``--tower 8head``: build_synchformer_8head, the video
 tower at 8 heads of 96 on attn_impl 'pallas'; ``8head_fused``: the same on
-'pallas_fused') and, after a warm-up, measures one forward of each path
+'pallas_fused'; ``legacy``: presets.legacy_sync_model's S3D + ResNet-18
+towers through the registry, phase 16 (a)'s model, fed uint8 frames) and,
+after a warm-up, measures one forward of each path
 (impl='kernel' and impl='plain') in bf16:
 - the forward's time on the stream (CUDA events around it);
 - the stream time spent inside each kernel wrapper the models call (K1-K4,
@@ -36,8 +38,10 @@ from synchformer_tpu_torch.models import layers, motionformer  # noqa: E402
 from synchformer_tpu_torch.models.presets import (  # noqa: E402
     build_synchformer,
     build_synchformer_8head,
+    legacy_sync_model,
 )
 from synchformer_tpu_torch.ops.video import patchify_frames  # noqa: E402
+from synchformer_tpu_torch.registry import instantiate_from_config  # noqa: E402
 from synchformer_tpu_torch.utils.convert import (  # noqa: E402
     load_numpy_state_dict,
     seeded_state_dict,
@@ -57,7 +61,9 @@ WRAPPERS = {
 TOWERS = {"base": lambda device: build_synchformer(S, device=device),
           "8head": lambda device: build_synchformer_8head(S, "pallas", device=device),
           "8head_fused": lambda device: build_synchformer_8head(S, "pallas_fused",
-                                                                device=device)}
+                                                                device=device),
+          "legacy": lambda device: instantiate_from_config(legacy_sync_model(S),
+                                                           device=device)}
 
 
 def timed_wrappers(spans):
@@ -87,7 +93,7 @@ def stream_ms(pred, video, pcm):
     return start.elapsed_time(end)
 
 
-def profile_forward(pred, video, pcm, top: int = 12):
+def profile_forward(pred, video, pcm, top: int = 16):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -126,7 +132,9 @@ def main() -> int:
     sd = seeded_state_dict(build(device="meta"), seed=0)
     rng = np.random.default_rng(1)
     frames = rng.integers(0, 256, (B, S, 16, 224, 224, 3), dtype=np.uint8)
-    video = torch.from_numpy(np.ascontiguousarray(patchify_frames(frames))).to(dev)
+    if args.tower != "legacy":  # the Motionformer takes patch-major video, S3D frames
+        frames = np.ascontiguousarray(patchify_frames(frames))
+    video = torch.from_numpy(frames).to(dev)
     pcm = torch.from_numpy((rng.standard_normal((B, S, 10240)) * 0.1).astype(np.float32)).to(dev)
 
     spans = collections.defaultdict(list)

@@ -52,7 +52,9 @@ phase 2's K4b cases (chip_smoke.hold_outputs):
 Then the K4 faults (wrapping _cls_pool_tokens, where ClsPoolTokensFn calls
 it) on phase 2's checked K4 cases (chip_smoke.k4_cases: the MoCo step's
 global aggregators, a time tail's groups, ragged rows, a part-filled last
-block, guard bands, 8 heads of 96 ragged and in a guard band):
+block, guard bands, 8 heads of 96 ragged and in a guard band; and
+chip_smoke.k4_legacy_cases: the legacy towers' pools at 8 heads of 128 and
+of 64):
 - none: the control;
 - k4_cls_key_dropped: the shared CLS key's column is left out of the
   softmax (the plain composition over x's rows alone);
@@ -116,6 +118,13 @@ Then the Stage I reader's fault on chip_smoke.py's phase 15 (c)
 (chip_smoke.stage1_reference_check, ckpt_faults): the control, and
 ast_pos_emb_untrimmed, a reader that keeps a reference file's 1214-token
 AST position embedding. ``--only ckpt`` runs these alone.
+Then the K4 faults (k4_cls_key_dropped, k4_wv_head_shifted and the control)
+on chip_smoke.py's phase 16 (a), the legacy sync inference (S3D + ResNet-18
+towers, whose spatial and frequency pools are K4 at (224, 49, 1024), 8 heads
+of 128, and (336, 4, 512), 8 heads of 64), by serving_agreement over the
+probabilities and both towers' features; phase 2's legacy K4 cases
+(chip_smoke.k4_legacy_cases) are among the K4 kernel cases above.
+``--only legacy`` runs these and the K4 kernel cases alone.
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
@@ -438,6 +447,12 @@ TINY_K4B = {"d": 128, "h": 2, "shapes": ((2, 3), (8, 5))}
 TINY_K4 = {"d": 128, "h": 2, "global_rows": (2, 3), "ragged": ((2, 1), (2, 13)),
            "partial": (5, 3), "guard": ((2, 37),), "wide": (4, (2, 37), (3, 3)),
            "time_tail": (4, 2)}
+# --tiny's legacy K4 cases: heads of 128 over 49 rows, heads of 64 over 4
+TINY_K4_LEGACY = {"shapes": (("spatial", 4, 49, 256, 2), ("frequency", 6, 4, 128, 2))}
+# --tiny's phase 16 (a): the full legacy towers on one clip of 2 segments of
+# 16 frames of 64², a 2-layer transformer 64 wide
+TINY_LEGACY = {"b": 1, "s": 2, "frames": (16, 64, 64, 3),
+               "widths": {"d": 64, "n_layer": 2, "n_head": 4}}
 # --tiny's ragged cases: one segment of 2 frames
 TINY_RAGGED = {"bs": 1, "f": 2}
 # --tiny's K1 / K2 cases: 2 heads of 64, 2 segments of 2 frames of 4 patches
@@ -537,10 +552,32 @@ def k4b_kernel_faults(dev, tiny: bool) -> dict:
 
 
 def k4_kernel_faults(dev, tiny: bool) -> dict:
-    """The K4 faults on phase 2's checked K4 cases (chip_smoke.k4_cases;
-    TINY_K4's size with --tiny), each fault's cases that hold_outputs failed."""
-    return cases_caught(chip_smoke.k4_cases(torch, dev, **(TINY_K4 if tiny else {})),
-                        K4_ENTRIES, K4_FAULTS)
+    """The K4 faults on phase 2's checked K4 cases (chip_smoke.k4_cases and
+    the legacy towers' chip_smoke.k4_legacy_cases; TINY_K4's and
+    TINY_K4_LEGACY's sizes with --tiny), each fault's cases that
+    hold_outputs failed."""
+    cases = (chip_smoke.k4_cases(torch, dev, **(TINY_K4 if tiny else {}))
+             + chip_smoke.k4_legacy_cases(torch, dev, **(TINY_K4_LEGACY if tiny else {})))
+    return cases_caught(cases, K4_ENTRIES, K4_FAULTS)
+
+
+def legacy_faults(dev, tiny: bool) -> dict:
+    """The K4 faults on phase 16 (a)'s legacy sync inference
+    (chip_smoke.legacy_predictors: S3D + ResNet-18 towers at B=8, S=14;
+    TINY_LEGACY's with --tiny): the f32 and bf16 plain records once, then
+    the kernel path once per fault, each fault's failed checks of
+    serving_agreement (the probabilities and both towers' features)."""
+    preds, video, pcm = chip_smoke.legacy_predictors(torch, dev,
+                                                     **(TINY_LEGACY if tiny else {}))
+    ref, plain, _, _ = chip_smoke.legacy_records(torch, preds, video, pcm)
+    caught = {}
+    for name, fault in K4_FAULTS.items():
+        with planted(*K4_ENTRIES, fault):
+            kern = chip_smoke.serving_record(torch, preds["kernel"], video, pcm, audio=True)
+        caught[name] = chip_smoke.serving_agreement(ref, plain, kern, f"legacy {name}")
+        chip_smoke.log(f"[fault] legacy {name}: {len(caught[name])} checks failed: "
+                       f"{caught[name]}")
+    return caught
 
 
 def ragged_kernel_faults(dev, tiny: bool):
@@ -798,9 +835,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--only", choices=("all", "dp", "ckpt"), default="all",
+    ap.add_argument("--only", choices=("all", "dp", "ckpt", "legacy"), default="all",
                     help="dp: the data-parallel faults of phase 14 (c) alone; ckpt: the Stage "
-                         "I reader's of phase 15 (c) alone")
+                         "I reader's of phase 15 (c) alone; legacy: the K4 faults on phase "
+                         "16 (a) and on phase 2's K4 cases alone")
     args = ap.parse_args()
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -812,6 +850,12 @@ def main() -> int:
         return 0 if verdict("dp", dp_faults(dev, args.tiny)) else 1
     if args.only == "ckpt":
         return 0 if verdict("ckpt", ckpt_faults(dev, args.tiny)) else 1
+    if args.only == "legacy":
+        if dev.type == "cuda":
+            chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
+            _build.build_all()
+        ok = verdict("kernels_k4", k4_kernel_faults(dev, args.tiny))
+        return 0 if verdict("legacy", legacy_faults(dev, args.tiny)) and ok else 1
     if args.tiny:
         builds = {"split": functools.partial(build_tiny_avclip, drop_path_rate=0.2),
                   "packed": functools.partial(build_tiny_avclip_packed, drop_path_rate=0.2),
@@ -872,6 +916,7 @@ def main() -> int:
     ok = verdict("stage2", stage2_faults(dev, args.tiny)) and ok
     ok = verdict("dp", dp_faults(dev, args.tiny)) and ok
     ok = verdict("ckpt", ckpt_faults(dev, args.tiny)) and ok
+    ok = verdict("legacy", legacy_faults(dev, args.tiny)) and ok
     return 0 if verdict("kernels_k2", k2) and ok else 1
 
 if __name__ == "__main__":

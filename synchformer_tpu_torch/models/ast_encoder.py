@@ -90,9 +90,11 @@ class ASTEncoder(nn.Module):
                                device=device)
             if add_global_repr else None)
 
-    def forward(self, x: torch.Tensor, impl: str = "plain") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "plain", deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, S, T, F) log-mel in the compute dtype -> (B, S, t, D), or
-        (B, S, D) with a time tail."""
+        (B, S, D) with a time tail. ``deterministic`` and ``generator`` are
+        unused: no dropout is live, so training and eval are one computation."""
         return self.forward_with_global(x, impl)[0]
 
     def forward_with_global(self, x: torch.Tensor, impl: str = "plain"):

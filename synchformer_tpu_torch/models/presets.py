@@ -62,6 +62,44 @@ def build_synchformer_8head(n_segments: int = 14, attn_impl: str = "pallas",
         device=device).eval()
 
 
+# the tokens a segment gives the GlobalTransformer from the legacy towers:
+# S3D's 16 frames of 224² -> t = 2, ResNet-18's 66 x 128 log-mel -> t' = 3
+LEGACY_TOKENS = (2, 3)
+
+
+def legacy_sync_model(n_segments: int = 14, d: int = D, n_layer: int = 3,
+                      n_head: int = 8) -> dict:
+    """configs/sync.yaml's model section as a config node (build it with
+    registry.instantiate_from_config) with the legacy SparseSync towers under
+    the reference's target names: S3DVisualFeatures (spatial
+    TransformerEncoderLayer, time Identity; a ckpt_path the port warns it
+    does not read) and ResNet18AudioFeatures (frequency
+    TransformerEncoderLayer, time Identity); the projections 1024 -> d and
+    512 -> d; the GlobalTransformer (``n_layer`` layers of ``n_head`` heads,
+    dropouts as the config's) with its pos-emb over 2 + n_segments *
+    sum(LEGACY_TOKENS) tokens, 72 at 14 segments."""
+    seq = 2 + n_segments * sum(LEGACY_TOKENS)
+    return {"target": "synchformer_tpu.models.sync_model.Synchformer", "params": {
+        "vfeat_extractor": {
+            "target": "model.modules.feat_extractors.visual.s3d.S3DVisualFeatures",
+            "params": {"ckpt_path": "s3d_kinetics400.pt",
+                       "agg_space_module": "TransformerEncoderLayer",
+                       "agg_time_module": "Identity"}},
+        "afeat_extractor": {
+            "target": "model.modules.feat_extractors.audio.resnet.ResNet18AudioFeatures",
+            "params": {"agg_freq_module": "TransformerEncoderLayer",
+                       "agg_time_module": "Identity"}},
+        "vproj": {"target": "torch.nn.Linear", "params": {"in_features": 1024, "out_features": d}},
+        "aproj": {"target": "torch.nn.Linear", "params": {"in_features": 512, "out_features": d}},
+        "transformer": {"target": "synchformer_tpu.models.sync_model.GlobalTransformer", "params": {
+            "n_layer": n_layer, "n_head": n_head, "n_embd": d, "tok_pdrop": 0.0,
+            "embd_pdrop": 0.1, "resid_pdrop": 0.1, "attn_pdrop": 0.1,
+            "pos_emb_cfg": {"target": "synchformer_tpu.models.pos_emb.RandInitPositionalEncoding",
+                            "params": {"block_shape": [seq], "n_embd": d}},
+            "off_head_cfg": {"target": "torch.nn.Linear",
+                             "params": {"in_features": d, "out_features": N_OFFSET_CLS}}}}}}
+
+
 def build_tiny_synchformer(n_segments: int = 2, device=None, t: dict = TINY,
                            attn_impl: str = "pallas", syncability: bool = False,
                            dropout: float = 0.1, drop_path_rate: float = 0.2) -> Synchformer:
@@ -192,6 +230,37 @@ JAX_FIELDS = {
     f"{_JAX}bridges.DoNothingBridge": ("in_features", "out_features", "parent", "name"),
     f"{_JAX}pos_emb.RandInitPositionalEncoding": ("block_shape", "n_embd", "init", "parent",
                                                   "name"),
+    f"{_JAX}pos_emb.ZeroInitPositionalEncoding": ("block_shape", "n_embd", "init", "parent",
+                                                  "name"),
+    f"{_JAX}pos_emb.PositionEmbeddingLearnedVisual": ("block_shape", "n_embd", "parent", "name"),
+    f"{_JAX}pos_emb.PositionEmbeddingLearnedAudio": ("block_shape", "n_embd", "parent", "name"),
+    f"{_JAX}pos_emb.NoPosEncoding": ("parent", "name"),
+    f"{_JAX}pos_emb.L2Normalize": ("eps", "parent", "name"),
+    f"{_JAX}bridges.Identity": ("parent", "name"),
+    f"{_JAX}bridges.AppendZerosToHidden": ("target_hidden_size", "dim", "parent", "name"),
+    f"{_JAX}bridges.ConvBridgeVisual": ("in_channels", "out_channels", "kernel_size", "stride",
+                                        "parent", "name"),
+    f"{_JAX}bridges.ConvBridgeAudio": ("in_channels", "out_channels", "kernel_size", "stride",
+                                       "parent", "name"),
+    f"{_JAX}bridges.AvgPoolBridgeVisual": ("kernel_size", "stride", "parent", "name"),
+    f"{_JAX}bridges.AvgPoolBridgeAudio": ("kernel_size", "stride", "parent", "name"),
+    f"{_JAX}bridges.SpatialpoolConvTemporalpool": ("in_channels", "out_channels", "kernel_size",
+                                                   "parent", "name"),
+    f"{_JAX}bridges.FrequencypoolConvTemporalpool": ("in_channels", "out_channels",
+                                                     "kernel_size", "parent", "name"),
+    f"{_JAX}s3d.S3DVisualFeatures": (
+        "embed_dim", "num_heads", "drop_rate", "factorize_space_time", "agg_space_module",
+        "agg_time_module", "add_global_repr", "max_segments", "dtype", "ckpt_path",
+        "extract_features", "agg_segments_module", "parent", "name"),
+    f"{_JAX}resnet_audio.ResNet18AudioFeatures": (
+        "embed_dim", "stage_sizes", "num_heads", "drop_rate", "factorize_freq_time",
+        "agg_freq_module", "agg_time_module", "add_global_repr", "max_segments", "dtype",
+        "ckpt_path", "extract_features", "feat_type", "max_spec_t", "agg_segments_module",
+        "parent", "name"),
+    f"{_JAX}sparsesync.SparseSyncTransformer": (
+        "num_offset_cls", "visual_block_shape", "audio_block_shape", "vis_pos_emb_module",
+        "aud_pos_emb_module", "pre_norm_cfg", "n_layer", "n_head", "n_embd", "tok_pdrop",
+        "embd_pdrop", "resid_pdrop", "attn_pdrop", "dtype", "parent", "name"),
     f"{_JAX}avclip.AVCLIP": (
         "n_embd", "afeat_extractor", "vfeat_extractor", "aproj", "vproj", "init_scale",
         "clamp_scale_min", "clamp_scale_max", "gather_for_loss", "parent", "name"),
@@ -214,6 +283,17 @@ JAX_ALIASES = {
     "model.modules.bridges.DoNothingBridge": f"{_JAX}bridges.DoNothingBridge",
     "model.modules.transformer.RandInitPositionalEncoding":
         f"{_JAX}pos_emb.RandInitPositionalEncoding",
+    **{f"model.modules.transformer.{n}": f"{_JAX}pos_emb.{n}" for n in (
+        "ZeroInitPositionalEncoding", "PositionEmbeddingLearnedVisual",
+        "PositionEmbeddingLearnedAudio", "NoPosEncoding", "L2Normalize")},
+    "torch.nn.Identity": f"{_JAX}bridges.Identity",
+    **{f"model.modules.bridges.{n}": f"{_JAX}bridges.{n}" for n in (
+        "AppendZerosToHidden", "ConvBridgeVisual", "ConvBridgeAudio", "AvgPoolBridgeVisual",
+        "AvgPoolBridgeAudio", "SpatialpoolConvTemporalpool", "FrequencypoolConvTemporalpool")},
+    "model.modules.feat_extractors.visual.s3d.S3DVisualFeatures": f"{_JAX}s3d.S3DVisualFeatures",
+    "model.modules.feat_extractors.audio.resnet.ResNet18AudioFeatures":
+        f"{_JAX}resnet_audio.ResNet18AudioFeatures",
+    "model.modules.transformer.Transformer": f"{_JAX}sparsesync.SparseSyncTransformer",
     "model.modules.feat_extractors.train_clip_src.open_clip.model.AVCLIP": f"{_JAX}avclip.AVCLIP",
     "model.modules.feat_extractors.train_clip_src.open_clip.model.MultilevelMoCoCLIP":
         f"{_JAX}moco_clip.MultilevelMoCoCLIP",

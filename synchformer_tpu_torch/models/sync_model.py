@@ -16,6 +16,10 @@ projection and in the MLP). With ``extractors_deterministic`` the towers run
 their eval path (K1-K4 on impl='kernel'), and where none of a tower's
 parameters needs a gradient, under torch.no_grad(): no backward kernel runs
 and no activation is kept. Otherwise they take the Stage I training route.
+
+The towers may also be the legacy SparseSync ones (models/s3d.py,
+models/resnet_audio.py), built from a config through the registry: S3D
+takes frames, and both run their eval path only (training raises).
 """
 from __future__ import annotations
 
@@ -44,7 +48,11 @@ def token_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> t
 class GlobalTransformer(nn.Module):
     """[OFF, v..., MOD, a...] -> pos-emb -> pre-LN blocks -> ln_f -> offset
     head on the OFF token. State names as the reference's ``transformer.*``.
-    ``num_cls=None`` builds no head: forward then returns the sequence."""
+    ``num_cls=None`` builds no head: forward then returns the sequence.
+    ``pos_emb_cfg`` is the positional embedding, a RandInitPositionalEncoding
+    over ``seq_len`` tokens here; the registry sets the module a config names
+    (any of models/pos_emb.py), or None where the config names none, as the
+    JAX module skips it."""
 
     def __init__(self, n_layer: int = 3, n_head: int = 8, n_embd: int = 768,
                  seq_len: int = 198, num_cls: Optional[int] = 21, tok_pdrop: float = 0.0,
@@ -77,7 +85,9 @@ class GlobalTransformer(nn.Module):
             a = token_dropout(a, self.tok_pdrop, generator)
         off = self.OFF_tok.to(v.dtype).expand(b, 1, d)
         mod = self.MOD_tok.to(v.dtype).expand(b, 1, d)
-        x = self.pos_emb_cfg(torch.cat([off, v, mod, a], dim=1))
+        x = torch.cat([off, v, mod, a], dim=1)
+        if self.pos_emb_cfg is not None:
+            x = self.pos_emb_cfg(x)
         if generator is not None:
             x = element_dropout(x, self.embd_pdrop, generator)
         for blk in self.blocks:
@@ -117,10 +127,12 @@ class GlobalTransformerWithSyncabilityHead(GlobalTransformer):
 
 class Synchformer(nn.Module):
     """Stage II offset model (or, with ``syncability``, the Stage III model).
-    ``forward(vis, aud, targets)`` takes patch-major video (B, S, f, n,
-    z*p*p*c) and log-mel (B, S, T, F) and returns (loss, logits); the loss is
-    None without targets. ``from_modules`` assembles one from built parts
-    (the registry's route from a config)."""
+    ``forward(vis, aud, targets)`` takes the video in its tower's layout
+    (the Motionformer's patch-major (B, S, f, n, z*p*p*c); the legacy S3D's
+    normalised frames (B, S, T, H, W, C)) and log-mel (B, S, T, F), and
+    returns (loss, logits); the loss is None without targets.
+    ``from_modules`` assembles one from built parts (the registry's route
+    from a config; the legacy towers come only that way)."""
 
     def __init__(self, vfeat_extractor: dict, afeat_extractor: dict, d: int = 768,
                  n_segments: int = 14, n_layer: int = 3, n_head: int = 8,
@@ -160,9 +172,7 @@ class Synchformer(nn.Module):
         needs a gradient runs under no_grad."""
         frozen = deterministic and not any(p.requires_grad for p in tower.parameters())
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
-            if isinstance(tower, MotionFormerEncoder):
-                return tower(x, impl, deterministic, generator)
-            return tower(x, impl)
+            return tower(x, impl, deterministic, generator)
 
     def forward(self, vis: torch.Tensor, aud: torch.Tensor,
                 targets: Optional[torch.Tensor] = None, impl: str = "plain",

@@ -33,17 +33,26 @@ def patchify_frames(x, z_block: int = 2, patch: int = 16):
     return x.reshape(*lead, f, gh * gw, z_block * patch * patch * c)
 
 
+# the towers' frame normalisation: (x / 255 - mean) / std
+VIDEO_MEAN, VIDEO_STD = 0.5, 0.5
+
+
 @torch.no_grad()
-def fold_video_normalize(weight: torch.Tensor, bias: torch.Tensor,
-                         mean: float = 0.5, std: float = 0.5):
+def fold_video_normalize(weight: torch.Tensor, bias: torch.Tensor):
     """Conv3d patch-embed (D, C, z, p, p) weight and bias of the normalised
     input -> (weight, bias) of the same conv applied to raw [0, 255] input:
     conv(x * s - m / std) = s * conv(x) - m / std * sum(kernel) + bias."""
-    scale = 1.0 / (255.0 * std)
-    shift = mean / std
+    scale = 1.0 / (255.0 * VIDEO_STD)
+    shift = VIDEO_MEAN / VIDEO_STD
     w32 = weight.float()
     new_b = bias.float() - w32.sum(dim=(1, 2, 3, 4)) * shift
     return (w32 * scale).to(weight.dtype), new_b.to(bias.dtype)
+
+
+def normalize_frames(video_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 frames in [0, 255] -> (x / 255 - mean) / std in f32, the
+    normalisation fold_video_normalize folds into a patch embed."""
+    return (video_u8.float() / 255.0 - VIDEO_MEAN) / VIDEO_STD
 
 
 def patch_embed_matrix(weight: torch.Tensor) -> torch.Tensor:

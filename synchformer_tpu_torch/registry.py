@@ -21,18 +21,32 @@ here: models/presets.py::build_synchformer_from_ckpt_args drops them, as
 the JAX package does for checkpoint configs. The JAX route option ``attn_impl`` of the towers keeps
 its meaning where the port has it ('pallas_fused'); 'xla' and 'pallas' are
 the port's default flow, whose kernels the caller's ``impl`` picks.
+
+The legacy SparseSync family resolves as in the JAX registry: the S3D and
+ResNet-18 towers (inference; their ``ckpt_path`` is accepted with a warning
+that it is not read), the SparseSync ``Transformer`` (its ``pre_norm_cfg``
+built twice through this registry, as the JAX module's setup does), every
+positional encoding and bridge of the JAX package, ``torch.nn.Identity``.
+A GlobalTransformer takes the positional embedding its ``pos_emb_cfg`` names,
+or none without one.
 """
 from __future__ import annotations
 
 import importlib
+import logging
 from typing import Any, Callable, Dict, Mapping
 
+from synchformer_tpu_torch.models import bridges as tbridges
+from synchformer_tpu_torch.models import pos_emb as tpos
 from synchformer_tpu_torch.models.ast_encoder import ASTEncoder
 from synchformer_tpu_torch.models.avclip import AVCLIP
 from synchformer_tpu_torch.models.bridges import DoNothingBridge, LinearBridge
 from synchformer_tpu_torch.models.moco_clip import MultilevelMoCoCLIP
 from synchformer_tpu_torch.models.motionformer import MotionFormerEncoder
 from synchformer_tpu_torch.models.pos_emb import RandInitPositionalEncoding
+from synchformer_tpu_torch.models.resnet_audio import ResNet18AudioFeatures
+from synchformer_tpu_torch.models.s3d import S3DVisualFeatures
+from synchformer_tpu_torch.models.sparsesync import SparseSyncTransformer
 from synchformer_tpu_torch.models.sync_model import (
     GlobalTransformer,
     GlobalTransformerWithSyncabilityHead,
@@ -175,23 +189,116 @@ def build_do_nothing(in_features=None, out_features=None, device=None) -> DoNoth
     return DoNothingBridge()
 
 
-@register("synchformer_tpu.models.pos_emb.RandInitPositionalEncoding",
-          "model.modules.transformer.RandInitPositionalEncoding")
-def build_pos_emb(block_shape, n_embd: int, device=None) -> RandInitPositionalEncoding:
-    return RandInitPositionalEncoding(list(block_shape), n_embd, device)
+def _with_device(cls):
+    """A factory of ``cls`` that takes the registry's ``device``."""
+    def build(device=None, **params):
+        return cls(**params, device=device)
+
+    return build
+
+
+def _without_device(cls):
+    """A factory of a parameterless ``cls`` that drops the registry's ``device``."""
+    def build(device=None, **params):
+        return cls(**params)
+
+    return build
+
+
+def _learned_pos_emb(cls):
+    """The learned encodings' factory; RandInit's / ZeroInit's ``init``
+    names the JAX initialiser only (the weights come from a state dict)."""
+    def build(block_shape, n_embd: int, init=None, device=None):
+        return cls(list(block_shape), n_embd, device)
+
+    return build
+
+
+register("synchformer_tpu.models.pos_emb.RandInitPositionalEncoding",
+         "model.modules.transformer.RandInitPositionalEncoding")(
+    _learned_pos_emb(RandInitPositionalEncoding))
+register("synchformer_tpu.models.pos_emb.ZeroInitPositionalEncoding",
+         "model.modules.transformer.ZeroInitPositionalEncoding")(
+    _learned_pos_emb(tpos.ZeroInitPositionalEncoding))
+register("synchformer_tpu.models.pos_emb.PositionEmbeddingLearnedVisual",
+         "model.modules.transformer.PositionEmbeddingLearnedVisual")(
+    _learned_pos_emb(tpos.PositionEmbeddingLearnedVisual))
+register("synchformer_tpu.models.pos_emb.PositionEmbeddingLearnedAudio",
+         "model.modules.transformer.PositionEmbeddingLearnedAudio")(
+    _learned_pos_emb(tpos.PositionEmbeddingLearnedAudio))
+register("synchformer_tpu.models.pos_emb.NoPosEncoding",
+         "model.modules.transformer.NoPosEncoding")(_without_device(tpos.NoPosEncoding))
+register("synchformer_tpu.models.pos_emb.L2Normalize",
+         "model.modules.transformer.L2Normalize")(_without_device(tpos.L2Normalize))
+register("synchformer_tpu.models.bridges.Identity", "torch.nn.Identity")(
+    _without_device(DoNothingBridge))
+register("synchformer_tpu.models.bridges.AppendZerosToHidden",
+         "model.modules.bridges.AppendZerosToHidden")(
+    _without_device(tbridges.AppendZerosToHidden))
+register("synchformer_tpu.models.bridges.AvgPoolBridgeVisual",
+         "model.modules.bridges.AvgPoolBridgeVisual")(
+    _without_device(tbridges.AvgPoolBridgeVisual))
+register("synchformer_tpu.models.bridges.AvgPoolBridgeAudio",
+         "model.modules.bridges.AvgPoolBridgeAudio")(_without_device(tbridges.AvgPoolBridgeAudio))
+for _name in ("ConvBridgeVisual", "ConvBridgeAudio", "SpatialpoolConvTemporalpool",
+              "FrequencypoolConvTemporalpool"):
+    register(f"synchformer_tpu.models.bridges.{_name}", f"model.modules.bridges.{_name}")(
+        _with_device(getattr(tbridges, _name)))
+
+
+def _legacy_tower_params(p: dict, tower: str) -> dict:
+    """A legacy tower's params: the fields the JAX tower keeps and does not
+    read (``ckpt_path``, with a warning where set, ``extract_features``,
+    ``agg_segments_module``, ``feat_type``, ``max_spec_t``) are accepted and
+    dropped."""
+    p = dict(p)
+    if p.pop("ckpt_path", None):
+        logging.warning(f"{tower}: ckpt_path is not read; the legacy towers take their "
+                        f"weights from the model's state dict")
+    for key in ("extract_features", "agg_segments_module", "feat_type", "max_spec_t"):
+        p.pop(key, None)
+    return p
+
+
+@register("synchformer_tpu.models.s3d.S3DVisualFeatures",
+          "model.modules.feat_extractors.visual.s3d.S3DVisualFeatures")
+def build_s3d(device=None, **params) -> S3DVisualFeatures:
+    return S3DVisualFeatures(device=device, **_legacy_tower_params(params, "S3DVisualFeatures"))
+
+
+@register("synchformer_tpu.models.resnet_audio.ResNet18AudioFeatures",
+          "model.modules.feat_extractors.audio.resnet.ResNet18AudioFeatures")
+def build_resnet18_audio(device=None, **params) -> ResNet18AudioFeatures:
+    return ResNet18AudioFeatures(device=device,
+                                 **_legacy_tower_params(params, "ResNet18AudioFeatures"))
+
+
+@register("synchformer_tpu.models.sparsesync.SparseSyncTransformer",
+          "model.modules.transformer.Transformer")
+def build_sparsesync_transformer(num_offset_cls: int, visual_block_shape, audio_block_shape,
+                                 vis_pos_emb_module, aud_pos_emb_module, pre_norm_cfg,
+                                 device=None, **params) -> SparseSyncTransformer:
+    """The pre-norms (one each for the visual and the audio tokens) and the
+    positional embeddings built from their nodes, as the JAX module's setup
+    does; ``visual_block_shape`` / ``audio_block_shape`` are fields the JAX
+    module keeps and does not read."""
+    def build(node):
+        return instantiate_from_config(node, device=device)
+
+    return SparseSyncTransformer(num_offset_cls, build(vis_pos_emb_module),
+                                 build(aud_pos_emb_module), build(pre_norm_cfg),
+                                 build(pre_norm_cfg), device=device, **params)
 
 
 def _transformer(cls, n_layer: int = 3, n_head: int = 8, n_embd: int = 768,
                  tok_pdrop: float = 0.0, embd_pdrop: float = 0.1, resid_pdrop: float = 0.1,
                  attn_pdrop: float = 0.1, pos_emb_cfg=None, off_head_cfg=None, device=None):
-    if pos_emb_cfg is None:
-        _refuse("a GlobalTransformer without pos_emb_cfg (NoPosEncoding)")
-    pos_emb = instantiate_from_config(pos_emb_cfg, device=device)
-    if not isinstance(pos_emb, RandInitPositionalEncoding) or pos_emb.pos_emb.ndim != 3:
-        _refuse("a positional embedding other than RandInitPositionalEncoding over one axis")
+    """A GlobalTransformer whose positional embedding is the module
+    ``pos_emb_cfg`` builds, or none without one, as the JAX module."""
+    pos_emb = None if pos_emb_cfg is None else instantiate_from_config(pos_emb_cfg, device=device)
     drops = dict(tok_pdrop=tok_pdrop, embd_pdrop=embd_pdrop, resid_pdrop=resid_pdrop,
                  attn_pdrop=attn_pdrop, device=device)
-    seq_len = pos_emb.pos_emb.shape[1]
+    seq_len = 1  # the embedding the constructor makes is replaced by pos_emb
     if cls is GlobalTransformerWithSyncabilityHead:
         # the JAX module never calls its off_head, which so holds no parameters
         model = cls(n_layer, n_head, n_embd, seq_len, **drops)

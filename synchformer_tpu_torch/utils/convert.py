@@ -30,6 +30,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from synchformer_tpu_torch.models.conv import BatchNorm, Conv
 from synchformer_tpu_torch.models.layers import LayerNorm
 
 SD = Dict[str, np.ndarray]
@@ -53,8 +54,18 @@ def _layernorm(p: Mapping, prefix: str) -> SD:
 def _conv(p: Mapping, prefix: str) -> SD:
     k = _a(p["kernel"])
     nd = k.ndim - 2
-    return {f"{prefix}.weight": k.transpose((nd + 1, nd) + tuple(range(nd))),
-            f"{prefix}.bias": _a(p["bias"])}
+    out = {f"{prefix}.weight": k.transpose((nd + 1, nd) + tuple(range(nd)))}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _a(p["bias"])
+    return out
+
+
+def _batch_norm(p: Mapping, stats: Mapping, prefix: str) -> SD:
+    """flax BatchNorm: scale / bias from ``params``, mean / var from
+    ``batch_stats`` -> weight, bias, running_mean, running_var."""
+    return {f"{prefix}.weight": _a(p["scale"]), f"{prefix}.bias": _a(p["bias"]),
+            f"{prefix}.running_mean": _a(stats["mean"]),
+            f"{prefix}.running_var": _a(stats["var"])}
 
 
 def _separate_qkv(p: Mapping, names) -> SD:
@@ -136,16 +147,16 @@ def motionformer_sd(p: Mapping, prefix: str = "") -> SD:
           **_layernorm(p["norm"], f"{prefix}norm")}
     for i in range(_depth(p, "blocks_")):
         sd.update(divided_block_sd(p[f"blocks_{i}"], f"{prefix}blocks.{i}"))
-    return {**sd, **_aggregators_sd(p, prefix, "spatial_attn_agg")}
+    return {**sd, **_aggregators_sd(p, prefix)}
 
 
-def _aggregators_sd(p: Mapping, prefix: str, pool: str) -> SD:
+def _aggregators_sd(p: Mapping, prefix: str) -> SD:
     """A tower's CLS-pool aggregators where it has them: its spatial or
-    frequency pool (``pool``; an AveragePooling holds nothing), its time
-    tail (``temp_attn_agg``, a TransformerEncoderLayer) and its global
-    segment aggregator."""
+    frequency pool (an AveragePooling holds nothing), its time tail
+    (``temp_attn_agg``, a TransformerEncoderLayer) and its global segment
+    aggregator."""
     sd = {}
-    for name in (pool, "temp_attn_agg", "global_attn_agg"):
+    for name in ("spatial_attn_agg", "freq_attn_agg", "temp_attn_agg", "global_attn_agg"):
         if name in p:
             sd.update(cls_pool_layer_sd(p[name]["cls_layer"], f"{prefix}{name}"))
     return sd
@@ -160,16 +171,17 @@ def ast_sd(p: Mapping, prefix: str = "") -> SD:
           **_layernorm(p["layernorm"], f"{prefix}ast.layernorm")}
     for i in range(_depth(p, "layer_")):
         sd.update(ast_layer_sd(p[f"layer_{i}"], f"{prefix}ast.encoder.layer.{i}"))
-    return {**sd, **_aggregators_sd(p, prefix, "freq_attn_agg")}
+    return {**sd, **_aggregators_sd(p, prefix)}
 
 
 def global_transformer_sd(p: Mapping, prefix: str = "transformer.") -> SD:
     """The offset head where the tree has one, the syncability head
-    (``sync_head``, a bare Dense) where it has that."""
+    (``sync_head``, a bare Dense) where it has that; the positional
+    embedding's parameters where it has any."""
     sd = {**_layernorm(p["vis_in_lnorm"], f"{prefix}vis_in_lnorm"),
           **_layernorm(p["aud_in_lnorm"], f"{prefix}aud_in_lnorm"),
           f"{prefix}OFF_tok": _a(p["OFF_tok"]), f"{prefix}MOD_tok": _a(p["MOD_tok"]),
-          f"{prefix}pos_emb_cfg.pos_emb": _a(p["pos_emb"]["pos_emb"]),
+          **leaves_sd(p.get("pos_emb", {}), f"{prefix}pos_emb_cfg."),
           **_layernorm(p["ln_f"], f"{prefix}ln_f")}
     if "off_head" in p:
         sd.update(_linear(p["off_head"]["linear"], f"{prefix}off_head"))
@@ -180,15 +192,93 @@ def global_transformer_sd(p: Mapping, prefix: str = "transformer.") -> SD:
     return sd
 
 
-def state_dict_from_jax(params: Mapping) -> SD:
-    """Synchformer params tree (numpy or JAX arrays) -> the port's state dict,
-    named as the reference's Stage II checkpoint (Stage III's with the
-    syncability transformer)."""
-    p = params.get("params", params)
-    return {**motionformer_sd(p["v_encoder"], "vfeat_extractor."),
-            **ast_sd(p["a_encoder"], "afeat_extractor."),
-            **_linear(p["v_proj"]["linear"], "vproj"),
-            **_linear(p["a_proj"]["linear"], "aproj"),
+def leaves_sd(p: Mapping, prefix: str = "") -> SD:
+    """Every leaf of a parameter tree under its dotted path: the positional
+    encodings, whose JAX names are the port's."""
+    sd = {}
+    for name, node in p.items():
+        if isinstance(node, Mapping):
+            sd.update(leaves_sd(node, f"{prefix}{name}."))
+        else:
+            sd[f"{prefix}{name}"] = _a(node)
+    return sd
+
+
+def legacy_trunk_sd(p: Mapping, stats: Mapping, prefix: str = "") -> SD:
+    """An S3D or ResNet-18 trunk (params and batch_stats trees; the port's
+    names are the JAX module names): each Conv (a kernel of 3 or more axes,
+    no bias) and each BatchNorm (``scale`` beside its running statistics);
+    the aggregators (``*_attn_agg``) are left to _aggregators_sd."""
+    sd = {}
+    for name, node in p.items():
+        if name.endswith("_attn_agg"):
+            continue
+        path = f"{prefix}{name}"
+        if "kernel" in node:
+            sd.update(_conv(node, path))
+        elif "scale" in node:
+            sd.update(_batch_norm(node, stats[name], path))
+        else:
+            sd.update(legacy_trunk_sd(node, stats[name], path + "."))
+    return sd
+
+
+def legacy_tower_sd(p: Mapping, stats: Mapping, prefix: str = "") -> SD:
+    """S3DVisualFeatures or ResNet18AudioFeatures (params and batch_stats)
+    -> the port's state dict."""
+    return {**legacy_trunk_sd(p, stats, prefix), **_aggregators_sd(p, prefix)}
+
+
+def bridge_sd(p: Mapping, prefix: str) -> SD:
+    """A bridge's Conv (ConvBridgeVisual / ConvBridgeAudio) or Dense (the
+    pool-conv-pool heads' ``conv``) under ``prefix`` + its JAX name;
+    LinearBridge's ``linear`` is the bridge itself. The pools and identities
+    hold nothing (and flax leaves them out of the tree)."""
+    sd = {}
+    for name, node in p.items():
+        fn = _linear if np.ndim(node["kernel"]) == 2 else _conv
+        sd.update(fn(node, prefix[:-1] if name == "linear" else prefix + name))
+    return sd
+
+
+def sparsesync_sd(p: Mapping, prefix: str = "") -> SD:
+    """SparseSyncTransformer -> the port's state dict: the tokens, the
+    pre-norms' and positional embeddings' parameters where they have any,
+    the minGPT blocks, ln_f and the bias-free offset head."""
+    sd = {f"{prefix}OFF_tok": _a(p["OFF_tok"]), f"{prefix}MOD_tok": _a(p["MOD_tok"]),
+          **_layernorm(p["ln_f"], f"{prefix}ln_f"), **_linear(p["off_head"], f"{prefix}off_head")}
+    for name in ("pre_lnorm_vis", "pre_lnorm_aud", "vis_pos_emb", "aud_pos_emb"):
+        sd.update(leaves_sd(p.get(name, {}), f"{prefix}{name}."))
+    for i in range(_depth(p, "blocks_")):
+        sd.update(mingpt_block_sd(p[f"blocks_{i}"], f"{prefix}blocks.{i}"))
+    return sd
+
+
+def tower_sd(p: Mapping, stats: Optional[Mapping], prefix: str) -> SD:
+    """A tower's state dict, its kind read from its tree: Motionformer
+    (``patch_embed_3d``), AST (``patch_embed``), S3D (``stem_sep``) or
+    ResNet-18 (``layer1_0``); the legacy towers also read ``stats``, their
+    batch_stats."""
+    if "patch_embed_3d" in p:
+        return motionformer_sd(p, prefix)
+    if "patch_embed" in p:
+        return ast_sd(p, prefix)
+    if stats is None:
+        raise KeyError(f"{prefix}: a legacy tower needs its batch_stats")
+    return legacy_tower_sd(p, stats, prefix)
+
+
+def state_dict_from_jax(variables: Mapping) -> SD:
+    """Synchformer variables (numpy or JAX arrays; ``params`` and, for the
+    legacy towers, ``batch_stats``, or the params tree alone) -> the port's
+    state dict, named as the reference's Stage II checkpoint (Stage III's
+    with the syncability transformer)."""
+    p = variables.get("params", variables)
+    stats = variables.get("batch_stats", {})
+    return {**tower_sd(p["v_encoder"], stats.get("v_encoder"), "vfeat_extractor."),
+            **tower_sd(p["a_encoder"], stats.get("a_encoder"), "afeat_extractor."),
+            **bridge_sd(p.get("v_proj", {}), "vproj."),
+            **bridge_sd(p.get("a_proj", {}), "aproj."),
             **global_transformer_sd(p["sync_transformer"], "transformer.")}
 
 
@@ -262,9 +352,10 @@ def merge_state_dict_nonstrict(init: Mapping, loaded: Mapping) -> Tuple[dict, di
 
 @torch.no_grad()
 def load_numpy_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
-    """Copy numpy arrays into the model's parameters (strict: every name on
-    both sides), converting to each parameter's dtype and device."""
-    params = dict(model.named_parameters())
+    """Copy numpy arrays into the model's parameters and buffers (the
+    BatchNorms' running statistics; strict: every name on both sides),
+    converting to each one's dtype and device."""
+    params = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     missing = sorted(set(params) - set(sd))
     extra = sorted(set(sd) - set(params))
     if missing or extra:
@@ -280,21 +371,51 @@ def seeded_state_dict(model: torch.nn.Module, seed: int) -> SD:
     """Random weights in the port's layout from a numpy seed: LayerNorm
     weight 1 and bias 0; an AVCLIP's ``logit_scale`` (a MoCo model's
     ``segment_logit_scale`` and ``global_logit_scale``) its ``init_scale``;
-    every other parameter normal with std 0.02."""
+    every other parameter normal with std 0.02. In a model with BatchNorms
+    (the legacy towers), so that activations stay of order 1 through their
+    trunks: each models/conv.py Conv's kernel normal with std (2 /
+    fan_in)^0.5 (He), BatchNorm weight 1 + 0.1 N, bias 0.1 N, then the
+    buffers, running mean 0.1 N and running var uniform in [0.5, 1.5]; the
+    BatchNorms that close a residual sum (``closes_residual``: a ResNet
+    BasicBlock's bn2 and downsample_bn) at half that weight, else each of
+    ResNet-18's eight sums doubles the variance (trunk output std 38 at
+    weight 1, 1.3 at half, on a seeded mel of std 1). A model without
+    BatchNorms draws exactly as before."""
     rng = np.random.default_rng(seed)
-    ln_params = set()
+    ln_params, convs, bns, closing = set(), set(), {}, set()
     for mname, mod in model.named_modules():
         if isinstance(mod, LayerNorm):
             ln_params.update({f"{mname}.weight", f"{mname}.bias"})
+        elif isinstance(mod, Conv):
+            convs.add(f"{mname}.weight")
+        elif isinstance(mod, BatchNorm):
+            bns[f"{mname}.weight"], bns[f"{mname}.bias"] = 1.0, 0.0
+            if mod.closes_residual:
+                closing.add(f"{mname}.weight")
     sd = {}
     for name, p in model.named_parameters():
+        shape = tuple(p.shape)
         if name in ln_params:
             fill = 1.0 if name.endswith("weight") else 0.0
-            sd[name] = np.full(tuple(p.shape), fill, np.float32)
+            sd[name] = np.full(shape, fill, np.float32)
         elif name.endswith("logit_scale"):
-            sd[name] = np.full(tuple(p.shape), model.init_scale, np.float32)
+            sd[name] = np.full(shape, model.init_scale, np.float32)
+        elif bns and name in convs:
+            std = np.float32((2.0 / np.prod(shape[1:])) ** 0.5)
+            sd[name] = rng.standard_normal(shape, dtype=np.float32) * std
+        elif name in bns:
+            sd[name] = np.float32(bns[name]) + rng.standard_normal(
+                shape, dtype=np.float32) * np.float32(0.1)
+            if name in closing:
+                sd[name] *= np.float32(0.5)
         else:
-            sd[name] = rng.standard_normal(tuple(p.shape), dtype=np.float32) * np.float32(0.02)
+            sd[name] = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+    for name, buf in model.named_buffers():
+        shape = tuple(buf.shape)
+        if name.endswith("running_mean"):
+            sd[name] = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.1)
+        elif name.endswith("running_var"):
+            sd[name] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
     return sd
 
 

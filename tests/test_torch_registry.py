@@ -52,6 +52,7 @@ torch.set_num_threads(2)
 
 CONFIGS = Path(__file__).resolve().parents[1] / "synchformer_tpu" / "config" / "configs"
 REF = dict(rtol=1e-5, atol=1e-5)
+MOTIONFORMER_REF = "model.modules.feat_extractors.visual.motionformer.MotionFormer"
 METRIC_TOL = 1e-7
 
 
@@ -183,14 +184,16 @@ def test_tiny_stage1_model_from_params_equals_the_preset(moco):
 ])
 def test_registry_refuses_what_the_port_lacks(change, match):
     """A parameter the port does not implement raises NotImplementedError
-    naming the ROADMAP item; so does a target it has not ported."""
+    naming the ROADMAP item; so does a tower the port has not ported (the
+    joint-attention Motionformer)."""
     cfg = _section("sync")["model"]
     tower, key, value = change
     cfg["params"][tower]["params"][key] = value
     with pytest.raises(NotImplementedError, match=match):
         instantiate_from_config(cfg, device="meta")
     with pytest.raises(NotImplementedError, match="item 7"):
-        instantiate_from_config({"target": "model.modules.transformer.NoPosEncoding"})
+        instantiate_from_config({"target": MOTIONFORMER_REF, "params": {"attn_layer": "joint"}},
+                                device="meta")
 
 
 def test_load_config_and_overrides_match_jax():

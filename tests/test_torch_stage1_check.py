@@ -241,8 +241,9 @@ def test_k4_kernel_check_against_planted_fault(k4_kernel_caught, name):
     the softmax; head h's values from head h + 1's rows of Wv) fails every
     case, the MoCo global aggregators', a time tail's, the ragged rows', the
     part-filled last block's, the guard band's and, at another head width,
-    the ragged and guard-band ones; the control none."""
+    the ragged and guard-band ones, and the legacy towers' spatial pool
+    (heads of 128) and frequency pool (heads of 64); the control none."""
     failed = [" ".join(label.split()[1:-1]) for label in k4_kernel_caught[name]]
     want = ["global", "time tail", "ragged", "ragged", "part-filled last block", "guard band",
-            "4x32 ragged", "4x32 guard band"]
+            "4x32 ragged", "4x32 guard band", "legacy spatial 2x128", "legacy frequency 2x64"]
     assert failed == ([] if name == "none" else want), failed
