@@ -12,8 +12,10 @@ training (DDP in a one-rank NCCL group, torchrun, two ranks over gloo), and
 the reference-checkpoint entry points (python -m
 synchformer_tpu_torch.example and python -m
 synchformer_tpu_torch.scripts.test_syncability on reference-style .pt
-files, and Stage I towers from one), and the legacy SparseSync family (S3D
-and ResNet-18 towers in a Synchformer, the SparseSync transformer).
+files, and Stage I towers from one), the legacy SparseSync family (S3D
+and ResNet-18 towers in a Synchformer, the SparseSync transformer), and the
+tower options (the live dropouts, keep-masks, the joint-attention
+Motionformer, the AST classifier, another MLP ratio, unfactorized towers).
 
     python3 chip_smoke.py
 
@@ -265,6 +267,40 @@ Phases, each printed as it runs with its seconds:
    frames of 224² -> S3D (16, 7, 7, 1024) -> ConvBridgeVisual; the clip's
    501 mel frames -> ResNet-18 (4, 16, 512) -> ConvBridgeAudio; plain route,
    bf16 against f32: finite (8, 21) logits within 0.1 relative L2; ms.
+17. the tower options (run_tower_options), each built through the port's
+   registry from configs/segment_avclip.yaml or configs/sync.yaml
+   (sync_config) with the option changed, seeded weights. (a) The Stage I
+   step of segment_avclip.yaml's model with every rate live (the AST's
+   hidden_dropout and attn_dropout 0.1, the Motionformer's drop_rate 0.1,
+   so the aggregators' block dropouts are live too) and Linear 768 -> 768
+   aproj / vproj, B=2, S=14, precision amp, through run_stage1: the kernel
+   and plain routes from one generator seed draw the same masks; launches
+   exactly K5 24, K6 24 and nothing else (every AST layer, video MLP and
+   aggregator is stochastic, so the JAX layers leave K2, K3 and K4);
+   stage1_agreement against the f32 plain step with remat; an eval step on
+   K1 24, K2 24, K3 12, K4 2; ms/step (scripts/stage1_planted_faults.py
+   --only options shows that it fails a kernel route without the
+   projections' dropout). (b) sync.yaml's model with attn_layer 'joint'
+   (12 plain pre-LN blocks over 1 + 8 x 196 tokens, ViT-B), B=2, S=14,
+   bf16, through SyncPredictor: launches exactly K2 12, K3 12 (the AST),
+   K4 2 (both pools) and nothing else; serving_agreement; ms/batch and
+   peak memory of both routes. (c) sync.yaml's model on uint8 frames (2,
+   14, 16, 224, 224, 3) with vis_mask / aud_mask: all kept, the kernel
+   route's probabilities against the unmasked kernel route's within phase
+   3's rule (2 x the plain bf16 error + 5e-3) and against f32 by
+   serving_agreement; partly masked (the last segment's final 4 frames,
+   each segment's last 20 mel time bins), serving_agreement against f32
+   plain on the same masks, the last segment's video features also apart;
+   launches exactly K2 24 (every video block's MLP
+   on the packed x and every AST layer's) and nothing else
+   (scripts/stage1_planted_faults.py --only options shows that it fails a
+   masked divided attention that ignores the mask). (d) One full-width
+   forward each against f32 plain, relative L2 within 2 x plain bf16's:
+   the AST classifier (extract_features false, 527 labels; K3 12, K2 12),
+   sync.yaml's model at mlp_ratio 2 on both towers (K2 at hidden 1536: K1
+   24, K2 24, K3 12, K4 2; probabilities and video features), the AST with
+   factorize_freq_time false (K3 12, K2 12) and the Motionformer with
+   factorize_space_time false (K1 24, K2 12, no K4).
 The line before the last is a JSON record of the kernels, with the TPU
 kernels still to port beside them (none); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises, so the exit code is non-zero and no result
@@ -420,6 +456,20 @@ LEGACY_LAUNCHES = {**{key: 0 for key in KEYS}, "K4": 2}
 # of its 501 mel frames
 CLIP_FRAMES, CLIP_SAMPLES = 125, 80000
 SPARSESYNC_D, SPARSESYNC_GRIDS = 256, ((16, 7, 7), (4, 16))
+# phase 17 (a): the Stage I step with every rate live: K5 / K6 in every
+# divided attention and nothing else (the JAX layers leave K2, K3 and K4 in
+# every stochastic block)
+P17_TRAIN_LAUNCHES = {**{key: 0 for key in KEYS}, "K5": 24, "K6": 24}
+# (b): the joint tower's blocks are plain; the AST's K3 and K2, both pools' K4
+P17_JOINT_LAUNCHES = {**{key: 0 for key in KEYS}, "K2": 12, "K3": 12, "K4": 2}
+# (c): under keep-masks K2 in every video block (the packed x) and AST layer
+P17_MASKED_LAUNCHES = {**{key: 0 for key in KEYS}, "K2": 24}
+# (d): an AST alone (classifier, unfactorized), the Motionformer alone
+# unfactorized (the split flow's eval, no pool), the sync model at mlp_ratio 2
+P17_AST_LAUNCHES = {**{key: 0 for key in KEYS}, "K2": 12, "K3": 12}
+P17_VIDEO_LAUNCHES = {**{key: 0 for key in KEYS}, "K1": 24, "K2": 12}
+P17_SYNC_LAUNCHES = {**{key: 0 for key in KEYS}, "K1": 24, "K2": 24, "K3": 12, "K4": 2}
+P17_RATE = 0.1  # every live rate of (a)
 H8, DH8 = 8, 96  # the 8-head video tower's heads
 F_T, N_P = 8, 196  # frames after the 3-D patch embed, patches per frame
 SEQ = 1 + F_T * N_P  # the packed layout's tokens per segment
@@ -1350,10 +1400,60 @@ def slice_inputs(torch, dev, b: int = B, s: int = S, frames=FRAMES, patch: int =
     return video, pcm
 
 
+def counted_record(torch, tag: str, what: str, want: dict, record, at_least: bool = False):
+    """``record()`` with the launch counters zeroed before it; fails unless
+    each count in ``want`` is met exactly (``at_least``: reached). Returns
+    the record and the counts."""
+    from synchformer_tpu_torch.ops.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    rec = record()
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    log(f"[{tag}] launches in {what}: {counts}")
+    for key, need in want.items():
+        got = counts.get(key, 0)
+        if got < need or (got > need and not at_least):
+            fail(f"{tag}: {key} launched {got} times in {what}, expected "
+                 f"{'>= ' if at_least else ''}{need}")
+    return rec, counts
+
+
+def timed_forwards(torch, tag: str, preds: dict, args: tuple, kwargs: dict | None = None,
+                   order: tuple = ("plain", "kernel", "kernel", "plain")):
+    """ms/batch of each predictor named in ``order`` (the best of its windows
+    of three forwards, each window after one warm-up forward, in the turns
+    of ``order``) and the peak memory of one forward above what was
+    allocated before it."""
+    kwargs = kwargs or {}
+    peak, times = {}, {name: [] for name in order}
+    for name in times:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        preds[name](*args, **kwargs)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+    for name in order:
+        preds[name](*args, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            preds[name](*args, **kwargs)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / 3)
+    b = args[0].shape[0]
+    for name, ts in times.items():
+        best = min(ts)
+        log(f"[timing] {tag} {name} path: {best * 1e3:.1f} ms/batch of {b} clips = "
+            f"{b / best:.2f} clips/s (runs {[round(t * 1e3, 1) for t in ts]} ms); peak "
+            f"{gib(peak[name])} above the weights; {smi_line()}")
+
+
 def run_slice(torch, dev, report):
     from synchformer_tpu_torch.infer import SyncPredictor
     from synchformer_tpu_torch.models.presets import build_synchformer
-    from synchformer_tpu_torch.ops.kernels import _build
     from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
 
     t0 = time.perf_counter()
@@ -1373,15 +1473,9 @@ def run_slice(torch, dev, report):
     pk = predictor(torch.bfloat16, "kernel")
     pp = predictor(torch.bfloat16, "plain")
 
-    torch.cuda.synchronize()
-    _build.launches.clear()
-    kern = serving_record(torch, pk, video, pcm)
-    torch.cuda.synchronize()
-    counts = dict(_build.launches)
-    log(f"[slice] launches in one kernel-path forward: {counts}")
-    for key, need in MIN_LAUNCHES.items():
-        if counts.get(key, 0) < need:
-            fail(f"{key} launched {counts.get(key, 0)} times, expected >= {need}")
+    kern, counts = counted_record(torch, "slice", "one kernel-path forward", MIN_LAUNCHES,
+                                  lambda: serving_record(torch, pk, video, pcm), at_least=True)
+    for key in MIN_LAUNCHES:
         report[key]["launches"] = counts[key]
     plain = serving_record(torch, pp, video, pcm)
     for name, rec in (("kernel", kern), ("plain", plain)):
@@ -1396,26 +1490,15 @@ def run_slice(torch, dev, report):
     if failed:
         fail(f"kernel-path forward outside tolerance: {failed}")
 
-    times = {"plain": [], "kernel": []}
-    for impl in ("plain", "kernel", "kernel", "plain"):
-        pred = pk if impl == "kernel" else pp
-        pred(video, pcm)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            pred(video, pcm)
-        torch.cuda.synchronize()
-        times[impl].append((time.perf_counter() - t0) / 3)
-    for impl, ts in times.items():
-        best = min(ts)
-        log(f"[timing] slice {impl} path: {best * 1e3:.1f} ms/batch of {B} clips "
-            f"= {B / best:.2f} clips/s (runs {[round(t * 1e3, 1) for t in ts]} ms)")
+    timed_forwards(torch, "slice", {"kernel": pk, "plain": pp}, (video, pcm))
 
 
-def serving_record(torch, pred, video, pcm, audio: bool = False) -> dict:
+def serving_record(torch, pred, video, pcm, audio: bool = False,
+                   masks: dict | None = None) -> dict:
     """One SyncPredictor forward: its logits, probabilities and the video
     tower's output features (read by a forward hook), with ``audio`` also
-    the audio tower's, in f32."""
+    the audio tower's, in f32; ``masks`` (vis_mask / aud_mask) to the
+    predictor."""
     feats = {}
     towers = {"vfeat": pred.model.vfeat_extractor}
     if audio:
@@ -1424,7 +1507,7 @@ def serving_record(torch, pred, video, pcm, audio: bool = False) -> dict:
         lambda mod, args, out, name=name: feats.update({name: out.float()}))
         for name, tower in towers.items()]
     try:
-        logits = pred.logits(video, pcm).float()
+        logits = pred.logits(video, pcm, **(masks or {})).float()
     finally:
         for hook in hooks:
             hook.remove()
@@ -1470,7 +1553,6 @@ def run_serving_8head(torch, dev, report):
     turns, the same weights on attn_impl='pallas' (K7a, K2) beside them."""
     from synchformer_tpu_torch.infer import SyncPredictor
     from synchformer_tpu_torch.models.presets import build_synchformer_8head
-    from synchformer_tpu_torch.ops.kernels import _build
     from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
 
     tag = "serving_8head"
@@ -1483,17 +1565,8 @@ def run_serving_8head(torch, dev, report):
         return SyncPredictor(m, dev, dtype, impl)
 
     def counted(pred, want, what):
-        torch.cuda.synchronize()
-        _build.launches.clear()
-        rec = serving_record(torch, pred, video, pcm)
-        torch.cuda.synchronize()
-        counts = dict(_build.launches)
-        log(f"[{tag}] launches in one {what} forward: {counts}")
-        for key, need in want.items():
-            if counts.get(key, 0) != need:
-                fail(f"{tag}: {key} launched {counts.get(key, 0)} times in one {what} forward, "
-                     f"expected {need}")
-        return rec, counts
+        return counted_record(torch, tag, f"one {what} forward", want,
+                              lambda: serving_record(torch, pred, video, pcm))
 
     p32 = predictor(torch.float32, "plain")
     ref = serving_record(torch, p32, video, pcm)
@@ -1513,21 +1586,8 @@ def run_serving_8head(torch, dev, report):
         fail(f"{tag}: kernel path outside tolerance: {failed}")
     counted(preds["pallas"], SERVING_PALLAS_LAUNCHES, "pallas kernel-path")
 
-    times = {name: [] for name in preds}
-    for name in ("plain", "fused", "pallas", "pallas", "fused", "plain"):
-        pred = preds[name]
-        pred(video, pcm)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            pred(video, pcm)
-        torch.cuda.synchronize()
-        times[name].append((time.perf_counter() - t0) / 3)
-    for name, what in (("fused", "pallas_fused kernel"), ("pallas", "pallas kernel"),
-                       ("plain", "plain")):
-        best = min(times[name])
-        log(f"[timing] {tag} {what} path: {best * 1e3:.1f} ms/batch of {B} clips = "
-            f"{B / best:.2f} clips/s (runs {[round(t * 1e3, 1) for t in times[name]]} ms)")
+    timed_forwards(torch, tag, preds, (video, pcm),
+                   order=("plain", "fused", "pallas", "pallas", "fused", "plain"))
 
 
 def stage1_batch(torch, b: int, s: int, frames=FRAMES) -> dict:
@@ -1675,7 +1735,6 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
     is held against (c) and (b) (its plain route is the same composition),
     counted, and timed in the same turns."""
     from synchformer_tpu_torch.models.presets import build_avclip
-    from synchformer_tpu_torch.ops.kernels import _build
     from synchformer_tpu_torch.utils.convert import seeded_state_dict
 
     build = build or build_avclip
@@ -1704,15 +1763,6 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
             f"peak memory {gib(peak)}")
         return step_gradients(torch, tr, m), peak
 
-    def exact_counts(what, want):
-        counts = dict(_build.launches)
-        log(f"[{tag}] launches in {what}: {counts}")
-        for key, need in want.items():
-            if counts.get(key, 0) != need:
-                fail(f"{tag}: {key} launched {counts.get(key, 0)} times in {what}, "
-                     f"expected {need}")
-        return counts
-
     t0 = time.perf_counter()
     tr = trainer("fp32", "plain", remat=True)
     ref, _ = first_step(tr, "(c) f32 plain, remat")
@@ -1724,9 +1774,9 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
     t0 = time.perf_counter()
     resident = torch.cuda.memory_allocated()
     trainers = {"kernel": trainer("amp", "kernel")}
-    _build.launches.clear()
-    kern, k_peak = first_step(trainers["kernel"], "(a) bf16 kernel", resident)
-    counts = exact_counts("one kernel-path step", launches)
+    (kern, k_peak), counts = counted_record(
+        torch, tag, "one kernel-path step", launches,
+        lambda: first_step(trainers["kernel"], "(a) bf16 kernel", resident))
     for key in KEYS:
         if PATHS[key] == path:
             report[key]["launches"] = counts[key]
@@ -1738,10 +1788,10 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
     if fused is not None:
         resident = torch.cuda.memory_allocated()
         trainers["fused"] = trainer("amp", "kernel", make=fused[0])
-        _build.launches.clear()
-        kern_f, peaks["fused"] = first_step(trainers["fused"],
-                                            "(d) bf16 kernel, attn_impl='pallas_fused'", resident)
-        exact_counts("one pallas_fused kernel-path step", fused[1])
+        (kern_f, peaks["fused"]), _ = counted_record(
+            torch, tag, "one pallas_fused kernel-path step", fused[1],
+            lambda: first_step(trainers["fused"], "(d) bf16 kernel, attn_impl='pallas_fused'",
+                               resident))
         order = ("plain", "kernel", "fused", "fused", "kernel", "plain")
     log(f"[{tag}] bf16 first steps {time.perf_counter() - t0:.1f} s")
 
@@ -1757,10 +1807,8 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
         times[name].append((time.perf_counter() - t) / 3)
 
     def eval_step(name, want):
-        _build.launches.clear()
-        out = trainers[name].eval_step(batch)
-        torch.cuda.synchronize()
-        exact_counts(f"one {name} eval step", want)
+        out, _ = counted_record(torch, tag, f"one {name} eval step", want,
+                                lambda: trainers[name].eval_step(batch))
         if (out["vfeat"].shape != (B1, S, D) or not bool(torch.isfinite(out["loss"]))
                 or not bool(torch.isfinite(out["vfeat"]).all())):
             fail(f"{tag} {name} eval step: features of the wrong shape or non-finite")
@@ -1871,18 +1919,11 @@ def run_packed_block(torch, dev, report):
     """K7b's path: one packed DividedSpaceTimeBlock at 12 heads of 64 on
     (28, 1569, 768), forward and backward (training, drop-path 0), through
     the kernel route, against the plain route in bf16 and in f32."""
-    from synchformer_tpu_torch.ops.kernels import _build
-
     setup = packed_block(torch, dev)
-    torch.cuda.synchronize()
-    _build.launches.clear()
-    kern = packed_block_grads(torch, setup, torch.bfloat16, "kernel")
-    torch.cuda.synchronize()
-    counts = dict(_build.launches)
-    log(f"[packed_block] launches in one forward + backward: {counts}")
-    for key, need in PACKED_BLOCK_LAUNCHES.items():
-        if counts.get(key, 0) != need:
-            fail(f"packed block: {key} launched {counts.get(key, 0)} times, expected {need}")
+    kern, counts = counted_record(torch, "packed_block", "one forward + backward",
+                                  PACKED_BLOCK_LAUNCHES,
+                                  lambda: packed_block_grads(torch, setup, torch.bfloat16,
+                                                             "kernel"))
     report["K7b"]["launches"] = counts["K7b"]
     plain = packed_block_grads(torch, setup, torch.bfloat16, "plain")
     ref = packed_block_grads(torch, setup, torch.float32, "plain")
@@ -1976,7 +2017,6 @@ def run_moco(torch, dev, report, tag: str = "moco"):
     and of an eval step, moco_agreement, then 3-step windows in the order
     plain, kernel, kernel, plain, and each bf16 path's peak memory."""
     from synchformer_tpu_torch.models.presets import build_moco_avclip
-    from synchformer_tpu_torch.ops.kernels import _build
     from synchformer_tpu_torch.utils.convert import seeded_state_dict
 
     t0 = time.perf_counter()
@@ -1995,14 +2035,10 @@ def run_moco(torch, dev, report, tag: str = "moco"):
 
     resident = torch.cuda.memory_allocated()
     trainers = {"kernel": trainer("amp", "kernel")}
-    _build.launches.clear()
-    kern, k_peak = moco_first_step(torch, trainers["kernel"], batch, "(a) bf16 kernel", tag,
-                                   resident)
-    counts = dict(_build.launches)
-    log(f"[{tag}] launches in one kernel-path step: {counts}")
-    for key, need in MOCO_LAUNCHES.items():
-        if counts.get(key, 0) != need:
-            fail(f"{tag}: {key} launched {counts.get(key, 0)} times in one step, expected {need}")
+    (kern, k_peak), counts = counted_record(
+        torch, tag, "one kernel-path step", MOCO_LAUNCHES,
+        lambda: moco_first_step(torch, trainers["kernel"], batch, "(a) bf16 kernel", tag,
+                                resident))
     for key in KEYS:
         if PATHS[key] == "stage1_train_moco":
             report[key]["launches"] = counts.get(key, 0)
@@ -2025,15 +2061,8 @@ def run_moco(torch, dev, report, tag: str = "moco"):
         torch.cuda.synchronize()
         times[name].append((time.perf_counter() - t) / 3)
 
-    _build.launches.clear()
-    out = trainers["kernel"].eval_step(batch)
-    torch.cuda.synchronize()
-    counts = dict(_build.launches)
-    log(f"[{tag}] launches in one kernel eval step: {counts}")
-    for key, need in MOCO_EVAL_LAUNCHES.items():
-        if counts.get(key, 0) != need:
-            fail(f"{tag}: {key} launched {counts.get(key, 0)} times in one eval step, "
-                 f"expected {need}")
+    out, _ = counted_record(torch, tag, "one kernel eval step", MOCO_EVAL_LAUNCHES,
+                            lambda: trainers["kernel"].eval_step(batch))
     if (out["vfeat"].shape != (B1, S, D) or not bool(torch.isfinite(out["loss"]))
             or not bool(torch.isfinite(out["vfeat"]).all())):
         fail(f"{tag} eval step: features of the wrong shape or non-finite")
@@ -2363,7 +2392,6 @@ def run_dp_world1(torch, dev, report):
     from torch.nn.parallel import DistributedDataParallel
 
     from synchformer_tpu_torch.models.presets import build_avclip
-    from synchformer_tpu_torch.ops.kernels import _build
 
     kept = KEPT.pop("stage1")
     port = free_port()
@@ -2378,16 +2406,9 @@ def run_dp_world1(torch, dev, report):
             tr = stage1_trainer(build_avclip, kept["sd"], dev, "amp", "kernel")
             if isinstance(tr.net, DistributedDataParallel) != (what == "ddp"):
                 fail(f"dp_world1: the trainer's net is a {type(tr.net).__name__} ({what})")
-            _build.launches.clear()
-            m = checked_step(tr, kept["batch"], f"dp_world1 {what}")
-            torch.cuda.synchronize()
-            counts = dict(_build.launches)
-            log(f"[dp_world1] {what}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}; "
-                f"launches {counts}")
-            for key, need in STAGE1_LAUNCHES.items():
-                if counts.get(key, 0) != need:
-                    fail(f"dp_world1 {what}: {key} launched {counts.get(key, 0)} times, "
-                         f"expected {need}")
+            m, _ = counted_record(torch, f"dp_world1 {what}", "one step", STAGE1_LAUNCHES,
+                                  lambda: checked_step(tr, kept["batch"], f"dp_world1 {what}"))
+            log(f"[dp_world1] {what}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}")
             recs[what] = record_to_cpu(step_gradients(torch, tr, m))
             t = time.perf_counter()
             for _ in range(3):
@@ -3422,27 +3443,17 @@ def legacy_predictors(torch, dev, b: int = B, s: int = S, frames=FRAMES,
     return preds, video, pcm
 
 
-def legacy_records(torch, preds, video, pcm, what: str = "") -> tuple:
-    """serving_record with both towers' features from each of
-    legacy_predictors' paths, the f32 reference with TF32 off in cuDNN's
-    convs (a full-f32 anchor); the kernel path's launches by key."""
-    from synchformer_tpu_torch.ops.kernels import _build
-
-    cuda = video.is_cuda
+def legacy_records(torch, preds, video, pcm) -> tuple:
+    """serving_record with both towers' features from legacy_predictors'
+    f32 path, with TF32 off in cuDNN's convs (a full-f32 anchor), and its
+    bf16 plain path."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         ref = serving_record(torch, preds["f32"], video, pcm, audio=True)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    plain = serving_record(torch, preds["plain"], video, pcm, audio=True)
-    if cuda:
-        torch.cuda.synchronize()
-    _build.launches.clear()
-    kern = serving_record(torch, preds["kernel"], video, pcm, audio=True)
-    if cuda:
-        torch.cuda.synchronize()
-    return ref, plain, kern, dict(_build.launches)
+    return ref, serving_record(torch, preds["plain"], video, pcm, audio=True)
 
 
 def sparsesync_parts(torch, dev):
@@ -3532,12 +3543,10 @@ def run_legacy(torch, dev, report):
     preds, video, pcm = legacy_predictors(torch, dev)
     log(f"[{tag}] (a) three models + inputs {time.perf_counter() - t0:.1f} s; frames "
         f"{tuple(video.shape)}, pcm {tuple(pcm.shape)}")
-    ref, plain, kern, counts = legacy_records(torch, preds, video, pcm)
-    log(f"[{tag}] launches in one kernel-path forward: {counts}")
-    for key, need in LEGACY_LAUNCHES.items():
-        if counts.get(key, 0) != need:
-            fail(f"{tag}: {key} launched {counts.get(key, 0)} times in one forward, "
-                 f"expected {need}")
+    ref, plain = legacy_records(torch, preds, video, pcm)
+    kern, _ = counted_record(torch, tag, "one kernel-path forward", LEGACY_LAUNCHES,
+                             lambda: serving_record(torch, preds["kernel"], video, pcm,
+                                                    audio=True))
     for name, rec in (("kernel", kern), ("plain", plain)):
         if rec["probs"].shape != (B, 21) or not bool(torch.isfinite(rec["probs"]).all()):
             fail(f"{tag}: {name} probabilities of shape {tuple(rec['probs'].shape)} or "
@@ -3551,28 +3560,7 @@ def run_legacy(torch, dev, report):
     if failed:
         fail(f"{tag}: kernel path outside tolerance: {failed}")
     del ref, plain, kern
-    peak = {}
-    for name in ("plain", "kernel"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        preds[name](video, pcm)
-        torch.cuda.synchronize()
-        peak[name] = torch.cuda.max_memory_allocated() - base
-    times = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        preds[name](video, pcm)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            preds[name](video, pcm)
-        torch.cuda.synchronize()
-        times[name].append((time.perf_counter() - t0) / 3)
-    for name, ts in times.items():
-        best = min(ts)
-        log(f"[timing] {tag} (a) {name} path: {best * 1e3:.1f} ms/batch of {B} clips = "
-            f"{B / best:.2f} clips/s (runs {[round(t * 1e3, 1) for t in ts]} ms); peak "
-            f"{gib(peak[name])} above the weights; {smi}")
+    timed_forwards(torch, f"{tag} (a)", preds, (video, pcm))
     del preds, video, pcm
     gc.collect()
     torch.cuda.empty_cache()
@@ -3612,9 +3600,229 @@ def run_legacy(torch, dev, report):
         f"{ms['bf16']:.1f} ms, f32 {ms['f32']:.1f} ms; {smi}")
 
 
+# phase 17: the tower options, built through the registry from the shipped configs
+
+def stage1_option_model(widths: dict | None = None) -> dict:
+    """configs/segment_avclip.yaml's model section (the config read as the
+    entry point reads it) with every rate live: the AST's hidden_dropout and
+    attn_dropout and the Motionformer's drop_rate P17_RATE, and Linear
+    aproj / vproj (n_embd -> n_embd). ``widths`` (n_embd, audio / video tower
+    params) replaces the widths, for the planted faults' dry run."""
+    from synchformer_tpu_torch.config.core import load_config
+
+    model = load_config(os.path.join(ENTRY_CONFIGS, "segment_avclip.yaml")).to_dict()["model"]
+    p, w = model["params"], widths or {}
+    p["n_embd"] = d = w.get("n_embd", p["n_embd"])
+    p["afeat_extractor"]["params"].update(hidden_dropout=P17_RATE, attn_dropout=P17_RATE,
+                                          **w.get("audio", {}))
+    p["vfeat_extractor"]["params"].update(drop_rate=P17_RATE, **w.get("video", {}))
+    for name in ("aproj", "vproj"):
+        p[name] = {"target": "torch.nn.Linear", "params": {"in_features": d, "out_features": d}}
+    return model
+
+
+def registry_build(node: dict):
+    """A build(remat=..., device=...) of ``node`` through the port's registry
+    (the towers' remat set where the node has towers), as the presets'."""
+    import copy
+
+    from synchformer_tpu_torch.registry import instantiate_from_config
+
+    def build(remat: bool = False, device=None):
+        cfg = copy.deepcopy(node)
+        for tower in ("afeat_extractor", "vfeat_extractor"):
+            if tower in cfg["params"]:
+                cfg["params"][tower]["params"]["remat"] = remat
+        return instantiate_from_config(cfg, device=device)
+
+    return build
+
+
+def option_predictors(torch, dev, model_node: dict) -> dict:
+    """SyncPredictors of one seeded model built from ``model_node`` through
+    the registry: 'f32' plain, 'plain' bf16, 'kernel' bf16."""
+    from synchformer_tpu_torch.infer import SyncPredictor
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
+
+    build = registry_build(model_node)
+    sd = seeded_state_dict(build(device="meta"), seed=0)
+    preds = {}
+    for name, dtype, impl in (("f32", torch.float32, "plain"), ("plain", torch.bfloat16, "plain"),
+                              ("kernel", torch.bfloat16, "kernel")):
+        model = build(device=dev)
+        load_numpy_state_dict(model, sd)
+        preds[name] = SyncPredictor(model, dev, dtype, impl)
+    return preds
+
+
+def masked_inputs(torch, dev, b: int = B1, s: int = S, frames=FRAMES, partial: bool = True,
+                  masked_frames: int = 4):
+    """Seeded uint8 frames (b, s, *frames), PCM (b, s, 10240) and the content
+    keep-masks: the frames' (b, s, *frames) and the log-mel's (b, s, 66,
+    128); all kept, or (``partial``) the last segment's final
+    ``masked_frames`` frames and each segment's last 20 mel time bins
+    masked."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    video = torch.from_numpy(rng.integers(0, 256, (b, s, *frames), dtype=np.uint8)).to(dev)
+    pcm = torch.from_numpy((rng.standard_normal((b, s, 10240)) * 0.1).astype(np.float32)).to(dev)
+    vis_mask = torch.ones((b, s, *frames), dtype=torch.bool, device=dev)
+    aud_mask = torch.ones((b, s, 66, 128), dtype=torch.bool, device=dev)
+    if partial:
+        vis_mask[:, -1, -masked_frames:] = False
+        aud_mask[:, :, -20:] = False
+    return video, pcm, {"vis_mask": vis_mask, "aud_mask": aud_mask}
+
+
+def with_last_segment(rec: dict) -> dict:
+    """serving_record's record with the video features of the last segment
+    apart (``vfeat_last``): (c)'s partial mask reaches the video there only,
+    and a fault confined to the masked segment moves the features of all 14
+    segments by a fraction of what it moves that segment's."""
+    return {**rec, "vfeat_last": rec["vfeat"][:, -1]}
+
+
+def tower_alone_records(torch, dev, tag: str, node: dict, inputs: dict, want: dict,
+                        name: str) -> list:
+    """One tower (``node`` through the registry, seeded) alone: f32 plain,
+    bf16 plain and bf16 kernel forwards of ``inputs`` (by dtype), the kernel
+    forward's launches exactly ``want``; serving_agreement's rule (relative
+    L2 within 2 x plain bf16's) on the outputs, under ``name``."""
+    from synchformer_tpu_torch.models.sync_model import Synchformer
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
+
+    build = registry_build({"target": node["target"], "params": dict(node["params"])})
+    sd = seeded_state_dict(build(device="meta"), seed=0)
+    recs = {}
+    for what, dtype, impl in (("f32", torch.float32, "plain"), ("plain", torch.bfloat16, "plain"),
+                              ("kernel", torch.bfloat16, "kernel")):
+        tower = build(device=dev).eval()
+        load_numpy_state_dict(tower, sd)
+        # the matrices in bf16 once, LN parameters and biases f32 (SyncPredictor's rule)
+        Synchformer.cast_matrices_(tower, dtype)
+        with torch.no_grad():
+            def run(tower=tower, dtype=dtype, impl=impl):
+                return {name: tower(inputs[dtype], impl).float()}
+
+            recs[what] = (counted_record(torch, tag, f"one {name} forward", want, run)[0]
+                          if impl == "kernel" else run())
+        del tower
+    log(f"[{tag}] {name}: output {tuple(recs['f32'][name].shape)}")
+    return serving_agreement(recs["f32"], recs["plain"], recs["kernel"], tag)
+
+
+def run_tower_options(torch, dev, report):
+    """Phase 17: (a) the Stage I step with every rate live and Linear
+    projections, (b) the joint-attention sync model, (c) the sync model
+    under keep-masks, (d) the AST classifier, mlp_ratio 2, unfactorized
+    towers; each held against f32 plain with exact launch counts."""
+    from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
+    from synchformer_tpu_torch.ops.video import normalize_frames
+
+    smi = smi_line()
+    # (a)
+    t0 = time.perf_counter()
+    run_stage1(torch, dev, report, build=registry_build(stage1_option_model()),
+               launches=P17_TRAIN_LAUNCHES, eval_launches=STAGE1_EVAL_LAUNCHES, tag="p17a",
+               path="phase 17 (a)")
+    log(f"[p17a] {time.perf_counter() - t0:.1f} s; {smi}")
+
+    # (b)
+    t0 = time.perf_counter()
+    tag = "p17b_joint"
+    preds = option_predictors(torch, dev, sync_config("train_avsync_model", S, widths={
+        "video": {"attn_layer": "joint"}})["model"])
+    video, pcm = slice_inputs(torch, dev, B1)
+    ref = serving_record(torch, preds["f32"], video, pcm)
+    plain = serving_record(torch, preds["plain"], video, pcm)
+    kern, _ = counted_record(torch, tag, "one kernel-path forward", P17_JOINT_LAUNCHES,
+                             lambda: serving_record(torch, preds["kernel"], video, pcm))
+    failed = serving_agreement(ref, plain, kern, tag)
+    if failed:
+        fail(f"{tag}: kernel path outside tolerance: {failed}")
+    del preds["f32"]
+    timed_forwards(torch, tag, preds, (video, pcm))
+    del preds, ref, plain, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] {time.perf_counter() - t0:.1f} s")
+
+    # (c)
+    t0 = time.perf_counter()
+    tag = "p17c_masked"
+    preds = option_predictors(torch, dev, sync_config("train_avsync_model", S)["model"])
+    video, pcm, keep = masked_inputs(torch, dev, partial=False)
+    unmasked = serving_record(torch, preds["kernel"], video, pcm)
+    ref = serving_record(torch, preds["f32"], video, pcm, masks=keep)
+    plain = serving_record(torch, preds["plain"], video, pcm, masks=keep)
+    kern, _ = counted_record(torch, tag, "one masked kernel-path forward", P17_MASKED_LAUNCHES,
+                             lambda: serving_record(torch, preds["kernel"], video, pcm,
+                                                    masks=keep))
+    err, err_p = maxabs(kern["probs"], unmasked["probs"]), maxabs(plain["probs"], ref["probs"])
+    tol = 2.0 * err_p + 5e-3
+    log(f"[{tag}] all kept: max|probs masked - unmasked| (kernel route) {err:.3e}, tol {tol:.3e} "
+        f"{'ok' if err <= tol else 'FAIL'}")
+    failed = serving_agreement(ref, plain, kern, f"{tag} all kept")
+    if err > tol:
+        failed.append("all kept against the unmasked route")
+    video, pcm, keep = masked_inputs(torch, dev, partial=True)
+    ref = with_last_segment(serving_record(torch, preds["f32"], video, pcm, masks=keep))
+    plain = with_last_segment(serving_record(torch, preds["plain"], video, pcm, masks=keep))
+    kern = with_last_segment(counted_record(
+        torch, tag, "one partly masked kernel-path forward", P17_MASKED_LAUNCHES,
+        lambda: serving_record(torch, preds["kernel"], video, pcm, masks=keep))[0])
+    failed += serving_agreement(ref, plain, kern, f"{tag} partial")
+    if failed:
+        fail(f"{tag}: outside tolerance: {failed}")
+    del preds["f32"]
+    timed_forwards(torch, tag, preds, (video, pcm), keep)
+    del preds, ref, plain, kern, unmasked, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] {time.perf_counter() - t0:.1f} s")
+
+    # (d)
+    t0 = time.perf_counter()
+    tag = "p17d"
+    nodes = sync_config("train_avsync_model", S)["model"]["params"]
+    video_u8, pcm = slice_inputs(torch, dev, B1)
+    mel = log_mel_spectrogram(pcm, MelSpectrogramConfig())
+    aud = {dt: mel.transpose(-1, -2).to(dt) for dt in (torch.float32, torch.bfloat16)}
+    video = normalize_frames(video_u8)
+    vis = {dt: video.to(dt) for dt in (torch.float32, torch.bfloat16)}
+    failed = []
+    for name, tower, opts, want, x in (
+            ("classifier", "afeat_extractor", {"extract_features": False, "num_labels": 527},
+             P17_AST_LAUNCHES, aud),
+            ("ast_unfactorized", "afeat_extractor", {"factorize_freq_time": False},
+             P17_AST_LAUNCHES, aud),
+            ("video_unfactorized", "vfeat_extractor", {"factorize_space_time": False},
+             P17_VIDEO_LAUNCHES, vis)):
+        node = {"target": nodes[tower]["target"], "params": {**nodes[tower]["params"], **opts}}
+        failed += tower_alone_records(torch, dev, tag, node, x, want, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del aud, vis, video, mel
+    preds = option_predictors(torch, dev, sync_config("train_avsync_model", S, widths={
+        "audio": {"mlp_ratio": 2.0}, "video": {"mlp_ratio": 2.0}})["model"])
+    video = video_u8
+    ref = serving_record(torch, preds["f32"], video, pcm)
+    plain = serving_record(torch, preds["plain"], video, pcm)
+    kern, _ = counted_record(torch, tag, "one mlp_ratio 2 kernel-path forward",
+                             P17_SYNC_LAUNCHES,
+                             lambda: serving_record(torch, preds["kernel"], video, pcm))
+    failed += [f"mlp_ratio 2 {n}" for n in serving_agreement(ref, plain, kern,
+                                                              f"{tag} mlp_ratio 2")]
+    if failed:
+        fail(f"{tag}: outside tolerance: {failed}")
+    log(f"[{tag}] {time.perf_counter() - t0:.1f} s; {smi}")
+
+
 PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
           run_serving_8head, run_moco, run_sync_training,
-          run_audio_augs, run_entry_point, run_data_parallel, run_reference_ckpts, run_legacy)
+          run_audio_augs, run_entry_point, run_data_parallel, run_reference_ckpts, run_legacy,
+          run_tower_options)
 
 
 def main() -> int:

@@ -125,6 +125,17 @@ of 128, and (336, 4, 512), 8 heads of 64), by serving_agreement over the
 probabilities and both towers' features; phase 2's legacy K4 cases
 (chip_smoke.k4_legacy_cases) are among the K4 kernel cases above.
 ``--only legacy`` runs these and the K4 kernel cases alone.
+Then phase 17's faults (option_faults): on (a), the Stage I step with
+every rate live and Linear projections (chip_smoke.stage1_agreement),
+proj_dropout_skipped, the kernel route's Motionformer without the dropout
+of its attention projections (its element dropouts skipped; the
+positional dropout is 0 there); on (c), the sync model's partly masked
+inference (chip_smoke.serving_agreement), mask_ignored, the masked divided
+attention (ops/kernels/divided_attention.py::divided_attention_packed_plain
+with a keep, the XLA composition models/motionformer.py runs under a
+keep-mask) attending as if every token were kept. Each line gives its
+margin (the largest error over its tolerance). ``--only options`` runs
+these alone.
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
@@ -151,6 +162,7 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from synchformer_tpu_torch.infer import SyncPredictor  # noqa: E402
+from synchformer_tpu_torch.models import motionformer as tmf  # noqa: E402
 from synchformer_tpu_torch.models.presets import (  # noqa: E402
     TINY,
     TINY_PACKED,
@@ -385,6 +397,14 @@ def k2_residual_dropped(fwd, x, g, b, w1, b1, w2, b2, eps, emit_stats):
     return out - x
 
 
+def mask_ignored(fwd, qkv, num_heads, num_frames, mode, keep=None):
+    return fwd(qkv, num_heads, num_frames, mode, keep=torch.ones_like(keep))
+
+
+def proj_dropout_skipped(drop, x, rate, generator):
+    return x
+
+
 K1_ENTRIES = (tda, ("_divided_attention_proj",))
 K2_ENTRIES = (frows, ("_ln_mlp",))
 K1_FAULTS = {"none": None, "k1_mode_swapped": (k1_mode_swapped, 0),
@@ -569,7 +589,7 @@ def legacy_faults(dev, tiny: bool) -> dict:
     serving_agreement (the probabilities and both towers' features)."""
     preds, video, pcm = chip_smoke.legacy_predictors(torch, dev,
                                                      **(TINY_LEGACY if tiny else {}))
-    ref, plain, _, _ = chip_smoke.legacy_records(torch, preds, video, pcm)
+    ref, plain = chip_smoke.legacy_records(torch, preds, video, pcm)
     caught = {}
     for name, fault in K4_FAULTS.items():
         with planted(*K4_ENTRIES, fault):
@@ -758,6 +778,96 @@ def stage2_faults(dev, tiny: bool) -> dict:
     return caught
 
 
+# phase 17's faults: the masked divided attention (the XLA composition the
+# port runs under a keep-mask) without its mask, on (c)'s partly masked sync
+# inference; the Motionformer's element dropouts (with pos_dropout 0, the
+# projections' after each divided attention) skipped, on (a)'s Stage I step
+MASK_ENTRIES = (tmf, ("divided_attention_packed_plain",))
+MASK_FAULTS = {"none": None, "mask_ignored": (mask_ignored, 0)}
+PROJ_DROP_ENTRIES = (tmf, ("element_dropout",))
+PROJ_DROP_FAULTS = {"none": None, "proj_dropout_skipped": (proj_dropout_skipped, 0)}
+# --tiny's phase 17 (a) model: segment_avclip.yaml's at the TINY widths
+TINY_OPTIONS = {"n_embd": TINY["d"],
+                "audio": {"depth": TINY["depth"], "num_heads": TINY["audio_heads"]},
+                "video": {k: v for k, v in TINY_SYNC["video"].items() if k != "embed_dim"}}
+
+
+def serving_margin(ref: dict, plain: dict, kern: dict) -> float:
+    """The largest error / tolerance of serving_agreement's rule over the
+    probabilities and the features (above 1: a check fails)."""
+    worst = 0.0
+    for name, a in ref.items():
+        if name == "logits":
+            continue
+        k, p = kern[name], plain[name]
+        if name == "probs":
+            err_k, tol = chip_smoke.maxabs(k, a), 2.0 * chip_smoke.maxabs(p, a) + 5e-3
+        else:
+            a64 = a.double()
+            err_k, err_p = (float((t.double() - a64).norm() / a64.norm()) for t in (k, p))
+            tol = 2.0 * err_p
+        worst = max(worst, err_k / tol if tol > 0 else float("inf"))
+    return worst
+
+
+def option_faults(dev, tiny: bool) -> dict:
+    """Phase 17's faults: PROJ_DROP_FAULTS on (a)'s Stage I step (f32 plain
+    with remat, bf16 plain, then the bf16 kernel path once per fault; each
+    fault's failed checks of stage1_agreement) and MASK_FAULTS on (c)'s
+    partly masked sync inference (f32 and bf16 plain, then the bf16 kernel
+    path once per fault; serving_agreement). --tiny: TINY_OPTIONS' Stage I
+    model and TINY_SYNC's sync model, B=2, S=2, frames of 4 x 32²."""
+    b, s, frames = (2, 2, (4, 32, 32, 3)) if tiny else (chip_smoke.B1, chip_smoke.S,
+                                                        chip_smoke.FRAMES)
+    build = chip_smoke.registry_build(chip_smoke.stage1_option_model(
+        TINY_OPTIONS if tiny else None))
+    batch = chip_smoke.stage1_batch(torch, b, s, frames)
+    sd = seeded_state_dict(build(device="meta"), seed=0)
+
+    def first_step(precision, impl, remat=False, fault=None):
+        tr = chip_smoke.stage1_trainer(build, sd, dev, precision, impl, remat)
+        with planted(*PROJ_DROP_ENTRIES, fault):
+            m = chip_smoke.checked_step(tr, batch, f"{precision} {impl}")
+        rec = chip_smoke.step_gradients(torch, tr, m)
+        del tr
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return rec
+
+    caught = {}
+    ref, plain = first_step("fp32", "plain", remat=True), first_step("amp", "plain")
+    for name, fault in PROJ_DROP_FAULTS.items():
+        margins = {}
+        caught[name] = chip_smoke.stage1_agreement(ref, plain, first_step("amp", "kernel",
+                                                                          fault=fault),
+                                                   f"p17a {name}", margins=margins)
+        chip_smoke.log(f"[fault] p17a {name}: {len(caught[name])} checks failed: "
+                       f"{caught[name][:6]}{' ...' if len(caught[name]) > 6 else ''}; margin "
+                       f"{max(margins.values()):.3g} (largest error / tolerance)")
+    del ref, plain
+    node = chip_smoke.sync_config("train_avsync_model", s,
+                                  widths=TINY_SYNC if tiny else None)["model"]
+    preds = chip_smoke.option_predictors(torch, dev, node)
+    # --tiny: 2 of the 4 frames (one of the two frames after the patch embed),
+    # so that the segment keeps frames whose attention the mask changes
+    video, pcm, keep = chip_smoke.masked_inputs(torch, dev, b, s, frames, partial=True,
+                                                masked_frames=2 if tiny else 4)
+    record = chip_smoke.serving_record
+    ref = chip_smoke.with_last_segment(record(torch, preds["f32"], video, pcm, masks=keep))
+    plain = chip_smoke.with_last_segment(record(torch, preds["plain"], video, pcm, masks=keep))
+    for name, fault in MASK_FAULTS.items():
+        with planted(*MASK_ENTRIES, fault):
+            kern = chip_smoke.with_last_segment(record(torch, preds["kernel"], video, pcm,
+                                                       masks=keep))
+        caught[name + " (c)"] = chip_smoke.serving_agreement(ref, plain, kern, f"p17c {name}")
+        chip_smoke.log(f"[fault] p17c {name}: {len(caught[name + ' (c)'])} checks failed: "
+                       f"{caught[name + ' (c)']}; margin {serving_margin(ref, plain, kern):.3g} "
+                       f"(largest error / tolerance)")
+    caught["none"] = caught["none"] + caught.pop("none (c)")
+    return caught
+
+
 def ckpt_faults(dev, tiny: bool) -> dict:
     """The Stage I reader's fault on phase 15 (c)
     (chip_smoke.stage1_reference_check: SyncTrainer's towers from a
@@ -835,10 +945,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--only", choices=("all", "dp", "ckpt", "legacy"), default="all",
+    ap.add_argument("--only", choices=("all", "dp", "ckpt", "legacy", "options"),
+                    default="all",
                     help="dp: the data-parallel faults of phase 14 (c) alone; ckpt: the Stage "
                          "I reader's of phase 15 (c) alone; legacy: the K4 faults on phase "
-                         "16 (a) and on phase 2's K4 cases alone")
+                         "16 (a) and on phase 2's K4 cases alone; options: phase 17's "
+                         "faults alone")
     args = ap.parse_args()
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -850,6 +962,11 @@ def main() -> int:
         return 0 if verdict("dp", dp_faults(dev, args.tiny)) else 1
     if args.only == "ckpt":
         return 0 if verdict("ckpt", ckpt_faults(dev, args.tiny)) else 1
+    if args.only == "options":
+        if dev.type == "cuda":
+            chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
+            _build.build_all()
+        return 0 if verdict("options", option_faults(dev, args.tiny)) else 1
     if args.only == "legacy":
         if dev.type == "cuda":
             chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
@@ -917,6 +1034,7 @@ def main() -> int:
     ok = verdict("dp", dp_faults(dev, args.tiny)) and ok
     ok = verdict("ckpt", ckpt_faults(dev, args.tiny)) and ok
     ok = verdict("legacy", legacy_faults(dev, args.tiny)) and ok
+    ok = verdict("options", option_faults(dev, args.tiny)) and ok
     return 0 if verdict("kernels_k2", k2) and ok else 1
 
 if __name__ == "__main__":

@@ -4,6 +4,8 @@
     probs = predictor(video_u8_patches, pcm)   # (B, 21) offset probabilities
 
 Input: patch-major uint8 video (B, S, 8, 196, 1536) from ``patchify_frames``
+(or the uint8 frames (B, S, 16, 224, 224, 3), patchified on the device, with
+which the content keep-masks ``vis_mask`` / ``aud_mask`` may be given)
 and PCM (B, S, 10240); for a model whose video tower is the legacy S3D,
 uint8 frames (B, S, T, H, W, C), normalised on the device as the patch embed
 folds them for the Motionformer (mean 0.5, std 0.5 of [0, 1]: S3D pads its
@@ -47,14 +49,26 @@ class SyncPredictor:
         self.model = model.to(self.device).cast_matrices_(dtype).eval()
 
     @torch.no_grad()
-    def logits(self, video_u8_patches: torch.Tensor, pcm: torch.Tensor) -> torch.Tensor:
+    def logits(self, video_u8_patches: torch.Tensor, pcm: torch.Tensor,
+               vis_mask: torch.Tensor | None = None,
+               aud_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Offset logits. ``vis_mask`` (B, S, T, H, W, C), with uint8 frames
+        of that shape in place of patches, and ``aud_mask`` (B, S,
+        max_spec_t, n_mels) are the towers' content keep-masks
+        (Synchformer.forward)."""
         video = video_u8_patches.to(self.device, non_blocking=True)
         if not self.folded:
             video = normalize_frames(video).to(self.dtype)
         mel = log_mel_spectrogram(pcm.to(self.device, non_blocking=True),
                                   self.mel_cfg)  # (B, S, n_mels, max_spec_t)
         aud = mel.transpose(-1, -2).to(self.dtype)
-        return self.model(video, aud, impl=self.impl)[1]
+        masks = {name: m.to(self.device, non_blocking=True)
+                 for name, m in (("vis_mask", vis_mask), ("aud_mask", aud_mask))
+                 if m is not None}
+        return self.model(video, aud, impl=self.impl, **masks)[1]
 
-    def __call__(self, video_u8_patches: torch.Tensor, pcm: torch.Tensor) -> torch.Tensor:
-        return torch.softmax(self.logits(video_u8_patches, pcm).float(), dim=-1)
+    def __call__(self, video_u8_patches: torch.Tensor, pcm: torch.Tensor,
+                 vis_mask: torch.Tensor | None = None,
+                 aud_mask: torch.Tensor | None = None) -> torch.Tensor:
+        return torch.softmax(self.logits(video_u8_patches, pcm, vis_mask, aud_mask).float(),
+                             dim=-1)

@@ -8,8 +8,12 @@ aggregator, ``TemporalAggregator``). State names: cls_token, pos_emb, norm1,
 norm2, self_attn.{in_proj_weight, in_proj_bias, out_proj}, linear1, linear2.
 As in the JAX layer (aggregators.py:52-86), the CLS row goes in as the
 block's shared ``cls_row`` (on the kernel route the whole layer is K4) unless
-the positional dropout is live; then [cls; x] is formed, the embedding added
-and dropped, and the block runs with the CLS row inside x (K4b).
+a keep-mask is given or the positional dropout is live; then [cls; x] is
+formed, the embedding added and dropped, and the block runs with the CLS row
+inside x (K4b where nothing else is stochastic and no keep-mask is given).
+The block's own dropout (the tower's drop_rate or attn_dropout) is live in
+training; the block then takes the plain composition, as the JAX block.
+The spatial and frequency aggregators take the tower's token keep-mask.
 ``AveragePooling`` is the towers' time tail in the Stage I configuration
 (configs/segment_avclip.yaml), and where a config names it, their frequency
 or spatial pool. ``time_tail`` builds a tower's time tail from the JAX
@@ -34,15 +38,16 @@ from synchformer_tpu_torch.models.layers import (
 
 class CLSPoolEncoderLayer(PreLNBlock):
     """(B, N, D) -> (B, D): the CLS row of one pre-LN encoder layer over
-    [cls; x]. LN eps 1e-6, MLP 4D, exact GELU. ``add_pos_emb`` adds a learned
-    (1, 1 + pos_max_len, D) embedding to [cls; x], dropped at ``pos_emb_drop``
-    in training. The block's own dropout is not ported: ``dropout`` above 0
-    is refused in training."""
+    [cls; x]. LN eps 1e-6, MLP 4D, exact GELU. ``dropout`` is the block's
+    attention and residual dropout, live in training. ``add_pos_emb`` adds a
+    learned (1, 1 + pos_max_len, D) embedding to [cls; x], dropped at
+    ``pos_emb_drop`` in training. ``keep_mask`` (B, N) masks keys; the CLS
+    row is always kept."""
 
     def __init__(self, d: int, num_heads: int, eps: float = 1e-6, mlp_ratio: float = 4.0,
                  dropout: float = 0.0, add_pos_emb: bool = False,
                  pos_max_len: Optional[int] = None, pos_emb_drop: float = 0.0, device=None):
-        super().__init__(num_heads, eps)
+        super().__init__(num_heads, eps, dropout, dropout)
         hidden = int(d * mlp_ratio)
         self.dropout = float(dropout)
         self.pos_emb_drop = float(pos_emb_drop)
@@ -69,39 +74,58 @@ class CLSPoolEncoderLayer(PreLNBlock):
             self.linear1.weight, self.linear1.bias, self.linear2.weight, self.linear2.bias)
 
     def pool(self, x: torch.Tensor, impl: str, deterministic: bool = True,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if not deterministic and self.dropout > 0.0:
-            raise NotImplementedError("the aggregator block's dropout is not ported: "
-                                      "set its dropout to 0")
+             generator: Optional[torch.Generator] = None,
+             keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """As the JAX layer (aggregators.py:49-87): the CLS row as the block's
+        shared ``cls_row`` (split_cls) unless a keep-mask is given or the
+        positional dropout is live; then [cls; x] explicitly, the keep-mask
+        with the CLS row kept, the embedding added and dropped."""
+        if not deterministic and generator is None:
+            raise ValueError("training (deterministic=False) needs a generator")
+        gen = None if deterministic else generator
         b, n, d = x.shape
         cls, pos = self.cls_token[0], self.pos_emb
-        if deterministic or self.pos_emb_drop == 0.0:  # JAX split_cls
+        if keep_mask is None and (deterministic or self.pos_emb_drop == 0.0):  # JAX split_cls
             if pos is not None:
                 cls = cls + pos[0, :1]
                 x = x + pos[:, 1:1 + n].to(x.dtype)
-            return super().forward(x, impl, query_rows=1, cls_row=cls)[:, 0, :]
-        if generator is None:
-            raise ValueError("a live positional dropout needs a generator")
+            return super().forward(x, impl, query_rows=1, cls_row=cls, generator=gen)[:, 0, :]
         x = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, d), x], dim=1)
-        x = element_dropout(x + pos[:, :1 + n].to(x.dtype), self.pos_emb_drop, generator)
-        return super().forward(x, impl, query_rows=1)[:, 0, :]
+        if keep_mask is not None:
+            keep_mask = torch.cat([torch.ones(b, 1, dtype=torch.bool, device=x.device),
+                                   keep_mask.bool()], dim=1)
+        if pos is not None:
+            x = x + pos[:, :1 + n].to(x.dtype)
+            if gen is not None:
+                x = element_dropout(x, self.pos_emb_drop, gen)
+        return super().forward(x, impl, query_rows=1, generator=gen,
+                               keep_mask=keep_mask)[:, 0, :]
 
 
 class SpatialAggregator(CLSPoolEncoderLayer):
-    """(BS, t, h, w, D) -> (BS, t, D): per-frame CLS attention over h*w tokens."""
+    """(BS, t, h, w, D) -> (BS, t, D): per-frame CLS attention over h*w
+    tokens; ``keep_mask`` (BS, t, h, w)."""
 
-    def forward(self, x: torch.Tensor, impl: str = "plain") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "plain", deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         bs, t, h, w, d = x.shape
-        return self.pool(x.reshape(bs * t, h * w, d), impl).reshape(bs, t, d)
+        mask = None if keep_mask is None else keep_mask.reshape(bs * t, h * w)
+        return self.pool(x.reshape(bs * t, h * w, d), impl, deterministic, generator,
+                         mask).reshape(bs, t, d)
 
 
 class FrequencyAggregator(CLSPoolEncoderLayer):
-    """(BS, f, t, D) -> (BS, t, D): per-timestep CLS attention over f tokens."""
+    """(BS, f, t, D) -> (BS, t, D): per-timestep CLS attention over f
+    tokens; ``keep_mask`` (BS, f, t)."""
 
-    def forward(self, x: torch.Tensor, impl: str = "plain") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "plain", deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         bs, f, t, d = x.shape
         flat = x.transpose(1, 2).reshape(bs * t, f, d)
-        return self.pool(flat, impl).reshape(bs, t, d)
+        mask = None if keep_mask is None else keep_mask.transpose(1, 2).reshape(bs * t, f)
+        return self.pool(flat, impl, deterministic, generator, mask).reshape(bs, t, d)
 
 
 class TemporalAggregator(CLSPoolEncoderLayer):
@@ -118,26 +142,28 @@ class AveragePooling(nn.Module):
     """Mean over ``dim`` (an axis or a tuple of axes;
     synchformer_tpu/models/aggregators.py::AveragePooling with ``bs t d -> bs
     d``, ``bs f t d -> bs t d`` or ``bs t h w d -> bs t d``). No parameters;
-    ``impl`` is accepted so that it stands wherever a CLS-pool aggregator
-    does."""
+    the other arguments of a CLS-pool aggregator are accepted and, as in the
+    JAX module, a keep-mask is ignored."""
 
     def __init__(self, dim=1):
         super().__init__()
         self.dim = dim
 
-    def forward(self, x: torch.Tensor, impl: str = "plain") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, impl: str = "plain", deterministic: bool = True,
+                generator: Optional[torch.Generator] = None, keep_mask=None) -> torch.Tensor:
         return x.mean(dim=self.dim)
 
 
-def time_tail(agg_time_module: str, d: int, num_heads: int, device=None) -> Optional[nn.Module]:
+def time_tail(agg_time_module: str, d: int, num_heads: int, device=None,
+              dropout: float = 0.0) -> Optional[nn.Module]:
     """A tower's time tail, (BS, t, D) -> (BS, D), as the JAX towers read
     ``agg_time_module`` (ast_encoder.py:164-172, motionformer.py:684-692):
     'TransformerEncoderLayer' a TemporalAggregator without a positional
-    embedding (K4 on the kernel route), 'AveragePooling' the mean; any other
-    string (the reference configs' 'torch.nn.Identity', 'Identity') keeps the
-    (BS, t, D) features: None."""
+    embedding (K4 on the kernel route; ``dropout`` is its block's),
+    'AveragePooling' the mean; any other string (the reference configs'
+    'torch.nn.Identity', 'Identity') keeps the (BS, t, D) features: None."""
     if agg_time_module == "TransformerEncoderLayer":
-        return TemporalAggregator(d, num_heads, device=device)
+        return TemporalAggregator(d, num_heads, dropout=dropout, device=device)
     if agg_time_module == "AveragePooling":
         return AveragePooling(1)
     return None

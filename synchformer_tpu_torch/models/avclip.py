@@ -2,7 +2,9 @@
 (synchformer_tpu/models/avclip.py).
 
 Two towers with the AveragePooling time tail give one feature per segment,
-(B, S, D); DoNothingBridge projections; the (B*S, D) features are
+(B, S, D); the projections ``vproj`` / ``aproj`` (modules built from the
+config's nodes: DoNothingBridge by default, a LinearBridge for
+``torch.nn.Linear``); the (B*S, D) features are
 L2-normalised; the loss is the symmetric cross-entropy of
 ``sim = v @ a.T / clamp(logit_scale)`` in f32 (the temperature divides, as in
 the reference). ``logit_scale`` is a 0-d f32 parameter, clamped to
@@ -35,7 +37,8 @@ from synchformer_tpu_torch.parallel import dist as pdist
 class AVCLIP(nn.Module):
     def __init__(self, vfeat_extractor: dict, afeat_extractor: dict, d: int = 768,
                  init_scale: float = 0.07, clamp_scale_min: float = 0.001,
-                 clamp_scale_max: float = 0.5, device=None):
+                 clamp_scale_max: float = 0.5, vproj: Optional[nn.Module] = None,
+                 aproj: Optional[nn.Module] = None, device=None):
         super().__init__()
         self.init_scale = init_scale
         self.clamp_scale_min = clamp_scale_min
@@ -44,8 +47,8 @@ class AVCLIP(nn.Module):
                                                    device=device, **vfeat_extractor)
         self.afeat_extractor = ASTEncoder(hidden_size=d, agg_time_module="AveragePooling",
                                           device=device, **afeat_extractor)
-        self.vproj = DoNothingBridge()
-        self.aproj = DoNothingBridge()
+        self.vproj = vproj if vproj is not None else DoNothingBridge()
+        self.aproj = aproj if aproj is not None else DoNothingBridge()
         self.logit_scale = nn.Parameter(torch.tensor(init_scale, dtype=torch.float32,
                                                      device=device))
 
@@ -65,9 +68,11 @@ class AVCLIP(nn.Module):
         return self._normalise(self.vfeat_extractor(vis, impl, deterministic, generator),
                                self.vproj)
 
-    def encode_audio(self, aud, impl: str) -> torch.Tensor:
+    def encode_audio(self, aud, impl: str, deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, S, T, F) log-mel -> L2-normalised (B*S, D)."""
-        return self._normalise(self.afeat_extractor(aud, impl), self.aproj)
+        return self._normalise(self.afeat_extractor(aud, impl, deterministic, generator),
+                               self.aproj)
 
     def contrastive_loss(self, vfeat: torch.Tensor, afeat: torch.Tensor) -> torch.Tensor:
         """Symmetric InfoNCE with the temperature dividing the similarity: this
@@ -93,7 +98,8 @@ class AVCLIP(nn.Module):
 
     def forward(self, vis, aud, impl: str = "plain", deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        """Returns (loss, vfeat (B*S, D), afeat (B*S, D))."""
+        """Returns (loss, vfeat (B*S, D), afeat (B*S, D)). In training the
+        video tower draws from ``generator`` first, then the audio tower."""
         vfeat = self.encode_video(vis, impl, deterministic, generator)
-        afeat = self.encode_audio(aud, impl)
+        afeat = self.encode_audio(aud, impl, deterministic, generator)
         return self.contrastive_loss(vfeat, afeat), vfeat, afeat

@@ -29,7 +29,7 @@ from torch import nn
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 NOT_TRAINED = ("training the legacy towers (BatchNorm in training mode, its running-statistics "
-               "update) is not ported (ROADMAP §1 item 7)")
+               "update) is not ported (ROADMAP §1 item 7.5)")
 
 
 def same_pads(sizes: Sequence[int], kernel: Sequence[int],

@@ -2,8 +2,10 @@
 moco_clip.py), and its functional machinery.
 
 The model: the two towers with the AveragePooling time tail and, with
-``add_global_repr``, their global segment aggregators; DoNothingBridge
-projections per level; L2-normalised segment (B*S, D) and global (B, D)
+``add_global_repr``, their global segment aggregators; the projections
+per level, each its own module built by ``make_vproj`` / ``make_aproj``
+(DoNothingBridge by default; the registry builds each from the config's aproj / vproj node, as
+the JAX setup instantiates the node once per level); L2-normalised segment (B*S, D) and global (B, D)
 features; one 0-d f32 temperature per level, clamped to [clamp_scale_min,
 clamp_scale_max] where it is used (``scales``) and never after an update.
 State names: ``v_encoder.*`` and ``a_encoder.*`` (the Stage I checkpoint's
@@ -35,7 +37,7 @@ query pass (``model``, possibly under DDP) sees this rank's rows only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -55,8 +57,12 @@ def l2norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 class MultilevelMoCoCLIP(nn.Module):
     def __init__(self, vfeat_extractor: dict, afeat_extractor: dict, d: int = 768,
                  queue_size: int = 1024, momentum: float = 0.995, init_scale: float = 0.07,
-                 clamp_scale_min: float = 0.001, clamp_scale_max: float = 0.5, device=None):
+                 clamp_scale_min: float = 0.001, clamp_scale_max: float = 0.5,
+                 make_vproj: Optional[Callable[[], nn.Module]] = None,
+                 make_aproj: Optional[Callable[[], nn.Module]] = None, device=None):
         super().__init__()
+        make_vproj = make_vproj or DoNothingBridge
+        make_aproj = make_aproj or DoNothingBridge
         self.n_embd = d
         self.queue_size = queue_size
         self.momentum = momentum
@@ -72,13 +78,13 @@ class MultilevelMoCoCLIP(nn.Module):
             raise ValueError("add_global_repr differs between the towers")
         if self.a_encoder.max_segments != self.v_encoder.max_segments:
             raise ValueError("max_segments differs between the towers")
-        self.segment_vproj = DoNothingBridge()
-        self.segment_aproj = DoNothingBridge()
+        self.segment_vproj = make_vproj()
+        self.segment_aproj = make_aproj()
         self.segment_logit_scale = nn.Parameter(
             torch.tensor(init_scale, dtype=torch.float32, device=device))
         if self.add_global_repr:
-            self.global_vproj = DoNothingBridge()
-            self.global_aproj = DoNothingBridge()
+            self.global_vproj = make_vproj()
+            self.global_aproj = make_aproj()
             self.global_logit_scale = nn.Parameter(
                 torch.tensor(init_scale, dtype=torch.float32, device=device))
 
@@ -93,7 +99,7 @@ class MultilevelMoCoCLIP(nn.Module):
         normalised segment (B*S, D) and global (B, D) features (None without
         add_global_repr)."""
         seg_v, glob_v = self.v_encoder.forward_with_global(vis, impl, deterministic, generator)
-        seg_a, glob_a = self.a_encoder.forward_with_global(aud, impl)
+        seg_a, glob_a = self.a_encoder.forward_with_global(aud, impl, deterministic, generator)
         b, s, d = seg_v.shape
         out = {"segment_vfeat": l2norm(self.segment_vproj(seg_v.reshape(b * s, d))),
                "segment_afeat": l2norm(self.segment_aproj(seg_a.reshape(b * s, d))),

@@ -70,15 +70,41 @@ tokens after their positional embeddings in training, on both flows
 reference (``patch_embed_3d.proj``,
 ``blocks.{i}.{norm1,norm2,norm3,attn,timeattn,mlp}``, ``norm``,
 ``spatial_attn_agg``, ``global_attn_agg``).
+
+The other JAX options (motionformer.py:457-705):
+- ``drop_rate``, live in training: each attention's projection is dropped
+  (after K5 on the split flow, after K7a / K8a on the packed one), and a
+  block with a live dropout or drop-path runs its MLP as the plain
+  composition with both of its dropouts; the aggregators take it as their
+  block dropout. Eval is unchanged (K1, K2).
+- 6-D frames (B, S, T, H, W, C) go through the same patch embed, patchified
+  on the device (ops/video.py::patchify_frames); the 5-D patch-major route
+  is unchanged.
+- ``keep_mask`` (B, S, T, H, W, C), with 6-D frames only: the content keep
+  becomes a token keep, the minimum over each patch's z x p x p x C window
+  (JAX :533-544), and the tower takes the packed flow (JAX ``use_split`` is
+  false under a mask) with the divided attention as the JAX XLA composition
+  (ops/kernels/divided_attention.py::divided_attention_packed_plain with
+  its ``keep``: no K1, K5, K7a-K7c or K8a); the MLP keeps K2 /
+  K8b where nothing is stochastic; the spatial aggregator masks its keys.
+- ``attn_layer='joint'``: one ``st_embed`` (1, 1 + f*n, D) and plain pre-LN
+  blocks (layers.ViTBlock: ``blocks.{i}.{norm1,attn,norm2,mlp}``) over all
+  tokens, their residual dropout ``drop_rate`` and drop-path, on the plain
+  route always (the JAX blocks run at PreLNBlock's default impl 'xla'); the
+  spatial pool stays on K4.
+- ``factorize_space_time=False`` keeps the (f, h, w) grid, (B, S, f, h, w,
+  D); an ``agg_space_module`` other than the two pools runs no pool, as the
+  JAX tower; ``mlp_ratio`` sets the blocks' hidden width;
+  ``extract_features`` is accepted and read nowhere, as in the JAX tower.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from synchformer_tpu_torch.models.aggregators import (
     AveragePooling,
@@ -91,10 +117,13 @@ from synchformer_tpu_torch.models.layers import (
     DropPath,
     LayerNorm,
     Linear,
+    ViTBlock,
+    checkpoint_with_generator,
     element_dropout,
     mlp,
 )
 from synchformer_tpu_torch.ops.kernels.divided_attention import (
+    divided_attention_packed_plain,
     divided_attention_proj,
     heads_groupable,
 )
@@ -111,13 +140,14 @@ from synchformer_tpu_torch.ops.kernels.fused_rows import (
     ln_mlp_residual_plain,
 )
 from synchformer_tpu_torch.ops.numerics import dense, layer_norm, layer_norm_from_stats
-from synchformer_tpu_torch.ops.video import patch_embed_matrix
+from synchformer_tpu_torch.ops.video import patch_embed_matrix, patchify_frames
 
 
 class DividedAttention(nn.Module):
-    def __init__(self, d: int, num_heads: int, device=None):
+    def __init__(self, d: int, num_heads: int, dropout: float = 0.0, device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = float(dropout)
         self.qkv = Linear(d, 3 * d, device=device)
         self.proj = Linear(d, d, device=device)
 
@@ -132,45 +162,64 @@ class DividedAttention(nn.Module):
         proj_c = torch.matmul(attn_c.float(), self.proj.weight.float().t()) + self.proj.bias.float()
         return cls + proj_c.to(dtype), y_p
 
-    def attend(self, ln_cls, ln_patches, mode: str, impl: str):
+    def _drop(self, t, generator: Optional[torch.Generator]):
+        """The projection's dropout (JAX proj_dropout), live with a generator."""
+        return t if generator is None else element_dropout(t, self.dropout, generator)
+
+    def attend(self, ln_cls, ln_patches, mode: str, impl: str,
+               generator: Optional[torch.Generator] = None):
         """Training: LN'd (cls, patches) -> projected attention (cls, patches),
-        differentiable (K5 forward, K6 backward on the kernel route)."""
+        differentiable (K5 forward, K6 backward on the kernel route), each
+        projection dropped with a generator (the CLS row's first)."""
         qkv_c = self.qkv(ln_cls)
         qkv_p = self.qkv(ln_patches)
         out_p, out_c = divided_attention_split(qkv_p, qkv_c, self.num_heads, mode, impl=impl)
-        return self.proj(out_c), self.proj(out_p)
+        return self._drop(self.proj(out_c), generator), self._drop(self.proj(out_p), generator)
 
     def attend_packed(self, x, norm: LayerNorm, num_frames: int, mode: str, impl: str,
-                      attn_impl: str):
+                      attn_impl: str, generator: Optional[torch.Generator] = None,
+                      keep_mask: Optional[torch.Tensor] = None):
         """Packed flow, eval and training: the block's x (B, 1 + f*n, D) and
-        this attention's pre-norm -> projected attention, differentiable. On
-        the kernel route 'pallas' runs LN -> QKV -> K7a/K7b, 'pallas_fused'
-        K8a; the backward is K7c on both."""
-        if attn_impl == "pallas_fused":
+        this attention's pre-norm -> projected attention, differentiable,
+        dropped with a generator. Under a keep-mask (B, 1 + f*n): LN -> QKV ->
+        divided_attention_packed_plain with the mask on every route. Otherwise, on the kernel
+        route 'pallas' runs LN -> QKV -> K7a/K7b, 'pallas_fused' K8a; the
+        backward is K7c on both."""
+        if keep_mask is not None:
+            out = divided_attention_packed_plain(self.qkv(norm(x)), self.num_heads, num_frames,
+                                                 mode, keep=keep_mask)
+        elif attn_impl == "pallas_fused":
             out = fused_divided_attention(x, norm.weight, norm.bias, self.qkv.weight.to(x.dtype),
                                           self.qkv.bias, self.num_heads, num_frames, mode,
                                           norm.eps, impl=impl)
         else:
             out = packed_divided_attention(self.qkv(norm(x)), self.num_heads, num_frames, mode,
                                            impl=impl)
-        return self.proj(out)
+        return self._drop(self.proj(out), generator)
 
 
 class DividedSpaceTimeBlock(nn.Module):
     def __init__(self, d: int, num_heads: int, eps: float = 1e-6, mlp_ratio: float = 4.0,
-                 drop_path: float = 0.0, attn_impl: str = "pallas", device=None):
+                 drop_path: float = 0.0, attn_impl: str = "pallas", dropout: float = 0.0,
+                 device=None):
         super().__init__()
         self.eps = eps
         self.attn_impl = attn_impl
+        self.dropout = float(dropout)
         hidden = int(d * mlp_ratio)
         self.norm1 = LayerNorm(d, eps, device)
         self.norm2 = LayerNorm(d, eps, device)
         self.norm3 = LayerNorm(d, eps, device)
-        self.attn = DividedAttention(d, num_heads, device)
-        self.timeattn = DividedAttention(d, num_heads, device)
+        self.attn = DividedAttention(d, num_heads, dropout, device)
+        self.timeattn = DividedAttention(d, num_heads, dropout, device)
         self.mlp = Container(fc1=Linear(d, hidden, device=device),
                              fc2=Linear(hidden, d, device=device))
         self.drop_path = DropPath(drop_path)
+
+    def stochastic(self, generator: Optional[torch.Generator]) -> bool:
+        """Training with a live dropout or drop-path: the MLP leaves K2 / K8b
+        for the plain composition (JAX ``stochastic``, motionformer.py:333)."""
+        return generator is not None and (self.dropout > 0.0 or self.drop_path.rate > 0.0)
 
     def _ln_patches(self, norm: LayerNorm, patches, stats):
         if stats is None:
@@ -195,41 +244,50 @@ class DividedSpaceTimeBlock(nn.Module):
         return cls, patches, stats
 
     def forward_train(self, cls, patches, impl: str, space_scale: Optional[torch.Tensor],
-                      mlp_scale: Optional[torch.Tensor]):
+                      mlp_scale: Optional[torch.Tensor],
+                      generator: Optional[torch.Generator] = None):
         """Training, and eval under 'pallas_fused': (cls, patches) -> (cls,
         patches). ``space_scale`` and ``mlp_scale`` are this block's drop-path
-        factors (DropPath.draw), both None at drop-path 0 and in eval."""
-        t_c, t_p = self.timeattn.attend(self.norm3(cls), self.norm3(patches), "time", impl)
+        factors (DropPath.draw), both None at drop-path 0 and in eval;
+        ``generator`` (training) draws the dropouts."""
+        t_c, t_p = self.timeattn.attend(self.norm3(cls), self.norm3(patches), "time", impl,
+                                        generator)
         cls, patches = cls + t_c, patches + t_p
-        s_c, s_p = self.attn.attend(self.norm1(cls), self.norm1(patches), "space", impl)
+        s_c, s_p = self.attn.attend(self.norm1(cls), self.norm1(patches), "space", impl,
+                                    generator)
         cls = cls + DropPath.drop(s_c, space_scale)
         patches = patches + DropPath.drop(s_p, space_scale)
         mlp_args = self._mlp_args(patches.dtype)
-        if mlp_scale is None:  # not stochastic: the patches' MLP is K2
+        if not self.stochastic(generator):  # the patches' MLP is K2
             patches = fused_ln_mlp_residual(patches, *mlp_args, impl=impl)
             return ln_mlp_residual_plain(cls, *mlp_args), patches
-        return (cls + DropPath.drop(self._mlp_plain(cls), mlp_scale),
-                patches + DropPath.drop(self._mlp_plain(patches), mlp_scale))
+        return (cls + DropPath.drop(self._mlp_plain(cls, generator), mlp_scale),
+                patches + DropPath.drop(self._mlp_plain(patches, generator), mlp_scale))
 
-    def _mlp_plain(self, t):
+    def _mlp_plain(self, t, generator: Optional[torch.Generator] = None):
         return mlp(layer_norm(t, self.norm2.weight, self.norm2.bias, self.eps, t.dtype),
                    self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
-                   self.mlp.fc2.bias)
+                   self.mlp.fc2.bias, self.dropout, generator)
 
     def forward_packed(self, x, num_frames: int, impl: str,
-                       space_scale: Optional[torch.Tensor], mlp_scale: Optional[torch.Tensor]):
+                       space_scale: Optional[torch.Tensor], mlp_scale: Optional[torch.Tensor],
+                       generator: Optional[torch.Generator] = None,
+                       keep_mask: Optional[torch.Tensor] = None):
         """Packed flow, eval and training: x (B, 1 + f*n, D) -> x. The scales
-        are this block's drop-path factors (DropPath.draw); both None in eval
-        and at drop-path 0, where the MLP is K2 ('pallas') or K8b
-        ('pallas_fused') on the whole packed x."""
+        are this block's drop-path factors (DropPath.draw), both None in eval
+        and at drop-path 0; ``generator`` (training) draws the dropouts;
+        ``keep_mask`` (B, 1 + f*n) masks both attentions. Where nothing is
+        stochastic the MLP is K2 ('pallas') or K8b ('pallas_fused') on the
+        whole packed x."""
         x = x + self.timeattn.attend_packed(x, self.norm3, num_frames, "time", impl,
-                                            self.attn_impl)
+                                            self.attn_impl, generator, keep_mask)
         x = x + DropPath.drop(self.attn.attend_packed(x, self.norm1, num_frames, "space", impl,
-                                                      self.attn_impl), space_scale)
-        if mlp_scale is None:  # not stochastic
+                                                      self.attn_impl, generator, keep_mask),
+                              space_scale)
+        if not self.stochastic(generator):
             mlp = fused_mlp_residual if self.attn_impl == "pallas_fused" else fused_ln_mlp_residual
             return mlp(x, *self._mlp_args(x.dtype), impl=impl)
-        return x + DropPath.drop(self._mlp_plain(x), mlp_scale)
+        return x + DropPath.drop(self._mlp_plain(x, generator), mlp_scale)
 
 
 class MotionFormerEncoder(nn.Module):
@@ -241,63 +299,99 @@ class MotionFormerEncoder(nn.Module):
                  agg_time_module: str = "Identity",
                  remat: bool = False, attn_impl: str = "pallas", pos_dropout: float = 0.0,
                  add_global_repr: bool = False, max_segments: Optional[int] = None,
+                 mlp_ratio: float = 4.0, attn_layer: str = "divided", drop_rate: float = 0.0,
+                 factorize_space_time: bool = True, extract_features: bool = True,
                  device=None):
         super().__init__()
-        if agg_space_module not in ("TransformerEncoderLayer", "AveragePooling"):
-            raise ValueError(f"agg_space_module must be 'TransformerEncoderLayer' or "
-                             f"'AveragePooling', got {agg_space_module!r}")
-        tail = time_tail(agg_time_module, embed_dim, num_heads, device)
-        if add_global_repr and tail is None:
-            raise ValueError("add_global_repr pools (B, S, D) segment features: it needs "
-                             "agg_time_module 'AveragePooling' or 'TransformerEncoderLayer'")
+        if attn_layer not in ("divided", "joint"):
+            raise ValueError(f"attn_layer must be 'divided' or 'joint', got {attn_layer!r}")
         if attn_impl not in ("pallas", "pallas_fused"):
             raise ValueError(f"attn_impl must be 'pallas' or 'pallas_fused', got {attn_impl!r}")
+        space_pools = agg_space_module in ("TransformerEncoderLayer", "AveragePooling")
+        tail = (time_tail(agg_time_module, embed_dim, num_heads, device, drop_rate)
+                if factorize_space_time else None)
+        if tail is not None and not space_pools:
+            raise ValueError(f"the time tail {agg_time_module!r} takes (BS, t, D) features: "
+                             f"agg_space_module {agg_space_module!r} pools no frame")
+        if add_global_repr and tail is None:
+            raise ValueError("add_global_repr pools (B, S, D) segment features: it needs "
+                             "agg_time_module 'AveragePooling' or 'TransformerEncoderLayer' "
+                             "on a factorized tower")
         d = embed_dim
         self.eps = ln_eps
         self.f = temporal_resolution
+        self.z = z_block_size
+        self.patch_size = patch_size
         self.grid = img_size // patch_size
         self.remat = remat
         self.attn_impl = attn_impl
+        self.joint = attn_layer == "joint"
         self.packed = not heads_groupable(num_heads, embed_dim // num_heads)
         n = self.grid * self.grid
         self.patch_embed_3d = Container(proj=nn.Conv3d(
             in_chans, d, (z_block_size, patch_size, patch_size),
             stride=(z_block_size, patch_size, patch_size), device=device))
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
-        self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, d, device=device))
-        self.temp_embed = nn.Parameter(torch.zeros(1, temporal_resolution, d, device=device))
         dpr = np.linspace(0.0, drop_path_rate, depth)
-        self.blocks = nn.ModuleList([DividedSpaceTimeBlock(d, num_heads, ln_eps,
-                                                           drop_path=float(dpr[i]),
-                                                           attn_impl=attn_impl, device=device)
-                                     for i in range(depth)])
+        if self.joint:
+            self.st_embed = nn.Parameter(torch.zeros(1, temporal_resolution * n + 1, d,
+                                                     device=device))
+            self.blocks = nn.ModuleList([ViTBlock(d, num_heads, ln_eps, mlp_ratio, drop_rate,
+                                                  float(dpr[i]), device=device)
+                                         for i in range(depth)])
+        else:
+            self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, d, device=device))
+            self.temp_embed = nn.Parameter(torch.zeros(1, temporal_resolution, d,
+                                                       device=device))
+            self.blocks = nn.ModuleList([DividedSpaceTimeBlock(d, num_heads, ln_eps, mlp_ratio,
+                                                               float(dpr[i]), attn_impl,
+                                                               drop_rate, device=device)
+                                         for i in range(depth)])
         self.norm = LayerNorm(d, ln_eps, device)
-        self.spatial_attn_agg = (SpatialAggregator(d, num_heads, device=device)
-                                 if agg_space_module == "TransformerEncoderLayer"
-                                 else AveragePooling((2, 3)))
+        self.spatial_attn_agg = None
+        if factorize_space_time and agg_space_module == "TransformerEncoderLayer":
+            self.spatial_attn_agg = SpatialAggregator(d, num_heads, dropout=drop_rate,
+                                                      device=device)
+        elif factorize_space_time and agg_space_module == "AveragePooling":
+            self.spatial_attn_agg = AveragePooling((2, 3))
         self.temp_attn_agg = tail
         self.pos_dropout = float(pos_dropout)
         self.max_segments = max_segments
         self.global_attn_agg = (
-            TemporalAggregator(d, num_heads, add_pos_emb=True,
+            TemporalAggregator(d, num_heads, dropout=drop_rate, add_pos_emb=True,
                                pos_max_len=max_segments if max_segments is not None else 16,
                                pos_emb_drop=pos_dropout, device=device)
             if add_global_repr else None)
 
     def forward(self, x: torch.Tensor, impl: str = "plain", deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x (B, S, f, n, z*p*p*c) patch-major frames: uint8 with the folded
-        normalisation, or normalised floats in the compute dtype -> (B, S, f, D),
-        or (B, S, D) with a time tail. ``deterministic=False``
-        runs the training block and needs ``generator`` for drop-path and
-        dropout."""
-        return self.forward_with_global(x, impl, deterministic, generator)[0]
+                generator: Optional[torch.Generator] = None,
+                keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, S, f, n, z*p*p*c) patch-major frames, or (B, S, T, H, W, C)
+        frames: uint8 with the folded normalisation, or normalised floats in
+        the compute dtype -> (B, S, f, D), or (B, S, D) with a time tail.
+        ``deterministic=False`` runs the training block and needs
+        ``generator`` for drop-path and dropout. ``keep_mask`` (B, S, T, H, W,
+        C) content keep, with 6-D frames only."""
+        return self.forward_with_global(x, impl, deterministic, generator, keep_mask)[0]
+
+    def token_keep(self, keep_mask: torch.Tensor) -> torch.Tensor:
+        """(B, S, T, H, W, C) content keep -> (B*S, 1 + f*n) token keep: the
+        minimum over each patch window above 0.5, frame-major; CLS kept."""
+        b, s = keep_mask.shape[:2]
+        km = patchify_frames(keep_mask, self.z, self.patch_size)
+        tok = km.float().amin(dim=-1).reshape(b * s, -1) > 0.5
+        return torch.cat([torch.ones(b * s, 1, dtype=torch.bool, device=tok.device), tok], 1)
 
     def forward_with_global(self, x: torch.Tensor, impl: str = "plain",
                             deterministic: bool = True,
-                            generator: Optional[torch.Generator] = None):
+                            generator: Optional[torch.Generator] = None,
+                            keep_mask: Optional[torch.Tensor] = None):
         """forward's features and, with add_global_repr, the (B, D) global
         feature (else None)."""
+        if x.ndim == 6:
+            x = patchify_frames(x, self.z, self.patch_size)
+        elif keep_mask is not None:
+            raise ValueError("keep_mask needs 6-D frames (B, S, T, H, W, C), as the JAX tower")
         b, s, f, n, pk = x.shape
         if (f, n) != (self.f, self.grid * self.grid):
             raise ValueError(f"patch-major input {tuple(x.shape)} does not match the tower")
@@ -306,56 +400,86 @@ class MotionFormerEncoder(nn.Module):
         d = conv.weight.shape[0]
         tokens = dense(x.reshape(b * s, f, n, pk), patch_embed_matrix(conv.weight),
                        conv.bias, dtype)
-        patch_pos = (self.pos_embed[:, None, 1:] + self.temp_embed[:, :, None]).to(dtype)
-        patches = (tokens + patch_pos).contiguous()
-        cls = self.cls_token.to(dtype).expand(b * s, 1, d) + self.pos_embed[:, :1].to(dtype)
+        tok_keep = None if keep_mask is None else self.token_keep(keep_mask)
         if not deterministic and generator is None:
             raise ValueError("training (deterministic=False) needs a generator")
-        if not deterministic:
-            cls = element_dropout(cls, self.pos_dropout, generator)
-            patches = element_dropout(patches, self.pos_dropout, generator)
-        if self.packed:
-            feats = self._packed_flow(cls, patches, impl, deterministic, generator)
-        elif deterministic and self.attn_impl == "pallas":
-            stats = None
-            for blk in self.blocks:
-                cls, patches, stats = blk(cls, patches, stats, impl)
-            feats = layer_norm_from_stats(patches, stats[..., 0:1], stats[..., 1:2],
-                                          self.norm.weight, self.norm.bias, self.eps, dtype)
+        gen = None if deterministic else generator
+        cls = self.cls_token.to(dtype).expand(b * s, 1, d)
+        if self.joint:
+            x = torch.cat([cls, tokens.reshape(b * s, f * n, d)], dim=1) + self.st_embed.to(dtype)
+            if gen is not None:
+                x = element_dropout(x, self.pos_dropout, gen)
+            feats = self._joint_flow(x, gen, tok_keep)
         else:
-            for blk in self.blocks:
-                cls, patches = self._run_block(blk.forward_train, blk, deterministic, generator,
-                                               cls, patches, impl)
-            feats = self.norm(patches)
+            patch_pos = (self.pos_embed[:, None, 1:] + self.temp_embed[:, :, None]).to(dtype)
+            patches = (tokens + patch_pos).contiguous()
+            cls = cls + self.pos_embed[:, :1].to(dtype)
+            if gen is not None:
+                cls = element_dropout(cls, self.pos_dropout, gen)
+                patches = element_dropout(patches, self.pos_dropout, gen)
+            if self.packed or tok_keep is not None:
+                feats = self._packed_flow(cls, patches, impl, deterministic, gen, tok_keep)
+            elif deterministic and self.attn_impl == "pallas":
+                stats = None
+                for blk in self.blocks:
+                    cls, patches, stats = blk(cls, patches, stats, impl)
+                feats = layer_norm_from_stats(patches, stats[..., 0:1], stats[..., 1:2],
+                                              self.norm.weight, self.norm.bias, self.eps, dtype)
+            else:
+                for blk in self.blocks:
+                    cls, patches = self._run_block(blk.forward_train, blk, deterministic, gen,
+                                                   cls, patches, impl)
+                feats = self.norm(patches)
         feats = feats.reshape(b * s, f, self.grid, self.grid, d)
-        feats = self.spatial_attn_agg(feats, impl)
+        if self.spatial_attn_agg is None:
+            return feats.reshape(b, s, *feats.shape[1:]), None
+        feat_keep = (None if tok_keep is None
+                     else tok_keep[:, 1:].reshape(b * s, f, self.grid, self.grid))
+        feats = self.spatial_attn_agg(feats, impl, deterministic, gen, feat_keep)
         if self.temp_attn_agg is None:
             return feats.reshape(b, s, f, d), None
-        feats = self.temp_attn_agg(feats, impl).reshape(b, s, d)
+        feats = self.temp_attn_agg(feats, impl, deterministic, gen).reshape(b, s, d)
         if self.global_attn_agg is None:
             return feats, None
-        return feats, self.global_attn_agg(feats, impl, deterministic, generator)
+        return feats, self.global_attn_agg(feats, impl, deterministic, gen)
 
     def _run_block(self, fn, blk, deterministic: bool, generator, *args):
-        """One block: ``fn(*args, None, None)`` in eval; in training its
+        """One block: ``fn(*args, None, None, None)`` in eval; in training its
         drop-path factors drawn first (space then MLP, as the JAX block draws
-        them), then ``fn(*args, *scales)``, under torch.utils.checkpoint with
-        remat."""
+        them), then ``fn(*args, *scales, generator)``, under
+        checkpoint_with_generator with remat."""
         if deterministic:
-            return fn(*args, None, None)
+            return fn(*args, None, None, None)
         n = args[0].shape[0]
         scales = [blk.drop_path.draw(n, generator, args[0].device, args[0].dtype)
                   for _ in range(2)]
         if self.remat:
-            return checkpoint(fn, *args, *scales, use_reentrant=False)
-        return fn(*args, *scales)
+            return checkpoint_with_generator(fn, generator, *args, *scales)
+        return fn(*args, *scales, generator)
 
     def _packed_flow(self, cls, patches, impl: str, deterministic: bool,
-                     generator: Optional[torch.Generator]) -> torch.Tensor:
-        """[CLS; patches] -> the blocks on the packed (B*S, 1 + f*n, D) layout
-        -> the final norm of the patch rows (B*S, f, n, D)."""
+                     generator: Optional[torch.Generator],
+                     keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[CLS; patches] -> the blocks on the packed (B*S, 1 + f*n, D) layout,
+        masked by ``keep`` (B*S, 1 + f*n) where given -> the final norm of the
+        patch rows (B*S, f, n, D)."""
         bs, f, n, d = patches.shape
         x = torch.cat([cls, patches.reshape(bs, f * n, d)], dim=1)
         for blk in self.blocks:
-            x = self._run_block(blk.forward_packed, blk, deterministic, generator, x, f, impl)
+            fn = functools.partial(blk.forward_packed, keep_mask=keep)
+            x = self._run_block(fn, blk, deterministic, generator, x, f, impl)
         return self.norm(x[:, 1:]).reshape(bs, f, n, d)
+
+    def _joint_flow(self, x, generator: Optional[torch.Generator],
+                    keep: Optional[torch.Tensor]) -> torch.Tensor:
+        """The joint blocks (plain pre-LN, every route) over x (B*S, 1 + f*n,
+        D), masked by ``keep`` where given -> the final norm of the patch rows
+        (B*S, f*n, D)."""
+        for blk in self.blocks:
+            if self.remat and generator is not None:
+                x = checkpoint_with_generator(
+                    lambda t, g, blk=blk: blk(t, "plain", generator=g, keep_mask=keep),
+                    generator, x)
+            else:
+                x = blk(x, "plain", generator=generator, keep_mask=keep)
+        return self.norm(x[:, 1:])

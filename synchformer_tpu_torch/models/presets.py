@@ -324,9 +324,8 @@ def drop_unknown_ckpt_params(node, attn_impl: Optional[str] = None,
     outside that class's fields (JAX_FIELDS; keys from other reference code
     versions), with a warning, and where the class has ``attn_impl`` and one
     is given, takes it unless it names one. ``dropped`` collects
-    (target, [keys]). A key the JAX class reads stays, so that the port's
-    registry builds it or refuses it (NotImplementedError naming ROADMAP §1
-    item 7). Returns a new tree."""
+    (target, [keys]). A key the JAX class reads stays, and the port's
+    registry builds it. Returns a new tree."""
     if not isinstance(node, dict):
         return node
     if "target" not in node:

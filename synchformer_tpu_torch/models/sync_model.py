@@ -167,26 +167,48 @@ class Synchformer(nn.Module):
         return model
 
     def _features(self, tower: nn.Module, x: torch.Tensor, impl: str, deterministic: bool,
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
+                  generator: Optional[torch.Generator],
+                  keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """A tower's features; a deterministic tower none of whose parameters
-        needs a gradient runs under no_grad."""
+        needs a gradient runs under no_grad. ``keep_mask`` is passed only
+        where given (the legacy towers take none)."""
         frozen = deterministic and not any(p.requires_grad for p in tower.parameters())
+        masks = {} if keep_mask is None else {"keep_mask": keep_mask}
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
-            return tower(x, impl, deterministic, generator)
+            return tower(x, impl, deterministic, generator, **masks)
+
+    def extract_vfeats(self, vis: torch.Tensor, impl: str = "plain", deterministic: bool = True,
+                       generator: Optional[torch.Generator] = None,
+                       vis_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The video tower's (B, S, tv, D) features (JAX extract_vfeats);
+        ``vis_mask`` the content keep of 6-D frames."""
+        return self._features(self.vfeat_extractor, vis, impl, deterministic, generator,
+                              vis_mask)
+
+    def extract_afeats(self, aud: torch.Tensor, impl: str = "plain", deterministic: bool = True,
+                       generator: Optional[torch.Generator] = None,
+                       aud_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The audio tower's (B, S, ta, D) features (JAX extract_afeats);
+        ``aud_mask`` the content keep of the (B, S, T, F) log-mel."""
+        return self._features(self.afeat_extractor, aud, impl, deterministic, generator,
+                              aud_mask)
 
     def forward(self, vis: torch.Tensor, aud: torch.Tensor,
                 targets: Optional[torch.Tensor] = None, impl: str = "plain",
                 deterministic: bool = True, generator: Optional[torch.Generator] = None,
-                extractors_deterministic: Optional[bool] = True):
+                extractors_deterministic: Optional[bool] = True,
+                vis_mask: Optional[torch.Tensor] = None,
+                aud_mask: Optional[torch.Tensor] = None):
         """(loss, logits). ``extractors_deterministic`` True keeps the towers
         on their eval path while the transformer trains (Stage II's frozen
-        towers); None follows ``deterministic``."""
+        towers); None follows ``deterministic``. ``vis_mask`` / ``aud_mask``:
+        the towers' content keep-masks (JAX sync_model.py:154-172)."""
         if extractors_deterministic is None:
             extractors_deterministic = deterministic
-        v = self.vproj(self._features(self.vfeat_extractor, vis, impl,
-                                      extractors_deterministic, generator))
-        a = self.aproj(self._features(self.afeat_extractor, aud, impl,
-                                      extractors_deterministic, generator))
+        v = self.vproj(self.extract_vfeats(vis, impl, extractors_deterministic, generator,
+                                           vis_mask))
+        a = self.aproj(self.extract_afeats(aud, impl, extractors_deterministic, generator,
+                                           aud_mask))
         b, s, tv, d = v.shape
         logits = self.transformer(v.reshape(b, s * tv, d), a.reshape(b, s * a.shape[2], d),
                                   deterministic, generator)

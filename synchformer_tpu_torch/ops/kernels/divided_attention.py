@@ -67,18 +67,49 @@ def heads_groupable(num_heads: int, dh: int) -> bool:
     return num_heads % hpg == 0 and (dh * hpg) % 128 == 0
 
 
-def _attend(q, k, v):
+def _attend(q, k, v, keep=None):
     """q (..., Lq, H, dh), k/v (..., Lk, H, dh) -> (..., Lq, H, dh); f32
-    logits and softmax, probabilities in the compute dtype."""
+    logits and softmax, probabilities in the compute dtype. ``keep``
+    (..., Lk) bool: the other keys' logits at the f32 minimum."""
     logits = torch.einsum("...qhd,...khd->...hqk", q.float(), k.float())
+    if keep is not None:
+        logits = logits.masked_fill(~keep[..., None, None, :], torch.finfo(torch.float32).min)
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("...hqk,...khd->...qhd", p, v)
 
 
-def divided_attention_plain(qkv_patches, qkv_cls, num_heads: int, mode: str):
+def _split_keep(keep, f: int, n: int):
+    """A token keep (B, 1 + f*n) -> (it as bool, the CLS's (B, 1), the
+    patches' (B, f, n)); all None for no keep."""
+    if keep is None:
+        return None, None, None
+    keep = keep.bool()
+    return keep, keep[:, :1], keep[:, 1:].reshape(keep.shape[0], f, n)
+
+
+def _group_attention(qp, kp, vp, kc, vc, mode: str, keep_c=None, keep_p=None):
+    """The patch queries qp (B, f, n, H, dh), scaled, each group (a frame in
+    'space', a spatial position in 'time') over [the CLS key kc / value vc
+    (B, 1, H, dh); the group's patches kp / vp], keys masked by keep_c (B, 1)
+    and keep_p (B, f, n) where given -> (B, f, n, H, dh)."""
+    if mode == "time":  # groups are spatial positions
+        qp, kp, vp = (t.transpose(1, 2) for t in (qp, kp, vp))
+        keep_p = None if keep_p is None else keep_p.transpose(1, 2)
+    b, g = qp.shape[:2]
+    kg = torch.cat([kc[:, None].expand(b, g, *kc.shape[1:]), kp], dim=2)
+    vg = torch.cat([vc[:, None].expand(b, g, *vc.shape[1:]), vp], dim=2)
+    keep_g = None if keep_p is None else torch.cat([keep_c[:, None].expand(b, g, 1), keep_p],
+                                                   dim=2)
+    out = _attend(qp, kg, vg, keep_g)
+    return out.transpose(1, 2) if mode == "time" else out
+
+
+def divided_attention_plain(qkv_patches, qkv_cls, num_heads: int, mode: str, keep=None):
     """The XLA DividedAttention math (synchformer_tpu/models/motionformer.py
-    :200-251) on the split layout. Returns (patches (B, f, n, D), cls
-    (B, 1, D)) before the projection."""
+    :157-251) on the split layout. Returns (patches (B, f, n, D), cls
+    (B, 1, D)) before the projection. ``keep`` (B, 1 + f*n), [CLS,
+    frame-major patches], masks the keys: the CLS query attends to every
+    kept token, each group to its kept patches and the CLS key."""
     if mode not in _MODES:
         raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
     b, f, n, threed = qkv_patches.shape
@@ -88,31 +119,34 @@ def divided_attention_plain(qkv_patches, qkv_cls, num_heads: int, mode: str):
                   for t in qkv_patches.split(d, dim=-1))
     qc, kc, vc = (t.reshape(b, 1, num_heads, dh) for t in qkv_cls.split(d, dim=-1))
     qp, qc = qp * (dh ** -0.5), qc * (dh ** -0.5)
-
     keys = torch.cat([kc, kp.reshape(b, f * n, num_heads, dh)], dim=1)
     vals = torch.cat([vc, vp.reshape(b, f * n, num_heads, dh)], dim=1)
-    out_c = _attend(qc, keys, vals).reshape(b, 1, d)
-
-    if mode == "time":  # groups are spatial positions
-        qp, kp, vp = (t.transpose(1, 2) for t in (qp, kp, vp))
-    g = qp.shape[1]
-    kg = torch.cat([kc[:, None].expand(b, g, 1, num_heads, dh), kp], dim=2)
-    vg = torch.cat([vc[:, None].expand(b, g, 1, num_heads, dh), vp], dim=2)
-    out_p = _attend(qp, kg, vg)
-    if mode == "time":
-        out_p = out_p.transpose(1, 2)
+    keep, keep_c, keep_p = _split_keep(keep, f, n)
+    out_c = _attend(qc, keys, vals, keep).reshape(b, 1, d)
+    out_p = _group_attention(qp, kp, vp, kc, vc, mode, keep_c, keep_p)
     return out_p.reshape(b, f, n, d), out_c
 
 
-def divided_attention_packed_plain(qkv, num_heads: int, num_frames: int, mode: str):
-    """The XLA DividedAttention math on the packed layout, without the
-    keep-mask: qkv (B, 1 + f*n, 3D), tokens [CLS, frame-major patches] ->
-    (B, 1 + f*n, D) before the projection."""
+def divided_attention_packed_plain(qkv, num_heads: int, num_frames: int, mode: str,
+                                   keep=None):
+    """divided_attention_plain on the packed layout: qkv (B, 1 + f*n, 3D),
+    tokens [CLS, frame-major patches], keys masked by ``keep`` (B, 1 + f*n)
+    where given -> (B, 1 + f*n, D) before the projection. The CLS query
+    reads the packed keys in place (no concatenation)."""
+    if mode not in _MODES:
+        raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
     b, seq, threed = qkv.shape
-    n = (seq - 1) // num_frames
-    out_p, out_c = divided_attention_plain(qkv[:, 1:].reshape(b, num_frames, n, threed),
-                                           qkv[:, :1], num_heads, mode)
-    return torch.cat([out_c, out_p.reshape(b, seq - 1, -1)], dim=1)
+    d = threed // 3
+    dh = d // num_heads
+    f = num_frames
+    n = (seq - 1) // f
+    q, k, v = (t.reshape(b, seq, num_heads, dh) for t in qkv.split(d, dim=-1))
+    q = q * (dh ** -0.5)
+    keep, keep_c, keep_p = _split_keep(keep, f, n)
+    out_c = _attend(q[:, :1], k, v, keep)
+    qp, kp, vp = (t[:, 1:].reshape(b, f, n, num_heads, dh) for t in (q, k, v))
+    out_p = _group_attention(qp, kp, vp, k[:, :1], v[:, :1], mode, keep_c, keep_p)
+    return torch.cat([out_c.reshape(b, 1, d), out_p.reshape(b, f * n, d)], dim=1)
 
 
 def divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo, bo,

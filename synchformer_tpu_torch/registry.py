@@ -7,16 +7,20 @@ The target strings of the shipped configs and of the reference
 factories of the port's classes. Each factory takes the node's own ``params``
 (Synchformer's towers, projections and transformer as target / params nodes)
 plus ``device``, which ``instantiate_from_config`` passes down. A parameter
-the port does not implement raises NotImplementedError naming ROADMAP §1
-item 7 (or the item that holds it); it is never dropped. A tower's
+the port does not implement raises NotImplementedError naming the ROADMAP §1
+item that holds it (item 7.5: training the legacy towers; item 8:
+``model_parallel`` above 1); it is never dropped. A tower's
 ``ckpt_path`` is not the model's: the trainer reads it (SyncTrainer
 .init_towers_from_ckpts). Parameters the JAX package itself ignores
 (``agg_segments_module``, ``feat_type``, the AST's ``num_labels`` in feature
-mode) are accepted. The towers' ``agg_time_module`` takes every value the
-JAX towers take ('TransformerEncoderLayer', 'AveragePooling', anything else
-as no time pool, e.g. the reference's 'torch.nn.Identity');
-``agg_freq_module`` / ``agg_space_module`` take 'TransformerEncoderLayer'
-and 'AveragePooling'. Keys outside the JAX classes' fields are not dropped
+mode, the Motionformer's ``extract_features``) are accepted. The towers'
+``agg_time_module``, ``agg_freq_module`` and ``agg_space_module`` take
+every value the JAX towers take ('TransformerEncoderLayer', 'AveragePooling',
+anything else as no pool, e.g. the reference's 'torch.nn.Identity'); every
+other tower option of the JAX package is built: the dropouts, ``mlp_ratio``,
+``factorize_freq_time`` / ``factorize_space_time``, the AST's classifier
+(``extract_features: false``), the joint-attention Motionformer
+(``attn_layer: joint``). The Stage I models take any projection node. Keys outside the JAX classes' fields are not dropped
 here: models/presets.py::build_synchformer_from_ckpt_args drops them, as
 the JAX package does for checkpoint configs. The JAX route option ``attn_impl`` of the towers keeps
 its meaning where the port has it ('pallas_fused'); 'xla' and 'pallas' are
@@ -113,54 +117,25 @@ def instantiate_from_config(config: Mapping[str, Any], **extra_kwargs) -> Any:
     return get_registered(config["target"])(**{**node_params(config), **extra_kwargs})
 
 
-def _refuse(what: str, item: str = ITEM7) -> None:
-    raise NotImplementedError(f"{what}: {item}")
-
-
-def _common_tower_params(p: dict, tower: str) -> dict:
+def _common_tower_params(p: dict) -> dict:
     """Drop what the model does not read (ckpt_path: the trainer's; the
-    inert reference fields) and refuse what the port does not implement."""
+    inert reference fields)."""
     p = dict(p)
     for key in ("ckpt_path", "agg_segments_module", "feat_type"):
         p.pop(key, None)
-    if not p.pop("extract_features", True):
-        _refuse(f"{tower} extract_features: false (the classification head)")
-    if float(p.pop("mlp_ratio", 4.0)) != 4.0:
-        _refuse(f"{tower} mlp_ratio other than 4")
     return p
-
-
-# the pools a tower takes in place of its CLS-pool aggregator (the JAX towers
-# run any other value as no pool, which leaves features no sync model takes)
-_POOLS = ("TransformerEncoderLayer", "AveragePooling")
 
 
 def ast_params(params: Mapping[str, Any]) -> dict:
     """An ASTEncoder node's params -> the port ASTEncoder's keyword arguments."""
-    p = _common_tower_params(params, "ASTEncoder")
-    p.pop("num_labels", None)
-    if not p.pop("factorize_freq_time", True):
-        _refuse("ASTEncoder factorize_freq_time: false")
-    if p.get("agg_freq_module", _POOLS[0]) not in _POOLS:
-        _refuse(f"ASTEncoder agg_freq_module {p['agg_freq_module']!r}")
-    if float(p.get("hidden_dropout", 0.0)) > 0.0 or float(p.get("attn_dropout", 0.0)) > 0.0:
-        _refuse("the AST's hidden_dropout / attn_dropout above 0")
-    if p.pop("attn_impl", "xla") not in ("xla", "pallas"):
-        _refuse("ASTEncoder attn_impl other than 'xla' / 'pallas'")
+    p = _common_tower_params(params)
+    p.pop("attn_impl", None)  # the AST's kernels follow the caller's impl
     return p
 
 
 def motionformer_params(params: Mapping[str, Any]) -> dict:
     """A MotionFormerEncoder node's params -> the port's keyword arguments."""
-    p = _common_tower_params(params, "MotionFormerEncoder")
-    if not p.pop("factorize_space_time", True):
-        _refuse("MotionFormerEncoder factorize_space_time: false")
-    if p.get("agg_space_module", _POOLS[0]) not in _POOLS:
-        _refuse(f"MotionFormerEncoder agg_space_module {p['agg_space_module']!r}")
-    if p.pop("attn_layer", "divided") != "divided":
-        _refuse("the joint-attention Motionformer (attn_layer 'joint')")
-    if float(p.pop("drop_rate", 0.0)) > 0.0:
-        _refuse("the Motionformer blocks' drop_rate above 0")
+    p = _common_tower_params(params)
     if p.get("attn_impl", "pallas") in ("xla", "pallas"):
         p["attn_impl"] = "pallas"
     return p
@@ -334,18 +309,15 @@ def build_synchformer(afeat_extractor, vfeat_extractor, aproj, vproj, transforme
                                     build(vproj), build(aproj), build(transformer)).eval()
 
 
-def _stage1_towers(afeat_extractor, vfeat_extractor, aproj, vproj, n_embd: int) -> tuple:
+def _stage1_towers(afeat_extractor, vfeat_extractor, n_embd: int) -> tuple:
     """AVCLIP / MoCo tower nodes -> their keyword dicts (AveragePooling time
-    tails and width n_embd, as both models build them); DoNothing
-    projections only."""
-    for name, node in (("aproj", aproj), ("vproj", vproj)):
-        if get_registered(node["target"]) is not build_do_nothing:
-            _refuse(f"a Stage I {name} other than DoNothingBridge")
+    tails and width n_embd, as both models build them)."""
     towers = []
     for node, factory, adapt in ((afeat_extractor, build_ast, ast_params),
                                  (vfeat_extractor, build_motionformer, motionformer_params)):
         if get_registered(node["target"]) is not factory:
-            _refuse(f"a Stage I tower {node['target']!r}")
+            raise ValueError(f"a Stage I tower {node['target']!r}: the Stage I models take "
+                             f"the AST and the Motionformer")
         kw = adapt(node_params(node))
         if kw.pop("agg_time_module", "AveragePooling") != "AveragePooling":
             raise ValueError("the Stage I towers pool time with AveragePooling")
@@ -365,10 +337,11 @@ def build_avclip(afeat_extractor, vfeat_extractor, aproj, vproj, n_embd: int = 7
     """``gather_for_loss`` is accepted and changes nothing: as in the JAX
     trainer, which passes no axis_name, the InfoNCE always spans the global
     batch (models/avclip.py)."""
-    a, v = _stage1_towers(afeat_extractor, vfeat_extractor, aproj, vproj, n_embd)
+    a, v = _stage1_towers(afeat_extractor, vfeat_extractor, n_embd)
     return AVCLIP(vfeat_extractor=v, afeat_extractor=a, d=n_embd, init_scale=init_scale,
                   clamp_scale_min=clamp_scale_min, clamp_scale_max=clamp_scale_max,
-                  device=device)
+                  vproj=instantiate_from_config(vproj, device=device),
+                  aproj=instantiate_from_config(aproj, device=device), device=device)
 
 
 @register("synchformer_tpu.models.moco_clip.MultilevelMoCoCLIP",
@@ -377,8 +350,13 @@ def build_moco(afeat_extractor, vfeat_extractor, aproj, vproj, queue_size: int,
                momentum: float, n_embd: int = 768, init_scale: float = 0.07,
                clamp_scale_min: float = 0.001, clamp_scale_max: float = 0.5,
                device=None) -> MultilevelMoCoCLIP:
-    a, v = _stage1_towers(afeat_extractor, vfeat_extractor, aproj, vproj, n_embd)
+    """Each level's projections built from the aproj / vproj nodes, one
+    module each (the JAX setup instantiates the node per level)."""
+    a, v = _stage1_towers(afeat_extractor, vfeat_extractor, n_embd)
     return MultilevelMoCoCLIP(vfeat_extractor=v, afeat_extractor=a, d=n_embd,
                               queue_size=queue_size, momentum=momentum,
                               init_scale=init_scale, clamp_scale_min=clamp_scale_min,
-                              clamp_scale_max=clamp_scale_max, device=device)
+                              clamp_scale_max=clamp_scale_max,
+                              make_vproj=lambda: instantiate_from_config(vproj, device=device),
+                              make_aproj=lambda: instantiate_from_config(aproj, device=device),
+                              device=device)

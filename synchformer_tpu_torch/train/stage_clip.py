@@ -27,6 +27,11 @@ generator seeded training.seed + 7, the noise from the trainer's device
 generator) on the crop before segmentation, or on the segments of a batch
 without the crop; PCM -> f32 log-mel -> (B, S, 66, 128) in the compute
 dtype. ``precision: amp`` is bf16 compute over f32 master parameters.
+Every random draw of a step after the prep (drop-path, the towers'
+dropouts, the positional dropout) comes from the trainer's device
+generator, in an order that does not depend on ``impl``: the kernel and the
+plain route of one seed draw the same masks (AVCLIP: the video tower, then
+the audio tower; MoCo: the query pass).
 
 Over ranks (a group joined by parallel/dist.py init_from_env, one process per
 card) the trainer is the JAX trainer at that many data devices:

@@ -139,14 +139,30 @@ def divided_block_sd(b: Mapping, prefix: str) -> SD:
     return sd
 
 
+def vit_block_sd(p: Mapping, prefix: str) -> SD:
+    """A joint-attention Motionformer block (PreLNBlock params) -> the
+    reference ViT block names (norm1, attn.qkv / attn.proj with packed qkv
+    rows, norm2, mlp.fc1 / mlp.fc2)."""
+    sd = {**_layernorm(p["ln1"], f"{prefix}.norm1"), **_layernorm(p["ln2"], f"{prefix}.norm2")}
+    for n in ("qkv", "proj"):
+        sd.update(_linear(p["attn"][n], f"{prefix}.attn.{n}"))
+    sd.update(_linear(p["mlp"]["fc1"], f"{prefix}.mlp.fc1"))
+    sd.update(_linear(p["mlp"]["fc2"], f"{prefix}.mlp.fc2"))
+    return sd
+
+
 def motionformer_sd(p: Mapping, prefix: str = "") -> SD:
+    """A divided or, where the tree has ``st_embed``, a joint-attention
+    Motionformer."""
     sd = {f"{prefix}cls_token": _a(p["cls_token"]),
-          f"{prefix}pos_embed": _a(p["pos_embed"]),
-          f"{prefix}temp_embed": _a(p["temp_embed"]),
           **_conv(p["patch_embed_3d"], f"{prefix}patch_embed_3d.proj"),
           **_layernorm(p["norm"], f"{prefix}norm")}
+    joint = "st_embed" in p
+    names = ("st_embed",) if joint else ("pos_embed", "temp_embed")
+    sd.update({f"{prefix}{n}": _a(p[n]) for n in names})
     for i in range(_depth(p, "blocks_")):
-        sd.update(divided_block_sd(p[f"blocks_{i}"], f"{prefix}blocks.{i}"))
+        block = vit_block_sd if joint else divided_block_sd
+        sd.update(block(p[f"blocks_{i}"], f"{prefix}blocks.{i}"))
     return {**sd, **_aggregators_sd(p, prefix)}
 
 
@@ -171,6 +187,9 @@ def ast_sd(p: Mapping, prefix: str = "") -> SD:
           **_layernorm(p["layernorm"], f"{prefix}ast.layernorm")}
     for i in range(_depth(p, "layer_")):
         sd.update(ast_layer_sd(p[f"layer_{i}"], f"{prefix}ast.encoder.layer.{i}"))
+    if "classifier_dense" in p:  # classification mode: HF ASTMLPHead's names
+        sd.update(_layernorm(p["classifier_layernorm"], f"{prefix}classifier.layernorm"))
+        sd.update(_linear(p["classifier_dense"], f"{prefix}classifier.dense"))
     return {**sd, **_aggregators_sd(p, prefix)}
 
 
@@ -284,22 +303,28 @@ def state_dict_from_jax(variables: Mapping) -> SD:
 
 def avclip_state_dict_from_jax(params: Mapping) -> SD:
     """AVCLIP params tree -> the port's AVCLIP state dict: both towers (their
-    AveragePooling time tails and the DoNothing bridges hold no parameters)
-    and the 0-d ``logit_scale``."""
+    AveragePooling time tails hold no parameters), the projections
+    ``v_proj`` / ``a_proj`` -> ``vproj`` / ``aproj`` where they have
+    parameters (a DoNothing bridge has none) and the 0-d ``logit_scale``."""
     p = params.get("params", params)
     return {**motionformer_sd(p["v_encoder"], "vfeat_extractor."),
             **ast_sd(p["a_encoder"], "afeat_extractor."),
+            **bridge_sd(p.get("v_proj", {}), "vproj."),
+            **bridge_sd(p.get("a_proj", {}), "aproj."),
             "logit_scale": _a(p["logit_scale"])}
 
 
 def moco_state_dict_from_jax(params: Mapping) -> SD:
     """MultilevelMoCoCLIP params tree (the online parameters or the EMA
     copy) -> the port's MoCo state dict: both towers with their global
-    segment aggregators and the 0-d logit scales (its four DoNothing
-    projections hold no parameters)."""
+    segment aggregators, the four projections where they have parameters
+    (segment_ / global_ vproj / aproj, the same names) and the 0-d logit
+    scales."""
     p = params.get("params", params)
     sd = {**motionformer_sd(p["v_encoder"], "v_encoder."),
           **ast_sd(p["a_encoder"], "a_encoder.")}
+    for proj in ("segment_vproj", "segment_aproj", "global_vproj", "global_aproj"):
+        sd.update(bridge_sd(p.get(proj, {}), f"{proj}."))
     for scale in ("segment_logit_scale", "global_logit_scale"):
         if scale in p:
             sd[scale] = _a(p[scale])

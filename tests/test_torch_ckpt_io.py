@@ -200,9 +200,10 @@ def test_jax_field_table_matches_dataclasses(target):
     ("afeat_extractor", "agg_freq_module", "Identity"),
 ])
 def test_jax_key_the_port_lacks_raises(tower, key, value):
-    """A key of the JAX class that the port does not implement is neither
-    dropped nor ignored: NotImplementedError naming ROADMAP §1 item 7; JAX
-    builds the model."""
+    """A key of the JAX class that the port once lacked (and refused with
+    NotImplementedError, whence the name) is neither dropped nor ignored:
+    JAX builds the model, and the port builds it with the option in its
+    tower."""
     from synchformer_tpu.models.presets import build_synchformer_from_ckpt_args
 
     cfg = copy.deepcopy(REF_STYLE_CFG)
@@ -211,8 +212,14 @@ def test_jax_key_the_port_lacks_raises(tower, key, value):
     dropped = []
     tpresets.drop_unknown_ckpt_params(cfg["model"], None, dropped)
     assert all(key not in keys for _, keys in dropped)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tpresets.build_synchformer_from_ckpt_args(cfg, device="meta")
+    model, _ = tpresets.build_synchformer_from_ckpt_args(cfg, device="meta")
+    if key == "hidden_dropout":
+        assert all(layer.resid_dropout == value
+                   for layer in model.afeat_extractor.ast.encoder.layer)
+    elif key == "attn_layer":
+        assert model.vfeat_extractor.joint
+    else:
+        assert model.afeat_extractor.freq_attn_agg is None
 
 
 def test_legacy_knob_is_dropped_not_passed():

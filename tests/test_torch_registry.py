@@ -9,8 +9,9 @@ against the JAX package on the CPU.
   sections, read as data files, build port models on the meta device whose
   state-dict names and shapes equal the presets' and the port names of the
   JAX models the JAX registry builds from the same sections; a tiny AVCLIP
-  and MoCo model from model.params equal the presets; parameters the port
-  does not implement are refused;
+  and MoCo model from model.params equal the presets; the tower options
+  the port once refused build and have the JAX towers' names and shapes;
+  what stays unported (legacy training, tensor parallelism) is refused;
 - config loading and cfg_sanity_check_and_patch against the JAX copies;
 - calc_cls_metrics, per_class_accuracy, roc_outputs and
   tiered_offset_metrics against the JAX functions (which call sklearn) on
@@ -46,6 +47,7 @@ from synchformer_tpu_torch.utils.convert import (
     load_numpy_state_dict,
     seeded_state_dict,
     state_dict_from_jax,
+    tower_sd,
 )
 
 torch.set_num_threads(2)
@@ -176,24 +178,60 @@ def test_tiny_stage1_model_from_params_equals_the_preset(moco):
         assert (x is None and y is None) or torch.equal(x, y)
 
 
-@pytest.mark.parametrize("change,match", [
-    (("afeat_extractor", "factorize_freq_time", False), "item 7"),
-    (("vfeat_extractor", "agg_space_module", "Identity"), "item 7"),
-    (("afeat_extractor", "hidden_dropout", 0.1), "item 7"),
-    (("vfeat_extractor", "attn_layer", "joint"), "item 7"),
+@pytest.mark.parametrize("change", [
+    ("afeat_extractor", "factorize_freq_time", False),
+    ("vfeat_extractor", "agg_space_module", "Identity"),
+    ("afeat_extractor", "hidden_dropout", 0.1),
+    ("vfeat_extractor", "attn_layer", "joint"),
 ])
-def test_registry_refuses_what_the_port_lacks(change, match):
-    """A parameter the port does not implement raises NotImplementedError
-    naming the ROADMAP item; so does a tower the port has not ported (the
-    joint-attention Motionformer)."""
-    cfg = _section("sync")["model"]
+def test_registry_builds_the_tower_options(change):
+    """The options the port once refused build from sync.yaml's tower node
+    (and the joint Motionformer under the reference's target name): on the
+    meta device, with the state-dict names and shapes of the port names of
+    the JAX tower the JAX registry builds from the same node (jax.eval_shape
+    of its init); the option reaches the tower."""
+    from synchformer_tpu.registry import instantiate_from_config as jax_instantiate
+
     tower, key, value = change
-    cfg["params"][tower]["params"][key] = value
-    with pytest.raises(NotImplementedError, match=match):
-        instantiate_from_config(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        instantiate_from_config({"target": MOTIONFORMER_REF, "params": {"attn_layer": "joint"}},
-                                device="meta")
+    node = _section("sync")["model"]["params"][tower]
+    node["params"][key] = value
+    got = instantiate_from_config(node, device="meta")
+    x = (jnp.zeros((1, 1, 16, 224, 224, 3)) if tower == "vfeat_extractor"
+         else jnp.zeros((1, 1, 66, 128)))
+    tree = jax.eval_shape(jax_instantiate(copy.deepcopy(node)).init, jax.random.PRNGKey(0), x)
+    tree = jax.tree.map(lambda s: np.broadcast_to(np.zeros((), np.float32), s.shape), tree)
+    assert _shapes(got.state_dict()) == _shapes(tower_sd(tree["params"], None, ""))
+    if key == "hidden_dropout":
+        assert all(layer.resid_dropout == 0.1 for layer in got.ast.encoder.layer)
+    elif key == "attn_layer":
+        assert got.joint and got.st_embed.shape == (1, 1 + 8 * 196, 768)
+        ref = instantiate_from_config({"target": MOTIONFORMER_REF,
+                                       "params": {"attn_layer": "joint"}}, device="meta")
+        assert _shapes(ref.state_dict()) == _shapes(got.state_dict())
+    elif key == "factorize_freq_time":
+        assert got.freq_attn_agg is None and not got.factorize
+    else:
+        assert got.spatial_attn_agg is None
+
+
+@pytest.mark.parametrize("what", ["legacy_training", "model_parallel_2"])
+def test_registry_refuses_what_the_port_lacks(what):
+    """What stays unported raises NotImplementedError naming its ROADMAP §1
+    item: training the legacy towers (item 7.5), a legacy tower built
+    through the registry and called in training mode, and tensor
+    parallelism (item 8), training.model_parallel 2."""
+    if what == "legacy_training":
+        tower = instantiate_from_config(
+            {"target": "model.modules.feat_extractors.visual.s3d.S3DVisualFeatures",
+             "params": {"agg_space_module": "TransformerEncoderLayer"}}, device="meta")
+        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.5"):
+            tower(torch.zeros(1, 1, 16, 64, 64, 3, device="meta"), "plain", False,
+                  torch.Generator())
+    else:
+        from synchformer_tpu_torch.parallel.dist import local_batch_size
+
+        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 8"):
+            local_batch_size(2, model_parallel=2)
 
 
 def test_load_config_and_overrides_match_jax():
