@@ -15,7 +15,10 @@ synchformer_tpu_torch.scripts.test_syncability on reference-style .pt
 files, and Stage I towers from one), the legacy SparseSync family (S3D
 and ResNet-18 towers in a Synchformer, the SparseSync transformer), and the
 tower options (the live dropouts, keep-masks, the joint-attention
-Motionformer, the AST classifier, another MLP ratio, unfactorized towers).
+Motionformer, the AST classifier, another MLP ratio, unfactorized towers),
+and the shapes the TPU kernels take past the main path's (the AudioSet AST
+at 1214 tokens, a ViT-H-width video tower of 16 heads of 80, 2.56 s
+segments, mlp_ratio 2.6).
 
     python3 chip_smoke.py
 
@@ -65,9 +68,25 @@ Phases, each printed as it runs with its seconds:
    all the Hopper GEMM under K1, K2 and K8a-K8c on its own entry
    (gemm_cases: K2's fc1 / fc2 at the video tower's and the AST's rows, K1's
    projection, K8a's QKV and K8b's fc1 / fc2 at the 8-head serving tower's
-   rows, each timed beside one F.linear call, cuBLAS, as a yardstick; ragged
-   cases at 1, 127, 129, 300 and 8288 rows, N = 192, 384 and 576 (64-wide
-   last column tiles), K = 32 and 96; guard-band cases):
+   rows, and K2's fc1 / fc2 at phase 18's widths, hidden 1996 (fc2's A and
+   W as the first 1996 columns of rows at a pitch of 2000) and D 1280, each
+   timed beside one F.linear call, cuBLAS, as a yardstick; ragged cases at
+   1, 127, 129, 300 and 8288 rows, N = 192, 384 and 576 (64-wide last
+   column tiles), K = 32 and 96, N and K of 1996, 1000 and 520 on every
+   epilogue (the tail epilogue; K past the last full k-step), pitched A and
+   W; guard-band cases, the pitched ones with NaN past K in each row); then
+   (check_shapes, logged as [shapes]) the shapes past the main path's
+   (shape_cases): the space and time passes forward and backward, packed and
+   (at 16 and 256, where the heads pair into 128 lanes) split, at head_dim
+   16, 40, 48, 80, 192 and 256, at ragged frames, a backward frame past one
+   streamed key chunk of its width, and in guard bands; K3 at 1214 and 2048
+   tokens and at head_dim 32 and 128 over 74 and 1214 tokens; the time pass
+   at 32 and 96 frames forward and 32 and 64 backward at 12 heads of 64
+   (split) and 16 of 80 (packed); K8c at (4096, 1000) -> 1996; and timed
+   with their bound and library call, not reported (shape_timed_cases): K3
+   at the AudioSet AST's (8, 1214, 2304) beside scaled_dot_product_attention,
+   K7a / K7c at (28, 1569, 3840), 16 heads of 80, K6 at (16, 32, 196, 2304),
+   K2 at hidden 1996 and at D 1280;
    the kernel against its plain PyTorch version (for K6 and K7c the autograd
    gradient of the forward's plain version, for seeded random cotangents),
    both held against a
@@ -301,6 +320,31 @@ Phases, each printed as it runs with its seconds:
    24, K2 24, K3 12, K4 2; probabilities and video features), the AST with
    factorize_freq_time false (K3 12, K2 12) and the Motionformer with
    factorize_space_time false (K1 24, K2 12, no K4).
+18. the shapes the TPU kernels take past the main path's (run_shapes), each
+   built through the registry from configs/sync.yaml or
+   configs/segment_avclip.yaml with the widths changed, seeded weights,
+   bf16, held against f32 plain with exact launch counts and timed in turns:
+   (a) the AudioSet AST classifier (extract_features false, 527 labels,
+   max_spec_t 1024: 1214 tokens, 12 heads of 64) alone on 8 clips of 10 s
+   (K3 12, K2 12; relative L2 within 2 x plain bf16's); (b) sync.yaml's
+   model with a video tower at ViT-H/14's width (embed_dim 1280, 16 heads of
+   80, hidden 5120, the Motionformer's depth of 12 where ViT-H has 32) and a
+   Linear 1280 -> 768 vproj, B=2, S=14, on attn_impl 'pallas' (K7a 24, K2
+   24, K3 12, K4 2 at D 1280) and 'pallas_fused' (K8a 24, K8b 12, K2 12, K3
+   12, K4 2) by serving_agreement, then segment_avclip.yaml's model with that
+   video tower through run_stage1 (B=2, S=14, amp: K7a 24, K7c 24, K2 13, K3
+   12, K4 2); (c) segment_avclip.yaml's model over 2.56 s segments
+   (temporal_resolution 32 from 64 frames, max_spec_t 258), B=2, S=8 (at
+   S=4 the loss of 8 InfoNCE pairs moves by up to 7e-4 when its similarity
+   product rounds to bf16, on either route, past phase 4's loss eps;
+   scripts/stage1_loss_error.py), one trainer resident at a time, the plain
+   bf16 step with remat, through run_stage1 (K5 24, K6 24 with the time pass
+   over 32 frames, K2 13, K3 12, K4 2); (d) sync.yaml's model at mlp_ratio
+   2.6 on both towers (hidden 1996), B=2 (K1 24, K2 24, K3 12, K4 2; probabilities, both
+   towers' features). scripts/stage1_planted_faults.py --only shapes shows
+   that phase 2's new cases fail a padded head's lanes left unzeroed, a time
+   pass that drops the frames past 27 and a GEMM that drops its last column
+   tile at N = 1996.
 The line before the last is a JSON record of the kernels, with the TPU
 kernels still to port beside them (none); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises, so the exit code is non-zero and no result
@@ -471,6 +515,12 @@ P17_VIDEO_LAUNCHES = {**{key: 0 for key in KEYS}, "K1": 24, "K2": 12}
 P17_SYNC_LAUNCHES = {**{key: 0 for key in KEYS}, "K1": 24, "K2": 24, "K3": 12, "K4": 2}
 P17_RATE = 0.1  # every live rate of (a)
 H8, DH8 = 8, 96  # the 8-head video tower's heads
+# phase 18 (c): 2.56 s segments, 64 frames a segment (32 after the 3-D patch
+# embed's pairs), 8 segments a clip: 16 InfoNCE pairs, where the bf16
+# rounding of the similarity product fails phase 4's loss rule (eps 1e-4 of
+# the loss, set for its 28 pairs) in 2 of 30 seeded batches, against 7 of 30
+# at 4 segments (scripts/stage1_loss_error.py)
+P18_FRAMES, P18_SEGMENTS = 32, 8
 F_T, N_P = 8, 196  # frames after the 3-D patch embed, patches per frame
 SEQ = 1 + F_T * N_P  # the packed layout's tokens per segment
 FRAMES = (16, 224, 224, 3)  # raw frames of a segment: T, H, W, C
@@ -532,13 +582,13 @@ def gib(n_bytes: float) -> str:
     return f"{n_bytes / 2 ** 30:.2f} GiB"
 
 
-def packed_mask(torch, dev, mode: str):
+def packed_mask(torch, dev, mode: str, f: int = F_T, n: int = N_P):
     """The packed divided attention as a boolean (1 + f*n)^2 mask, True where
     a query sees a key: the CLS query sees every key, a patch the CLS and the
     patches of its frame (space) or of its spatial position (time)."""
-    idx = torch.arange(F_T * N_P, device=dev)
-    group = idx // N_P if mode == "space" else idx % N_P
-    mask = torch.ones(SEQ, SEQ, dtype=torch.bool, device=dev)
+    idx = torch.arange(f * n, device=dev)
+    group = idx // n if mode == "space" else idx % n
+    mask = torch.ones(1 + f * n, 1 + f * n, dtype=torch.bool, device=dev)
     mask[1:, 1:] = group[:, None] == group[None, :]
     return mask
 
@@ -688,7 +738,108 @@ def kernel_cases(torch, dev):
                   lambda a=args: fused_ln_mlp_residual(*a),
                   lambda dt, a=args: fused_ln_mlp_residual(*cast(a, dt), impl="plain"),
                   (2 * rows2 * d2 * 2 + 2 * d2 * 4 * d2 * 2, 4.0 * rows2 * d2 * 4 * d2), None))
-    return cases + k4b_cases(torch, dev) + k8_cases(torch, dev) + k4_legacy_cases(torch, dev)
+    return (cases + k4b_cases(torch, dev) + k8_cases(torch, dev) + k4_legacy_cases(torch, dev)
+            + shape_timed_cases(torch, dev))
+
+
+def shape_timed_cases(torch, dev) -> list:
+    """kernel_cases' records at phase 18's shapes, timed with their bound
+    and library call and logged, not reported (keys with a suffix): K3 at
+    the AudioSet AST's (8, 1214, 2304), 12 heads of 64, beside one
+    scaled_dot_product_attention; K7a and K7c (space + time) at the
+    ViT-H-width tower's packed qkv (28, 1569, 3840), 16 heads of 80, beside
+    the masked scaled_dot_product_attention forward and backward; K6 (space +
+    time) at the 2.56 s segments' (16, 32, 196, 2304) beside the backward of
+    the masked call over 1 + 32 x 196 tokens; K2 (with row statistics) at
+    the video tower's rows at B = 2, D 768 with hidden 1996 and D 1280 with
+    hidden 5120."""
+    import torch.nn.functional as F
+
+    from synchformer_tpu_torch.ops.kernels.divided_attention import divided_attention_packed
+    from synchformer_tpu_torch.ops.kernels.divided_attention_bwd import (
+        divided_attention_bwd,
+        divided_attention_bwd_plain,
+        divided_attention_packed_bwd,
+        divided_attention_packed_bwd_plain,
+    )
+    from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_mlp_residual, pitched
+    from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def cast(args, dtype):
+        return [a.to(dtype) if torch.is_tensor(a) and a.dtype == bf else a for a in args]
+
+    def heads_view(qkv, heads, dh):
+        b, seq = qkv.shape[:2]
+        return [qkv.view(b, seq, 3, heads, dh)[:, :, i].transpose(1, 2) for i in range(3)]
+
+    cases = []
+    # K3 at 1214 tokens
+    bs, n3, d, h = B, 1214, D, H
+    qkv3 = rn(bs, n3, 3 * d)
+    q3, k3, v3 = heads_view(qkv3, h, DH)
+    cases.append(("K3 N1214", f"K3 ({bs},{n3},{3 * d})",
+                  lambda: standard_attention(qkv3, h),
+                  lambda dt: standard_attention(qkv3.to(dt), h, impl="plain"),
+                  (bs * n3 * 4 * d * 2, 4.0 * bs * h * n3 * n3 * DH),
+                  lambda: F.scaled_dot_product_attention(q3, k3, v3)))
+    # K7a / K7c at 16 heads of 80 over the Stage I step's 28 packed segments
+    bs1, h16, dh16 = B1 * S, 16, 80
+    d16 = h16 * dh16
+    qkv7, do7 = rn(bs1, SEQ, 3 * d16), rn(bs1, SEQ, d16)
+    act7 = bs1 * SEQ * d16 * 2
+    masks = {mode: packed_mask(torch, dev, mode) for mode in ("space", "time")}
+    q7, k7, v7 = heads_view(qkv7, h16, dh16)
+    for mode in ("space", "time"):
+        cases.append(("K7a 16x80", f"K7a {mode} ({bs1},{SEQ},{3 * d16}) {h16}x{dh16}",
+                      lambda m=mode: divided_attention_packed(qkv7, h16, F_T, m),
+                      lambda dt, m=mode: divided_attention_packed(qkv7.to(dt), h16, F_T, m,
+                                                                  impl="plain"),
+                      (4 * act7, attention_flops(bs1, mode, 2, h16, dh16)),
+                      lambda m=mode: F.scaled_dot_product_attention(q7, k7, v7,
+                                                                    attn_mask=masks[m])))
+    for mode in ("space", "time"):
+        cases.append(("K7c 16x80", f"K7c {mode} ({bs1},{SEQ},{3 * d16}) {h16}x{dh16}",
+                      lambda m=mode: divided_attention_packed_bwd(qkv7, do7, h16, F_T, m),
+                      lambda dt, m=mode: divided_attention_packed_bwd_plain(
+                          qkv7.to(dt), do7.to(dt), h16, F_T, m),
+                      (7 * act7, attention_flops(bs1, mode, 5, h16, dh16)),
+                      sdpa_backward(torch, qkv7, do7, h16, dh16, masks[mode])))
+    # K6 at 32 frames a segment, B = 2, S = 8 (phase 18 (c))
+    bs6, f6 = B1 * P18_SEGMENTS, P18_FRAMES
+    qkv_p6, qkv_c6 = rn(bs6, f6, N_P, 3 * d), rn(bs6, 1, 3 * d)
+    dop6, doc6 = rn(bs6, f6, N_P, d), rn(bs6, 1, d)
+    act6 = bs6 * f6 * N_P * d * 2
+    qkv6 = torch.cat([qkv_c6, qkv_p6.reshape(bs6, -1, 3 * d)], 1)
+    do6 = torch.cat([doc6, dop6.reshape(bs6, -1, d)], 1)
+    for mode in ("space", "time"):
+        cases.append(("K6 f32", f"K6 {mode} ({bs6},{f6},{N_P},{3 * d})",
+                      lambda m=mode: divided_attention_bwd(qkv_p6, qkv_c6, dop6, doc6, h, m),
+                      lambda dt, m=mode: divided_attention_bwd_plain(
+                          *cast([qkv_p6, qkv_c6, dop6, doc6], dt), h, m),
+                      (7 * act6 + 2 * bs6 * 7 * d * 2, attention_flops(bs6, mode, 5, h, DH, f6)),
+                      sdpa_backward(torch, qkv6, do6, h, DH,
+                                    packed_mask(torch, dev, mode, f6, N_P))))
+    # K2 at hidden 1996 (D 768) and at D 1280 (hidden 5120), the video
+    # tower's rows at B = 2, with the row statistics; W2 laid out at its
+    # 16-byte pitch once, as the model casts it
+    for key, dw, hid in (("K2 h1996", d, 1996), ("K2 d1280", d16, 4 * d16)):
+        args = [rn(bs1, F_T, N_P, dw), 1.0 + rn(dw, std=0.1, dtype=f32),
+                rn(dw, std=0.1, dtype=f32), rn(hid, dw, std=0.02), rn(hid, std=0.02, dtype=f32),
+                pitched(rn(dw, hid, std=0.02)), rn(dw, std=0.02, dtype=f32), 1e-6]
+        rows = bs1 * F_T * N_P
+        cases.append((key, f"K2 stats ({bs1},{F_T},{N_P},{dw}) -> {hid}",
+                      lambda a=args: fused_ln_mlp_residual(*a, emit_stats=True),
+                      lambda dt, a=args: fused_ln_mlp_residual(*cast(a, dt), emit_stats=True,
+                                                               impl="plain"),
+                      (2 * rows * dw * 2 + rows * 8 * 4 + 2 * dw * hid * 2 + (hid + 3 * dw) * 4,
+                       4.0 * rows * dw * hid), None))
+    return cases
 
 
 def sdpa_backward(torch, qkv, dout, heads: int, dh: int, mask):
@@ -1062,6 +1213,10 @@ def guarded(torch, t):
     return buf[:n].view(t.shape)
 
 
+# the head_dims the attention kernels run at their own width (up to 128)
+RAGGED_HEAD_DIMS = (32, 64, 96, 128)
+
+
 def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17, 74, 197),
                  space_ns=(49, N_P), long_n: int = 300, time_ns=(49, N_P, 37),
                  bwd_ns=(207, 208, 300), bwd_time_n: int = 37) -> list:
@@ -1069,7 +1224,7 @@ def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17,
     attention kernels at ragged shapes, checked and logged only: K3 at
     ``k3_lens`` tokens (197: two sweeps over 80-key chunks); the space pass
     through K5's split entry and K7's packed entry at ``space_ns`` patches a
-    frame for every head_dim of HEAD_DIMS, and packed at ``long_n`` patches,
+    frame for every head_dim of RAGGED_HEAD_DIMS, and packed at ``long_n`` patches,
     head_dim 64 (two sweeps over 208-key chunks); then each kernel with its
     input at the start of a NaN-filled buffer (guarded); then the time pass
     split and packed at ``time_ns`` patches a frame for every head_dim (49
@@ -1111,7 +1266,7 @@ def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17,
 
     cases = [k3(rn(4 * bs, n, 3 * d), f"K3 ({4 * bs},{n},{3 * d})") for n in k3_lens]
     for n in space_ns:
-        for dh in tda.HEAD_DIMS:
+        for dh in RAGGED_HEAD_DIMS:
             h = d // dh
             cases.append(split(rn(bs, f, n, 3 * d), rn(bs, 1, 3 * d), h,
                                f"space split ({bs},{f},{n},{3 * d}) {h}x{dh}"))
@@ -1128,7 +1283,7 @@ def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17,
     # the time pass (a block per tile of spatial positions): every head_dim
     # at time_ns patches a frame, split and packed, then in guard bands
     for n in time_ns:
-        for dh in tda.HEAD_DIMS:
+        for dh in RAGGED_HEAD_DIMS:
             h = d // dh
             cases.append(split(rn(bs, f, n, 3 * d), rn(bs, 1, 3 * d), h,
                                f"time split ({bs},{f},{n},{3 * d}) {h}x{dh}", "time"))
@@ -1161,10 +1316,137 @@ def ragged_cases(torch, dev, bs: int = 4, d: int = D, f: int = F_T, k3_lens=(17,
 
     cases.append(bwd_split(N_P, d // 128))
     for n in bwd_ns:
-        for dh in tda.HEAD_DIMS:
+        for dh in RAGGED_HEAD_DIMS:
             cases += [bwd_split(n, d // dh), bwd_packed(n, d // dh)]
-    for dh in tda.HEAD_DIMS:
+    for dh in RAGGED_HEAD_DIMS:
         cases += [bwd_split(bwd_time_n, d // dh, "time"), bwd_packed(bwd_time_n, d // dh, "time")]
+    return cases
+
+
+# the head_dims (head_dim, heads) phase 2 checks past the main path's: the
+# split entries where the heads pair into 128 lanes (heads_groupable: 16 and
+# 256 here), the packed ones at every one
+SHAPE_HEAD_DIMS = ((16, 8), (40, 4), (48, 4), (80, 4), (192, 2), (256, 2))
+
+
+def shape_cases(torch, dev, bs: int = 2, f: int = F_T, head_dims=SHAPE_HEAD_DIMS,
+                space_ns=(37, 49), k3_lens=(1214, 2048),
+                k3_dims=((32, 74), (32, 1214), (128, 74), (128, 1214)),
+                frames=((32, 96), (32, 64)), time_widths=((12, 64), (16, 80)),
+                time_n: int = 37, k8c=(4096, 1000, 1996),
+                k4=((2, 14, 1000), (300, 12, 1000))) -> list:
+    """ragged_cases' records (checked and logged only) of the shapes the
+    kernels take past the main path's:
+    - every (head_dim, heads) of ``head_dims``: the space and time passes
+      forward at ``space_ns`` patches a frame and backward at the first,
+      packed (K7a / K7b, K7c) and split (K5, K6) where the heads pair into
+      128 lanes; the backward's space pass also at a frame one patch past its
+      width's streamed chunk (209, 129 or 65 patches at widths up to 128, 192
+      and 256: two chunks); a packed forward and backward in guard bands;
+    - K3 at ``k3_lens`` tokens (12 heads of 64; two sweeps over 80-key
+      chunks) and at ``k3_dims`` (head_dim, tokens) over D = 768, once more
+      in a guard band;
+    - the time pass forward at ``frames[0]`` frames and backward at
+      ``frames[1]`` over ``time_n`` patches at ``time_widths`` (heads,
+      head_dim): split at 12 x 64, packed at 16 x 80;
+    - K8c at ``k8c`` (rows, d, out): d = 1000, out 1996, the tail epilogue
+      storing rows that are not 16-byte aligned;
+    - K4 at ``k4`` (groups, rows, hidden) at D 768, 12 heads, an MLP width
+      of 1000 (8-value pieces): its tail on the skinny product (2 groups) and
+      on the Hopper GEMM's tail epilogue (300 groups).
+    Inputs at std 1.5 (logits of std about 2), cotangents at std 1."""
+    from synchformer_tpu_torch.ops.kernels import _build
+    from synchformer_tpu_torch.ops.kernels import divided_attention as tda
+    from synchformer_tpu_torch.ops.kernels import divided_attention_bwd as dab
+    from synchformer_tpu_torch.ops.kernels.cls_pool import fused_cls_pool_tokens
+    from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_matmul
+    from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, std=1.5, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def wrap(guard):
+        return (lambda t: guarded(torch, t)) if guard else (lambda t: t)
+
+    def fwd(h, dh, n, mode, layout, ff=f, guard=False):
+        d, w = h * dh, wrap(guard)
+        what = f"{mode} {layout}{' guard band' if guard else ''}"
+        if layout == "split":
+            qp, qc = w(rn(bs, ff, n, 3 * d)), w(rn(bs, 1, 3 * d))
+            return ("shapes", f"{what} ({bs},{ff},{n},{3 * d}) {h}x{dh}",
+                    lambda: tda.divided_attention(qp, qc, h, mode),
+                    lambda dt: tda.divided_attention(qp.to(dt), qc.to(dt), h, mode,
+                                                     impl="plain"), None, None)
+        qkv = w(rn(bs, 1 + ff * n, 3 * d))
+        return ("shapes", f"{what} ({bs},{1 + ff * n},{3 * d}) {h}x{dh}",
+                lambda: dab.divided_attention_packed(qkv, h, ff, mode),
+                lambda dt: dab.divided_attention_packed(qkv.to(dt), h, ff, mode, impl="plain"),
+                None, None)
+
+    def bwd(h, dh, n, mode, layout, ff=f, guard=False):
+        d, w = h * dh, wrap(guard)
+        what = f"{mode}{' guard band' if guard else ''}"
+        if layout == "split":
+            args = (w(rn(bs, ff, n, 3 * d)), w(rn(bs, 1, 3 * d)), w(rn(bs, ff, n, d, std=1.0)),
+                    w(rn(bs, 1, d, std=1.0)))
+            return ("shapes", f"K6 {what} ({bs},{ff},{n},{3 * d}) {h}x{dh}",
+                    lambda: dab.divided_attention_bwd(*args, h, mode),
+                    lambda dt: dab.divided_attention_bwd_plain(*(t.to(dt) for t in args), h,
+                                                               mode), None, None)
+        args = (w(rn(bs, 1 + ff * n, 3 * d)), w(rn(bs, 1 + ff * n, d, std=1.0)))
+        return ("shapes", f"K7c {what} ({bs},{1 + ff * n},{3 * d}) {h}x{dh}",
+                lambda: dab.divided_attention_packed_bwd(*args, h, ff, mode),
+                lambda dt: dab.divided_attention_packed_bwd_plain(*(t.to(dt) for t in args), h,
+                                                                  ff, mode), None, None)
+
+    def k3(h, n, guard=False):
+        qkv = wrap(guard)(rn(4, n, 3 * D))
+        return ("shapes", f"K3{' guard band' if guard else ''} (4,{n},{3 * D}) {h}x{D // h}",
+                lambda: standard_attention(qkv, h),
+                lambda dt: standard_attention(qkv.to(dt), h, impl="plain"), None, None)
+
+    cases = []
+    for dh, h in head_dims:
+        layouts = ("packed", "split") if tda.heads_groupable(h, dh) else ("packed",)
+        far = 16 * _build.space_bwd_plan(1, dh)["chunk_tiles"] + 1
+        for layout in layouts:
+            for mode in ("space", "time"):
+                cases += [fwd(h, dh, n, mode, layout) for n in space_ns]
+                cases.append(bwd(h, dh, space_ns[0], mode, layout))
+            cases.append(bwd(h, dh, far, "space", layout))
+        cases += [fwd(h, dh, space_ns[-1], "space", "packed", guard=True),
+                  bwd(h, dh, space_ns[0], "time", "packed", guard=True)]
+    cases += [k3(D // DH, n) for n in k3_lens]
+    cases += [k3(D // dh, n) for dh, n in k3_dims]
+    cases.append(k3(D // DH, k3_lens[0], guard=True))
+    for h, dh in time_widths:
+        layout = "split" if tda.heads_groupable(h, dh) else "packed"
+        cases += [fwd(h, dh, time_n, "time", layout, ff) for ff in frames[0]]
+        cases += [bwd(h, dh, time_n, "time", layout, ff) for ff in frames[1]]
+    def cast(args, dt):
+        return [a.to(dt) if torch.is_tensor(a) and a.dtype == bf else a for a in args]
+
+    rows, d8, out8 = k8c
+    args = [rn(rows, d8), 1.0 + rn(d8, std=0.1, dtype=f32), rn(d8, std=0.1, dtype=f32),
+            rn(out8, d8, std=d8 ** -0.5), rn(out8, std=0.1, dtype=f32), 1e-6]
+    cases.append(("shapes", f"K8c ({rows},{d8}) -> {out8}",
+                  lambda a=args: fused_ln_matmul(*a),
+                  lambda dt, a=args: fused_ln_matmul(*cast(a, dt), impl="plain"), None, None))
+    for groups, m, hid in k4:
+        args = [rn(groups, m, D), rn(D, std=0.02, dtype=f32), 1.0 + rn(D, std=0.1, dtype=f32),
+                rn(D, std=0.1, dtype=f32), rn(3 * D, D, std=0.02),
+                rn(3 * D, std=0.02, dtype=f32), rn(D, D, std=0.02), rn(D, std=0.02, dtype=f32),
+                1.0 + rn(D, std=0.1, dtype=f32), rn(D, std=0.1, dtype=f32),
+                rn(hid, D, std=0.02), rn(hid, std=0.02, dtype=f32), rn(D, hid, std=0.02),
+                rn(D, std=0.02, dtype=f32)]
+        cases.append(("shapes", f"K4 ({groups},{m},{D}) hidden {hid}",
+                      lambda a=args: fused_cls_pool_tokens(*a, num_heads=H, eps=1e-6),
+                      lambda dt, a=args: fused_cls_pool_tokens(*cast(a, dt), num_heads=H,
+                                                               eps=1e-6, impl="plain"),
+                      None, None))
     return cases
 
 
@@ -1182,16 +1464,33 @@ GEMM_SHAPES = (
     ("K8a QKV", B * S * SEQ, 3 * D, D, "bias"),
     ("K8b fc1", B * S * SEQ, 4 * D, D, "gelu_poly"),
     ("K8b fc2", B * S * SEQ, D, 4 * D, "residual"),
+    # phase 18's widths at the video tower's rows at B = 2: K2 at hidden 1996
+    # (mlp_ratio 2.6; fc2's A and W at a pitch of 2000) and at D 1280
+    ("K2 fc1 hidden 1996", B1 * S * F_T * N_P, 1996, D, "gelu"),
+    ("K2 fc2 hidden 1996", B1 * S * F_T * N_P, D, 1996, "residual", 2000),
+    ("K2 fc1 D 1280", B1 * S * F_T * N_P, 5120, 1280, "gelu"),
+    ("K2 fc2 D 1280", B1 * S * F_T * N_P, 1280, 5120, "residual"),
 )
 GEMM_RAGGED = ((1, D, D, "residual"), (127, 4 * D, D, "gelu"), (129, D, 4 * D, "residual"),
                (8288, 4 * D, D, "gelu"), (300, 384, 128, "bias"), (300, 192, 128, "residual"),
                (127, 576, 192, "gelu_poly"), (1, 192, D, "bias"), (127, 576, D, "gelu_poly"),
                (129, 4 * D, D, "gelu_poly"), (300, 3 * D, 96, "bias"),
-               (300, 192, 32, "residual"))
-# the guard-band cases (rows, N, K, epilogue): A, W and the residual each at
-# the start of a NaN-filled buffer; at K = 96 the last k-step reaches past K
+               (300, 192, 32, "residual"),
+               # N and K of 1996, 1000 and 520 on every epilogue (the tail
+               # epilogue, K past the last full k-step); (rows, N, K,
+               # epilogue, pitch): A and W as the first K columns of rows at a
+               # 16-byte pitch, the way K2 holds a hidden width of 1996
+               (129, 1996, D, "gelu"), (8288, 1996, D, "gelu"), (129, 1996, 1000, "gelu_poly"),
+               (300, 1000, 520, "bias"), (127, 520, 1000, "residual"),
+               (129, 1996, 1000, "residual"), (129, D, 1996, "residual", 2000),
+               (300, 1996, 1996, "bias", 2000), (1, 520, 1996, "gelu", 2000),
+               (127, 1000, 1996, "gelu_poly", 2000))
+# the guard-band cases (rows, N, K, epilogue[, pitch]): A, W and the residual
+# each at the start of a NaN-filled buffer; at K = 96 the last k-step reaches
+# past K; with a pitch, the pad columns past K are NaN too
 GEMM_GUARD = ((129, D, 4 * D, "residual"), (129, 576, 96, "residual"),
-              (129, D, 96, "gelu_poly"))
+              (129, D, 96, "gelu_poly"), (129, 1996, 1000, "residual"),
+              (129, D, 1996, "residual", 2000), (127, 1000, 1996, "gelu_poly", 2000))
 
 
 def gemm_cases(torch, dev, shapes=GEMM_SHAPES, ragged=GEMM_RAGGED, guard=GEMM_GUARD) -> list:
@@ -1203,7 +1502,7 @@ def gemm_cases(torch, dev, shapes=GEMM_SHAPES, ragged=GEMM_RAGGED, guard=GEMM_GU
     yardstick, never called by the port)."""
     import torch.nn.functional as F
 
-    from synchformer_tpu_torch.ops.kernels.gemm import gemm
+    from synchformer_tpu_torch.ops.kernels import gemm as kgemm
 
     g = torch.Generator(device=dev).manual_seed(8)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1211,23 +1510,43 @@ def gemm_cases(torch, dev, shapes=GEMM_SHAPES, ragged=GEMM_RAGGED, guard=GEMM_GU
     def rn(*shape, std=1.0, dtype=bf):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
 
-    def case(label, m, n, k, epi, timed, wrap=lambda t: t):
-        a, w = wrap(rn(m, k)), wrap(rn(n, k, std=k ** -0.5))
+    def pitched(rows, k, pitch, std, guard):
+        """rows x k values as the first k columns of rows at ``pitch`` (NaN
+        past k in a guard band)."""
+        buf = rn(rows, pitch, std=std)
+        if guard:
+            buf[:, k:] = float("nan")
+        return buf[:, :k]
+
+    def case(label, m, n, k, epi, timed, guard=False, pitch=None):
+        """One case; ``guard``: each input at the start of a NaN-filled
+        buffer; ``pitch``: A and W as row views of (rows, pitch) buffers."""
+        wrap = (lambda t: guarded(torch, t)) if guard else (lambda t: t)
+        if pitch is None:
+            a, w = wrap(rn(m, k)), wrap(rn(n, k, std=k ** -0.5))
+        else:
+            a, w = pitched(m, k, pitch, 1.0, guard), pitched(n, k, pitch, k ** -0.5, guard)
         bias = rn(n, std=0.1, dtype=f32)
         r = wrap(rn(m, n)) if epi == "residual" else None
         up = (lambda t, dt: None if t is None else t.to(dt))
         nbytes = (m * k + n * k + m * n * (2 if r is not None else 1)) * 2 + n * 4
         lib_bias = bias.to(bf)
+        # the entry looked up at call time, so that scripts/stage1_planted_faults.py
+        # can wrap it
         return (f"GEMM {label} ({m},{k}) -> {n} {epi}",
-                lambda: gemm(a, w, bias, epi, r),
-                lambda dt: gemm(a.to(dt), w.to(dt), bias, epi, up(r, dt), impl="plain"),
+                lambda: kgemm.gemm(a, w, bias, epi, r),
+                lambda dt: kgemm.gemm(a.to(dt), w.to(dt), bias, epi, up(r, dt), impl="plain"),
                 (nbytes, 2.0 * m * n * k),
                 (lambda: F.linear(a, w, lib_bias)) if timed else None)
 
-    cases = [case(*shape, timed=True) for shape in shapes]
-    cases += [case(f"ragged {m} rows", m, n, k, epi, False) for m, n, k, epi in ragged]
-    cases += [case("guard band", m, n, k, epi, False, lambda t: guarded(torch, t))
-              for m, n, k, epi in guard]
+    def pitch_of(shape, at):
+        return shape[at] if len(shape) > at else None
+
+    cases = [case(*shape[:5], timed=True, pitch=pitch_of(shape, 5)) for shape in shapes]
+    cases += [case(f"ragged {r[0]} rows{f' pitch {r[4]}' if len(r) > 4 else ''}", *r[:4], False,
+                   pitch=pitch_of(r, 4)) for r in ragged]
+    cases += [case(f"guard band{f' pitch {r[4]}' if len(r) > 4 else ''}", *r[:4], False,
+                   guard=True, pitch=pitch_of(r, 4)) for r in guard]
     return cases
 
 
@@ -1252,15 +1571,27 @@ def check_gemms(torch, dev) -> None:
             f"{bound_ms:.4f} ms ({bound_by}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.2f} GFLOP)")
 
 
-def check_ragged(torch, dev) -> None:
-    """ragged_cases and k4_cases, each held by hold_outputs' rule; fails on
-    any miss."""
-    for _, label, kern, plain, _, _ in ragged_cases(torch, dev) + k4_cases(torch, dev):
+def check_ragged(torch, dev, cases=None, tag: str = "ragged") -> None:
+    """``cases`` (default ragged_cases and k4_cases), each held by
+    hold_outputs' rule; fails on any miss."""
+    if cases is None:
+        cases = ragged_cases(torch, dev) + k4_cases(torch, dev)
+    for _, label, kern, plain, _, _ in cases:
         k_out, p_out, a_out = kern(), plain(torch.bfloat16), plain(torch.float32)
         torch.cuda.synchronize()
-        failed = hold_outputs(label, k_out, p_out, a_out, "ragged")[0]
+        failed = hold_outputs(label, k_out, p_out, a_out, tag)[0]
         if failed:
             fail(f"{label} outputs {failed} outside tolerance")
+        del k_out, p_out, a_out
+
+
+def check_shapes(torch, dev) -> None:
+    """shape_cases (the head_dims, K3 lengths, frame counts and K8c width
+    past the main path's), each held by hold_outputs' rule, logged as
+    [shapes]; fails on any miss."""
+    t0 = time.perf_counter()
+    check_ragged(torch, dev, shape_cases(torch, dev), "shapes")
+    log(f"[shapes] {time.perf_counter() - t0:.1f} s")
 
 
 def host_ms(torch, fn, calls: int = 20) -> float:
@@ -1332,6 +1663,7 @@ def check_kernels(torch, dev, report):
     if not check_ast_8x96(torch, dev):
         fail("the AST layer at 8 heads of 96 reached K3 or disagrees with its plain version")
     check_ragged(torch, dev)
+    check_shapes(torch, dev)
     for key, label, kern, plain, cost, library in kernel_cases(torch, dev):
         k_out, p_out, a_out = kern(), plain(torch.bfloat16), plain(torch.float32)
         torch.cuda.synchronize()
@@ -1590,22 +1922,25 @@ def run_serving_8head(torch, dev, report):
                    order=("plain", "fused", "pallas", "pallas", "fused", "plain"))
 
 
-def stage1_batch(torch, b: int, s: int, frames=FRAMES) -> dict:
-    """One seeded loader batch: uint8 frames (b, s, *frames), PCM (b, s, 10240)."""
+def stage1_batch(torch, b: int, s: int, frames=FRAMES, samples: int = 10240) -> dict:
+    """One seeded loader batch: uint8 frames (b, s, *frames), PCM (b, s,
+    samples)."""
     import numpy as np
 
     rng = np.random.default_rng(2)
     return {"video": torch.from_numpy(rng.integers(0, 256, (b, s, *frames), dtype=np.uint8)),
-            "audio": torch.from_numpy((rng.standard_normal((b, s, 10240)) * 0.1)
+            "audio": torch.from_numpy((rng.standard_normal((b, s, samples)) * 0.1)
                                       .astype(np.float32))}
 
 
 def stage1_trainer(build, state_dict, dev, precision: str, impl: str, remat: bool = False,
-                   moco: bool = False, p_flip: float = 0.5):
+                   moco: bool = False, p_flip: float = 0.5, mel_t: int | None = None,
+                   window: int = 8):
     """An AVCLIPTrainer on ``build(remat=..., device=dev)`` loaded with
     ``state_dict``: Stage I's optimiser settings, generator seed 0, flip p
-    ``p_flip``; with ``moco``, cfg.model.target names MultilevelMoCoCLIP and
-    alpha is MOCO_ALPHA."""
+    ``p_flip``, zero-shot window ``window``; with ``moco``, cfg.model.target
+    names MultilevelMoCoCLIP and alpha is MOCO_ALPHA; ``mel_t``, the audio
+    tower's max_spec_t (the log-mel's length; default 66)."""
     from synchformer_tpu_torch.train.stage_clip import AVCLIPTrainer
     from synchformer_tpu_torch.utils.convert import load_numpy_state_dict
 
@@ -1613,10 +1948,13 @@ def stage1_trainer(build, state_dict, dev, precision: str, impl: str, remat: boo
     load_numpy_state_dict(model, state_dict)
     cfg = {"training": {"seed": 0, "precision": precision, "learning_rate": 1e-4,
                         "weight_decay": 0.2, "warmup": 1000, "total_steps": 100_000,
-                        "max_clip_norm": MAX_CLIP, "zero_shot_window": 8, "alpha": MOCO_ALPHA},
+                        "max_clip_norm": MAX_CLIP, "zero_shot_window": window,
+                        "alpha": MOCO_ALPHA},
            "data": {"p_horizontal_flip": p_flip, "p_audio_aug": 0.0}}
     if moco:
         cfg["model"] = {"target": MOCO_TARGET}
+    if mel_t is not None:
+        cfg["model"] = {"params": {"afeat_extractor": {"params": {"max_spec_t": mel_t}}}}
     return AVCLIPTrainer(cfg, device=dev, model=model, impl=impl)
 
 
@@ -1724,7 +2062,8 @@ def stage1_agreement(ref: dict, plain: dict, kern: dict, tag: str = "stage1",
 
 def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
                eval_launches=STAGE1_EVAL_LAUNCHES, tag="stage1", path="stage1_train",
-               fused=None):
+               fused=None, s: int = S, frames=FRAMES, samples: int = 10240,
+               mel_t: int | None = None, solo: bool = False, plain_remat: bool = False):
     """The Stage I step of ``build`` (default build_avclip) through
     AVCLIPTrainer: (c) f32 plain with remat, (a) bf16 kernel, (b) bf16 plain;
     exact launch counts of (a)'s first step (reported for the kernels whose
@@ -1733,19 +2072,27 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
     each bf16 path's first step. ``fused``: (build, launches, eval launches)
     of the same model on attn_impl='pallas_fused', whose bf16 kernel step (d)
     is held against (c) and (b) (its plain route is the same composition),
-    counted, and timed in the same turns."""
+    counted, and timed in the same turns. ``s`` segments of ``frames`` raw
+    frames and ``samples`` PCM samples a segment, the log-mel ``mel_t`` long
+    (default: the 0.64 s segments' 66). ``solo``: one bf16 trainer resident
+    at a time (for models whose two trainers do not fit the card together):
+    the kernel path's first step, windows and eval step, then the plain
+    path's, the windows in turns within each path only. ``plain_remat``:
+    the bf16 plain path with remat (the same math in less memory; plain
+    launches nothing)."""
     from synchformer_tpu_torch.models.presets import build_avclip
     from synchformer_tpu_torch.utils.convert import seeded_state_dict
 
     build = build or build_avclip
     t0 = time.perf_counter()
     sd = seeded_state_dict(build(device="meta"), seed=0)
-    batch = stage1_batch(torch, B1, S)
+    batch = stage1_batch(torch, B1, s, frames, samples)
     log(f"[{tag}] weights + batch {time.perf_counter() - t0:.1f} s; video "
         f"{tuple(batch['video'].shape)} uint8, audio {tuple(batch['audio'].shape)}")
 
     def trainer(precision, impl, remat=False, make=build):
-        return stage1_trainer(make, sd, dev, precision, impl, remat)
+        return stage1_trainer(make, sd, dev, precision, impl, remat, mel_t=mel_t,
+                              window=min(8, s))
 
     def first_step(tr, what, resident=0):
         """step_gradients' record of the first step, and its peak memory above
@@ -1780,11 +2127,39 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
     for key in KEYS:
         if PATHS[key] == path:
             report[key]["launches"] = counts[key]
+    times = {}
+
+    def windows(names):
+        """3 steps per window, of each path named, in turn."""
+        for name in names:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(3):
+                checked_step(trainers[name], batch, name)
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append((time.perf_counter() - t) / 3)
+
+    def eval_step(name, want):
+        out, _ = counted_record(torch, tag, f"one {name} eval step", want,
+                                lambda: trainers[name].eval_step(batch))
+        if (out["vfeat"].shape != (B1, s, D) or not bool(torch.isfinite(out["loss"]))
+                or not bool(torch.isfinite(out["vfeat"]).all())):
+            fail(f"{tag} {name} eval step: features of the wrong shape or non-finite")
+        log(f"[{tag}] {name} eval step: loss {out['loss'].item():.6f}, zero-shot precision "
+            f"{out['precision'].item():.4f} (window {min(8, s)} of {s} segments)")
+
+    if solo:
+        windows(("kernel", "kernel"))
+        eval_step("kernel", eval_launches)
+        del trainers["kernel"]
+        gc.collect()
+        torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
-    trainers["plain"] = trainer("amp", "plain")
-    plain, p_peak = first_step(trainers["plain"], "(b) bf16 plain", resident)
+    trainers["plain"] = trainer("amp", "plain", remat=plain_remat)
+    plain, p_peak = first_step(trainers["plain"],
+                               "(b) bf16 plain" + (", remat" if plain_remat else ""), resident)
     peaks = {"kernel": k_peak, "plain": p_peak}
-    order = ("plain", "kernel", "kernel", "plain")
+    order = ("plain", "plain") if solo else ("plain", "kernel", "kernel", "plain")
     if fused is not None:
         resident = torch.cuda.memory_allocated()
         trainers["fused"] = trainer("amp", "kernel", make=fused[0])
@@ -1795,27 +2170,11 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
         order = ("plain", "kernel", "fused", "fused", "kernel", "plain")
     log(f"[{tag}] bf16 first steps {time.perf_counter() - t0:.1f} s")
 
-    # 3 steps per window, in the order plain, kernel, kernel, plain (with
-    # the fused route's windows in the middle)
-    times = {name: [] for name in trainers}
-    for name in order:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(3):
-            checked_step(trainers[name], batch, name)
-        torch.cuda.synchronize()
-        times[name].append((time.perf_counter() - t) / 3)
-
-    def eval_step(name, want):
-        out, _ = counted_record(torch, tag, f"one {name} eval step", want,
-                                lambda: trainers[name].eval_step(batch))
-        if (out["vfeat"].shape != (B1, S, D) or not bool(torch.isfinite(out["loss"]))
-                or not bool(torch.isfinite(out["vfeat"]).all())):
-            fail(f"{tag} {name} eval step: features of the wrong shape or non-finite")
-        log(f"[{tag}] {name} eval step: loss {out['loss'].item():.6f}, zero-shot precision "
-            f"{out['precision'].item():.4f} (window 8 of {S} segments)")
-
-    eval_step("kernel", eval_launches)
+    # windows in the order plain, kernel, kernel, plain (with the fused
+    # route's windows in the middle)
+    windows(order)
+    if not solo:
+        eval_step("kernel", eval_launches)
     if fused is not None:
         eval_step("fused", fused[2])
     del trainers
@@ -1834,7 +2193,7 @@ def run_stage1(torch, dev, report, build=None, launches=STAGE1_LAUNCHES,
         if name not in times:
             continue
         best = min(times[name]) * 1e3
-        log(f"[timing] {tag} {what} path: {best:.1f} ms/step of {B1} clips x {S} segments "
+        log(f"[timing] {tag} {what} path: {best:.1f} ms/step of {B1} clips x {s} segments "
             f"= {B1 * 1e3 / best:.3f} samples/s (runs "
             f"{[round(t * 1e3, 1) for t in times[name]]} ms); peak memory {gib(peaks[name])}")
 
@@ -3684,32 +4043,39 @@ def with_last_segment(rec: dict) -> dict:
 
 
 def tower_alone_records(torch, dev, tag: str, node: dict, inputs: dict, want: dict,
-                        name: str) -> list:
+                        name: str, timed: bool = False) -> list:
     """One tower (``node`` through the registry, seeded) alone: f32 plain,
     bf16 plain and bf16 kernel forwards of ``inputs`` (by dtype), the kernel
     forward's launches exactly ``want``; serving_agreement's rule (relative
-    L2 within 2 x plain bf16's) on the outputs, under ``name``."""
+    L2 within 2 x plain bf16's) on the outputs, under ``name``; with
+    ``timed``, ms/batch and peak memory of the bf16 routes (timed_forwards)."""
     from synchformer_tpu_torch.models.sync_model import Synchformer
     from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
 
     build = registry_build({"target": node["target"], "params": dict(node["params"])})
     sd = seeded_state_dict(build(device="meta"), seed=0)
-    recs = {}
+    recs, runs = {}, {}
     for what, dtype, impl in (("f32", torch.float32, "plain"), ("plain", torch.bfloat16, "plain"),
                               ("kernel", torch.bfloat16, "kernel")):
         tower = build(device=dev).eval()
         load_numpy_state_dict(tower, sd)
         # the matrices in bf16 once, LN parameters and biases f32 (SyncPredictor's rule)
         Synchformer.cast_matrices_(tower, dtype)
-        with torch.no_grad():
-            def run(tower=tower, dtype=dtype, impl=impl):
-                return {name: tower(inputs[dtype], impl).float()}
 
-            recs[what] = (counted_record(torch, tag, f"one {name} forward", want, run)[0]
-                          if impl == "kernel" else run())
+        def run(x=None, tower=tower, dtype=dtype, impl=impl):
+            with torch.no_grad():
+                return {name: tower(inputs[dtype] if x is None else x, impl).float()}
+
+        recs[what] = (counted_record(torch, tag, f"one {name} forward", want, run)[0]
+                      if impl == "kernel" else run())
+        if timed and what != "f32":
+            runs[what] = run
         del tower
     log(f"[{tag}] {name}: output {tuple(recs['f32'][name].shape)}")
-    return serving_agreement(recs["f32"], recs["plain"], recs["kernel"], tag)
+    failed = serving_agreement(recs["f32"], recs["plain"], recs["kernel"], tag)
+    if timed:
+        timed_forwards(torch, f"{tag} {name}", runs, (inputs[torch.bfloat16],))
+    return failed
 
 
 def run_tower_options(torch, dev, report):
@@ -3819,10 +4185,172 @@ def run_tower_options(torch, dev, report):
     log(f"[{tag}] {time.perf_counter() - t0:.1f} s; {smi}")
 
 
+# phase 18: the shapes the TPU kernels take past the main path's, each driven
+# through the registry from a shipped config with the widths changed
+# (a) the AudioSet AST classifier on 10 s clips: 1024 mel frames
+AST_SPEC_T, AST_CLIP_SAMPLES, AST_LABELS = 1024, 160000, 527
+P18_AST_LAUNCHES = {**{key: 0 for key in KEYS}, "K2": 12, "K3": 12}
+# (b) a video tower at ViT-H/14's width and heads, the Motionformer's depth
+P18_WIDE_VIDEO = {"embed_dim": 1280, "num_heads": 16}
+# (c) 2.56 s segments: 64 raw frames (32 after the 3-D patch embed), 40960
+# PCM samples; the log-mel 256 hops + 2, the rule that gives 0.64 s its 66
+P18_RAW_FRAMES, P18_SAMPLES, P18_MEL_T = 64, 40960, 258
+# (d) mlp_ratio 2.6 on both towers: hidden int(768 * 2.6) = 1996
+P18_MLP_RATIO = 2.6
+
+
+def wide_sync_node(attn_impl: str) -> dict:
+    """configs/sync.yaml's model (sync_config) with the video tower at
+    P18_WIDE_VIDEO on ``attn_impl`` and a Linear 1280 -> 768 vproj."""
+    node = sync_config("train_avsync_model", S, widths={
+        "video": {**P18_WIDE_VIDEO, "attn_impl": attn_impl}})["model"]
+    node["params"]["vproj"] = {"target": "torch.nn.Linear", "params": {
+        "in_features": P18_WIDE_VIDEO["embed_dim"], "out_features": D}}
+    return node
+
+
+def wide_stage1_node() -> dict:
+    """configs/segment_avclip.yaml's model with the video tower at
+    P18_WIDE_VIDEO and a Linear 1280 -> 768 vproj (the audio side as
+    shipped)."""
+    from synchformer_tpu_torch.config.core import load_config
+
+    model = load_config(os.path.join(ENTRY_CONFIGS, "segment_avclip.yaml")).to_dict()["model"]
+    p = model["params"]
+    p["vfeat_extractor"]["params"].update(P18_WIDE_VIDEO)
+    p["vproj"] = {"target": "torch.nn.Linear", "params": {
+        "in_features": P18_WIDE_VIDEO["embed_dim"], "out_features": p["n_embd"]}}
+    return model
+
+
+def segment_stage1_node() -> dict:
+    """configs/segment_avclip.yaml's model for 2.56 s segments: the
+    Motionformer's temporal_resolution P18_FRAMES, the AST's max_spec_t
+    P18_MEL_T."""
+    from synchformer_tpu_torch.config.core import load_config
+
+    model = load_config(os.path.join(ENTRY_CONFIGS, "segment_avclip.yaml")).to_dict()["model"]
+    p = model["params"]
+    p["vfeat_extractor"]["params"]["temporal_resolution"] = P18_FRAMES
+    p["afeat_extractor"]["params"]["max_spec_t"] = P18_MEL_T
+    return model
+
+
+def run_shapes(torch, dev, report):
+    """Phase 18: (a) the AudioSet AST classifier at 1214 tokens, (b) a
+    ViT-H-width video tower (16 heads of 80, hidden 5120) in sync inference
+    on both attention routes and in the Stage I step, (c) the Stage I step
+    over 2.56 s segments (32 frames a segment in the time pass), (d) sync
+    inference at mlp_ratio 2.6 (hidden 1996); each held against f32 plain
+    with exact launch counts and timed."""
+    import functools
+
+    from synchformer_tpu_torch.infer import SyncPredictor
+    from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict, seeded_state_dict
+
+    smi = smi_line()
+    nodes = sync_config("train_avsync_model", S)["model"]["params"]
+
+    # (a)
+    t0 = time.perf_counter()
+    tag = "p18a_ast"
+    rng = torch.Generator(device=dev).manual_seed(11)
+    pcm = torch.randn(B, 1, AST_CLIP_SAMPLES, generator=rng, device=dev) * 0.1
+    mel = log_mel_spectrogram(pcm, MelSpectrogramConfig(max_spec_t=AST_SPEC_T)).transpose(-1, -2)
+    aud = {dt: mel.to(dt).contiguous() for dt in (torch.float32, torch.bfloat16)}
+    node = {"target": nodes["afeat_extractor"]["target"], "params": {
+        **nodes["afeat_extractor"]["params"], "extract_features": False,
+        "num_labels": AST_LABELS, "max_spec_t": AST_SPEC_T}}
+    log(f"[{tag}] log-mel {tuple(mel.shape)}: {2 + 12 * ((AST_SPEC_T - 16) // 10 + 1)} tokens")
+    failed = tower_alone_records(torch, dev, tag, node, aud, P18_AST_LAUNCHES, "classifier",
+                                 timed=True)
+    if failed:
+        fail(f"{tag}: outside tolerance: {failed}")
+    del aud, mel, pcm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] {time.perf_counter() - t0:.1f} s")
+
+    # (b) sync inference on both routes, then the Stage I step
+    t0 = time.perf_counter()
+    tag = "p18b_wide"
+    build, build_f = registry_build(wide_sync_node("pallas")), registry_build(
+        wide_sync_node("pallas_fused"))
+    sd = seeded_state_dict(build(device="meta"), seed=0)
+    preds = {}
+    for name, make, dtype, impl in (("f32", build, torch.float32, "plain"),
+                                    ("plain", build, torch.bfloat16, "plain"),
+                                    ("kernel", build, torch.bfloat16, "kernel"),
+                                    ("fused", build_f, torch.bfloat16, "kernel")):
+        model = make(device=dev)
+        load_numpy_state_dict(model, sd)
+        preds[name] = SyncPredictor(model, dev, dtype, impl)
+    video, pcm = slice_inputs(torch, dev, B1)
+    ref = serving_record(torch, preds["f32"], video, pcm)
+    plain = serving_record(torch, preds["plain"], video, pcm)
+    kern, _ = counted_record(torch, tag, "one pallas kernel-path forward",
+                             SERVING_PALLAS_LAUNCHES,
+                             lambda: serving_record(torch, preds["kernel"], video, pcm))
+    fused, _ = counted_record(torch, tag, "one pallas_fused kernel-path forward",
+                              SERVING_FUSED_LAUNCHES,
+                              lambda: serving_record(torch, preds["fused"], video, pcm))
+    failed = serving_agreement(ref, plain, kern, tag)
+    failed += [f"fused {n}" for n in serving_agreement(ref, plain, fused, f"{tag}_fused")]
+    if failed:
+        fail(f"{tag}: kernel path outside tolerance: {failed}")
+    del preds["f32"]
+    timed_forwards(torch, tag, preds, (video, pcm),
+                   order=("plain", "kernel", "fused", "fused", "kernel", "plain"))
+    del preds, ref, plain, kern, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] sync inference {time.perf_counter() - t0:.1f} s; {smi}")
+    t0 = time.perf_counter()
+    # the kernel path's step peaks near 37 GiB above its trainer, the plain
+    # path's near 61: one trainer resident at a time
+    run_stage1(torch, dev, report, build=registry_build(wide_stage1_node()),
+               launches=STAGE1_8HEAD_LAUNCHES, eval_launches=STAGE1_8HEAD_EVAL_LAUNCHES,
+               tag="p18b_stage1", path="phase 18 (b)", solo=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[p18b_stage1] {time.perf_counter() - t0:.1f} s; {smi}")
+
+    # (c): the kernel step alone peaks near 47 GiB, the plain bf16 one near
+    # 85 without remat
+    t0 = time.perf_counter()
+    run_stage1(torch, dev, report, build=registry_build(segment_stage1_node()),
+               launches=STAGE1_LAUNCHES, eval_launches=STAGE1_EVAL_LAUNCHES,
+               tag="p18c_segments", path="phase 18 (c)", s=P18_SEGMENTS,
+               frames=(P18_RAW_FRAMES, *FRAMES[1:]), samples=P18_SAMPLES, mel_t=P18_MEL_T,
+               solo=True, plain_remat=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[p18c_segments] {time.perf_counter() - t0:.1f} s; {smi}")
+
+    # (d)
+    t0 = time.perf_counter()
+    tag = "p18d_mlp"
+    preds = option_predictors(torch, dev, sync_config("train_avsync_model", S, widths={
+        "audio": {"mlp_ratio": P18_MLP_RATIO}, "video": {"mlp_ratio": P18_MLP_RATIO}})["model"])
+    video, pcm = slice_inputs(torch, dev, B1)
+    record = functools.partial(serving_record, torch, video=video, pcm=pcm, audio=True)
+    ref, plain = record(pred=preds["f32"]), record(pred=preds["plain"])
+    kern, _ = counted_record(torch, tag, f"one mlp_ratio {P18_MLP_RATIO} kernel-path forward",
+                             P17_SYNC_LAUNCHES, lambda: record(pred=preds["kernel"]))
+    failed = serving_agreement(ref, plain, kern, tag)
+    if failed:
+        fail(f"{tag}: kernel path outside tolerance: {failed}")
+    del preds["f32"]
+    timed_forwards(torch, tag, preds, (video, pcm))
+    del preds, ref, plain, kern
+    log(f"[{tag}] {time.perf_counter() - t0:.1f} s; {smi}")
+
+
 PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
           run_serving_8head, run_moco, run_sync_training,
           run_audio_augs, run_entry_point, run_data_parallel, run_reference_ckpts, run_legacy,
-          run_tower_options)
+          run_tower_options, run_shapes)
 
 
 def main() -> int:

@@ -136,6 +136,18 @@ with a keep, the XLA composition models/motionformer.py runs under a
 keep-mask) attending as if every token were kept. Each line gives its
 margin (the largest error over its tolerance). ``--only options`` runs
 these alone.
+Then the faults of the shapes past the main path's (shape_faults) on phase
+2's new cases (chip_smoke.shape_cases, chip_smoke.gemm_cases; each line
+gives its margin):
+- pad_lanes_unzeroed: the packed divided attention at head_dim 80 (run at
+  width 96) with each head's 16 pad lanes holding the next head's first 16
+  lanes instead of zeros (q rescaled so that only the lanes differ);
+- k5_time_frames_dropped / k6_time_frames_dropped: the split time pass,
+  forward and backward, over the first 27 frames only (the frames a block
+  of all 12 heads once held at D = 768), the later frames' outputs zero;
+- gemm_last_tile_dropped: the Hopper GEMM without its last column tile
+  where N % 128 != 0 (N = 1996: columns 1920 to 1995 zero).
+``--only shapes`` runs these alone.
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
@@ -182,6 +194,7 @@ from synchformer_tpu_torch.ops.kernels import divided_attention as tda  # noqa: 
 from synchformer_tpu_torch.ops.kernels import divided_attention_bwd as dab  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import fused_block as fb  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import fused_rows as frows  # noqa: E402
+from synchformer_tpu_torch.ops.kernels import gemm as kgemm  # noqa: E402
 from synchformer_tpu_torch.ops.kernels import standard_attention as tsa  # noqa: E402
 from synchformer_tpu_torch.ops.kernels.divided_attention import (  # noqa: E402
     divided_attention_packed,
@@ -353,6 +366,56 @@ def space_cls_key_dropped(fwd, bwd, qkv, num_heads, num_frames, mode):
     return out
 
 
+def pad_lanes_unzeroed(fwd, bwd, qkv, num_heads, num_frames, mode):
+    """At head_dim 80: the attention at width 96 with each head's pad lanes
+    80-95 holding the next head's lanes 0-15, q rescaled by (96 / 80)^0.5 so
+    that the wider run's 96^-0.5 gives 80^-0.5; other head dims unchanged."""
+    b, seq, threed = qkv.shape
+    dh = threed // 3 // num_heads
+    if dh != 80:
+        return fwd(qkv, num_heads, num_frames, mode)
+    x = qkv.unflatten(-1, (3, num_heads, dh))
+    wide = torch.cat([x, torch.roll(x, -1, dims=3)[..., :16]], dim=-1)
+    wide[:, :, 0] = (wide[:, :, 0].float() * (96 / 80) ** 0.5).to(qkv.dtype)
+    out = fwd(wide.flatten(2).contiguous(), num_heads, num_frames, mode)
+    return out.unflatten(-1, (num_heads, 96))[..., :dh].flatten(-2).contiguous()
+
+
+# the frames a block of all 12 heads at D = 768 held in the backward's time pass
+KEPT_FRAMES = 27
+
+
+def k5_time_frames_dropped(fwd, qkv_p, qkv_c, num_heads, mode):
+    """The split forward's time pass over the first KEPT_FRAMES frames only,
+    the later frames' patch outputs zero (the CLS row as computed)."""
+    out_p, out_c = fwd(qkv_p, qkv_c, num_heads, mode)
+    if mode != "time" or qkv_p.shape[1] <= KEPT_FRAMES:
+        return out_p, out_c
+    kept, _ = fwd(qkv_p[:, :KEPT_FRAMES].contiguous(), qkv_c, num_heads, mode)
+    return torch.cat([kept, torch.zeros_like(out_p[:, KEPT_FRAMES:])], 1), out_c
+
+
+def k6_time_frames_dropped(fwd, bwd, qkv_p, qkv_c, dop, doc, num_heads, mode):
+    """The split backward's time pass over the first KEPT_FRAMES frames only,
+    the later frames' dqkv zero (the CLS row's as computed)."""
+    dqp, dqc = bwd(qkv_p, qkv_c, dop, doc, num_heads, mode)
+    if mode != "time" or qkv_p.shape[1] <= KEPT_FRAMES:
+        return dqp, dqc
+    kept, _ = bwd(qkv_p[:, :KEPT_FRAMES].contiguous(), qkv_c,
+                  dop[:, :KEPT_FRAMES].contiguous(), doc, num_heads, mode)
+    return torch.cat([kept, torch.zeros_like(dqp[:, KEPT_FRAMES:])], 1), dqc
+
+
+def gemm_last_tile_dropped(fwd, a, w, bias, epilogue="bias", residual=None, impl="kernel"):
+    """The GEMM with its last 128-column tile zero where N % 128 != 0."""
+    out = fwd(a, w, bias, epilogue, residual, impl)
+    n = out.shape[-1]
+    if n % 128:
+        out = out.clone()
+        out[..., n - n % 128:] = 0
+    return out
+
+
 def k1_mode_swapped(fwd, qkv_p, qkv_c, res, wo, bo, num_heads, mode):
     return fwd(qkv_p, qkv_c, res, wo, bo, num_heads, "time" if mode == "space" else "space")
 
@@ -475,6 +538,23 @@ TINY_LEGACY = {"b": 1, "s": 2, "frames": (16, 64, 64, 3),
                "widths": {"d": 64, "n_layer": 2, "n_head": 4}}
 # --tiny's ragged cases: one segment of 2 frames
 TINY_RAGGED = {"bs": 1, "f": 2}
+# the shape faults and the entries they replace (ops/kernels/divided_attention.py's
+# split forward, gemm.py's GEMM entry; the packed forward and the split
+# backward of divided_attention_bwd.py, FLOWS' entries)
+PAD_FAULTS = {"none": None, "pad_lanes_unzeroed": (pad_lanes_unzeroed, 0)}
+TIME_FWD_ENTRIES = (tda, ("divided_attention",))
+TIME_FWD_FAULTS = {"none": None, "k5_time_frames_dropped": (k5_time_frames_dropped, 0)}
+TIME_BWD_FAULTS = {"none": None, "k6_time_frames_dropped": (k6_time_frames_dropped, 1)}
+GEMM_ENTRIES = (kgemm, ("gemm",))
+GEMM_FAULTS = {"none": None, "gemm_last_tile_dropped": (gemm_last_tile_dropped, 0)}
+# --tiny's shape cases: 2 heads of 80, 30 frames past KEPT_FRAMES at 2 heads
+# of 64, small K3 and K8c
+TINY_SHAPES = {"bs": 1, "f": 2, "head_dims": ((80, 2),), "space_ns": (5,), "k3_lens": (20,),
+               "k3_dims": ((32, 9),), "frames": ((30,), (30,)), "time_widths": ((2, 64),),
+               "time_n": 3, "k8c": (8, 40, 60), "k4": ((2, 3, 40),)}
+# --tiny's GEMM cases at N = 1996
+TINY_GEMM = {"shapes": (), "ragged": ((5, 1996, 64, "gelu"), (3, 1996, 40, "residual", 48)),
+             "guard": ((5, 1996, 64, "bias"),)}
 # --tiny's K1 / K2 cases: 2 heads of 64, 2 segments of 2 frames of 4 patches
 TINY_K12 = {"bs": 2, "f": 2, "n": 4, "d": 128, "h": 2, "ast_tokens": 5}
 
@@ -610,6 +690,34 @@ def ragged_kernel_faults(dev, tiny: bool):
                          SPACE_FAULTS)
     bwd = cases_caught([c for c in cases if c[0] == "bwd ragged"], BWD_ENTRIES, BWD_FAULTS)
     return k3, space, bwd
+
+
+def shape_faults(dev, tiny: bool) -> dict:
+    """The shape faults on phase 2's new cases (TINY_SHAPES' and TINY_GEMM's
+    sizes with --tiny): pad_lanes_unzeroed on the packed forwards at head_dim
+    80, the time faults on the split time passes past KEPT_FRAMES frames,
+    gemm_last_tile_dropped on the GEMM cases at N = 1996; each fault's cases
+    that hold_outputs failed, by group."""
+    cases = chip_smoke.shape_cases(torch, dev, **(TINY_SHAPES if tiny else {}))
+    packed_80 = [c for c in cases if c[1].endswith("x80") and " packed" in c[1]]
+    time_fwd = [c for c in cases if c[1].startswith("time split")
+                and int(c[1].split("(")[1].split(",")[1]) > KEPT_FRAMES]
+    time_bwd = [c for c in cases if c[1].startswith("K6 time")
+                and int(c[1].split("(")[1].split(",")[1]) > KEPT_FRAMES]
+    gemms = [("GEMM", label, kern, plain, None, None) for label, kern, plain, _, _
+             in chip_smoke.gemm_cases(torch, dev, **(TINY_GEMM if tiny else {"shapes": ()}))
+             if "-> 1996" in label]
+    caught = {}
+    for what, group, entries, faults in (
+            ("pad", packed_80, FLOWS["packed"][:2], PAD_FAULTS),
+            ("time_fwd", time_fwd, TIME_FWD_ENTRIES, TIME_FWD_FAULTS),
+            ("time_bwd", time_bwd, FLOWS["split"][:2], TIME_BWD_FAULTS),
+            ("gemm", gemms, GEMM_ENTRIES, GEMM_FAULTS)):
+        chip_smoke.log(f"[fault] shapes {what}: {len(group)} cases")
+        got = cases_caught(group, entries, faults)
+        caught["none"] = caught.get("none", []) + got.pop("none")
+        caught.update(got)
+    return caught
 
 
 def slice_faults(dev, tiny: bool) -> dict:
@@ -945,12 +1053,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--only", choices=("all", "dp", "ckpt", "legacy", "options"),
+    ap.add_argument("--only", choices=("all", "dp", "ckpt", "legacy", "options", "shapes"),
                     default="all",
                     help="dp: the data-parallel faults of phase 14 (c) alone; ckpt: the Stage "
                          "I reader's of phase 15 (c) alone; legacy: the K4 faults on phase "
                          "16 (a) and on phase 2's K4 cases alone; options: phase 17's "
-                         "faults alone")
+                         "faults alone; shapes: the faults of phase 2's new shapes alone")
     args = ap.parse_args()
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -967,6 +1075,11 @@ def main() -> int:
             chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
             _build.build_all()
         return 0 if verdict("options", option_faults(dev, args.tiny)) else 1
+    if args.only == "shapes":
+        if dev.type == "cuda":
+            chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
+            _build.build_all()
+        return 0 if verdict("shapes", shape_faults(dev, args.tiny)) else 1
     if args.only == "legacy":
         if dev.type == "cuda":
             chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
@@ -1035,6 +1148,7 @@ def main() -> int:
     ok = verdict("ckpt", ckpt_faults(dev, args.tiny)) and ok
     ok = verdict("legacy", legacy_faults(dev, args.tiny)) and ok
     ok = verdict("options", option_faults(dev, args.tiny)) and ok
+    ok = verdict("shapes", shape_faults(dev, args.tiny)) and ok
     return 0 if verdict("kernels_k2", k2) and ok else 1
 
 if __name__ == "__main__":

@@ -156,9 +156,10 @@ ln_row0_kernel(const bf16* __restrict__ x, int64_t group_stride, const float* __
 
 // C[r, n] = epilogue(A[r, :] . W[n, :] + bias[n]) for r < rows <= RT:
 // one block per output column n, its SKINNY_WARPS warps each a quarter of K
-// (K % 32 == 0) with 16-byte loads of W's row and A's rows (a few KB, from
-// L1), the quarters' f32 sums added in order in shared memory. The
-// epilogues round as wgmma_gemm.cuh's.
+// in 8-value pieces (K % 8 == 0; the last quarter shorter where K % 32 !=
+// 0: an MLP width of 8-value pieces) with 16-byte loads of W's row and A's
+// rows (a few KB, from L1), the quarters' f32 sums added in order in shared
+// memory. The epilogues round as wgmma_gemm.cuh's.
 template <int EPI, int RM>
 __global__ void __launch_bounds__(SKINNY_WARPS * 32)
 skinny_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
@@ -166,13 +167,14 @@ skinny_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
               bf16* __restrict__ C, int rows, int N, int K) {
   __shared__ float part[SKINNY_WARPS][RM];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n = blockIdx.x, kw = K / SKINNY_WARPS, k0 = warp * kw;
+  const int n = blockIdx.x, kw = (K / 8 + SKINNY_WARPS - 1) / SKINNY_WARPS * 8, k0 = warp * kw;
+  const int k1 = min(k0 + kw, K);
   float acc[RM];
 #pragma unroll
   for (int r = 0; r < RM; ++r) acc[r] = 0.f;
   const bf16* wr = W + (int64_t)n * K;
 #pragma unroll 4
-  for (int k = k0 + lane * 8; k < k0 + kw; k += 256) {
+  for (int k = k0 + lane * 8; k < k1; k += 256) {
     float w[8];
     unpack8(__ldg(reinterpret_cast<const uint4*>(wr + k)), w);
 #pragma unroll
@@ -940,7 +942,7 @@ int launch_tail(const bf16* att, const bf16* R, int64_t r_stride, const bf16* wp
 // U), CL 1 or 2, rows >= 1, the shapes every kernel takes, and grids
 // (pool_kernel's and u_kernel's, on gridDim.x) within 2^31 - 1 blocks.
 bool bad_plan(int B, int M, int D, int H, int hidden, int G, int CL, int rows, bool shared_u) {
-  return B < 1 || M < 1 || H < 1 || H > MAXH || D % H != 0 || D % 64 != 0 || hidden % 64 != 0 ||
+  return B < 1 || M < 1 || H < 1 || H > MAXH || D % H != 0 || D % 64 != 0 || hidden % 8 != 0 ||
          G < 1 || G > GMAX || (G > 1 && (!shared_u || CL != 1)) || (CL != 1 && CL != 2) ||
          (CL == 2 && M < 2) || rows < 1 || (int64_t)(B + G - 1) / G * CL > INT_MAX ||
          (int64_t)(B + U_ROWS - 1) / U_ROWS * (D / U_COLS) > INT_MAX;

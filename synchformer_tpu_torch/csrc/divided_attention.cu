@@ -20,8 +20,9 @@
 // rows from one segment to the next (split: f*n for patches, 1 for the CLS;
 // packed: 1 + f*n for both, the patch base one row after the CLS base).
 //
-// Semantics, per head (head_dim DH in {32, 64, 96, 128}, a template
-// parameter), q scaled by DH^-0.5 and rounded to bf16:
+// Semantics, per head (any head_dim dh that is a multiple of 8 up to 256,
+// run at the least width of divided_attention.cuh's WIDTHS that holds it),
+// q scaled by dh^-0.5 and rounded to bf16:
 // - each patch token attends {CLS} U its group: the n tokens of its frame
 //   (space, n + 1 keys) or the f tokens at its spatial position (time, f + 1);
 // - the CLS query attends all 1 + f*n keys;
@@ -56,7 +57,8 @@ using sft::bf16;
 using sft::attn::dispatch_attention;
 
 // K1. mode 0 = space (groups are frames), 1 = time (groups are spatial
-// positions). The projection GEMM needs D % 128 == 0.
+// positions). Any D = H * dh (dh a multiple of 8): the projection GEMM takes
+// a D that is not a multiple of 128 on its tail epilogue.
 extern "C" int sft_divided_attention_proj(const void* qkv_p, const void* qkv_c,
                                           const void* res, const void* wo, const void* bo,
                                           void* attn_scratch, void* out_p, void* out_c,

@@ -18,6 +18,14 @@
 // and writes each output slice with 16-byte accesses: every byte of qkv is
 // read once and every output row written once. The arithmetic runs on CUDA
 // cores, four lanes a query.
+//
+// Any head_dim dh that is a multiple of 8, up to 256: the kernels are
+// instantiated for the widths of mma_attention.cuh's padded_width and dh
+// runs at the next one up, its staged columns past dh zeroed
+// (mma_attention.cuh says how). The time pass
+// stages a group of HG heads' key / value columns (all H where they fit), so
+// how many frames it takes depends on dh, not on D: its plan (time_plan,
+// mirrored by ops/kernels/_build.py::time_pass_plan) picks P and HG.
 #pragma once
 
 #include "mma_attention.cuh"
@@ -28,54 +36,73 @@ namespace attn {
 constexpr int WARPS = 8;
 
 // Shared memory of the time pass: P positions' f * P key / value rows and
-// the CLS row's, [k | v] each, and each warp's logits of 8 queries. P is the
-// largest of 4, 2, 1 whose rows fit TIME_SMEM_TARGET (4 blocks an SM at D =
-// 768, f = 8: P = 2), else 1; the wrappers mirror this plan
+// the CLS row's, [k | v] each over HG heads at DHP columns a head, and each
+// warp's logits of 8 queries. The plan: all H heads and the largest P of 4,
+// 2 whose rows fit TIME_SMEM_TARGET (4 blocks an SM at D = 768, f = 8: P =
+// 2); else P = 1 and the largest HG dividing H that fits the target, else
+// the largest that fits a block. The wrappers mirror it
 // (ops/kernels/_build.py::time_pass_plan) and refuse an f whose rows do not
-// fit the block's shared memory.
+// fit even one head.
 constexpr int TIME_THREADS = WARPS * 32;
 constexpr size_t TIME_SMEM_TARGET = 57344;
 constexpr size_t MAX_SMEM = 232448;
 
-inline size_t time_smem(int f, int D, int P) {
-  return (size_t)(1 + f * P) * 2 * D * sizeof(bf16) + (size_t)WARPS * 8 * (f + 1) * sizeof(float);
+inline size_t time_smem(int f, int HG, int DHP, int P) {
+  return (size_t)(1 + f * P) * 2 * HG * DHP * sizeof(bf16) +
+         (size_t)WARPS * 8 * (f + 1) * sizeof(float);
 }
 
-inline int time_positions(int f, int D) {
+struct TimePlan {
+  int P, HG;
+  size_t smem;
+};
+
+inline TimePlan time_plan(int f, int H, int DHP) {
   for (int P = 4; P > 1; P /= 2)
-    if (time_smem(f, D, P) <= TIME_SMEM_TARGET) return P;
-  return 1;
+    if (time_smem(f, H, DHP, P) <= TIME_SMEM_TARGET) return {P, H, time_smem(f, H, DHP, P)};
+  const size_t limits[2] = {TIME_SMEM_TARGET, MAX_SMEM};
+  for (size_t limit : limits)
+    for (int hg = H; hg >= 1; --hg)
+      if (H % hg == 0 && time_smem(f, hg, DHP, 1) <= limit) return {1, hg, time_smem(f, hg, DHP, 1)};
+  return {1, 1, time_smem(f, 1, DHP, 1)};
 }
 
-// Time mode's group attention. Block (x, b): positions g0 = x * P .. g0 + P - 1
-// (those below n) of segment b, all H heads. Staged row 0 is the CLS row,
-// row 1 + i * P + p frame i at position g0 + p. Each warp takes (position,
-// head) items, 8 queries (frames) at a time, four lanes a query, each lane
-// DH / 4 columns: q scaled by DH^-0.5 and rounded to bf16, f32 logits by quad
-// shuffles over [CLS; the f frames], f32 softmax, the normalised
-// probabilities rounded to bf16, P @ V in f32, the output rounded once.
-// Query i of position g, segment b: qkv_p + (b * in_p + g + i * n) * 3D;
-// output rows attn + (b * out_p + g + i * n) * D; the CLS row of segment b:
-// qkv_c + b * in_c * 3D.
-template <int DH>
+// Time mode's group attention. Block (x, b, z): positions g0 = x * P .. g0 +
+// P - 1 (those below n) of segment b, heads h0 = z * HG .. h0 + HG - 1.
+// Staged row 0 is the CLS row, row 1 + i * P + p frame i at position g0 + p:
+// [k of the HG heads | v of the HG heads], DHP columns a head, zero past dh.
+// Each warp takes (position, head) items, 8 queries (frames) at a time (not
+// DIRECT: (item, 8 queries) units, so that a block of few heads keeps its
+// warps busy), four lanes a query, each lane DHP / 4 columns: q scaled by dh^-0.5 and rounded
+// to bf16, f32 logits by quad shuffles over [CLS; the f frames], f32
+// softmax, the normalised probabilities rounded to bf16, P @ V in f32, the
+// output rounded once. Query i of position g, segment b: qkv_p + (b * in_p +
+// g + i * n) * 3D; output rows attn + (b * out_p + g + i * n) * D; the CLS
+// row of segment b: qkv_c + b * in_c * 3D; D = H * dh. DIRECT: dh == DHP
+// and HG == H, so a staged row is the [k | v] of the device row as it lies
+// (the main path's plan, compiled without the head-group arithmetic).
+template <int DHP, bool DIRECT>
 __global__ void __launch_bounds__(TIME_THREADS)
 time_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
-                      bf16* __restrict__ attn, int f, int n, int H, int P, int in_p, int in_c,
-                      int out_p, float scale) {
-  constexpr int C = DH / 4;  // columns a lane owns
-  constexpr int V = C / 8;   // its 16-byte pieces
-  static_assert(C % 8 == 0, "the time pass takes head_dim in {32, 64, 96, 128}");
+                      bf16* __restrict__ attn, int f, int n, int H, int dh_arg, int HG_arg,
+                      int P, int in_p, int in_c, int out_p, float scale) {
+  constexpr int C = DHP / 4;   // columns a lane owns
+  constexpr int V = C / 8;     // its 16-byte pieces
+  constexpr int HP = DHP / 8;  // 16-byte pieces of a staged head
+  static_assert(C % 8 == 0, "the time pass takes widths that are multiples of 32");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int D = H * DH, D2 = 2 * D;
-  const int g0 = blockIdx.x * P, b = blockIdx.y;
+  const int dh = DIRECT ? DHP : dh_arg, HG = DIRECT ? H : HG_arg;
+  const int D = H * dh, W = HG * DHP, W2 = 2 * W;
+  const int g0 = blockIdx.x * P, b = blockIdx.y, h0 = blockIdx.z * HG;
   const int np = min(P, n - g0);
   const int rows = 1 + f * P;
+  const int cpr = dh / 8;
   bf16* KV = reinterpret_cast<bf16*>(smem);
-  float* ps_all = reinterpret_cast<float*>(KV + (size_t)rows * D2);
+  float* ps_all = reinterpret_cast<float*>(KV + (size_t)rows * W2);
   const bf16* pin = qkv_p + (int64_t)b * in_p * 3 * D;
   bf16* pout = attn + (int64_t)b * out_p * D;
 
-  const int pieces = D2 / 8;
+  const int pieces = W2 / 8;
   for (int idx = threadIdx.x; idx < rows * pieces; idx += TIME_THREADS) {
     const int r = idx / pieces, c = idx % pieces;
     const bf16* src = qkv_c + (int64_t)b * in_c * 3 * D;
@@ -85,7 +112,14 @@ time_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ q
       valid = p < np;
       src = pin + ((int64_t)i * n + g0 + (valid ? p : 0)) * 3 * D;
     }
-    cp_async16(KV + (size_t)r * D2 + c * 8, src + D + c * 8, valid);
+    if (DIRECT) {
+      cp_async16(KV + (size_t)r * W2 + c * 8, src + D + c * 8, valid);
+    } else {
+      const int kv = c >= HG * HP, hh = (c - kv * HG * HP) / HP, cc = c % HP;
+      valid = valid && cc < cpr;
+      cp_async16(KV + (size_t)r * W2 + c * 8,
+                 valid ? src + (1 + kv) * D + (h0 + hh) * dh + cc * 8 : qkv_c, valid);
+    }
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -94,18 +128,21 @@ time_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ q
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int quad = lane / 4, part = lane % 4;
   float* ps = ps_all + (warp * 8 + quad) * (f + 1);
-  for (int item = warp; item < np * H; item += WARPS) {
-    const int p = item / H, h = item % H;
-    const int col = h * DH + part * C;
-    for (int i0 = 0; i0 < f; i0 += 8) {
+  // queries i0 .. i0 + 7 (frames) of (position, head) item
+  auto queries = [&](int item, int i0) {
+    const int p = item / HG, hh = item % HG;
+    const int scol = hh * DHP + part * C;           // the lane's staged columns
+    const int gcol = (h0 + hh) * dh + part * C;     // and in device memory
+    {
       const int i = i0 + quad;
       const bool live = i < f;
       const int64_t tok = (int64_t)(live ? i : 0) * n + g0 + p;
       float q[C];
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        const uint4 raw = live ? __ldg(reinterpret_cast<const uint4*>(pin + tok * 3 * D + col) + v)
-                               : make_uint4(0u, 0u, 0u, 0u);
+        const bool in = live && part * C + 8 * v < dh;
+        const uint4 raw = in ? __ldg(reinterpret_cast<const uint4*>(pin + tok * 3 * D + gcol) + v)
+                             : make_uint4(0u, 0u, 0u, 0u);
         const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
@@ -117,7 +154,7 @@ time_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ q
       float m = -INFINITY;
       for (int j = 0; j <= f; ++j) {
         const int r = j == 0 ? 0 : 1 + (j - 1) * P + p;
-        const uint4* kr = reinterpret_cast<const uint4*>(KV + (size_t)r * D2 + col);
+        const uint4* kr = reinterpret_cast<const uint4*>(KV + (size_t)r * W2 + scol);
         float s = 0.f;
 #pragma unroll
         for (int v = 0; v < V; ++v) {
@@ -142,7 +179,7 @@ time_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ q
         for (int j = 0; j <= f; ++j) {
           const float pj = sft::bf16r(__expf(ps[j] - m) * inv);
           const int r = j == 0 ? 0 : 1 + (j - 1) * P + p;
-          const uint4* vr = reinterpret_cast<const uint4*>(KV + (size_t)r * D2 + D + col);
+          const uint4* vr = reinterpret_cast<const uint4*>(KV + (size_t)r * W2 + W + scol);
 #pragma unroll
           for (int v = 0; v < V; ++v) {
             const uint4 raw = vr[v];
@@ -155,9 +192,10 @@ time_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ q
             }
           }
         }
-        uint4* orow = reinterpret_cast<uint4*>(pout + tok * D + col);
+        uint4* orow = reinterpret_cast<uint4*>(pout + tok * D + gcol);
 #pragma unroll
         for (int v = 0; v < V; ++v) {
+          if (part * C + 8 * v >= dh) continue;
           uint4 w;
           uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
 #pragma unroll
@@ -167,39 +205,47 @@ time_attention_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ q
       }
       __syncwarp();
     }
+  };
+  if (DIRECT) {  // each warp its items, 8 queries at a time
+    for (int item = warp; item < np * HG; item += WARPS)
+      for (int i0 = 0; i0 < f; i0 += 8) queries(item, i0);
+  } else {  // (item, 8 queries) units: a warp for each 8 frames where a block holds few heads
+    const int q8 = (f + 7) / 8;
+    for (int unit = warp; unit < np * HG * q8; unit += WARPS) queries(unit / q8, unit % q8 * 8);
   }
 }
 
 constexpr int CLS_THREADS = 256;
 constexpr int KEYS_IN_FLIGHT = 4;  // loads a CLS-row warp starts before it sums
 
-// CLS query of (b, h) over [CLS; all f*n patches].
-template <int DH>
+// CLS query of (b, h) over [CLS; all f*n patches]; D = H * dh, dh <= DHP
+// (EXACT: dh == DHP, compiled as a constant).
+template <int DHP, bool EXACT>
 __global__ void __launch_bounds__(CLS_THREADS)
 cls_row_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
-               bf16* __restrict__ out_c, int fn, int H, int in_p, int in_c, int out_cs,
-               float scale) {
-  constexpr int NP = (DH / 2 + 31) / 32;  // bf16 pairs of a row per lane
-  constexpr bool FULL = (DH / 2) % 32 == 0;  // every lane holds NP pairs
+               bf16* __restrict__ out_c, int fn, int H, int dh_arg, int in_p, int in_c,
+               int out_cs, float scale) {
+  constexpr int NP = (DHP / 2 + 31) / 32;  // bf16 pairs of a row per lane, at most
   extern __shared__ __align__(16) unsigned char smem[];
+  const int dh = EXACT ? DHP : dh_arg;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int D = H * DH;
+  const int D = H * dh;
   const int nk = fn + 1;
-  float* qs = reinterpret_cast<float*>(smem);        // DH
-  float* red = qs + DH;                               // 32
-  float* acc = red + 32;                              // (CLS_THREADS / 32) x DH
-  float* ps = acc + (CLS_THREADS / 32) * DH;          // nk
+  float* qs = reinterpret_cast<float*>(smem);        // DHP
+  float* red = qs + DHP;                              // 32
+  float* acc = red + 32;                              // (CLS_THREADS / 32) x DHP
+  float* ps = acc + (CLS_THREADS / 32) * DHP;         // nk
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const bf16* crow = qkv_c + (int64_t)b * in_c * 3 * D;
   const bf16* prow0 = qkv_p + (int64_t)b * in_p * 3 * D;
 
-  if (tid < DH) qs[tid] = sft::bf16r(__bfloat162float(crow[h * DH + tid]) * scale);
+  if (tid < DHP) qs[tid] = tid < dh ? sft::bf16r(__bfloat162float(crow[h * dh + tid]) * scale) : 0.f;
   __syncthreads();
 
   float m = -INFINITY;
   for (int j = tid; j < nk; j += CLS_THREADS) {
     const bf16* row = j == 0 ? crow : prow0 + (int64_t)(j - 1) * 3 * D;
-    const float s = sft::dot_row_bf16<DH>(qs, row + D + h * DH);
+    const float s = sft::dot_row_bf16<DHP>(qs, row + D + h * dh, dh);
     ps[j] = s;
     m = fmaxf(m, s);
   }
@@ -231,7 +277,7 @@ cls_row_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
 #pragma unroll
   for (int u = 0; u < NP; ++u) {
     const int t = lane + 32 * u;
-    if (FULL || t < DH / 2) {
+    if (t < dh / 2) {
       float a0 = 0.f, a1 = 0.f;
       constexpr int STEP = CLS_THREADS / 32;
       for (int j0 = warp; j0 < nk; j0 += STEP * KEYS_IN_FLIGHT) {
@@ -241,7 +287,7 @@ cls_row_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
           const int j = j0 + k * STEP;
           const bf16* row = j == 0 ? crow : prow0 + (int64_t)(j - 1) * 3 * D;
           v[k] = j < nk ? __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(
-                              row + 2 * D + h * DH)[t])
+                              row + 2 * D + h * dh)[t])
                         : make_float2(0.f, 0.f);
         }
 #pragma unroll
@@ -253,77 +299,78 @@ cls_row_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
           }
         }
       }
-      acc[warp * DH + 2 * t] = a0;
-      acc[warp * DH + 2 * t + 1] = a1;
+      acc[warp * DHP + 2 * t] = a0;
+      acc[warp * DHP + 2 * t + 1] = a1;
     }
   }
   __syncthreads();
-  if (tid < DH) {
+  if (tid < dh) {
     float s = 0.f;
-    for (int w = 0; w < CLS_THREADS / 32; ++w) s += acc[w * DH + tid];
-    out_c[(int64_t)b * out_cs * D + h * DH + tid] = __float2bfloat16(s);
+    for (int w = 0; w < CLS_THREADS / 32; ++w) s += acc[w * DHP + tid];
+    out_c[(int64_t)b * out_cs * D + h * dh + tid] = __float2bfloat16(s);
   }
 }
 
-// keys of a space-mode chunk: one sweep up to 207 patches a frame
-constexpr int SPACE_KT = 13;
+// key tiles of a space-mode chunk at width DHP: one sweep up to 207 patches
+// a frame at widths up to 128; fewer at 192 and 256, which shared memory and
+// registers bound
+__host__ __device__ constexpr int space_kt(int DHP) { return DHP <= 128 ? 13 : (DHP <= 192 ? 8 : 6); }
 
 // The attention of every patch (space: the tensor-core kernel; time:
-// time_attention_kernel) and of the CLS row. Row strides between segments: in_p / in_c
-// of the patch / CLS rows of qkv, out_p / out_c of the outputs.
-template <int DH>
+// time_attention_kernel) and of the CLS row at width DHP >= dh. Row strides
+// between segments: in_p / in_c of the patch / CLS rows of qkv, out_p /
+// out_c of the outputs.
+template <int DHP>
 int launch_attention(const bf16* qkv_p, const bf16* qkv_c, bf16* attn_p, bf16* out_c, int B,
-                     int f, int n, int H, int mode, int in_p, int in_c, int out_p, int out_cs,
-                     cudaStream_t s) {
+                     int f, int n, int H, int dh, int mode, int in_p, int in_c, int out_p,
+                     int out_cs, cudaStream_t s) {
   const int fn = f * n;
-  const float scale = (float)pow((double)DH, -0.5);
+  const float scale = (float)pow((double)dh, -0.5);
   if (mode == 0) {
-    const tc::Problem p{qkv_p, qkv_c, attn_p, in_p, in_c, out_p, n, n, H, 0, 0, 0, scale};
-    const int err = tc::launch<DH, SPACE_KT, true>(p, f, B, s);
+    const tc::Problem p{qkv_p, qkv_c, attn_p, in_p, in_c, out_p, n, n, H, dh, 0, 0, 0, scale};
+    const int err = tc::launch<DHP, space_kt(DHP), true>(p, f, B, s);
     if (err != 0) return err;
   } else {
-    const int D = H * DH;
-    const int P = time_positions(f, D);
-    const size_t smem_t = time_smem(f, D, P);
-    if (smem_t > MAX_SMEM) return (int)cudaErrorInvalidValue;
-    cudaFuncSetAttribute(time_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem_t);
+    const TimePlan tp = time_plan(f, H, DHP);
+    if (tp.smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    auto kern = dh == DHP && tp.HG == H ? time_attention_kernel<DHP, true>
+                                        : time_attention_kernel<DHP, false>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tp.smem);
     SFT_CHECK_LAUNCH();
-    time_attention_kernel<DH><<<dim3((n + P - 1) / P, B), TIME_THREADS, smem_t, s>>>(
-        qkv_p, qkv_c, attn_p, f, n, H, P, in_p, in_c, out_p, scale);
+    kern<<<dim3((n + tp.P - 1) / tp.P, B, H / tp.HG), TIME_THREADS, tp.smem, s>>>(
+        qkv_p, qkv_c, attn_p, f, n, H, dh, tp.HG, tp.P, in_p, in_c, out_p, scale);
     SFT_CHECK_LAUNCH();
   }
-  const size_t smem_c = (DH + 32 + (CLS_THREADS / 32) * DH + (size_t)(fn + 1)) * sizeof(float);
-  cudaFuncSetAttribute(cls_row_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_c);
+  const size_t smem_c = (DHP + 32 + (CLS_THREADS / 32) * DHP + (size_t)(fn + 1)) * sizeof(float);
+  auto cls = dh == DHP ? cls_row_kernel<DHP, true> : cls_row_kernel<DHP, false>;
+  cudaFuncSetAttribute(cls, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
   SFT_CHECK_LAUNCH();
-  cls_row_kernel<DH><<<dim3(H, B), CLS_THREADS, smem_c, s>>>(qkv_p, qkv_c, out_c, fn, H, in_p,
-                                                             in_c, out_cs, scale);
+  cls<<<dim3(H, B), CLS_THREADS, smem_c, s>>>(qkv_p, qkv_c, out_c, fn, H, dh, in_p, in_c,
+                                              out_cs, scale);
   SFT_CHECK_LAUNCH();
   return 0;
 }
 
-// launch_attention at the head_dim of the call; the instantiated set is
-// {32, 64, 96, 128}, and the wrappers refuse any other before they launch.
+// launch_attention at tc::padded_width(dh); a dh that is not a multiple of
+// 8 or is above 256 is refused (the wrappers refuse it before they launch).
 inline int dispatch_attention(int dh, const bf16* qkv_p, const bf16* qkv_c, bf16* attn_p,
-                       bf16* out_c, int B, int f, int n, int H, int mode, int in_p, int in_c,
-                       int out_p, int out_cs, cudaStream_t s) {
-  switch (dh) {
-    case 32:
-      return launch_attention<32>(qkv_p, qkv_c, attn_p, out_c, B, f, n, H, mode, in_p, in_c,
-                                  out_p, out_cs, s);
-    case 64:
-      return launch_attention<64>(qkv_p, qkv_c, attn_p, out_c, B, f, n, H, mode, in_p, in_c,
-                                  out_p, out_cs, s);
-    case 96:
-      return launch_attention<96>(qkv_p, qkv_c, attn_p, out_c, B, f, n, H, mode, in_p, in_c,
-                                  out_p, out_cs, s);
-    case 128:
-      return launch_attention<128>(qkv_p, qkv_c, attn_p, out_c, B, f, n, H, mode, in_p, in_c,
-                                   out_p, out_cs, s);
+                              bf16* out_c, int B, int f, int n, int H, int mode, int in_p,
+                              int in_c, int out_p, int out_cs, cudaStream_t s) {
+#define SFT_ATTN(W)                                                                            \
+  case W:                                                                                      \
+    return launch_attention<W>(qkv_p, qkv_c, attn_p, out_c, B, f, n, H, dh, mode, in_p, in_c, \
+                               out_p, out_cs, s)
+  switch (tc::padded_width(dh)) {
+    SFT_ATTN(32);
+    SFT_ATTN(64);
+    SFT_ATTN(96);
+    SFT_ATTN(128);
+    SFT_ATTN(192);
+    SFT_ATTN(256);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef SFT_ATTN
 }
 
 }  // namespace attn

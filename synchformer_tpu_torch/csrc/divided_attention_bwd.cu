@@ -17,9 +17,11 @@
 // place; the packed dqkv is one buffer whose CLS and patch rows different
 // kernels write, each only its own rows.
 //
-// Numerics, per head (head_dim DH in {32, 64, 96, 128}, a template
-// parameter), as the JAX body:
-// - q is pre-scaled by DH^-0.5 and rounded to bf16 wherever it is an
+// Numerics, per head (any head_dim dh that is a multiple of 8 up to 256,
+// run at the least width of mma_attention.cuh's padded_width that holds it,
+// the template parameter DHP: staged columns past dh are zero and no output
+// column past dh is written), as the JAX body:
+// - q is pre-scaled by dh^-0.5 and rounded to bf16 wherever it is an
 //   operand; dq is scaled once more at the end;
 // - p over [CLS; group] in f32, sigma = sum(p * dp) with dp = <do, v> in f32,
 //   the CLS column included. The space pass accumulates the row sum and
@@ -66,13 +68,16 @@ namespace {
 constexpr int CLS_THREADS = 512;
 constexpr int KEYS_IN_FLIGHT = 8;  // loads a CLS-row warp starts before it sums
 // the space pass: warps of a block at most (a 16-row tile each), and the
-// 16-row tiles of a streamed chunk (208 rows); ops/kernels/_build.py::
-// space_bwd_plan mirrors the plan
+// 16-row tiles of a streamed chunk (208 rows up to width 128; fewer at 192
+// and 256, whose rows are longer); ops/kernels/_build.py::space_bwd_plan
+// mirrors the plan
 constexpr int SPACE_WARPS = 8;
 constexpr int SPACE_CHUNK_TILES = 13;
-// the time pass: warps of a block, and the shared memory its P positions'
-// rows may take (the largest P of 4, 2, 1 that fits; 2 at D = 768, f = 8,
-// two blocks an SM); _build.py::time_bwd_plan mirrors the plan
+__host__ __device__ constexpr int chunk_tiles(int DHP) {
+  return DHP <= 128 ? SPACE_CHUNK_TILES : (DHP <= 192 ? 8 : 4);
+}
+// the time pass: warps of a block at most, and the shared memory its rows
+// may take (time_bwd_plan below; _build.py::time_bwd_plan mirrors it)
 constexpr int WARPS = 8;
 constexpr int TIME_THREADS = WARPS * 32;
 constexpr size_t TIME_BWD_SMEM_TARGET = 114688;
@@ -96,57 +101,60 @@ struct Strides {
   int p, c, op, oc;
 };
 
-// The arguments of the group kernels (space and time mode). P: positions a
-// time-mode block; warps: warps a space-mode block; stats: (m, 1/l, sigma, 0)
-// of every query of the space pass (B x H x f*n float4).
+// The arguments of the group kernels (space and time mode). dh: the head
+// dim (D = H * dh); HG: heads a time-mode block; P: positions a time-mode
+// block; warps: warps a space-mode block; stats: (m, 1/l, sigma, 0) of every
+// query of the space pass (B x H x f*n float4).
 struct BwdArgs {
   const bf16 *qkv_p, *qkv_c, *dop, *doc;
   const float *ds_cls, *p_cls;
   float *stats, *cls_part_g;
   bf16* dqkv_p;
-  int fn, f, n, H, P, warps;
+  int fn, f, n, H, dh, HG, P, warps;
   Strides st;
   float scale;
 };
 
 
-// (1) The CLS query of (b, h) over [CLS; all f*n patches].
-template <int DH>
+// (1) The CLS query of (b, h) over [CLS; all f*n patches]; D = H * dh
+// (EXACT: dh == DHP, compiled as a constant).
+template <int DHP, bool EXACT>
 __global__ void __launch_bounds__(CLS_THREADS)
 cls_bwd_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
                const bf16* __restrict__ doc, float* __restrict__ ds_cls,
                float* __restrict__ p_cls, float* __restrict__ cls_part,
-               bf16* __restrict__ dqkv_c, int fn, int H, Strides st, float scale) {
-  constexpr int NP = (DH / 2 + 31) / 32;  // bf16 pairs of a row per lane
-  constexpr bool FULL = (DH / 2) % 32 == 0;  // every lane holds NP pairs
+               bf16* __restrict__ dqkv_c, int fn, int H, int dh_arg, Strides st, float scale) {
+  constexpr int NP = (DHP / 2 + 31) / 32;  // bf16 pairs of a row per lane, at most
   extern __shared__ __align__(16) unsigned char smem[];
+  const int dh = EXACT ? DHP : dh_arg;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int D = H * DH;
+  const int D = H * dh;
   const int nk = fn + 1;
-  float* qs = reinterpret_cast<float*>(smem);  // DH
-  float* dos = qs + DH;                         // DH
-  float* red = dos + DH;                        // 32
+  float* qs = reinterpret_cast<float*>(smem);  // DHP
+  float* dos = qs + DHP;                        // DHP
+  float* red = dos + DHP;                       // 32
   float* sc = red + 32;                         // 2: ds and p of the CLS key
-  float* acc = sc + 2;                          // (CLS_THREADS / 32) x DH
-  float* sv = acc + (CLS_THREADS / 32) * DH;    // nk: logits, then p, then ds
+  float* acc = sc + 2;                          // (CLS_THREADS / 32) x DHP
+  float* sv = acc + (CLS_THREADS / 32) * DHP;   // nk: logits, then p, then ds
   float* dpv = sv + nk;                         // nk: dp
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const bf16* crow = qkv_c + (int64_t)b * st.c * 3 * D;
   const bf16* prow0 = qkv_p + (int64_t)b * st.p * 3 * D;
   const int64_t bh = (int64_t)b * H + h;
 
-  if (tid < DH) {
-    qs[tid] = sft::bf16r(__bfloat162float(crow[h * DH + tid]) * scale);
-    dos[tid] = __bfloat162float(doc[(int64_t)b * st.oc * D + h * DH + tid]);
+  if (tid < DHP) {
+    const bool in = tid < dh;
+    qs[tid] = in ? sft::bf16r(__bfloat162float(crow[h * dh + tid]) * scale) : 0.f;
+    dos[tid] = in ? __bfloat162float(doc[(int64_t)b * st.oc * D + h * dh + tid]) : 0.f;
   }
   __syncthreads();
 
   float m = -INFINITY;
   for (int j = tid; j < nk; j += CLS_THREADS) {
     const bf16* row = j == 0 ? crow : prow0 + (int64_t)(j - 1) * 3 * D;
-    const float s = sft::dot_row_bf16<DH>(qs, row + D + h * DH);
+    const float s = sft::dot_row_bf16<DHP>(qs, row + D + h * dh, dh);
     sv[j] = s;
-    dpv[j] = sft::dot_row_bf16<DH>(dos, row + 2 * D + h * DH);
+    dpv[j] = sft::dot_row_bf16<DHP>(dos, row + 2 * D + h * dh, dh);
     m = fmaxf(m, s);
   }
   m = block_reduce<true>(m, red);
@@ -186,7 +194,7 @@ cls_bwd_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
 #pragma unroll
   for (int u = 0; u < NP; ++u) {
     const int t = lane + 32 * u;
-    if (FULL || t < DH / 2) {
+    if (t < dh / 2) {
       float a0 = 0.f, a1 = 0.f;
       constexpr int STEP = CLS_THREADS / 32;
       for (int j0 = warp; j0 < nk; j0 += STEP * KEYS_IN_FLIGHT) {
@@ -196,7 +204,7 @@ cls_bwd_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
           const int j = j0 + k * STEP;
           const bf16* row = j == 0 ? crow : prow0 + (int64_t)(j - 1) * 3 * D;
           kv[k] = j < nk ? __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(
-                               row + D + h * DH)[t])
+                               row + D + h * dh)[t])
                          : make_float2(0.f, 0.f);
         }
 #pragma unroll
@@ -208,25 +216,27 @@ cls_bwd_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
           }
         }
       }
-      acc[warp * DH + 2 * t] = a0;
-      acc[warp * DH + 2 * t + 1] = a1;
+      acc[warp * DHP + 2 * t] = a0;
+      acc[warp * DHP + 2 * t + 1] = a1;
     }
   }
   __syncthreads();
-  if (tid < DH) {
+  if (tid < dh) {
     float s = 0.f;
-    for (int w = 0; w < CLS_THREADS / 32; ++w) s += acc[w * DH + tid];
-    dqkv_c[(int64_t)b * st.c * 3 * D + h * DH + tid] = __float2bfloat16(s * scale);
-    cls_part[bh * 2 * DH + tid] = sc[0] * qs[tid];
-    cls_part[bh * 2 * DH + DH + tid] = sc[1] * dos[tid];
+    for (int w = 0; w < CLS_THREADS / 32; ++w) s += acc[w * DHP + tid];
+    dqkv_c[(int64_t)b * st.c * 3 * D + h * dh + tid] = __float2bfloat16(s * scale);
+    cls_part[bh * 2 * dh + tid] = sc[0] * qs[tid];
+    cls_part[bh * 2 * dh + dh + tid] = sc[1] * dos[tid];
   }
 }
 
-// (2) Time mode: block (x, b) owns positions g0 = x * P .. g0 + P - 1 (those
-// below n) of segment b and all H heads. Staged row 0 is the segment's CLS
-// row, row 1 + i * P + p frame i at position g0 + p: its whole 3D-wide qkv
-// row and D-wide cotangent row, with 16-byte cp.async. A warp takes (position,
-// head) items; four lanes a query (a quad), each lane C = DH / 4 columns:
+// (2) Time mode: block (x, b, z) owns positions g0 = x * P .. g0 + P - 1
+// (those below n) of segment b and heads h0 = z * HG .. h0 + HG - 1. Staged
+// row 0 is the segment's CLS row, row 1 + i * P + p frame i at position g0 +
+// p: its q, k and v columns of the HG heads ([q | k | v], DHP columns a head,
+// zero past dh) and its cotangent columns of the HG heads, with 16-byte
+// cp.async. A warp takes (position, head) items; four lanes a query (a quad),
+// each lane C = DHP / 4 columns:
 // A. query i: f32 logits and dp over [CLS; the f frames] by quad shuffles, the
 //    softmax and sigma in f32, ds and p of the patch keys rounded to bf16 into
 //    the warp's scratch, the CLS key's kept f32; dq = (ds_c k_c + sum ds k)
@@ -236,31 +246,42 @@ cls_bwd_kernel(const bf16* __restrict__ qkv_p, const bf16* __restrict__ qkv_c,
 //    with 16-byte stores.
 // The CLS key's partial dk / dv over the block's positions, from each
 // query's f32 ds_c and p_c, goes to cls_part_g slot x. Every byte of qkv and
-// of the cotangent is read once, every dqkv row written once.
-template <int DH>
+// of the cotangent is read once, every dqkv row written once. The plan
+// (time_bwd_plan: P, HG and the warps, blockDim.x / 32) keeps f frames'
+// rows and each warp's f x (f + 1) scratch within a block. DIRECT: dh ==
+// DHP, HG == H and WARPS warps, so a staged row is the device row as it lies
+// (the main path's plan, compiled without the head-group arithmetic).
+template <int DHP, bool DIRECT>
 __global__ void __launch_bounds__(TIME_THREADS)
 time_bwd_kernel(const BwdArgs a) {
-  constexpr int C = DH / 4;  // columns a lane owns
-  constexpr int V = C / 8;   // its 16-byte pieces
-  static_assert(C % 8 == 0, "the time pass takes head_dim in {32, 64, 96, 128}");
+  constexpr int C = DHP / 4;   // columns a lane owns
+  constexpr int V = C / 8;     // its 16-byte pieces
+  constexpr int HP = DHP / 8;  // 16-byte pieces of a staged head
+  static_assert(C % 8 == 0, "the time pass takes widths that are multiples of 32");
   extern __shared__ __align__(16) unsigned char smem[];
   const int f = a.f, n = a.n, H = a.H, P = a.P;
-  const int D = H * DH, D3 = 3 * D;
-  const int g0 = blockIdx.x * P, b = blockIdx.y;
+  const int dh = DIRECT ? DHP : a.dh, HG = DIRECT ? H : a.HG;
+  const int D = H * dh, D3 = 3 * D;
+  const int W = HG * DHP, W3 = 3 * W;  // staged widths: q (or k, v, the cotangent), qkv
+  const int nw = DIRECT ? WARPS : (int)blockDim.x / 32;
+  const int nthreads = DIRECT ? TIME_THREADS : (int)blockDim.x;
+  const int g0 = blockIdx.x * P, b = blockIdx.y, h0 = blockIdx.z * HG;
   const int np = min(P, n - g0);
   const int rows = 1 + f * P;
-  bf16* QKV = reinterpret_cast<bf16*>(smem);    // rows x 3D
-  bf16* DO = QKV + (size_t)rows * D3;            // rows x D
-  float* cls_w = reinterpret_cast<float*>(DO + (size_t)rows * D);  // P x H x f x (ds_c, p_c)
-  float* scr = cls_w + (size_t)P * H * f * 2;  // WARPS x 2 x f x (f + 1)
+  const int cpr = dh / 8;
+  bf16* QKV = reinterpret_cast<bf16*>(smem);    // rows x 3W
+  bf16* DO = QKV + (size_t)rows * W3;            // rows x W
+  float* cls_w = reinterpret_cast<float*>(DO + (size_t)rows * W);  // P x HG x f x (ds_c, p_c)
+  float* scr = cls_w + (size_t)P * HG * f * 2;  // warps x 2 x f x (f + 1)
   const bf16* pin = a.qkv_p + (int64_t)b * a.st.p * D3;
   const bf16* pdo = a.dop + (int64_t)b * a.st.op * D;
   bf16* pdq = a.dqkv_p + (int64_t)b * a.st.p * D3;
   const int fn = f * n;
 
-  // stage: qkv rows (3D / 8 pieces each), then cotangent rows (D / 8)
-  for (int idx = threadIdx.x; idx < rows * (D3 / 8); idx += TIME_THREADS) {
-    const int r = idx / (D3 / 8), c = idx % (D3 / 8);
+  // stage: qkv rows (3 x HG heads of HP pieces each), then cotangent rows
+  // (HG heads)
+  for (int idx = threadIdx.x; idx < rows * (W3 / 8); idx += nthreads) {
+    const int r = idx / (W3 / 8), c = idx % (W3 / 8);
     const bf16* src = a.qkv_c + (int64_t)b * a.st.c * D3;
     bool valid = true;
     if (r > 0) {
@@ -268,10 +289,17 @@ time_bwd_kernel(const BwdArgs a) {
       valid = p < np;
       src = pin + ((int64_t)i * n + g0 + (valid ? p : 0)) * D3;
     }
-    cp_async16(QKV + (size_t)r * D3 + c * 8, src + c * 8, valid);
+    if (DIRECT) {
+      cp_async16(QKV + (size_t)r * W3 + c * 8, src + c * 8, valid);
+    } else {
+      const int part3 = c / (HG * HP), hh = (c - part3 * HG * HP) / HP, cc = c % HP;
+      valid = valid && cc < cpr;
+      cp_async16(QKV + (size_t)r * W3 + c * 8,
+                 valid ? src + part3 * D + (h0 + hh) * dh + cc * 8 : a.qkv_c, valid);
+    }
   }
-  for (int idx = threadIdx.x; idx < rows * (D / 8); idx += TIME_THREADS) {
-    const int r = idx / (D / 8), c = idx % (D / 8);
+  for (int idx = threadIdx.x; idx < rows * (W / 8); idx += nthreads) {
+    const int r = idx / (W / 8), c = idx % (W / 8);
     const bf16* src = a.doc + (int64_t)b * a.st.oc * D;
     bool valid = true;
     if (r > 0) {
@@ -279,14 +307,21 @@ time_bwd_kernel(const BwdArgs a) {
       valid = p < np;
       src = pdo + ((int64_t)i * n + g0 + (valid ? p : 0)) * D;
     }
-    cp_async16(DO + (size_t)r * D + c * 8, src + c * 8, valid);
+    if (DIRECT) {
+      cp_async16(DO + (size_t)r * W + c * 8, src + c * 8, valid);
+    } else {
+      const int hh = c / HP, cc = c % HP;
+      valid = valid && cc < cpr;
+      cp_async16(DO + (size_t)r * W + c * 8, valid ? src + (h0 + hh) * dh + cc * 8 : a.doc,
+                 valid);
+    }
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  // every staged q (the CLS row's too) scaled by DH^-0.5 and rounded, once
-  for (int idx = threadIdx.x; idx < rows * (D / 2); idx += TIME_THREADS) {
-    uint32_t* x = reinterpret_cast<uint32_t*>(QKV + (size_t)(idx / (D / 2)) * D3) + idx % (D / 2);
+  // every staged q (the CLS row's too) scaled by dh^-0.5 and rounded, once
+  for (int idx = threadIdx.x; idx < rows * (W / 2); idx += nthreads) {
+    uint32_t* x = reinterpret_cast<uint32_t*>(QKV + (size_t)(idx / (W / 2)) * W3) + idx % (W / 2);
     *x = tc::scale_bf16x2(*x, a.scale);
   }
   __syncthreads();
@@ -331,9 +366,11 @@ time_bwd_kernel(const BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] += w * x[c];
   };
+  // the lane's columns below dh to device memory, 16 bytes at a time
   auto store_row = [&](bf16* dst, const float (&x)[C], float mul) {
 #pragma unroll
     for (int v = 0; v < V; ++v) {
+      if (part * C + 8 * v >= dh) continue;
       uint4 w;
       uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
 #pragma unroll
@@ -344,22 +381,23 @@ time_bwd_kernel(const BwdArgs a) {
   };
   auto srow = [&](int j, int p) { return j == 0 ? 0 : 1 + (j - 1) * P + p; };
 
-  for (int item = warp; item < np * H; item += WARPS) {
-    const int p = item / H, h = item % H;
-    const int col = h * DH + part * C;
-    float* cw = cls_w + ((size_t)p * H + h) * f * 2;
+  for (int item = warp; item < np * HG; item += nw) {
+    const int p = item / HG, hh = item % HG, h = h0 + hh;
+    const int col = hh * DHP + part * C;   // the lane's staged columns
+    const int gcol = h * dh + part * C;    // and in device memory
+    float* cw = cls_w + ((size_t)p * HG + hh) * f * 2;
     // A. the queries, 8 at a time (a quad each)
     for (int i0 = 0; i0 < f; i0 += 8) {
       const int i = i0 + quad;
       const bool live = i < f;
       const int r = live ? srow(i + 1, p) : 0;
       float q[C], o[C];
-      load_row(q, QKV + (size_t)r * D3 + col);
-      load_row(o, DO + (size_t)r * D + col);
+      load_row(q, QKV + (size_t)r * W3 + col);
+      load_row(o, DO + (size_t)r * W + col);
       for (int j = 0; j <= f; ++j) {
         const int kr = srow(j, p);
-        const float s = tc::quad_sum(dot(q, QKV + (size_t)kr * D3 + D + col));
-        const float dp = tc::quad_sum(dot(o, QKV + (size_t)kr * D3 + 2 * D + col));
+        const float s = tc::quad_sum(dot(q, QKV + (size_t)kr * W3 + W + col));
+        const float dp = tc::quad_sum(dot(o, QKV + (size_t)kr * W3 + 2 * W + col));
         if (live && part == 0) {
           sp[i * (f + 1) + j] = s;
           sd[i * (f + 1) + j] = dp;
@@ -393,13 +431,13 @@ time_bwd_kernel(const BwdArgs a) {
       __syncwarp();
       if (live) {
         float acc[C];
-        load_row(acc, QKV + D + col);  // the CLS key
+        load_row(acc, QKV + W + col);  // the CLS key
 #pragma unroll
         for (int c = 0; c < C; ++c) acc[c] *= dsc;
         for (int j = 1; j <= f; ++j)
-          axpy(acc, sd[i * (f + 1) + j], QKV + (size_t)srow(j, p) * D3 + D + col);
+          axpy(acc, sd[i * (f + 1) + j], QKV + (size_t)srow(j, p) * W3 + W + col);
         const int64_t tok = (int64_t)i * n + g0 + p;
-        store_row(pdq + tok * D3 + col, acc, scale);
+        store_row(pdq + tok * D3 + gcol, acc, scale);
       }
     }
     __syncwarp();
@@ -420,11 +458,11 @@ time_bwd_kernel(const BwdArgs a) {
         }
         for (int i = 0; i < f; ++i) {
           const int r = srow(i + 1, p);
-          axpy(kacc, sd[i * (f + 1) + jk + 1], QKV + (size_t)r * D3 + col);
-          axpy(vacc, sp[i * (f + 1) + jk + 1], DO + (size_t)r * D + col);
+          axpy(kacc, sd[i * (f + 1) + jk + 1], QKV + (size_t)r * W3 + col);
+          axpy(vacc, sp[i * (f + 1) + jk + 1], DO + (size_t)r * W + col);
         }
-        store_row(pdq + tok * D3 + D + col, kacc, 1.f);
-        store_row(pdq + tok * D3 + 2 * D + col, vacc, 1.f);
+        store_row(pdq + tok * D3 + D + gcol, kacc, 1.f);
+        store_row(pdq + tok * D3 + 2 * D + gcol, vacc, 1.f);
       }
     }
     __syncwarp();
@@ -433,19 +471,19 @@ time_bwd_kernel(const BwdArgs a) {
 
   // the CLS key's partial dk / dv over the block's positions, per head, in
   // a fixed order: positions, then frames
-  for (int idx = threadIdx.x; idx < 2 * D; idx += TIME_THREADS) {
-    const int h = idx / (2 * DH), w = idx % (2 * DH), c = h * DH + w % DH;
-    const bool is_k = w < DH;
+  for (int idx = threadIdx.x; idx < 2 * HG * dh; idx += nthreads) {
+    const int hh = idx / (2 * dh), w = idx % (2 * dh), c = hh * DHP + w % dh;
+    const bool is_k = w < dh;
     float acc = 0.f;
     for (int p = 0; p < np; ++p) {
-      const float* cw = cls_w + ((size_t)p * H + h) * f * 2;
+      const float* cw = cls_w + ((size_t)p * HG + hh) * f * 2;
       for (int i = 0; i < f; ++i) {
         const int r = srow(i + 1, p);
-        acc += is_k ? cw[2 * i] * __bfloat162float(QKV[(size_t)r * D3 + c])
-                    : cw[2 * i + 1] * __bfloat162float(DO[(size_t)r * D + c]);
+        acc += is_k ? cw[2 * i] * __bfloat162float(QKV[(size_t)r * W3 + c])
+                    : cw[2 * i + 1] * __bfloat162float(DO[(size_t)r * W + c]);
       }
     }
-    a.cls_part_g[(((int64_t)b * H + h) * gridDim.x + blockIdx.x) * 2 * DH + w] = acc;
+    a.cls_part_g[(((int64_t)b * H + h0 + hh) * gridDim.x + blockIdx.x) * 2 * dh + w] = acc;
   }
 }
 
@@ -455,9 +493,10 @@ time_bwd_kernel(const BwdArgs a) {
 // fragment in registers, as the forward's mma_attention.cuh: 16-byte
 // cp.async staging, ldmatrix / ldmatrix.trans, row statistics by quad
 // shuffles, p and ds packed from the accumulators straight into A fragments.
-// Shared memory is fixed by DH, not by n: W 16-row tiles the warps own and a
-// streamed chunk of SPACE_CHUNK_TILES 16-row tiles (208 rows: one chunk up
-// to 207 patches a frame; past that, more chunks, restaged per sweep).
+// Shared memory is fixed by DHP, not by n: W 16-row tiles the warps own and
+// a streamed chunk of chunk_tiles(DHP) 16-row tiles (208 rows up to width
+// 128: one chunk up to 207 patches a frame; past that, more chunks,
+// restaged per sweep).
 // Query-major part, rounds of W query tiles, warp w on tile w of the round
 // (its Q and dO fragments held in registers):
 //   sweep 1 over the key chunks: S = q K^T and dP = dO V^T, per 16-key tile;
@@ -474,20 +513,24 @@ time_bwd_kernel(const BwdArgs a) {
 // dv += p^T dO, ds^T rounded feeds dk += ds^T q; each patch key adds its
 // CLS-query terms (ds_cls q_cls, p_cls do_cls, from (1)) in f32 and is
 // rounded once. The CLS key's row is left out of both products.
-// q is scaled by DH^-0.5 and rounded to bf16 in shared memory once it has
-// landed, before any warp reads it. The warps' CLS partials are summed in warp order into the group's
-// cls_part_g slot.
-template <int DH>
+// q is scaled by dh^-0.5 and rounded to bf16 in shared memory once it has
+// landed, before any warp reads it. The warps' CLS partials are summed in
+// warp order into the group's cls_part_g slot. Staged columns past dh are
+// zero, and no output column past dh is written (EXACT: dh == DH, compiled
+// as a constant, the main path's code).
+template <int DH, bool EXACT>
 __global__ void __launch_bounds__(SPACE_WARPS * 32, DH <= 64 ? 2 : 1)
 space_bwd_mma_kernel(const BwdArgs a) {
   constexpr int PITCH = DH + 8;  // bf16; an odd count of 16-byte units: ldmatrix conflict-free
-  constexpr int CPR = DH / 8;    // 16-byte pieces of a row
+  constexpr int CPR = DH / 8;    // 16-byte pieces of a staged row
   constexpr int NS = DH / 16;    // 16-wide steps over the head dim
-  constexpr int CR = 16 * SPACE_CHUNK_TILES;  // rows of a streamed chunk
+  constexpr int CT = chunk_tiles(DH);  // 16-row tiles of a streamed chunk
+  constexpr int CR = 16 * CT;    // rows of a streamed chunk
   constexpr int CU = DH / 32;    // CLS-partial columns a lane owns
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
-  const int H = a.H, D = H * DH, D3 = 3 * D, W = a.warps;
+  const int H = a.H, dh = EXACT ? DH : a.dh, D = H * dh, D3 = 3 * D, W = a.warps;
+  const int cpr = EXACT ? CPR : dh / 8;  // pieces of a row that hold the head's columns
   const int n = a.n, nk = n + 1;
   const int ntq = (n + 15) / 16, ntk = (nk + 15) / 16;
   bf16* own0 = reinterpret_cast<bf16*>(smem);  // W * 16 rows: q (query-major) / k (key-major)
@@ -501,16 +544,16 @@ space_bwd_mma_kernel(const BwdArgs a) {
   const int g = lane >> 2, t = lane & 3;
   const int64_t tok0 = (int64_t)grp * n;  // the group's first patch in its segment
   const int64_t bh = (int64_t)b * H + h;
-  const bf16* pin = a.qkv_p + ((int64_t)b * a.st.p + tok0) * D3 + h * DH;
-  const bf16* pdo = a.dop + ((int64_t)b * a.st.op + tok0) * D + h * DH;
-  const bf16* crow = a.qkv_c + (int64_t)b * a.st.c * D3 + h * DH;
-  const bf16* cdo = a.doc + (int64_t)b * a.st.oc * D + h * DH;
-  bf16* pdq = a.dqkv_p + ((int64_t)b * a.st.p + tok0) * D3 + h * DH;
+  const bf16* pin = a.qkv_p + ((int64_t)b * a.st.p + tok0) * D3 + h * dh;
+  const bf16* pdo = a.dop + ((int64_t)b * a.st.op + tok0) * D + h * dh;
+  const bf16* crow = a.qkv_c + (int64_t)b * a.st.c * D3 + h * dh;
+  const bf16* cdo = a.doc + (int64_t)b * a.st.oc * D + h * dh;
+  bf16* pdq = a.dqkv_p + ((int64_t)b * a.st.p + tok0) * D3 + h * dh;
   float4* stats = reinterpret_cast<float4*>(a.stats) + bh * a.fn + tok0;
   const float scale = a.scale;
 
   // rows [first, first + rows) of the queries (q | do) or of the keys (k | v)
-  // into d0 | d1, zero past the last
+  // into d0 | d1, zero past the last and past column dh
   auto stage = [&](bf16* d0, bf16* d1, int first, int rows, bool keys) {
     for (int idx = tid; idx < rows * CPR; idx += blockDim.x) {
       const int r = idx / CPR, c = idx % CPR, j = first + r;
@@ -526,11 +569,12 @@ space_bwd_mma_kernel(const BwdArgs a) {
         s0 = pin + (int64_t)(ok ? j : 0) * D3;
         s1 = pdo + (int64_t)(ok ? j : 0) * D;
       }
-      cp_async16(d0 + r * PITCH + c * 8, s0 + c * 8, ok);
-      cp_async16(d1 + r * PITCH + c * 8, s1 + c * 8, ok);
+      if (!EXACT) ok = ok && c < cpr;
+      cp_async16(d0 + r * PITCH + c * 8, ok ? s0 + c * 8 : crow, ok);
+      cp_async16(d1 + r * PITCH + c * 8, ok ? s1 + c * 8 : crow, ok);
     }
   };
-  // q rows [0, rows) of a staged buffer scaled by DH^-0.5 and rounded, in
+  // q rows [0, rows) of a staged buffer scaled by dh^-0.5 and rounded, in
   // place, once per staging (after it has landed)
   auto scale_q = [&](bf16* q, int rows) {
     for (int idx = tid; idx < rows * (DH / 2); idx += blockDim.x) {
@@ -565,7 +609,7 @@ space_bwd_mma_kernel(const BwdArgs a) {
   float ck[CU], cv[CU];  // this lane's columns of the warp's CLS-key partial
 #pragma unroll
   for (int u = 0; u < CU; ++u) ck[u] = cv[u] = 0.f;
-  const int nkc = (ntk + SPACE_CHUNK_TILES - 1) / SPACE_CHUNK_TILES;  // key chunks
+  const int nkc = (ntk + CT - 1) / CT;  // key chunks
   int staged = -1;
   for (int t0 = 0; t0 < ntq; t0 += W) {
     const bool active = t0 + warp < ntq;
@@ -595,7 +639,7 @@ space_bwd_mma_kernel(const BwdArgs a) {
     for (int j = 0; j < DH / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
     for (int sweep = 0; sweep < 2; ++sweep) {
       for (int c = 0; c < nkc; ++c) {
-        const int k0 = c * CR, ntc = min(SPACE_CHUNK_TILES, ntk - c * SPACE_CHUNK_TILES);
+        const int k0 = c * CR, ntc = min(CT, ntk - c * CT);
         if (staged != c) {
           __syncthreads();  // the chunk buffers' last readers are done
           stage(str0, str1, k0, ntc * 16, true);
@@ -699,6 +743,7 @@ space_bwd_mma_kernel(const BwdArgs a) {
       }
 #pragma unroll
       for (int j = 0; j < DH / 8; ++j) {
+        if (j >= cpr) continue;  // the zero columns past dh
         const int col = 8 * j + 2 * t;
         const float2 kc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(crow + D + col));
         if (v0)
@@ -729,14 +774,15 @@ space_bwd_mma_kernel(const BwdArgs a) {
     wcls[warp * 2 * DH + DH + lane + 32 * u] = cv[u];
   }
   __syncthreads();  // the stats and the warps' CLS partials are written
-  for (int c = tid; c < 2 * DH; c += blockDim.x) {
+  for (int c = tid; c < 2 * dh; c += blockDim.x) {
+    const int sc = c < dh ? c : DH + c - dh;  // dk's columns, then dv's
     float acc = 0.f;
-    for (int w = 0; w < W; ++w) acc += wcls[w * 2 * DH + c];
-    a.cls_part_g[(bh * gridDim.y + grp) * 2 * DH + c] = acc;
+    for (int w = 0; w < W; ++w) acc += wcls[w * 2 * DH + sc];
+    a.cls_part_g[(bh * gridDim.y + grp) * 2 * dh + c] = acc;
   }
 
   // ------------------------------------------------------------ key-major
-  const int nqc = (ntq + SPACE_CHUNK_TILES - 1) / SPACE_CHUNK_TILES;  // query chunks
+  const int nqc = (ntq + CT - 1) / CT;  // query chunks
   staged = -1;
   for (int t0 = 0; t0 < ntk; t0 += W) {
     const int kt_own = t0 + warp;
@@ -756,7 +802,7 @@ space_bwd_mma_kernel(const BwdArgs a) {
     const int kj0 = kt_own * 16 + g, kj1 = kj0 + 8;
     const bool kv0 = kj0 >= 1 && kj0 < nk, kv1 = kj1 >= 1 && kj1 < nk;
     for (int c = 0; c < nqc; ++c) {
-      const int q0 = c * CR, ntc = min(SPACE_CHUNK_TILES, ntq - c * SPACE_CHUNK_TILES);
+      const int q0 = c * CR, ntc = min(CT, ntq - c * CT);
       if (staged != c) {
         __syncthreads();
         stage(str0, str1, q0, ntc * 16, false);
@@ -814,6 +860,7 @@ space_bwd_mma_kernel(const BwdArgs a) {
         bf16* out = pdq + tok * D3;
 #pragma unroll
         for (int j = 0; j < DH / 8; ++j) {
+          if (j >= cpr) continue;  // the zero columns past dh
           const int col = 8 * j + 2 * t;
           const float2 qc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(crow + col));
           const float2 oc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cdo + col));
@@ -828,18 +875,18 @@ space_bwd_mma_kernel(const BwdArgs a) {
   }
 }
 
-// (3) dk / dv of the CLS key: its own term plus every chunk's, in order.
-template <int DH>
-__global__ void __launch_bounds__(2 * DH)
+// (3) dk / dv of the CLS key: its own term plus every chunk's, in order;
+// 2 * dh threads a (head, batch).
+__global__ void __launch_bounds__(2 * tc::MAX_DH)
 cls_reduce_kernel(const float* __restrict__ cls_part, const float* __restrict__ cls_part_g,
-                  bf16* __restrict__ dqkv_c, int H, int nchunks, int cstride) {
+                  bf16* __restrict__ dqkv_c, int H, int dh, int nchunks, int cstride) {
   const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const int D = H * DH;
+  const int D = H * dh;
   const int64_t bh = (int64_t)b * H + h;
-  float acc = cls_part[bh * 2 * DH + t];
-  for (int c = 0; c < nchunks; ++c) acc += cls_part_g[(bh * nchunks + c) * 2 * DH + t];
-  const int which = t / DH, col = t % DH;
-  dqkv_c[(int64_t)b * cstride * 3 * D + (1 + which) * D + h * DH + col] = __float2bfloat16(acc);
+  float acc = cls_part[bh * 2 * dh + t];
+  for (int c = 0; c < nchunks; ++c) acc += cls_part_g[(bh * nchunks + c) * 2 * dh + t];
+  const int which = t / dh, col = t % dh;
+  dqkv_c[(int64_t)b * cstride * 3 * D + (1 + which) * D + h * dh + col] = __float2bfloat16(acc);
 }
 
 // The space pass's warps and shared memory for n patches a frame.
@@ -848,101 +895,125 @@ inline int space_warps(int n) {
   return ntk < SPACE_WARPS ? ntk : SPACE_WARPS;
 }
 
-template <int DH>
+template <int DHP>
 size_t space_smem(int warps) {
-  const size_t rows = 2 * (size_t)warps * 16 + 2 * (size_t)SPACE_CHUNK_TILES * 16;
-  return rows * (DH + 8) * sizeof(bf16) + (size_t)SPACE_CHUNK_TILES * 16 * sizeof(float4) +
-         ((size_t)warps * 32 + (size_t)warps * 2 * DH) * sizeof(float);
+  constexpr int CT = chunk_tiles(DHP);
+  const size_t rows = 2 * (size_t)warps * 16 + 2 * (size_t)CT * 16;
+  return rows * (DHP + 8) * sizeof(bf16) + (size_t)CT * 16 * sizeof(float4) +
+         ((size_t)warps * 32 + (size_t)warps * 2 * DHP) * sizeof(float);
 }
 
-// The time pass's shared memory for P positions of f frames, D = H * DH.
-inline size_t time_bwd_smem(int f, int D, int H, int P) {
-  return (size_t)(1 + f * P) * 4 * D * sizeof(bf16) + (size_t)P * H * f * 2 * sizeof(float) +
-         (size_t)WARPS * 2 * f * (f + 1) * sizeof(float);
+// The time pass's shared memory for P positions of f frames, HG heads at
+// width DHP and ``warps`` warps.
+inline size_t time_bwd_smem(int f, int HG, int DHP, int P, int warps) {
+  return (size_t)(1 + f * P) * 4 * HG * DHP * sizeof(bf16) + (size_t)P * HG * f * 2 * sizeof(float) +
+         (size_t)warps * 2 * f * (f + 1) * sizeof(float);
 }
 
-inline int time_bwd_positions(int f, int D, int H) {
+struct TimeBwdPlan {
+  int P, HG, warps;
+  size_t smem;
+};
+
+// All H heads and WARPS warps with the largest P of 4, 2 that fits
+// TIME_BWD_SMEM_TARGET (2 at D = 768, f = 8: two blocks an SM); else P = 1,
+// the largest HG dividing H (and min(WARPS, HG) warps, one item each at
+// most) that fits the target, else that fits a block.
+inline TimeBwdPlan time_bwd_plan(int f, int H, int DHP) {
   for (int P = 4; P > 1; P /= 2)
-    if (time_bwd_smem(f, D, H, P) <= TIME_BWD_SMEM_TARGET) return P;
-  return 1;
+    if (time_bwd_smem(f, H, DHP, P, WARPS) <= TIME_BWD_SMEM_TARGET)
+      return {P, H, WARPS, time_bwd_smem(f, H, DHP, P, WARPS)};
+  const size_t limits[2] = {TIME_BWD_SMEM_TARGET, MAX_SMEM};
+  for (size_t limit : limits)
+    for (int hg = H; hg >= 1; --hg) {
+      const int w = hg < WARPS ? hg : WARPS;
+      if (H % hg == 0 && time_bwd_smem(f, hg, DHP, 1, w) <= limit)
+        return {1, hg, w, time_bwd_smem(f, hg, DHP, 1, w)};
+    }
+  return {1, 1, 1, time_bwd_smem(f, 1, DHP, 1, 1)};
 }
 
 // mode 0 = space (groups are frames), 1 = time (groups are spatial
 // positions, P a block). Scratch (f32, written before read): ds_cls and
-// p_cls B*H*f*n each, cls_part B*H*2*DH, cls_part_g B*H*G*2*DH with G the
+// p_cls B*H*f*n each, cls_part B*H*2*dh, cls_part_g B*H*G*2*dh with G the
 // block count over a segment's groups (f in space mode, ceil(n / P) in
 // time mode), stats B*H*f*n*4 (space mode only).
-template <int DH>
+template <int DHP>
 int launch_bwd(const bf16* qkv_p, const bf16* qkv_c, const bf16* dop, const bf16* doc,
                float* ds_cls, float* p_cls, float* cls_part, float* cls_part_g, float* stats,
-               bf16* dqkv_p, bf16* dqkv_c, int B, int f, int n, int H, int mode, Strides strd,
-               cudaStream_t s) {
-  const int fn = f * n, D = H * DH;
-  const float scale = (float)pow((double)DH, -0.5);
+               bf16* dqkv_p, bf16* dqkv_c, int B, int f, int n, int H, int dh, int mode,
+               Strides strd, cudaStream_t s) {
+  const int fn = f * n;
+  const float scale = (float)pow((double)dh, -0.5);
   BwdArgs a{qkv_p, qkv_c, dop, doc, ds_cls, p_cls, stats, cls_part_g, dqkv_p,
-            fn, f, n, H, 1, 1, strd, scale};
+            fn, f, n, H, dh, H, 1, 1, strd, scale};
   size_t smem_g;
+  int threads_g;
   if (mode == 0) {
     a.warps = space_warps(n);
-    smem_g = space_smem<DH>(a.warps);
+    smem_g = space_smem<DHP>(a.warps);
+    threads_g = a.warps * 32;
   } else {
-    a.P = time_bwd_positions(f, D, H);
-    smem_g = time_bwd_smem(f, D, H, a.P);
+    const TimeBwdPlan tp = time_bwd_plan(f, H, DHP);
+    a.P = tp.P;
+    a.HG = tp.HG;
+    smem_g = tp.smem;
+    threads_g = tp.warps * 32;
   }
   if (smem_g > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int nchunks = mode == 0 ? f : (n + a.P - 1) / a.P;
 
-  const size_t smem_c = (2 * DH + 32 + 2 + (CLS_THREADS / 32) * DH + 2 * (size_t)(fn + 1)) *
+  const size_t smem_c = (2 * DHP + 32 + 2 + (CLS_THREADS / 32) * DHP + 2 * (size_t)(fn + 1)) *
                         sizeof(float);
-  cudaFuncSetAttribute(cls_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem_c);
+  auto cls = dh == DHP ? cls_bwd_kernel<DHP, true> : cls_bwd_kernel<DHP, false>;
+  cudaFuncSetAttribute(cls, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
   SFT_CHECK_LAUNCH();
-  cls_bwd_kernel<DH><<<dim3(H, B), CLS_THREADS, smem_c, s>>>(
-      qkv_p, qkv_c, doc, ds_cls, p_cls, cls_part, dqkv_c, fn, H, strd, scale);
+  cls<<<dim3(H, B), CLS_THREADS, smem_c, s>>>(qkv_p, qkv_c, doc, ds_cls, p_cls, cls_part,
+                                              dqkv_c, fn, H, dh, strd, scale);
   SFT_CHECK_LAUNCH();
 
   if (mode == 0) {
-    cudaFuncSetAttribute(space_bwd_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem_g);
+    auto kern = dh == DHP ? space_bwd_mma_kernel<DHP, true> : space_bwd_mma_kernel<DHP, false>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_g);
     SFT_CHECK_LAUNCH();
-    space_bwd_mma_kernel<DH><<<dim3(H, f, B), a.warps * 32, smem_g, s>>>(a);
+    kern<<<dim3(H, f, B), threads_g, smem_g, s>>>(a);
   } else {
-    cudaFuncSetAttribute(time_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem_g);
+    auto kern = dh == DHP && a.HG == H && threads_g == TIME_THREADS ? time_bwd_kernel<DHP, true>
+                                                                     : time_bwd_kernel<DHP, false>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_g);
     SFT_CHECK_LAUNCH();
-    time_bwd_kernel<DH><<<dim3(nchunks, B), TIME_THREADS, smem_g, s>>>(a);
+    kern<<<dim3(nchunks, B, H / a.HG), threads_g, smem_g, s>>>(a);
   }
   SFT_CHECK_LAUNCH();
 
-  cls_reduce_kernel<DH><<<dim3(H, B), 2 * DH, 0, s>>>(cls_part, cls_part_g, dqkv_c, H, nchunks,
-                                                      strd.c);
+  cls_reduce_kernel<<<dim3(H, B), 2 * dh, 0, s>>>(cls_part, cls_part_g, dqkv_c, H, dh, nchunks,
+                                                  strd.c);
   SFT_CHECK_LAUNCH();
   return 0;
 }
 
-// launch_bwd at the head_dim of the call; the instantiated set is {32, 64,
-// 96, 128}, and the wrappers refuse any other before they launch.
+// launch_bwd at tc::padded_width(dh); a dh that is not a multiple of 8 or
+// is above 256 is refused (the wrappers refuse it before they launch).
 int dispatch_bwd(int dh, const void* qkv_p, const void* qkv_c, const void* dop, const void* doc,
                  void* ds_cls, void* p_cls, void* cls_part, void* cls_part_g, void* stats,
                  void* dqkv_p, void* dqkv_c, int B, int f, int n, int H, int mode, Strides strd,
                  void* stream) {
-#define SFT_BWD(DH_)                                                                          \
-  launch_bwd<DH_>(static_cast<const bf16*>(qkv_p), static_cast<const bf16*>(qkv_c),           \
-                  static_cast<const bf16*>(dop), static_cast<const bf16*>(doc),               \
-                  static_cast<float*>(ds_cls), static_cast<float*>(p_cls),                    \
-                  static_cast<float*>(cls_part), static_cast<float*>(cls_part_g),             \
-                  static_cast<float*>(stats), static_cast<bf16*>(dqkv_p),                     \
-                  static_cast<bf16*>(dqkv_c), B, f, n, H, mode, strd,                         \
-                  static_cast<cudaStream_t>(stream))
-  switch (dh) {
-    case 32:
-      return SFT_BWD(32);
-    case 64:
-      return SFT_BWD(64);
-    case 96:
-      return SFT_BWD(96);
-    case 128:
-      return SFT_BWD(128);
+#define SFT_BWD(W)                                                                            \
+  case W:                                                                                     \
+    return launch_bwd<W>(static_cast<const bf16*>(qkv_p), static_cast<const bf16*>(qkv_c),    \
+                         static_cast<const bf16*>(dop), static_cast<const bf16*>(doc),        \
+                         static_cast<float*>(ds_cls), static_cast<float*>(p_cls),             \
+                         static_cast<float*>(cls_part), static_cast<float*>(cls_part_g),      \
+                         static_cast<float*>(stats), static_cast<bf16*>(dqkv_p),              \
+                         static_cast<bf16*>(dqkv_c), B, f, n, H, dh, mode, strd,              \
+                         static_cast<cudaStream_t>(stream))
+  switch (tc::padded_width(dh)) {
+    SFT_BWD(32);
+    SFT_BWD(64);
+    SFT_BWD(96);
+    SFT_BWD(128);
+    SFT_BWD(192);
+    SFT_BWD(256);
     default:
       return (int)cudaErrorInvalidValue;
   }

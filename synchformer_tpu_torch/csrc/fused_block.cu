@@ -33,7 +33,8 @@ using sft::bf16;
 
 // K8a. x (B, 1 + f*n, D) -> out (B, 1 + f*n, D) before the projection;
 // w (3D, D) packed [q; k; v] rows; scratch: ln (B, 1 + f*n, D) and qkv (B,
-// 1 + f*n, 3D) bf16. mode 0 = space, 1 = time. Needs D % 64 == 0.
+// 1 + f*n, 3D) bf16. mode 0 = space, 1 = time. Any D = H * dh, dh a
+// multiple of 8 up to 256.
 extern "C" int sft_fused_divided_attention(const void* x, const void* g, const void* b,
                                            const void* w, const void* bias, void* ln,
                                            void* qkv, void* out, int B, int f, int n, int H,

@@ -7,10 +7,11 @@
 using sft::bf16;
 
 // epi: 0 bias, 1 bias + GELU, 2 bias + residual (r, row stride r_stride), 3
-// bias + the polynomial GELU.
-extern "C" int sft_gemm(const void* a, const void* w, const void* bias, const void* r,
-                        long long r_stride, void* c, long long m, int n, int k, int epi,
-                        void* stream) {
+// bias + the polynomial GELU. a (m, k) at row stride lda, w (n, k) at ldw, c
+// (m, n) at ldc.
+extern "C" int sft_gemm(const void* a, long long lda, const void* w, long long ldw,
+                        const void* bias, const void* r, long long r_stride, void* c,
+                        long long ldc, long long m, int n, int k, int epi, void* stream) {
   const bf16* A = static_cast<const bf16*>(a);
   const bf16* W = static_cast<const bf16*>(w);
   const float* b = static_cast<const float*>(bias);
@@ -19,13 +20,17 @@ extern "C" int sft_gemm(const void* a, const void* w, const void* bias, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epi) {
     case sft::EPI_BIAS:
-      return sft::wgmma_gemm<sft::EPI_BIAS>(A, W, b, nullptr, 0, C, m, n, k, s);
+      return sft::wgmma_gemm_strided<sft::EPI_BIAS>(A, lda, W, ldw, b, nullptr, 0, C, ldc, m, n,
+                                                    k, s);
     case sft::EPI_BIAS_GELU:
-      return sft::wgmma_gemm<sft::EPI_BIAS_GELU>(A, W, b, nullptr, 0, C, m, n, k, s);
+      return sft::wgmma_gemm_strided<sft::EPI_BIAS_GELU>(A, lda, W, ldw, b, nullptr, 0, C, ldc,
+                                                         m, n, k, s);
     case sft::EPI_BIAS_RESIDUAL:
-      return sft::wgmma_gemm<sft::EPI_BIAS_RESIDUAL>(A, W, b, R, r_stride, C, m, n, k, s);
+      return sft::wgmma_gemm_strided<sft::EPI_BIAS_RESIDUAL>(A, lda, W, ldw, b, R, r_stride, C,
+                                                             ldc, m, n, k, s);
     case sft::EPI_BIAS_GELU_POLY:
-      return sft::wgmma_gemm<sft::EPI_BIAS_GELU_POLY>(A, W, b, nullptr, 0, C, m, n, k, s);
+      return sft::wgmma_gemm_strided<sft::EPI_BIAS_GELU_POLY>(A, lda, W, ldw, b, nullptr, 0, C,
+                                                              ldc, m, n, k, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

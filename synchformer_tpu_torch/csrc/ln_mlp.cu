@@ -11,7 +11,10 @@
 // is K2's exact erf, or for K8b the TPU kernel's clamped degree-9 erf
 // polynomial (|err| <= 3e-5) in f32 rounded to bf16 once. At the video
 // tower's shape (175616 rows, 768 -> 3072 -> 768) the two GEMMs are 1.66
-// TFLOP (830 GFLOP each) and bound by the tensor cores.
+// TFLOP (830 GFLOP each) and bound by the tensor cores. A hidden width that
+// is not a multiple of 8 (mlp_ratio 2.6 at D = 768: 1996) is held at a
+// 16-byte pitch: fc1 writes the activation's pad columns as zeros, and fc2
+// reads W2 from a copy at the same pitch.
 //
 // The TPU kernels keep the LN output and the (rows, 4D) fc1 activation in
 // VMEM; here both pass through device memory. The LN output costs one pass
@@ -42,13 +45,17 @@
 using sft::bf16;
 
 // K2 (poly == 0) and K8b (poly == 1). ln_buf: (rows, d) bf16 scratch for the
-// LN output, h_buf (rows, hidden) bf16 for the activation; stats (rows, 8)
-// f32 or null. Needs d % 64 == 0 and hidden % 64 == 0 (the Hopper GEMM's N
-// and K).
+// LN output, h_buf (rows, hidden) bf16 for the activation at row pitch ldh
+// (a multiple of 8 at least hidden: fc1 writes zeros into its columns past
+// hidden, and fc2 reads it by TMA); w2 (d, hidden) at row pitch ldw2 (a
+// multiple of 8: where hidden is not, the wrapper holds a copy of w2 at
+// that pitch, made once per weight tensor); stats (rows, 8) f32 or null.
+// Needs d % 8 == 0 (x, ln_buf and w1 rows read by TMA are 16-byte aligned);
+// any hidden (the Hopper GEMM's tails).
 extern "C" int sft_ln_mlp(const void* x, const void* g, const void* b, const void* w1,
-                          const void* b1, const void* w2, const void* b2, void* ln_buf,
-                          void* h_buf, void* out, void* stats, long long rows, int d,
-                          int hidden, float eps, int poly, void* stream) {
+                          const void* b1, const void* w2, long long ldw2, const void* b2,
+                          void* ln_buf, void* h_buf, long long ldh, void* out, void* stats,
+                          long long rows, int d, int hidden, float eps, int poly, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* ln = static_cast<const bf16*>(ln_buf);
@@ -58,14 +65,14 @@ extern "C" int sft_ln_mlp(const void* x, const void* g, const void* b, const voi
   SFT_CHECK_LAUNCH();
   const bf16* w1b = static_cast<const bf16*>(w1);
   const float* b1f = static_cast<const float*>(b1);
-  int err = poly ? sft::wgmma_gemm<sft::EPI_BIAS_GELU_POLY>(ln, w1b, b1f, nullptr, 0, h, rows,
-                                                            hidden, d, s)
-                 : sft::wgmma_gemm<sft::EPI_BIAS_GELU>(ln, w1b, b1f, nullptr, 0, h, rows,
-                                                       hidden, d, s);
+  int err = poly ? sft::wgmma_gemm_strided<sft::EPI_BIAS_GELU_POLY>(
+                       ln, d, w1b, d, b1f, nullptr, 0, h, ldh, rows, hidden, d, s)
+                 : sft::wgmma_gemm_strided<sft::EPI_BIAS_GELU>(
+                       ln, d, w1b, d, b1f, nullptr, 0, h, ldh, rows, hidden, d, s);
   if (err != 0) return err;
-  err = sft::wgmma_gemm<sft::EPI_BIAS_RESIDUAL>(
-      h, static_cast<const bf16*>(w2), static_cast<const float*>(b2), xb, d,
-      static_cast<bf16*>(out), rows, d, hidden, s);
+  err = sft::wgmma_gemm_strided<sft::EPI_BIAS_RESIDUAL>(
+      h, ldh, static_cast<const bf16*>(w2), ldw2, static_cast<const float*>(b2), xb, d,
+      static_cast<bf16*>(out), d, rows, d, hidden, s);
   if (err != 0) return err;
   if (stats != nullptr) {
     sft::row_stats(static_cast<const bf16*>(out), static_cast<float*>(stats), rows, d, s);
@@ -74,8 +81,9 @@ extern "C" int sft_ln_mlp(const void* x, const void* g, const void* b, const voi
   return 0;
 }
 
-// K8c. ln_buf: (rows, d) bf16 scratch for the LN output. Needs d % 32 == 0
-// and n_out % 64 == 0 (the Hopper GEMM's K and N).
+// K8c. ln_buf: (rows, d) bf16 scratch for the LN output; out (rows, n_out)
+// contiguous. Needs d % 8 == 0 (16-byte rows for TMA); any n_out (the
+// Hopper GEMM's tail epilogue).
 extern "C" int sft_ln_matmul(const void* x, const void* g, const void* b, const void* w,
                              const void* bias, void* ln_buf, void* out, long long rows, int d,
                              int n_out, float eps, void* stream) {

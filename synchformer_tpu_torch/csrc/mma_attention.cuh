@@ -27,6 +27,15 @@
 //   row max (K3: also the row sum, rescaled as the max grows), the second for
 //   P V with the same numerics as one sweep. There is no cap on the keys.
 //
+// Head widths: DH, the template parameter, is the width the tiles are built
+// for (a multiple of 16: mma.sync's k-step); the true head_dim dh (a multiple
+// of 8, at most DH) is a runtime value. Rows are read at dh's stride and each
+// row is staged with its columns past dh zero-filled by cp.async (nothing is
+// read there, so no lane of the next head enters), which adds nothing to
+// Q K^T and gives zero output columns, which are not stored. The callers
+// instantiate a few widths and round dh up to the next one
+// (divided_attention.cuh::dispatch_attention, standard_attention.cu).
+//
 // Numerics, two recipes:
 // - CLS_KEY (divided attention, synchformer_tpu/ops/pallas/divided_attention.py
 //   :60-72, _space_segment; :254-283, _space_pair_v3): key 0 is the CLS row;
@@ -107,18 +116,33 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 constexpr int MAX_WARPS = 8;  // query tiles of 16 rows a block, a warp each
 
+// The widths the attention kernels (this one, the divided attention's time
+// pass and CLS rows, their backward) are built for: a head_dim dh, a
+// multiple of 8 up to 256, runs at the least of them that holds it (0: none
+// does). Multiples of 32, for the time pass's four lanes of 16-byte pieces.
+constexpr int MAX_DH = 256;
+
+inline int padded_width(int dh) {
+  if (dh < 8 || dh % 8 != 0) return 0;
+  const int widths[] = {32, 64, 96, 128, 192, 256};
+  for (int w : widths)
+    if (dh <= w) return w;
+  return 0;
+}
+
 // One launch: per segment (grid z) and group (grid y) of each head, nq query
 // rows against [CLS;] nq key / value rows. Query / key / value i of a group
 // is row qkv_p + (seg * in_seg + grp * grp_rows + i) * 3D (+0 / +D / +2D,
-// + h * dh); with CLS_KEY, key 0 is qkv_c + seg * in_c * 3D. Output row i:
-// out + (seg * out_seg + grp * grp_rows + i) * D + h * dh. parts, tiles
-// and kv_rows are set by launch().
+// + h * dh), D = H * dh; with CLS_KEY, key 0 is qkv_c + seg * in_c * 3D.
+// Output row i: out + (seg * out_seg + grp * grp_rows + i) * D + h * dh.
+// parts, tiles and kv_rows are set by launch().
 struct Problem {
   const bf16* qkv_p;
   const bf16* qkv_c;
   bf16* out;
   long long in_seg, in_c, out_seg;
   int grp_rows, nq, H;
+  int dh;  // the head_dim: a multiple of 8, at most the kernel's DH
   int parts;  // blocks over a group's query tiles (grid x = H * parts)
   int tiles;    // query tiles of a block = its warps
   int kv_rows;  // rows of each key / value chunk buffer
@@ -173,16 +197,18 @@ __device__ __forceinline__ void pv_chunk(float (&o)[DH / 8][4], const float (&s)
   }
 }
 
-template <int DH, int KT, bool CLS_KEY>
+// EXACT: p.dh == DH, compiled as a constant (the main path's head widths).
+template <int DH, int KT, bool CLS_KEY, bool EXACT>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 attention_kernel(const Problem p) {
   constexpr int PITCH = DH + 8;  // bf16; an odd count of 16-byte units: ldmatrix conflict-free
   constexpr int KC = 16 * KT;    // keys of a chunk
-  constexpr int CPR = DH / 8;    // 16-byte pieces of a row
+  constexpr int CPR = DH / 8;    // 16-byte pieces of a staged row
   constexpr int NC = CLS_KEY ? 1 : 0;
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x / p.parts, part = blockIdx.x % p.parts;
-  const int D = p.H * DH;
+  const int dh = EXACT ? DH : p.dh, D = p.H * dh;
+  const int cpr = dh / 8;  // pieces of a row that hold the head's columns
   const int nk = p.nq + NC;
   const int q0 = part * p.tiles * 16;  // the block's first query row
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -191,16 +217,18 @@ attention_kernel(const Problem p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const long long grp0 = (long long)blockIdx.y * p.grp_rows;
-  const bf16* pin = p.qkv_p + ((long long)blockIdx.z * p.in_seg + grp0) * 3 * D + h * DH;
-  const bf16* crow = CLS_KEY ? p.qkv_c + (long long)blockIdx.z * p.in_c * 3 * D + h * DH : pin;
-  bf16* pout = p.out + ((long long)blockIdx.z * p.out_seg + grp0) * D + h * DH;
+  const bf16* pin = p.qkv_p + ((long long)blockIdx.z * p.in_seg + grp0) * 3 * D + h * dh;
+  const bf16* crow = CLS_KEY ? p.qkv_c + (long long)blockIdx.z * p.in_c * 3 * D + h * dh : pin;
+  bf16* pout = p.out + ((long long)blockIdx.z * p.out_seg + grp0) * D + h * dh;
 
-  // key / value rows [k0, k0 + rows) of the group into the chunk buffers
+  // key / value rows [k0, k0 + rows) of the group into the chunk buffers,
+  // zero past the last row and past column dh
   auto stage_kv = [&](bf16* dst, int off, int k0, int rows) {
     for (int idx = tid; idx < rows * CPR; idx += blockDim.x) {
       const int r = idx / CPR, c = idx % CPR, j = k0 + r;
+      const bool ok = j < nk && c < cpr;
       const bf16* src = j < NC ? crow : pin + (long long)(j - NC) * 3 * D;
-      cp_async16(dst + r * PITCH + c * 8, j < nk ? src + off + c * 8 : pin, j < nk);
+      cp_async16(dst + r * PITCH + c * 8, ok ? src + off + c * 8 : pin, ok);
     }
   };
 
@@ -216,8 +244,8 @@ attention_kernel(const Problem p) {
 
   for (int idx = tid; idx < p.tiles * 16 * CPR; idx += blockDim.x) {
     const int r = idx / CPR, c = idx % CPR, i = q0 + r;
-    cp_async16(Qs + r * PITCH + c * 8, i < p.nq ? pin + (long long)i * 3 * D + c * 8 : pin,
-               i < p.nq);
+    const bool ok = i < p.nq && c < cpr;
+    cp_async16(Qs + r * PITCH + c * 8, ok ? pin + (long long)i * 3 * D + c * 8 : pin, ok);
   }
   // sweep 0 (more than one chunk only): the row max (K3: and sum);
   // sweep 1: the probabilities and P V
@@ -335,6 +363,7 @@ attention_kernel(const Problem p) {
   const int r0 = q0 + warp * 16 + g;
 #pragma unroll
   for (int j = 0; j < DH / 8; ++j) {
+    if (j >= cpr) continue;  // the zero columns past dh
     if (r0 < p.nq)
       *reinterpret_cast<__nv_bfloat162*>(pout + (long long)r0 * D + 8 * j + 2 * t) =
           __floats2bfloat162_rn(o[j][0] * i0, o[j][1] * i0);
@@ -354,10 +383,11 @@ int launch(Problem p, int groups, int segs, cudaStream_t s) {
   const int nk = p.nq + (CLS_KEY ? 1 : 0);
   p.kv_rows = nk < 16 * KT ? (nk + 15) / 16 * 16 : 16 * KT;
   const size_t smem = (size_t)(p.tiles * 16 + 2 * p.kv_rows) * (DH + 8) * sizeof(bf16);
-  cudaFuncSetAttribute(attention_kernel<DH, KT, CLS_KEY>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kern = p.dh == DH ? attention_kernel<DH, KT, CLS_KEY, true>
+                         : attention_kernel<DH, KT, CLS_KEY, false>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   SFT_CHECK_LAUNCH();
-  attention_kernel<DH, KT, CLS_KEY><<<dim3(p.H * p.parts, groups, segs), p.tiles * 32, smem, s>>>(p);
+  kern<<<dim3(p.H * p.parts, groups, segs), p.tiles * 32, smem, s>>>(p);
   SFT_CHECK_LAUNCH();
   return 0;
 }

@@ -65,20 +65,23 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// <a, row> over N values (N % 8 == 0): a f32 (shared memory), row bf16 in
-// device memory, 16-byte aligned. Every 16-byte load is started before the
-// sums, which run in element order: a thread walking rows of its own is bound
-// by load latency, not by the arithmetic.
+// <a, row> over the first n <= N values (n % 8 == 0, N % 8 == 0): a f32
+// (shared memory), row bf16 in device memory, 16-byte aligned; nothing past
+// value n is read. Every 16-byte load is started before the sums, which run
+// in element order: a thread walking rows of its own is bound by load
+// latency, not by the arithmetic.
 template <int N>
 __device__ __forceinline__ float dot_row_bf16(const float* __restrict__ a,
-                                              const bf16* __restrict__ row) {
+                                              const bf16* __restrict__ row, int n = N) {
   static_assert(N % 8 == 0, "dot_row_bf16 takes whole 16-byte chunks");
   uint4 w[N / 8];
 #pragma unroll
-  for (int c = 0; c < N / 8; ++c) w[c] = __ldg(reinterpret_cast<const uint4*>(row) + c);
+  for (int c = 0; c < N / 8; ++c)
+    w[c] = 8 * c < n ? __ldg(reinterpret_cast<const uint4*>(row) + c) : make_uint4(0u, 0u, 0u, 0u);
   float s = 0.f;
 #pragma unroll
   for (int c = 0; c < N / 8; ++c) {
+    if (8 * c >= n) continue;
     const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&w[c]);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {

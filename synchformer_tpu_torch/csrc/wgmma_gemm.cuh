@@ -50,13 +50,21 @@
 // - EPI_BIAS_RESIDUAL: bf16(R + bf16(acc + bias)), the JAX
 //   `x + (y + b).astype(dtype)`.
 //
-// Shapes: N % 64 == 0 (where N % 128 == 64, the last ping-pong tile takes W
-// rows past N as zeros from TMA, and its epilogue skips the right half);
-// K % 32 == 0 (TMA fills A's and W's columns past K with zeros, whose
-// products add nothing: K8c's d = 96); 16-byte aligned A, W, R and C rows;
-// any M >= 1 up to 2^31 - 1 (TMA fills the rows past M with zeros, and the
-// stores are masked). The TMA descriptors are
-// built per call on the host with cuTensorMapEncodeTiled, reached through
+// Shapes: any M >= 1 up to 2^31 - 1 (TMA fills the rows past M with zeros,
+// and the stores are masked), any N >= 1 and K >= 1. A and W are read by TMA
+// at row strides lda and ldw that are multiples of 8 (16 bytes: a TMA
+// descriptor's rule) and at least K; TMA fills their columns past K with
+// zeros, whose products add nothing (K8c's d = 96, fc2 over hidden 1996). C
+// has row stride ldc >= N and R r_stride. Where N % 128 == 0, ldc == N and
+// r_stride is a multiple of 8, the epilogue is the plain one above; else the
+// TAIL variant of the ping-pong schedule reads the bias and the residual
+// element by element past N (or where a row is not 16-byte aligned), writes
+// zeros into C's columns from N to the next multiple of 8 within ldc (the
+// pad a caller that holds an activation at a 16-byte pitch needs zeroed),
+// and stores element by element where ldc is not a multiple of 8. TMA takes W
+// rows past N as zeros, so the last column tile's products there are zero.
+// 16-byte aligned A, W, R and C. The TMA descriptors are built per call on
+// the host with cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the library links nothing beyond the runtime.
 #pragma once
 
@@ -195,6 +203,37 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// The 8 bf16 from p of which the first ``have`` exist (the rest read as
+// zero): one 16-byte load where ``vec`` and all 8 exist, else one by one.
+__device__ __forceinline__ uint4 load8_tail(const bf16* p, int have, bool vec) {
+  if (vec && have >= 8) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint4 out = make_uint4(0u, 0u, 0u, 0u);
+  unsigned short* o = reinterpret_cast<unsigned short*>(&out);
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e < have) o[e] = src[e];
+  return out;
+}
+
+// 8 bf16 to p: the first ``have`` from v, then zeros, none at or past
+// ``room`` (the end of the row); one 16-byte store where ``vec`` and all 8
+// fit.
+__device__ __forceinline__ void store8_tail(bf16* p, uint4 v, int have, int room, bool vec) {
+  unsigned short* x = reinterpret_cast<unsigned short*>(&v);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e >= have) x[e] = 0;
+  if (vec && room >= 8) {
+    *reinterpret_cast<uint4*>(p) = v;
+    return;
+  }
+  unsigned short* dst = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (e < room) dst[e] = x[e];
+}
+
 // 8 bf16 of r plus 8 bf16 of y, summed in f32 and rounded once.
 __device__ __forceinline__ uint4 add8(uint4 r, uint4 y) {
   const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&r);
@@ -213,12 +252,15 @@ __device__ __forceinline__ uint4 add8(uint4 r, uint4 y) {
 // Block b takes tiles b, b + gridDim.x, ... (its j-th tile); in the
 // ping-pong schedule consumer c takes the block's tiles j = c, c + 2, ...,
 // in the cooperative one both take every tile (the plan the wrappers' host
-// side mirrors in ops/kernels/_build.py::gemm_plan).
-template <int EPI, bool PP>
+// side mirrors in ops/kernels/_build.py::gemm_plan). TAIL: the epilogue for
+// N % 128 != 0, C's pitch other than N or residual rows that are not 16-byte
+// aligned (ping-pong only).
+template <int EPI, bool PP, bool TAIL>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
             const float* __restrict__ bias, const bf16* __restrict__ R, int64_t r_stride,
-            bf16* __restrict__ C, int M, int N, int K) {
+            bf16* __restrict__ C, int64_t ldc, int M, int N, int K) {
+  static_assert(PP || !TAIL, "the tail epilogue runs on the ping-pong schedule");
   using CF = Cfg<PP>;
   constexpr int BN = CF::BN, STAGES = CF::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -327,12 +369,14 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     for (int p = 0; p < 4; ++p) {
       const int64_t row0 = (int64_t)m0 + (PP ? p / 2 : c) * 64;
       const int col0 = n0 + (PP ? p % 2 : p) * EPI_COLS;
-      // past N: the right half of a last ping-pong tile of 64 (the
-      // cooperative schedule runs only where N % 256 == 0). Checking every
-      // piece instead made K2's and K8b's fc1 2-10% slower (PERF.md)
+      // past N: the right half of a last ping-pong tile of 64 or less (a
+      // left half always starts below N; the cooperative schedule runs only
+      // where N % 256 == 0). Checking every piece instead made K2's and
+      // K8b's fc1 2-10% slower (PERF.md)
       if (PP && p % 2 == 1 && col0 >= N) continue;
       // the residual's 16-byte loads first, so that they are in flight
-      // while the piece is staged
+      // while the piece is staged (TAIL: element by element past N or where
+      // its rows are not 16-byte aligned)
       uint4 res[64 * EPI_COLS / 8 / 128];
       if (EPI == EPI_BIAS_RESIDUAL) {
 #pragma unroll
@@ -340,7 +384,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
           const int idx = tid + v * 128;
           const int64_t gm = row0 + idx / (EPI_COLS / 8);
           const int gn = col0 + idx % (EPI_COLS / 8) * 8;
-          res[v] = gm < M ? __ldg(reinterpret_cast<const uint4*>(R + gm * r_stride + gn))
+          res[v] = gm < M ? (TAIL ? load8_tail(R + gm * r_stride + gn, N - gn, r_stride % 8 == 0)
+                                  : __ldg(reinterpret_cast<const uint4*>(R + gm * r_stride + gn)))
                           : make_uint4(0u, 0u, 0u, 0u);
         }
       }
@@ -348,7 +393,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
       for (int jb = 0; jb < EPI_COLS / 8; ++jb) {
         const int i = ((p % 2) * (EPI_COLS / 8) + jb) * 4;  // the n8 block's registers
         const int col = jb * 8 + 2 * (lane % 4);
-        const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col0 + col));
+        const float2 bb =
+            TAIL ? make_float2(col0 + col < N ? __ldg(bias + col0 + col) : 0.f,
+                               col0 + col + 1 < N ? __ldg(bias + col0 + col + 1) : 0.f)
+                 : __ldg(reinterpret_cast<const float2*>(bias + col0 + col));
         float v0 = acc[p / 2][i] + bb.x, v1 = acc[p / 2][i + 1] + bb.y;
         float v2 = acc[p / 2][i + 2] + bb.x, v3 = acc[p / 2][i + 3] + bb.y;
         if (EPI == EPI_BIAS_GELU) {
@@ -377,7 +425,11 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
         if (gm < M) {
           uint4 o = *reinterpret_cast<const uint4*>(eb + r * EPI_PITCH + q * 8);
           if (EPI == EPI_BIAS_RESIDUAL) o = add8(res[v], o);
-          *reinterpret_cast<uint4*>(C + gm * N + col0 + q * 8) = o;
+          if (TAIL)
+            store8_tail(C + gm * ldc + col0 + q * 8, o, N - col0 - q * 8,
+                        (int)(ldc - col0 - q * 8), ldc % 8 == 0);
+          else
+            *reinterpret_cast<uint4*>(C + gm * N + col0 + q * 8) = o;
         }
       }
       bar_sync(1 + c, 128);
@@ -403,12 +455,13 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A 2-D map of a row-major (rows, cols) bf16 matrix, box BK columns x
-// box_rows rows, 128-byte swizzle; rows past the last read as zeros.
-inline bool make_map(CUtensorMap* map, const bf16* ptr, int64_t rows, int64_t cols,
+// A 2-D map of a row-major (rows, cols) bf16 matrix with row stride ld
+// elements (a multiple of 8), box BK columns x box_rows rows, 128-byte
+// swizzle; rows past the last and columns past cols read as zeros.
+inline bool make_map(CUtensorMap* map, const bf16* ptr, int64_t rows, int64_t cols, int64_t ld,
                      int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
   const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(ptr), dims,
@@ -427,38 +480,55 @@ inline int sm_count() {
   return sms;
 }
 
-template <int EPI, bool PP>
-int launch(const bf16* A, const bf16* W, const float* bias, const bf16* R, int64_t r_stride,
-           bf16* C, int M, int N, int K, cudaStream_t s) {
+template <int EPI, bool PP, bool TAIL>
+int launch(const bf16* A, int64_t lda, const bf16* W, int64_t ldw, const float* bias,
+           const bf16* R, int64_t r_stride, bf16* C, int64_t ldc, int M, int N, int K,
+           cudaStream_t s) {
   using CF = Cfg<PP>;
   CUtensorMap ma, mw;
-  if (!make_map(&ma, A, M, K, BM) || !make_map(&mw, W, N, K, CF::BN))
+  if (!make_map(&ma, A, M, K, lda, BM) || !make_map(&mw, W, N, K, ldw, CF::BN))
     return (int)cudaErrorInvalidValue;
   const int tiles = ((M + BM - 1) / BM) * ((N + CF::BN - 1) / CF::BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  cudaFuncSetAttribute(gemm_kernel<EPI, PP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(gemm_kernel<EPI, PP, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        CF::SMEM);
   SFT_CHECK_LAUNCH();
-  gemm_kernel<EPI, PP><<<grid, THREADS, CF::SMEM, s>>>(ma, mw, bias, R, r_stride, C, M, N, K);
+  gemm_kernel<EPI, PP, TAIL><<<grid, THREADS, CF::SMEM, s>>>(ma, mw, bias, R, r_stride, C, ldc,
+                                                            M, N, K);
   SFT_CHECK_LAUNCH();
   return 0;
 }
 
 }  // namespace wg
 
-// C = epilogue(A @ W^T + bias) on the Hopper GEMM; R (EPI_BIAS_RESIDUAL
-// only) has row stride r_stride elements. Returns a CUDA error code: invalid
-// value for a shape it does not take, symbol not found without the driver's
-// TMA encoder.
+// C = epilogue(A @ W^T + bias) on the Hopper GEMM, A (M, K) at row stride
+// lda, W (N, K) at ldw, C (M, N) at ldc; R (EPI_BIAS_RESIDUAL only) has row
+// stride r_stride elements. Returns a CUDA error code: invalid value for a
+// shape it does not take, symbol not found without libcuda's TMA encoder
+// (cuTensorMapEncodeTiled).
+template <int EPI>
+inline int wgmma_gemm_strided(const bf16* A, int64_t lda, const bf16* W, int64_t ldw,
+                              const float* bias, const bf16* R, int64_t r_stride, bf16* C,
+                              int64_t ldc, int64_t M, int N, int K, cudaStream_t s) {
+  if (M < 1 || M > INT_MAX || N < 1 || K < 1 || lda < K || ldw < K || ldc < N || lda % 8 != 0 ||
+      ldw % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (wg::encoder() == nullptr) return (int)cudaErrorSymbolNotFound;
+  const bool tail =
+      N % 128 != 0 || ldc != N || (EPI == EPI_BIAS_RESIDUAL && r_stride % 8 != 0);
+  if (tail)
+    return wg::launch<EPI, true, true>(A, lda, W, ldw, bias, R, r_stride, C, ldc, (int)M, N, K, s);
+  if ((EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_POLY) && N % 256 == 0)
+    return wg::launch<EPI, false, false>(A, lda, W, ldw, bias, R, r_stride, C, ldc, (int)M, N, K,
+                                         s);
+  return wg::launch<EPI, true, false>(A, lda, W, ldw, bias, R, r_stride, C, ldc, (int)M, N, K, s);
+}
+
+// wgmma_gemm_strided on contiguous A (M, K), W (N, K) and C (M, N).
 template <int EPI>
 inline int wgmma_gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R,
                       int64_t r_stride, bf16* C, int64_t M, int N, int K, cudaStream_t s) {
-  if (M < 1 || M > INT_MAX || N < 64 || N % 64 != 0 || K < 32 || K % 32 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (wg::encoder() == nullptr) return (int)cudaErrorSymbolNotFound;
-  if ((EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_POLY) && N % 256 == 0)
-    return wg::launch<EPI, false>(A, W, bias, R, r_stride, C, (int)M, N, K, s);
-  return wg::launch<EPI, true>(A, W, bias, R, r_stride, C, (int)M, N, K, s);
+  return wgmma_gemm_strided<EPI>(A, K, W, K, bias, R, r_stride, C, N, M, N, K, s);
 }
 
 }  // namespace sft

@@ -43,10 +43,13 @@ class AVCLIP(nn.Module):
         self.init_scale = init_scale
         self.clamp_scale_min = clamp_scale_min
         self.clamp_scale_max = clamp_scale_max
-        self.vfeat_extractor = MotionFormerEncoder(embed_dim=d, agg_time_module="AveragePooling",
-                                                   device=device, **vfeat_extractor)
-        self.afeat_extractor = ASTEncoder(hidden_size=d, agg_time_module="AveragePooling",
-                                          device=device, **afeat_extractor)
+        # each tower d wide unless its keywords name its own width (projected
+        # to d by vproj / aproj, as the JAX module builds them)
+        self.vfeat_extractor = MotionFormerEncoder(**{"embed_dim": d, **vfeat_extractor},
+                                                   agg_time_module="AveragePooling",
+                                                   device=device)
+        self.afeat_extractor = ASTEncoder(**{"hidden_size": d, **afeat_extractor},
+                                          agg_time_module="AveragePooling", device=device)
         self.vproj = vproj if vproj is not None else DoNothingBridge()
         self.aproj = aproj if aproj is not None else DoNothingBridge()
         self.logit_scale = nn.Parameter(torch.tensor(init_scale, dtype=torch.float32,

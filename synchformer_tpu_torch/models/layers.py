@@ -42,7 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from synchformer_tpu_torch.ops.kernels.cls_pool import fused_cls_pool, fused_cls_pool_tokens
-from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_mlp_residual
+from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_mlp_residual, pitched
 from synchformer_tpu_torch.ops.kernels.standard_attention import groupable, standard_attention
 from synchformer_tpu_torch.ops.numerics import dense, exact_gelu, layer_norm
 
@@ -299,7 +299,7 @@ def preln_block(x, p: BlockParams, num_heads: int, eps: float, impl: str,
     x = x + attn
     if k2_route(impl, query_rows, resid_stoch):
         return fused_ln_mlp_residual(x.contiguous(), p.ln2_w, p.ln2_b, p.w1.to(dtype),
-                                     p.b1, p.w2.to(dtype), p.b2, eps, impl=impl)
+                                     p.b1, pitched(p.w2, dtype), p.b2, eps, impl=impl)
     h = mlp(layer_norm(x, p.ln2_w, p.ln2_b, eps, dtype), p.w1, p.b1, p.w2, p.b2,
             resid_dropout, generator if resid_stoch else None)
     if resid_stoch:

@@ -69,10 +69,12 @@ class MultilevelMoCoCLIP(nn.Module):
         self.init_scale = init_scale
         self.clamp_scale_min = clamp_scale_min
         self.clamp_scale_max = clamp_scale_max
-        self.v_encoder = MotionFormerEncoder(embed_dim=d, agg_time_module="AveragePooling",
-                                             device=device, **vfeat_extractor)
-        self.a_encoder = ASTEncoder(hidden_size=d, agg_time_module="AveragePooling",
-                                    device=device, **afeat_extractor)
+        # each tower d wide unless its keywords name its own width (projected
+        # to d by the projections, as the JAX module builds them)
+        self.v_encoder = MotionFormerEncoder(**{"embed_dim": d, **vfeat_extractor},
+                                             agg_time_module="AveragePooling", device=device)
+        self.a_encoder = ASTEncoder(**{"hidden_size": d, **afeat_extractor},
+                                    agg_time_module="AveragePooling", device=device)
         self.add_global_repr = self.a_encoder.global_attn_agg is not None
         if self.add_global_repr != (self.v_encoder.global_attn_agg is not None):
             raise ValueError("add_global_repr differs between the towers")

@@ -138,6 +138,7 @@ from synchformer_tpu_torch.ops.kernels.fused_block import (
 from synchformer_tpu_torch.ops.kernels.fused_rows import (
     fused_ln_mlp_residual,
     ln_mlp_residual_plain,
+    pitched,
 )
 from synchformer_tpu_torch.ops.numerics import dense, layer_norm, layer_norm_from_stats
 from synchformer_tpu_torch.ops.video import patch_embed_matrix, patchify_frames
@@ -229,7 +230,7 @@ class DividedSpaceTimeBlock(nn.Module):
 
     def _mlp_args(self, dtype):
         return (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight.to(dtype),
-                self.mlp.fc1.bias, self.mlp.fc2.weight.to(dtype), self.mlp.fc2.bias, self.eps)
+                self.mlp.fc1.bias, pitched(self.mlp.fc2.weight, dtype), self.mlp.fc2.bias, self.eps)
 
     def forward(self, cls, patches, stats, impl: str):
         """Eval: (cls (BS, 1, D), patches (BS, f, n, D), row stats of patches

@@ -34,6 +34,7 @@ from synchformer_tpu_torch.models.bridges import LinearBridge
 from synchformer_tpu_torch.models.layers import LayerNorm, MinGPTBlock, element_dropout
 from synchformer_tpu_torch.models.motionformer import MotionFormerEncoder
 from synchformer_tpu_torch.models.pos_emb import RandInitPositionalEncoding
+from synchformer_tpu_torch.ops.kernels.fused_rows import pitched
 
 
 def token_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -225,12 +226,16 @@ class Synchformer(nn.Module):
     @torch.no_grad()
     def cast_matrices_(self, dtype: torch.dtype, modules=None) -> "Synchformer":
         """Matrices (Linear, conv and packed in-projection weights) of
-        ``modules`` (default: the whole model) to the compute dtype, once;
+        ``modules`` (default: the whole model) to the compute dtype, once,
+        a matrix with rows that are not 16 bytes at a 16-byte pitch
+        (``pitched``: fc2 at a hidden width such as 1996, as K2 reads it);
         LN parameters, biases, tokens and positional embeddings stay f32 and
         are cast where they are used."""
         for root in (self,) if modules is None else modules:
             for mod in root.modules():
                 for name, p in mod.named_parameters(recurse=False):
-                    if name.endswith("weight") and p.ndim >= 2:
+                    if name.endswith("weight") and p.ndim == 2:
+                        p.data = pitched(p.data, dtype)
+                    elif name.endswith("weight") and p.ndim > 2:
                         p.data = p.data.to(dtype)
         return self

@@ -33,20 +33,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the Hopper GEMM (csrc/wgmma_gemm.cuh, under K1, K2, K4, K4b and K8a-K8c): TMA row
-# coordinates are 32-bit; its persistent grid has no limit of its own. N
-# comes in 64-column pieces (a last column tile may be 64 wide), K in
-# multiples of 32 over WGMMA_BK-deep k-steps (TMA fills A's and W's columns
-# past K with zeros)
+# coordinates are 32-bit; its persistent grid has no limit of its own. Any N
+# and K: A's and W's rows are read by TMA at strides that are multiples of
+# WGMMA_LD_QUANTUM elements (16 bytes), which fills their columns past K
+# with zeros over WGMMA_BK-deep k-steps; where N % WGMMA_TAIL_N != 0, C's
+# pitch is not N or the residual's row stride is not a multiple of 8, the
+# tail epilogue runs (bias and residual read element by element past N, C's
+# pad columns zeroed)
 WGMMA_MAX_ROWS = 2 ** 31 - 1
 WGMMA_BM, WGMMA_BK = 128, 64
-WGMMA_N_QUANTUM, WGMMA_K_QUANTUM = 64, 32
+WGMMA_LD_QUANTUM, WGMMA_TAIL_N = 8, 128
+# the attention kernels (csrc/mma_attention.cuh::padded_width): a head_dim
+# that is a multiple of 8 up to the last width runs at the least width that
+# holds it, its columns past head_dim staged as zeros
+ATTN_WIDTHS = (32, 64, 96, 128, 192, 256)
 # the time pass of the divided attention (csrc/divided_attention.cuh)
 TIME_WARPS = 8
 TIME_SMEM_TARGET = 57344
 MAX_SMEM = 232448  # shared memory one block may take on the H100
 # the divided attention's backward (csrc/divided_attention_bwd.cu): the
-# space pass's warps a block at most and 16-row tiles of a streamed chunk;
-# the time pass's warps and shared-memory target
+# space pass's warps a block at most and 16-row tiles of a streamed chunk
+# at widths up to 128 (chunk_tiles: fewer at 192 and 256); the time pass's
+# warps at most and shared-memory target
 BWD_SPACE_WARPS = 8
 BWD_SPACE_CHUNK_TILES = 13
 BWD_TIME_WARPS = 8
@@ -70,7 +78,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # csrc/<name>.cu -> {its C entry: argtypes}; the first entry is the default
 _SIGNATURES = {
-    "ln_mlp": {"sft_ln_mlp": [_P] * 11 + [_L, _I, _I, _F, _I, _P],
+    "ln_mlp": {"sft_ln_mlp": [_P] * 6 + [_L] + [_P] * 3 + [_L] + [_P] * 2
+               + [_L, _I, _I, _F, _I, _P],
                "sft_ln_matmul": [_P] * 7 + [_L, _I, _I, _F, _P]},
     "standard_attention": {"sft_standard_attention": [_P, _P, _I, _I, _I, _I, _P]},
     "cls_pool": {"sft_cls_pool_tokens": [_P] * 21 + [_I] * 8 + [_F, _P],
@@ -80,28 +89,29 @@ _SIGNATURES = {
                           "sft_divided_attention_packed": [_P] * 2 + [_I] * 6 + [_P]},
     "divided_attention_bwd": {"sft_divided_attention_bwd": [_P] * 11 + [_I] * 6 + [_P],
                               "sft_divided_attention_packed_bwd": [_P] * 8 + [_I] * 6 + [_P]},
-    "gemm": {"sft_gemm": [_P] * 4 + [_L, _P, _L, _I, _I, _I, _P]},
+    "gemm": {"sft_gemm": [_P, _L, _P, _L, _P, _P, _L, _P, _L, _L, _I, _I, _I, _P]},
     "fused_block": {"sft_fused_divided_attention": [_P] * 8 + [_I] * 6 + [_F, _P]},
 }
 
 
 def gemm_plan(m: int, n: int, k: int, epilogue: str = "bias", sms: int = 132) -> dict:
     """The launch plan of the Hopper GEMM (csrc/wgmma_gemm.cuh) for C[m, n]
-    = A[m, k] @ W[n, k]^T: its schedule (``cooperative``, 128 x 256 tiles,
-    for the GELU epilogues where n % 256 == 0; else ``ping-pong``, 128 x 128
-    tiles, the last one 64 wide where n % 128 == 64), the tile grid, and the
-    persistent grid (one block an SM, at most one a tile). Block b takes
-    tiles b, b + grid, ...; tile t is row tile t // tiles_n, column tile t %
-    tiles_n. Raises on a shape the kernel does not take."""
+    = A[m, k] @ W[n, k]^T with C (m, n) contiguous: its schedule
+    (``cooperative``, 128 x 256 tiles, for the GELU epilogues where n % 256
+    == 0 and no tail; else ``ping-pong``, 128 x 128 tiles), whether the
+    ``tail`` epilogue runs (n % WGMMA_TAIL_N != 0; the kernel also takes it
+    for a C pitch other than n and a residual whose rows are not 16-byte
+    aligned), the tile grid, and the persistent grid (one block an SM, at
+    most one a tile). Block b takes tiles b, b + grid, ...; tile t is row
+    tile t // tiles_n, column tile t % tiles_n. Raises on a shape the kernel
+    does not take."""
     require(0 < m <= WGMMA_MAX_ROWS, f"the Hopper GEMM takes 1 to {WGMMA_MAX_ROWS} rows, got {m}")
-    require(n >= WGMMA_N_QUANTUM and n % WGMMA_N_QUANTUM == 0,
-            f"the Hopper GEMM takes N % {WGMMA_N_QUANTUM} == 0, got {n}")
-    require(k >= WGMMA_K_QUANTUM and k % WGMMA_K_QUANTUM == 0,
-            f"the Hopper GEMM takes K % {WGMMA_K_QUANTUM} == 0, got {k}")
-    cooperative = epilogue in ("gelu", "gelu_poly") and n % 256 == 0
+    require(n >= 1 and k >= 1, f"the Hopper GEMM takes N, K >= 1, got N={n}, K={k}")
+    tail = n % WGMMA_TAIL_N != 0
+    cooperative = not tail and epilogue in ("gelu", "gelu_poly") and n % 256 == 0
     bn = 256 if cooperative else 128
     tiles_m, tiles_n = -(-m // WGMMA_BM), -(-n // bn)
-    return {"schedule": "cooperative" if cooperative else "ping-pong", "bn": bn,
+    return {"schedule": "cooperative" if cooperative else "ping-pong", "bn": bn, "tail": tail,
             "tiles_m": tiles_m, "tiles_n": tiles_n, "grid": min(tiles_m * tiles_n, sms)}
 
 
@@ -115,60 +125,118 @@ def gemm_block_tiles(plan: dict, block: int, consumer: int | None = None) -> lis
     return mine[consumer::2] if consumer is not None and plan["schedule"] == "ping-pong" else mine
 
 
-def time_pass_plan(f: int, n: int, d: int) -> dict:
-    """The launch plan of the divided attention's time pass
-    (csrc/divided_attention.cuh::time_attention_kernel): ``p`` spatial
-    positions a block (the largest of 4, 2, 1 whose f * p + 1 key / value rows
-    fit TIME_SMEM_TARGET bytes, else 1), ``blocks`` position tiles a segment,
-    and the block's shared memory. Raises where even one position's rows do
-    not fit a block."""
-    def smem(p):
-        return (1 + f * p) * 2 * d * 2 + TIME_WARPS * 8 * (f + 1) * 4
+def padded_width(dh: int) -> int:
+    """The width the attention kernels run head_dim ``dh`` at: the least of
+    ATTN_WIDTHS that holds it (csrc/mma_attention.cuh::padded_width). Raises
+    on a head_dim that is not a multiple of 8 or is above the last width."""
+    require(dh >= 8 and dh % 8 == 0 and dh <= ATTN_WIDTHS[-1],
+            f"the attention kernels take a head_dim that is a multiple of 8 up to "
+            f"{ATTN_WIDTHS[-1]}, got {dh}")
+    return next(w for w in ATTN_WIDTHS if dh <= w)
 
-    p = next((p for p in (4, 2) if smem(p) <= TIME_SMEM_TARGET), 1)
-    require(smem(p) <= MAX_SMEM,
-            f"the time pass stages {f} frames' keys and values of width {d} in one block: "
-            f"{smem(p)} bytes of shared memory, more than {MAX_SMEM}")
-    return {"p": p, "blocks": -(-n // p), "smem": smem(p)}
+
+def head_dim(what: str, d: int, heads: int) -> int:
+    """D over ``heads`` heads as the attention kernels take it: heads
+    dividing D, head_dim a multiple of 8 up to 256 (padded_width)."""
+    require(heads >= 1 and d % heads == 0, f"{what}: D={d} does not split into {heads} heads")
+    padded_width(d // heads)
+    return d // heads
+
+
+def _divisors_down(h: int) -> list:
+    return [g for g in range(h, 0, -1) if h % g == 0]
+
+
+def time_pass_plan(f: int, n: int, d: int, heads: int) -> dict:
+    """The launch plan of the divided attention's time pass
+    (csrc/divided_attention.cuh::time_plan, time_attention_kernel) over
+    ``heads`` heads of D = d: ``heads_a_block`` HG and ``p`` spatial
+    positions a block (all heads and the largest of 4, 2 whose f * p + 1 key
+    / value rows, at the padded head width, fit TIME_SMEM_TARGET bytes; else
+    p = 1 and the largest HG dividing the heads that fits the target, else
+    that fits a block), ``blocks`` position tiles a segment, ``head_groups``,
+    and the block's shared memory. Raises where even one head's rows do not
+    fit a block: the cap is set by the head width, not by D."""
+    dhp = padded_width(head_dim("the time pass", d, heads))
+
+    def smem(p, hg):
+        return (1 + f * p) * 2 * hg * dhp * 2 + TIME_WARPS * 8 * (f + 1) * 4
+
+    p, hg = next(((p, heads) for p in (4, 2) if smem(p, heads) <= TIME_SMEM_TARGET), (1, None))
+    if hg is None:
+        hg = next((g for limit in (TIME_SMEM_TARGET, MAX_SMEM) for g in _divisors_down(heads)
+                   if smem(1, g) <= limit), None)
+        require(hg is not None,
+                f"the time pass stages {f} frames' keys and values of one head (width {dhp}) "
+                f"in a block: {smem(1, 1)} bytes of shared memory, more than {MAX_SMEM}")
+    return {"p": p, "heads_a_block": hg, "head_groups": heads // hg, "blocks": -(-n // p),
+            "smem": smem(p, hg)}
+
+
+def cls_row_smem(fn: int, dh: int, backward: bool = False) -> int:
+    """Shared memory (bytes) of the CLS row's launch over 1 + fn keys at
+    head_dim dh (divided_attention.cuh::launch_attention's smem_c; with
+    ``backward``, divided_attention_bwd.cu::launch_bwd's): the scaled query
+    (and cotangent), the warps' sums and one (two) f32 a key."""
+    w = padded_width(dh)
+    if backward:
+        return (2 * w + 32 + 2 + 16 * w + 2 * (fn + 1)) * 4
+    return (w + 32 + 8 * w + fn + 1) * 4
 
 
 def space_bwd_plan(n: int, dh: int) -> dict:
     """The launch plan of the backward's space pass
     (csrc/divided_attention_bwd.cu::space_bwd_mma_kernel) for frames of n
-    patches: ``warps`` a block (one 16-row tile each, at most
-    BWD_SPACE_WARPS), the query / key tiles, the streamed chunks of
-    BWD_SPACE_CHUNK_TILES tiles over the n + 1 keys and over the n queries,
-    and the block's shared memory, which depends on dh and the warps but
-    not otherwise on n."""
+    patches at head_dim dh (run at its padded width): ``warps`` a block (one
+    16-row tile each, at most BWD_SPACE_WARPS), the query / key tiles, the
+    streamed chunks of ``chunk_tiles`` tiles (BWD_SPACE_CHUNK_TILES up to
+    width 128, 8 at 192, 4 at 256) over the n + 1 keys and over the n
+    queries, and the block's shared memory, which depends on the width and
+    the warps but not otherwise on n."""
+    w = padded_width(dh)
+    ct = BWD_SPACE_CHUNK_TILES if w <= 128 else (8 if w <= 192 else 4)
     tq, tk = -(-n // 16), -(-(n + 1) // 16)
     warps = min(tk, BWD_SPACE_WARPS)
-    pitch = (dh + 8) * 2
-    smem = ((2 * warps * 16 + 2 * BWD_SPACE_CHUNK_TILES * 16) * pitch
-            + BWD_SPACE_CHUNK_TILES * 16 * 16 + (warps * 32 + warps * 2 * dh) * 4)
+    pitch = (w + 8) * 2
+    smem = ((2 * warps * 16 + 2 * ct * 16) * pitch + ct * 16 * 16
+            + (warps * 32 + warps * 2 * w) * 4)
     require(smem <= MAX_SMEM, f"the backward's space pass at head_dim {dh} takes {smem} bytes "
             f"of shared memory, more than {MAX_SMEM}")
-    return {"warps": warps, "query_tiles": tq, "key_tiles": tk,
-            "key_chunks": -(-tk // BWD_SPACE_CHUNK_TILES),
-            "query_chunks": -(-tq // BWD_SPACE_CHUNK_TILES), "smem": smem}
+    return {"warps": warps, "query_tiles": tq, "key_tiles": tk, "chunk_tiles": ct,
+            "key_chunks": -(-tk // ct), "query_chunks": -(-tq // ct), "smem": smem}
 
 
 def time_bwd_plan(f: int, n: int, d: int, heads: int) -> dict:
     """The launch plan of the backward's time pass
-    (csrc/divided_attention_bwd.cu::time_bwd_kernel): ``p`` spatial
-    positions a block (the largest of 4, 2, 1 whose 1 + f * p rows of qkv
-    and cotangent, 4d wide, fit BWD_TIME_SMEM_TARGET bytes with the scratch,
-    else 1), ``blocks`` position tiles a segment (the CLS key's partial
-    slots), and the block's shared memory. Raises where even one position's
-    rows do not fit a block."""
-    def smem(p):
-        return ((1 + f * p) * 4 * d * 2 + p * heads * f * 2 * 4
-                + BWD_TIME_WARPS * 2 * f * (f + 1) * 4)
+    (csrc/divided_attention_bwd.cu::time_bwd_plan, time_bwd_kernel): ``p``
+    spatial positions, ``heads_a_block`` HG and ``warps`` a block (all heads,
+    BWD_TIME_WARPS warps and the largest p of 4, 2 whose 1 + f * p rows of
+    qkv and cotangent, 4 x HG padded heads wide, fit BWD_TIME_SMEM_TARGET
+    bytes with the scratch; else p = 1 and the largest HG dividing the heads,
+    with min(BWD_TIME_WARPS, HG) warps, that fits the target, else that fits
+    a block), ``blocks`` position tiles a segment (the CLS key's partial
+    slots), ``head_groups``, and the block's shared memory. Raises where
+    even one head's rows and one warp's f x (f + 1) scratch do not fit a
+    block."""
+    dhp = padded_width(head_dim("the backward's time pass", d, heads))
 
-    p = next((p for p in (4, 2) if smem(p) <= BWD_TIME_SMEM_TARGET), 1)
-    require(smem(p) <= MAX_SMEM,
-            f"the backward's time pass stages {f} frames' qkv and cotangent rows of width {d} "
-            f"in one block: {smem(p)} bytes of shared memory, more than {MAX_SMEM}")
-    return {"p": p, "blocks": -(-n // p), "smem": smem(p)}
+    def smem(p, hg, warps):
+        return ((1 + f * p) * 4 * hg * dhp * 2 + p * hg * f * 2 * 4
+                + warps * 2 * f * (f + 1) * 4)
+
+    plan = next(((p, heads, BWD_TIME_WARPS) for p in (4, 2)
+                 if smem(p, heads, BWD_TIME_WARPS) <= BWD_TIME_SMEM_TARGET), None)
+    if plan is None:
+        plan = next(((1, g, min(BWD_TIME_WARPS, g))
+                     for limit in (BWD_TIME_SMEM_TARGET, MAX_SMEM) for g in _divisors_down(heads)
+                     if smem(1, g, min(BWD_TIME_WARPS, g)) <= limit), None)
+        require(plan is not None,
+                f"the backward's time pass stages {f} frames' qkv and cotangent rows of one "
+                f"head (width {dhp}) and a warp's {f} x {f + 1} scratch in a block: "
+                f"{smem(1, 1, 1)} bytes of shared memory, more than {MAX_SMEM}")
+    p, hg, warps = plan
+    return {"p": p, "heads_a_block": hg, "warps": warps, "head_groups": heads // hg,
+            "blocks": -(-n // p), "smem": smem(p, hg, warps)}
 
 
 def cls_pool_smem(rows: int, d: int, heads: int) -> int:

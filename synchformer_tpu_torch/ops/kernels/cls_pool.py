@@ -115,8 +115,11 @@ def _check_layer(what: str, x, wqkv, wp, w1, w2, vecs, num_heads: int, shared_u:
                        for w, s in mats), f"{what} takes contiguous bf16 (out, in) matrices")
     _build.require(all(t.dtype == torch.float32 and t.is_contiguous() for t in vecs),
                    f"{what} takes f32 LN params and biases")
-    _build.require(d % 64 == 0 and hidden % 64 == 0 and num_heads <= _build.CLS_MAXH
-                   and d % num_heads == 0, f"{what} needs d, hidden % 64 == 0, <= 16 heads")
+    # the tail's MLP over the groups: hidden in 16-byte rows (the Hopper
+    # GEMM's TMA rows, the skinny product's 8-value pieces)
+    _build.require(d % 64 == 0 and hidden % 8 == 0 and num_heads <= _build.CLS_MAXH
+                   and d % num_heads == 0,
+                   f"{what} needs d % 64 == 0, hidden % 8 == 0, <= 16 heads")
     _build.require(bsz >= 1 and n >= 1, f"{what} shape out of range")
     plan = _build.cls_pool_plan(bsz, n, d, num_heads, shared_u)
     _build.require(plan["blocks"] < 2 ** 31, f"{what} shape out of range")

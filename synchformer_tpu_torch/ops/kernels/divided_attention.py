@@ -26,16 +26,23 @@ counts under (``heads_groupable``); the CUDA code is one. Main-path shape:
 (28, 1569, 2304), 8 heads of 96, in the Stage I step of the 8-head video
 tower (models/presets.py::build_avclip_8head).
 
-Every kernel here takes head_dim in ``HEAD_DIMS`` (a template parameter of
-the CUDA code); the CLS query of each head attends all 1 + f*n keys.
+Every kernel here takes any head_dim that is a multiple of 8 up to 256, as
+the Pallas kernels take any head_dim: the CUDA code is built for the widths
+of ``_build.ATTN_WIDTHS`` and runs a head_dim at the least one that holds it,
+its columns past head_dim staged as zeros (csrc/mma_attention.cuh). The time
+pass stages a group of heads a block, so the frames it takes depend on the
+head width, not on D (``_build.time_pass_plan``). The CLS query of each head
+attends all 1 + f*n keys, whose f32 logits one block holds in shared memory
+(``_build.cls_row_smem``).
 
 K1's main-path shapes (sync inference): qkv_patches (112, 8, 196, 2304), qkv_cls (112, 1, 2304),
 res (112, 8, 196, 768), 12 heads of 64, bf16; space groups are frames (197
 keys with the CLS), time groups are spatial positions (9 keys). The space call
 is ~104 GFLOP of attention and the projection 207 GFLOP, both on the tensor
 cores: the projection + residual on the Hopper GEMM (csrc/wgmma_gemm.cuh),
-whose checks K1 takes (ops/kernels/gemm.py::check_gemm: D % 64 == 0,
-16-byte aligned rows, up to 2^31 - 1 rows). The attention output passes through
+whose checks K1 takes (ops/kernels/gemm.py::check_gemm: 16-byte aligned
+rows, up to 2^31 - 1 rows; a D that is not a multiple of 128 runs on its
+tail epilogue). The attention output passes through
 a device-memory scratch before the projection, where the TPU kernel kept it in
 VMEM. The CLS row's attention leaves un-projected: the caller projects it and
 adds its residual (as synchformer_tpu/ops/pallas/divided_attention_bwd.py::
@@ -51,11 +58,9 @@ from synchformer_tpu_torch.ops.numerics import dense
 
 __all__ = ["divided_attention", "divided_attention_proj", "divided_attention_packed",
            "divided_attention_plain", "divided_attention_proj_plain",
-           "divided_attention_packed_plain", "heads_groupable", "HEAD_DIMS"]
+           "divided_attention_packed_plain", "heads_groupable"]
 
 _MODES = {"space": 0, "time": 1}
-# the head dims the CUDA kernels are instantiated for
-HEAD_DIMS = (32, 64, 96, 128)
 
 
 def heads_groupable(num_heads: int, dh: int) -> bool:
@@ -155,30 +160,37 @@ def divided_attention_proj_plain(qkv_patches, qkv_cls, res_patches, wo, bo,
     return res_patches + dense(attn_p, wo, bo, res_patches.dtype), attn_c
 
 
-def _check_heads(what: str, d: int, num_heads: int, mode: str, b: int, f: int, n: int) -> int:
-    """The checks every divided-attention kernel makes on its shape: head_dim
-    in HEAD_DIMS and the limits of its grids (segments, frames and patches on
-    grid dimensions of at most 65535; in time mode the staged rows of one
-    position tile within a block's shared memory, _build.time_pass_plan).
-    Returns head_dim. A GEMM a caller runs besides (K1's projection, K8a's
-    QKV) checks its own rows."""
+def _check_heads(what: str, d: int, num_heads: int, mode: str, b: int, f: int, n: int,
+                 backward: bool = False) -> int:
+    """The checks every divided-attention kernel makes on its shape: a
+    head_dim that is a multiple of 8 up to 256 (_build.head_dim), the limits
+    of its grids (segments, frames and patches on grid dimensions of at most
+    65535), the CLS row's f32 logits of all 1 + f*n keys (two a key with
+    ``backward``) within a block's shared memory, and in time mode one head's
+    staged rows of f frames within it (_build.time_pass_plan, or
+    time_bwd_plan with ``backward``). Returns head_dim. A GEMM a caller runs
+    besides (K1's projection, K8a's QKV) checks its own rows."""
     if mode not in _MODES:
         raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
-    dh = d // num_heads
-    _build.require(dh * num_heads == d and dh in HEAD_DIMS,
-                   f"{what} takes head_dim in {HEAD_DIMS}, got D={d} over {num_heads} heads")
+    dh = _build.head_dim(what, d, num_heads)
     _build.require(0 < b <= 65535 and 0 < f <= 65535 and 0 < n <= 65535,
                    f"{what} shape out of range")
+    smem = _build.cls_row_smem(f * n, dh, backward)
+    _build.require(smem <= _build.MAX_SMEM,
+                   f"{what}: the CLS row holds the logits of 1 + {f} x {n} keys in "
+                   f"{smem} bytes of shared memory, more than {_build.MAX_SMEM}")
     if mode == "time":
-        _build.time_pass_plan(f, n, d)
+        (_build.time_bwd_plan if backward else _build.time_pass_plan)(f, n, d, num_heads)
+    elif backward:
+        _build.space_bwd_plan(n, dh)
     return dh
 
 
 def check_split_qkv(what: str, qkv_patches, qkv_cls, num_heads: int, mode: str,
-                    *others: torch.Tensor):
+                    *others: torch.Tensor, backward: bool = False):
     """The checks every split-layout kernel (K1, K5, K6) makes before it
-    launches: contiguous bf16 qkv on one device, head_dim in HEAD_DIMS, grid
-    ranges. Returns (b, f, n, d)."""
+    launches: contiguous bf16 qkv on one device, _check_heads' head_dim,
+    grid ranges and shared memory. Returns (b, f, n, d)."""
     _build.require_same_device(what, qkv_patches, qkv_cls, *others)
     _build.require(qkv_patches.ndim == 4, f"{what} takes qkv_patches (B, f, n, 3D)")
     b, f, n, threed = qkv_patches.shape
@@ -189,15 +201,16 @@ def check_split_qkv(what: str, qkv_patches, qkv_cls, num_heads: int, mode: str,
     _build.require(qkv_cls.shape == (b, 1, threed), f"{what}: qkv_cls shape mismatch")
     _build.require(qkv_patches.data_ptr() % 16 == 0 and qkv_cls.data_ptr() % 16 == 0,
                    f"{what} reads qkv rows with 16-byte loads: 16-byte aligned qkv")
-    _check_heads(what, d, num_heads, mode, b, f, n)
+    _check_heads(what, d, num_heads, mode, b, f, n, backward)
     return b, f, n, d
 
 
 def check_packed_qkv(what: str, qkv, num_heads: int, num_frames: int, mode: str,
-                     *others: torch.Tensor):
-    """The checks every packed-layout kernel (K7a/b, K7c) makes before it
-    launches: contiguous bf16 qkv (B, 1 + f*n, 3D) on one device, head_dim in
-    HEAD_DIMS, grid ranges. Returns (b, f, n, d)."""
+                     *others: torch.Tensor, backward: bool = False):
+    """The checks every packed-layout kernel (K7a/b, K7c, K8a) makes before
+    it launches: contiguous bf16 qkv (B, 1 + f*n, 3D) on one device,
+    _check_heads' head_dim, grid ranges and shared memory. Returns (b, f, n,
+    d)."""
     _build.require_same_device(what, qkv, *others)
     _build.require(qkv.ndim == 3 and qkv.dtype == torch.bfloat16 and qkv.is_contiguous(),
                    f"{what} takes a contiguous bf16 qkv (B, 1 + f*n, 3D)")
@@ -209,7 +222,7 @@ def check_packed_qkv(what: str, qkv, num_heads: int, num_frames: int, mode: str,
     d = threed // 3
     _build.require(qkv.data_ptr() % 16 == 0,
                    f"{what} reads qkv rows with 16-byte loads: 16-byte aligned qkv")
-    _check_heads(what, d, num_heads, mode, b, f, n)
+    _check_heads(what, d, num_heads, mode, b, f, n, backward)
     return b, f, n, d
 
 

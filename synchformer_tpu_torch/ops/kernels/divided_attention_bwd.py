@@ -18,8 +18,11 @@ written in place.
 At non-groupable heads the JAX split-layout VJP (_bwd_split, :554-566)
 concatenates into the packed layout and runs the packed kernel, because its
 split kernel needs heads that pair into 128 lanes. The port's K6 takes every
-head_dim in HEAD_DIMS on the split layout, so DividedAttentionFn needs no such
-copy: the layout and the kernel do not depend on the head grouping here.
+head_dim that is a multiple of 8 up to 256 on the split layout, so
+DividedAttentionFn needs no such copy: the layout and the kernel do not
+depend on the head grouping here. Both passes take any frame count whose
+rows of one head fit a block (_build.time_bwd_plan: 140 frames at head_dim
+64).
 
 Stage I shapes: qkv_patches (28, 8, 196, 2304), qkv_cls (28, 1, 2304),
 cotangents (28, 8, 196, 768) and (28, 1, 768), bf16; packed qkv (28, 1569,
@@ -56,11 +59,10 @@ def _scratch(b: int, num_heads: int, f: int, n: int, dh: int, mode: str, dev):
     """f32 scratch of the backward: ds and p of the CLS query over every
     patch, the CLS key's own dk / dv, its partial sums (a slot per block of
     the group pass over a segment: a frame in space mode, a tile of
-    positions in time mode, from _build.time_bwd_plan, which raises before
-    any launch on frames whose rows do not fit a block), and the space
+    positions in time mode, from _build.time_bwd_plan), and the space
     pass's row statistics (m, 1/l, sigma, 0) of every query (None in time
-    mode). The space pass takes every n: its shared memory is fixed by dh
-    (_build.space_bwd_plan)."""
+    mode). The wrappers' checks (check_*_qkv with backward=True) have
+    already refused a shape the plans do not take."""
     f32 = torch.float32
     fn = f * n
     if mode == "space":
@@ -88,7 +90,8 @@ def divided_attention_bwd(qkv_patches, qkv_cls, dop, doc, num_heads: int, mode: 
     cotangents dop (B, f, n, D) and doc (B, 1, D) of K5's outputs."""
     if not _build.use_kernel(qkv_patches, impl):
         return divided_attention_bwd_plain(qkv_patches, qkv_cls, dop, doc, num_heads, mode)
-    b, f, n, d = check_split_qkv("K6", qkv_patches, qkv_cls, num_heads, mode, dop, doc)
+    b, f, n, d = check_split_qkv("K6", qkv_patches, qkv_cls, num_heads, mode, dop, doc,
+                                 backward=True)
     dh = d // num_heads
     _build.require(all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in (dop, doc))
                    and dop.shape == (b, f, n, d) and doc.shape == (b, 1, d),
@@ -120,7 +123,8 @@ def divided_attention_packed_bwd(qkv, dout, num_heads: int, num_frames: int, mod
     K7a/K7b's output."""
     if not _build.use_kernel(qkv, impl):
         return divided_attention_packed_bwd_plain(qkv, dout, num_heads, num_frames, mode)
-    b, f, n, d = check_packed_qkv("K7c", qkv, num_heads, num_frames, mode, dout)
+    b, f, n, d = check_packed_qkv("K7c", qkv, num_heads, num_frames, mode, dout,
+                                  backward=True)
     dh = d // num_heads
     _build.require(dout.dtype == torch.bfloat16 and dout.is_contiguous()
                    and dout.shape == (b, 1 + f * n, d),

@@ -9,7 +9,8 @@ into a bf16 scratch (ln_rows) and the Hopper GEMM (csrc/wgmma_gemm.cuh) on
 it into a (B, 1 + f*n, 3D) bf16 qkv scratch, then K7a's group and CLS-row
 launches on that. The TPU kernel keeps both in VMEM; here they pass through
 device memory (the qkv 810 MB a call at the serving shape (112, 1569,
-768)). It takes D % 64 == 0 and up to 2^31 - 1 rows. The attention stage rounds the normalised probabilities to bf16
+768)). It takes any head_dim that is a multiple of 8 up to 256 (so D % 8 ==
+0) and up to 2^31 - 1 rows. The attention stage rounds the normalised probabilities to bf16
 before an f32 P @ V, as K7a and the XLA composition do; the TPU body's time
 mode rounds each exp * v product instead (the two agree in f32). The launch
 counts under K8a.
@@ -24,8 +25,8 @@ K8b replaces fused_mlp_residual (_fused_mlp_pallas, body _fused_mlp_kernel)
 with K2's entry, csrc/ln_mlp.cu's ``sft_ln_mlp``: three launches, the
 LayerNorm into a bf16 scratch, fc1 on the Hopper GEMM with bias and GELU
 into a (rows, hidden) bf16 scratch, and fc2 with bias and the residual
-(csrc/ln_mlp.cu says why not one launch). It takes D and hidden multiples
-of 64. Its GELU is the Pallas kernel's clamped degree-9 erf polynomial
+(csrc/ln_mlp.cu says why not one launch). It takes D % 8 == 0 and any
+hidden, as K2 does. Its GELU is the Pallas kernel's clamped degree-9 erf polynomial
 (|err| <= 3e-5); K2 (fused_rows.py) and every plain version use exact erf.
 ``FusedMlpFn``'s backward is the plain version's (fused_block.py:327-329).
 
@@ -122,7 +123,7 @@ def _fused_attention(x, g, b, w, bias, num_heads: int, num_frames: int, mode: st
                    "K8a takes a contiguous bf16 w (3D, D)")
     check_ln_params("K8a", g, b, bias)
     _build.require(g.shape == b.shape == (d,) and bias.shape == (3 * d,), "K8a shape mismatch")
-    # the GEMM reads the LN output (allocated like x): D % 64 (3D % 64), the row limit
+    # the GEMM reads the LN output (allocated like x): D % 8, the row limit
     check_gemm("K8a", bsz * seq, w, bias, x)
     qkv = torch.empty((bsz, seq, 3 * d), dtype=x.dtype, device=x.device)
     _, f, n, _ = check_packed_qkv("K8a", qkv, num_heads, num_frames, mode)

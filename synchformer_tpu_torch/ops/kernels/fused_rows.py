@@ -9,11 +9,16 @@ rows of the AST reach one kernel over flattened rows.
 On the H100 the two GEMMs (fc1 768->3072 with GELU, fc2 3072->768 with the
 residual) bound it on the tensor cores; they run on the Hopper GEMM
 (csrc/wgmma_gemm.cuh: TMA, wgmma, a persistent grid), so the wrapper takes
-what that kernel takes (ops/kernels/gemm.py::check_gemm): d and hidden
-multiples of 64, 16-byte aligned rows, up to 2^31 - 1 rows. The LN output
-and the (rows, 3072) fc1 activation pass through device memory, where the
-TPU kernel kept them in VMEM. The stats keep the JAX (..., 8) f32 layout
-[mean, meansq, 0 x 6] so that consumers and tests compare like with like.
+what that kernel takes (ops/kernels/gemm.py::check_gemm): d a multiple of 8
+(16-byte rows), any hidden, 16-byte aligned rows, up to 2^31 - 1 rows. The
+LN output and the (rows, 3072) fc1 activation pass through device memory,
+where the TPU kernel kept them in VMEM. A hidden width that is not a
+multiple of 8 (mlp_ratio 2.6 at D = 768: 1996) cannot be a TMA row: the
+activation is held at the next multiple of 8 (fc1 writes its pad columns as
+zeros) and fc2 reads W2 at that pitch (``pitched``, which the model applies
+where it casts W2 to the compute dtype). The stats keep the JAX (..., 8) f32
+layout [mean, meansq, 0 x 6] so that consumers and tests compare like with
+like.
 
 For training, ``impl='kernel'`` goes through ``LnMlpFn``: the forward is the
 kernel, the backward recomputes the plain version and differentiates it (the
@@ -22,8 +27,9 @@ JAX custom_vjp, fused_rows.py:300-372).
 K8c replaces fused_rows.py::fused_ln_matmul (_ln_matmul_pallas, body
 _ln_matmul_kernel) with csrc/ln_mlp.cu's ``sft_ln_matmul``: the LayerNorm
 into a bf16 scratch (ln_rows), then the Hopper GEMM on it, f32
-accumulation, the bias in f32 and one bf16 rounding. It takes d % 32 == 0
-(the GEMM's K) and out % 64 == 0 (its N). No model path calls it (in the JAX
+accumulation, the bias in f32 and one bf16 rounding. It takes d % 8 == 0
+(16-byte rows for TMA) and any out (the GEMM's tail epilogue stores a row
+that is not 16-byte aligned element by element). No model path calls it (in the JAX
 package only tests/test_fused_rows.py does); its two launches are K8a's
 first two (ops/kernels/fused_block.py). At (175728, 768) -> 2304 it is 621.9
 GFLOP, bound by the tensor cores. ``LnMatmulFn``'s backward is the plain
@@ -45,7 +51,26 @@ from synchformer_tpu_torch.ops.numerics import (
 
 __all__ = ["fused_ln_mlp_residual", "ln_mlp_residual_plain", "layer_norm_from_stats",
            "LnMlpFn", "ln_mlp_kernel", "fused_ln_matmul", "fused_ln_matmul_plain",
-           "LnMatmulFn", "check_ln_params"]
+           "LnMatmulFn", "check_ln_params", "pitched"]
+
+def pitched(w: torch.Tensor, dtype: torch.dtype = None) -> torch.Tensor:
+    """w (rows, cols) in ``dtype`` (default w's) with its rows at a 16-byte
+    pitch, as the Hopper GEMM reads them by TMA: w itself where nothing
+    changes, w cast where its rows are already 16 bytes, else a view into a
+    zero-padded (rows, pitch) buffer that the cast writes (differentiable).
+    The model casts its weights through this where it casts them to the
+    compute dtype: once in Synchformer.cast_matrices_, else on each call,
+    where the cast copies anyway."""
+    dtype = dtype or w.dtype
+    cols = w.shape[-1]
+    pitch = -(-cols // _build.WGMMA_LD_QUANTUM) * _build.WGMMA_LD_QUANTUM
+    if w.dtype == dtype and w.stride(-1) == 1 and w.stride(0) == pitch:
+        return w
+    if pitch == cols:
+        return w.to(dtype)
+    buf = torch.zeros((w.shape[0], pitch), dtype=dtype, device=w.device)
+    buf[:, :cols] = w
+    return buf[:, :cols]
 
 
 def row_stats(out: torch.Tensor) -> torch.Tensor:
@@ -115,27 +140,32 @@ def ln_mlp_kernel(what: str, x, g, b, w1, b1, w2, b2, eps: float, emit_stats: bo
                    f"{what} takes a contiguous bf16 x")
     _build.require(w1.shape == (hidden, d) and w2.shape == (d, hidden)
                    and w1.dtype == w2.dtype == torch.bfloat16
-                   and w1.is_contiguous() and w2.is_contiguous(),
-                   f"{what} takes contiguous bf16 weights (hidden, d) and (d, hidden)")
+                   and w1.is_contiguous() and w2.stride(-1) == 1,
+                   f"{what} takes bf16 weights (hidden, d) and (d, hidden), W1 contiguous")
     _build.require(all(t.dtype == torch.float32 and t.is_contiguous()
                        for t in (g, b, b1, b2)) and g.shape == b.shape == (d,),
                    f"{what} takes f32 LN params (d,) and biases")
     rows = x.numel() // d
-    # fc1 reads the LN output, fc2 the activation (both allocated like x) and
-    # the residual x: d % 64, hidden % 64, the row limit
+    # the activation and W2 at a 16-byte pitch: fc2 reads both by TMA
+    # (a W2 the caller did not lay out so is copied here, on each call)
+    w2p = pitched(w2)
+    ldh = w2p.stride(0)  # hidden rounded up to a multiple of 8
+    # fc1 reads the LN output (allocated like x) and W1, fc2 W2 at ldh and
+    # the residual x: d % 8, the row limit
     check_gemm(f"{what} fc1", rows, w1, b1, x)
-    check_gemm(f"{what} fc2", rows, w2, b2, x)
+    check_gemm(f"{what} fc2", rows, w2p, b2, x)
     ln_buf = torch.empty_like(x)
-    h_buf = torch.empty((rows, hidden), dtype=x.dtype, device=x.device)
+    h_buf = torch.empty((rows, ldh), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     stats = (torch.empty((*x.shape[:-1], 8), dtype=torch.float32, device=x.device)
              if emit_stats else None)
     fn = _build.library("ln_mlp")
     _build.launches[what] += 1
     _build.check(fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
-                    b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln_buf.data_ptr(),
-                    h_buf.data_ptr(), out.data_ptr(), _build.ptr(stats), rows, d,
-                    hidden, float(eps), int(poly), _build.stream_ptr()), f"{what} ln_mlp")
+                    b1.data_ptr(), w2p.data_ptr(), w2p.stride(0), b2.data_ptr(),
+                    ln_buf.data_ptr(), h_buf.data_ptr(), ldh, out.data_ptr(),
+                    _build.ptr(stats), rows, d, hidden, float(eps), int(poly),
+                    _build.stream_ptr()), f"{what} ln_mlp")
     return (out, stats) if emit_stats else out
 
 
@@ -190,7 +220,7 @@ def _ln_matmul(x, g, b, w, bias, eps: float):
     check_ln_params("K8c", g, b, bias)
     _build.require(g.shape == b.shape == (d,) and bias.shape == (n_out,), "K8c shape mismatch")
     rows = x.numel() // d
-    # the GEMM reads the LN output (allocated like x): d % 32, out % 64, the row limit
+    # the GEMM reads the LN output (allocated like x): d % 8, the row limit
     check_gemm("K8c", rows, w, bias, x)
     ln_buf = torch.empty_like(x)
     out = torch.empty((*x.shape[:-1], n_out), dtype=x.dtype, device=x.device)

@@ -13,7 +13,9 @@ The LayerNorm-fed products read the LayerNorm of x from a bf16 scratch
 (csrc/tile_gemm.cuh::ln_rows).
 
 No model path calls this entry: K1, K2 and K8a-K8c reach the kernel from
-their own C entries. It exists so that chip_smoke.py can hold the GEMM
+their own C entries. It takes any N and K (csrc/wgmma_gemm.cuh: TMA fills
+the columns past K with zeros; past N, or at rows that are not 16-byte
+aligned, its tail epilogue runs). It exists so that chip_smoke.py can hold the GEMM
 against its plain version and time it beside one cuBLAS call at each
 caller's shape. The launch plan and the shape checks live in ``_build``
 (``gemm_plan``) and ``check_gemm``, which the kernels' wrappers share.
@@ -74,27 +76,35 @@ def gemm_plain(a, w, bias, epilogue: str = "bias", residual=None):
 
 def check_gemm(what: str, rows: int, w, bias, *row_operands) -> dict:
     """The checks the Hopper GEMM needs before a launch over ``rows`` rows:
-    w (N, K) contiguous bf16 and an f32 bias (N,), both 16-byte aligned (TMA
-    and 16-byte loads); each of ``row_operands`` (A, the residual) a
-    contiguous, 16-byte aligned bf16 tensor; N % 64 == 0, K % 32 == 0 and the
-    row limit (gemm_plan). Returns gemm_plan's plan."""
-    _build.require(w.ndim == 2 and w.dtype == torch.bfloat16 and w.is_contiguous()
+    w (N, K) bf16 whose rows TMA reads (a unit column stride, a row stride
+    that is a multiple of 8 elements and at least K, 16-byte aligned) and a
+    contiguous, 16-byte aligned f32 bias (N,); each of ``row_operands`` (A,
+    the residual) a contiguous, 16-byte aligned bf16 tensor whose rows are a
+    multiple of 8 elements; the row limit (gemm_plan). Any N and K. Returns
+    gemm_plan's plan."""
+    q = _build.WGMMA_LD_QUANTUM
+    _build.require(w.ndim == 2 and w.dtype == torch.bfloat16 and w.stride(1) == 1
+                   and w.stride(0) % q == 0 and w.stride(0) >= w.shape[1]
                    and w.data_ptr() % 16 == 0,
-                   f"{what}'s GEMM takes a contiguous, 16-byte aligned bf16 weight (N, K)")
+                   f"{what}'s GEMM reads its weight (N, K) by TMA: bf16 rows of a unit column "
+                   f"stride at a 16-byte aligned pitch that is a multiple of {q}")
     n, k = w.shape
     _build.require(bias.dtype == torch.float32 and bias.is_contiguous() and bias.shape == (n,)
                    and bias.data_ptr() % 16 == 0,
                    f"{what}'s GEMM takes a contiguous, 16-byte aligned f32 bias (N,)")
-    _build.require(all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.data_ptr() % 16 == 0
-                       for t in row_operands),
+    _build.require(all(t.dtype == torch.bfloat16 and t.is_contiguous() and t.shape[-1] % q == 0
+                       and t.data_ptr() % 16 == 0 for t in row_operands),
                    f"{what}'s GEMM reads its rows by TMA and 16-byte loads: contiguous, "
-                   "16-byte aligned bf16 operands")
+                   f"16-byte aligned bf16 operands whose rows are a multiple of {q} elements")
     return _build.gemm_plan(rows, n, k)
 
 
 def gemm(a, w, bias, epilogue: str = "bias", residual=None, impl: str = "kernel"):
     """epilogue(a @ w^T + bias) over a's rows; w (N, K) bf16, bias f32; the
-    residual (a's rows, N) for epilogue 'residual'. Forward only."""
+    residual (a's rows, N) for epilogue 'residual'. Any N and K: a (M, K) and
+    w may be row views of wider buffers whose pitch is a multiple of 8 (the
+    way K2 holds an activation and a weight of a ragged hidden width); the
+    residual is contiguous. Forward only."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {tuple(EPILOGUES)}, got {epilogue!r}")
     if (residual is None) != (epilogue != "residual"):
@@ -105,12 +115,23 @@ def gemm(a, w, bias, epilogue: str = "bias", residual=None, impl: str = "kernel"
     k, n = a.shape[-1], w.shape[0]
     _build.require(w.shape == (n, k) and (residual is None or residual.shape == (*a.shape[:-1], n)),
                    "GEMM takes a (..., K), w (N, K) and a residual (..., N)")
-    rows = a.numel() // k
-    check_gemm("GEMM", rows, w, bias, a, *([residual] if residual is not None else []))
+    a2 = a if a.ndim == 2 else a.reshape(-1, k)
+    rows = a2.shape[0]
+    q = _build.WGMMA_LD_QUANTUM
+    _build.require(a2.dtype == torch.bfloat16 and a2.stride(1) == 1 and a2.stride(0) % q == 0
+                   and a2.data_ptr() % 16 == 0,
+                   f"GEMM reads a's rows by TMA: bf16 rows of a unit column stride at a "
+                   f"16-byte aligned pitch that is a multiple of {q}")
+    _build.require(residual is None or (residual.dtype == torch.bfloat16
+                                        and residual.is_contiguous()
+                                        and residual.data_ptr() % 16 == 0),
+                   "GEMM takes a contiguous, 16-byte aligned bf16 residual")
+    check_gemm("GEMM", rows, w, bias)
     out = torch.empty((*a.shape[:-1], n), dtype=a.dtype, device=a.device)
     fn = _build.library("gemm")
     _build.launches["GEMM"] += 1
-    _build.check(fn(a.data_ptr(), w.data_ptr(), bias.data_ptr(), _build.ptr(residual), n,
-                    out.data_ptr(), rows, n, k, EPILOGUES[epilogue], _build.stream_ptr()),
+    _build.check(fn(a2.data_ptr(), a2.stride(0), w.data_ptr(), w.stride(0), bias.data_ptr(),
+                    _build.ptr(residual), n, out.data_ptr(), n, rows, n, k, EPILOGUES[epilogue],
+                    _build.stream_ptr()),
                  "GEMM")
     return out

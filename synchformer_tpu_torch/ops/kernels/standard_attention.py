@@ -6,7 +6,10 @@ the tensor-core attention of csrc/mma_attention.cuh. On the main path it
 serves the AST encoder's 12 layers at (112, 74, 2304): 51 MB a call, bound
 by the bytes. One block per (batch row, head), a warp per 16-row query tile
 (74 tokens pad to 80); both products on mma.sync, the softmax normalised in
-f32 and rounded to bf16 in registers, as the TPU kernel does. Where a
+f32 and rounded to bf16 in registers, as the TPU kernel does. It takes any
+head_dim that is a multiple of 8 up to 256 (run at the next width of
+_build.ATTN_WIDTHS) and any N (past 80 tokens the softmax takes a second
+sweep over 80-key chunks; the AudioSet AST's 1214 tokens among them). Where a
 gradient is wanted, ``impl='kernel'`` goes through ``StandardAttentionFn``:
 kernel forward, backward through the plain version (the JAX custom_vjp,
 standard_attention.py:102-119).
@@ -25,8 +28,8 @@ def groupable(num_heads: int, head_dim: int) -> bool:
     """The JAX layer's gate before K3 (synchformer_tpu/ops/pallas/
     standard_attention.py:33-36, used at models/layers.py:162-175): the heads
     pair into 128-lane groups. Where it fails (8 heads of 96), the attention
-    takes the plain composition on every device; where it holds, a head_dim
-    other than 64 reaches K3, which refuses it on the card."""
+    takes the plain composition on every device; where it holds (head_dim
+    16, 32, 64, 128, 256, ...), K3 takes it up to 256."""
     hpg = max(1, 128 // head_dim)
     return num_heads % hpg == 0 and (head_dim * hpg) % 128 == 0
 
@@ -52,7 +55,8 @@ def standard_attention_plain(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 def standard_attention(qkv: torch.Tensor, num_heads: int,
                        impl: str = "kernel") -> torch.Tensor:
     """(B, N, 3D) packed qkv -> (B, N, D), head-major. The kernel takes bf16,
-    head_dim 64. Differentiable on both routes."""
+    a head_dim that is a multiple of 8 up to 256, any N. Differentiable on
+    both routes."""
     _build.use_kernel(qkv, impl)  # validates impl and device
     if impl == "plain":
         return standard_attention_plain(qkv, num_heads)
@@ -84,13 +88,14 @@ def _standard_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         return standard_attention_plain(qkv, num_heads)
     b, n, threed = qkv.shape
     d = threed // 3
-    dh = d // num_heads
     _build.require(qkv.dtype == torch.bfloat16 and qkv.is_contiguous(),
                    "K3 takes a contiguous bf16 qkv")
     _build.require(qkv.data_ptr() % 16 == 0,
                    "K3 reads qkv rows with 16-byte copies: 16-byte aligned qkv")
-    _build.require(dh == 64 and d == num_heads * dh, "K3 takes head_dim 64")
-    _build.require(n <= 1024 and b <= 65535, "K3 shape out of range")
+    dh = _build.head_dim("K3", d, num_heads)
+    # grid: (heads x blocks of 8 query tiles, 1, batch rows)
+    _build.require(0 < b <= 65535 and 0 < n and num_heads * -(-n // 128) < 2 ** 31,
+                   "K3 shape out of range")
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
     fn = _build.library("standard_attention")
     _build.launches["K3"] += 1

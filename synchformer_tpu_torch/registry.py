@@ -309,9 +309,11 @@ def build_synchformer(afeat_extractor, vfeat_extractor, aproj, vproj, transforme
                                     build(vproj), build(aproj), build(transformer)).eval()
 
 
-def _stage1_towers(afeat_extractor, vfeat_extractor, n_embd: int) -> tuple:
+def _stage1_towers(afeat_extractor, vfeat_extractor) -> tuple:
     """AVCLIP / MoCo tower nodes -> their keyword dicts (AveragePooling time
-    tails and width n_embd, as both models build them)."""
+    tails, as both models build them). A tower keeps the width its node
+    names, as both JAX modules build each tower from its own node and project
+    it to n_embd with aproj / vproj."""
     towers = []
     for node, factory, adapt in ((afeat_extractor, build_ast, ast_params),
                                  (vfeat_extractor, build_motionformer, motionformer_params)):
@@ -321,9 +323,6 @@ def _stage1_towers(afeat_extractor, vfeat_extractor, n_embd: int) -> tuple:
         kw = adapt(node_params(node))
         if kw.pop("agg_time_module", "AveragePooling") != "AveragePooling":
             raise ValueError("the Stage I towers pool time with AveragePooling")
-        width = kw.pop("hidden_size" if adapt is ast_params else "embed_dim", n_embd)
-        if width != n_embd:
-            raise ValueError(f"a Stage I tower of width {width} under n_embd {n_embd}")
         towers.append(kw)
     return tuple(towers)
 
@@ -337,7 +336,7 @@ def build_avclip(afeat_extractor, vfeat_extractor, aproj, vproj, n_embd: int = 7
     """``gather_for_loss`` is accepted and changes nothing: as in the JAX
     trainer, which passes no axis_name, the InfoNCE always spans the global
     batch (models/avclip.py)."""
-    a, v = _stage1_towers(afeat_extractor, vfeat_extractor, n_embd)
+    a, v = _stage1_towers(afeat_extractor, vfeat_extractor)
     return AVCLIP(vfeat_extractor=v, afeat_extractor=a, d=n_embd, init_scale=init_scale,
                   clamp_scale_min=clamp_scale_min, clamp_scale_max=clamp_scale_max,
                   vproj=instantiate_from_config(vproj, device=device),
@@ -352,7 +351,7 @@ def build_moco(afeat_extractor, vfeat_extractor, aproj, vproj, queue_size: int,
                device=None) -> MultilevelMoCoCLIP:
     """Each level's projections built from the aproj / vproj nodes, one
     module each (the JAX setup instantiates the node per level)."""
-    a, v = _stage1_towers(afeat_extractor, vfeat_extractor, n_embd)
+    a, v = _stage1_towers(afeat_extractor, vfeat_extractor)
     return MultilevelMoCoCLIP(vfeat_extractor=v, afeat_extractor=a, d=n_embd,
                               queue_size=queue_size, momentum=momentum,
                               init_scale=init_scale, clamp_scale_min=clamp_scale_min,

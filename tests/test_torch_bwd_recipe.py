@@ -25,11 +25,12 @@ JAX package; and the launch plans of its two group kernels.
   CUDA source's; every head_dim of HEAD_DIMS and n up to 1024 fit the
   227 KB a block may take, with shared memory fixed beyond 8 key tiles; the
   chunks cover every key and query tile once; the time pass takes Stage I's
-  f = 8 at every width and refuses an f only where its rows cannot fit.
+  f = 8 at every width and refuses an f only where one head's rows and one
+  warp's scratch cannot fit (past 140 frames at head_dim 64).
 - The wrappers on their kernel route (the library load replaced by a
   sentinel): K6 and K7c launch a space pass of 300 patches at head_dim 128
-  (no refusal left) and a time pass of 27 frames, and refuse 28 frames
-  before any launch.
+  (no refusal left) and time passes of 27, 28 and 140 frames, and refuse 141
+  frames before any launch.
 """
 import re
 from pathlib import Path
@@ -46,7 +47,6 @@ from synchformer_tpu.ops.pallas.divided_attention_bwd import (
     _divided_attention_bwd_pallas,
 )
 from synchformer_tpu_torch.ops.kernels import _build
-from synchformer_tpu_torch.ops.kernels.divided_attention import HEAD_DIMS
 from synchformer_tpu_torch.ops.kernels.divided_attention_bwd import (
     divided_attention_bwd,
     divided_attention_bwd_plain,
@@ -54,6 +54,9 @@ from synchformer_tpu_torch.ops.kernels.divided_attention_bwd import (
 )
 
 torch.set_num_threads(2)
+
+# the head_dims the kernels run at their own width (the widths up to 128)
+HEAD_DIMS = _build.ATTN_WIDTHS[:4]
 
 PALLAS = dict(rtol=2e-4, atol=3e-5)
 TILE = 16
@@ -254,12 +257,17 @@ def test_time_plan_covers_every_position_once(d, heads, p):
 
 
 def test_time_plan_refuses_only_frames_that_do_not_fit():
-    """At D = 768 (12 heads): one position's 1 + f rows of qkv and cotangent
-    (6144 bytes each) with the warps' f x (f + 1) scratch fit up to f = 27."""
-    for f in range(1, 28):
-        _build.time_bwd_plan(f, 196, 768, 12)
+    """At D = 768 (12 heads of 64): a block stages a group of heads, so past
+    the 27 frames that all heads fit it takes fewer; one head's 1 + f rows of
+    qkv and cotangent (512 bytes each) with one warp's f x (f + 1) scratch
+    fit up to f = 140."""
+    for f in range(1, 141):
+        plan = _build.time_bwd_plan(f, 196, 768, 12)
+        assert plan["smem"] <= _build.MAX_SMEM
+        assert plan["warps"] == min(_build.BWD_TIME_WARPS, plan["heads_a_block"] * plan["p"])
+    assert _build.time_bwd_plan(140, 196, 768, 12)["heads_a_block"] == 1
     with pytest.raises(ValueError):
-        _build.time_bwd_plan(28, 196, 768, 12)
+        _build.time_bwd_plan(141, 196, 768, 12)
 
 
 class _Launched(Exception):
@@ -282,7 +290,8 @@ def as_if_on_card(monkeypatch):
 @pytest.mark.parametrize("layout", ["split", "packed"])
 @pytest.mark.parametrize("mode,f,n,heads,raises", [
     ("space", 2, 300, 2, _Launched), ("time", 27, 3, 12, _Launched),
-    ("time", 28, 3, 12, ValueError)])
+    ("time", 28, 3, 12, _Launched), ("time", 140, 3, 12, _Launched),
+    ("time", 141, 3, 12, ValueError)])
 def test_wrappers_launch_every_frame_they_can(as_if_on_card, layout, mode, f, n, heads, raises):
     bf = torch.bfloat16
     d = heads * (128 if mode == "space" else 64)

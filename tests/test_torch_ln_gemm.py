@@ -183,13 +183,15 @@ def _constant(source: str, pattern: str) -> int:
 
 
 def test_gemm_quanta_are_the_kernels():
-    """The plan's quanta are the GEMM's own checks: N % 64 and K % 32; K2's
-    and K8b's entry picks the polynomial GELU's epilogue, whose enum value
-    gemm.py names."""
-    assert _constant("wgmma_gemm.cuh", r"N % (\d+) != 0") == _build.WGMMA_N_QUANTUM
-    assert _constant("wgmma_gemm.cuh", r"K % (\d+) != 0") == _build.WGMMA_K_QUANTUM
+    """The plan's quanta are the GEMM's own: A's and W's row strides a
+    multiple of 8 (TMA), the tail epilogue where N % 128 != 0; K2's and K8b's
+    entry picks the polynomial GELU's epilogue, whose enum value gemm.py
+    names."""
+    assert _constant("wgmma_gemm.cuh", r"lda % (\d+) != 0") == _build.WGMMA_LD_QUANTUM
+    assert _constant("wgmma_gemm.cuh", r"ldw % (\d+) != 0") == _build.WGMMA_LD_QUANTUM
+    assert _constant("wgmma_gemm.cuh", r"N % (\d+) != 0") == _build.WGMMA_TAIL_N
     assert _constant("tile_gemm.cuh", r"EPI_BIAS_GELU_POLY = (\d+)") == 3
-    assert "wgmma_gemm<sft::EPI_BIAS_GELU_POLY>" in (CSRC / "ln_mlp.cu").read_text()
+    assert "wgmma_gemm_strided<sft::EPI_BIAS_GELU_POLY>" in (CSRC / "ln_mlp.cu").read_text()
 
 
 @pytest.mark.parametrize("m", [1, 129, 175728])
@@ -215,14 +217,17 @@ def test_gemm_plan_ragged_n_covers_every_tile_once(m, n, epilogue):
 
 
 @pytest.mark.parametrize("m,n,k,ok", [
-    (128, 768, 96, True), (128, 768, 32, True), (128, 768, 800, True), (128, 768, 16, False),
-    (128, 768, 48, False), (128, 96, 768, False), (0, 768, 768, False),
-    (2 ** 31 - 1, 64, 768, True)])
+    (128, 768, 96, True), (128, 768, 32, True), (128, 768, 800, True), (128, 768, 16, True),
+    (128, 768, 48, True), (128, 96, 768, True), (0, 768, 768, False),
+    (2 ** 31 - 1, 64, 768, True), (128, 1996, 1000, True), (128, 768, 1996, True),
+    (2 ** 31, 64, 768, False)])
 def test_gemm_plan_k_quantum(m, n, k, ok):
-    """K % 32 (K8c's d = 96: TMA fills the half-empty last k-step with
-    zeros), N % 64, 1 to 2^31 - 1 rows."""
+    """Any K (TMA fills a half-empty last k-step with zeros: K8c's d = 96,
+    fc2 over hidden 1996), any N (the tail epilogue where N % 128 != 0), 1 to
+    2^31 - 1 rows."""
     if ok:
-        _build.gemm_plan(m, n, k)
+        plan = _build.gemm_plan(m, n, k)
+        assert plan["tail"] == (n % _build.WGMMA_TAIL_N != 0)
     else:
         with pytest.raises(ValueError):
             _build.gemm_plan(m, n, k)
@@ -253,10 +258,12 @@ def _k8b_args(d, hidden, device="cpu"):
 
 @pytest.mark.parametrize("d,hidden,ok", [(768, 3072, True), (256, 1024, True),
                                          (512, 2048, True), (192, 768, True),
-                                         (160, 640, False), (256, 1056, False)])
+                                         (160, 640, True), (256, 1056, True),
+                                         (768, 1996, True), (164, 656, False)])
 def test_k8b_checks_before_launch(as_if_on_card, d, hidden, ok):
-    """K8b takes any D and hidden that are multiples of 64 (it refused D !=
-    768 before) and refuses the others before any launch."""
+    """K8b takes any hidden and any D whose rows are 16 bytes (D % 8; it
+    refused D != 768, then D or hidden % 64 != 0, before) and refuses the
+    others before any launch."""
     with pytest.raises(_Launched if ok else ValueError):
         tfb._fused_mlp(*_k8b_args(d, hidden), EPS)
 
@@ -269,11 +276,14 @@ def test_k8b_refuses_misaligned_x(as_if_on_card):
 
 
 @pytest.mark.parametrize("bsz,d,heads,ok", [(2675, 64, 1, True), (2, 768, 8, True),
-                                            (2, 96, 1, False)])
+                                            (2, 96, 1, True), (2, 1280, 16, True),
+                                            (2, 100, 1, False)])
 def test_k8a_checks_before_launch(as_if_on_card, bsz, d, heads, ok):
     """K8a takes rows past the tile GEMM's 65535 x 64 (2675 segments of 1 +
-    8 x 196 tokens: 4,197,075 rows, on meta tensors) and D % 64 == 0; it
-    refuses D = 96 (3D % 64 != 0) before any launch."""
+    8 x 196 tokens: 4,197,075 rows, on meta tensors) and any head_dim that
+    is a multiple of 8 (D = 96 at one head, which it refused while the GEMM
+    took 3D % 64 only; 16 heads of 80); it refuses head_dim 100 before any
+    launch."""
     assert bsz * 1569 > 65535 * 64 or bsz == 2
     z = lambda *s, dt=torch.float32: torch.zeros(*s, dtype=dt, device="meta")  # noqa: E731
     args = [z(bsz, 1569, d, dt=bf), z(d), z(d), z(3 * d, d, dt=bf), z(3 * d), heads, 8, "space",
@@ -283,10 +293,11 @@ def test_k8a_checks_before_launch(as_if_on_card, bsz, d, heads, ok):
 
 
 @pytest.mark.parametrize("d,n_out,ok", [(96, 288 + 96, True), (96, 192, True), (32, 64, True),
-                                        (80, 192, False), (96, 96, False)])
+                                        (80, 192, True), (96, 96, True), (1000, 1996, True),
+                                        (84, 192, False)])
 def test_k8c_checks_before_launch(as_if_on_card, d, n_out, ok):
-    """K8c still takes d % 32 == 0 and out % 64 == 0 (d = 96 among them) and
-    refuses the rest before any launch."""
+    """K8c takes any out and any d whose rows are 16 bytes (it took d % 32
+    and out % 64 only before) and refuses d = 84 before any launch."""
     args = [torch.zeros(40, d, dtype=bf), torch.ones(d), torch.zeros(d),
             torch.zeros(n_out, d, dtype=bf), torch.zeros(n_out)]
     with pytest.raises(_Launched if ok else ValueError):

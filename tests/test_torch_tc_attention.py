@@ -34,16 +34,16 @@ from test_torch_packed import jax_packed_xla
 from synchformer_tpu.ops.pallas import standard_attention as jstd
 from synchformer_tpu.ops.pallas.divided_attention import divided_attention_pallas
 from synchformer_tpu_torch.ops.kernels import _build
-from synchformer_tpu_torch.ops.kernels.divided_attention import (
-    HEAD_DIMS,
-    divided_attention_packed,
-)
+from synchformer_tpu_torch.ops.kernels.divided_attention import divided_attention_packed
 from synchformer_tpu_torch.ops.kernels.standard_attention import standard_attention
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 torch.set_num_threads(2)
+
+# the head_dims the kernels run at their own width (the widths up to 128)
+HEAD_DIMS = _build.ATTN_WIDTHS[:4]
 
 REF = dict(rtol=1e-5, atol=1e-5)
 PALLAS = dict(rtol=2e-4, atol=3e-5)
