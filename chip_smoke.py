@@ -345,6 +345,25 @@ Phases, each printed as it runs with its seconds:
    that phase 2's new cases fail a padded head's lanes left unzeroed, a time
    pass that drops the frames past 27 and a GEMM that drops its last column
    tile at N = 1996.
+19. tensor parallelism (parallel/tensor.py): four ranks of a gloo group on
+   the one card as a (2 data x 2 model) grid (training.model_parallel 2),
+   phase 14 (c)'s worker (--dp-worker) and randomness off: (a) the Stage II
+   step at global B=16 (8 a data rank; K1 24, K2 24, K3 12, K4 2 a rank for
+   the eval step and the train step, its rate base_learning_rate x 2) and
+   (b) the AVCLIP step at global B=2 (K5 24, K6 24, K2 24: drop-path 0
+   puts every video block's MLP half on K2, K3 12, K4 2). Every rank's
+   first-step record (whole gradients, gathered over its model group)
+   equal, held against the world-1 f32 plain step by sync_agreement /
+   stage1_agreement within 2 x the world-1 bf16 kernel step's error; the
+   sharded parameters exactly sharded_entries' on the model's whole shapes;
+   each shard bitwise equal on its data peers, each replicated parameter on
+   every rank, the generator streams on model peers; each rank's bytes of
+   parameters + moments within 1% of replicated + sharded / 2; the Stage II
+   checkpoint, written from the grid, read by a world-1 trainer bit for
+   bit; ms/step over gloo. scripts/stage1_planted_faults.py --only tp shows
+   that it fails a clip norm from local shards, streams seeded by global
+   rank, a rate scaled by the world, the InfoNCE gathered over every rank
+   and a checkpoint saved from rank 0's shards.
 The line before the last is a JSON record of the kernels, with the TPU
 kernels still to port beside them (none); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises, so the exit code is non-zero and no result
@@ -1935,12 +1954,13 @@ def stage1_batch(torch, b: int, s: int, frames=FRAMES, samples: int = 10240) -> 
 
 def stage1_trainer(build, state_dict, dev, precision: str, impl: str, remat: bool = False,
                    moco: bool = False, p_flip: float = 0.5, mel_t: int | None = None,
-                   window: int = 8):
+                   window: int = 8, model_parallel: int = 1):
     """An AVCLIPTrainer on ``build(remat=..., device=dev)`` loaded with
     ``state_dict``: Stage I's optimiser settings, generator seed 0, flip p
     ``p_flip``, zero-shot window ``window``; with ``moco``, cfg.model.target
     names MultilevelMoCoCLIP and alpha is MOCO_ALPHA; ``mel_t``, the audio
-    tower's max_spec_t (the log-mel's length; default 66)."""
+    tower's max_spec_t (the log-mel's length; default 66);
+    training.model_parallel ``model_parallel``."""
     from synchformer_tpu_torch.train.stage_clip import AVCLIPTrainer
     from synchformer_tpu_torch.utils.convert import load_numpy_state_dict
 
@@ -1949,7 +1969,7 @@ def stage1_trainer(build, state_dict, dev, precision: str, impl: str, remat: boo
     cfg = {"training": {"seed": 0, "precision": precision, "learning_rate": 1e-4,
                         "weight_decay": 0.2, "warmup": 1000, "total_steps": 100_000,
                         "max_clip_norm": MAX_CLIP, "zero_shot_window": window,
-                        "alpha": MOCO_ALPHA},
+                        "alpha": MOCO_ALPHA, "model_parallel": model_parallel},
            "data": {"p_horizontal_flip": p_flip, "p_audio_aug": 0.0}}
     if moco:
         cfg["model"] = {"target": MOCO_TARGET}
@@ -1981,19 +2001,23 @@ def step_gradients(torch, tr, m, leaves_re=STAGE1_LEAVES) -> dict:
     the softmax is shift-invariant), and the video CLS token, whose gradient
     flows through the CLS rows of every divided attention. ``leaves_re``
     picks the leaves (MOCO_LEAVES for the MoCo step, whose aggregator
-    in_proj weights split the same way)."""
+    in_proj weights split the same way). Under tensor parallelism the
+    gradients are whole (gathered over the model group: every rank of it
+    calls this)."""
+    from synchformer_tpu_torch.parallel.tensor import whole_tensors
+
     unclip = max(m["grad_norm"] / MAX_CLIP, 1.0)
-    named = dict(tr.model.named_parameters())
+    grads = whole_tensors(tr.model, {n: p.grad for n, p in tr.model.named_parameters()})
     leaves = {}
-    for name, p in named.items():
+    for name, grad in grads.items():
         if leaves_re.fullmatch(name):
-            g = p.grad.float() * unclip
+            g = grad.float() * unclip
             if name.endswith(("qkv.weight", "in_proj_weight")):
                 leaves.update({f"{name}[{part}]": rows for part, rows in zip("qkv", g.chunk(3))})
             else:
                 leaves[name] = g
     return {"metrics": m,
-            "flat": torch.cat([p.grad.float().flatten() for p in named.values()]),
+            "flat": torch.cat([g.float().flatten() for g in grads.values()]),
             "leaves": leaves}
 
 
@@ -2296,9 +2320,12 @@ def moco_record(torch, tr, m, feats: dict) -> dict:
     step wrote besides: the momentum model's parameters (flattened), the queue
     columns the keys went into, and the query pass's global aggregator
     outputs ``feats`` (video and audio, before normalisation), in f32."""
+    from synchformer_tpu_torch.parallel.tensor import whole_tensors
+
     rec = step_gradients(torch, tr, m, MOCO_LEAVES)
     q = tr.queues
-    rec["ema"] = torch.cat([p.float().flatten() for p in tr.model_m.parameters()])
+    ema = whole_tensors(tr.model_m, dict(tr.model_m.named_parameters()))
+    rec["ema"] = torch.cat([p.float().flatten() for p in ema.values()])
     rec["written"] = {
         "queue segment_v": q.segment_v[:, :B1 * S].float(),
         "queue segment_a": q.segment_a[:, :B1 * S].float(),
@@ -2523,15 +2550,18 @@ def sync_record(torch, tr, batch, what: str, tag: str, resident: int = 0):
     step's metrics, each trainable leaf's gradient undone from the clip
     (``leaves``), all of them flattened (``flat``), and the update it made
     to the trainable parameters (``update``, after - before, in f64); and
-    the step's peak memory above ``resident`` bytes (0 off the card)."""
+    the step's peak memory above ``resident`` bytes (0 off the card). Under
+    tensor parallelism the parameters and gradients are whole (gathered
+    over the model group: every rank of it calls this)."""
     from synchformer_tpu_torch.ops.kernels import _build
+    from synchformer_tpu_torch.parallel.tensor import whole_tensors
 
     cuda = tr.device.type == "cuda"
     _build.launches.clear()
     ev = tr.eval_step(batch)
     rec = {"eval": {k: ev[k].float() for k in ("logits", "loss_vec")}}
     params = {n: p for n, p in tr.model.named_parameters() if p.requires_grad}
-    before = torch.cat([p.detach().double().flatten() for p in params.values()])
+    before = torch.cat([p.double().flatten() for p in whole_tensors(tr.model, params).values()])
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2548,9 +2578,11 @@ def sync_record(torch, tr, batch, what: str, tag: str, resident: int = 0):
         f"{gib(peak)}")
     unclip = max(m["grad_norm"] / tr.max_clip_norm, 1.0)
     rec["metrics"] = m
-    rec["leaves"] = {n: p.grad.float() * unclip for n, p in params.items()}
+    grads = whole_tensors(tr.model, {n: p.grad for n, p in params.items()})
+    rec["leaves"] = {n: g.float() * unclip for n, g in grads.items()}
     rec["flat"] = torch.cat([g.flatten() for g in rec["leaves"].values()])
-    rec["update"] = torch.cat([p.detach().double().flatten() for p in params.values()]) - before
+    rec["update"] = torch.cat([p.double().flatten() for p in
+                               whole_tensors(tr.model, params).values()]) - before
     return rec, peak
 
 
@@ -2693,7 +2725,17 @@ def run_sync_training(torch, dev, report):
 # phase 14: data-parallel training (parallel/dist.py, torch.distributed)
 # records of earlier phases that phase 14 reads
 KEPT: dict = {}
+# the world-1 reference records of run_gloo_group's cases, by case and n_data:
+# phase 14 (c) writes them and phase 19 reads the Stage II and AVCLIP ones
+# (the same batch, weights, generator seed and rate at n_data 2); cleared by
+# main at its start and end
+REFS_DIR = os.path.join(REPO, "build", "chip_smoke", "refs")
 DP_CASES = ("avclip", "moco", "stage2")
+# one AVCLIP step with its randomness off (randomness_off): drop-path 0 in
+# every video block, so that each block's LN + MLP half takes K2, as the
+# eval path's does (phase 4's step keeps K2 to block 0, the only one at
+# drop-path 0)
+DP_STAGE1_LAUNCHES = {**STAGE1_LAUNCHES, "K2": 24}
 # (c)'s worker processes: the group's timeout, the spawn's
 DP_GROUP_TIMEOUT_S, DP_SPAWN_TIMEOUT_S = 300, 600
 
@@ -2827,14 +2869,17 @@ def run_dp_launcher(torch, dev, report):
 
 
 def dp_case_setup(case: str, dev, tiny: dict | None, base_lr_scale: int = 1,
-                  weights: dict | None = None):
-    """(make, global batch) of one (c) case (a rank's rows are a slice of
-    the batch): ``make(precision_or_half, impl, remat)`` builds the trainer
-    with its randomness off. ``tiny``: the planted faults' dry run's widths;
-    ``weights``: a cache of the Stage I cases' seeded state dicts."""
+                  weights: dict | None = None, model_parallel: int = 1):
+    """(make, global batch, meta) of one (c) case or phase-19 case (a rank's
+    rows are a slice of the batch): ``make(precision_or_half, impl, remat)``
+    builds the trainer with its randomness off, at training.model_parallel
+    ``model_parallel``; ``meta()`` builds the case's model on the meta
+    device. ``tiny``: the planted faults' dry run's widths; ``weights``: a
+    cache of the Stage I cases' seeded state dicts."""
     import torch
 
     from synchformer_tpu_torch.models import presets
+    from synchformer_tpu_torch.registry import instantiate_from_config
     from synchformer_tpu_torch.utils.convert import seeded_state_dict
 
     t = tiny or {}
@@ -2849,54 +2894,152 @@ def dp_case_setup(case: str, dev, tiny: dict | None, base_lr_scale: int = 1,
 
         def make(precision, impl, remat=False):
             tr = stage1_trainer(build, sd, dev, precision, impl, remat, moco=case == "moco",
-                                p_flip=0.0)
+                                p_flip=0.0, model_parallel=model_parallel)
             randomness_off(tr.model)
             if case == "moco":
                 randomness_off(tr.model_m)
             return tr
 
-        return make, batch
+        return make, batch, lambda: build(device="meta")
     cfg = sync_config("train_avsync_model", t.get("s", S), None, widths=t.get("widths"))
     cfg["model"]["params"]["transformer"]["params"].update(embd_pdrop=0.0, resid_pdrop=0.0,
                                                            attn_pdrop=0.0)
     cfg["data"]["p_horizontal_flip"] = 0.0
     cfg["training"]["base_learning_rate"] *= base_lr_scale
+    cfg["training"]["model_parallel"] = model_parallel
     batch = sync_batch(torch, dev, B2, t.get("s", S), t.get("frames", FRAMES))
 
     def make(half, impl, remat=False):
         return sync_trainer(cfg, dev, impl, half)
 
-    return make, batch
+    return make, batch, lambda: instantiate_from_config(cfg["model"], device="meta")
 
 
-def dp_record(torch, case: str, tr, batch, what: str):
+def dp_record(torch, case: str, tr, batch, what: str, tag: str = "dp_world2"):
     """The first step's record of one (c) case: step_gradients' (avclip),
     moco_record's (moco) or sync_record's (stage2)."""
     if case == "avclip":
         return step_gradients(torch, tr, checked_step(tr, batch, what)), None
     if case == "moco":
-        rec, _ = moco_first_step(torch, tr, batch, what, "dp_world2")
+        rec, _ = moco_first_step(torch, tr, batch, what, tag)
         return rec, None
-    rec, _ = sync_record(torch, tr, batch, what, "dp_world2")
+    rec, _ = sync_record(torch, tr, batch, what, tag)
     return rec, rec["launches"]
 
 
-def dp_worker(spec_path: str) -> int:
-    """One rank of phase 14 (c), started by run_dp_world2: joins the gloo
-    group from torchrun's variables (both ranks on cuda:0), takes each
-    case's first step at world 2 on its rows of the global batch under DDP,
-    then 2 timed steps, and checks the MoCo queues' bytes equal on both
-    ranks; then leaves the group, and rank 0 takes the world-1 steps over
-    the whole batch, f32 plain (remat for Stage I) and the bf16 kernel
-    path, and holds the world-2 record against the f32 one with the case's
-    agreement, the world-1 kernel step's error as the yardstick (the plain
-    bf16 one's slot): world 2 may differ from world 1 only by the order of
-    f32 sums and by the row count each GEMM sees. (With randomness off the
-    Stage I gradient is small, a norm of about 0.1, and the kernel path
-    there reads up to 2 x plain bf16's error, a margin phases 4 and 9 hold
-    with their randomness on.) Writes its result to spec['out'] + rank."""
+def tensor_digest(torch, t) -> str:
+    """sha256 of a tensor's bytes, whatever its dtype and device."""
     import hashlib
 
+    flat = t.detach().reshape(-1).contiguous().view(torch.uint8)
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def tp_checks(torch, tr, meta_model, model_parallel: int, ckpt: str | None = None) -> list:
+    """Phase 19's layout checks of one case on every rank, after its steps
+    (every rank calls it; the failures are rank 0's to report):
+    - the sharded parameters are exactly sharded_entries' on ``meta_model``
+      (the case's model on the meta device, at its whole shapes);
+    - each sharded parameter bitwise equal on the ranks of its model index
+      (its data peers), each replicated one on every rank;
+    - the generator streams equal on the model peers (they draw alike);
+    - the bytes of the parameters and the optimizer's moments within 1% of
+      the figure reckoned from ``meta_model``'s shapes: replicated + sharded /
+      model_parallel, in each parameter's dtype, the moments two of each
+      trainable parameter's;
+    - with ``ckpt``, rank 0 writes there the trainer's checkpoint state
+      (trainable parameters and optimizer state, whole) for
+      tp_checkpoint_check."""
+    from synchformer_tpu_torch.parallel import dist as pdist
+    from synchformer_tpu_torch.parallel import tensor as ptensor
+
+    m, rank = model_parallel, pdist.rank()
+    local = dict(tr.model.named_parameters())
+    whole = dict(meta_model.named_parameters())
+    rule = {f"{p}.{n}" if p else n for p, _, n in ptensor.sharded_entries(meta_model, m)}
+    reckoned = sum(whole[n].numel() * p.element_size() // (m if n in rule else 1)
+                   * (3 if p.requires_grad else 1) for n, p in local.items())
+    held = sum(p.numel() * p.element_size() for p in local.values()) + sum(
+        v.numel() * v.element_size() for p in local.values()
+        for k, v in tr.optimizer.state.get(p, {}).items()
+        if k != "step" and torch.is_tensor(v) and v.shape == p.shape)
+    sharded = ptensor.sharded_names(tr.model)
+    log(f"[tp] rank {rank}: {len(sharded)} sharded parameters; parameters + moments "
+        f"{gib(held)} held, {gib(reckoned)} reckoned (replicated + sharded / {m})")
+    info = {"rule": sharded == rule, "n_sharded": len(sharded), "held": held,
+            "reckoned": reckoned, "gens": [tensor_digest(torch, g.get_state()) for g in
+                                           (tr.generator, tr.aug_generator)],
+            "digests": {n: tensor_digest(torch, p) for n, p in local.items()}}
+    if ckpt is not None:
+        payload = {"trainable": tr.trainable_state_dict(), "step": tr.step,
+                   "opt_state": ptensor.optimizer_state_dict(tr.optimizer, tr.model)}
+        if rank == 0:
+            torch.save(payload, ckpt)
+        del payload
+    gathered = pdist.all_gather_object(info)
+    failed = []
+    for r, g in enumerate(gathered):
+        if not g["rule"]:
+            failed.append(f"rank {r}: sharded parameters are not sharded_entries'")
+        peer = {n: r % m if n in sharded else 0 for n in g["digests"]}
+        bad = [n for n, d in g["digests"].items() if d != gathered[peer[n]]["digests"][n]]
+        if bad:
+            failed.append(f"rank {r}: {len(bad)} parameters differ from their peers' ({bad[:3]})")
+        if g["gens"] != gathered[r - r % m]["gens"]:
+            failed.append(f"rank {r}: generator streams differ from its model peers'")
+        if abs(g["held"] - g["reckoned"]) > 0.01 * g["reckoned"]:
+            failed.append(f"rank {r}: holds {g['held']} bytes, reckoned {g['reckoned']}")
+    return failed
+
+
+def tp_checkpoint_check(torch, tr, path: str) -> list:
+    """Phase 19's checkpoint (tp_checks' ``ckpt``: the Stage II trainer's
+    trainable parameters and optimizer state under tensor parallelism)
+    read by ``tr``, a new world-1 trainer: the names and shapes are those
+    of its own state, and it loads them bit for bit. Returns the
+    failures."""
+    from synchformer_tpu_torch.parallel import tensor as ptensor
+
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    own = tr.trainable_state_dict()
+    if {k: tuple(v.shape) for k, v in payload["trainable"].items()} != {
+            k: tuple(v.shape) for k, v in own.items()}:
+        return ["checkpoint: names or shapes differ from a model_parallel 1 trainer's"]
+    tr.load_trainable(payload["trainable"])
+    ptensor.load_optimizer_state_dict(tr.optimizer, tr.model, payload["opt_state"])
+    failed = []
+    got = tr.trainable_state_dict()
+    if not all(torch.equal(got[k].cpu(), v) for k, v in payload["trainable"].items()):
+        failed.append("checkpoint: parameters not restored bit for bit")
+    state = tr.optimizer.state_dict()["state"]
+    if state.keys() != payload["opt_state"]["state"].keys() or not all(
+            torch.equal(torch.as_tensor(state[i][k]).cpu(), torch.as_tensor(v))
+            for i, st in payload["opt_state"]["state"].items() for k, v in st.items()):
+        failed.append("checkpoint: optimizer state not restored bit for bit")
+    log(f"[tp] checkpoint at model_parallel 2 read at world 1: {len(own)} tensors, "
+        f"{'ok' if not failed else failed}")
+    return failed
+
+
+def dp_worker(spec_path: str) -> int:
+    """One rank of phase 14 (c) or phase 19, started by run_gloo_group: joins
+    the gloo group from torchrun's variables (every rank on cuda:0), on the
+    grid of spec['model_parallel'] (1: data parallelism alone); takes each
+    case's first step on its data rank's rows of the global batch under
+    DDP, then 2 timed steps, and checks the MoCo queues' bytes equal on
+    every rank; on a grid with a model axis (phase 19) also each rank's
+    record's digest and tp_checks; then leaves the group, and rank 0 takes
+    the world-1 steps over the whole batch, f32 plain (remat for Stage I)
+    and the bf16 kernel path (or reads their records from REFS_DIR, where a
+    group at the same n_data wrote them), and holds the group's record
+    against the f32 one with the case's agreement, the world-1 kernel step's error as the
+    yardstick (the plain bf16 one's slot): the group may differ from world
+    1 only by the order of f32 sums and by the row count each GEMM sees.
+    (With randomness off the Stage I gradient is small, a norm of about
+    0.1, and the kernel path there reads up to 2 x plain bf16's error, a
+    margin phases 4 and 9 hold with their randomness on.) On a grid, a new
+    world-1 kernel trainer then reads the Stage II checkpoint
+    (tp_checkpoint_check). Writes its result to spec['out'] + rank."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -2906,6 +3049,8 @@ def dp_worker(spec_path: str) -> int:
     spec = json.load(open(spec_path))
     dev = pdist.init_from_env(spec["device"], backend="gloo")
     rank, world = pdist.rank(), pdist.world()
+    m, tag = int(spec.get("model_parallel", 1)), spec.get("tag", "dp_world2")
+    n_data, data_rank = world // m, rank // m
     if spec.get("hook"):
         import importlib.util
 
@@ -2918,32 +3063,38 @@ def dp_worker(spec_path: str) -> int:
     tiny = spec.get("tiny")
     result = {"rank": rank, "world": world, "cases": {}}
     records, weights = {}, {}
+    ckpt = os.path.join(os.path.dirname(spec["out"]), "tp_stage2.pt")
     for case in spec["cases"]:
-        make, batch = dp_case_setup(case, dev, tiny, weights=weights)
-        n = batch["video"].shape[0] // world
-        local = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+        make, batch, meta = dp_case_setup(case, dev, tiny, weights=weights, model_parallel=m)
+        n = batch["video"].shape[0] // n_data
+        local = {k: v[data_rank * n:(data_rank + 1) * n] for k, v in batch.items()}
         tr = make("amp" if case != "stage2" else True, "kernel")
         _build.launches.clear()
-        rec, launches = dp_record(torch, case, tr, local, f"world {world} rank {rank} {case}")
+        rec, launches = dp_record(torch, case, tr, local, f"world {world} rank {rank} {case}",
+                                  tag)
         counts = dict(_build.launches) if launches is None else launches[1]
         res = {"launches": counts}
         if case == "stage2":
-            # the eval step's outputs over the whole batch, in rank order
+            # the eval step's outputs over the whole batch, in data order
             rec["eval"] = {k: torch.cat([x.to(v.device) for x in pdist.all_gather_object(
-                v.cpu())]) for k, v in rec["eval"].items()}
+                v.cpu(), pdist.data_group())]) for k, v in rec["eval"].items()}
             res["eval_launches"] = launches[0]
         if case == "moco":
             # the query pass's global aggregator outputs over the whole batch
             for key in ("query global_v", "query global_a"):
                 v = rec["written"][key]
                 rec["written"][key] = torch.cat([x.to(v.device) for x in
-                                                 pdist.all_gather_object(v.cpu())])
+                                                 pdist.all_gather_object(v.cpu(),
+                                                                         pdist.data_group())])
             q = tr.queues
-            digest = hashlib.sha256(b"".join(
-                getattr(q, k).cpu().numpy().tobytes()
-                for k in ("segment_v", "segment_a", "global_v", "global_a"))).hexdigest()
+            digest = tensor_digest(torch, torch.cat([getattr(q, k).flatten() for k in
+                                                     ("segment_v", "segment_a", "global_v",
+                                                      "global_a")]))
             digests = pdist.all_gather_object((digest, q.segment_ptr, q.global_ptr))
             res["queues_equal"] = all(d == digests[0] for d in digests)
+        if m > 1:
+            # every rank's record: model peers gather the same whole tensors
+            res["record"] = tensor_digest(torch, rec["flat"])
         # copied before the timed steps write the queues and gradients again
         records[case] = record_to_cpu(rec) if rank == 0 else None
         del rec
@@ -2957,19 +3108,26 @@ def dp_worker(spec_path: str) -> int:
             torch.cuda.synchronize()
         pdist.barrier()
         res["ms"] = (time.perf_counter() - t) / spec.get("timed_steps", 2) * 1e3
-        grads = [p.grad for p in tr.model.parameters() if p.grad is not None]
-        flat = torch.cat([g.flatten() for g in grads])
-        pdist.barrier()
-        t = time.perf_counter()
-        torch.distributed.all_reduce(flat)
-        if cuda:
-            torch.cuda.synchronize()
-        res["allreduce_ms"] = (time.perf_counter() - t) * 1e3
-        res["grad_bytes"] = flat.numel() * flat.element_size()
-        log(f"[dp_world2] rank {rank} {case}: launches {counts}; {res['ms']:.1f} ms/step over "
-            f"gloo; one all-reduce of the gradients' {res['grad_bytes'] / 2 ** 20:.0f} MiB "
-            f"{res['allreduce_ms']:.1f} ms")
-        del tr, flat, grads
+        if m > 1:
+            res["tp_failed"] = tp_checks(torch, tr, meta(), m,
+                                         ckpt if case == "stage2" else None)
+            log(f"[{tag}] rank {rank} {case}: launches {counts}; {res['ms']:.1f} ms/step over "
+                f"gloo")
+        else:
+            grads = [p.grad for p in tr.model.parameters() if p.grad is not None]
+            flat = torch.cat([g.flatten() for g in grads])
+            pdist.barrier()
+            t = time.perf_counter()
+            torch.distributed.all_reduce(flat)
+            if cuda:
+                torch.cuda.synchronize()
+            res["allreduce_ms"] = (time.perf_counter() - t) * 1e3
+            res["grad_bytes"] = flat.numel() * flat.element_size()
+            log(f"[{tag}] rank {rank} {case}: launches {counts}; {res['ms']:.1f} ms/step over "
+                f"gloo; one all-reduce of the gradients' {res['grad_bytes'] / 2 ** 20:.0f} MiB "
+                f"{res['allreduce_ms']:.1f} ms")
+            del flat, grads
+        del tr
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
@@ -2978,25 +3136,41 @@ def dp_worker(spec_path: str) -> int:
     pdist.destroy()
     if rank == 0:
         for case in spec["cases"]:
-            # the world-1 references: the JAX trainer's rate at 2 devices is
-            # base_learning_rate x 2 (Stage II / III)
-            make, batch = dp_case_setup(case, dev, tiny, base_lr_scale=world, weights=weights)
-            refs = {}
+            # the world-1 references: the JAX trainer's rate at n_data devices
+            # is base_learning_rate x n_data (Stage II / III); a group of the
+            # same n_data (phase 14 (c), phase 19) reads them from REFS_DIR
+            make, batch, _ = dp_case_setup(case, dev, tiny, base_lr_scale=n_data,
+                                           weights=weights)
+            kept = os.path.join(REFS_DIR, f"{case}_n{n_data}{'_tiny' if tiny else ''}.pt")
+            refs, failed = {}, []
+            if os.path.exists(kept):
+                refs = torch.load(kept, weights_only=True)
+                log(f"[{tag}] world 1 {case}: the reference records of an earlier group")
             for name, args in (("ref", ("fp32" if case != "stage2" else False, "plain",
                                         case != "stage2")),
                                ("kernel", ("amp" if case != "stage2" else True, "kernel"))):
+                if name in refs:
+                    continue
                 tr = make(*args)
-                rec, _ = dp_record(torch, case, tr, batch, f"world 1 {case} {name}")
+                rec, _ = dp_record(torch, case, tr, batch, f"world 1 {case} {name}", tag)
                 refs[name] = record_to_cpu(rec)
                 del tr
                 gc.collect()
                 if cuda:
                     torch.cuda.empty_cache()
+            if not os.path.exists(kept):
+                os.makedirs(REFS_DIR, exist_ok=True)
+                torch.save(refs, kept)
+            if m > 1 and case == "stage2":
+                tr = make(True, "kernel")
+                failed += tp_checkpoint_check(torch, tr, ckpt)
+                del tr
+                gc.collect()
             margins = {}
             agree = {"avclip": stage1_agreement, "moco": moco_agreement,
                      "stage2": sync_agreement}[case]
-            failed = agree(refs["ref"], refs["kernel"], records[case], f"dp_world2 {case}",
-                           margins=margins)
+            failed += agree(refs["ref"], refs["kernel"], records[case], f"{tag} {case}",
+                            margins=margins)
             result["cases"][case].update(failed=failed, margins=margins)
             del refs
             records[case] = None
@@ -3005,33 +3179,39 @@ def dp_worker(spec_path: str) -> int:
     return 0
 
 
-def run_dp_world2(torch, dev, report=None, cases=DP_CASES, tiny=None, hook=None,
-                  fault=None, check: bool = True) -> dict:
-    """Phase 14 (c): two processes of one gloo group on the one card (NCCL
-    refuses two ranks on one device; gloo stages DDP's all-reduce and the
+def run_gloo_group(torch, dev, report=None, cases=DP_CASES, tiny=None, hook=None,
+                   fault=None, check: bool = True, world: int = 2, model_parallel: int = 1,
+                   tag: str = "dp_world2") -> dict:
+    """``world`` processes of one gloo group on the one card (NCCL refuses
+    two ranks on one device; gloo stages DDP's all-reduce and the
     all-gathers of CUDA tensors through the host), dp_worker each, with
-    timeouts; each case at world 2 held against world 1 over the same
-    global batch: the full-width AVCLIP step at B=2 (1 a rank), the MoCo
-    step at B=2 (queues 1024 x 14 and 1024; bitwise equal on both ranks),
-    the Stage II step at B=16 (8 a rank; K1 24, K2 24, K3 12, K4 2 a rank).
-    ``hook`` ('path:function') is called with ``fault`` in each worker
-    before the cases (the planted faults); ``tiny`` the dry run's widths.
-    Returns rank 0's result; with ``check``, fails on any failed case."""
+    timeouts, on the (world / model_parallel x model_parallel) grid; each
+    case held against world 1 over the same global batch. Phase 14 (c),
+    world 2: the full-width AVCLIP step at B=2 (1 a rank), the MoCo step at
+    B=2 (queues 1024 x 14 and 1024; bitwise equal on both ranks), the Stage
+    II step at B=16 (8 a rank). Phase 19, world 4 at model_parallel 2: the
+    Stage II step at B=16 (8 a data rank) and the AVCLIP step at B=2, each
+    rank's record equal, tp_checks, the checkpoint read at world 1. Every
+    rank's launches (not with ``tiny``): Stage II's K1 24, K2 24, K3 12, K4
+    2, AVCLIP's STAGE1_LAUNCHES. ``hook`` ('path:function') is called with
+    ``fault`` in each worker before the cases (the planted faults); ``tiny``
+    the dry run's widths. Returns rank 0's result; with ``check``, fails on
+    any failed case."""
     import shutil
 
-    workdir = os.path.join(REPO, "build", "chip_smoke", "dp")
+    workdir = os.path.join(REPO, "build", "chip_smoke", tag)
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     spec = {"device": torch.device(dev).type, "cases": list(cases), "tiny": tiny, "hook": hook,
             "fault": fault, "out": os.path.join(workdir, "result_rank"),
-            "timed_steps": 1 if tiny else 2}
+            "timed_steps": 1 if tiny else 2, "model_parallel": model_parallel, "tag": tag}
     spec_path = os.path.join(workdir, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
     port = free_port()
     procs = []
-    for rank in range(2):
-        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "PYTHONHASHSEED": "0",
                "SFT_DIST_TIMEOUT_S": str(DP_GROUP_TIMEOUT_S),
                "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
@@ -3047,40 +3227,49 @@ def run_dp_world2(torch, dev, report=None, cases=DP_CASES, tiny=None, hook=None,
         for p in procs:
             p.kill()
             p.communicate()
-        fail(f"dp_world2: the group did not finish within {DP_SPAWN_TIMEOUT_S} s")
+        fail(f"{tag}: the group did not finish within {DP_SPAWN_TIMEOUT_S} s")
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         for line in out.splitlines():
             if line.startswith("[") or line.startswith("chip_smoke"):
-                log(f"  r{rank} {line}" if not line.startswith("[dp_world2]") else line)
+                log(f"  r{rank} {line}" if not line.startswith(f"[{tag}]") else line)
         if p.returncode != 0:
-            fail(f"dp_world2: rank {rank} exited {p.returncode}: {err[-3000:]}")
-    result = json.load(open(spec["out"] + "0.json"))
-    log(f"[dp_world2] two ranks over gloo on one card: {time.perf_counter() - t0:.1f} s")
+            fail(f"{tag}: rank {rank} exited {p.returncode}: {err[-3000:]}")
+    results = [json.load(open(spec["out"] + f"{r}.json")) for r in range(world)]
+    result = results[0]
+    log(f"[{tag}] {world} ranks (model_parallel {model_parallel}) over gloo on one card: "
+        f"{time.perf_counter() - t0:.1f} s")
     failed = []
+    want_launches = {"stage2": STAGE2_LAUNCHES, "avclip": DP_STAGE1_LAUNCHES}
     for case, res in result["cases"].items():
         margins = ", ".join(f"{k} {v:.3g}" for k, v in res.get("margins", {}).items())
-        log(f"[dp_world2] {case}: {res['ms']:.1f} ms/step at world 2 (gloo); checks failed "
-            f"{res.get('failed')}; margins (error / tolerance) {margins}")
+        log(f"[{tag}] {case}: {res['ms']:.1f} ms/step at world {world} (gloo, model_parallel "
+            f"{model_parallel}); checks failed {res.get('failed')}; margins (error / "
+            f"tolerance) {margins}")
         failed += [f"{case} {name}" for name in res.get("failed", [])]
+        failed += [f"{case} {name}" for name in res.get("tp_failed", [])]
         if case == "moco" and not res["queues_equal"]:
             failed.append("moco queues differ between the ranks")
-        if case == "stage2" and not tiny:
-            for what in ("launches", "eval_launches"):
-                for r in range(2):
-                    counts = json.load(open(spec["out"] + f"{r}.json"))["cases"][case][what]
-                    want = {k: STAGE2_LAUNCHES.get(k, 0) for k in KEYS}
-                    if {k: counts.get(k, 0) for k in KEYS} != want:
-                        failed.append(f"stage2 rank {r} {what} {counts}")
+        if model_parallel > 1 and len({r["cases"][case]["record"] for r in results}) != 1:
+            failed.append(f"{case}: the ranks' first-step records differ")
+        for what in ("launches", "eval_launches"):
+            if tiny or case not in want_launches or what not in res:
+                continue
+            want = {k: want_launches[case].get(k, 0) for k in KEYS}
+            for r in range(world):
+                counts = results[r]["cases"][case][what]
+                if {k: counts.get(k, 0) for k in KEYS} != want:
+                    failed.append(f"{case} rank {r} {what} {counts}")
     result["failed"] = failed
     if check and failed:
-        fail(f"dp_world2: {failed}")
+        fail(f"{tag}: {failed}")
     shutil.rmtree(workdir, ignore_errors=True)
     return result
 
 
 def run_data_parallel(torch, dev, report):
-    """Phase 14: (a) run_dp_world1, (b) run_dp_launcher, (c) run_dp_world2."""
-    for part in (run_dp_world1, run_dp_launcher, run_dp_world2):
+    """Phase 14: (a) run_dp_world1, (b) run_dp_launcher, (c) run_gloo_group at
+    world 2."""
+    for part in (run_dp_world1, run_dp_launcher, run_gloo_group):
         t0 = time.perf_counter()
         gc.collect()
         torch.cuda.empty_cache()
@@ -4347,10 +4536,39 @@ def run_shapes(torch, dev, report):
     log(f"[{tag}] {time.perf_counter() - t0:.1f} s; {smi}")
 
 
+# phase 19: tensor parallelism (parallel/tensor.py), four ranks as a (2 data
+# x 2 model) grid on the one card
+TP_CASES = ("stage2", "avclip")
+TP_WORLD, TP_MODEL = 4, 2
+
+
+def run_tensor_parallel(torch, dev, report, cases=TP_CASES, tiny=None, hook=None,
+                        fault=None, check: bool = True) -> dict:
+    """Phase 19: run_gloo_group at world 4, model_parallel 2, randomness off
+    as in phase 14 (c): (a) the Stage II step (sync.yaml, global B=16, 8 a
+    data rank, its rate base_learning_rate x 2) and (b) the AVCLIP step
+    (segment_avclip's model, every parameter trainable, global B=2); each
+    rank's exact launches, its first step held against the world-1 f32
+    plain step by sync_agreement / stage1_agreement within 2 x the world-1
+    bf16 kernel step's error, tp_checks, the Stage II checkpoint read at
+    world 1; ms/step over gloo beside nvidia-smi's name and power limit.
+    ``cases``, ``tiny``, ``hook``, ``fault``, ``check``: run_gloo_group's
+    (the planted faults). Returns rank 0's result."""
+    t0 = time.perf_counter()
+    res = run_gloo_group(torch, dev, cases=cases, tiny=tiny, hook=hook, fault=fault,
+                         check=check, world=TP_WORLD, model_parallel=TP_MODEL, tag="tp_world4")
+    smi = smi_line() if torch.device(dev).type == "cuda" else "cpu"
+    for case, r in res["cases"].items():
+        log(f"[timing] tp_world4 {case}: {r['ms']:.1f} ms/step over gloo, {TP_WORLD} ranks as "
+            f"({TP_WORLD // TP_MODEL} data x {TP_MODEL} model) on one card; {smi}")
+    log(f"[tp_world4] {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
           run_serving_8head, run_moco, run_sync_training,
           run_audio_augs, run_entry_point, run_data_parallel, run_reference_ckpts, run_legacy,
-          run_tower_options, run_shapes)
+          run_tower_options, run_shapes, run_tensor_parallel)
 
 
 def main() -> int:
@@ -4377,12 +4595,16 @@ def main() -> int:
 
     report: dict = {key: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                           "bound_s": [0.0, 0.0], "library_ms": None} for key in KEYS}
+    import shutil
+
+    shutil.rmtree(REFS_DIR, ignore_errors=True)
     for phase in PHASES:
         t0 = time.perf_counter()
         phase(torch, dev, report)
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[phase] {phase.__name__} {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(REFS_DIR, ignore_errors=True)
     kernels = []
     for key in KEYS:
         r = report[key]

@@ -1,6 +1,7 @@
 """Show that chip_smoke.py's Stage I, packed-block, serving, MoCo and kernel
 checks fail a wrong K1, K2, K4, K5, K6, K7a/K7b, K7c, K8a, K8b or K4b (and its
-data-parallel and reference-checkpoint checks their planted faults).
+data-parallel, tensor-parallel and reference-checkpoint checks their planted
+faults).
 
     python scripts/stage1_planted_faults.py            # full width, one NVIDIA GPU
     python scripts/stage1_planted_faults.py --tiny --device cpu   # a dry run
@@ -101,7 +102,7 @@ k1_mode_swapped, k1_cls_key_dropped, k4_cls_key_dropped,
 k4_wv_head_shifted as above; each line gives the margin of the update and
 eval checks (error over tolerance).
 Then the data-parallel faults on chip_smoke.py's phase 14 (c)
-(chip_smoke.run_dp_world2: two ranks of a gloo group on the one card, each
+(chip_smoke.run_gloo_group: two ranks of a gloo group on the one card, each
 case at world 2 held against world 1 over the same global batch). Each
 fault is applied in both worker processes by apply_dp_fault before the
 cases, and only on the case it concerns:
@@ -114,6 +115,25 @@ cases, and only on the case it concerns:
 - sync_lr_unscaled: Stage II's learning rate is base_learning_rate, not x
   the number of ranks (stage_sync's make_lr_schedule given base / world).
 ``--only dp`` runs these alone.
+Then the tensor-parallel faults on chip_smoke.py's phase 19
+(chip_smoke.run_tensor_parallel: four ranks of a gloo group on the one card
+as a (2 data x 2 model) grid), each applied in every worker by
+apply_tp_fault before the cases, on the case it concerns:
+- none: the control, on both cases (Stage II, AVCLIP);
+- tp_clip_norm_local: the global-norm clip reads each rank's local shards
+  only (train/state.py global_norm without its ``sharded`` marks), so that
+  model peers clip differently (Stage II);
+- tp_streams_by_rank: the trainers seed their generators by the global
+  rank, not the data rank, so that model peers draw different numbers
+  (Stage II);
+- tp_lr_by_world: Stage II's rate is base_learning_rate x the world, not x
+  n_data;
+- tp_infonce_all_ranks: the InfoNCE gathers its negatives over every rank,
+  model peers' duplicates included, not over the data group (AVCLIP);
+- tp_ckpt_rank0_shards: state_dict and the optimizer's state hold each
+  rank's shards, not whole tensors, so that rank 0 writes its own shards
+  (Stage II).
+``--only tp`` runs these alone.
 Then the Stage I reader's fault on chip_smoke.py's phase 15 (c)
 (chip_smoke.stage1_reference_check, ckpt_faults): the control, and
 ast_pos_emb_untrimmed, a reader that keeps a reference file's 1214-token
@@ -163,6 +183,7 @@ import argparse
 import functools
 import gc
 import os
+import shutil
 import sys
 import time
 import types
@@ -1032,13 +1053,13 @@ def apply_dp_fault(name: str) -> None:
 
 
 def dp_faults(dev, tiny: bool) -> dict:
-    """DP_FAULTS on chip_smoke.run_dp_world2 (phase 14 (c)); each fault's
+    """DP_FAULTS on chip_smoke.run_gloo_group (phase 14 (c)); each fault's
     failed checks, its margins logged."""
     caught = {}
     for name, cases in DP_FAULTS.items():
-        res = chip_smoke.run_dp_world2(torch, dev, cases=cases, tiny=TINY_DP if tiny else None,
-                                       hook=f"{os.path.abspath(__file__)}:apply_dp_fault",
-                                       fault=name, check=False)
+        res = chip_smoke.run_gloo_group(torch, dev, cases=cases, tiny=TINY_DP if tiny else None,
+                                        hook=f"{os.path.abspath(__file__)}:apply_dp_fault",
+                                        fault=name, check=False)
         caught[name] = res["failed"]
         margins = "; ".join(f"{case}: " + ", ".join(f"{k} {v:.3g}" for k, v in
                                                      r.get("margins", {}).items())
@@ -1049,18 +1070,89 @@ def dp_faults(dev, tiny: bool) -> dict:
     return caught
 
 
+# the tensor-parallel faults, each with the phase-19 cases it runs on
+TP_FAULTS = {"none": chip_smoke.TP_CASES, "tp_clip_norm_local": ("stage2",),
+             "tp_streams_by_rank": ("stage2",), "tp_lr_by_world": ("stage2",),
+             "tp_infonce_all_ranks": ("avclip",), "tp_ckpt_rank0_shards": ("stage2",)}
+
+
+def apply_tp_fault(name: str) -> None:
+    """Plant TP_FAULTS' ``name`` in this process (a phase-19 worker)."""
+    import torch.distributed as dist
+
+    from synchformer_tpu_torch.models import avclip
+    from synchformer_tpu_torch.parallel import dist as pdist
+    from synchformer_tpu_torch.parallel import tensor as ptensor
+    from synchformer_tpu_torch.train import stage_clip, stage_sync
+    from synchformer_tpu_torch.train import state as tstate
+
+    attrs = {k: getattr(pdist, k) for k in dir(pdist) if not k.startswith("__")}
+    if name == "tp_clip_norm_local":
+        norm = tstate.global_norm
+        tstate.global_norm = lambda grads, sharded=None: norm(grads)
+    elif name == "tp_streams_by_rank":
+        stage_sync.pdist = stage_clip.pdist = types.SimpleNamespace(
+            **{**attrs, "data_rank": pdist.rank})
+    elif name == "tp_lr_by_world":
+        make = stage_sync.make_lr_schedule
+        stage_sync.make_lr_schedule = lambda sched, base, warmup: make(
+            sched, base / pdist.n_data() * pdist.world(), warmup)
+    elif name == "tp_infonce_all_ranks":
+        class WorldGather(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                ctx.n = x.shape[0]
+                return pdist.gather_rows(x)
+
+            @staticmethod
+            def backward(ctx, grad):
+                grad = grad.contiguous().clone()
+                dist.all_reduce(grad)
+                return grad[pdist.rank() * ctx.n:(pdist.rank() + 1) * ctx.n]
+
+        avclip.pdist = types.SimpleNamespace(**{**attrs,
+                                                "all_gather_with_grad": WorldGather.apply})
+    elif name == "tp_ckpt_rank0_shards":
+        ptensor._whole_state = lambda *args: None
+        ptensor.optimizer_state_dict = lambda optimizer, model: optimizer.state_dict()
+    elif name != "none":
+        raise ValueError(f"no tensor-parallel fault {name!r}")
+
+
+def tp_faults(dev, tiny: bool) -> dict:
+    """TP_FAULTS on chip_smoke.run_tensor_parallel (phase 19); each fault's
+    failed checks, its margins logged."""
+    caught = {}
+    for name, cases in TP_FAULTS.items():
+        res = chip_smoke.run_tensor_parallel(
+            torch, dev, None, cases, tiny=TINY_DP if tiny else None,
+            hook=f"{os.path.abspath(__file__)}:apply_tp_fault", fault=name, check=False)
+        caught[name] = res["failed"]
+        margins = "; ".join(f"{case}: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                                     r.get("margins", {}).items())
+                            for case, r in res["cases"].items())
+        chip_smoke.log(f"[fault] tp {name}: {len(caught[name])} checks failed: "
+                       f"{caught[name][:6]}{' ...' if len(caught[name]) > 6 else ''}; margins "
+                       f"{margins}")
+    return caught
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--only", choices=("all", "dp", "ckpt", "legacy", "options", "shapes"),
+    ap.add_argument("--only", choices=("all", "dp", "tp", "ckpt", "legacy", "options",
+                                       "shapes"),
                     default="all",
-                    help="dp: the data-parallel faults of phase 14 (c) alone; ckpt: the Stage "
+                    help="dp: the data-parallel faults of phase 14 (c) alone; tp: the "
+                         "tensor-parallel faults of phase 19 alone; ckpt: the Stage "
                          "I reader's of phase 15 (c) alone; legacy: the K4 faults on phase "
                          "16 (a) and on phase 2's K4 cases alone; options: phase 17's "
                          "faults alone; shapes: the faults of phase 2's new shapes alone")
     args = ap.parse_args()
     dev = torch.device(args.device)
+    # the world-1 references run_gloo_group keeps: this run's own
+    shutil.rmtree(chip_smoke.REFS_DIR, ignore_errors=True)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu (with --tiny) for a dry run")
     if args.only == "dp":
@@ -1068,6 +1160,11 @@ def main() -> int:
             chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
             _build.build_all()
         return 0 if verdict("dp", dp_faults(dev, args.tiny)) else 1
+    if args.only == "tp":
+        if dev.type == "cuda":
+            chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
+            _build.build_all()
+        return 0 if verdict("tp", tp_faults(dev, args.tiny)) else 1
     if args.only == "ckpt":
         return 0 if verdict("ckpt", ckpt_faults(dev, args.tiny)) else 1
     if args.only == "options":
@@ -1145,6 +1242,7 @@ def main() -> int:
     ok = verdict("kernels_k1", k1) and ok
     ok = verdict("stage2", stage2_faults(dev, args.tiny)) and ok
     ok = verdict("dp", dp_faults(dev, args.tiny)) and ok
+    ok = verdict("tp", tp_faults(dev, args.tiny)) and ok
     ok = verdict("ckpt", ckpt_faults(dev, args.tiny)) and ok
     ok = verdict("legacy", legacy_faults(dev, args.tiny)) and ok
     ok = verdict("options", option_faults(dev, args.tiny)) and ok

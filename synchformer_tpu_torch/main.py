@@ -17,10 +17,14 @@ the CPU. Run plainly, it is one process on one device. Under the launcher
 (torchrun's RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) every
 process joins one group before the dispatch (parallel/dist.py
 init_from_env: NCCL and the card cuda:LOCAL_RANK on ``cuda``, gloo with
-``device=cpu``) and trains data-parallel: training.base_batch_size is the
-global batch, split over the ranks, and Stage II/III's learning rate is
-base_learning_rate x the number of ranks. The group is left at the end,
-whatever the outcome; a rank that fails fails the run.
+``device=cpu``) and trains on a (n_data x training.model_parallel) grid of
+ranks: training.base_batch_size is the global batch, split over the n_data
+= world / model_parallel data ranks, Stage II/III's learning rate is
+base_learning_rate x n_data, and at model_parallel above 1 the parameters
+that the JAX mesh shards are stored as shards over each model group
+(parallel/tensor.py). A world that does not split into model_parallel is
+refused. The group is left at the end, whatever the outcome; a rank that
+fails fails the run.
 """
 from __future__ import annotations
 

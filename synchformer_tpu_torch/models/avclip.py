@@ -11,9 +11,10 @@ the reference). ``logit_scale`` is a 0-d f32 parameter, clamped to
 [clamp_scale_min, clamp_scale_max] where it is used and after every update.
 
 Over ranks (parallel/dist.py) the loss is the JAX step's over the global
-batch: this rank's (n, D) rows are scored against every rank's (world * n, D)
-columns, gathered with a backward that sums over ranks, and the positives sit
-on the rank-offset diagonal (labels arange(n) + rank * n); the gathered
+batch: this rank's (n, D) rows are scored against every data rank's
+(n_data * n, D) columns, gathered with a backward that sums over the data
+group, and the positives sit on the data-rank-offset diagonal (labels
+arange(n) + data_rank * n; model peers hold the same rows); the gathered
 products run in f32, so that a column's gradient is rounded to the compute
 dtype once, after the sum over ranks. The JAX trainer
 passes no axis_name, so its InfoNCE spans the global batch whether
@@ -79,16 +80,16 @@ class AVCLIP(nn.Module):
 
     def contrastive_loss(self, vfeat: torch.Tensor, afeat: torch.Tensor) -> torch.Tensor:
         """Symmetric InfoNCE with the temperature dividing the similarity: this
-        rank's rows against the columns of every rank, the positives on the
-        rank-offset diagonal."""
+        rank's rows against the columns of every data rank, the positives on
+        the data-rank-offset diagonal (model peers hold the same rows)."""
         scale = self.scale()
         n = vfeat.shape[0]
-        labels = torch.arange(n, device=vfeat.device) + pdist.rank() * n
-        if pdist.world() == 1:
+        labels = torch.arange(n, device=vfeat.device) + pdist.data_rank() * n
+        if pdist.n_data() == 1:
             vfeat_all, afeat_all = vfeat, afeat
         else:
-            # in f32 over ranks: each rank's part of a column's gradient is
-            # summed over ranks by the gather's backward, and rounded to the
+            # in f32 over data ranks: each rank's part of a column's gradient
+            # is summed over them by the gather's backward, and rounded to the
             # compute dtype only after that sum, as world 1's one product
             # over the global batch accumulates it (bf16 parts that nearly
             # cancel would each be rounded first)

@@ -29,10 +29,12 @@ a small mutable record and the momentum model a module, updated in place.
 
 Over ranks (parallel/dist.py) the step is the JAX step over the global batch
 (moco_clip.py:17-18, :192-194 there): the momentum keys of every level are
-gathered from every rank in rank order; they are both the in-batch negatives
-and what goes into the queues, so that every rank's queues stay identical;
-the targets sit on the rank-offset diagonal of [global keys | queue]. The
-query pass (``model``, possibly under DDP) sees this rank's rows only.
+gathered from every data rank in data order; they are both the in-batch
+negatives and what goes into the queues, so that every rank's queues stay
+identical; the targets sit on the data-rank-offset diagonal of [global keys |
+queue]. The query pass (``model``, possibly under DDP) sees this rank's rows
+only. Under tensor parallelism the momentum model is sharded as the online
+one, and its EMA runs on the shards.
 """
 from __future__ import annotations
 
@@ -164,7 +166,7 @@ def moco_contrastive_loss(vfeat, afeat, vfeat_all, afeat_all, scale, alpha: floa
     soft targets alpha * softmax(momentum similarity) + (1 - alpha) * I where
     the momentum features are given (ref: model.py:694-721). Row i's positive
     is column offset + i (over ranks: the keys are the global batch's, and
-    offset is rank * B)."""
+    offset is the data rank * B)."""
     sim_v2a = (vfeat.float() @ afeat_all.float()) / scale
     sim_a2v = (afeat.float() @ vfeat_all.float()) / scale
     n, m = sim_v2a.shape
@@ -211,7 +213,7 @@ def moco_forward(model: MultilevelMoCoCLIP, model_m: MultilevelMoCoCLIP, queues:
         a_all = torch.cat([keys[level][1].t().float(), qa], dim=1)
         losses[f"{level}_contrastive_loss"] = moco_contrastive_loss(
             out[f"{level}_vfeat"], out[f"{level}_afeat"], v_all, a_all, scale, alpha, v_m, a_m,
-            offset=pdist.rank() * v_m.shape[0])
+            offset=pdist.data_rank() * v_m.shape[0])
     if train:
         for level, _, qv, qa in levels:
             ptr = getattr(queues, f"{level}_ptr")

@@ -230,12 +230,15 @@ class Synchformer(nn.Module):
         a matrix with rows that are not 16 bytes at a 16-byte pitch
         (``pitched``: fc2 at a hidden width such as 1996, as K2 reads it);
         LN parameters, biases, tokens and positional embeddings stay f32 and
-        are cast where they are used."""
+        are cast where they are used. A tensor-parallel shard
+        (parallel/tensor.py) is only cast: the whole weight, gathered where
+        it is read, is contiguous."""
         for root in (self,) if modules is None else modules:
             for mod in root.modules():
+                shards = getattr(type(mod), "_tp_names", ())
                 for name, p in mod.named_parameters(recurse=False):
                     if name.endswith("weight") and p.ndim == 2:
-                        p.data = pitched(p.data, dtype)
+                        p.data = p.data.to(dtype) if name in shards else pitched(p.data, dtype)
                     elif name.endswith("weight") and p.ndim > 2:
                         p.data = p.data.to(dtype)
         return self

@@ -8,8 +8,10 @@ factories of the port's classes. Each factory takes the node's own ``params``
 (Synchformer's towers, projections and transformer as target / params nodes)
 plus ``device``, which ``instantiate_from_config`` passes down. A parameter
 the port does not implement raises NotImplementedError naming the ROADMAP §1
-item that holds it (item 7.5: training the legacy towers; item 8:
-``model_parallel`` above 1); it is never dropped. A tower's
+item that holds it (item 7.5: training the legacy towers); it is never
+dropped. ``training.model_parallel`` is the trainers' (parallel/dist.py
+init_grid: tensor parallelism over a (data x model) grid of ranks, refused
+where the world does not split into it). A tower's
 ``ckpt_path`` is not the model's: the trainer reads it (SyncTrainer
 .init_towers_from_ckpts). Parameters the JAX package itself ignores
 (``agg_segments_module``, ``feat_type``, the AST's ``num_labels`` in feature

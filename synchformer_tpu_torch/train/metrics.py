@@ -200,15 +200,16 @@ def per_class_accuracy(targets, logits) -> Dict[object, float]:
 
 
 def gather_dict(results: Dict[str, object]) -> Dict[str, object]:
-    """Gather over ranks with the reference's reduce semantics (ref:
-    train_utils.py:615-629; JAX metrics.py:135-156): lists and arrays
-    concatenate in rank order along their first axis (ranks may hold
+    """Gather over the data ranks with the reference's reduce semantics
+    (ref: train_utils.py:615-629; JAX metrics.py:135-156): lists and arrays
+    concatenate in data order along their first axis (ranks may hold
     different numbers of rows: the eval loaders keep their last, short
     shard), ints and floats average unweighted, anything else passes
-    through. At world 1 the identity."""
-    if pdist.world() == 1:
+    through. Model peers hold the same rows and are not counted again. At
+    one data rank the identity."""
+    if pdist.n_data() == 1:
         return results
-    gathered = pdist.all_gather_object(results)
+    gathered = pdist.all_gather_object(results, pdist.data_group())
     out: Dict[str, object] = {}
     for key, value in results.items():
         values = [g[key] for g in gathered]

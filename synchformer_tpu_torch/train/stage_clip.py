@@ -34,16 +34,21 @@ plain route of one seed draw the same masks (AVCLIP: the video tower, then
 the audio tower; MoCo: the query pass).
 
 Over ranks (a group joined by parallel/dist.py init_from_env, one process per
-card) the trainer is the JAX trainer at that many data devices:
-``base_batch_size`` is the global batch, and each rank loads and steps
-batch_size / world rows of its shard of the epoch; the model trains under DDP
-(``net``); AVCLIP's InfoNCE and MoCo's keys span the global batch; the
-generators of rank r are seeded seed + RANK_STRIDE * r (rank 0 draws the
-streams of a run without a group), the MoCo queues from training.seed + 1 on
-every rank (one shared state); rank 0 alone logs, plots and writes
-checkpoints; the validation's metrics are gathered (gather_dict) before they
-are logged and before early stopping decides, so every rank stops at the
-same epoch. training.model_parallel above 1 is refused.
+card) the trainer is the JAX trainer on a (n_data x training.model_parallel)
+mesh: the ranks form that grid (pdist.init_grid; a world that does not split
+into model_parallel is refused); ``base_batch_size`` is the global batch,
+and each rank loads and steps batch_size / n_data rows of its data rank's
+shard of the epoch; the model trains under DDP over the data group (``net``);
+AVCLIP's InfoNCE and MoCo's keys span the global batch; the generators of
+data rank r are seeded seed + RANK_STRIDE * r (data rank 0 draws the streams
+of a run without a group; model peers draw alike), the MoCo queues from
+training.seed + 1 on every rank (one shared state); under model_parallel
+above 1 the parameters that the JAX param_shardings shards are stored as
+this rank's blocks of rows (parallel/tensor.py shard_model_; the MoCo
+momentum model, a copy, likewise), and checkpoints hold whole tensors; rank 0
+alone logs, plots and writes checkpoints; the validation's metrics are
+gathered over the data ranks (gather_dict) before they are logged and before
+early stopping decides, so every rank stops at the same epoch.
 
 ``fit`` is the JAX fit loop (:238-395) on one process: the StagedLoader
 feeds the card; per-step Data(t) / Batch(t) / samples/s / LR / loss at
@@ -83,6 +88,7 @@ from synchformer_tpu_torch.ops.dsp import AUG_CHAIN, augment_batch_pcm
 from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
 from synchformer_tpu_torch.ops.video import patchify_frames, prepare_video_batch
 from synchformer_tpu_torch.parallel import dist as pdist
+from synchformer_tpu_torch.parallel import tensor as ptensor
 from synchformer_tpu_torch.registry import instantiate_from_config
 from synchformer_tpu_torch.train.metrics import gather_dict
 from synchformer_tpu_torch.train.state import make_adamw, make_lr_schedule
@@ -125,8 +131,8 @@ class AVCLIPTrainer:
         self.impl = impl
         self.seed = int(training.get("seed", 1337))
         self.batch_size = int(training.get("base_batch_size", 2))
-        self.local_batch = pdist.local_batch_size(self.batch_size,
-                                                  training.get("model_parallel", 1))
+        pdist.init_grid(training.get("model_parallel", 1))
+        self.local_batch = pdist.local_batch_size(self.batch_size, pdist.n_model())
         self.num_epochs = int(training.get("num_epochs", 100))
         self.patience = int(training.get("patience", 20))
         self.dtype = (torch.bfloat16 if training.get("precision", "amp") == "amp"
@@ -168,16 +174,16 @@ class AVCLIPTrainer:
         if isinstance(model, MultilevelMoCoCLIP) != self.is_moco:
             raise TypeError(f"cfg.model.target {cfg.get('model', {}).get('target')!r} does not "
                             f"name the model given, a {type(model).__name__}")
-        self.model = model.to(self.device)
+        self.model = ptensor.shard_model_(model.to(self.device))
         # the model under DDP where a group is joined: what the train step runs
         self.net = pdist.wrap_ddp(self.model, self.device)
         self.optimizer = make_adamw(self.model.named_parameters(),
                                     float(training.get("weight_decay", 0.2)))
         self.generator = torch.Generator(device=self.device).manual_seed(
-            pdist.stream_seed(self.seed, pdist.rank()))
+            pdist.stream_seed(self.seed, pdist.data_rank()))
         # the audio augmentations' row masks, drawn on the host (ops/dsp.py)
         self.aug_generator = torch.Generator().manual_seed(
-            pdist.stream_seed(self.seed + 7, pdist.rank()))
+            pdist.stream_seed(self.seed + 7, pdist.data_rank()))
         # per transform, the train steps in which some clip drew it
         self.aug_drawn = {name: 0 for name in AUG_CHAIN}
         self.step = 0
@@ -252,8 +258,10 @@ class AVCLIPTrainer:
         """A checkpoint's payload: what a resumed run needs to continue bit
         for bit (the JAX payload's trainable / opt_state / epoch / stopper /
         moco, and the step and every rank's generator states, which JAX
-        derives from the step). Every rank calls it."""
-        out = {"trainable": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+        derives from the step); whole tensors under tensor parallelism.
+        Every rank calls it."""
+        out = {"trainable": self.model.state_dict(),
+               "opt_state": ptensor.optimizer_state_dict(self.optimizer, self.model),
                "step": self.step, "epoch": epoch, "stopper": stopper.state_dict(),
                **generator_payload({"device": self.generator, "aug": self.aug_generator})}
         if self.is_moco:
@@ -265,11 +273,11 @@ class AVCLIPTrainer:
     def load_payload(self, payload: Dict[str, Any]) -> None:
         """Restore the model, optimizer, step, generators and MoCo state of
         a payload (the stopper and epoch are the caller's). The generators
-        continue where the payload was written at this world size; else they
-        are re-seeded from the seed, the epoch after the payload's and the
-        rank (restore_generators)."""
+        continue where the payload was written at this number of data ranks;
+        else they are re-seeded from the seed, the epoch after the payload's
+        and the data rank (restore_generators)."""
         self.model.load_state_dict(payload["trainable"])
-        self.optimizer.load_state_dict(payload["opt_state"])
+        ptensor.load_optimizer_state_dict(self.optimizer, self.model, payload["opt_state"])
         self.step = int(payload["step"])
         restore_generators({"device": self.generator, "aug": self.aug_generator},
                            payload, {"device": self.seed, "aug": self.seed + 7},
@@ -343,8 +351,8 @@ class AVCLIPTrainer:
         loaders = {
             split: StagedLoader(SyncDataLoader(ds, self.pipe_cfg, self.local_batch, num_workers,
                                                self.seed, shuffle=split == "train",
-                                               process_index=pdist.rank(),
-                                               process_count=pdist.world(),
+                                               process_index=pdist.data_rank(),
+                                               process_count=pdist.n_data(),
                                                decode_backend=decode_backend),
                                 device=self.device)
             for split, ds in (("train", train_ds), ("valid", valid_ds))
@@ -391,7 +399,7 @@ class AVCLIPTrainer:
             batch_m.update(time.perf_counter() - t_prev)  # full iteration
             t_prev = time.perf_counter()
             if (i + 1) % self.log_frequency == 0:
-                samples_per_s = self.local_batch * pdist.world() / max(batch_m.avg, 1e-9)
+                samples_per_s = self.local_batch * pdist.n_data() / max(batch_m.avg, 1e-9)
                 lr_now = float(self.schedule(self.step))
                 logging.info(
                     f"Train Epoch: {epoch} [{(i + 1) * self.batch_size}"
@@ -419,7 +427,7 @@ class AVCLIPTrainer:
 
     def _validate(self, loader, epoch: int) -> Dict[str, float]:
         """The zero-shot shifted-window validation; the metrics averaged over
-        ranks (gather_dict)."""
+        the data ranks (gather_dict)."""
         loader.set_epoch(epoch)
         prec_m, vloss_m = Meter(), Meter()
         out = None

@@ -30,19 +30,24 @@ training.seed + 7, noise from the device generator); PCM -> f32 log-mel of
 the AST's max_spec_t frames -> (B, S, T, 128) in the compute dtype.
 
 Optimizer: training.optimizer (adam / adamw / sgd) at base_learning_rate x
-the number of ranks (the JAX trainer's n_data, stage_sync.py:161-165; ref:
-train_utils.py:218) on training.lr_scheduler (constant /
+the number of data ranks (the JAX trainer's n_data, stage_sync.py:161-165;
+ref: train_utils.py:218) on training.lr_scheduler (constant /
 constant_with_warmup), eps 1e-7 under half precision, global-norm clipping
 at max_clip_norm.
 
 Over ranks (a group joined by parallel/dist.py init_from_env) the trainer is
-the JAX trainer at that many data devices: ``base_batch_size`` is the global
-batch, each rank steps batch_size / world rows of its shard under DDP
-(``net``); the generators of rank r are seeded seed + RANK_STRIDE * r; the
-valid and test logits and targets are gathered (gather_dict) before the
-metrics, so every rank decides the same early stop; rank 0 alone logs,
-writes checkpoints, the input reconstruction, the test plots and the
-profile. training.model_parallel above 1 is refused.
+the JAX trainer on a (n_data x training.model_parallel) mesh: the ranks form
+that grid (pdist.init_grid; a world that does not split into model_parallel
+is refused); ``base_batch_size`` is the global batch, each rank steps
+batch_size / n_data rows of its data rank's shard under DDP over its data
+group (``net``); the generators of data rank r are seeded seed +
+RANK_STRIDE * r, so that model peers draw alike; under model_parallel above
+1 the parameters that the JAX param_shardings shards are stored as this
+rank's blocks of rows (parallel/tensor.py shard_model_, after the towers are
+loaded), and checkpoints hold whole tensors; the valid and test logits and
+targets are gathered over the data ranks (gather_dict) before the metrics,
+so every rank decides the same early stop; rank 0 alone logs, writes
+checkpoints, the input reconstruction, the test plots and the profile.
 
 ``fit`` is the JAX loop (:487-593) on one process: train / valid phases
 (run_phase) fed by the StagedLoader, per-step telemetry into scalars.jsonl
@@ -74,6 +79,7 @@ from synchformer_tpu_torch.ops.dsp import AUG_CHAIN, augment_batch_pcm
 from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
 from synchformer_tpu_torch.ops.video import patchify_frames, prepare_video_batch
 from synchformer_tpu_torch.parallel import dist as pdist
+from synchformer_tpu_torch.parallel import tensor as ptensor
 from synchformer_tpu_torch.registry import instantiate_from_config
 from synchformer_tpu_torch.train.state import (
     SYNC_TRAINABLE_KEYS,
@@ -124,8 +130,8 @@ class SyncTrainer:
         self.num_cls = 2 if syncability else int(data.get("num_off_cls", 21))
         self.num_epochs = int(training.get("num_epochs", 10000))
         self.batch_size = int(training.get("base_batch_size", 16))
-        self.local_batch = pdist.local_batch_size(self.batch_size,
-                                                  training.get("model_parallel", 1))
+        pdist.init_grid(training.get("model_parallel", 1))
+        self.local_batch = pdist.local_batch_size(self.batch_size, pdist.n_model())
         self.metric_name = training.get("metric_name", "accuracy_1")
         self.patience = int(training.get("patience", 20))
         self.run_test_only = bool(training.get("run_test_only", False))
@@ -161,6 +167,7 @@ class SyncTrainer:
             load_numpy_state_dict(model, seeded_state_dict(model, self.seed))
         self.model = model.to(self.device).eval()
         self.tower_reports = self.init_towers_from_ckpts()
+        ptensor.shard_model_(self.model)
 
         keys = list(SYNC_TRAINABLE_KEYS)
         keys += [k for k in TOWERS if (self.model_params.get(k) or {}).get("is_trainable")]
@@ -183,16 +190,16 @@ class SyncTrainer:
         lr_cfg = training.get("lr_scheduler", {})
         self.schedule = make_lr_schedule(
             lr_cfg.get("name", "constant_with_warmup"),
-            float(training.get("base_learning_rate", 2e-6)) * pdist.world(),
+            float(training.get("base_learning_rate", 2e-6)) * pdist.n_data(),
             int(lr_cfg.get("warmup", 1000)))
         clip = training.get("max_clip_norm", 1.0)
         self.max_clip_norm = None if clip is None else float(clip)
         self.optimizer = self._make_optimizer()
         self.generator = torch.Generator(device=self.device).manual_seed(
-            pdist.stream_seed(self.seed, pdist.rank()))
+            pdist.stream_seed(self.seed, pdist.data_rank()))
         # the audio augmentations' row masks, drawn on the host (ops/dsp.py)
         self.aug_generator = torch.Generator().manual_seed(
-            pdist.stream_seed(self.seed + 7, pdist.rank()))
+            pdist.stream_seed(self.seed + 7, pdist.data_rank()))
         # per transform, the train steps in which some clip drew it
         self.aug_drawn = {name: 0 for name in AUG_CHAIN}
         self.step = 0
@@ -287,11 +294,12 @@ class SyncTrainer:
 
     def payload(self, epoch: int, stopper: EarlyStopper) -> Dict[str, Any]:
         """A checkpoint's payload for an exact resume: trainable parameters,
-        optimizer state, step, epoch, early stopper (ref ckpt dict:
-        utils/logger.py:139-160) and every rank's generator states. Every
-        rank calls it."""
+        optimizer state (whole tensors under tensor parallelism), step,
+        epoch, early stopper (ref ckpt dict: utils/logger.py:139-160) and
+        every data rank's generator states. Every rank calls it."""
         return {"trainable": self.trainable_state_dict(),
-                "opt_state": self.optimizer.state_dict(), "step": self.step, "epoch": epoch,
+                "opt_state": ptensor.optimizer_state_dict(self.optimizer, self.model),
+                "step": self.step, "epoch": epoch,
                 "stopper": stopper.state_dict(),
                 **generator_payload({"device": self.generator, "aug": self.aug_generator})}
 
@@ -360,11 +368,11 @@ class SyncTrainer:
                 t0 = time.perf_counter()
                 meters["loss"].update(metrics["loss"])
                 meters["accuracy_1"].update(metrics["accuracy_1"])
-                meters["samples_per_sec"].update(n * pdist.world() / dt)
+                meters["samples_per_sec"].update(n * pdist.n_data() / dt)
                 data_m.update(data_t)
                 batch_m.update(dt)
                 if self.step % self.log_frequency == 0:
-                    samples_per_s = n * pdist.world() / max(batch_m.avg, 1e-9)
+                    samples_per_s = n * pdist.n_data() / max(batch_m.avg, 1e-9)
                     lr_now = float(self.schedule(self.step))
                     logging.info(
                         f"Train Epoch: {epoch} [{(i + 1) * n}/{n_iters * n}] "
@@ -383,8 +391,8 @@ class SyncTrainer:
         return metrics
 
     def _eval_pass(self, loader):
-        """Every rank's logits and targets over its shard of ``loader`` (the
-        wrap-around items dropped), concatenated in rank order."""
+        """Every data rank's logits and targets over its shard of ``loader``
+        (the wrap-around items dropped), concatenated in data order."""
         all_logits, all_targets = [], []
         for batch in loader:
             mask = np.asarray(batch.get("pad_mask", np.ones(len(batch["video"]), bool)))
@@ -410,7 +418,7 @@ class SyncTrainer:
         if training.get("resume") and self.ckpt.latest_step() is not None:
             payload = self.ckpt.restore_latest()
             self.load_trainable(payload["trainable"])
-            self.optimizer.load_state_dict(payload["opt_state"])
+            ptensor.load_optimizer_state_dict(self.optimizer, self.model, payload["opt_state"])
             self.step = int(payload["step"])
             restore_generators({"device": self.generator, "aug": self.aug_generator},
                                payload, {"device": self.seed, "aug": self.seed + 7},
@@ -468,8 +476,8 @@ class SyncTrainer:
         kwargs = {} if train else {"shuffle": False, "drop_last": False}
         return StagedLoader(SyncDataLoader(ds, self.pipe_cfg, self.local_batch, num_workers,
                                            self.seed, decode_backend=decode_backend,
-                                           process_index=pdist.rank(),
-                                           process_count=pdist.world(), **kwargs),
+                                           process_index=pdist.data_rank(),
+                                           process_count=pdist.n_data(), **kwargs),
                             device=self.device)
 
     def fit(self, train_ds, valid_ds, test_ds=None, num_workers: int = 6, iter_times: int = 1,

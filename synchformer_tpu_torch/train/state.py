@@ -17,7 +17,10 @@
 - ``SYNC_TRAINABLE_KEYS`` / ``set_trainable``: the frozen / trainable split
   of state.py:24-37 as requires_grad flags on the port's module names.
 - ``clip_grads_by_global_norm_``: optax.clip_by_global_norm, g * max / max(norm,
-  max), not clip_grad_norm_'s max / (norm + 1e-6).
+  max), not clip_grad_norm_'s max / (norm + 1e-6). Under tensor
+  parallelism (parallel/tensor.py) the norm is the whole gradient's: a
+  shard's squares are summed over its model group, a replicated leaf's
+  counted once, so that every model peer clips alike.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import math
 from typing import Callable, Iterable, Optional, Sequence
 
 import torch
+
+from synchformer_tpu_torch.parallel import dist as pdist
 
 Schedule = Callable[[int], float]
 
@@ -136,17 +141,29 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 
 @torch.no_grad()
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over every gradient, in f32 (optax.global_norm)."""
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+def global_norm(grads: Sequence[torch.Tensor],
+                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """sqrt(sum of squares) over every gradient, in f32 (optax.global_norm).
+    ``sharded`` marks the gradients that are shards of the model group's
+    whole gradient (parallel/tensor.py): each one's norm is the whole
+    tensor's, its squares summed over the group in model order (the same sum
+    on every peer)."""
+    norms = [torch.linalg.vector_norm(g.float()) for g in grads]
+    idx = [i for i, s in enumerate(sharded or ()) if s]
+    if idx and pdist.n_model() > 1:
+        squares = torch.stack([norms[i] for i in idx]).square()
+        whole = pdist.gather_rows(squares[None], pdist.model_group()).sum(0).sqrt()
+        for j, i in enumerate(idx):
+            norms[i] = whole[j]
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 @torch.no_grad()
-def clip_grads_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_grads_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                               sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """Scale the gradients in place by max_norm / max(norm, max_norm);
-    returns the norm before clipping."""
-    norm = global_norm(grads)
+    returns the norm before clipping (global_norm, ``sharded`` as there)."""
+    norm = global_norm(grads, sharded)
     factor = max_norm / torch.clamp(norm, min=max_norm)
     for g in grads:
         g.mul_(factor.to(g.dtype))

@@ -28,12 +28,15 @@ keys are written into the queues.
 
 Over ranks each train step takes its model under DDP (parallel/dist.py
 wrap_ddp): every rank runs the step on its rows, DDP averages the gradients
-over ranks during the backward, and then every rank clips and steps the same
-averaged gradients, so the parameters stay equal. The loss, accuracy and
-gradient norm in the metrics are the global batch's (the loss and accuracy
-averaged over ranks), so that a non-finite loss stops every rank. The
-attributes (the logit scale's clamp, MoCo's momentum) are read on the module
-under the wrapper.
+over the data ranks during the backward, and then every rank clips and steps
+the same averaged gradients, so the parameters stay equal. Under tensor
+parallelism (parallel/tensor.py) a rank's sharded parameters are its blocks,
+every model peer takes the same rows and draws the same numbers, and the
+clip reads the whole gradient's norm. The loss, accuracy and gradient norm in
+the metrics are the global batch's (the loss and accuracy averaged over the
+data ranks), so that a non-finite loss stops every rank. The attributes (the
+logit scale's clamp, MoCo's momentum) are read on the module under the
+wrapper.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ from synchformer_tpu_torch.models.moco_clip import (
 )
 from synchformer_tpu_torch.models.sync_model import Synchformer
 from synchformer_tpu_torch.parallel import dist as pdist
+from synchformer_tpu_torch.parallel import tensor as ptensor
 from synchformer_tpu_torch.train.state import (
     Schedule,
     clip_grads_by_global_norm_,
@@ -75,7 +79,7 @@ def avclip_train_step(model: AVCLIP, optimizer: torch.optim.Optimizer, schedule:
     optimizer.zero_grad(set_to_none=True)
     loss, _, _ = model(vis, aud, impl, deterministic=False, generator=generator)
     loss.backward()
-    grad_norm = _apply_update(params, optimizer, schedule, step, max_clip_norm)
+    grad_norm = _apply_update(module, params, optimizer, schedule, step, max_clip_norm)
     with torch.no_grad():
         module.logit_scale.clamp_(module.clamp_scale_min, module.clamp_scale_max)
     loss = pdist.all_reduce_mean(loss.detach())
@@ -84,17 +88,20 @@ def avclip_train_step(model: AVCLIP, optimizer: torch.optim.Optimizer, schedule:
             "loss_finite": torch.isfinite(loss)}
 
 
-def _apply_update(params, optimizer, schedule: Schedule, step: int,
+def _apply_update(module, params, optimizer, schedule: Schedule, step: int,
                   max_clip_norm: Optional[float]) -> torch.Tensor:
     """Zero gradients for unused parameters (optax gives them, and they
-    decay), clip by global norm (no clip where max_clip_norm is None), set
-    the step's rate, step the optimizer; returns the norm before clipping."""
+    decay), clip by global norm (no clip where max_clip_norm is None; the
+    norm of the whole gradient where ``module``'s parameters are sharded),
+    set the step's rate, step the optimizer; returns the norm before
+    clipping."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
-    grad_norm = (global_norm(grads) if max_clip_norm is None
-                 else clip_grads_by_global_norm_(grads, max_clip_norm))
+    sharded = ptensor.sharded_mask(module, params)
+    grad_norm = (global_norm(grads, sharded) if max_clip_norm is None
+                 else clip_grads_by_global_norm_(grads, max_clip_norm, sharded))
     set_lr(optimizer, schedule(step))
     optimizer.step()
     return grad_norm
@@ -118,7 +125,7 @@ def moco_train_step(model: MultilevelMoCoCLIP, model_m: MultilevelMoCoCLIP,
                                 train=True)
     loss = sum(losses.values())
     loss.backward()
-    grad_norm = _apply_update(params, optimizer, schedule, step, max_clip_norm)
+    grad_norm = _apply_update(module, params, optimizer, schedule, step, max_clip_norm)
     losses = {k: pdist.all_reduce_mean(v.detach()) for k, v in losses.items()}
     loss = pdist.all_reduce_mean(loss.detach())
     return {"loss": loss, **losses, "grad_norm": grad_norm,
@@ -184,12 +191,13 @@ def sync_train_step(model: Synchformer, optimizer: torch.optim.Optimizer, schedu
     (both in the compute dtype) and integer ``targets`` (B,). ``model`` may be
     under DDP. Returns loss, grad_norm (before clipping), accuracy_1 and
     loss_finite, as device tensors."""
-    params = [p for p in pdist.unwrap(model).parameters() if p.requires_grad]
+    module = pdist.unwrap(model)
+    params = [p for p in module.parameters() if p.requires_grad]
     optimizer.zero_grad(set_to_none=True)
     loss, logits = model(vis, aud, targets, impl, deterministic=False, generator=generator,
                          extractors_deterministic=extractors_deterministic)
     loss.backward()
-    grad_norm = _apply_update(params, optimizer, schedule, step, max_clip_norm)
+    grad_norm = _apply_update(module, params, optimizer, schedule, step, max_clip_norm)
     with torch.no_grad():
         accuracy = pdist.all_reduce_mean((logits.argmax(-1) == targets).float().mean())
     loss = pdist.all_reduce_mean(loss.detach())

@@ -26,8 +26,11 @@ a tower that matches nothing.
 ``CheckpointManager`` is the trainers' store (JAX :523-581 on orbax, here
 on ``torch.save``): ``<dir>/latest`` after every epoch, ``<dir>/best`` on
 improvement of ``best_metric``; over ranks rank 0 writes and every rank
-waits for the write, and every rank reads. ``generator_payload`` /
-``restore_generators`` keep each rank's generator states in a payload. A
+waits for the write, and every rank reads. Under tensor parallelism the
+payload's state dicts hold whole tensors (parallel/tensor.py gathers them
+in state_dict), so that a file has a model_parallel 1 run's names and shapes
+and loads on any grid. ``generator_payload`` / ``restore_generators`` keep
+each data rank's generator states in a payload. A
 run directory of it is also a Stage I source (``load_stage1_tower``) and a
 fine-tune source (``load_run_checkpoint``).
 """
@@ -292,32 +295,34 @@ class CheckpointManager:
 def generator_payload(generators: Mapping[str, torch.Generator]) -> Dict[str, Any]:
     """A payload's generator entries: ``generators``, this rank's states by
     name (rank 0's in the file, as a run without a group writes them), and,
-    gathered from every rank, ``generators_by_rank`` and ``world``, so that a
-    resume at the same world size continues every rank's streams. Every rank
-    calls it."""
+    gathered from every data rank (model peers draw the same streams),
+    ``generators_by_rank`` in data order and ``world``, the number of data
+    ranks, so that a resume at the same number of data ranks, at any
+    model_parallel, continues every rank's streams. Every rank calls it."""
     states = {name: g.get_state() for name, g in generators.items()}
-    return {"generators": states, "generators_by_rank": pdist.all_gather_object(states),
-            "world": pdist.world()}
+    return {"generators": states,
+            "generators_by_rank": pdist.all_gather_object(states, pdist.data_group()),
+            "world": pdist.n_data()}
 
 
 def restore_generators(generators: Mapping[str, torch.Generator], payload: Mapping[str, Any],
                        seeds: Mapping[str, int], epoch: int) -> bool:
-    """Set each generator from a payload's generator entries: this rank's
-    states where the payload was written at this world size (a payload
-    without ``world`` is world 1's); else each generator re-seeded
-    pdist.stream_seed(seeds[name], rank, epoch), with a warning. Returns True
-    where the states were restored."""
+    """Set each generator from a payload's generator entries: this data
+    rank's states where the payload was written at this number of data ranks
+    (``world``; a payload without it is world 1's); else each generator
+    re-seeded pdist.stream_seed(seeds[name], data rank, epoch), with a
+    warning. Returns True where the states were restored."""
     saved_world = int(payload.get("world", 1))
-    if saved_world == pdist.world():
-        mine = payload.get("generators_by_rank", [payload["generators"]])[pdist.rank()]
+    if saved_world == pdist.n_data():
+        mine = payload.get("generators_by_rank", [payload["generators"]])[pdist.data_rank()]
         for name, g in generators.items():
             g.set_state(mine[name])
         return True
     for name, g in generators.items():
-        g.manual_seed(pdist.stream_seed(seeds[name], pdist.rank(), epoch))
-    logging.warning(f"checkpoint written at world {saved_world}, resumed at world "
-                    f"{pdist.world()}: generators re-seeded from the seed, epoch {epoch} and "
-                    f"rank {pdist.rank()}")
+        g.manual_seed(pdist.stream_seed(seeds[name], pdist.data_rank(), epoch))
+    logging.warning(f"checkpoint written at {saved_world} data ranks, resumed at "
+                    f"{pdist.n_data()}: generators re-seeded from the seed, epoch {epoch} and "
+                    f"data rank {pdist.data_rank()}")
     return False
 
 

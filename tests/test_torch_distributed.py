@@ -2,8 +2,9 @@
 group on the CPU, tests/torch_dist_worker.py) against the JAX package over
 the concatenated global batch: the AVCLIP step, the gathered InfoNCE and its
 gradient, gather_dict, the loaders' sharding, the Stage II evaluation over
-an odd number of clips; and, without a group, the refusal of
-training.model_parallel above 1 and today's streams at world 1.
+an odd number of clips; and, without a group, the refusal of a
+training.model_parallel that world 1 does not split into and today's
+streams at world 1.
 
 The AVCLIP case: the tiny AVCLIP of tests/test_torch_train.py (presets.TINY,
 drop-path 0, f32), global B=4 (2 a rank), S=2, no flip or augmentation (the
@@ -262,12 +263,13 @@ def test_eval_metrics_at_world_2_equal_world_1(group):
 
 @pytest.mark.parametrize("trainer", ["avclip", "sync"])
 def test_model_parallel_above_1_is_refused(trainer):
-    """training.model_parallel 2 raises NotImplementedError naming the ROADMAP
-    item, in both trainers; 1 is accepted."""
+    """At world 1 training.model_parallel 2 raises ValueError (world 1 does
+    not split into a (data x model) grid with a model axis of 2), in both
+    trainers; 1 is accepted."""
     cfg = copy.deepcopy(TINY_AVCLIP_CFG if trainer == "avclip" else TINY_CFG)
     make = AVCLIPTrainer if trainer == "avclip" else SyncTrainer
     cfg["training"]["model_parallel"] = 2
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 8"):
+    with pytest.raises(ValueError, match=r"world 1 does not split into model_parallel 2"):
         make(cfg, device="cpu")
     cfg["training"]["model_parallel"] = 1
     assert make(cfg, device="cpu").local_batch == cfg["training"]["base_batch_size"]

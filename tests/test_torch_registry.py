@@ -11,7 +11,8 @@ against the JAX package on the CPU.
   JAX models the JAX registry builds from the same sections; a tiny AVCLIP
   and MoCo model from model.params equal the presets; the tower options
   the port once refused build and have the JAX towers' names and shapes;
-  what stays unported (legacy training, tensor parallelism) is refused;
+  what stays unported (legacy training) is refused, and so is a
+  model_parallel that the world does not split into;
 - config loading and cfg_sanity_check_and_patch against the JAX copies;
 - calc_cls_metrics, per_class_accuracy, roc_outputs and
   tiered_offset_metrics against the JAX functions (which call sklearn) on
@@ -218,8 +219,9 @@ def test_registry_builds_the_tower_options(change):
 def test_registry_refuses_what_the_port_lacks(what):
     """What stays unported raises NotImplementedError naming its ROADMAP §1
     item: training the legacy towers (item 7.5), a legacy tower built
-    through the registry and called in training mode, and tensor
-    parallelism (item 8), training.model_parallel 2."""
+    through the registry and called in training mode. Tensor parallelism
+    (item 8) is ported: training.model_parallel 2 is refused only where the
+    world does not split into it, as world 1 does not (ValueError)."""
     if what == "legacy_training":
         tower = instantiate_from_config(
             {"target": "model.modules.feat_extractors.visual.s3d.S3DVisualFeatures",
@@ -230,7 +232,7 @@ def test_registry_refuses_what_the_port_lacks(what):
     else:
         from synchformer_tpu_torch.parallel.dist import local_batch_size
 
-        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 8"):
+        with pytest.raises(ValueError, match=r"world 1 does not split into model_parallel 2"):
             local_batch_size(2, model_parallel=2)
 
 

@@ -1,4 +1,5 @@
-"""One rank of the distributed tests' gloo group (tests/test_torch_distributed*.py).
+"""One rank of the distributed tests' gloo group (tests/test_torch_distributed*.py,
+tests/test_torch_tensor_parallel*.py).
 
     RANK=r WORLD_SIZE=n MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
         python tests/torch_dist_worker.py <suite> <workdir>
@@ -6,8 +7,10 @@
 The test process writes ``<workdir>/inputs.pt`` (state dicts, inputs,
 configs), starts ``spawn(...)`` and computes the JAX side meanwhile; each rank
 joins the group through parallel/dist.py init_from_env on the CPU, runs every
-case of ``<suite>`` and writes ``<workdir>/<suite>_rank<r>.pt``. This module
-imports torch and the port only, never JAX. Every rank runs one thread.
+case of ``<suite>`` and writes ``<workdir>/<suite>_rank<r>.pt``. A case whose
+inputs name ``model_parallel`` lays the group out as that (data x model) grid.
+This module imports torch and the port only, never JAX. Every rank runs one
+thread.
 """
 from __future__ import annotations
 
@@ -88,31 +91,56 @@ def results(workdir, suite: str, world: int = 2) -> list:
 
 
 def _rows(x, pdist):
-    """This rank's rows of a global batch."""
-    n = x.shape[0] // pdist.world()
-    return x[pdist.rank() * n:(pdist.rank() + 1) * n]
+    """This rank's rows of a global batch: its data rank's (every rank's
+    at model_parallel 1)."""
+    n = x.shape[0] // pdist.n_data()
+    return x[pdist.data_rank() * n:(pdist.data_rank() + 1) * n]
 
 
 def _grads(module) -> dict:
-    return {n: p.grad.detach().clone() for n, p in module.named_parameters()
-            if p.grad is not None}
+    """Every gradient, each shard's gathered to the whole tensor (a
+    tensor-parallel model's)."""
+    from synchformer_tpu_torch.parallel import tensor as ptensor
+
+    return ptensor.whole_tensors(module, {n: p.grad.detach().clone()
+                                          for n, p in module.named_parameters()
+                                          if p.grad is not None})
 
 
 def _state(module) -> dict:
+    """The state dict (whole tensors, also of a tensor-parallel model)."""
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def _layout(model, optimizer) -> dict:
+    """What this rank holds: each parameter as stored (a shard where it is
+    sharded), the sharded names, and the bytes of the parameters and of the
+    optimizer's moments (its state tensors of a parameter's shape, the
+    step count apart)."""
+    from synchformer_tpu_torch.parallel import tensor as ptensor
+
+    local = {n: p.detach().clone() for n, p in model.named_parameters()}
+    moments = sum(v.numel() * v.element_size() for p in model.parameters()
+                  for k, v in optimizer.state.get(p, {}).items()
+                  if k != "step" and torch.is_tensor(v) and v.shape == p.shape)
+    return {"local": local, "sharded": sorted(ptensor.sharded_names(model)),
+            "param_bytes": sum(v.numel() * v.element_size() for v in local.values()),
+            "moment_bytes": moments}
 
 
 def avclip_step(inp, pdist) -> dict:
     """The tiny AVCLIP under DDP on this rank's rows: the loss and gradients
     of one forward / backward, then one avclip_train_step (AdamW, cosine)."""
     from synchformer_tpu_torch.models.presets import build_tiny_avclip
+    from synchformer_tpu_torch.parallel import tensor as ptensor
     from synchformer_tpu_torch.train import state as tstate
     from synchformer_tpu_torch.train.step import avclip_train_step
     from synchformer_tpu_torch.utils.convert import load_numpy_state_dict
 
+    pdist.init_grid(inp.get("model_parallel", 1))
     model = build_tiny_avclip()
     load_numpy_state_dict(model, inp["avclip_sd"])
-    net = pdist.wrap_ddp(model, "cpu")
+    net = pdist.wrap_ddp(ptensor.shard_model_(model), "cpu")
     vis, aud = _rows(inp["vis"], pdist), _rows(inp["aud"], pdist)
     loss, _, _ = net(vis, aud, "kernel", deterministic=False, generator=torch.Generator())
     loss.backward()
@@ -124,6 +152,7 @@ def avclip_step(inp, pdist) -> dict:
     metrics = avclip_train_step(net, opt, sched, 0, vis, aud, torch.Generator(), "kernel", 1.0)
     out["metrics"] = {k: float(v) for k, v in metrics.items()}
     out["params"] = _state(model)
+    out["layout"] = _layout(model, opt)
     return out
 
 
@@ -226,17 +255,20 @@ def moco_step(inp, pdist) -> dict:
     AdamW, the queues) from the same state."""
     from synchformer_tpu_torch.models.moco_clip import MoCoQueues, moco_forward, momentum_update
     from synchformer_tpu_torch.models.presets import build_tiny_moco_avclip
+    from synchformer_tpu_torch.parallel import tensor as ptensor
     from synchformer_tpu_torch.train import state as tstate
     from synchformer_tpu_torch.train.step import moco_train_step
     from synchformer_tpu_torch.utils.convert import load_numpy_state_dict
 
     h = inp["hyper"]
+    pdist.init_grid(inp.get("model_parallel", 1))
 
     def fresh():
         model = build_tiny_moco_avclip(pos_dropout=h["pos_drop"])
         model_m = build_tiny_moco_avclip(pos_dropout=h["pos_drop"]).requires_grad_(False)
         load_numpy_state_dict(model, inp["moco_sd"])
         load_numpy_state_dict(model_m, inp["moco_m_sd"])
+        ptensor.shard_model_(model), ptensor.shard_model_(model_m)
         q = inp["queues"]
         queues = MoCoQueues(torch.tensor(q["segment_v"]), torch.tensor(q["segment_a"]),
                             int(q["segment_ptr"]), torch.tensor(q["global_v"]),
@@ -261,12 +293,13 @@ def moco_step(inp, pdist) -> dict:
                               h["alpha"], "kernel", 1.0)
     out["metrics"] = {k: float(v) for k, v in metrics.items()}
     out["params"], out["params_m"] = _state(model), _state(model_m)
+    out["layout"] = _layout(model, opt)
     out["queues"] = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
                      for k, v in vars(queues).items()}
     return out
 
 
-def sync_step(inp, pdist) -> dict:
+def sync_step(inp, pdist, keep: bool = False) -> dict:
     """SyncTrainer (Stage II offsets, or Stage III syncability) on the tiny
     model: its learning rate against base_learning_rate, and, under its DDP
     wrapper on this rank's rows, the loss and trainable gradients of one
@@ -294,6 +327,8 @@ def sync_step(inp, pdist) -> dict:
                                   torch.Generator(), "kernel", tr.max_clip_norm)
         res["metrics"] = {k: float(v) for k, v in metrics.items()}
         res["params"] = tr.trainable_state_dict()
+        if keep:
+            res["trainer"] = tr
         out[name] = res
     return out
 
@@ -333,11 +368,99 @@ def checkpoint_case(inp, pdist) -> dict:
     return out
 
 
+def tp_sync_step(inp, pdist) -> dict:
+    """sync_step on the (n_data x model_parallel) grid of inp's
+    ``model_parallel``: its results with the gradients and parameters
+    whole, each rank's layout (_layout), for one sharded weight read as
+    the kernels read it (a whole fc2 of the video tower) its contiguity,
+    dtype and 16-byte alignment, and whether the trainer's whole state
+    (trainable_state_dict, optimizer_state_dict) loads back unchanged."""
+    from synchformer_tpu_torch.parallel import tensor as ptensor
+
+    cases = {name: dict(case, cfg=dict(case["cfg"], training=dict(
+        case["cfg"]["training"], model_parallel=inp["model_parallel"])))
+        for name, case in inp["sync_cases"].items()}
+    out = sync_step(dict(inp, sync_cases=cases), pdist, keep=True)
+    for name, res in out.items():
+        tr = res.pop("trainer")
+        res["layout"] = _layout(tr.model, tr.optimizer)
+        w2 = tr.model.vfeat_extractor.blocks[0].mlp.fc2.weight
+        res["gathered"] = {"contiguous": w2.is_contiguous(), "dtype": str(w2.dtype),
+                           "aligned": w2.data_ptr() % 16 == 0, "shape": tuple(w2.shape),
+                           "sharded": "vfeat_extractor.blocks.0.mlp.fc2.weight"
+                           in ptensor.sharded_names(tr.model)}
+        before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+        moments = copy.deepcopy(tr.optimizer.state_dict()["state"])
+        tr.load_trainable(tr.trainable_state_dict())
+        ptensor.load_optimizer_state_dict(tr.optimizer, tr.model,
+                                          ptensor.optimizer_state_dict(tr.optimizer, tr.model))
+        res["round_trip"] = all(torch.equal(p, before[n]) for n, p in
+                                tr.model.named_parameters()) and all(
+            torch.equal(torch.as_tensor(v), torch.as_tensor(moments[i][k]))
+            for i, st in tr.optimizer.state_dict()["state"].items() for k, v in st.items())
+    return out
+
+
+def tp_eval_metrics(inp, pdist) -> dict:
+    """eval_metrics_case's world-1 reference on the unsharded model (a
+    trainer at model_parallel 1: no collective), then SyncTrainer's valid
+    phase on inp's ``model_parallel`` grid over the same clips."""
+    cfg = copy.deepcopy(inp["sync_cfg"])
+    ref = eval_metrics_case(dict(inp, sync_cfg=cfg), pdist)["world1"]
+    cfg["training"]["model_parallel"] = inp["model_parallel"]
+    got = eval_metrics_case(dict(inp, sync_cfg=cfg), pdist)
+    return {**got, "world1": ref}
+
+
+def tp_avclip_step(inp, pdist) -> dict:
+    """avclip_step on inp['avclip'] (its own inputs and model_parallel)."""
+    return avclip_step(inp["avclip"], pdist)
+
+
+def tp_moco_step(inp, pdist) -> dict:
+    """moco_step on inp['moco'] (its own inputs and model_parallel)."""
+    return moco_step(inp["moco"], pdist)
+
+
+def tp_fit_case(inp, pdist) -> dict:
+    """Stage I fit on inp's ``model_parallel`` grid: run 'tp' for one epoch
+    (saved: whole tensors); a resume of inp's world-1 run 'w1' (one epoch,
+    written by the test process) to two epochs on this grid, its state just
+    after the resume and at its end. Every snapshot is whole."""
+    from synchformer_tpu_torch.data.datasets import SyntheticAV
+    from synchformer_tpu_torch.parallel import tensor as ptensor
+    from synchformer_tpu_torch.train.stage_clip import AVCLIPTrainer
+
+    def trainer(exp, **training):
+        cfg = copy.deepcopy(inp["fit_cfg"])
+        cfg["logging"]["exp_name"] = exp
+        cfg["training"].update(model_parallel=inp["model_parallel"], **training)
+        return AVCLIPTrainer(cfg, device="cpu")
+
+    def fit(tr, epochs):
+        tr.fit(SyntheticAV("train", n_clips=8), SyntheticAV("valid", n_clips=4),
+               num_workers=1, max_epochs=epochs, decode_backend="synthetic")
+        return tr
+
+    def snap(tr):
+        return {"model": _state(tr.model),
+                "opt": copy.deepcopy(ptensor.optimizer_state_dict(tr.optimizer, tr.model)),
+                "step": tr.step, "layout": _layout(tr.model, tr.optimizer)}
+
+    # a fit to max_epochs 1 from a resume after epoch 0 trains nothing:
+    # its state is the resumed one
+    return {"tp": snap(fit(trainer("tp"), 1)),
+            "w1_resumed": snap(fit(trainer("w1", resume="latest"), 1)),
+            "w1_continued": snap(fit(trainer("w1", resume="latest"), 2))}
+
+
 SUITES = {
     "avclip": (avclip_step, gathered_infonce, gather_dict_case, sampler_case, eval_metrics_case),
     "moco": (moco_step,),
     "sync": (sync_step,),
     "fit": (checkpoint_case,),
+    "tp_sync": (tp_sync_step, tp_eval_metrics),
+    "tp_stage1": (tp_avclip_step, tp_moco_step, tp_fit_case),
 }
 
 
