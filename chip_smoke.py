@@ -364,6 +364,25 @@ Phases, each printed as it runs with its seconds:
    that it fails a clip norm from local shards, streams seeded by global
    rank, a rate scaled by the world, the InfoNCE gathered over every rank
    and a checkpoint saved from rank 0's shards.
+20. the legacy towers' training (run_legacy_training: models/conv.py's
+   BatchNorm in training with flax's one-pass statistics and running
+   update, summed over the data ranks), at their full widths (S3D 1024,
+   ResNet-18 512; 16 frames of 224^2 and 66 x 128 log-mel a segment, S=14):
+   bn_unit_check (a near-constant channel whose sums are exact: flax's
+   output and running var bit for bit); (a) presets.legacy_sync_model(14)
+   with is_trainable towers through SyncTrainer at B=2, f32 plain (TF32
+   off), bf16 kernel and bf16 plain, launches exactly K4 2 in the eval and
+   the train step, sync_agreement with the BatchNorms' updates
+   (bn_agreement), each BatchNorm's update against flax's from the f64
+   statistics of its input (flax_bn_check), ms/step and peak memory; (b)
+   AVCLIPTrainer over S3D + ResNet-18 (AveragePooling time tails, Linear
+   projections), B=2, S=8, held the same way; (c) the legacy step at world 2
+   over gloo on the one card against world 1, every rank's running
+   statistics bitwise equal; (d) the kernel trainer's checkpoint after step
+   2 restored into a new trainer, step 3 bit for bit.
+   scripts/stage1_planted_faults.py --only legacy_train shows that it fails
+   an unbiased running var, torch's momentum, per-rank statistics, a
+   two-pass variance and a checkpoint without the running statistics.
 The line before the last is a JSON record of the kernels, with the TPU
 kernels still to port beside them (none); the last line is {"ok": true,
 "device": {...}}. Any failed phase raises, so the exit code is non-zero and no result
@@ -371,6 +390,7 @@ line is printed.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -2552,7 +2572,9 @@ def sync_record(torch, tr, batch, what: str, tag: str, resident: int = 0):
     to the trainable parameters (``update``, after - before, in f64); and
     the step's peak memory above ``resident`` bytes (0 off the card). Under
     tensor parallelism the parameters and gradients are whole (gathered
-    over the model group: every rank of it calls this)."""
+    over the model group: every rank of it calls this). A model with
+    BatchNorms (the legacy towers) also gives the update the step made to
+    their running statistics (``bn``: bn_update)."""
     from synchformer_tpu_torch.ops.kernels import _build
     from synchformer_tpu_torch.parallel.tensor import whole_tensors
 
@@ -2562,6 +2584,7 @@ def sync_record(torch, tr, batch, what: str, tag: str, resident: int = 0):
     rec = {"eval": {k: ev[k].float() for k in ("logits", "loss_vec")}}
     params = {n: p for n, p in tr.model.named_parameters() if p.requires_grad}
     before = torch.cat([p.double().flatten() for p in whole_tensors(tr.model, params).values()])
+    stats_before = bn_buffers(torch, tr.model)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2583,7 +2606,61 @@ def sync_record(torch, tr, batch, what: str, tag: str, resident: int = 0):
     rec["flat"] = torch.cat([g.flatten() for g in rec["leaves"].values()])
     rec["update"] = torch.cat([p.double().flatten() for p in
                                whole_tensors(tr.model, params).values()]) - before
+    if stats_before:
+        rec["bn"] = bn_update(stats_before, bn_buffers(torch, tr.model))
     return rec, peak
+
+
+def bn_buffers(torch, model) -> dict:
+    """Each BatchNorm's running mean and var (models/conv.py), f64 copies,
+    by buffer name; empty for a model without BatchNorms."""
+    from synchformer_tpu_torch.models.conv import BatchNorm
+
+    out = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            out[f"{name}.running_mean"] = mod.running_mean.detach().double().clone()
+            out[f"{name}.running_var"] = mod.running_var.detach().double().clone()
+    return out
+
+
+def bn_update(before: dict, after: dict) -> dict:
+    """after - before of bn_buffers, for the running means ("mean") and vars
+    ("var") each flattened in module order, and by buffer name ("each")."""
+    each = {k: after[k] - v for k, v in before.items()}
+    import torch
+
+    return {"mean": torch.cat([v for k, v in each.items() if k.endswith("mean")]),
+            "var": torch.cat([v for k, v in each.items() if k.endswith("var")]),
+            "each": each}
+
+
+def bn_agreement(ref: dict, plain: dict, kern: dict, tag: str,
+                 margins: dict | None = None) -> list:
+    """The BatchNorms' running-statistics updates of a step (sync_record's
+    or legacy_stage1_record's ``bn``): the kernel record's against the f32
+    one by relative L2 error, the means and the vars apart, each within 2 x
+    the plain bf16 record's error; the worst single BatchNorm's ratio is
+    logged. Returns the names of the checks that failed; fills ``margins``."""
+    failed = []
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+    for key in ("mean", "var"):
+        want = ref["bn"][key]
+        err_k, err_p = rel(kern["bn"][key], want), rel(plain["bn"][key], want)
+        ok = err_k <= 2.0 * err_p
+        if not ok:
+            failed.append(f"bn {key}")
+        if margins is not None:
+            margins[f"bn {key}"] = err_k / max(2.0 * err_p, 1e-30)
+        worst = max((rel(kern["bn"]["each"][n], w) / max(rel(plain["bn"]["each"][n], w), 1e-30),
+                     n) for n, w in ref["bn"]["each"].items() if n.endswith(key))
+        log(f"[{tag}] BatchNorm running {key} updates: relative L2 |kernel-f32| {err_k:.3e} "
+            f"|plain_bf16-f32| {err_p:.3e} tol {2.0 * err_p:.3e} {'ok' if ok else 'FAIL'}; "
+            f"worst single ratio {worst[0]:.3f} ({worst[1]})")
+    return failed
 
 
 def sync_agreement(ref: dict, plain: dict, kern: dict, tag: str,
@@ -2599,8 +2676,16 @@ def sync_agreement(ref: dict, plain: dict, kern: dict, tag: str,
     at B=16 (loss 1.0e-4 to 3.3e-4 of it, gradient norm 5e-4 to 2.1e-3 of
     it), where either path's error can also cancel to near 0 (the Stage
     III plain loss read 2e-5 of it): 2 x one scalar's error alone is no
-    yardstick; the vectors carry the check."""
-    failed = stage1_agreement(ref, plain, kern, tag, (("loss", 1e-3), ("grad_norm", 5e-3)))
+    yardstick; the vectors carry the check. Records with ``bn`` (the legacy
+    towers, phase 20 at B=2) are also held by bn_agreement, and their loss
+    eps is P20_LOSS_EPS: the mean of 2 cross-entropies over a train-mode
+    S3D's bf16 features read 5.6e-4 (plain) and 3.0e-3 (kernel) of the loss
+    off f32 in the first call (eval logits 8.1e-3 and 9.8e-3 relative L2,
+    every leaf within 1.04 x plain's)."""
+    loss_eps = P20_LOSS_EPS if "bn" in ref else 1e-3
+    failed = stage1_agreement(ref, plain, kern, tag, (("loss", loss_eps), ("grad_norm", 5e-3)))
+    if all("bn" in r for r in (ref, plain, kern)):
+        failed += bn_agreement(ref, plain, kern, tag, margins)
 
     def rel(a, b):
         return float((a.double() - b.double()).norm() / b.double().norm())
@@ -2731,6 +2816,8 @@ KEPT: dict = {}
 # main at its start and end
 REFS_DIR = os.path.join(REPO, "build", "chip_smoke", "refs")
 DP_CASES = ("avclip", "moco", "stage2")
+# the cases of run_gloo_group that run a SyncTrainer (sync_record, sync_agreement)
+SYNC_CASES = ("stage2", "legacy")
 # one AVCLIP step with its randomness off (randomness_off): drop-path 0 in
 # every video block, so that each block's LN + MLP half takes K2, as the
 # eval path's does (phase 4's step keeps K2 to block 0, the only one at
@@ -2870,8 +2957,9 @@ def run_dp_launcher(torch, dev, report):
 
 def dp_case_setup(case: str, dev, tiny: dict | None, base_lr_scale: int = 1,
                   weights: dict | None = None, model_parallel: int = 1):
-    """(make, global batch, meta) of one (c) case or phase-19 case (a rank's
-    rows are a slice of the batch): ``make(precision_or_half, impl, remat)``
+    """(make, global batch, meta) of one (c) case, phase-19 case or phase-20
+    (c) case ('legacy': legacy_train_config, B=P20_B; a rank's rows are a
+    slice of the batch): ``make(precision_or_half, impl, remat)``
     builds the trainer with its randomness off, at training.model_parallel
     ``model_parallel``; ``meta()`` builds the case's model on the meta
     device. ``tiny``: the planted faults' dry run's widths; ``weights``: a
@@ -2901,13 +2989,18 @@ def dp_case_setup(case: str, dev, tiny: dict | None, base_lr_scale: int = 1,
             return tr
 
         return make, batch, lambda: build(device="meta")
-    cfg = sync_config("train_avsync_model", t.get("s", S), None, widths=t.get("widths"))
+    if case == "legacy":
+        cfg = legacy_train_config(t.get("s", S), True, t.get("legacy_widths"))
+        b, frames = P20_B, t.get("legacy_frames", FRAMES)
+    else:
+        cfg = sync_config("train_avsync_model", t.get("s", S), None, widths=t.get("widths"))
+        b, frames = B2, t.get("frames", FRAMES)
     cfg["model"]["params"]["transformer"]["params"].update(embd_pdrop=0.0, resid_pdrop=0.0,
                                                            attn_pdrop=0.0)
     cfg["data"]["p_horizontal_flip"] = 0.0
     cfg["training"]["base_learning_rate"] *= base_lr_scale
     cfg["training"]["model_parallel"] = model_parallel
-    batch = sync_batch(torch, dev, B2, t.get("s", S), t.get("frames", FRAMES))
+    batch = sync_batch(torch, dev, b, t.get("s", S), frames)
 
     def make(half, impl, remat=False):
         return sync_trainer(cfg, dev, impl, half)
@@ -3068,13 +3161,13 @@ def dp_worker(spec_path: str) -> int:
         make, batch, meta = dp_case_setup(case, dev, tiny, weights=weights, model_parallel=m)
         n = batch["video"].shape[0] // n_data
         local = {k: v[data_rank * n:(data_rank + 1) * n] for k, v in batch.items()}
-        tr = make("amp" if case != "stage2" else True, "kernel")
+        tr = make("amp" if case not in SYNC_CASES else True, "kernel")
         _build.launches.clear()
         rec, launches = dp_record(torch, case, tr, local, f"world {world} rank {rank} {case}",
                                   tag)
         counts = dict(_build.launches) if launches is None else launches[1]
         res = {"launches": counts}
-        if case == "stage2":
+        if case in SYNC_CASES:
             # the eval step's outputs over the whole batch, in data order
             rec["eval"] = {k: torch.cat([x.to(v.device) for x in pdist.all_gather_object(
                 v.cpu(), pdist.data_group())]) for k, v in rec["eval"].items()}
@@ -3092,6 +3185,12 @@ def dp_worker(spec_path: str) -> int:
                                                       "global_a")]))
             digests = pdist.all_gather_object((digest, q.segment_ptr, q.global_ptr))
             res["queues_equal"] = all(d == digests[0] for d in digests)
+        if "bn" in rec:
+            # the BatchNorms' running statistics after the step, on every rank
+            buffers = bn_buffers(torch, tr.model)
+            digests = pdist.all_gather_object(tensor_digest(torch, torch.cat(list(
+                buffers.values()))))
+            res["bn_equal"] = all(d == digests[0] for d in digests)
         if m > 1:
             # every rank's record: model peers gather the same whole tensors
             res["record"] = tensor_digest(torch, rec["flat"])
@@ -3146,13 +3245,16 @@ def dp_worker(spec_path: str) -> int:
             if os.path.exists(kept):
                 refs = torch.load(kept, weights_only=True)
                 log(f"[{tag}] world 1 {case}: the reference records of an earlier group")
-            for name, args in (("ref", ("fp32" if case != "stage2" else False, "plain",
-                                        case != "stage2")),
-                               ("kernel", ("amp" if case != "stage2" else True, "kernel"))):
+            sync = case in SYNC_CASES
+            for name, args in (("ref", ("fp32" if not sync else False, "plain", not sync)),
+                               ("kernel", ("amp" if not sync else True, "kernel"))):
                 if name in refs:
                     continue
                 tr = make(*args)
-                rec, _ = dp_record(torch, case, tr, batch, f"world 1 {case} {name}", tag)
+                # the legacy convs' f32 anchor without TF32 (phase 20 (a)'s)
+                with (tf32_off(torch) if case == "legacy" and name == "ref" and cuda
+                      else contextlib.nullcontext()):
+                    rec, _ = dp_record(torch, case, tr, batch, f"world 1 {case} {name}", tag)
                 refs[name] = record_to_cpu(rec)
                 del tr
                 gc.collect()
@@ -3168,7 +3270,7 @@ def dp_worker(spec_path: str) -> int:
                 gc.collect()
             margins = {}
             agree = {"avclip": stage1_agreement, "moco": moco_agreement,
-                     "stage2": sync_agreement}[case]
+                     "stage2": sync_agreement, "legacy": sync_agreement}[case]
             failed += agree(refs["ref"], refs["kernel"], records[case], f"{tag} {case}",
                             margins=margins)
             result["cases"][case].update(failed=failed, margins=margins)
@@ -3181,7 +3283,7 @@ def dp_worker(spec_path: str) -> int:
 
 def run_gloo_group(torch, dev, report=None, cases=DP_CASES, tiny=None, hook=None,
                    fault=None, check: bool = True, world: int = 2, model_parallel: int = 1,
-                   tag: str = "dp_world2") -> dict:
+                   tag: str = "dp_world2", timed_steps: int = 2) -> dict:
     """``world`` processes of one gloo group on the one card (NCCL refuses
     two ranks on one device; gloo stages DDP's all-reduce and the
     all-gathers of CUDA tensors through the host), dp_worker each, with
@@ -3191,9 +3293,13 @@ def run_gloo_group(torch, dev, report=None, cases=DP_CASES, tiny=None, hook=None
     B=2 (queues 1024 x 14 and 1024; bitwise equal on both ranks), the Stage
     II step at B=16 (8 a rank). Phase 19, world 4 at model_parallel 2: the
     Stage II step at B=16 (8 a data rank) and the AVCLIP step at B=2, each
-    rank's record equal, tp_checks, the checkpoint read at world 1. Every
-    rank's launches (not with ``tiny``): Stage II's K1 24, K2 24, K3 12, K4
-    2, AVCLIP's STAGE1_LAUNCHES. ``hook`` ('path:function') is called with
+    rank's record equal, tp_checks, the checkpoint read at world 1. Phase 20
+    (c), world 2: the legacy Stage II step ('legacy') at B=2 (1 a rank), its
+    BatchNorms' running statistics bitwise equal on every rank. Every rank's
+    launches (not with ``tiny``): Stage II's K1 24, K2 24, K3 12, K4 2,
+    AVCLIP's STAGE1_LAUNCHES, the legacy step's LEGACY_LAUNCHES.
+    ``timed_steps`` steps a rank are timed after the first (1 with
+    ``tiny``). ``hook`` ('path:function') is called with
     ``fault`` in each worker before the cases (the planted faults); ``tiny``
     the dry run's widths. Returns rank 0's result; with ``check``, fails on
     any failed case."""
@@ -3204,7 +3310,8 @@ def run_gloo_group(torch, dev, report=None, cases=DP_CASES, tiny=None, hook=None
     os.makedirs(workdir)
     spec = {"device": torch.device(dev).type, "cases": list(cases), "tiny": tiny, "hook": hook,
             "fault": fault, "out": os.path.join(workdir, "result_rank"),
-            "timed_steps": 1 if tiny else 2, "model_parallel": model_parallel, "tag": tag}
+            "timed_steps": 1 if tiny else timed_steps, "model_parallel": model_parallel,
+            "tag": tag}
     spec_path = os.path.join(workdir, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
@@ -3239,7 +3346,8 @@ def run_gloo_group(torch, dev, report=None, cases=DP_CASES, tiny=None, hook=None
     log(f"[{tag}] {world} ranks (model_parallel {model_parallel}) over gloo on one card: "
         f"{time.perf_counter() - t0:.1f} s")
     failed = []
-    want_launches = {"stage2": STAGE2_LAUNCHES, "avclip": DP_STAGE1_LAUNCHES}
+    want_launches = {"stage2": STAGE2_LAUNCHES, "avclip": DP_STAGE1_LAUNCHES,
+                     "legacy": LEGACY_LAUNCHES}
     for case, res in result["cases"].items():
         margins = ", ".join(f"{k} {v:.3g}" for k, v in res.get("margins", {}).items())
         log(f"[{tag}] {case}: {res['ms']:.1f} ms/step at world {world} (gloo, model_parallel "
@@ -3249,6 +3357,8 @@ def run_gloo_group(torch, dev, report=None, cases=DP_CASES, tiny=None, hook=None
         failed += [f"{case} {name}" for name in res.get("tp_failed", [])]
         if case == "moco" and not res["queues_equal"]:
             failed.append("moco queues differ between the ranks")
+        if not all(r["cases"][case].get("bn_equal", True) for r in results):
+            failed.append(f"{case}: the ranks' BatchNorm running statistics differ")
         if model_parallel > 1 and len({r["cases"][case]["record"] for r in results}) != 1:
             failed.append(f"{case}: the ranks' first-step records differ")
         for what in ("launches", "eval_launches"):
@@ -4565,10 +4675,451 @@ def run_tensor_parallel(torch, dev, report, cases=TP_CASES, tiny=None, hook=None
     return res
 
 
+# phase 20: the legacy towers' training (models/conv.py BatchNorm in training,
+# models/s3d.py, models/resnet_audio.py) through SyncTrainer and AVCLIPTrainer
+P20_B = 2  # the legacy Stage II step's base_batch_size
+# its loss eps (sync_agreement): about 3 x the larger bf16 path's reading at B=2
+P20_LOSS_EPS = 1e-2
+P20_CLIP_SEGMENTS = 8  # (b)'s segments: 16 InfoNCE pairs at B1 (phase 18 (c)'s reason)
+# flax's BatchNorm momentum (the weight of the old value) of each legacy tower
+# (synchformer_tpu/models/s3d.py and resnet_audio.py BN_KW), by its key
+FLAX_BN_MOMENTUM = {"vfeat_extractor": 0.999, "afeat_extractor": 0.9}
+# the largest relative L2 error of a BatchNorm's running-statistics update
+# against flax's update from the f64 statistics of its input: an f32
+# one-pass variance reads about 1e-4 of it on the worst channels of these
+# seeded weights; a variance off by N / (N - 1), N the values a channel
+# (336 in ResNet-18's last stage at B=2), reads 3e-3
+P20_FLAX_TOL = 1e-3
+# (b): the S3D spatial and the ResNet-18 frequency pools; AveragePooling time tails
+P20_CLIP_LAUNCHES = {**{key: 0 for key in KEYS}, "K4": 2}
+# the leaves of (b)'s gradient check: both pools' packed in-projections (K4's
+# recompute backward feeds them) and each trunk's first conv
+LEGACY_LEAVES = re.compile(
+    r"(?:vfeat_extractor\.spatial_attn_agg|afeat_extractor\.freq_attn_agg)\.self_attn\."
+    r"in_proj_weight|vfeat_extractor\.stem_sep\.conv_s\.weight|afeat_extractor\.conv1\.weight")
+
+
+def legacy_train_config(s: int, half: bool = True, widths: dict | None = None,
+                        b: int = P20_B) -> dict:
+    """presets.legacy_sync_model(s) (``widths``: its d / n_layer / n_head)
+    with both towers is_trainable and no tower checkpoint, and
+    sync_config's training (Adam at 2e-6 on constant_with_warmup 1000, clip
+    1, base_batch_size ``b``, use_half_precision ``half``) and data (flip p
+    0.5) sections; the transformer's dropouts 0.1 as the config's."""
+    from synchformer_tpu_torch.models.presets import legacy_sync_model
+
+    model = legacy_sync_model(s, **(widths or {}))
+    model["params"]["vfeat_extractor"]["params"].pop("ckpt_path", None)
+    for key in FLAX_BN_MOMENTUM:
+        model["params"][key]["is_trainable"] = True
+    cfg = sync_config("train_avsync_model", s, half=half)
+    cfg["training"]["base_batch_size"] = b
+    return {**cfg, "model": model}
+
+
+def legacy_avclip_node(widths: dict | None = None) -> dict:
+    """An AVCLIP node over S3D + ResNet-18 with AveragePooling time tails
+    and Linear projections 1024 -> n_embd, 512 -> n_embd (``widths``' d, else
+    768)."""
+    d = (widths or {}).get("d", D)
+
+    def lin(n):
+        return {"target": "torch.nn.Linear", "params": {"in_features": n, "out_features": d}}
+
+    return {"target": "synchformer_tpu.models.avclip.AVCLIP", "params": {
+        "n_embd": d,
+        "vfeat_extractor": {"target": "model.modules.feat_extractors.visual.s3d."
+                            "S3DVisualFeatures",
+                            "params": {"agg_time_module": "AveragePooling"}},
+        "afeat_extractor": {"target": "model.modules.feat_extractors.audio.resnet."
+                            "ResNet18AudioFeatures",
+                            "params": {"agg_time_module": "AveragePooling"}},
+        "vproj": lin(1024), "aproj": lin(512)}}
+
+
+class tf32_off:
+    """Context: TF32 off in cuBLAS and cuDNN (an f32 anchor)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+        b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = self.saved
+
+
+class deterministic_convs:
+    """Context: cuDNN's deterministic algorithms (a resumed step repeated bit
+    for bit; the convs' backward may sum with atomics otherwise)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        c = self.torch.backends.cudnn
+        self.saved = (c.deterministic, c.benchmark)
+        c.deterministic, c.benchmark = True, False
+
+    def __exit__(self, *exc):
+        c = self.torch.backends.cudnn
+        c.deterministic, c.benchmark = self.saved
+
+
+class flax_bn_check:
+    """Context: during it, each legacy BatchNorm in training of ``model``
+    sums its input's count, sum and sum of squares per channel in f64 (a
+    forward pre-hook); ``check()`` then holds each BatchNorm's
+    running-statistics update (after - ``before``, bn_buffers) against
+    flax's from those sums, m * old + (1 - m) * batch with m FLAX_BN_MOMENTUM
+    of its tower and the biased var: relative L2 error within P20_FLAX_TOL.
+    An independent reference of the momentum and the variance's bias."""
+
+    def __init__(self, torch, model, tag: str):
+        self.torch, self.model, self.tag = torch, model, tag
+        self.sums, self.handles = {}, []
+
+    def __enter__(self):
+        from synchformer_tpu_torch.models.conv import BatchNorm
+
+        torch = self.torch
+        self.before = bn_buffers(torch, self.model)
+        for name, mod in self.model.named_modules():
+            if isinstance(mod, BatchNorm):
+                def hook(m, args, kwargs, name=name):
+                    if not kwargs.get("train"):
+                        return
+                    x = args[0].detach()
+                    axes = [0] + list(range(2, x.ndim))
+                    s1 = s2 = 0.0
+                    for part in x.split(4):
+                        s1 = s1 + part.sum(axes, dtype=torch.float64)
+                        s2 = s2 + (part.double() ** 2).sum(axes)
+                    self.sums[name] = (s1, s2, x.numel() // x.shape[1])
+                self.handles.append(mod.register_forward_pre_hook(hook, with_kwargs=True))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def check(self) -> tuple:
+        """(the names of the BatchNorms outside the tolerance, the largest
+        error over the tolerance)."""
+        after = bn_buffers(self.torch, self.model)
+        failed, worst = [], (0.0, "")
+        for name, (s1, s2, n) in self.sums.items():
+            m = FLAX_BN_MOMENTUM[name.split(".", 1)[0]]
+            mean = s1 / n
+            for key, stat in (("running_mean", mean), ("running_var", s2 / n - mean * mean)):
+                old = self.before[f"{name}.{key}"]
+                want = (m * old + (1 - m) * stat) - old
+                got = after[f"{name}.{key}"] - old
+                err = float((got - want).norm() / want.norm().clamp_min(1e-300))
+                worst = max(worst, (err / P20_FLAX_TOL, f"{name}.{key} {err:.3e}"))
+                if err > P20_FLAX_TOL:
+                    failed.append(f"{name}.{key}")
+        log(f"[{self.tag}] {len(self.sums)} BatchNorms' running-statistics updates against "
+            f"flax's (f64 statistics of the input, momentum by tower, biased var): "
+            f"{2 * len(self.sums) - len(failed)} ok, {len(failed)} FAIL; worst {worst[1]} "
+            f"(margin {worst[0]:.3f})")
+        if not self.sums:
+            failed.append("no BatchNorm trained")
+        return failed, worst[0]
+
+
+def bn_unit_check(torch, dev, tag: str = "p20") -> tuple:
+    """BatchNorm(train=True) on the card at each tower's eps and momentum on
+    (2, 3, 4, 4, 4) inputs whose last channel is 8 + k / 16, k in {-1, 0, 1}
+    summing to 4 (every sum exact in f32, so that any order of sums gives
+    flax's one-pass E[x^2] - E[x]^2 bit for bit, E[x]^2 rounded by 2^-18; a
+    two-pass variance differs by 1e-3 of it): that channel's output against
+    flax's formula in f32 within 1e-5 of the output's largest value, and the
+    new running var bit for bit. Returns (the names of the failed checks,
+    the largest margin)."""
+    import numpy as np
+
+    from synchformer_tpu_torch.models.conv import BatchNorm
+
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((2, 3, 4, 4, 4)) * 1.5 + 1.0).astype(np.float32)
+    k = rng.integers(-1, 2, x[:, 2].size)
+    while k.sum() != 4:
+        i = int(np.argmax(k < 1) if k.sum() < 4 else np.argmax(k > -1))
+        k[i] += 1 if k.sum() < 4 else -1
+    x[:, 2] = (8.0 + k / 16.0).reshape(x[:, 2].shape)
+    c = x[:, 2].astype(np.float64)
+    mean = np.float32(c.sum()) / np.float32(k.size)  # exact
+    var = np.float32(np.float32((c * c).sum()) / np.float32(k.size) - np.float32(mean * mean))
+    failed, worst = [], 0.0
+    for kind, (eps, m) in {"s3d": (1e-3, 0.999), "resnet": (1e-5, 0.9)}.items():
+        bn = BatchNorm(3, eps, device=dev, momentum=m)
+        with torch.no_grad():
+            y = bn(torch.from_numpy(x).to(dev), train=True)
+        want = (x[:, 2] - mean) * (np.float32(1) / np.sqrt(var + np.float32(eps)))
+        err = float(np.abs(y[:, 2].float().cpu().numpy() - want).max())
+        tol = 1e-5 * float(y.abs().max())
+        want_var = np.float32(m) * np.float32(1.0) + np.float32(1 - m) * var
+        got_var = float(bn.running_var[2])
+        worst = max(worst, err / tol)
+        ok = err <= tol and got_var == float(want_var)
+        if not ok:
+            failed.append(f"bn unit {kind}")
+        log(f"[{tag}] BatchNorm {kind} on the near-constant channel: max|y - flax| {err:.3e} "
+            f"tol {tol:.3e}; running var {got_var!r} flax {float(want_var)!r} "
+            f"{'ok' if ok else 'FAIL'}")
+    return failed, worst
+
+
+def legacy_trainers(torch, dev, cfg: dict, tag: str):
+    """``make(impl, half)`` of phase 20 (a): sync_trainer on ``cfg``; the
+    f32 trainer's steps run with TF32 off (the caller's tf32_off)."""
+    def make(impl, half):
+        t0 = time.perf_counter()
+        tr = sync_trainer(cfg, dev, impl, half)
+        log(f"[{tag}] trainer {impl} {'bf16' if half else 'f32'} built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return tr
+
+    return make
+
+
+def p20_legacy_step(torch, dev, s: int = S, frames=FRAMES, widths: dict | None = None,
+                    check: bool = True, compare: bool = True, resume: bool = True) -> dict:
+    """Phase 20 (a) and (d): the legacy Stage II step with trainable towers
+    through SyncTrainer at B=P20_B, S=``s``. ``compare``: (a)'s f32 plain and
+    bf16 plain records, sync_agreement and the timing; the bf16 kernel
+    trainer's first step, its launches and flax_bn_check always; ``resume``:
+    (d). Returns the failed checks and margins (``check``: fail on any)."""
+    from synchformer_tpu_torch.utils.checkpoint import CheckpointManager
+    from synchformer_tpu_torch.utils.logger import EarlyStopper
+
+    tag = "p20a"
+    cuda = torch.device(dev).type == "cuda"
+    cfg = legacy_train_config(s, True, widths)
+    make = legacy_trainers(torch, dev, cfg, tag)
+    batch = sync_batch(torch, dev, P20_B, s, frames)
+    failed, margins = [], {}
+
+    def cleanup():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    if compare:
+        with tf32_off(torch):
+            tr = make("plain", False)
+            with flax_bn_check(torch, tr.model, f"{tag} f32") as flax:
+                ref, _ = sync_record(torch, tr, batch, "(c) f32 plain", tag)
+            f, margins["flax f32"] = flax.check()
+            failed += [f"flax f32 {n}" for n in f]
+        del tr
+        cleanup()
+    resident = torch.cuda.memory_allocated() if cuda else 0
+    kern_tr = make("kernel", True)
+    with flax_bn_check(torch, kern_tr.model, f"{tag} kernel") as flax:
+        kern, k_peak = sync_record(torch, kern_tr, batch, "(a) bf16 kernel", tag, resident)
+    f, margins["flax kernel"] = flax.check()
+    failed += [f"flax kernel {n}" for n in f]
+    for what, counts in zip(("eval step", "train step"), kern["launches"]):
+        log(f"[{tag}] launches in one kernel {what}: {counts}")
+        if cuda and {k: counts.get(k, 0) for k in KEYS} != LEGACY_LAUNCHES:
+            failed.append(f"{what} launches {counts}")
+    if compare:
+        resident = torch.cuda.memory_allocated() if cuda else 0
+        plain_tr = make("plain", True)
+        plain, p_peak = sync_record(torch, plain_tr, batch, "(b) bf16 plain", tag, resident)
+        failed += sync_agreement(ref, plain, kern, tag, margins)
+        del ref, plain
+        times = {}
+        for name, tr in (("plain", plain_tr), ("kernel", kern_tr)):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checked_step(tr, batch, f"{tag} {name} step 2")
+            if cuda:
+                torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+        del plain_tr
+        cleanup()
+        for name, peak in (("kernel", k_peak), ("plain", p_peak)):
+            log(f"[timing] {tag} legacy Stage II {name} path (bf16, trainable towers): "
+                f"{times[name]:.1f} ms/step of {P20_B} clips x {s} segments (its second "
+                f"step); first step's peak memory {gib(peak)}; "
+                f"{smi_line() if cuda else 'cpu'}")
+    else:
+        checked_step(kern_tr, batch, f"{tag} kernel step 2")
+    del kern
+    if resume:
+        # (d) the payload after step 2, restored into a new trainer; step 3 on both
+        import shutil
+
+        root = os.path.join(REPO, "build", "chip_smoke", "p20_ckpt")
+        shutil.rmtree(root, ignore_errors=True)
+        ckpt = CheckpointManager(root)
+        ckpt.save_latest(0, kern_tr.payload(0, EarlyStopper(5, "max")))
+        with deterministic_convs(torch):
+            m3 = checked_step(kern_tr, batch, f"{tag} kernel step 3")
+        # the trainable modules' state read from the model itself, buffers included
+        want = {k: v.detach().to("cpu", copy=True)
+                for k, v in kern_tr.model.state_dict().items()
+                if k.split(".", 1)[0] in kern_tr.trainable_keys}
+        del kern_tr
+        cleanup()
+        resumed = {**cfg, "training": {**cfg["training"], "resume": True}}
+        tr = legacy_trainers(torch, dev, resumed, "p20d")("kernel", True)
+        tr.ckpt = ckpt
+        epoch = tr.maybe_resume(EarlyStopper(5, "max"))
+        with deterministic_convs(torch):
+            r3 = checked_step(tr, batch, "p20d resumed step 3")
+        got = tr.model.state_dict()
+        diff = [k for k, v in want.items() if not torch.equal(got[k].cpu(), v)]
+        stats = [k for k in want if "running" in k]
+        ok = not diff and r3 == m3 and epoch == 1 and tr.step == 3 and bool(stats)
+        log(f"[p20d] resumed after step 2 (epoch {epoch}, step {tr.step}): step 3 "
+            f"{'bit for bit' if ok else 'DIFFERS'}: loss {r3['loss']!r} vs {m3['loss']!r}, "
+            f"grad_norm {r3['grad_norm']!r} vs {m3['grad_norm']!r}; {len(want)} trainable "
+            f"tensors ({len(stats)} running statistics), {len(diff)} differ {diff[:4]}")
+        if not ok:
+            failed.append(f"resume {diff[:4]}")
+        margins["resume differing tensors"] = float(len(diff))
+        del tr
+        shutil.rmtree(root, ignore_errors=True)
+    else:
+        del kern_tr
+    cleanup()
+    if check and failed:
+        fail(f"{tag}: {failed}")
+    return {"failed": failed, "margins": margins}
+
+
+def legacy_stage1_record(torch, tr, batch, what: str, tag: str, resident: int = 0):
+    """One AVCLIP step's record (step_gradients' over LEGACY_LEAVES and the
+    BatchNorms' update ``bn``), its launches and peak memory."""
+    from synchformer_tpu_torch.ops.kernels import _build
+
+    cuda = tr.device.type == "cuda"
+    before = bn_buffers(torch, tr.model)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    m = checked_step(tr, batch, what)
+    if cuda:
+        torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() - resident if cuda else 0
+    log(f"[{tag}] {what} first step: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+        f"{time.perf_counter() - t0:.2f} s, peak memory {gib(peak)}; launches {counts}")
+    rec = step_gradients(torch, tr, m, LEGACY_LEAVES)
+    rec["bn"] = bn_update(before, bn_buffers(torch, tr.model))
+    return rec, counts, peak
+
+
+def p20_legacy_avclip(torch, dev, s: int = P20_CLIP_SEGMENTS, frames=FRAMES,
+                      widths: dict | None = None, check: bool = True) -> dict:
+    """Phase 20 (b): one AVCLIPTrainer step over S3D + ResNet-18
+    (legacy_avclip_node, built through the registry, seeded), B=B1, S=``s``:
+    f32 plain (TF32 off), bf16 kernel, bf16 plain from the same weights,
+    batch and generator seed; the kernel step's launches exactly
+    P20_CLIP_LAUNCHES; stage1_agreement and bn_agreement; ms/step of a
+    second step and peak memory."""
+    from synchformer_tpu_torch.registry import instantiate_from_config
+    from synchformer_tpu_torch.utils.convert import seeded_state_dict
+
+    tag = "p20b"
+    cuda = torch.device(dev).type == "cuda"
+    node = legacy_avclip_node(widths)
+
+    def build(remat=False, device=None):
+        return instantiate_from_config(node, device=device)
+
+    sd = seeded_state_dict(build(device="meta"), seed=0)
+    batch = stage1_batch(torch, B1, s, frames)
+    failed, margins = [], {}
+    with tf32_off(torch):
+        tr = stage1_trainer(build, sd, dev, "fp32", "plain", window=s)
+        ref, _, _ = legacy_stage1_record(torch, tr, batch, "(c) f32 plain", tag)
+    del tr
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    trainers, rec, peak = {}, {}, {}
+    for name, impl in (("kernel", "kernel"), ("plain", "plain")):
+        resident = torch.cuda.memory_allocated() if cuda else 0
+        trainers[name] = stage1_trainer(build, sd, dev, "amp", impl, window=s)
+        rec[name], counts, peak[name] = legacy_stage1_record(torch, trainers[name], batch,
+                                                            f"{name} bf16", tag, resident)
+        if (name == "kernel" and cuda
+                and {k: counts.get(k, 0) for k in KEYS} != P20_CLIP_LAUNCHES):
+            failed.append(f"launches {counts}")
+    failed += stage1_agreement(ref, rec["plain"], rec["kernel"], tag, margins=margins)
+    failed += bn_agreement(ref, rec["plain"], rec["kernel"], tag, margins)
+    for name, tr in trainers.items():
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checked_step(tr, batch, f"{tag} {name} step 2")
+        if cuda:
+            torch.cuda.synchronize()
+        log(f"[timing] {tag} legacy AVCLIP {name} path (amp): "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms/step of {B1} clips x {s} segments "
+            f"(its second step); first step's peak memory {gib(peak[name])}; "
+            f"{smi_line() if cuda else 'cpu'}")
+    del trainers, ref, rec
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if check and failed:
+        fail(f"{tag}: {failed}")
+    return {"failed": failed, "margins": margins}
+
+
+def run_legacy_training(torch, dev, report):
+    """Phase 20: the legacy towers' training at their full widths (S3D 1024,
+    ResNet-18 512; 16 frames of 224^2 and 66 x 128 log-mel a segment):
+    bn_unit_check (the one-pass statistics on a near-constant channel); (a)
+    presets.legacy_sync_model(14) with is_trainable towers through
+    SyncTrainer, B=2: f32 plain (TF32 off), bf16 kernel, bf16 plain from the
+    same weights, batch and generator seed, launches exactly LEGACY_LAUNCHES
+    (K4 2: the S3D spatial pool (56, 49, 1024) at 8 x 128, the ResNet-18
+    frequency pool (84, 4, 512) at 8 x 64) in the kernel eval step and in
+    its train step (K4's backward is its plain recompute), sync_agreement
+    with the BatchNorms' updates (bn_agreement), each step's updates against
+    flax's from the f64 statistics of each BatchNorm's input
+    (flax_bn_check), ms/step and peak memory; (b) p20_legacy_avclip; (c) the
+    legacy step at world 2 over gloo on the one card (run_gloo_group, case
+    'legacy', randomness off), held against world 1 and every rank's
+    running statistics bitwise equal; (d) the kernel trainer saved after its
+    second step, restored into a new one (maybe_resume), and the third step
+    bit for bit on both (cuDNN deterministic for that step)."""
+    t0 = time.perf_counter()
+    failed, _ = bn_unit_check(torch, dev)
+    if failed:
+        fail(f"p20: {failed}")
+    log(f"[p20] unit check {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    p20_legacy_step(torch, dev)
+    log(f"[p20a] (a) + (d) {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    p20_legacy_avclip(torch, dev)
+    log(f"[p20b] (b) {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    res = run_gloo_group(torch, dev, cases=("legacy",), tag="p20c", timed_steps=1)
+    log(f"[p20c] (c) {time.perf_counter() - t1:.1f} s; {res['cases']['legacy']['ms']:.1f} "
+        f"ms/step at world 2 over gloo")
+    log(f"[p20] phase 20 {time.perf_counter() - t0:.1f} s; {smi_line()}")
+
+
 PHASES = (check_kernels, run_slice, run_stage1, run_packed_block, run_stage1_8head,
           run_serving_8head, run_moco, run_sync_training,
           run_audio_augs, run_entry_point, run_data_parallel, run_reference_ckpts, run_legacy,
-          run_tower_options, run_shapes, run_tensor_parallel)
+          run_tower_options, run_shapes, run_tensor_parallel, run_legacy_training)
 
 
 def main() -> int:

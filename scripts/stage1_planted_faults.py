@@ -168,6 +168,24 @@ gives its margin):
 - gemm_last_tile_dropped: the Hopper GEMM without its last column tile
   where N % 128 != 0 (N = 1996: columns 1920 to 1995 zero).
 ``--only shapes`` runs these alone.
+Then the legacy towers' training faults (legacy_train_faults) on phase 20's
+parts, each planted where models/conv.py or SyncTrainer calls it (and in
+phase 20 (c)'s workers through the hook); each line gives its margins:
+- none: the control, on every part;
+- bn_unbiased_running_var: the running var updated with the unbiased batch
+  variance, var * N / (N - 1), as torch's batch_norm keeps it (caught by
+  (a)'s flax_bn_check);
+- bn_torch_momentum: torch's momentum (S3D 0.001, ResNet-18 0.1) taken as
+  flax's weight of the old value ((a)'s flax_bn_check);
+- bn_local_stats_over_ranks: each rank's statistics of its own rows, not
+  summed over the data group ((c): world 2 off world 1, the ranks' running
+  statistics apart);
+- bn_two_pass_var: a two-pass variance E[(x - E[x])^2] in place of flax's
+  one-pass E[x^2] - E[x]^2 (chip_smoke.bn_unit_check's near-constant
+  channel; tests/test_torch_legacy_train.py case (i) on the CPU);
+- bn_stats_not_checkpointed: SyncTrainer's checkpoint payload without the
+  towers' running statistics ((d): the resumed third step differs).
+``--only legacy_train`` runs these alone.
 Prints one line per fault with the checks that failed, and exits non-zero
 unless each control passed and every fault failed at least one check.
 --tiny takes the CPU tests' tiny AVCLIPs (build_tiny_avclip and
@@ -1137,18 +1155,114 @@ def tp_faults(dev, tiny: bool) -> dict:
     return caught
 
 
+# the legacy training faults (phase 20), each with the parts it runs on:
+# 'unit' chip_smoke.bn_unit_check, 'step' (a)'s kernel step and flax_bn_check,
+# 'resume' (d), 'gloo' (c)
+LEGACY_TRAIN_FAULTS = {"none": ("unit", "step", "resume", "gloo"),
+                       "bn_unbiased_running_var": ("step",), "bn_torch_momentum": ("step",),
+                       "bn_local_stats_over_ranks": ("gloo",), "bn_two_pass_var": ("unit",),
+                       "bn_stats_not_checkpointed": ("resume",)}
+
+
+def apply_legacy_fault(name: str) -> None:
+    """Plant LEGACY_TRAIN_FAULTS' ``name`` in this process (and, as the hook,
+    in each phase-20 (c) worker)."""
+    from synchformer_tpu_torch.models import conv
+    from synchformer_tpu_torch.train import stage_sync
+
+    if name == "bn_unbiased_running_var":
+        update = conv.running_update_
+        conv.running_update_ = lambda bn, mean, var, count: update(
+            bn, mean, var * count / (count - 1), count)
+    elif name == "bn_torch_momentum":
+        update = conv.running_update_
+
+        def torch_momentum(bn, mean, var, count):
+            m = bn.momentum
+            bn.momentum = 1 - m  # torch's momentum (S3D 0.001, ResNet 0.1) as flax's
+            try:
+                update(bn, mean, var, count)
+            finally:
+                bn.momentum = m
+
+        conv.running_update_ = torch_momentum
+    elif name == "bn_local_stats_over_ranks":
+        conv.data_sums = lambda sums: sums
+    elif name == "bn_two_pass_var":
+        stats = conv.batch_stats
+
+        def two_pass(x):
+            mean, _, _, count = stats(x)
+            xf = x.float() - mean.reshape((1, -1) + (1,) * (x.ndim - 2))
+            var = (xf * xf).sum([0] + list(range(2, x.ndim))) / count
+            return mean, var, var, count
+
+        conv.batch_stats = two_pass
+    elif name == "bn_stats_not_checkpointed":
+        own = stage_sync.SyncTrainer.trainable_state_dict
+        stage_sync.SyncTrainer.trainable_state_dict = lambda self: {
+            k: v for k, v in own(self).items() if "running" not in k}
+    elif name != "none":
+        raise ValueError(f"no legacy training fault {name!r}")
+
+
+def legacy_train_faults(dev, tiny: bool) -> dict:
+    """LEGACY_TRAIN_FAULTS on phase 20's parts (each fault planted in this
+    process, and in the (c) workers by the hook, then taken out again); each
+    fault's failed checks, its margins logged."""
+    size = (dict(s=2, frames=(16, 64, 64, 3), widths={"d": 64, "n_layer": 2, "n_head": 4})
+            if tiny else {})
+    caught = {}
+    for name, parts in LEGACY_TRAIN_FAULTS.items():
+        from synchformer_tpu_torch.models import conv
+        from synchformer_tpu_torch.train import stage_sync
+
+        saved = (conv.running_update_, conv.data_sums, conv.batch_stats,
+                 stage_sync.SyncTrainer.trainable_state_dict)
+        apply_legacy_fault(name)
+        failed, margins = [], {}
+        try:
+            if "unit" in parts:
+                f, margins["unit"] = chip_smoke.bn_unit_check(torch, dev)
+                failed += f
+            if "step" in parts or "resume" in parts:
+                res = chip_smoke.p20_legacy_step(torch, dev, **size, check=False,
+                                                 compare=False, resume="resume" in parts)
+                failed += res["failed"]
+                margins.update(res["margins"])
+            if "gloo" in parts:
+                tiny_dp = ({"s": 2, "legacy_widths": size["widths"],
+                            "legacy_frames": size["frames"]} if tiny else None)
+                res = chip_smoke.run_gloo_group(
+                    torch, dev, cases=("legacy",), tiny=tiny_dp,
+                    hook=f"{os.path.abspath(__file__)}:apply_legacy_fault", fault=name,
+                    check=False, tag="p20c", timed_steps=1)
+                failed += res["failed"]
+                margins.update({f"gloo {k}": v for k, v in
+                                res["cases"]["legacy"].get("margins", {}).items()})
+        finally:
+            (conv.running_update_, conv.data_sums, conv.batch_stats,
+             stage_sync.SyncTrainer.trainable_state_dict) = saved
+        caught[name] = failed
+        chip_smoke.log(f"[fault] legacy_train {name}: {len(failed)} checks failed: "
+                       f"{failed[:6]}{' ...' if len(failed) > 6 else ''}; margins "
+                       + ", ".join(f"{k} {v:.3g}" for k, v in margins.items()))
+    return caught
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--only", choices=("all", "dp", "tp", "ckpt", "legacy", "options",
-                                       "shapes"),
+                                       "shapes", "legacy_train"),
                     default="all",
                     help="dp: the data-parallel faults of phase 14 (c) alone; tp: the "
                          "tensor-parallel faults of phase 19 alone; ckpt: the Stage "
                          "I reader's of phase 15 (c) alone; legacy: the K4 faults on phase "
                          "16 (a) and on phase 2's K4 cases alone; options: phase 17's "
-                         "faults alone; shapes: the faults of phase 2's new shapes alone")
+                         "faults alone; shapes: the faults of phase 2's new shapes alone; "
+                         "legacy_train: the legacy training faults of phase 20 alone")
     args = ap.parse_args()
     dev = torch.device(args.device)
     # the world-1 references run_gloo_group keeps: this run's own
@@ -1177,6 +1291,11 @@ def main() -> int:
             chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
             _build.build_all()
         return 0 if verdict("shapes", shape_faults(dev, args.tiny)) else 1
+    if args.only == "legacy_train":
+        if dev.type == "cuda":
+            chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
+            _build.build_all()
+        return 0 if verdict("legacy_train", legacy_train_faults(dev, args.tiny)) else 1
     if args.only == "legacy":
         if dev.type == "cuda":
             chip_smoke.log(f"[device] {chip_smoke.smi_line()}")
@@ -1247,6 +1366,7 @@ def main() -> int:
     ok = verdict("legacy", legacy_faults(dev, args.tiny)) and ok
     ok = verdict("options", option_faults(dev, args.tiny)) and ok
     ok = verdict("shapes", shape_faults(dev, args.tiny)) and ok
+    ok = verdict("legacy_train", legacy_train_faults(dev, args.tiny)) and ok
     return 0 if verdict("kernels_k2", k2) and ok else 1
 
 if __name__ == "__main__":

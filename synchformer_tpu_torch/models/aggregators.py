@@ -141,17 +141,29 @@ class TemporalAggregator(CLSPoolEncoderLayer):
 class AveragePooling(nn.Module):
     """Mean over ``dim`` (an axis or a tuple of axes;
     synchformer_tpu/models/aggregators.py::AveragePooling with ``bs t d -> bs
-    d``, ``bs f t d -> bs t d`` or ``bs t h w d -> bs t d``). No parameters;
-    the other arguments of a CLS-pool aggregator are accepted and, as in the
-    JAX module, a keep-mask is ignored."""
+    d``, ``bs f t d -> bs t d`` or ``bs t h w d -> bs t d``), or, where the
+    registry builds the JAX module from its config node, its einops
+    ``avg_pattern`` mean-reduce and then the optional ``then_permute_pattern``
+    rearrange. No parameters; the other arguments of a CLS-pool aggregator
+    are accepted and, as in the JAX module, a keep-mask is ignored."""
 
-    def __init__(self, dim=1):
+    def __init__(self, dim=1, avg_pattern: Optional[str] = None,
+                 then_permute_pattern: Optional[str] = None):
         super().__init__()
         self.dim = dim
+        self.avg_pattern = avg_pattern
+        self.then_permute_pattern = then_permute_pattern
 
     def forward(self, x: torch.Tensor, impl: str = "plain", deterministic: bool = True,
                 generator: Optional[torch.Generator] = None, keep_mask=None) -> torch.Tensor:
-        return x.mean(dim=self.dim)
+        if self.avg_pattern is None:
+            return x.mean(dim=self.dim)
+        import einops
+
+        x = einops.reduce(x, self.avg_pattern, "mean")
+        if self.then_permute_pattern is not None:
+            x = einops.rearrange(x, self.then_permute_pattern)
+        return x
 
 
 def time_tail(agg_time_module: str, d: int, num_heads: int, device=None,

@@ -2,8 +2,11 @@
 (synchformer_tpu/models/avclip.py).
 
 Two towers with the AveragePooling time tail give one feature per segment,
-(B, S, D); the projections ``vproj`` / ``aproj`` (modules built from the
-config's nodes: DoNothingBridge by default, a LinearBridge for
+(B, S, D): the Motionformer and the AST built from their keyword dicts, or
+towers built elsewhere and handed over as modules (the registry builds the
+legacy S3D and ResNet-18 towers from their config nodes so, as the JAX
+module instantiates any tower its config names); the projections ``vproj``
+/ ``aproj`` (modules built from the config's nodes: DoNothingBridge by default, a LinearBridge for
 ``torch.nn.Linear``); the (B*S, D) features are
 L2-normalised; the loss is the symmetric cross-entropy of
 ``sim = v @ a.T / clamp(logit_scale)`` in f32 (the temperature divides, as in
@@ -36,7 +39,7 @@ from synchformer_tpu_torch.parallel import dist as pdist
 
 
 class AVCLIP(nn.Module):
-    def __init__(self, vfeat_extractor: dict, afeat_extractor: dict, d: int = 768,
+    def __init__(self, vfeat_extractor, afeat_extractor, d: int = 768,
                  init_scale: float = 0.07, clamp_scale_min: float = 0.001,
                  clamp_scale_max: float = 0.5, vproj: Optional[nn.Module] = None,
                  aproj: Optional[nn.Module] = None, device=None):
@@ -45,12 +48,16 @@ class AVCLIP(nn.Module):
         self.clamp_scale_min = clamp_scale_min
         self.clamp_scale_max = clamp_scale_max
         # each tower d wide unless its keywords name its own width (projected
-        # to d by vproj / aproj, as the JAX module builds them)
-        self.vfeat_extractor = MotionFormerEncoder(**{"embed_dim": d, **vfeat_extractor},
-                                                   agg_time_module="AveragePooling",
-                                                   device=device)
-        self.afeat_extractor = ASTEncoder(**{"hidden_size": d, **afeat_extractor},
-                                          agg_time_module="AveragePooling", device=device)
+        # to d by vproj / aproj, as the JAX module builds them); a module is
+        # a tower built elsewhere, with its own time tail
+        self.vfeat_extractor = (
+            vfeat_extractor if isinstance(vfeat_extractor, nn.Module) else
+            MotionFormerEncoder(**{"embed_dim": d, **vfeat_extractor},
+                                agg_time_module="AveragePooling", device=device))
+        self.afeat_extractor = (
+            afeat_extractor if isinstance(afeat_extractor, nn.Module) else
+            ASTEncoder(**{"hidden_size": d, **afeat_extractor},
+                       agg_time_module="AveragePooling", device=device))
         self.vproj = vproj if vproj is not None else DoNothingBridge()
         self.aproj = aproj if aproj is not None else DoNothingBridge()
         self.logit_scale = nn.Parameter(torch.tensor(init_scale, dtype=torch.float32,
@@ -68,7 +75,9 @@ class AVCLIP(nn.Module):
 
     def encode_video(self, vis, impl: str, deterministic: bool = True,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, S, f, n, z*p*p*c) patch-major frames -> L2-normalised (B*S, D)."""
+        """Frames in the video tower's layout (the Motionformer's patch-major
+        (B, S, f, n, z*p*p*c), the S3D's (B, S, T, H, W, C)) -> L2-normalised
+        (B*S, D)."""
         return self._normalise(self.vfeat_extractor(vis, impl, deterministic, generator),
                                self.vproj)
 

@@ -50,6 +50,14 @@ from synchformer_tpu_torch.models.motionformer import MotionFormerEncoder
 from synchformer_tpu_torch.parallel import dist as pdist
 
 
+# MoCo over the legacy towers, refused where a config names one (registry.py)
+LEGACY_MOMENTUM_STATS = (
+    "MoCo over the legacy S3D / ResNet-18 towers is not ported (ROADMAP §1 item 7.5): the "
+    "JAX momentum_update maps the parameters alone and applies the key towers with "
+    "{'params': params_m}, which holds no batch_stats, so the JAX package does not define the "
+    "momentum model's BatchNorm statistics")
+
+
 def l2norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """x / max(||x||, 1e-12), the norm in f32, the result in x's dtype."""
     n = torch.linalg.vector_norm(x.float(), dim=dim, keepdim=True)

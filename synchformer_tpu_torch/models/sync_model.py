@@ -19,7 +19,11 @@ and no activation is kept. Otherwise they take the Stage I training route.
 
 The towers may also be the legacy SparseSync ones (models/s3d.py,
 models/resnet_audio.py), built from a config through the registry: S3D
-takes frames, and both run their eval path only (training raises).
+takes frames. With extractors_deterministic False they train as the JAX
+towers applied with mutable=["batch_stats"]: their BatchNorms normalise with
+the batch's statistics (over the data ranks) and update their running
+statistics, their aggregators' dropout is live; frozen, they run their eval
+path under no_grad and their statistics stay as they are.
 """
 from __future__ import annotations
 

@@ -33,6 +33,17 @@ def patchify_frames(x, z_block: int = 2, patch: int = 16):
     return x.reshape(*lead, f, gh * gw, z_block * patch * patch * c)
 
 
+def tower_video_input(frames, tower):
+    """Normalised frames (B, S, T, H, W, C) in the layout the video tower
+    takes: patch-major for a Motionformer (its patch_embed_3d's kernel), the
+    frames themselves for the legacy S3D, whose convs pad the frames."""
+    embed = getattr(tower, "patch_embed_3d", None)
+    if embed is None:
+        return frames
+    p = embed.proj.kernel_size
+    return patchify_frames(frames, p[0], p[1])
+
+
 # the towers' frame normalisation: (x / 255 - mean) / std
 VIDEO_MEAN, VIDEO_STD = 0.5, 0.5
 

@@ -276,8 +276,11 @@ def wrap_ddp(module: torch.nn.Module, device) -> torch.nn.Module:
     """``module`` under DistributedDataParallel over the data group where a
     group is joined (at any world size), else ``module`` itself. DDP
     broadcasts the data group's first rank's parameters and buffers (a model
-    index's shards, under tensor parallelism) at construction; the buffers are not broadcast
-    again before each forward (the models' buffers are constants).
+    index's shards, under tensor parallelism) at construction; the buffers
+    are not broadcast again before each forward: the only buffers that
+    change, the legacy towers' BatchNorm running statistics, are updated
+    from the data group's global statistics (models/conv.py), so every rank
+    keeps the same values.
     static_graph: every step runs the same graph, so DDP learns in the first
     backward which parameters get a gradient and in what order; a parameter
     read outside the forward (MoCo's temperatures, read by the loss) or by no

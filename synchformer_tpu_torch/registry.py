@@ -8,8 +8,9 @@ factories of the port's classes. Each factory takes the node's own ``params``
 (Synchformer's towers, projections and transformer as target / params nodes)
 plus ``device``, which ``instantiate_from_config`` passes down. A parameter
 the port does not implement raises NotImplementedError naming the ROADMAP §1
-item that holds it (item 7.5: training the legacy towers); it is never
-dropped. ``training.model_parallel`` is the trainers' (parallel/dist.py
+item that holds it (item 7.5: MoCo over the legacy towers, whose momentum
+statistics the JAX package does not define); it is never dropped.
+``training.model_parallel`` is the trainers' (parallel/dist.py
 init_grid: tensor parallelism over a (data x model) grid of ranks, refused
 where the world does not split into it). A tower's
 ``ckpt_path`` is not the model's: the trainer reads it (SyncTrainer
@@ -29,10 +30,13 @@ its meaning where the port has it ('pallas_fused'); 'xla' and 'pallas' are
 the port's default flow, whose kernels the caller's ``impl`` picks.
 
 The legacy SparseSync family resolves as in the JAX registry: the S3D and
-ResNet-18 towers (inference; their ``ckpt_path`` is accepted with a warning
-that it is not read), the SparseSync ``Transformer`` (its ``pre_norm_cfg``
+ResNet-18 towers (inference and training; their ``ckpt_path`` is accepted
+with a warning that it is not read; AVCLIP takes them with an
+'AveragePooling' time tail), the SparseSync ``Transformer`` (its ``pre_norm_cfg``
 built twice through this registry, as the JAX module's setup does), every
-positional encoding and bridge of the JAX package, ``torch.nn.Identity``.
+positional encoding and bridge of the JAX package, ``torch.nn.Identity``,
+and the einops AveragePooling module (``avg_pattern``,
+``then_permute_pattern``).
 A GlobalTransformer takes the positional embedding its ``pos_emb_cfg`` names,
 or none without one.
 """
@@ -44,10 +48,11 @@ from typing import Any, Callable, Dict, Mapping
 
 from synchformer_tpu_torch.models import bridges as tbridges
 from synchformer_tpu_torch.models import pos_emb as tpos
+from synchformer_tpu_torch.models.aggregators import AveragePooling
 from synchformer_tpu_torch.models.ast_encoder import ASTEncoder
 from synchformer_tpu_torch.models.avclip import AVCLIP
 from synchformer_tpu_torch.models.bridges import DoNothingBridge, LinearBridge
-from synchformer_tpu_torch.models.moco_clip import MultilevelMoCoCLIP
+from synchformer_tpu_torch.models.moco_clip import LEGACY_MOMENTUM_STATS, MultilevelMoCoCLIP
 from synchformer_tpu_torch.models.motionformer import MotionFormerEncoder
 from synchformer_tpu_torch.models.pos_emb import RandInitPositionalEncoding
 from synchformer_tpu_torch.models.resnet_audio import ResNet18AudioFeatures
@@ -207,6 +212,7 @@ register("synchformer_tpu.models.pos_emb.NoPosEncoding",
          "model.modules.transformer.NoPosEncoding")(_without_device(tpos.NoPosEncoding))
 register("synchformer_tpu.models.pos_emb.L2Normalize",
          "model.modules.transformer.L2Normalize")(_without_device(tpos.L2Normalize))
+register("synchformer_tpu.models.aggregators.AveragePooling")(_without_device(AveragePooling))
 register("synchformer_tpu.models.bridges.Identity", "torch.nn.Identity")(
     _without_device(DoNothingBridge))
 register("synchformer_tpu.models.bridges.AppendZerosToHidden",
@@ -311,17 +317,30 @@ def build_synchformer(afeat_extractor, vfeat_extractor, aproj, vproj, transforme
                                     build(vproj), build(aproj), build(transformer)).eval()
 
 
-def _stage1_towers(afeat_extractor, vfeat_extractor) -> tuple:
+def _stage1_towers(afeat_extractor, vfeat_extractor, moco: bool = False,
+                   device=None) -> tuple:
     """AVCLIP / MoCo tower nodes -> their keyword dicts (AveragePooling time
-    tails, as both models build them). A tower keeps the width its node
-    names, as both JAX modules build each tower from its own node and project
-    it to n_embd with aproj / vproj."""
+    tails, as both models build them) or, for a legacy S3D / ResNet-18 node
+    (AVCLIP only: MoCo raises LEGACY_MOMENTUM_STATS), the tower built from
+    it, whose node must name the 'AveragePooling' time tail. A tower keeps
+    the width its node names, as both JAX modules build each tower from its
+    own node and project it to n_embd with aproj / vproj."""
     towers = []
-    for node, factory, adapt in ((afeat_extractor, build_ast, ast_params),
-                                 (vfeat_extractor, build_motionformer, motionformer_params)):
-        if get_registered(node["target"]) is not factory:
+    for node, factory, adapt, legacy in (
+            (afeat_extractor, build_ast, ast_params, build_resnet18_audio),
+            (vfeat_extractor, build_motionformer, motionformer_params, build_s3d)):
+        built = get_registered(node["target"])
+        if built is legacy:
+            if moco:
+                raise NotImplementedError(LEGACY_MOMENTUM_STATS)
+            if node_params(node).get("agg_time_module") != "AveragePooling":
+                raise ValueError("the Stage I towers pool time with AveragePooling: a legacy "
+                                 "tower's node must name agg_time_module 'AveragePooling'")
+            towers.append(instantiate_from_config(node, device=device))
+            continue
+        if built is not factory:
             raise ValueError(f"a Stage I tower {node['target']!r}: the Stage I models take "
-                             f"the AST and the Motionformer")
+                             f"the AST or ResNet-18 and the Motionformer or S3D")
         kw = adapt(node_params(node))
         if kw.pop("agg_time_module", "AveragePooling") != "AveragePooling":
             raise ValueError("the Stage I towers pool time with AveragePooling")
@@ -338,7 +357,7 @@ def build_avclip(afeat_extractor, vfeat_extractor, aproj, vproj, n_embd: int = 7
     """``gather_for_loss`` is accepted and changes nothing: as in the JAX
     trainer, which passes no axis_name, the InfoNCE always spans the global
     batch (models/avclip.py)."""
-    a, v = _stage1_towers(afeat_extractor, vfeat_extractor)
+    a, v = _stage1_towers(afeat_extractor, vfeat_extractor, device=device)
     return AVCLIP(vfeat_extractor=v, afeat_extractor=a, d=n_embd, init_scale=init_scale,
                   clamp_scale_min=clamp_scale_min, clamp_scale_max=clamp_scale_max,
                   vproj=instantiate_from_config(vproj, device=device),
@@ -353,7 +372,7 @@ def build_moco(afeat_extractor, vfeat_extractor, aproj, vproj, queue_size: int,
                device=None) -> MultilevelMoCoCLIP:
     """Each level's projections built from the aproj / vproj nodes, one
     module each (the JAX setup instantiates the node per level)."""
-    a, v = _stage1_towers(afeat_extractor, vfeat_extractor)
+    a, v = _stage1_towers(afeat_extractor, vfeat_extractor, moco=True)
     return MultilevelMoCoCLIP(vfeat_extractor=v, afeat_extractor=a, d=n_embd,
                               queue_size=queue_size, momentum=momentum,
                               init_scale=init_scale, clamp_scale_min=clamp_scale_min,

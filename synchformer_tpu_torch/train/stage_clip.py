@@ -13,15 +13,19 @@ model, a copy of the model at the start updated as an EMA each step, and its
 feature queues (segment queue queue_size x max_segments, global queue
 queue_size, as _init_moco_state, stage_clip.py:223-235); anything else
 trains AVCLIP. Where ``cfg.model`` carries ``params``, the model is built
-from them through the port's registry (synchformer_tpu_torch.registry);
-without them, the preset (build_moco_avclip / build_avclip).
+from them through the port's registry (synchformer_tpu_torch.registry:
+AVCLIP also over the legacy S3D and ResNet-18 towers, whose BatchNorms then
+train with the batch's statistics; MoCo over them raises, as the JAX
+package does not define its momentum model's statistics); without them, the
+preset (build_moco_avclip / build_avclip).
 
 ``batch`` is the loader's layout: ``video`` uint8 (B, S, 16, 224, 224, 3),
 ``audio`` PCM (B, S, 10240), and, where the loader ships them (training with
 p_audio_aug above 0), the contiguous crop ``audio_full`` (B, n) and the
 segments' starts ``audio_seg_starts`` (B, S). Device prep happens inside:
 frames normalised in the compute dtype with the per-clip horizontal flip
-(train only) and patchified on the device; in training at p_audio_aug above
+(train only) and patchified on the device for the Motionformer (the legacy
+S3D takes the normalised frames); in training at p_audio_aug above
 0 the five audio augmentations (ops/dsp.py: their row masks from a CPU
 generator seeded training.seed + 7, the noise from the trainer's device
 generator) on the crop before segmentation, or on the segments of a batch
@@ -86,7 +90,7 @@ from synchformer_tpu_torch.models.moco_clip import MultilevelMoCoCLIP, init_queu
 from synchformer_tpu_torch.models.presets import build_avclip, build_moco_avclip
 from synchformer_tpu_torch.ops.dsp import AUG_CHAIN, augment_batch_pcm
 from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
-from synchformer_tpu_torch.ops.video import patchify_frames, prepare_video_batch
+from synchformer_tpu_torch.ops.video import prepare_video_batch, tower_video_input
 from synchformer_tpu_torch.parallel import dist as pdist
 from synchformer_tpu_torch.parallel import tensor as ptensor
 from synchformer_tpu_torch.registry import instantiate_from_config
@@ -208,8 +212,9 @@ class AVCLIPTrainer:
         return self.alpha * min(1.0, i / n_iters) if epoch == 0 else self.alpha
 
     def prepare(self, batch: Dict[str, Any], train: bool):
-        """Loader batch -> (patch-major normalised frames, log-mel), both in
-        the compute dtype on the device."""
+        """Loader batch -> (normalised frames in the video tower's layout:
+        patch-major for the Motionformer, frames for the legacy S3D; log-mel),
+        both in the compute dtype on the device."""
         video = torch.as_tensor(batch["video"]).to(self.device, non_blocking=True)
         pcm = torch.as_tensor(batch["audio"]).to(self.device, non_blocking=True)
         frames = prepare_video_batch(video, self.generator, train, self.p_flip, self.dtype)
@@ -218,8 +223,7 @@ class AVCLIPTrainer:
                                     int(self.pipe_cfg.afps), self.aug_generator,
                                     self.generator, self.aug_drawn)
         vfe = self.model.v_encoder if self.is_moco else self.model.vfeat_extractor
-        p = vfe.patch_embed_3d.proj.kernel_size
-        vis = patchify_frames(frames, p[0], p[1])
+        vis = tower_video_input(frames, vfe)
         aud = log_mel_spectrogram(pcm, self.mel_cfg).transpose(-1, -2).to(self.dtype)
         return vis, aud
 

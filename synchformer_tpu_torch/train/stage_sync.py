@@ -77,7 +77,7 @@ from synchformer_tpu_torch.models.presets import build_synchformer
 from synchformer_tpu_torch.models.sync_model import Synchformer
 from synchformer_tpu_torch.ops.dsp import AUG_CHAIN, augment_batch_pcm
 from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
-from synchformer_tpu_torch.ops.video import patchify_frames, prepare_video_batch
+from synchformer_tpu_torch.ops.video import prepare_video_batch, tower_video_input
 from synchformer_tpu_torch.parallel import dist as pdist
 from synchformer_tpu_torch.parallel import tensor as ptensor
 from synchformer_tpu_torch.registry import instantiate_from_config
@@ -247,8 +247,9 @@ class SyncTrainer:
         return report
 
     def prepare(self, batch: Mapping[str, Any], train: bool):
-        """Loader batch -> (patch-major normalised frames, log-mel), both in
-        the compute dtype on the device."""
+        """Loader batch -> (normalised frames in the video tower's layout:
+        patch-major for the Motionformer, frames for the legacy S3D; log-mel),
+        both in the compute dtype on the device."""
         video = torch.as_tensor(batch["video"]).to(self.device, non_blocking=True)
         pcm = torch.as_tensor(batch["audio"]).to(self.device, non_blocking=True)
         frames = prepare_video_batch(video, self.generator, train, self.p_flip, self.dtype,
@@ -257,8 +258,7 @@ class SyncTrainer:
             pcm = augment_batch_pcm(batch, pcm, self.pipe_cfg.p_audio_aug,
                                     int(self.pipe_cfg.afps), self.aug_generator,
                                     self.generator, self.aug_drawn)
-        p = self.model.vfeat_extractor.patch_embed_3d.proj.kernel_size
-        vis = patchify_frames(frames, p[0], p[1])
+        vis = tower_video_input(frames, self.model.vfeat_extractor)
         aud = log_mel_spectrogram(pcm, self.mel_cfg).transpose(-1, -2).to(self.dtype)
         return vis, aud
 
@@ -288,7 +288,9 @@ class SyncTrainer:
     # ------------------------------------------------------------------
     def trainable_state_dict(self) -> Dict[str, torch.Tensor]:
         """The trainable modules' entries of the model's state dict (the
-        JAX payload's ``trainable`` subtree)."""
+        JAX payload's ``trainable`` subtree), buffers included: a trainable
+        legacy tower's BatchNorm running statistics, which its train steps
+        update."""
         keys = self.trainable_keys
         return {k: v for k, v in self.model.state_dict().items() if k.split(".", 1)[0] in keys}
 

@@ -302,13 +302,16 @@ def state_dict_from_jax(variables: Mapping) -> SD:
 
 
 def avclip_state_dict_from_jax(params: Mapping) -> SD:
-    """AVCLIP params tree -> the port's AVCLIP state dict: both towers (their
-    AveragePooling time tails hold no parameters), the projections
-    ``v_proj`` / ``a_proj`` -> ``vproj`` / ``aproj`` where they have
-    parameters (a DoNothing bridge has none) and the 0-d ``logit_scale``."""
+    """AVCLIP params tree (or variables: ``params`` and, for the legacy S3D /
+    ResNet-18 towers, ``batch_stats``) -> the port's AVCLIP state dict: both
+    towers (tower_sd; their AveragePooling time tails hold no parameters),
+    the projections ``v_proj`` / ``a_proj`` -> ``vproj`` / ``aproj`` where
+    they have parameters (a DoNothing bridge has none) and the 0-d
+    ``logit_scale``."""
     p = params.get("params", params)
-    return {**motionformer_sd(p["v_encoder"], "vfeat_extractor."),
-            **ast_sd(p["a_encoder"], "afeat_extractor."),
+    stats = params.get("batch_stats", {}) if "params" in params else {}
+    return {**tower_sd(p["v_encoder"], stats.get("v_encoder"), "vfeat_extractor."),
+            **tower_sd(p["a_encoder"], stats.get("a_encoder"), "afeat_extractor."),
             **bridge_sd(p.get("v_proj", {}), "vproj."),
             **bridge_sd(p.get("a_proj", {}), "aproj."),
             "logit_scale": _a(p["logit_scale"])}

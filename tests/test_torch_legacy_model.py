@@ -12,11 +12,10 @@ JAX compiles one apply and no init. Frames (1, 2, 16, 64, 64, 3) give a (2,
 2, 2) map per segment; log-mel (1, 2, 66, 128) a (4, 3) one. Both routes of
 the port (on CPU tensors the kernel route runs the plain versions); the
 logits within 1e-5 of their largest magnitude. Then SyncPredictor's frames
-path on such a model, and its refusal to train.
+path on such a model, and its training forward on both routes.
 """
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from test_torch_legacy_parts import jax_vars, rand, t
 from test_torch_models import jit_apply
@@ -59,7 +58,9 @@ def test_sync_predictor_feeds_s3d_normalised_frames():
     """SyncPredictor on a legacy model takes uint8 frames and normalises
     them on the device as the Motionformer's folded patch embed does
     ((x / 255 - 0.5) / 0.5): its logits equal the model's on frames
-    normalised by hand; training raises, naming the ROADMAP item."""
+    normalised by hand. In training, the towers' too, the kernel and the plain
+    route agree, and the first BatchNorm's running statistics take flax's
+    update of its batch."""
     from synchformer_tpu_torch.infer import SyncPredictor
     from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
 
@@ -73,6 +74,32 @@ def test_sync_predictor_feeds_s3d_normalised_frames():
         _, want = model(frames.float() / 127.5 - 1.0, mel)
     got = SyncPredictor(model, "cpu", torch.float32, "plain").logits(frames, pcm)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model(frames.float(), mel, deterministic=False, generator=torch.Generator(),
-              extractors_deterministic=None)
+    # training (the towers too): both routes from the same state and
+    # generator seed give the same logits and leave the same running
+    # statistics, the first BatchNorm's those of flax's update (biased
+    # one-pass var, momentum 0.999) of its input
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    bn = model.vfeat_extractor.stem_sep.bn_s
+    seen = []
+    bn.register_forward_pre_hook(lambda mod, args: seen.append(args[0].detach().double()))
+    logits, stats = {}, {}
+    for impl in ("plain", "kernel"):
+        model.load_state_dict(state)
+        with torch.no_grad():
+            _, logits[impl] = model(frames.float() / 127.5 - 1.0, mel, impl=impl,
+                                    deterministic=False,
+                                    generator=torch.Generator().manual_seed(0),
+                                    extractors_deterministic=None)
+        stats[impl] = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    np.testing.assert_allclose(logits["kernel"].numpy(), logits["plain"].numpy(), rtol=0,
+                               atol=1e-5 * float(logits["plain"].abs().max()))
+    assert stats["kernel"].keys() == stats["plain"].keys()
+    assert all(torch.equal(stats["kernel"][k], v) for k, v in stats["plain"].items())
+    assert all(not torch.equal(state[k], v) for k, v in stats["plain"].items())
+    x = seen[-1].transpose(0, 1).reshape(bn.weight.shape[0], -1)
+    mean, var = x.mean(1), (x * x).mean(1) - x.mean(1) ** 2
+    prefix = "vfeat_extractor.stem_sep.bn_s."
+    for name, batch in (("running_mean", mean), ("running_var", var)):
+        want_stat = 0.999 * state[prefix + name].double() + 0.001 * batch
+        np.testing.assert_allclose(stats["plain"][prefix + name].numpy(), want_stat.numpy(),
+                                   rtol=0, atol=1e-5 * float(want_stat.abs().max()))

@@ -218,17 +218,27 @@ def test_registry_builds_the_tower_options(change):
 @pytest.mark.parametrize("what", ["legacy_training", "model_parallel_2"])
 def test_registry_refuses_what_the_port_lacks(what):
     """What stays unported raises NotImplementedError naming its ROADMAP §1
-    item: training the legacy towers (item 7.5), a legacy tower built
-    through the registry and called in training mode. Tensor parallelism
+    item: of the legacy towers' training (item 7.5) only MoCo over them,
+    whose momentum model's statistics the JAX package does not define; a
+    legacy tower built through the registry now trains. Tensor parallelism
     (item 8) is ported: training.model_parallel 2 is refused only where the
     world does not split into it, as world 1 does not (ValueError)."""
     if what == "legacy_training":
-        tower = instantiate_from_config(
-            {"target": "model.modules.feat_extractors.visual.s3d.S3DVisualFeatures",
-             "params": {"agg_space_module": "TransformerEncoderLayer"}}, device="meta")
+        s3d = {"target": "model.modules.feat_extractors.visual.s3d.S3DVisualFeatures",
+               "params": {"agg_space_module": "AveragePooling",
+                          "agg_time_module": "AveragePooling"}}
+        tower = instantiate_from_config(s3d)
+        feats = tower(torch.zeros(1, 1, 16, 32, 32, 3), "plain", False, torch.Generator())
+        assert feats.shape == (1, 1, 1024)
+        resnet = {"target": "model.modules.feat_extractors.audio.resnet.ResNet18AudioFeatures",
+                  "params": {"agg_time_module": "AveragePooling"}}
+        lin = {"target": "torch.nn.Linear", "params": {"in_features": 1024, "out_features": 512}}
         with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.5"):
-            tower(torch.zeros(1, 1, 16, 64, 64, 3, device="meta"), "plain", False,
-                  torch.Generator())
+            instantiate_from_config(
+                {"target": "synchformer_tpu.models.moco_clip.MultilevelMoCoCLIP", "params": {
+                    "vfeat_extractor": s3d, "afeat_extractor": resnet, "vproj": lin,
+                    "aproj": {**lin, "params": {"in_features": 512, "out_features": 512}},
+                    "queue_size": 4, "momentum": 0.99, "n_embd": 512}}, device="meta")
     else:
         from synchformer_tpu_torch.parallel.dist import local_batch_size
 

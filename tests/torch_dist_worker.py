@@ -454,6 +454,41 @@ def tp_fit_case(inp, pdist) -> dict:
             "w1_continued": snap(fit(trainer("w1", resume="latest"), 2))}
 
 
+def legacy_bn_tower(inp, pdist) -> dict:
+    """ResNet18AudioFeatures in training under DDP on this rank's rows of
+    inp['aud'], its loss n_data x sum(features * cotangent) over its rows
+    (DDP's mean over the ranks then gives world 1's gradient of the sum over
+    the batch): the features, every gradient, the running statistics."""
+    from synchformer_tpu_torch.models.resnet_audio import ResNet18AudioFeatures
+    from synchformer_tpu_torch.utils.convert import load_numpy_state_dict
+
+    tower = ResNet18AudioFeatures()
+    load_numpy_state_dict(tower, inp["resnet_sd"])
+    net = pdist.wrap_ddp(tower, "cpu")
+    feats = net(_rows(inp["aud"], pdist), "kernel", False, torch.Generator())
+    ((feats * _rows(inp["cot"], pdist)).sum() * pdist.n_data()).backward()
+    return {"feats": feats.detach(), "grads": _grads(tower),
+            "stats": {k: v.clone() for k, v in tower.state_dict().items() if "running" in k}}
+
+
+def legacy_sync_step(inp, pdist) -> dict:
+    """SyncTrainer over the legacy Synchformer with is_trainable towers
+    (global batch inp['vis'] / inp['aud'], half a rank): one sync_train_step
+    on this rank's rows under DDP; the metrics and the trainable state after
+    it (parameters and the towers' running statistics)."""
+    from synchformer_tpu_torch.train.stage_sync import SyncTrainer
+    from synchformer_tpu_torch.train.step import sync_train_step
+
+    tr = SyncTrainer(inp["legacy_cfg"], device="cpu")
+    vis, aud = _rows(inp["vis"], pdist), _rows(inp["aud"], pdist)
+    targets = _rows(torch.as_tensor(inp["targets"]), pdist).long()
+    metrics = sync_train_step(tr.net, tr.optimizer, tr.schedule, 0, vis, aud, targets,
+                              torch.Generator(), "kernel", tr.max_clip_norm,
+                              extractors_deterministic=False)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "state": {k: v.clone() for k, v in tr.trainable_state_dict().items()}}
+
+
 SUITES = {
     "avclip": (avclip_step, gathered_infonce, gather_dict_case, sampler_case, eval_metrics_case),
     "moco": (moco_step,),
@@ -461,6 +496,7 @@ SUITES = {
     "fit": (checkpoint_case,),
     "tp_sync": (tp_sync_step, tp_eval_metrics),
     "tp_stage1": (tp_avclip_step, tp_moco_step, tp_fit_case),
+    "legacy": (legacy_bn_tower, legacy_sync_step),
 }
 
 
