@@ -1,0 +1,18 @@
+"""Entry ``avclip_train_step``: the Stage I step,
+``synchformer_tpu_torch.train.stage_clip.AVCLIPTrainer.train_step``, back to
+back on pooled batches of uint8 frames and PCM (drivers/_train.py)."""
+from __future__ import annotations
+
+from benchmark.drivers._train import TrainDriver
+from benchmark.flops import model as mflops
+
+
+class Driver(TrainDriver):
+    def make_trainer(self, cfg: dict, model):
+        from synchformer_tpu_torch.train.stage_clip import AVCLIPTrainer
+
+        return AVCLIPTrainer(cfg, device=self.device, model=model, impl="kernel")
+
+    def model_flops(self, units: int) -> float:
+        """The model FLOPs of ``units`` steps."""
+        return units * mflops.avclip_step_flops(self.sizes, self.traffic["batch"])
