@@ -14,6 +14,9 @@ the AST's geometry (``max_spec_t`` frames of ``n_mels`` bins, 66 x 128 by
 default; a model built from a checkpoint's config takes them from its
 ``info``); the towers and the transformer run in ``dtype``. ``impl='kernel'`` is the main
 path (K1-K4 on CUDA tensors); ``impl='plain'`` is the reference composition.
+Each call is a unit of the port's spans (utils/trace.py): ``predict`` (its
+call index the unit), ``predict.h2d`` (the copies to the card),
+``predict.frontend`` (the log-mel and casts), then the model's.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from synchformer_tpu_torch.models.motionformer import MotionFormerEncoder
 from synchformer_tpu_torch.models.sync_model import Synchformer
 from synchformer_tpu_torch.ops.mel import MelSpectrogramConfig, log_mel_spectrogram
 from synchformer_tpu_torch.ops.video import fold_video_normalize, normalize_frames
+from synchformer_tpu_torch.utils import trace
 
 
 class SyncPredictor:
@@ -47,6 +51,7 @@ class SyncPredictor:
                 conv.weight.data = w
                 conv.bias.data = b
         self.model = model.to(self.device).cast_matrices_(dtype).eval()
+        self.calls = 0  # the unit of a call's spans (utils/trace.py)
 
     @torch.no_grad()
     def logits(self, video_u8_patches: torch.Tensor, pcm: torch.Tensor,
@@ -56,16 +61,20 @@ class SyncPredictor:
         of that shape in place of patches, and ``aud_mask`` (B, S,
         max_spec_t, n_mels) are the towers' content keep-masks
         (Synchformer.forward)."""
-        video = video_u8_patches.to(self.device, non_blocking=True)
-        if not self.folded:
-            video = normalize_frames(video).to(self.dtype)
-        mel = log_mel_spectrogram(pcm.to(self.device, non_blocking=True),
-                                  self.mel_cfg)  # (B, S, n_mels, max_spec_t)
-        aud = mel.transpose(-1, -2).to(self.dtype)
-        masks = {name: m.to(self.device, non_blocking=True)
-                 for name, m in (("vis_mask", vis_mask), ("aud_mask", aud_mask))
-                 if m is not None}
-        return self.model(video, aud, impl=self.impl, **masks)[1]
+        with trace.span("predict", unit=self.calls, device=self.device):
+            self.calls += 1
+            with trace.span("predict.h2d"):
+                video = video_u8_patches.to(self.device, non_blocking=True)
+                pcm = pcm.to(self.device, non_blocking=True)
+                masks = {name: m.to(self.device, non_blocking=True)
+                         for name, m in (("vis_mask", vis_mask), ("aud_mask", aud_mask))
+                         if m is not None}
+            with trace.span("predict.frontend"):
+                if not self.folded:
+                    video = normalize_frames(video).to(self.dtype)
+                mel = log_mel_spectrogram(pcm, self.mel_cfg)  # (B, S, n_mels, max_spec_t)
+                aud = mel.transpose(-1, -2).to(self.dtype)
+            return self.model(video, aud, impl=self.impl, **masks)[1]
 
     def __call__(self, video_u8_patches: torch.Tensor, pcm: torch.Tensor,
                  vis_mask: torch.Tensor | None = None,

@@ -17,7 +17,8 @@ The spatial and frequency aggregators take the tower's token keep-mask.
 ``AveragePooling`` is the towers' time tail in the Stage I configuration
 (configs/segment_avclip.yaml), and where a config names it, their frequency
 or spatial pool. ``time_tail`` builds a tower's time tail from the JAX
-option ``agg_time_module``.
+option ``agg_time_module``. Each CLS-pool layer's call is a ``pool`` span of
+the port's recorder (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from synchformer_tpu_torch.models.layers import (
     PreLNBlock,
     element_dropout,
 )
+from synchformer_tpu_torch.utils import trace
 
 
 class CLSPoolEncoderLayer(PreLNBlock):
@@ -83,23 +85,25 @@ class CLSPoolEncoderLayer(PreLNBlock):
         if not deterministic and generator is None:
             raise ValueError("training (deterministic=False) needs a generator")
         gen = None if deterministic else generator
-        b, n, d = x.shape
-        cls, pos = self.cls_token[0], self.pos_emb
-        if keep_mask is None and (deterministic or self.pos_emb_drop == 0.0):  # JAX split_cls
+        with trace.span("pool"):
+            b, n, d = x.shape
+            cls, pos = self.cls_token[0], self.pos_emb
+            if keep_mask is None and (deterministic or self.pos_emb_drop == 0.0):  # split_cls
+                if pos is not None:
+                    cls = cls + pos[0, :1]
+                    x = x + pos[:, 1:1 + n].to(x.dtype)
+                return super().forward(x, impl, query_rows=1, cls_row=cls,
+                                       generator=gen)[:, 0, :]
+            x = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, d), x], dim=1)
+            if keep_mask is not None:
+                keep_mask = torch.cat([torch.ones(b, 1, dtype=torch.bool, device=x.device),
+                                       keep_mask.bool()], dim=1)
             if pos is not None:
-                cls = cls + pos[0, :1]
-                x = x + pos[:, 1:1 + n].to(x.dtype)
-            return super().forward(x, impl, query_rows=1, cls_row=cls, generator=gen)[:, 0, :]
-        x = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, d), x], dim=1)
-        if keep_mask is not None:
-            keep_mask = torch.cat([torch.ones(b, 1, dtype=torch.bool, device=x.device),
-                                   keep_mask.bool()], dim=1)
-        if pos is not None:
-            x = x + pos[:, :1 + n].to(x.dtype)
-            if gen is not None:
-                x = element_dropout(x, self.pos_emb_drop, gen)
-        return super().forward(x, impl, query_rows=1, generator=gen,
-                               keep_mask=keep_mask)[:, 0, :]
+                x = x + pos[:, :1 + n].to(x.dtype)
+                if gen is not None:
+                    x = element_dropout(x, self.pos_emb_drop, gen)
+            return super().forward(x, impl, query_rows=1, generator=gen,
+                                   keep_mask=keep_mask)[:, 0, :]
 
 
 class SpatialAggregator(CLSPoolEncoderLayer):

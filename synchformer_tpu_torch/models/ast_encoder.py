@@ -64,6 +64,7 @@ from synchformer_tpu_torch.models.layers import (
     element_dropout,
 )
 from synchformer_tpu_torch.ops.numerics import dense
+from synchformer_tpu_torch.utils import trace
 
 
 class ASTEncoder(nn.Module):
@@ -177,7 +178,8 @@ class ASTEncoder(nn.Module):
                     gen, tokens)
             else:
                 tokens = layer(tokens, impl, generator=gen, keep_mask=tok_keep)
-        tokens = self.ast.layernorm(tokens)
+        with trace.span("norm"):
+            tokens = self.ast.layernorm(tokens)
         if not self.extract_features:
             pooled = (tokens[:, 0] + tokens[:, 1]) / 2.0
             logits = self.classifier.dense(self.classifier.layernorm(pooled))

@@ -36,6 +36,7 @@ from synchformer_tpu_torch.models.ast_encoder import ASTEncoder
 from synchformer_tpu_torch.models.bridges import DoNothingBridge
 from synchformer_tpu_torch.models.motionformer import MotionFormerEncoder
 from synchformer_tpu_torch.parallel import dist as pdist
+from synchformer_tpu_torch.utils import trace
 
 
 class AVCLIP(nn.Module):
@@ -78,14 +79,16 @@ class AVCLIP(nn.Module):
         """Frames in the video tower's layout (the Motionformer's patch-major
         (B, S, f, n, z*p*p*c), the S3D's (B, S, T, H, W, C)) -> L2-normalised
         (B*S, D)."""
-        return self._normalise(self.vfeat_extractor(vis, impl, deterministic, generator),
-                               self.vproj)
+        with trace.span("model.video_tower"):
+            feats = self.vfeat_extractor(vis, impl, deterministic, generator)
+        return self._normalise(feats, self.vproj)
 
     def encode_audio(self, aud, impl: str, deterministic: bool = True,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, S, T, F) log-mel -> L2-normalised (B*S, D)."""
-        return self._normalise(self.afeat_extractor(aud, impl, deterministic, generator),
-                               self.aproj)
+        with trace.span("model.audio_tower"):
+            feats = self.afeat_extractor(aud, impl, deterministic, generator)
+        return self._normalise(feats, self.aproj)
 
     def contrastive_loss(self, vfeat: torch.Tensor, afeat: torch.Tensor) -> torch.Tensor:
         """Symmetric InfoNCE with the temperature dividing the similarity: this
@@ -115,4 +118,6 @@ class AVCLIP(nn.Module):
         video tower draws from ``generator`` first, then the audio tower."""
         vfeat = self.encode_video(vis, impl, deterministic, generator)
         afeat = self.encode_audio(aud, impl, deterministic, generator)
-        return self.contrastive_loss(vfeat, afeat), vfeat, afeat
+        with trace.span("model.head"):
+            loss = self.contrastive_loss(vfeat, afeat)
+        return loss, vfeat, afeat

@@ -31,6 +31,11 @@ where masked, added to the f32 logits of every head and query.
 
 ``checkpoint_with_generator`` is torch.utils.checkpoint for a region that
 draws from an explicit generator: the recompute draws the forward's numbers.
+
+Spans of the port's recorder (utils/trace.py): a pre-LN block off K4 is a
+``block``, its LayerNorms outside K2 ``norm``, the attention ``attn``, the
+LN + MLP half ``mlp``; the CLS-pool layer on K4 / K4b is its caller's
+``pool`` (aggregators.py).
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from synchformer_tpu_torch.ops.kernels.cls_pool import fused_cls_pool, fused_cls
 from synchformer_tpu_torch.ops.kernels.fused_rows import fused_ln_mlp_residual, pitched
 from synchformer_tpu_torch.ops.kernels.standard_attention import groupable, standard_attention
 from synchformer_tpu_torch.ops.numerics import dense, exact_gelu, layer_norm
+from synchformer_tpu_torch.utils import trace
 
 
 class Linear(nn.Module):
@@ -285,26 +291,35 @@ def preln_block(x, p: BlockParams, num_heads: int, eps: float, impl: str,
         else:
             out = fused_cls_pool(x.contiguous(), *mats, num_heads=num_heads, eps=eps, impl=impl)
         return out[:, None, :]
-    if cls_row is not None:
-        cls = cls_row.reshape(1, 1, d).to(dtype).expand(x.shape[0], 1, d)
-        x = torch.cat([cls, x], dim=1)
-    attn = multi_head_self_attention(layer_norm(x, p.ln1_w, p.ln1_b, eps, dtype), p, num_heads,
-                                     impl, query_rows, attn_dropout,
-                                     generator if attn_stoch else None, keep_mask)
-    if resid_stoch:
-        attn = DropPath.drop(element_dropout(attn, resid_dropout, generator),
-                             drop_path_factors(x.shape[0], drop_path, generator, x.device, dtype))
-    if query_rows is not None:
-        x = x[..., :query_rows, :]
-    x = x + attn
-    if k2_route(impl, query_rows, resid_stoch):
-        return fused_ln_mlp_residual(x.contiguous(), p.ln2_w, p.ln2_b, p.w1.to(dtype),
-                                     p.b1, pitched(p.w2, dtype), p.b2, eps, impl=impl)
-    h = mlp(layer_norm(x, p.ln2_w, p.ln2_b, eps, dtype), p.w1, p.b1, p.w2, p.b2,
-            resid_dropout, generator if resid_stoch else None)
-    if resid_stoch:
-        h = DropPath.drop(h, drop_path_factors(x.shape[0], drop_path, generator, x.device, dtype))
-    return x + h
+    with trace.span("block"):
+        if cls_row is not None:
+            cls = cls_row.reshape(1, 1, d).to(dtype).expand(x.shape[0], 1, d)
+            x = torch.cat([cls, x], dim=1)
+        with trace.span("norm"):
+            ln = layer_norm(x, p.ln1_w, p.ln1_b, eps, dtype)
+        with trace.span("attn"):
+            attn = multi_head_self_attention(ln, p, num_heads, impl, query_rows, attn_dropout,
+                                             generator if attn_stoch else None, keep_mask)
+        del ln
+        if resid_stoch:
+            attn = DropPath.drop(element_dropout(attn, resid_dropout, generator),
+                                 drop_path_factors(x.shape[0], drop_path, generator, x.device,
+                                                   dtype))
+        if query_rows is not None:
+            x = x[..., :query_rows, :]
+        x = x + attn
+        with trace.span("mlp"):
+            if k2_route(impl, query_rows, resid_stoch):
+                return fused_ln_mlp_residual(x.contiguous(), p.ln2_w, p.ln2_b, p.w1.to(dtype),
+                                             p.b1, pitched(p.w2, dtype), p.b2, eps, impl=impl)
+            with trace.span("norm"):
+                ln = layer_norm(x, p.ln2_w, p.ln2_b, eps, dtype)
+            h = mlp(ln, p.w1, p.b1, p.w2, p.b2, resid_dropout, generator if resid_stoch else None)
+            del ln
+        if resid_stoch:
+            h = DropPath.drop(h, drop_path_factors(x.shape[0], drop_path, generator, x.device,
+                                                   dtype))
+        return x + h
 
 
 class PreLNBlock(nn.Module):

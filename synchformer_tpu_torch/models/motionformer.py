@@ -96,6 +96,13 @@ The other JAX options (motionformer.py:457-705):
   D); an ``agg_space_module`` other than the two pools runs no pool, as the
   JAX tower; ``mlp_ratio`` sets the blocks' hidden width;
   ``extract_features`` is accepted and read nowhere, as in the JAX tower.
+
+Spans of the port's recorder (utils/trace.py): each divided block is a
+``block``; in it each attention (QKV, K1 / K5 / K7a / K8a, the projection) an
+``attn``, the MLP (K2, K8b or the plain composition) an ``mlp``, and each
+LayerNorm composition outside a kernel (norm3 / norm1 of the CLS row and the
+patches, the plain MLP's, the packed flow's pre-norms) a ``norm``; the final
+norm (or ``layer_norm_from_stats``) a ``norm``.
 """
 from __future__ import annotations
 
@@ -142,6 +149,13 @@ from synchformer_tpu_torch.ops.kernels.fused_rows import (
 )
 from synchformer_tpu_torch.ops.numerics import dense, layer_norm, layer_norm_from_stats
 from synchformer_tpu_torch.ops.video import patch_embed_matrix, patchify_frames
+from synchformer_tpu_torch.utils import trace
+
+
+def _normed(norm: LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``norm(x)`` in a ``norm`` span (utils/trace.py)."""
+    with trace.span("norm"):
+        return norm(x)
 
 
 class DividedAttention(nn.Module):
@@ -187,15 +201,15 @@ class DividedAttention(nn.Module):
         route 'pallas' runs LN -> QKV -> K7a/K7b, 'pallas_fused' K8a; the
         backward is K7c on both."""
         if keep_mask is not None:
-            out = divided_attention_packed_plain(self.qkv(norm(x)), self.num_heads, num_frames,
-                                                 mode, keep=keep_mask)
+            out = divided_attention_packed_plain(self.qkv(_normed(norm, x)), self.num_heads,
+                                                 num_frames, mode, keep=keep_mask)
         elif attn_impl == "pallas_fused":
             out = fused_divided_attention(x, norm.weight, norm.bias, self.qkv.weight.to(x.dtype),
                                           self.qkv.bias, self.num_heads, num_frames, mode,
                                           norm.eps, impl=impl)
         else:
-            out = packed_divided_attention(self.qkv(norm(x)), self.num_heads, num_frames, mode,
-                                           impl=impl)
+            out = packed_divided_attention(self.qkv(_normed(norm, x)), self.num_heads,
+                                           num_frames, mode, impl=impl)
         return self._drop(self.proj(out), generator)
 
 
@@ -235,14 +249,36 @@ class DividedSpaceTimeBlock(nn.Module):
     def forward(self, cls, patches, stats, impl: str):
         """Eval: (cls (BS, 1, D), patches (BS, f, n, D), row stats of patches
         or None) -> (cls, patches, stats of the new patches)."""
-        cls, patches = self.timeattn(cls, patches, self.norm3(cls),
-                                     self._ln_patches(self.norm3, patches, stats), "time", impl)
-        cls, patches = self.attn(cls, patches, self.norm1(cls), self.norm1(patches),
-                                 "space", impl)
-        mlp_args = self._mlp_args(patches.dtype)
-        patches, stats = fused_ln_mlp_residual(patches, *mlp_args, emit_stats=True, impl=impl)
-        cls = ln_mlp_residual_plain(cls, *mlp_args)
-        return cls, patches, stats
+        with trace.span("block"):
+            cls, patches = self._attention(self.timeattn, self.norm3, cls, patches, stats,
+                                           "time", impl)
+            cls, patches = self._attention(self.attn, self.norm1, cls, patches, None,
+                                           "space", impl)
+            with trace.span("mlp"):
+                mlp_args = self._mlp_args(patches.dtype)
+                patches, stats = fused_ln_mlp_residual(patches, *mlp_args, emit_stats=True,
+                                                       impl=impl)
+                cls = ln_mlp_residual_plain(cls, *mlp_args)
+            return cls, patches, stats
+
+    def _attention(self, attn: DividedAttention, norm: LayerNorm, cls, patches, stats,
+                   mode: str, impl: str):
+        """Eval: one attention of the block, its LayerNorms (from the
+        previous block's row statistics where given) in a ``norm`` span and
+        K1 in an ``attn`` span."""
+        with trace.span("norm"):
+            ln_cls, ln_patches = norm(cls), self._ln_patches(norm, patches, stats)
+        with trace.span("attn"):
+            return attn(cls, patches, ln_cls, ln_patches, mode, impl)
+
+    def _attend(self, attn: DividedAttention, norm: LayerNorm, cls, patches, mode: str,
+                impl: str, generator: Optional[torch.Generator]):
+        """Training: one attention's LayerNorms in a ``norm`` span, the rest
+        (DividedAttention.attend) in an ``attn`` span."""
+        with trace.span("norm"):
+            ln_cls, ln_patches = norm(cls), norm(patches)
+        with trace.span("attn"):
+            return attn.attend(ln_cls, ln_patches, mode, impl, generator)
 
     def forward_train(self, cls, patches, impl: str, space_scale: Optional[torch.Tensor],
                       mlp_scale: Optional[torch.Tensor],
@@ -251,23 +287,26 @@ class DividedSpaceTimeBlock(nn.Module):
         patches). ``space_scale`` and ``mlp_scale`` are this block's drop-path
         factors (DropPath.draw), both None at drop-path 0 and in eval;
         ``generator`` (training) draws the dropouts."""
-        t_c, t_p = self.timeattn.attend(self.norm3(cls), self.norm3(patches), "time", impl,
-                                        generator)
-        cls, patches = cls + t_c, patches + t_p
-        s_c, s_p = self.attn.attend(self.norm1(cls), self.norm1(patches), "space", impl,
+        with trace.span("block"):
+            t_c, t_p = self._attend(self.timeattn, self.norm3, cls, patches, "time", impl,
                                     generator)
-        cls = cls + DropPath.drop(s_c, space_scale)
-        patches = patches + DropPath.drop(s_p, space_scale)
-        mlp_args = self._mlp_args(patches.dtype)
-        if not self.stochastic(generator):  # the patches' MLP is K2
-            patches = fused_ln_mlp_residual(patches, *mlp_args, impl=impl)
-            return ln_mlp_residual_plain(cls, *mlp_args), patches
-        return (cls + DropPath.drop(self._mlp_plain(cls, generator), mlp_scale),
-                patches + DropPath.drop(self._mlp_plain(patches, generator), mlp_scale))
+            cls, patches = cls + t_c, patches + t_p
+            s_c, s_p = self._attend(self.attn, self.norm1, cls, patches, "space", impl,
+                                    generator)
+            cls = cls + DropPath.drop(s_c, space_scale)
+            patches = patches + DropPath.drop(s_p, space_scale)
+            with trace.span("mlp"):
+                mlp_args = self._mlp_args(patches.dtype)
+                if not self.stochastic(generator):  # the patches' MLP is K2
+                    patches = fused_ln_mlp_residual(patches, *mlp_args, impl=impl)
+                    return ln_mlp_residual_plain(cls, *mlp_args), patches
+                return (cls + DropPath.drop(self._mlp_plain(cls, generator), mlp_scale),
+                        patches + DropPath.drop(self._mlp_plain(patches, generator), mlp_scale))
 
     def _mlp_plain(self, t, generator: Optional[torch.Generator] = None):
-        return mlp(layer_norm(t, self.norm2.weight, self.norm2.bias, self.eps, t.dtype),
-                   self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
+        with trace.span("norm"):
+            h = layer_norm(t, self.norm2.weight, self.norm2.bias, self.eps, t.dtype)
+        return mlp(h, self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
                    self.mlp.fc2.bias, self.dropout, generator)
 
     def forward_packed(self, x, num_frames: int, impl: str,
@@ -280,15 +319,20 @@ class DividedSpaceTimeBlock(nn.Module):
         ``keep_mask`` (B, 1 + f*n) masks both attentions. Where nothing is
         stochastic the MLP is K2 ('pallas') or K8b ('pallas_fused') on the
         whole packed x."""
-        x = x + self.timeattn.attend_packed(x, self.norm3, num_frames, "time", impl,
-                                            self.attn_impl, generator, keep_mask)
-        x = x + DropPath.drop(self.attn.attend_packed(x, self.norm1, num_frames, "space", impl,
-                                                      self.attn_impl, generator, keep_mask),
-                              space_scale)
-        if not self.stochastic(generator):
-            mlp = fused_mlp_residual if self.attn_impl == "pallas_fused" else fused_ln_mlp_residual
-            return mlp(x, *self._mlp_args(x.dtype), impl=impl)
-        return x + DropPath.drop(self._mlp_plain(x, generator), mlp_scale)
+        with trace.span("block"):
+            with trace.span("attn"):
+                x = x + self.timeattn.attend_packed(x, self.norm3, num_frames, "time", impl,
+                                                    self.attn_impl, generator, keep_mask)
+            with trace.span("attn"):
+                x = x + DropPath.drop(self.attn.attend_packed(
+                    x, self.norm1, num_frames, "space", impl, self.attn_impl, generator,
+                    keep_mask), space_scale)
+            with trace.span("mlp"):
+                if not self.stochastic(generator):
+                    mlp = (fused_mlp_residual if self.attn_impl == "pallas_fused"
+                           else fused_ln_mlp_residual)
+                    return mlp(x, *self._mlp_args(x.dtype), impl=impl)
+                return x + DropPath.drop(self._mlp_plain(x, generator), mlp_scale)
 
 
 class MotionFormerEncoder(nn.Module):
@@ -424,13 +468,15 @@ class MotionFormerEncoder(nn.Module):
                 stats = None
                 for blk in self.blocks:
                     cls, patches, stats = blk(cls, patches, stats, impl)
-                feats = layer_norm_from_stats(patches, stats[..., 0:1], stats[..., 1:2],
-                                              self.norm.weight, self.norm.bias, self.eps, dtype)
+                with trace.span("norm"):
+                    feats = layer_norm_from_stats(patches, stats[..., 0:1], stats[..., 1:2],
+                                                  self.norm.weight, self.norm.bias, self.eps,
+                                                  dtype)
             else:
                 for blk in self.blocks:
                     cls, patches = self._run_block(blk.forward_train, blk, deterministic, gen,
                                                    cls, patches, impl)
-                feats = self.norm(patches)
+                feats = _normed(self.norm, patches)
         feats = feats.reshape(b * s, f, self.grid, self.grid, d)
         if self.spatial_attn_agg is None:
             return feats.reshape(b, s, *feats.shape[1:]), None
@@ -469,7 +515,7 @@ class MotionFormerEncoder(nn.Module):
         for blk in self.blocks:
             fn = functools.partial(blk.forward_packed, keep_mask=keep)
             x = self._run_block(fn, blk, deterministic, generator, x, f, impl)
-        return self.norm(x[:, 1:]).reshape(bs, f, n, d)
+        return _normed(self.norm, x[:, 1:]).reshape(bs, f, n, d)
 
     def _joint_flow(self, x, generator: Optional[torch.Generator],
                     keep: Optional[torch.Tensor]) -> torch.Tensor:
@@ -483,4 +529,4 @@ class MotionFormerEncoder(nn.Module):
                     generator, x)
             else:
                 x = blk(x, "plain", generator=generator, keep_mask=keep)
-        return self.norm(x[:, 1:])
+        return _normed(self.norm, x[:, 1:])

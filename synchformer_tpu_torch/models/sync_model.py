@@ -24,6 +24,10 @@ towers applied with mutable=["batch_stats"]: their BatchNorms normalise with
 the batch's statistics (over the data ranks) and update their running
 statistics, their aggregators' dropout is live; frozen, they run their eval
 path under no_grad and their statistics stay as they are.
+
+Spans of the port's recorder (utils/trace.py): each tower's call is a
+``model.video_tower`` / ``model.audio_tower`` span; the projections, the
+transformer and the loss one ``model.head``.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from synchformer_tpu_torch.models.layers import LayerNorm, MinGPTBlock, element_
 from synchformer_tpu_torch.models.motionformer import MotionFormerEncoder
 from synchformer_tpu_torch.models.pos_emb import RandInitPositionalEncoding
 from synchformer_tpu_torch.ops.kernels.fused_rows import pitched
+from synchformer_tpu_torch.utils import trace
 
 
 def token_dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -171,15 +176,16 @@ class Synchformer(nn.Module):
         model._assemble(vfeat_extractor, afeat_extractor, vproj, aproj, transformer)
         return model
 
-    def _features(self, tower: nn.Module, x: torch.Tensor, impl: str, deterministic: bool,
-                  generator: Optional[torch.Generator],
+    def _features(self, span: str, tower: nn.Module, x: torch.Tensor, impl: str,
+                  deterministic: bool, generator: Optional[torch.Generator],
                   keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """A tower's features; a deterministic tower none of whose parameters
-        needs a gradient runs under no_grad. ``keep_mask`` is passed only
-        where given (the legacy towers take none)."""
+        """A tower's features, in the span ``span``; a deterministic tower
+        none of whose parameters needs a gradient runs under no_grad.
+        ``keep_mask`` is passed only where given (the legacy towers take
+        none)."""
         frozen = deterministic and not any(p.requires_grad for p in tower.parameters())
         masks = {} if keep_mask is None else {"keep_mask": keep_mask}
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+        with trace.span(span), torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
             return tower(x, impl, deterministic, generator, **masks)
 
     def extract_vfeats(self, vis: torch.Tensor, impl: str = "plain", deterministic: bool = True,
@@ -187,16 +193,16 @@ class Synchformer(nn.Module):
                        vis_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The video tower's (B, S, tv, D) features (JAX extract_vfeats);
         ``vis_mask`` the content keep of 6-D frames."""
-        return self._features(self.vfeat_extractor, vis, impl, deterministic, generator,
-                              vis_mask)
+        return self._features("model.video_tower", self.vfeat_extractor, vis, impl,
+                              deterministic, generator, vis_mask)
 
     def extract_afeats(self, aud: torch.Tensor, impl: str = "plain", deterministic: bool = True,
                        generator: Optional[torch.Generator] = None,
                        aud_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The audio tower's (B, S, ta, D) features (JAX extract_afeats);
         ``aud_mask`` the content keep of the (B, S, T, F) log-mel."""
-        return self._features(self.afeat_extractor, aud, impl, deterministic, generator,
-                              aud_mask)
+        return self._features("model.audio_tower", self.afeat_extractor, aud, impl,
+                              deterministic, generator, aud_mask)
 
     def forward(self, vis: torch.Tensor, aud: torch.Tensor,
                 targets: Optional[torch.Tensor] = None, impl: str = "plain",
@@ -210,14 +216,14 @@ class Synchformer(nn.Module):
         the towers' content keep-masks (JAX sync_model.py:154-172)."""
         if extractors_deterministic is None:
             extractors_deterministic = deterministic
-        v = self.vproj(self.extract_vfeats(vis, impl, extractors_deterministic, generator,
-                                           vis_mask))
-        a = self.aproj(self.extract_afeats(aud, impl, extractors_deterministic, generator,
-                                           aud_mask))
-        b, s, tv, d = v.shape
-        logits = self.transformer(v.reshape(b, s * tv, d), a.reshape(b, s * a.shape[2], d),
-                                  deterministic, generator)
-        return self.compute_loss(logits, targets), logits
+        vfeats = self.extract_vfeats(vis, impl, extractors_deterministic, generator, vis_mask)
+        afeats = self.extract_afeats(aud, impl, extractors_deterministic, generator, aud_mask)
+        with trace.span("model.head"):
+            v, a = self.vproj(vfeats), self.aproj(afeats)
+            b, s, tv, d = v.shape
+            logits = self.transformer(v.reshape(b, s * tv, d), a.reshape(b, s * a.shape[2], d),
+                                      deterministic, generator)
+            return self.compute_loss(logits, targets), logits
 
     @staticmethod
     def compute_loss(logits: torch.Tensor, targets: Optional[torch.Tensor]):

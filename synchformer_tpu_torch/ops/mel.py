@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from synchformer_tpu_torch.utils import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class MelSpectrogramConfig:
@@ -86,6 +88,8 @@ def log_mel_spectrogram(waveform: torch.Tensor,
     # full-f32 products, as Precision.HIGHEST in the JAX package
     torch.backends.cuda.matmul.allow_tf32 = False
     cos_m, sin_m, fb = (torch.from_numpy(a).to(waveform.device) for a in dft_constants(cfg))
+    if waveform.is_cuda:  # three blocking copies from pageable host memory
+        trace.count("host_syncs", 3)
     frames = _frames(waveform.float(), cfg)
     re = torch.matmul(frames, cos_m)
     im = torch.matmul(frames, sin_m)

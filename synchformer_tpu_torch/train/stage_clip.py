@@ -71,6 +71,11 @@ base_batch_size, num_epochs, patience, resume}, data.{p_horizontal_flip,
 p_audio_aug, n_segments, crop_len_sec, step_size_seg, input_size,
 segment_size_vframes, audio_jitter_sec, dataset, vids_path},
 logging.{logdir, exp_name, log_code_state, use_wandb, log_frequency}.
+
+Each ``train_step`` is a unit of the port's spans (utils/trace.py): ``step``
+(the unit: ``self.step``) over ``step.prepare``, train/step.py's phases and
+``step.metrics_sync`` (the metrics read to the host, counted in
+``host_syncs``).
 """
 from __future__ import annotations
 
@@ -102,6 +107,7 @@ from synchformer_tpu_torch.train.step import (
     moco_eval_step,
     moco_train_step,
 )
+from synchformer_tpu_torch.utils import trace
 from synchformer_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     generator_payload,
@@ -233,17 +239,21 @@ class AVCLIPTrainer:
         as the JAX trainer does. ``alpha`` (MoCo only) defaults to
         training.alpha."""
         self.model.train()
-        vis, aud = self.prepare(batch, train=True)
-        if self.is_moco:
-            out = moco_train_step(self.net, self.model_m, self.queues, self.optimizer,
-                                  self.schedule, self.step, vis, aud, self.generator,
-                                  self.alpha if alpha is None else alpha, self.impl,
-                                  self.max_clip_norm)
-        else:
-            out = avclip_train_step(self.net, self.optimizer, self.schedule, self.step, vis,
-                                    aud, self.generator, self.impl, self.max_clip_norm)
-        self.step += 1
-        metrics = {k: v.item() for k, v in out.items()}
+        with trace.span("step", unit=self.step, device=self.device):
+            with trace.span("step.prepare"):
+                vis, aud = self.prepare(batch, train=True)
+            if self.is_moco:
+                out = moco_train_step(self.net, self.model_m, self.queues, self.optimizer,
+                                      self.schedule, self.step, vis, aud, self.generator,
+                                      self.alpha if alpha is None else alpha, self.impl,
+                                      self.max_clip_norm)
+            else:
+                out = avclip_train_step(self.net, self.optimizer, self.schedule, self.step,
+                                        vis, aud, self.generator, self.impl, self.max_clip_norm)
+            self.step += 1
+            with trace.span("step.metrics_sync"):
+                metrics = {k: v.item() for k, v in out.items()}
+                trace.count("host_syncs", len(out))
         if not metrics["loss_finite"]:
             raise RuntimeError(f"non-finite Stage I loss at step {self.step - 1}")
         return metrics

@@ -58,7 +58,13 @@ trainable parameters, optimizer, step, epoch, early stopper and the
 generators' states), training.resume (maybe_resume: bit for bit) and
 training.finetune from training.ckpt_path, run_test_only, the test phase
 over iter_times passes with its plots. training.trace records the first
-epoch with torch.profiler into ``<logdir>/profile`` (_maybe_profile).
+epoch with torch.profiler into ``<logdir>/profile`` (_maybe_profile), with the
+port's spans of its steps beside it.
+
+Each ``train_step`` is a unit of the port's spans (utils/trace.py): ``step``
+(the unit: ``self.step``) over ``step.prepare`` (with the targets' copy),
+train/step.py's phases and ``step.metrics_sync`` (the metrics read to the
+host); ``host_syncs`` counts the reads and the blocking copies.
 """
 from __future__ import annotations
 
@@ -89,6 +95,7 @@ from synchformer_tpu_torch.train.state import (
 )
 from synchformer_tpu_torch.train.metrics import calc_cls_metrics, gather_dict, per_class_accuracy
 from synchformer_tpu_torch.train.step import sync_eval_step, sync_train_step
+from synchformer_tpu_torch.utils import trace
 from synchformer_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     generator_payload,
@@ -263,18 +270,25 @@ class SyncTrainer:
         return vis, aud
 
     def _targets(self, batch: Mapping[str, Any]) -> torch.Tensor:
-        return torch.as_tensor(batch[self.target_key]).to(self.device).long()
+        targets = torch.as_tensor(batch[self.target_key])
+        if targets.device.type == "cpu" and self.device.type == "cuda":  # a blocking copy
+            trace.count("host_syncs")
+        return targets.to(self.device).long()
 
     def train_step(self, batch: Mapping[str, Any]) -> Dict[str, float]:
         """One update. Returns loss, grad_norm, accuracy_1 and loss_finite;
         raises on a non-finite loss (stage_sync.py:336)."""
-        vis, aud = self.prepare(batch, train=True)
-        out = sync_train_step(self.net, self.optimizer, self.schedule, self.step, vis, aud,
-                              self._targets(batch), self.generator, self.impl,
-                              self.max_clip_norm,
-                              extractors_deterministic=not self.towers_trainable)
-        self.step += 1
-        metrics = {k: v.item() for k, v in out.items()}
+        with trace.span("step", unit=self.step, device=self.device):
+            with trace.span("step.prepare"):
+                vis, aud = self.prepare(batch, train=True)
+                targets = self._targets(batch)
+            out = sync_train_step(self.net, self.optimizer, self.schedule, self.step, vis, aud,
+                                  targets, self.generator, self.impl, self.max_clip_norm,
+                                  extractors_deterministic=not self.towers_trainable)
+            self.step += 1
+            with trace.span("step.metrics_sync"):
+                metrics = {k: v.item() for k, v in out.items()}
+                trace.count("host_syncs", len(out))
         if not metrics["loss_finite"]:
             raise RuntimeError(f"non-finite loss at step {self.step - 1}")
         return metrics
@@ -457,13 +471,20 @@ class SyncTrainer:
         except Exception as e:  # observability only
             logging.warning(f"could not write finetune cfg diff: {e}")
 
+    @contextlib.contextmanager
     def _maybe_profile(self, epoch: int):
         """torch.profiler over the first training epoch where training.trace
         is set (the JAX trainer's jax.profiler trace), its chrome trace
-        written to ``<logdir>/profile/trace_e0.json``; rank 0 only."""
+        written to ``<logdir>/profile/trace_e0.json`` and the port's own
+        spans and counters of the same steps (utils/trace.py: ``step``,
+        ``step.prepare`` ... ``block``, ``norm``; ``host_syncs``) to
+        ``spans_e0.jsonl`` beside it, on the trace's clock: µs since the Unix
+        epoch, the chrome trace's ``ts`` plus its ``baseTimeNanoseconds`` /
+        1e3; rank 0 only."""
         if not (self.cfg.get("training", {}).get("trace") and epoch == 0
                 and pdist.is_master()):
-            return contextlib.nullcontext()
+            yield
+            return
         from torch.profiler import ProfilerActivity, profile
 
         out = self.logdir / "profile"
@@ -471,8 +492,10 @@ class SyncTrainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        return profile(activities=activities, on_trace_ready=lambda p: p.export_chrome_trace(
-            str(out / f"trace_e{epoch}.json")))
+        with profile(activities=activities, on_trace_ready=lambda p: p.export_chrome_trace(
+                str(out / f"trace_e{epoch}.json"))):
+            yield
+        trace.write_jsonl(out / f"spans_e{epoch}.jsonl")
 
     def _loader(self, ds, num_workers: int, train: bool, decode_backend) -> StagedLoader:
         kwargs = {} if train else {"shuffle": False, "drop_last": False}

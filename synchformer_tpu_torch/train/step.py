@@ -37,6 +37,11 @@ the metrics are the global batch's (the loss and accuracy averaged over the
 data ranks), so that a non-finite loss stops every rank. The attributes (the
 logit scale's clamp, MoCo's momentum) are read on the module under the
 wrapper.
+
+Each train step's phases are spans of the port's recorder (utils/trace.py):
+``step.forward`` (the model with its loss), ``step.backward`` and
+``step.update`` (``_apply_update``, and AVCLIP's clamp), inside the trainer's
+``step``.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ from synchformer_tpu_torch.train.state import (
     global_norm,
     set_lr,
 )
+from synchformer_tpu_torch.utils import trace
 
 
 def avclip_train_step(model: AVCLIP, optimizer: torch.optim.Optimizer, schedule: Schedule,
@@ -77,11 +83,14 @@ def avclip_train_step(model: AVCLIP, optimizer: torch.optim.Optimizer, schedule:
     module = pdist.unwrap(model)
     params = [p for p in module.parameters() if p.requires_grad]
     optimizer.zero_grad(set_to_none=True)
-    loss, _, _ = model(vis, aud, impl, deterministic=False, generator=generator)
-    loss.backward()
-    grad_norm = _apply_update(module, params, optimizer, schedule, step, max_clip_norm)
-    with torch.no_grad():
-        module.logit_scale.clamp_(module.clamp_scale_min, module.clamp_scale_max)
+    with trace.span("step.forward"):
+        loss, _, _ = model(vis, aud, impl, deterministic=False, generator=generator)
+    with trace.span("step.backward"):
+        loss.backward()
+    with trace.span("step.update"):
+        grad_norm = _apply_update(module, params, optimizer, schedule, step, max_clip_norm)
+        with torch.no_grad():
+            module.logit_scale.clamp_(module.clamp_scale_min, module.clamp_scale_max)
     loss = pdist.all_reduce_mean(loss.detach())
     return {"loss": loss, "grad_norm": grad_norm,
             "logit_scale": module.logit_scale.detach().clone(),
@@ -121,11 +130,14 @@ def moco_train_step(model: MultilevelMoCoCLIP, model_m: MultilevelMoCoCLIP,
     momentum_update(module, model_m, module.momentum)
     params = [p for p in module.parameters() if p.requires_grad]
     optimizer.zero_grad(set_to_none=True)
-    losses, _, _ = moco_forward(model, model_m, queues, vis, aud, impl, generator, alpha,
-                                train=True)
-    loss = sum(losses.values())
-    loss.backward()
-    grad_norm = _apply_update(module, params, optimizer, schedule, step, max_clip_norm)
+    with trace.span("step.forward"):
+        losses, _, _ = moco_forward(model, model_m, queues, vis, aud, impl, generator, alpha,
+                                    train=True)
+        loss = sum(losses.values())
+    with trace.span("step.backward"):
+        loss.backward()
+    with trace.span("step.update"):
+        grad_norm = _apply_update(module, params, optimizer, schedule, step, max_clip_norm)
     losses = {k: pdist.all_reduce_mean(v.detach()) for k, v in losses.items()}
     loss = pdist.all_reduce_mean(loss.detach())
     return {"loss": loss, **losses, "grad_norm": grad_norm,
@@ -194,10 +206,13 @@ def sync_train_step(model: Synchformer, optimizer: torch.optim.Optimizer, schedu
     module = pdist.unwrap(model)
     params = [p for p in module.parameters() if p.requires_grad]
     optimizer.zero_grad(set_to_none=True)
-    loss, logits = model(vis, aud, targets, impl, deterministic=False, generator=generator,
-                         extractors_deterministic=extractors_deterministic)
-    loss.backward()
-    grad_norm = _apply_update(module, params, optimizer, schedule, step, max_clip_norm)
+    with trace.span("step.forward"):
+        loss, logits = model(vis, aud, targets, impl, deterministic=False, generator=generator,
+                             extractors_deterministic=extractors_deterministic)
+    with trace.span("step.backward"):
+        loss.backward()
+    with trace.span("step.update"):
+        grad_norm = _apply_update(module, params, optimizer, schedule, step, max_clip_norm)
     with torch.no_grad():
         accuracy = pdist.all_reduce_mean((logits.argmax(-1) == targets).float().mean())
     loss = pdist.all_reduce_mean(loss.detach())

@@ -185,7 +185,8 @@ def stage2_run(tmp_path_factory):
 def test_stage2_fit_end_to_end(stage2_run):
     """tests/test_trainer.py::test_sync_trainer_end_to_end's checks on the
     port: steps, both stores, results_valid.jsonl, test_results.json, the
-    telemetry tags once per step; training.trace's profile of epoch 0."""
+    telemetry tags once per step; training.trace's profile of epoch 0 and
+    the port's spans of its steps beside it."""
     tr, results = stage2_run["trainer"], stage2_run["results"]
     run = tr.logdir
     assert tr.step == 4  # 16 clips / bs 8 = 2 steps x 2 epochs
@@ -200,7 +201,13 @@ def test_stage2_fit_end_to_end(stage2_run):
     assert TELEMETRY <= {r["tag"] for r in rows}
     assert sum(r["tag"] == "train/samples_per_s" for r in rows) == 4
     assert all(r["value"] > 0 for r in rows if r["tag"] == "train/samples_per_s")
-    assert [p.name for p in (run / "profile").iterdir()] == ["trace_e0.json"]
+    assert sorted(p.name for p in (run / "profile").iterdir()) == ["spans_e0.jsonl",
+                                                                    "trace_e0.json"]
+    with open(run / "profile" / "spans_e0.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    steps = [r for r in lines[:-1] if r["name"] == "step"]
+    assert [r["unit"] for r in steps] == [0, 1] and lines[-1]["counts"] == {
+        "host_syncs@0": 4, "host_syncs@1": 4}
     payload = tr.ckpt.restore_latest()
     assert set(payload["trainable"]) == set(tr.trainable_state_dict())
     assert not any(k.startswith(("afeat", "vfeat")) for k in payload["trainable"])
